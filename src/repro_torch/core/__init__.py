@@ -1,0 +1,1 @@
+"""core layer of the port (see the package docstring)."""

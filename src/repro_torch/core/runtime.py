@@ -1,0 +1,105 @@
+"""Runtime environments (§IV-A): a copy of ``repro.core.runtime``'s
+runtime-instance contract for the port.
+
+A :class:`RuntimeDef` is the platform-owned, preconfigured stack: it
+declares which accelerator types can serve it and with what performance
+profile, plus the real-execution entry points. ``setup`` is the cold start
+(weights on the card); ``fn``/``batch_fn`` are the invocations. The port
+imports nothing of ``repro``, so this framework-free module is copied.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+# accelerator type advertised for runtimes executing directly on this
+# host's CUDA device through the port
+HOST_ACC = "host-cuda"
+
+
+@dataclasses.dataclass(frozen=True)
+class SimProfile:
+    """Service-time profile an accelerator type advertises for a runtime
+    (lognormal around ``elat_median_s``; the simulator that samples it is
+    not ported yet)."""
+    elat_median_s: float
+    sigma: float = 0.05
+    cold_start_s: float = 2.5       # process spawn + model load
+    result_bytes: int = 65536
+
+
+@dataclasses.dataclass
+class RuntimeDef:
+    """A platform-owned runtime environment (§IV-A); field meanings are
+    those of ``repro.core.runtime.RuntimeDef``. Its gateway and cluster
+    fields (retry policy, warm-pool hints, spec loading) come with those
+    layers' port."""
+
+    runtime_id: str
+    profiles: Dict[str, SimProfile]
+    fn: Optional[Callable[[Any, Dict[str, Any]], Any]] = None
+    setup: Optional[Callable[[], Any]] = None
+    artifact_bytes: int = 60 << 20
+    batch_fn: Optional[Callable[[List[Any], Dict[str, Any]], List[Any]]] = None
+    max_batch: int = 1
+    batch_buckets: Optional[Tuple[int, ...]] = None
+
+    def supports(self, acc_type: str) -> bool:
+        """True when accelerator type ``acc_type`` can serve this runtime."""
+        return acc_type in self.profiles
+
+    @property
+    def is_real(self) -> bool:
+        """True when invocations execute actual code on this host."""
+        return self.fn is not None or self.batch_fn is not None
+
+    @property
+    def is_batchable(self) -> bool:
+        """True when one call may serve a micro-batch of several events."""
+        return self.batch_fn is not None and self.max_batch > 1
+
+    def batch_limit(self, backend_max: int) -> int:
+        """Largest micro-batch the dispatcher may form for this runtime."""
+        if self.batch_fn is None:
+            return 1
+        limit = min(self.max_batch, backend_max)
+        if self.batch_buckets:
+            limit = min(limit, max(self.batch_buckets))
+        return max(limit, 1)
+
+    def bucket_size(self, n: int) -> int:
+        """Padded batch size for ``n`` real events (pad-to-bucket shapes)."""
+        if not self.batch_buckets:
+            return n
+        fits = [b for b in self.batch_buckets if b >= n]
+        return min(fits) if fits else n
+
+
+def run_batch(rdef: RuntimeDef, datas: Sequence[Any],
+              config: Dict[str, Any]) -> List[Any]:
+    """Execute one micro-batch through ``rdef``'s best entry point.
+
+    Pads to the runtime's bucket size, calls ``batch_fn`` once (or calls
+    ``fn`` per event when the runtime is not batchable), and returns
+    exactly ``len(datas)`` results. ``config["attempts"]`` (one delivery
+    attempt number per event) is padded alongside the datas for
+    ``batch_fn``; ``fn`` receives its own event's number as
+    ``config["attempt"]``.
+    """
+    datas = list(datas)
+    n = len(datas)
+    attempts = list(config.get("attempts") or [])[:n]
+    attempts += [0] * (n - len(attempts))
+    if rdef.batch_fn is not None and (n > 1 or rdef.fn is None):
+        pad = rdef.bucket_size(n) - n
+        padded = datas + [datas[-1]] * pad
+        results = list(rdef.batch_fn(
+            padded, dict(config, n_real=n,
+                         attempts=attempts + [attempts[-1]] * pad)))
+        if len(results) < n:
+            raise RuntimeError(
+                f"batch_fn for {rdef.runtime_id!r} returned {len(results)} "
+                f"results for a batch of {n}")
+        return results[:n]
+    return [rdef.fn(data, dict(config, attempt=a))
+            for data, a in zip(datas, attempts)]

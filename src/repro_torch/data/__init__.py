@@ -1,0 +1,1 @@
+"""data layer of the port (see the package docstring)."""

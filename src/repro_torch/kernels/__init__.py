@@ -1,0 +1,1 @@
+"""kernels layer of the port (see the package docstring)."""

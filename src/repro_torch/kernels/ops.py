@@ -1,0 +1,56 @@
+"""Kernel entry points with implementation dispatch (mirrors
+``repro.kernels.ops``).
+
+``impl``:
+  * ``None`` — the kernel wrapper: the hand-written CUDA kernel for a CUDA
+    tensor, its plain PyTorch version for a CPU tensor.
+  * ``"ref"`` — the plain PyTorch version explicitly, on any device (the
+    counterpart of the JAX ``impl="ref"``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ref
+
+
+def _use_ref(impl: Optional[str]) -> bool:
+    if impl not in (None, "ref"):
+        raise ValueError(f"impl must be None or 'ref', got {impl!r}")
+    return impl == "ref"
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, chunk=0,
+                    softmax_scale=None, impl: Optional[str] = None):
+    if _use_ref(impl):
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   chunk=chunk, softmax_scale=softmax_scale)
+    return fa.flash_attention(q, k, v, causal=causal, window=window,
+                              chunk=chunk, softmax_scale=softmax_scale)
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
+                           softmax_scale=None, impl: Optional[str] = None):
+    """Single-step attention through per-sequence block tables (the paged
+    serving engine's decode hot path)."""
+    if _use_ref(impl):
+        return ref.paged_decode_attention(q, k_pool, v_pool, block_tables,
+                                          kv_len, softmax_scale=softmax_scale)
+    return pa.paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len,
+                                     softmax_scale=softmax_scale)
+
+
+def paged_prefill_attention(q, k_pool, v_pool, block_tables, kv_len,
+                            q_offset, *, softmax_scale=None,
+                            impl: Optional[str] = None):
+    """Chunked-prefill attention through block tables (chunk K/V already
+    scattered into the pool before the call)."""
+    if _use_ref(impl):
+        return ref.paged_prefill_attention(q, k_pool, v_pool, block_tables,
+                                           kv_len, q_offset,
+                                           softmax_scale=softmax_scale)
+    return pa.paged_prefill_attention(q, k_pool, v_pool, block_tables,
+                                      kv_len, q_offset,
+                                      softmax_scale=softmax_scale)

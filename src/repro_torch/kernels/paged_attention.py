@@ -1,0 +1,106 @@
+"""K1: paged attention — the port of the Pallas ``_paged_kernel``
+(``src/repro/kernels/decode_attention.py:135``).
+
+Wrappers for the serving engine's decode step (``paged_decode_attention``,
+one query token per sequence) and chunked-prefill step
+(``paged_prefill_attention``). For a CUDA tensor each launches the
+hand-written kernel in ``csrc/paged_attention.cu`` on the current stream
+and counts the launch; for a CPU tensor it runs the plain PyTorch version
+below. There is no fallback: a CUDA operand the kernel does not take, or a
+failed build or launch, raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+# plain PyTorch versions of the same functions (the CPU path, and what the
+# kernel is held against on the card)
+paged_decode_plain = ref.paged_decode_attention
+paged_prefill_plain = ref.paged_prefill_attention
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    fn = build.load("paged_attention").paged_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
+        [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(q, k_pool, v_pool, block_tables, kv_len, q_offset,
+            softmax_scale: Optional[float]) -> torch.Tensor:
+    if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"q {tuple(q.shape)} must be (B, C, H, hd) and the "
+                         f"pools (num_pages, page, KV, hd), got k "
+                         f"{tuple(k_pool.shape)}, v {tuple(v_pool.shape)}")
+    B, C, H, hd = q.shape
+    _, page, KV, hd_k = k_pool.shape
+    if hd_k != hd or hd not in build.HEAD_DIMS or H % KV:
+        raise ValueError(f"head_dim {hd} (pool {hd_k}) must be one of "
+                         f"{build.HEAD_DIMS} and H={H} a multiple of KV={KV}")
+    if q.dtype != k_pool.dtype or q.dtype != v_pool.dtype:
+        raise TypeError("q and the pools must share one dtype")
+    for name, t, shape in (("block_tables", block_tables, (B, None)),
+                           ("kv_len", kv_len, (B,)),
+                           ("q_offset", q_offset, (B,))):
+        if t.dtype != torch.int32 or t.dim() != len(shape) or t.shape[0] != B:
+            raise ValueError(f"{name} must be int32 of shape {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    P = block_tables.shape[1]
+    out = torch.empty_like(q)
+    build.check_operands(q.device, q=q, k_pool=k_pool, v_pool=v_pool,
+                         block_tables=block_tables, kv_len=kv_len,
+                         q_offset=q_offset, out=out)
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _launcher()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                     block_tables.data_ptr(), kv_len.data_ptr(),
+                     q_offset.data_ptr(), out.data_ptr(), B, C, H, KV, hd, P,
+                     page, scale, build.dtype_code(q), stream)
+    build.check_launch("paged_attention", rc)
+    return out
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
+                           softmax_scale: Optional[float] = None):
+    """One query token per sequence against a paged KV pool.
+
+    q: (B, 1, H, hd); pools: (num_pages, page, KV, hd); block_tables:
+    (B, P) int32 physical page ids (0 = reserved scratch page); kv_len:
+    (B,) int32.
+    """
+    if not q.is_cuda:
+        return paged_decode_plain(q, k_pool, v_pool, block_tables, kv_len,
+                                  softmax_scale=softmax_scale)
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"decode takes q of shape (B, 1, H, hd), got {tuple(q.shape)}")
+    q_offset = torch.clamp(kv_len - 1, min=0).to(torch.int32)
+    out = _launch(q, k_pool, v_pool, block_tables, kv_len, q_offset,
+                  softmax_scale)
+    paged_decode_attention.launches += 1
+    return out
+
+
+def paged_prefill_attention(q, k_pool, v_pool, block_tables, kv_len,
+                            q_offset, *, softmax_scale: Optional[float] = None):
+    """Chunked-prefill attention against a paged pool: q (B, C, H, hd) at
+    positions ``q_offset + [0, C)``, the chunk's own K/V already scattered
+    into the pool, so ``kv_len = q_offset + C``."""
+    if not q.is_cuda:
+        return paged_prefill_plain(q, k_pool, v_pool, block_tables, kv_len,
+                                   q_offset, softmax_scale=softmax_scale)
+    out = _launch(q, k_pool, v_pool, block_tables, kv_len, q_offset,
+                  softmax_scale)
+    paged_prefill_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+paged_prefill_attention.launches = 0

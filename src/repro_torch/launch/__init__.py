@@ -1,0 +1,1 @@
+"""launch layer of the port (see the package docstring)."""

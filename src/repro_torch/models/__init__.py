@@ -1,0 +1,1 @@
+"""models layer of the port (see the package docstring)."""

@@ -1,0 +1,87 @@
+"""Shared layers: RMSNorm, RoPE, SwiGLU MLP, embeddings.
+
+Each follows ``repro.models.layers`` op for op, including where values are
+upcast to float32 and cast back, so the port's logits match the reference
+on the same weights.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict
+
+import torch
+
+from repro_torch.models.param import Spec
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_freq(half: int, theta: float, device: torch.device) -> torch.Tensor:
+    """theta ** (-i / half) in float32, computed once per (width, device):
+    building it per call from a Python scalar on the card would block the
+    host on the stream."""
+    exponent = -torch.arange(0, half, dtype=torch.float32) / half
+    return torch.pow(torch.tensor(theta, dtype=torch.float32),
+                     exponent).to(device)
+
+
+def rope_tables(pos: torch.Tensor, hd: int, theta: float):
+    """(cos, sin) of shape (..., S, 1, hd // 2) in float32 for positions
+    ``pos`` (..., S); one pair serves every layer of a forward."""
+    angles = pos[..., None, None].float() * _rope_freq(hd // 2, float(theta),
+                                                       pos.device)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (..., S, H, hd) with pos broadcasting against
+    the sequence dims (..., S); frequencies and rotation in float32."""
+    return apply_rope(x, *rope_tables(pos, x.shape[-1], theta))
+
+
+def mlp_specs(d: int, f: int) -> Dict[str, Spec]:
+    return {"wg": Spec((d, f)), "wu": Spec((d, f)), "wd": Spec((f, d))}
+
+
+def mlp(params, x: torch.Tensor) -> torch.Tensor:
+    g = x @ params["wg"]
+    u = x @ params["wu"]
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    return h @ params["wd"]
+
+
+def embed_specs(vocab: int, d: int, tie: bool) -> Dict[str, Spec]:
+    specs = {"tok": Spec((vocab, d), scale=0.02)}
+    if not tie:
+        specs["head"] = Spec((d, vocab))
+    return specs
+
+
+def embed(params, tokens: torch.Tensor, d: int) -> torch.Tensor:
+    out = params["tok"][tokens]
+    # sqrt(d) rounded to the table's dtype, as the reference multiplies by
+    # jnp.asarray(d ** 0.5, dtype); rounded on the host, so no device sync
+    scale = float(torch.tensor(d ** 0.5, dtype=out.dtype))
+    return out * scale
+
+
+def unembed(params, x: torch.Tensor, tie: bool) -> torch.Tensor:
+    """Logits in float32, as the reference's ``preferred_element_type``:
+    the operands are upcast so no bf16 rounding of the logits happens."""
+    w = params["tok"].t() if tie else params["head"]
+    return x.float() @ w.float()
