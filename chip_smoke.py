@@ -1,31 +1,42 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (each raises on failure, so the script exits non-zero):
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
-   every kernel of the path built from ``src/repro_torch/csrc`` with nvcc.
-2. Kernels against their plain PyTorch versions on the card, at the main
-   path's shapes (granite-3-2b: H=32, KV=8, hd=64) in bf16 and float32:
-   K2 flash attention (prefill) and K1 paged attention (decode, and
-   chunked prefill). Each kernel's time beside its bound, its plain
-   version's time and, for K2, ``scaled_dot_product_attention``'s time as a
-   yardstick (the port never calls it).
-3. The served path at full width: granite-3-2b as registered (40 layers,
-   bf16, random weights from a seed) through ``make_serve_runtime``: cold
-   start, then 4 events of 2 prompts (64..1024 tokens, 32 new tokens
-   each), once with whole-prompt prefill and once with 256-token chunked
-   prefill. Launch counts are zeroed before each run and must grow.
-4. Parity of the path on the card: full-width bf16 logits through the
-   kernels against ``impl="ref"``; 4-layer float32 greedy tokens through
-   the kernels identical to ``impl="ref"``.
+   every kernel of the paths built from ``src/repro_torch/csrc`` with nvcc
+   (one process per source, in parallel), with each instance's registers
+   and spills from ptxas.
+2. Kernels against their plain PyTorch versions on the card, in bf16 and
+   float32, at the main paths' shapes: K2 flash attention (granite-3-2b
+   prefill, H=32 KV=8 hd=64; recurrentgemma-2b prefill, H=10 KV=1 hd=256,
+   window 2048, up to 3000 tokens), K1 paged attention (decode and chunked
+   prefill), K3 decode attention (recurrentgemma's ring decode, B=8 S=2048
+   G=10 hd=256; granite's dense per-slot decode, G=4 hd=64; an int8 cache)
+   and K5 the RG-LRU scan (B=1 D=2560, float32 held to 0 error). Each
+   kernel's time beside its bound, its plain version's time and, where one
+   PyTorch call computes the same function, that call's time
+   (``scaled_dot_product_attention``; the port never calls it).
+3. The served paths at full width through ``make_serve_runtime``, random
+   weights from a seed, bf16: granite-3-2b (40 layers) paged with
+   whole-prompt and 256-token chunked prefill, then dense (page_size=0),
+   4 events of 2 prompts of 64..1024 tokens; recurrentgemma-2b (26 layers)
+   paged, 4 events of 2 prompts of 64..3000 tokens, past its 2048-token
+   window. 32 new tokens each. Launch counts are zeroed before each run
+   and must grow for every kernel of that run's path. Cold start, TTFT,
+   decode ms/step, tokens/s, and profiles of a decode step and a prefill.
+4. Parity of the paths on the card: full-width bf16 logits of granite and
+   of recurrentgemma through the kernels against ``impl="ref"``;
+   float32 greedy tokens through the kernels identical to ``impl="ref"``
+   (granite 4 layers, recurrentgemma 5 layers at full width), and
+   granite's dense engine identical to its paged engine.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
-repository's ``src/repro_torch`` beside this file, it exits non-zero and
-prints no result.
+The last three lines are ``{"kernels": [...]}``, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+without the repository's ``src/repro_torch`` beside this file, it exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -44,6 +55,9 @@ PEAK_OPS = {"bfloat16": 989e12,    # dense bf16 tensor cores
             "float32": 67e12}      # float32 outside the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 H, KV, HD, PAGE = 32, 8, 64, 16    # granite-3-2b attention widths
+RG_H, RG_KV, RG_HD, RG_WINDOW = 10, 1, 256, 2048   # recurrentgemma-2b
+RG_D = 2560
+DECODE_KV_LEN = [1, 100, 511, 1024, 1500, 2000, 2047, 2048]
 
 
 def log(msg: str) -> None:
@@ -75,21 +89,71 @@ def event_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(torch, fn, kernel_name: str, iters: int = 20) -> float:
+def kernel_ms(torch, fn, kernel_name: str, iters: int = 20, attempts: int = 3) -> float:
     """Device time per call of the CUDA kernel whose name contains
-    ``kernel_name``, from the profiler (launch gaps excluded)."""
+    ``kernel_name``, from the profiler (launch gaps excluded). The
+    profiler now and then records none of a session's launches of a
+    kernel launched through ctypes; the session is then repeated, and
+    after ``attempts`` empty sessions the time is taken with CUDA events
+    around back-to-back calls instead (launch gaps included)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(ev.device_time_total for ev in prof.key_averages()
-                   if kernel_name in ev.key)
-    if total_us <= 0:
-        raise AssertionError(f"the profiler recorded no {kernel_name} launch")
-    return total_us / 1e3 / iters
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(ev.device_time_total for ev in prof.key_averages()
+                       if kernel_name in ev.key)
+        if total_us > 0:
+            return total_us / 1e3 / iters
+        log(f"  the profiler recorded no {kernel_name} launch "
+            f"(session {attempt} of {attempts})")
+    ms = event_ms(torch, fn, iters)
+    log(f"  {kernel_name}: timed with CUDA events instead, {ms:.4f} ms per call")
+    return ms
+
+
+def _template_args(args: str):
+    """Itanium-mangled template arguments, readable: f = f32, a = int8,
+    13__nv_bfloat16 = bf16, S1_ = the first argument again, Li64E = 64."""
+    out, i = [], 0
+    while i < len(args):
+        c = args[i]
+        if c in "fa":
+            out.append("f32" if c == "f" else "int8")
+            i += 1
+        elif args.startswith("S1_", i):
+            out.append(out[0])
+            i += 3
+        elif c == "L":
+            j = args.index("E", i)
+            out.append(args[i + 2:j])
+            i = j + 1
+        elif c.isdigit():
+            n = re.match(r"\d+", args[i:]).group()
+            name = args[i + len(n):i + len(n) + int(n)]
+            out.append("bf16" if "bfloat16" in name else name)
+            i += len(n) + int(n)
+        else:
+            out.append(args[i:])
+            break
+    return out
+
+
+def _kernel_name(mangled: str) -> str:
+    """``_ZN<n><namespace><m><name>I<args>EEv...`` -> ``name<args>``."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return mangled
+    name = rest[m.end():m.end() + int(m.group(1))]
+    args = re.match(r"I(\w+?)EEv", rest[m.end() + int(m.group(1)):])
+    return f"{name}<{', '.join(_template_args(args.group(1)))}>" if args else name
 
 
 def ptxas_summary(report: str):
@@ -98,10 +162,9 @@ def ptxas_summary(report: str):
     name = None
     spills = ""
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '.*?(\w+_kernel)I(.+?)Li(\d+)E", line)
+        m = re.search(r"Compiling entry function '(\S+?)'", line)
         if m:
-            dt = "bf16" if "bfloat16" in m.group(2) else "f32"
-            name = f"{m.group(1)}<{dt}, hd={m.group(3)}>"
+            name = _kernel_name(m.group(1))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spills = m.group(1)
@@ -139,25 +202,62 @@ def paged_inputs(torch, rng, dev, dtype, kv_len, C):
             torch.from_numpy(bt).to(dev), torch.from_numpy(np.asarray(kv_len, np.int32)).to(dev))
 
 
-def check(name, dtype, got, want, errs) -> float:
+def decode_inputs(torch, rng, dev, dtype, n_heads, n_kv, hd, S=2048):
+    """q (B, 1, H, hd), a dense per-slot cache (B, S, KV, hd) and kv_len
+    spread over 1..S."""
+    t = lambda shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(dev, getattr(torch, dtype))
+    B = len(DECODE_KV_LEN)
+    return (t((B, 1, n_heads, hd)), t((B, S, n_kv, hd)), t((B, S, n_kv, hd)),
+            torch.tensor(DECODE_KV_LEN, dtype=torch.int32, device=dev))
+
+
+def int8_cache(torch, k, v):
+    """Symmetric per-(sequence, kv head) int8 quantization of a cache."""
+    def q8(x):
+        s = x.float().abs().amax(dim=(1, 3)) / 127.0
+        return torch.round(x.float() / s[:, None, :, None]).to(torch.int8), s
+    (k8, ks), (v8, vs) = q8(k), q8(v)
+    return k8, v8, ks.contiguous(), vs.contiguous()
+
+
+def scan_inputs(torch, rng, dev, dtype, S, with_h0):
+    a = torch.from_numpy(rng.uniform(0.3, 0.99, size=(1, S, RG_D)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((1, S, RG_D)).astype(np.float32))
+    h0 = torch.from_numpy(rng.standard_normal((1, RG_D)).astype(np.float32)).to(dev) \
+        if with_h0 else None
+    return a.to(dev, getattr(torch, dtype)), b.to(dev, getattr(torch, dtype)), h0
+
+
+def check(name, dtype, got, want, errs, tol=None) -> float:
+    tol = TOL[dtype] if tol is None else tol
     err = (got.float() - want.float()).abs().max().item()
-    ok = err <= TOL[dtype]
-    log(f"  {name:52s} {dtype:8s} max|err| {err:.3e} (tol {TOL[dtype]:.0e}) "
+    ok = err <= tol
+    log(f"  {name:60s} {dtype:8s} max|err| {err:.3e} (tol {tol:.0e}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{name} {dtype}: max abs err {err} > {TOL[dtype]}")
+        raise AssertionError(f"{name} {dtype}: max abs err {err} > {tol}")
     errs.append(err)
     return err
 
 
+def window_mask(torch, S, window, dev):
+    """The causal sliding-window mask as SDPA's boolean attn_mask."""
+    i = torch.arange(S, device=dev)
+    return (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+
 def phase_kernels(torch, dev):
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rs
 
     rng = np.random.default_rng(0)
     up = lambda *ts: [t.float() for t in ts]  # noqa: E731
-    errs = {"flash": [], "decode": [], "chunk": []}
+    errs = {k: [] for k in ("flash", "flash_rg", "decode", "chunk", "dense_rg",
+                            "dense_granite", "scan")}
     log("phase 2: kernels against their plain versions (bf16 kernels against "
         "the plain version in float32 on the same inputs)")
     for dtype in ("bfloat16", "float32"):
@@ -174,6 +274,13 @@ def phase_kernels(torch, dev):
             want = ref.flash_attention(*up(q, k, v), **kw).to(q.dtype)
             check(f"K2 flash B={B} sq={sq} skv={skv} {kw}", dtype, got, want,
                   errs["flash"])
+        for S in (1024, 3000):
+            q, k, v = t((1, S, RG_H, RG_HD)), t((1, S, RG_KV, RG_HD)), t((1, S, RG_KV, RG_HD))
+            got = fa.flash_attention(q, k, v, causal=True, window=RG_WINDOW)
+            want = ref.flash_attention(*up(q, k, v), causal=True,
+                                       window=RG_WINDOW).to(q.dtype)
+            check(f"K2 flash rg S={S} H=10 KV=1 hd=256 window={RG_WINDOW}", dtype,
+                  got, want, errs["flash_rg"])
         kv_len = [1, 37, 128, 255, 512, 700, 999, 1024]
         q, kp, vp, bt, kl = paged_inputs(torch, rng, dev, dtype, kv_len, 1)
         got = pa.paged_decode_attention(q, kp, vp, bt, kl)
@@ -185,23 +292,43 @@ def phase_kernels(torch, dev):
             got = pa.paged_prefill_attention(q, kp, vp, bt, kl, qo)
             want = ref.paged_prefill_attention(*up(q, kp, vp), bt, kl, qo).to(q.dtype)
             check(f"K1 chunk C=256 q_offset={q_off}", dtype, got, want, errs["chunk"])
+        for key, (nh, nkv, hd) in (("dense_rg", (RG_H, RG_KV, RG_HD)),
+                                   ("dense_granite", (H, KV, HD))):
+            q, k, v, kl = decode_inputs(torch, rng, dev, dtype, nh, nkv, hd)
+            got = da.decode_attention(q, k, v, kl)
+            want = ref.decode_attention(*up(q, k, v), kl).to(q.dtype)
+            check(f"K3 decode B=8 S=2048 H={nh} KV={nkv} hd={hd} kv_len 1..2048",
+                  dtype, got, want, errs[key])
+        q, k, v, kl = decode_inputs(torch, rng, dev, dtype, RG_H, RG_KV, RG_HD)
+        k8, v8, ks, vs = int8_cache(torch, k, v)
+        got = da.decode_attention(q, k8, v8, kl, k_scale=ks, v_scale=vs)
+        want = ref.decode_attention(q.float(), k8, v8, kl, k_scale=ks,
+                                    v_scale=vs).to(q.dtype)
+        check("K3 decode int8 cache, rg shapes", dtype, got, want, errs["dense_rg"])
+        for S in (1024, 3000):
+            for with_h0 in (False, True):
+                a, b, h0 = scan_inputs(torch, rng, dev, dtype, S, with_h0)
+                check(f"K5 rglru_scan B=1 S={S} D={RG_D} h0={with_h0}", dtype,
+                      rs.rglru_scan(a, b, h0), ref.rglru_scan(a, b, h0),
+                      errs["scan"], tol=0.0)
     torch.cuda.synchronize()
 
-    log("phase 2: times at the main path's shapes, bf16 (kernel: profiler "
-        "device time; plain and library: CUDA events per call)")
+    log("phase 2: times at the main paths' shapes, bf16 (K5 float32, as the "
+        "gates feed it; kernel: profiler device time; plain and library: "
+        "CUDA events per call)")
     entries = {}
     dtype, isz = "bfloat16", 2
     t = lambda shape: torch.from_numpy(  # noqa: E731
         rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
-    # K2: a 1024-token prompt, causal
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # K2: a 1024-token granite prompt, causal
     S = 1024
     q, k, v = t((1, S, H, HD)), t((1, S, KV, HD)), t((1, S, KV, HD))
     pairs = S * (S + 1) // 2 * H
     b, by = bound_ms(isz * (2 * q.numel() + k.numel() + v.numel()), 4 * HD * pairs, dtype)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     entries["flash"] = dict(
-        name="flash_attention", route="cuda",
+        name="flash_attention (hd 64)", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:27",
         shape=f"B=1 S={S} H={H} KV={KV} hd={HD} causal bf16",
@@ -210,6 +337,24 @@ def phase_kernels(torch, dev):
         bound_ms=b, bound_by=by,
         library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
                                                  enable_gqa=True), 20))
+    # K2 at recurrentgemma's widths: a 3000-token prompt, causal window 2048
+    S = 3000
+    q, k, v = t((1, S, RG_H, RG_HD)), t((1, S, RG_KV, RG_HD)), t((1, S, RG_KV, RG_HD))
+    pairs = sum(min(i + 1, RG_WINDOW) for i in range(S)) * RG_H
+    b, by = bound_ms(isz * (2 * q.numel() + k.numel() + v.numel()), 4 * RG_HD * pairs, dtype)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = window_mask(torch, S, RG_WINDOW, dev)
+    entries["flash_rg"] = dict(
+        name="flash_attention (hd 256, window)", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:27",
+        shape=f"B=1 S={S} H={RG_H} KV={RG_KV} hd={RG_HD} window {RG_WINDOW} bf16",
+        ms=kernel_ms(torch, lambda: fa.flash_attention(q, k, v, window=RG_WINDOW),
+                     "flash_attention_kernel", iters=10),
+        plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v, window=RG_WINDOW), 2),
+        bound_ms=b, bound_by=by,
+        library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                                 enable_gqa=True), 5))
     # K1 decode: 8 sequences, kv_len spread over 1..1024
     kv_len = [1, 37, 128, 255, 512, 700, 999, 1024]
     q, kp, vp, bt, kl = paged_inputs(torch, rng, dev, dtype, kv_len, 1)
@@ -242,43 +387,86 @@ def phase_kernels(torch, dev):
         plain_ms=event_ms(torch, lambda: ref.paged_prefill_attention(q, kp, vp, bt, kl, qo),
                           10),
         bound_ms=b, bound_by=by, library_ms=None)
+    # K3: recurrentgemma ring decode and granite dense decode, kv_len 1..2048
+    n_kv = sum(DECODE_KV_LEN)
+    for key, (nh, nkv, hd), what in (
+            ("dense_rg", (RG_H, RG_KV, RG_HD), "recurrentgemma ring"),
+            ("dense_granite", (H, KV, HD), "granite dense")):
+        q, k, v, kl = decode_inputs(torch, rng, dev, dtype, nh, nkv, hd)
+        b, by = bound_ms(isz * (2 * q.numel() + 2 * n_kv * nkv * hd) + 4 * kl.numel(),
+                         4 * hd * nh * n_kv, dtype)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lmask = (torch.arange(k.shape[1], device=dev)[None] < kl[:, None])[:, None, None]
+        entries[key] = dict(
+            name=f"decode_attention ({what})", route="cuda",
+            source="src/repro_torch/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention.py:31",
+            shape=f"{what}: B=8 S=2048 H={nh} KV={nkv} hd={hd} kv_len 1..2048 "
+                  f"({n_kv} keys) bf16",
+            ms=kernel_ms(torch, lambda: da.decode_attention(q, k, v, kl),
+                         "decode_attention_kernel"),
+            plain_ms=event_ms(torch, lambda: ref.decode_attention(q, k, v, kl), 10),
+            bound_ms=b, bound_by=by,
+            library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=lmask,
+                                                     enable_gqa=True), 20))
+    # K5: a 3000-token recurrentgemma prefill's scan, float32 a and b
+    S = 3000
+    a, bb, _ = scan_inputs(torch, rng, dev, "float32", S, False)
+    b, by = bound_ms(4 * 3 * S * RG_D, 2 * S * RG_D, "float32")
+    entries["scan"] = dict(
+        name="rglru_scan", route="cuda",
+        source="src/repro_torch/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:26",
+        shape=f"B=1 S={S} D={RG_D} float32",
+        ms=kernel_ms(torch, lambda: rs.rglru_scan(a, bb), "rglru_scan_kernel"),
+        plain_ms=event_ms(torch, lambda: ref.rglru_scan(a, bb), 2, warmup=1),
+        bound_ms=b, bound_by=by, library_ms=None)
     for key, e in entries.items():
         e["max_abs_err"] = max(errs[key])
         lib = f"{e['library_ms']:.4f}" if e["library_ms"] is not None else "n/a"
-        log(f"  {e['name']:24s} {e['shape']}: kernel {e['ms']:.4f} ms, bound "
+        log(f"  {e['name']:40s} {e['shape']}: kernel {e['ms']:.4f} ms, bound "
             f"{e['bound_ms']:.4f} ms ({e['bound_by']}), plain {e['plain_ms']:.4f} ms, "
             f"library {lib} ms")
     return entries
 
 
 # ----------------------------------------------------------------------
-# phase 3: the served path at full width
+# phase 3: the served paths at full width
 # ----------------------------------------------------------------------
-PROMPT_LENS = [64, 1024, 200, 700, 128, 512, 900, 333]
+GRANITE_PROMPTS = [64, 1024, 200, 700, 128, 512, 900, 333]
+RG_PROMPTS = [64, 700, 1024, 2100, 3000, 333, 1500, 2600]
 MAX_NEW = 32
 
 
-def launches():
+def _counters():
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
-    return {"flash": fa.flash_attention.launches,
-            "decode": pa.paged_decode_attention.launches,
-            "chunk": pa.paged_prefill_attention.launches}
+    from repro_torch.kernels import rglru_scan as rs
+    return {"flash": fa.flash_attention, "decode": pa.paged_decode_attention,
+            "chunk": pa.paged_prefill_attention, "dense": da.decode_attention,
+            "scan": rs.rglru_scan}
+
+
+def launches():
+    return {k: f.launches for k, f in _counters().items()}
 
 
 def zero_launches() -> None:
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
-    fa.flash_attention.launches = 0
-    pa.paged_decode_attention.launches = 0
-    pa.paged_prefill_attention.launches = 0
+    for f in _counters().values():
+        f.launches = 0
 
 
-def serve_run(torch, cfg, prefill_chunk: int, dev):
+def serve_run(torch, cfg, dev, *, page_size, prefill_chunk, max_len, prompt_lens,
+              need, absent=()):
+    """Cold start, then 4 events of 2 prompts (one event alone, then a
+    micro-batch of 3) through the runtime front door. Launch counts are
+    zeroed just before the events and read just after: every kernel of
+    ``need`` must have launched and none of ``absent``."""
     from repro_torch.core.runtime import run_batch
     from repro_torch.serve.api import make_serve_runtime
 
-    rdef = make_serve_runtime(cfg, page_size=PAGE, max_slots=8, max_len=2048,
+    rdef = make_serve_runtime(cfg, page_size=page_size, max_slots=8, max_len=max_len,
                               max_batch=4, prefill_chunk=prefill_chunk, seed=0,
                               device=dev)
     t0 = time.perf_counter()
@@ -286,7 +474,7 @@ def serve_run(torch, cfg, prefill_chunk: int, dev):
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     rng = np.random.default_rng(1)
-    prompts = [rng.integers(3, cfg.vocab, size=n).tolist() for n in PROMPT_LENS]
+    prompts = [rng.integers(3, cfg.vocab, size=n).tolist() for n in prompt_lens]
     events = [{"prompts": prompts[2 * i:2 * i + 2]} for i in range(4)]
     config = {"handle": engine, "max_new_tokens": MAX_NEW}
 
@@ -301,17 +489,18 @@ def serve_run(torch, cfg, prefill_chunk: int, dev):
     outs = [o for r in results for o in r["outputs"]]
     if len(outs) != len(prompts) or not all(1 <= len(o) <= MAX_NEW for o in outs):
         raise AssertionError(f"not every request finished: {[len(o) for o in outs]}")
-    engine.allocator.check_invariants()
-    if engine.allocator.n_free != engine.num_pages - 1 or \
-            engine.free_slots() != list(range(engine.max_slots)):
-        raise AssertionError(f"leaked pages or slots: {engine.stats()}")
-    need = ["flash", "decode"] + (["chunk"] if prefill_chunk else [])
-    if any(counts[k] == 0 for k in need):
-        raise AssertionError(f"a kernel of the path never launched: {counts}")
+    if engine.free_slots() != list(range(engine.max_slots)):
+        raise AssertionError(f"leaked slots: {engine.stats()}")
+    if engine.paged:
+        engine.allocator.check_invariants()
+        if engine.allocator.n_free != engine.num_pages - 1:
+            raise AssertionError(f"leaked pages: {engine.stats()}")
+    if any(counts[k] == 0 for k in need) or any(counts[k] for k in absent):
+        raise AssertionError(f"launches {counts}: need {need}, absent {absent}")
     n_tok = sum(len(o) for o in outs)
     ttft = sorted(engine.ttft_s)
-    log(f"  prefill_chunk={prefill_chunk}: cold start {cold_s:.3f} s; "
-        f"{len(outs)} requests, {n_tok} tokens in {wall:.3f} s = "
+    log(f"  page_size={page_size} prefill_chunk={prefill_chunk}: cold start "
+        f"{cold_s:.3f} s; {len(outs)} requests, {n_tok} tokens in {wall:.3f} s = "
         f"{n_tok / wall:.1f} tokens/s; TTFT p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms "
         f"max {ttft[-1] * 1e3:.1f} ms; decode {engine.decode_s / engine.n_decode_steps * 1e3:.2f}"
         f" ms/step over {engine.n_decode_steps} steps; launches {counts}; "
@@ -349,47 +538,58 @@ def profile_breakdown(torch, label: str, run, n: int):
         log(f"    {_device_us(e) / 1e3 / n:8.3f} ms  x{e.count // n:<5d} {e.key[:90]}")
 
 
-def profile_served(torch, engine, cfg):
-    """Where the time of the served path goes: 3 decode steps of a full
-    batch (8 slots at ~256 tokens of context; 256-token prompts prefill
-    whole) and one 1024-token prefill."""
+def profile_served(torch, engine, cfg, context: int, prefill_len: int):
+    """Where the time of a served path goes: 3 decode steps of a full batch
+    (8 slots at ~``context`` tokens; the prompts prefill whole) and one
+    ``prefill_len``-token prefill."""
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Request
 
     rng = np.random.default_rng(5)
     steps = 3
     for i in range(engine.max_slots):
-        engine.submit(Request(prompt=rng.integers(3, cfg.vocab, size=256).tolist(),
+        engine.submit(Request(prompt=rng.integers(3, cfg.vocab, size=context).tolist(),
                               max_new_tokens=steps + 4, req_id=100 + i))
     engine.step()                   # admits and prefills all 8, one decode
-    profile_breakdown(torch, "decode step (B=8, ~256 context)",
+    profile_breakdown(torch, f"{cfg.name} decode step (B=8, ~{context} context)",
                       lambda: [engine.step() for _ in range(steps)], steps)
     engine.generate([])             # drain
-    toks = torch.from_numpy(rng.integers(3, cfg.vocab, size=(1, 1024))).to(engine.device)
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab, size=(1, prefill_len))).to(engine.device)
     M.prefill(cfg, engine.params, {"tokens": toks})
-    profile_breakdown(torch, "prefill (1 x 1024 tokens)",
+    profile_breakdown(torch, f"{cfg.name} prefill (1 x {prefill_len} tokens)",
                       lambda: M.prefill(cfg, engine.params, {"tokens": toks}), 1)
 
 
 # ----------------------------------------------------------------------
-# phase 4: parity of the path on the card
+# phase 4: parity of the paths on the card
 # ----------------------------------------------------------------------
-def logits_parity(torch, cfg, params, dev):
+def logits_parity(torch, cfg, params, dev, S, paged):
     """Prefill + 8 decode steps through the kernels and through
-    impl="ref", teacher-forced on the kernel path's greedy tokens."""
+    impl="ref", teacher-forced on the kernel path's greedy tokens; the
+    decode cache is paged (granite) or dense per-slot (recurrentgemma)."""
     from repro_torch.models import model as M
-    from repro_torch.serve.engine import install_pages
+    from repro_torch.models.param import iter_leaves
+    from repro_torch.serve.engine import install_slot
 
     rng = np.random.default_rng(2)
-    S, steps = 300, 8
+    steps = 8
     tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(1, S))).to(dev)
     n_pages = -(-(S + steps) // PAGE)
-    table = torch.arange(1, n_pages + 1, dtype=torch.int32, device=dev)[None]
+    table = torch.arange(1, n_pages + 1, dtype=torch.int32, device=dev)[None] \
+        if paged else None
     res, caches = {}, {}
     for impl in (None, "ref"):
-        logits, dense = M.prefill(cfg, params, {"tokens": tokens}, impl=impl)
-        caches[impl] = M.init_paged_cache(cfg, 1, S + steps, n_pages + 1, PAGE, device=dev)
-        install_pages(caches[impl], dense, table[0].long())
+        logits, dense = M.prefill(cfg, params, {"tokens": tokens},
+                                  cache_len=S + steps, impl=impl)
+        if paged:
+            caches[impl] = M.init_paged_cache(cfg, 1, S + steps, n_pages + 1, PAGE,
+                                              device=dev)
+            pooled = {path for (path, _), flag in zip(
+                iter_leaves(caches[impl]), M.paged_leaf_flags(cfg, caches[impl]))
+                if flag}
+            install_slot(caches[impl], dense, 0, table[0].long(), pooled)
+        else:
+            caches[impl] = dense
         res[impl] = [logits[0, -1].float()]
     toks = [int(torch.argmax(res[None][0]))]
     for i in range(steps):
@@ -404,29 +604,38 @@ def logits_parity(torch, cfg, params, dev):
     agree = sum(int(torch.argmax(a)) == int(torch.argmax(b))
                 for a, b in zip(res[None], res["ref"]))
     scale = max(r.abs().max().item() for r in res["ref"])
-    return diffs, agree, len(diffs), scale
+    tol = 0.05 * scale
+    log(f"  {cfg.name} full width bf16, {S}-token prompt: max|logit diff| per step "
+        f"{['%.4f' % d for d in diffs]} (tol {tol:.4f} = 5% of max|logit| "
+        f"{scale:.3f}); greedy agreement {agree}/{len(diffs)}")
+    if max(diffs) > tol:
+        raise AssertionError(f"bf16 logits differ by {max(diffs)} > {tol}")
 
 
-def greedy_parity(torch, cfg4, dev):
-    from repro_torch.models import model as M
+def engine_tokens(cfg, params, dev, lens, max_len, **kw):
     from repro_torch.serve.engine import Request, ServingEngine
-
-    params = M.init_model_params(cfg4, 3, dev)
     rng = np.random.default_rng(4)
-    lens = [40, 300, 700, 1000]
-    prompts = [rng.integers(3, cfg4.vocab, size=n).tolist() for n in lens]
-    outs = {}
-    for chunk in (0, 256):
-        for impl in (None, "ref"):
-            eng = ServingEngine(cfg4, params, max_slots=4, max_len=1100,
-                                prefill_chunk=chunk, impl=impl, device=dev)
-            done = eng.generate([Request(prompt=list(p), max_new_tokens=12, req_id=i)
-                                 for i, p in enumerate(prompts)])
-            outs[(chunk, impl)] = {r.req_id: r.output for r in done}
-        if outs[(chunk, None)] != outs[(chunk, "ref")]:
-            raise AssertionError(f"f32 greedy tokens differ (prefill_chunk={chunk}): "
-                                 f"{outs[(chunk, None)]} vs {outs[(chunk, 'ref')]}")
-    return outs
+    prompts = [rng.integers(3, cfg.vocab, size=n).tolist() for n in lens]
+    eng = ServingEngine(cfg, params, max_slots=4, max_len=max_len, device=dev, **kw)
+    done = eng.generate([Request(prompt=list(p), max_new_tokens=12, req_id=i)
+                         for i, p in enumerate(prompts)])
+    return {r.req_id: r.output for r in done}
+
+
+def greedy_parity(torch, cfg, dev, lens, max_len, runs):
+    """float32 greedy tokens of every engine setting in ``runs`` (kwargs
+    of ServingEngine) identical to the first's."""
+    from repro_torch.models import model as M
+    params = M.init_model_params(cfg, 3, dev)
+    outs = [engine_tokens(cfg, params, dev, lens, max_len, **kw) for kw in runs]
+    for kw, out in zip(runs[1:], outs[1:]):
+        if out != outs[0]:
+            raise AssertionError(f"{cfg.name} f32 greedy tokens differ ({runs[0]} vs "
+                                 f"{kw}): {outs[0]} vs {out}")
+    log(f"  {cfg.name} {cfg.n_layers} layers float32: greedy tokens identical for "
+        f"{len(lens)} requests (prompts {lens}) across {runs}")
+    del params
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------------
@@ -459,38 +668,72 @@ def main() -> int:
 
     entries = phase_kernels(torch, dev)
 
+    # phase 3: granite-3-2b (paged whole-prompt, paged chunked, dense)
     cfg = get_config("granite-3-2b")
     log(f"phase 3: served path, {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
         f"heads {cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} d_ff={cfg.d_ff} "
         f"vocab {cfg.padded_vocab} {cfg.dtype}, random weights (seed 0)")
-    total = {"flash": 0, "decode": 0, "chunk": 0}
+    total = {"flash": 0, "decode": 0, "chunk": 0, "dense_granite": 0, "flash_rg": 0,
+             "dense_rg": 0, "scan": 0}
     engine = None
-    for chunk in (0, 256):
+    for page_size, chunk in ((PAGE, 0), (PAGE, 256), (0, 0)):
         engine = None
         torch.cuda.empty_cache()
-        engine, counts = serve_run(torch, cfg, chunk, dev)
-        for k in total:
-            total[k] += counts[k]
-    profile_served(torch, engine, cfg)
-    params = engine.params
-    engine.cache = None
+        need = ["flash"] + (["decode"] if page_size else ["dense"]) + \
+            (["chunk"] if chunk else [])
+        engine, counts = serve_run(
+            torch, cfg, dev, page_size=page_size, prefill_chunk=chunk, max_len=2048,
+            prompt_lens=GRANITE_PROMPTS, need=need,
+            absent=["scan"] + (["dense"] if page_size else ["decode", "chunk"]))
+        total["flash"] += counts["flash"]
+        total["decode"] += counts["decode"]
+        total["chunk"] += counts["chunk"]
+        total["dense_granite"] += counts["dense"]
+        if page_size and not chunk:
+            profile_served(torch, engine, cfg, context=256, prefill_len=1024)
+            params = engine.params
+    engine = None
+    torch.cuda.empty_cache()
 
     log("phase 4: parity through the kernels against impl='ref'")
-    diffs, agree, n, scale = logits_parity(torch, cfg, params, dev)
-    tol = 0.05 * scale
-    log(f"  full width bf16: max|logit diff| per step {['%.4f' % d for d in diffs]} "
-        f"(tol {tol:.4f} = 5% of max|logit| {scale:.3f}); greedy agreement {agree}/{n}")
-    if max(diffs) > tol:
-        raise AssertionError(f"bf16 logits differ by {max(diffs)} > {tol}")
-    del params, engine
+    logits_parity(torch, cfg, params, dev, S=300, paged=True)
+    del params
     torch.cuda.empty_cache()
-    cfg4 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
-    outs = greedy_parity(torch, cfg4, dev)
-    log(f"  4 layers float32: greedy tokens identical for {len(outs[(0, None)])} "
-        f"requests, whole-prompt and chunked prefill")
+
+    # phase 3: recurrentgemma-2b, paged (its ring caches and state are
+    # per-slot; nothing is pooled), whole-prompt prefill
+    rg = get_config("recurrentgemma-2b")
+    log(f"phase 3: served path, {rg.name} {rg.n_layers} layers pattern "
+        f"{[k.value for k in rg.pattern]} d={rg.d_model} heads {rg.n_heads}/"
+        f"{rg.n_kv_heads} hd={rg.hd} window {rg.window} d_ff={rg.d_ff} vocab "
+        f"{rg.padded_vocab} {rg.dtype}, random weights (seed 0)")
+    engine, counts = serve_run(
+        torch, rg, dev, page_size=PAGE, prefill_chunk=0, max_len=4096,
+        prompt_lens=RG_PROMPTS, need=["flash", "dense", "scan"],
+        absent=["decode", "chunk"])
+    total["flash_rg"] = counts["flash"]
+    total["dense_rg"] = counts["dense"]
+    total["scan"] = counts["scan"]
+    profile_served(torch, engine, rg, context=2100, prefill_len=3000)
+    params = engine.params
+    engine = None
+    logits_parity(torch, rg, params, dev, S=2100, paged=False)
+    del params
+    torch.cuda.empty_cache()
+
+    greedy_parity(torch, dataclasses.replace(rg, n_layers=5, dtype="float32"), dev,
+                  lens=[40, 300, 2100, 1000], max_len=2200,
+                  runs=[dict(page_size=PAGE), dict(page_size=PAGE, impl="ref")])
+    greedy_parity(torch, dataclasses.replace(cfg, n_layers=4, dtype="float32"), dev,
+                  lens=[40, 300, 700, 1000], max_len=1100,
+                  runs=[dict(page_size=PAGE), dict(page_size=PAGE, impl="ref"),
+                        dict(page_size=PAGE, prefill_chunk=256),
+                        dict(page_size=PAGE, prefill_chunk=256, impl="ref"),
+                        dict(page_size=0), dict(page_size=0, impl="ref")])
 
     kernels = []
-    for key in ("flash", "decode", "chunk"):
+    for key in ("decode", "chunk", "flash", "flash_rg", "dense_rg", "dense_granite",
+                "scan"):
         e = dict(entries[key])
         e["launches"] = total[key]
         kernels.append({k: e[k] for k in (

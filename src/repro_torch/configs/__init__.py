@@ -1,8 +1,8 @@
 """Architecture configs of the port. Only the archs whose serving path is
-ported are registered (granite-3-2b for now)."""
+ported are registered (granite-3-2b and recurrentgemma-2b)."""
 import importlib
 
-_MODULES = ["granite_3_2b"]
+_MODULES = ["granite_3_2b", "recurrentgemma_2b"]
 
 _loaded = False
 

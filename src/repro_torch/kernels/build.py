@@ -22,7 +22,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("paged_attention", "flash_attention")
+KERNELS = ("paged_attention", "flash_attention", "decode_attention",
+           "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -111,16 +112,18 @@ def dtype_code(t) -> int:
     return code
 
 
-def check_operands(device, **tensors) -> None:
-    """Every operand on ``device`` and contiguous; floating operands, which
-    the kernels read with 16-byte vector loads, 16-byte aligned."""
+def check_operands(device, align: int = 16, **tensors) -> None:
+    """Every operand on ``device`` and contiguous; floating and int8
+    operands, which the attention kernels read with 16-byte vector loads,
+    ``align``-byte aligned."""
     for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.is_floating_point() and t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+        if (t.is_floating_point() or str(t.dtype) == "torch.int8") and \
+                t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def check_launch(name: str, rc: int) -> None:

@@ -1,5 +1,5 @@
 """Kernel entry points with implementation dispatch (mirrors
-``repro.kernels.ops``).
+``repro.kernels.ops``; ``moe_gmm`` is not ported yet).
 
 ``impl``:
   * ``None`` — the kernel wrapper: the hand-written CUDA kernel for a CUDA
@@ -11,9 +11,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as rs
 
 
 def _use_ref(impl: Optional[str]) -> bool:
@@ -29,6 +31,18 @@ def flash_attention(q, k, v, *, causal=True, window=0, chunk=0,
                                    chunk=chunk, softmax_scale=softmax_scale)
     return fa.flash_attention(q, k, v, causal=causal, window=window,
                               chunk=chunk, softmax_scale=softmax_scale)
+
+
+def decode_attention(q, k, v, kv_len, *, softmax_scale=None, k_scale=None,
+                     v_scale=None, impl: Optional[str] = None):
+    """Single-step attention over a dense per-slot cache (ring caches of
+    local/chunked attention, and the dense serving layout)."""
+    if _use_ref(impl):
+        return ref.decode_attention(q, k, v, kv_len,
+                                    softmax_scale=softmax_scale,
+                                    k_scale=k_scale, v_scale=v_scale)
+    return da.decode_attention(q, k, v, kv_len, softmax_scale=softmax_scale,
+                               k_scale=k_scale, v_scale=v_scale)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
@@ -54,3 +68,10 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, kv_len,
     return pa.paged_prefill_attention(q, k_pool, v_pool, block_tables,
                                       kv_len, q_offset,
                                       softmax_scale=softmax_scale)
+
+
+def rglru_scan(a, b, h0=None, *, impl: Optional[str] = None):
+    """The RG-LRU recurrence h_t = a_t * h_{t-1} + b_t, float32 out."""
+    if _use_ref(impl):
+        return ref.rglru_scan(a, b, h0)
+    return rs.rglru_scan(a, b, h0)

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the attention kernels on the serving path.
+"""Plain PyTorch versions of the kernels on the serving path.
 
 A port of ``repro.kernels.ref``: the same functions, arguments, layouts and
 normalisation order, so the CPU tests can hold them against the JAX oracles
 and ``chip_smoke.py`` can hold the CUDA kernels against them on the card.
 ``decode_attention`` normalises p before ``p @ v``; ``flash_attention`` and
 ``chunk_prefill_attention`` divide after, as the reference does.
+``rglru_scan`` walks time sequentially, as the Pallas body does, where the
+JAX oracle uses a log-depth associative scan: the two agree to rounding.
 """
 from __future__ import annotations
 
@@ -89,24 +91,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, *,
-                     softmax_scale: Optional[float] = None) -> torch.Tensor:
+                     softmax_scale: Optional[float] = None,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single-step GQA attention over a KV cache.
 
     q: (B, 1, H, hd); k, v: (B, S_cache, KV, hd); kv_len: (B,) number of
-    valid cache slots. p is normalised before ``p @ v``.
+    valid cache slots (slot order does not matter to softmax, so a ring
+    cache passes a full-validity length once wrapped). k_scale, v_scale:
+    (B, KV) float32 dequantization scales for int8 caches. p is normalised
+    before ``p @ v``.
     """
     B, _, H, hd = q.shape
     _, S, KV, _ = k.shape
     G = H // KV
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    kf, vf = k.float(), v.float()
+    if k_scale is not None:
+        kf = kf * k_scale[:, None, :, None].float()
+    if v_scale is not None:
+        vf = vf * v_scale[:, None, :, None].float()
     qr = q.reshape(B, KV, G, hd).float() * scale
-    s = torch.einsum("bkgd,bskd->bkgs", qr, k.float())
+    s = torch.einsum("bkgd,bskd->bkgs", qr, kf)
     valid = torch.arange(S, device=q.device)[None] < kv_len[:, None].long()
     s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    out = torch.einsum("bkgs,bskd->bkgd", p, vf)
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
@@ -160,3 +172,20 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, kv_len,
         q, gather_pages(k_pool, block_tables),
         gather_pages(v_pool, block_tables),
         kv_len, q_offset, softmax_scale=softmax_scale)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor,
+               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Diagonal linear recurrence h_t = a_t * h_{t-1} + b_t (the RG-LRU
+    core), walked over time in float32: one multiply and one add, each
+    rounded, per step. a, b: (B, S, D); h0: (B, D) or None (zeros).
+    Returns h: (B, S, D) float32."""
+    B, S, D = a.shape
+    af, bf = a.float(), b.float()
+    h = torch.zeros((B, D), dtype=torch.float32, device=a.device) \
+        if h0 is None else h0.float()
+    out = torch.empty((B, S, D), dtype=torch.float32, device=a.device)
+    for t in range(S):
+        h = af[:, t] * h + bf[:, t]
+        out[:, t] = h
+    return out

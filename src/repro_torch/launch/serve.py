@@ -2,8 +2,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --events 4 [--page-size 16] [--prefill-chunk C] [--max-batch B]
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-2b --events 4 [--page-size 0]
 
-Builds the serve runtime (8 slots, max_len 2048), runs ``setup`` once
+Builds the serve runtime of any registered arch (8 slots, max_len 2048;
+``--page-size 0`` the dense per-slot cache), runs ``setup`` once
 (the cold start: weights from seed 0 on the card), then answers
 ``--events`` events of 2 random 64-token prompts each (16 new tokens per
 prompt), ``--max-batch`` events per engine call, and prints one line per

@@ -1,27 +1,40 @@
-"""Attention block of the dense global-attention family (a port of
-``repro.models.blocks``: ``attn_specs``, ``_qkv``, ``_ffn``, ``attn_block``).
+"""Attention and RG-LRU blocks (a port of ``repro.models.blocks``:
+``attn_specs``, ``attn_cache_specs``, ``_qkv``, ``_ffn``, ``attn_block``,
+``rglru_specs``, ``rglru_cache_specs``, ``_rglru_gates``, ``rglru_block``).
 
-``attn_block`` runs ``BlockKind.ATTN`` in three modes, as the reference:
+``attn_block`` runs ``ATTN``, ``LOCAL_ATTN`` (sliding window) and
+``CHUNKED_ATTN`` in three modes, as the reference:
 
-* ``prefill`` — the whole prompt through K2
-  (``flash_attention``); returns the dense K/V the engine installs into
-  the paged pool.
-* ``chunk`` — one prefill chunk: its K/V scattered into this sequence's
-  pool pages, attention through K1 (``paged_prefill_attention``).
-* ``decode`` — one token per sequence: its K/V written at
-  ``(page[pos // page], pos % page)``, attention through K1
-  (``paged_decode_attention``).
+* ``prefill`` — the whole prompt through K2 (``flash_attention``) with the
+  kind's mask; returns the block's dense cache: global K/V zero-padded to
+  ``cache_len``, or a ring of ``min(window or chunk, cache_len)`` slots
+  holding the live suffix at slot ``p % L``.
+* ``chunk`` — one prefill chunk of a paged global-attention block: its K/V
+  scattered into this sequence's pool pages, attention through K1
+  (``paged_prefill_attention``). Ring kinds prefill whole.
+* ``decode`` — one token per sequence. Paged global attention writes at
+  ``(page[pos // page], pos % page)`` and attends through K1
+  (``paged_decode_attention``); ring caches and the dense per-slot global
+  cache write at slot ``pos % L`` and attend through K3
+  (``decode_attention``).
 
-Pool writes are IN PLACE (``index_put_``): where the JAX engine donates the
-cache buffer so XLA can update it in place, the port mutates the pool it is
-handed and returns that same tensor. Other block kinds, and the dense
-per-slot decode cache (which needs kernel K3), raise NotImplementedError.
+``rglru_block`` runs the RG-LRU recurrence through K5 (``rglru_scan``) in
+``prefill`` and ``chunk`` modes; ``decode`` advances the state by one step
+in plain PyTorch, as the reference does.
+
+Cache writes in ``chunk`` and ``decode`` are IN PLACE: where the JAX engine
+donates the cache so XLA updates it in place, the port mutates the cache
+leaves it is handed and returns the same dict. ``mask`` (decode only,
+(B,) bool) keeps the per-slot leaves of rows where it is False unchanged;
+the serving engine passes it for idle and mid-prefill rows, whose pool
+writes land in the reserved scratch page.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import BlockKind, ModelConfig
 from repro_torch.kernels import ops
@@ -29,8 +42,12 @@ from repro_torch.models.layers import apply_rope, mlp, mlp_specs, rms_norm
 from repro_torch.models.param import Spec
 
 Cache = Dict[str, torch.Tensor]
+ATTN_KINDS = (BlockKind.ATTN, BlockKind.LOCAL_ATTN, BlockKind.CHUNKED_ATTN)
 
 
+# ======================================================================
+# Attention blocks (global / local sliding-window / chunked) + FFN
+# ======================================================================
 def attn_specs(cfg: ModelConfig) -> Dict[str, Spec]:
     d, hd = cfg.d_model, cfg.hd
     H, KV = cfg.n_heads, cfg.n_kv_heads
@@ -50,6 +67,31 @@ def attn_specs(cfg: ModelConfig) -> Dict[str, Spec]:
     return s
 
 
+def _attn_window(cfg: ModelConfig, kind: BlockKind) -> Tuple[int, int]:
+    """(window, chunk) for the attention mask of this block kind."""
+    if kind == BlockKind.LOCAL_ATTN:
+        return cfg.window, 0
+    if kind == BlockKind.CHUNKED_ATTN:
+        return 0, cfg.chunk
+    return 0, 0
+
+
+def attn_cache_len(cfg: ModelConfig, kind: BlockKind, seq_len: int) -> int:
+    window, chunk = _attn_window(cfg, kind)
+    if window:
+        return min(window, seq_len)
+    if chunk:
+        return min(chunk, seq_len)
+    return seq_len
+
+
+def attn_cache_specs(cfg: ModelConfig, kind: BlockKind, B: int,
+                     seq_len: int) -> Dict[str, Spec]:
+    L = attn_cache_len(cfg, kind, seq_len)
+    kv = Spec((B, L, cfg.n_kv_heads, cfg.hd), init="zeros")
+    return {"k": kv, "v": kv}
+
+
 def _qkv(cfg: ModelConfig, params, h: torch.Tensor):
     B, S = h.shape[:2]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -64,40 +106,69 @@ def _ffn(params, x: torch.Tensor) -> torch.Tensor:
     return x + mlp(params, rms_norm(x, params["ln2"]))
 
 
+def _keep_masked(new: torch.Tensor, old: torch.Tensor,
+                 mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """``new`` on rows where ``mask`` (B,) is True, ``old`` elsewhere."""
+    if mask is None:
+        return new
+    return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
 def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
                mode: str, rope_cs: Tuple[torch.Tensor, torch.Tensor],
                cache: Optional[Cache] = None,
                pos: Optional[torch.Tensor] = None,
+               cache_len: Optional[int] = None,
                impl: Optional[str] = None,
-               block_tables: Optional[torch.Tensor] = None
+               block_tables: Optional[torch.Tensor] = None,
+               mask: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Returns (x, cache). ``prefill`` returns the block's dense K/V
-    ``{"k", "v"}`` of shape (B, S, KV, hd); ``chunk``/``decode`` write into
-    the pools of ``cache`` in place and return it. ``pos``: chunk start
-    (int) in ``chunk`` mode, per-sequence positions (B,) in ``decode``.
+    """Returns (x, cache). ``prefill`` returns the block's dense cache
+    ``{"k", "v"}`` (B, L, KV, hd); ``chunk``/``decode`` write into ``cache``
+    in place and return it. ``pos``: chunk start (int) in ``chunk`` mode,
+    per-sequence positions (B,) in ``decode``. ``cache_len``: the decode
+    cache's capacity at prefill (default: the prompt length).
+    ``block_tables`` present: a global-attention cache is a paged pool
+    (num_pages, page, KV, hd) rather than per-slot (B, L, KV, hd).
     ``rope_cs``: (cos, sin) of this call's positions from
     ``layers.rope_tables``; ``forward`` computes them once for all layers."""
-    if kind != BlockKind.ATTN:
-        raise NotImplementedError(
-            f"block kind {kind.value!r} is not ported yet (only global "
-            "attention, the granite-3-2b serving path)")
+    if kind not in ATTN_KINDS:
+        raise ValueError(f"attn_block takes attention kinds, got {kind}")
     B, S, _ = x.shape
-    H, hd = cfg.n_heads, cfg.hd
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    window, chunk = _attn_window(cfg, kind)
     h = rms_norm(x, params["ln1"])
     cos, sin = rope_cs
+    q, k, v = _qkv(cfg, params, h)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
     if mode == "prefill":
-        q, k, v = _qkv(cfg, params, h)
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        attn = ops.flash_attention(q, k, v, causal=True, impl=impl)
-        new_cache = {"k": k, "v": v}
+        attn = ops.flash_attention(q, k, v, causal=True, window=window,
+                                   chunk=chunk, impl=impl)
+        L = attn_cache_len(cfg, kind, cache_len or S)
+        if window or chunk:
+            # ring cache, slot(p) = p % L: the live positions are a suffix
+            # of the prompt (the last min(L, S) for a window, the current
+            # chunk for chunked attention; stale slots are masked by kv_len)
+            start = max(S - L, 0) if window else (S - 1) // L * L
+            slots = torch.arange(start, S, device=x.device) % L
+            new_cache = {}
+            for name, t in (("k", k), ("v", v)):
+                ring = t.new_zeros((B, L, KV, hd))
+                ring[:, slots] = t[:, start:]
+                new_cache[name] = ring
+        elif L > S:
+            new_cache = {"k": F.pad(k, (0, 0, 0, 0, 0, L - S)),
+                         "v": F.pad(v, (0, 0, 0, 0, 0, L - S))}
+        else:
+            new_cache = {"k": k, "v": v}
     elif mode == "chunk":
-        if cache is None or pos is None or block_tables is None:
-            raise ValueError("chunk mode needs cache, pos and block_tables")
+        if cache is None or pos is None:
+            raise ValueError("chunk mode needs cache and pos")
+        if block_tables is None or window or chunk:
+            raise ValueError("chunked prefill requires paged global attention")
         start = int(pos)
         tokpos = start + torch.arange(S, device=x.device)        # (S,)
-        q, k, v = _qkv(cfg, params, h)
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         k_pool, v_pool = cache["k"], cache["v"]
         page = k_pool.shape[1]
         phys = block_tables.long()[:, tokpos // page]              # (B, S)
@@ -113,27 +184,139 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
     elif mode == "decode":
         if cache is None or pos is None:
             raise ValueError("decode mode needs cache and pos")
-        if block_tables is None:
-            raise NotImplementedError(
-                "dense per-slot decode needs kernel K3 (decode_attention), "
-                "not ported yet; serve with a paged cache (page_size > 0)")
-        q, k_new, v_new = _qkv(cfg, params, h)                     # S == 1
-        q, k_new = apply_rope(q, cos, sin), apply_rope(k_new, cos, sin)
-        k_pool, v_pool = cache["k"], cache["v"]
-        page = k_pool.shape[1]
+        k_cache, v_cache = cache["k"], cache["v"]              # S == 1
         posl = pos.long()
-        phys = block_tables.long().gather(1, (posl // page)[:, None])[:, 0]
-        off = posl % page
-        # inactive engine rows carry an all-zeros table: their writes land
-        # in the reserved scratch page 0
-        k_pool[phys, off] = k_new[:, 0].to(k_pool.dtype)
-        v_pool[phys, off] = v_new[:, 0].to(v_pool.dtype)
-        kv_len = (pos + 1).to(torch.int32)
-        attn = ops.paged_decode_attention(q, k_pool, v_pool, block_tables,
-                                          kv_len, impl=impl)
+        if block_tables is not None and not (window or chunk):
+            page = k_cache.shape[1]
+            phys = block_tables.long().gather(1, (posl // page)[:, None])[:, 0]
+            off = posl % page
+            # inactive engine rows carry an all-zeros table: their writes
+            # land in the reserved scratch page 0
+            k_cache[phys, off] = k[:, 0].to(k_cache.dtype)
+            v_cache[phys, off] = v[:, 0].to(v_cache.dtype)
+            attn = ops.paged_decode_attention(q, k_cache, v_cache, block_tables,
+                                              (pos + 1).to(torch.int32),
+                                              impl=impl)
+        else:
+            L = k_cache.shape[1]
+            slot = posl % L
+            bidx = torch.arange(B, device=x.device)
+            for c, new in ((k_cache, k), (v_cache, v)):
+                c[bidx, slot] = _keep_masked(new[:, 0].to(c.dtype),
+                                             c[bidx, slot], mask)
+            if chunk:
+                kv_len = slot + 1
+            else:
+                kv_len = torch.clamp(posl + 1, max=L)
+            attn = ops.decode_attention(q, k_cache, v_cache,
+                                        kv_len.to(torch.int32), impl=impl)
         new_cache = cache
     else:
         raise ValueError(f"unknown mode {mode!r}")
 
     x = x + attn.reshape(B, S, H * hd) @ params["wo"]
+    return _ffn(params, x), new_cache
+
+
+# ======================================================================
+# RG-LRU recurrent block (RecurrentGemma / Griffin)
+# ======================================================================
+def rglru_specs(cfg: ModelConfig) -> Dict[str, Spec]:
+    d = cfg.d_model
+    D = d  # recurrence width
+    s = {
+        "ln1": Spec((d,), init="zeros"),
+        "w_x": Spec((d, D)),
+        "w_g": Spec((d, D)),
+        "conv_w": Spec((4, D), scale=0.5),
+        "conv_b": Spec((D,), init="zeros"),
+        "w_a": Spec((D, D), scale=0.02),
+        "b_a": Spec((D,), init="zeros"),
+        "w_i": Spec((D, D), scale=0.02),
+        "b_i": Spec((D,), init="zeros"),
+        "lam": Spec((D,), init="ones", scale=1.0),
+        "w_out": Spec((D, d)),
+        "ln2": Spec((d,), init="zeros"),
+    }
+    s.update(mlp_specs(d, cfg.d_ff))
+    return s
+
+
+def rglru_cache_specs(cfg: ModelConfig, B: int) -> Dict[str, Spec]:
+    D = cfg.d_model
+    return {
+        "h": Spec((B, D), init="zeros", dtype="float32"),
+        "conv": Spec((B, 3, D), init="zeros"),
+    }
+
+
+def _rglru_gates(params, y: torch.Tensor):
+    """y: (..., D) post-conv activations -> (a, b) recurrence coefficients,
+    float32."""
+    yf = y.float()
+    r = torch.sigmoid(yf @ params["w_a"].float() + params["b_a"].float())
+    i = torch.sigmoid(yf @ params["w_i"].float() + params["b_i"].float())
+    c = 8.0
+    log_a = -c * F.softplus(params["lam"].float()) * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * yf)
+    return a, b
+
+
+def _conv4(xp: torch.Tensor, conv_w: torch.Tensor, S: int) -> torch.Tensor:
+    """Causal width-4 conv over a history-padded (B, S + 3, D) input, in the
+    activation dtype, taps summed in order 0..3 (the reference's ``sum``)."""
+    y = xp[:, 0:S] * conv_w[0]
+    for i in range(1, 4):
+        y = y + xp[:, i:i + S] * conv_w[i]
+    return y
+
+
+def rglru_block(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
+                cache: Optional[Cache] = None, impl: Optional[str] = None,
+                mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """Returns (x, cache). ``prefill`` returns a new cache ``{"h": (B, D)
+    float32, "conv": (B, 3, D)}``; ``chunk`` continues the conv and the
+    recurrence from ``cache`` and ``decode`` advances them one step, both
+    writing ``cache`` in place (``decode`` only on rows where ``mask``)."""
+    B, S, d = x.shape
+    h = rms_norm(x, params["ln1"])
+    xb = h @ params["w_x"]
+    gb = h @ params["w_g"]
+
+    if mode == "prefill":
+        xp = F.pad(xb, (0, 0, 3, 0))
+        y = _conv4(xp, params["conv_w"], S) + params["conv_b"]
+        a, bterm = _rglru_gates(params, y)
+        hseq = ops.rglru_scan(a, bterm, None, impl=impl)      # (B,S,D) f32
+        new_cache = {"h": hseq[:, -1].float(),
+                     "conv": xb[:, -3:] if S >= 3 else F.pad(xb, (0, 0, 3 - S, 0))}
+    elif mode == "chunk":
+        if cache is None:
+            raise ValueError("chunk mode needs cache")
+        xp = torch.cat([cache["conv"].to(xb.dtype), xb], dim=1)
+        y = _conv4(xp, params["conv_w"], S) + params["conv_b"]
+        a, bterm = _rglru_gates(params, y)
+        hseq = ops.rglru_scan(a, bterm, cache["h"], impl=impl)
+        cache["h"].copy_(hseq[:, -1])
+        cache["conv"].copy_(xp[:, -3:])
+        new_cache = cache
+    elif mode == "decode":
+        if cache is None:
+            raise ValueError("decode mode needs cache")
+        conv_hist = cache["conv"]                              # (B,3,D)
+        window = torch.cat([conv_hist, xb], dim=1)             # (B,4,D)
+        y = torch.einsum("bkd,kd->bd", window, params["conv_w"]) + params["conv_b"]
+        a, bterm = _rglru_gates(params, y[:, None, :])
+        hstate = a[:, 0] * cache["h"] + bterm[:, 0]            # (B,D) f32
+        hseq = hstate[:, None, :]
+        cache["h"].copy_(_keep_masked(hstate, cache["h"], mask))
+        cache["conv"].copy_(_keep_masked(window[:, 1:], conv_hist, mask))
+        new_cache = cache
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+
+    gated = hseq.to(x.dtype) * F.gelu(gb.float(), approximate="tanh").to(x.dtype)
+    x = x + gated @ params["w_out"]
     return _ffn(params, x), new_cache

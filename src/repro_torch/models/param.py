@@ -26,7 +26,7 @@ class Spec:
     """Shape + init recipe (logical axes are not needed on one card)."""
 
     shape: Tuple[int, ...]
-    init: str = "normal"          # normal | zeros
+    init: str = "normal"          # normal | zeros | ones
     scale: Optional[float] = None  # default: 1/sqrt(fan_in)
     dtype: Optional[str] = None    # override model dtype
 
@@ -62,6 +62,8 @@ def init_params(specs, seed: int, dtype: str, device: torch.device):
         dt = torch_dtype(spec.dtype or dtype)
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=dt, device=device)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=dt, device=device)
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         scale = spec.scale if spec.scale is not None else \
             1.0 / float(np.sqrt(max(fan_in, 1)))

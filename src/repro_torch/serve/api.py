@@ -3,8 +3,9 @@
 
 ``make_serve_runtime`` wraps a ServingEngine factory as a RuntimeDef whose
 events are batches of generation requests. ``setup`` is the cold start:
-random weights from ``seed`` materialized on the card and the engine's KV
-pool allocated (the kernels build at their first launch). ``fn`` serves
+random weights from ``seed`` materialized on the card and the engine's
+cache allocated (paged, or dense with ``page_size=0``; the kernels build
+at their first launch). ``fn`` serves
 one event; ``batch_fn`` merges several events' prompts into one shared
 continuous-batching stream.
 """

@@ -1,26 +1,31 @@
-"""Serving engine: continuous batching over a PAGED shared KV cache (a port
-of ``repro.serve.engine``'s paged layout).
+"""Serving engine: continuous batching over a paged or a dense KV cache (a
+port of ``repro.serve.engine``).
 
-Global-attention K/V live in a fixed pool of ``page_size``-token pages
-(``serve/paging.py`` owns the free list and the per-request block tables).
-Requests admit the moment a slot AND pages are free, a finished request's
-pages free immediately, and pool exhaustion mid-decode preempts the
-youngest request (free its pages, requeue, re-prefill prompt + output
-later: recompute preemption). Prompts longer than ``prefill_chunk``
-optionally prefill in chunk-sized pieces interleaved with decode steps;
-slots whose next chunk has the same (start, length, table width) advance
-in one batched call.
+Two cache layouts share the same scheduler surface, as in the reference:
+
+* **paged** (default): global-attention K/V live in a fixed pool of
+  ``page_size``-token pages (``serve/paging.py`` owns the free list and the
+  per-request block tables); every other cache leaf (sliding-window ring
+  caches, RG-LRU state) is per slot. Requests admit the moment a slot AND
+  pages are free, a finished request's pages free immediately, and pool
+  exhaustion mid-decode preempts the youngest request (free its pages,
+  requeue, re-prefill prompt + output later: recompute preemption).
+  Prompts longer than ``prefill_chunk`` optionally prefill in chunk-sized
+  pieces interleaved with decode steps (block patterns that support it);
+  slots whose next chunk has the same (start, length, table width) advance
+  in one batched call.
+* **dense** (``page_size=0``): every slot reserves ``max_len`` positions of
+  every cache leaf; decode runs through kernel K3. The reference the paged
+  layout is proven token-exact against.
 
 Where the JAX engine donates the cache through every jitted step so XLA
-updates the pool in place, the port's model writes the pool tensors in
-place (``index_put_``) and the engine keeps the same ``self.cache``.
+updates it in place, the port's model writes the cache tensors in place
+(``index_put_``, ``copy_``) and the engine keeps the same ``self.cache``.
 
 Greedy decoding is the default. Sampling seeds a ``torch.Generator`` from
 (seed, req_id, attempt, position): a new delivery attempt draws fresh
 randomness, while a preemption resume (same attempt, same positions)
 replays the identical stream. The draws are not JAX's threefry bits.
-
-The dense per-slot layout (``page_size=0``) needs kernel K3 and raises.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ import dataclasses
 import hashlib
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional
+from typing import AbstractSet, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -38,11 +43,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokenizer import EOS
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as M
+from repro_torch.models.param import iter_leaves, map_tree
 from repro_torch.serve.paging import BlockAllocator, pages_for
 
 DEFAULT_PAGE_SIZE = 16
 
-# slot lifecycle
+# slot lifecycle (paged scheduler)
 IDLE, PREFILL, DECODE = "idle", "prefill", "decode"
 
 
@@ -71,21 +77,32 @@ def _sample_key(seed: int, req_id: int, attempt: int, position: int) -> int:
                           "little") >> 1
 
 
-def install_pages(cache, dense_cache, pages: torch.Tensor) -> None:
-    """Scatter a B=1 dense prefill cache into one sequence's pool pages, in
-    place: pools are (n_layers, num_pages, page, KV, hd), and the dense K/V
-    rows (n_layers, 1, L, KV, hd) of positions [0, npages*page) go to
-    ``pages`` in order, zero-padded past the prompt."""
-    npages = pages.shape[0]
-    pools, dense = cache["blocks"]["p0"], dense_cache["blocks"]["p0"]
-    for name, pool in pools.items():
-        n_layers, _, page, KV, hd = pool.shape
-        seg = dense[name][:, 0]                          # (n_layers, L, KV, hd)
+def install_slot(cache, slot_cache, slot: int,
+                 pages: Optional[torch.Tensor] = None,
+                 pooled: AbstractSet[str] = frozenset()) -> None:
+    """Install a B=1 prefill cache into the engine's cache, in place: each
+    per-slot leaf is written into ``slot``; each pooled global-attention
+    K/V leaf (path in ``pooled``) scatters its rows of positions
+    [0, npages * page) to ``pages`` in order, zero-padded past the prompt."""
+    for (path, big), (_, small) in zip(iter_leaves(cache),
+                                       iter_leaves(slot_cache)):
+        ax = M.slot_batch_axis(path)
+        seg = small.select(ax, 0)
+        if path not in pooled:
+            big.select(ax, slot).copy_(seg)
+            continue
+        # seg: (n_periods, L, KV, hd) under blocks/, (L, KV, hd) under rem/;
+        # big: (n_periods, num_pages, page, KV, hd) or (num_pages, page, ..)
+        npages, page = pages.shape[0], big.shape[-3]
         span = npages * page
-        if span > seg.shape[1]:
-            seg = F.pad(seg, (0, 0, 0, 0, 0, span - seg.shape[1]))
-        seg = seg[:, :span].reshape(n_layers, npages, page, KV, hd)
-        pool[:, pages] = seg.to(pool.dtype)
+        if span > seg.shape[ax]:
+            seg = F.pad(seg, (0, 0, 0, 0, 0, span - seg.shape[ax]))
+        seg = seg.narrow(ax, 0, span)
+        seg = seg.reshape(seg.shape[:ax] + (npages, page) + seg.shape[ax + 1:])
+        if ax == 1:
+            big[:, pages] = seg.to(big.dtype)
+        else:
+            big[pages] = seg.to(big.dtype)
 
 
 class ServingEngine:
@@ -98,16 +115,14 @@ class ServingEngine:
                  sample_seed: int = 0,
                  device: DeviceLike = None):
         """``device`` defaults to the card and must hold ``params``.
-        ``kv_pool_tokens`` sizes the shared pool (default max_slots *
-        max_len); smaller pools oversubscribe and rely on preemption.
-        ``prefill_chunk`` > 0 prefills prompts longer than the chunk in
-        chunk-sized pieces interleaved with decode. ``impl="ref"`` runs the
-        plain attention versions instead of the kernels."""
+        ``page_size=0`` selects the dense per-slot cache; otherwise
+        global-attention K/V are paged. ``kv_pool_tokens`` sizes the shared
+        pool (default max_slots * max_len); smaller pools oversubscribe and
+        rely on preemption. ``prefill_chunk`` > 0 prefills prompts longer
+        than the chunk in chunk-sized pieces interleaved with decode (paged
+        layout, supported block patterns only). ``impl="ref"`` runs the
+        plain kernel versions instead of the kernels."""
         self.device = resolve_device(device)
-        if page_size <= 0:
-            raise NotImplementedError(
-                "the dense per-slot layout (page_size=0) needs kernel K3 "
-                "(decode_attention), not ported yet")
         w = params["embed"]["tok"]
         if w.device.type != self.device.type:
             raise ValueError(f"params are on {w.device}, engine on {self.device}")
@@ -117,6 +132,7 @@ class ServingEngine:
         self.max_len = max_len
         self.impl = impl
         self.greedy = greedy
+        self.paged = page_size > 0
         self.prefill_chunk = int(prefill_chunk)
         self.sample_seed = sample_seed
 
@@ -132,6 +148,10 @@ class ServingEngine:
         self.ttft_s: List[float] = []
         self.decode_s = 0.0
 
+        if not self.paged:
+            self.cache = M.init_cache(cfg, max_slots, max_len,
+                                      device=self.device)
+            return
         self.page = int(page_size)
         self.pages_per_seq = pages_for(max_len, self.page)
         pool = (pages_for(kv_pool_tokens, self.page) if kv_pool_tokens
@@ -142,6 +162,9 @@ class ServingEngine:
         self.cache = M.init_paged_cache(cfg, max_slots, max_len,
                                         self.num_pages, self.page,
                                         device=self.device)
+        self._pooled = {path for (path, _), paged in zip(
+            iter_leaves(self.cache), M.paged_leaf_flags(cfg, self.cache))
+            if paged}
         self._chunk_ok = (self.prefill_chunk > 0
                           and M.chunked_prefill_supported(cfg))
         self._state = [IDLE] * max_slots
@@ -176,30 +199,45 @@ class ServingEngine:
 
     def submit(self, req: Request) -> None:
         """Queue a request; the scheduler admits it when a slot and pages
-        free up (requests that could NEVER fit are rejected)."""
-        if len(req.prompt) >= self.max_len:
-            raise ValueError(f"prompt length {len(req.prompt)} >= max_len "
-                             f"{self.max_len}")
-        need = pages_for(min(len(req.prompt) + req.max_new_tokens,
-                             self.max_len), self.page)
-        if need > self.num_pages - 1:
-            raise ValueError(
-                f"request footprint of {need} pages exceeds the pool "
-                f"({self.num_pages - 1} pages); it could never run")
+        free up (paged layout: requests that could NEVER fit are
+        rejected)."""
+        if self.paged:
+            if len(req.prompt) >= self.max_len:
+                raise ValueError(f"prompt length {len(req.prompt)} >= "
+                                 f"max_len {self.max_len}")
+            need = pages_for(min(len(req.prompt) + req.max_new_tokens,
+                                 self.max_len), self.page)
+            if need > self.num_pages - 1:
+                raise ValueError(
+                    f"request footprint of {need} pages exceeds the pool "
+                    f"({self.num_pages - 1} pages); it could never run")
         if req.t_submit is None:
             req.t_submit = time.perf_counter()
         self.waiting.append(req)
 
     def admit(self, req: Request) -> bool:
         """Place ``req`` into a free slot now (False: no slot / no pages).
-        Long prompts start chunked prefill; otherwise the whole prompt
-        prefills before this returns."""
+        Long prompts start chunked prefill (paged layout); otherwise the
+        whole prompt prefills before this returns."""
         if req.t_submit is None:
             req.t_submit = time.perf_counter()
         slots = self.free_slots()
         if not slots:
             return False
         slot = slots[0]
+        if not self.paged:
+            prompt = self._tensor(np.asarray(req.prompt, np.int32)[None, :])
+            logits, slot_cache = M.prefill(self.cfg, self.params,
+                                           {"tokens": prompt},
+                                           cache_len=self.max_len,
+                                           impl=self.impl)
+            install_slot(self.cache, slot_cache, slot)
+            self._record_token(slot, req, self._sample_token(logits[0, -1],
+                                                             req))
+            self.active[slot] = req
+            self.pos[slot] = len(req.prompt)
+            self.n_prefills += 1
+            return True
         # resume-aware: a preempted request re-prefills prompt + all output
         # but the last sampled token (the next decode input)
         seq = list(req.prompt) + list(req.output[:-1])
@@ -222,8 +260,8 @@ class ServingEngine:
             self.allocator.table(slot)[:pages_for(len(seq), self.page)],
             np.int64))
         logits, dense = M.prefill(self.cfg, self.params, {"tokens": prompt},
-                                  impl=self.impl)
-        install_pages(self.cache, dense, pages)
+                                  cache_len=self.max_len, impl=self.impl)
+        install_slot(self.cache, dense, slot, pages, self._pooled)
         self.n_prefills += 1
         self._finish_prefill(slot, req, seq, logits)
 
@@ -264,9 +302,20 @@ class ServingEngine:
             piece[r] = self._seq[slot][p:p + C]
             tab = self.allocator.table(slot)[:width]
             table[r, :len(tab)] = tab
-        logits, self.cache = M.prefill_chunk(
-            self.cfg, self.params, self.cache, self._tensor(piece), p,
+        # per-slot leaves gather the group's rows along the batch axis and
+        # scatter back after the chunk; duplicate padding rows re-write
+        # identical values. Pools are updated in place.
+        idx = self._tensor(np.asarray(rows, np.int64))
+        view = map_tree(lambda path, leaf: leaf if path in self._pooled
+                        else leaf.index_select(M.slot_batch_axis(path), idx),
+                        self.cache)
+        logits, view = M.prefill_chunk(
+            self.cfg, self.params, view, self._tensor(piece), p,
             self._tensor(table), impl=self.impl)
+        for (path, big), (_, small) in zip(iter_leaves(self.cache),
+                                           iter_leaves(view)):
+            if path not in self._pooled:
+                big.index_copy_(M.slot_batch_axis(path), idx, small)
         self.n_prefill_chunks += len(members)
         finished = [(r, s) for r, s in enumerate(members)
                     if p + C == len(self._seq[s])]
@@ -312,16 +361,55 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def step(self) -> List[Request]:
-        """One scheduler step; returns requests finished by it: admit
+        """One scheduler step; returns requests finished by it. Paged: admit
         waiting requests into free slots, advance one prefill chunk, then
         one decode step for every decoding slot (with page growth /
-        preemption beforehand)."""
+        preemption beforehand). Dense: one decode step over the slots."""
+        if not self.paged:
+            return self._step_decode_dense()
         while self.waiting and self.free_slots():
             if not self.admit(self.waiting[0]):
                 break
             self.waiting.popleft()
         self._advance_chunks()
         return self._decode_once()
+
+    def _decode_call(self, tokens, pos, **kw):
+        """One model decode step over every row; returns the logits and the
+        greedy tokens on the host."""
+        t0 = time.perf_counter()
+        logits, self.cache = M.decode_step(
+            self.cfg, self.params, self.cache, self._tensor(tokens)[:, None],
+            self._tensor(pos), impl=self.impl, **kw)
+        self.n_decode_steps += 1
+        greedy_tok = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        self.decode_s += time.perf_counter() - t0
+        return logits, greedy_tok
+
+    def _emit(self, slot: int, logits, greedy_tok) -> bool:
+        """Record the token a decode step gave ``slot``; True when its
+        request is done."""
+        req = self.active[slot]
+        self.pos[slot] += 1
+        tok = int(greedy_tok[slot]) if self.greedy else \
+            self._sample_token(logits[slot, 0], req)
+        self._record_token(slot, req, tok)
+        req.done = tok == EOS or len(req.output) >= req.max_new_tokens or \
+            int(self.pos[slot]) >= self.max_len - 1
+        return req.done
+
+    def _step_decode_dense(self) -> List[Request]:
+        """Every slot decodes (idle ones on stale state, harmlessly: an
+        admission rewrites the whole slot)."""
+        if all(r is None for r in self.active):
+            return []
+        logits, greedy_tok = self._decode_call(self.last_token, self.pos)
+        finished = []
+        for i, req in enumerate(self.active):
+            if req is not None and self._emit(i, logits, greedy_tok):
+                finished.append(req)
+                self.active[i] = None
+        return finished
 
     def _decode_once(self) -> List[Request]:
         decoding = [i for i in range(self.max_slots)
@@ -347,7 +435,8 @@ class ServingEngine:
             return []
 
         # rows of idle or mid-prefill slots carry token 0 at position 0 and
-        # an all-zeros table: their pool writes land in scratch page 0
+        # an all-zeros table: their pool writes land in scratch page 0, and
+        # ``mask`` keeps their per-slot leaves unchanged
         mask = np.zeros((self.max_slots,), bool)
         mask[decoding] = True
         width = min(
@@ -357,52 +446,56 @@ class ServingEngine:
         for i in decoding:
             tab = self.allocator.table(i)
             tables[i, :len(tab)] = tab
-        tokens = np.where(mask, self.last_token, 0).astype(np.int32)
-        pos = np.where(mask, self.pos, 0).astype(np.int32)
-
-        t0 = time.perf_counter()
-        logits, self.cache = M.decode_step(
-            self.cfg, self.params, self.cache, self._tensor(tokens)[:, None],
-            self._tensor(pos), block_tables=self._tensor(tables),
-            impl=self.impl)
-        self.n_decode_steps += 1
-        greedy_tok = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
-        self.decode_s += time.perf_counter() - t0
+        logits, greedy_tok = self._decode_call(
+            np.where(mask, self.last_token, 0).astype(np.int32),
+            np.where(mask, self.pos, 0).astype(np.int32),
+            block_tables=self._tensor(tables), mask=self._tensor(mask))
 
         finished = []
         for i in decoding:
             req = self.active[i]
-            self.pos[i] += 1
-            tok = int(greedy_tok[i]) if self.greedy else \
-                self._sample_token(logits[i, 0], req)
-            self._record_token(i, req, tok)
-            if tok == EOS or len(req.output) >= req.max_new_tokens or \
-                    int(self.pos[i]) >= self.max_len - 1:
-                req.done = True
+            if self._emit(i, logits, greedy_tok):
                 finished.append(req)
                 self._release(i)
         return finished
 
     # ------------------------------------------------------------------
     def stats(self) -> Dict[str, int]:
-        """Instance-lifetime counters (the JAX engine's paged stats)."""
-        return {"n_prefills": self.n_prefills,
-                "n_decode_steps": self.n_decode_steps,
-                "active_slots": sum(r is not None for r in self.active),
-                "max_slots": self.max_slots,
-                "paged": 1, "page_size": self.page,
-                "n_pages": self.num_pages - 1,
-                "pages_free": self.allocator.n_free,
-                "n_prefill_chunks": self.n_prefill_chunks,
-                "n_evictions": self.n_evictions,
-                "waiting": len(self.waiting)}
+        """Instance-lifetime counters (the JAX engine's stats)."""
+        s = {"n_prefills": self.n_prefills,
+             "n_decode_steps": self.n_decode_steps,
+             "active_slots": sum(r is not None for r in self.active),
+             "max_slots": self.max_slots}
+        if not self.paged:
+            s["paged"] = 0
+            return s
+        s.update({"paged": 1, "page_size": self.page,
+                  "n_pages": self.num_pages - 1,
+                  "pages_free": self.allocator.n_free,
+                  "n_prefill_chunks": self.n_prefill_chunks,
+                  "n_evictions": self.n_evictions,
+                  "waiting": len(self.waiting)})
+        return s
 
     # ------------------------------------------------------------------
     def generate(self, requests: List[Request]) -> List[Request]:
         """Serve a list of requests to completion (continuous batching)."""
+        if not self.paged:
+            now = time.perf_counter()
+            for r in requests:          # queueing counts toward TTFT
+                if r.t_submit is None:
+                    r.t_submit = now
+            waiting = list(requests)
+            done: List[Request] = []
+            while waiting or any(r is not None for r in self.active):
+                while waiting and self.free_slots():
+                    self.admit(waiting.pop(0))
+                done.extend(self._step_decode_dense())
+            return done
+
         for req in requests:
             self.submit(req)
-        done: List[Request] = []
+        done = []
         while self.waiting or any(s != IDLE for s in self._state):
             before = (self.n_prefills, self.n_prefill_chunks,
                       self.n_decode_steps, len(self.waiting))

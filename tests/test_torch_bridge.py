@@ -20,11 +20,17 @@ from repro_torch.models.param import iter_leaves
 torch.set_num_threads(1)
 
 REDUCED = get_config("granite-3-2b").reduced()
+# recurrentgemma: 1 period + 2 remainder layers (rem/), bf16 so its RG-LRU
+# state leaf h (float32) differs in dtype from the rest of the cache
+RG = dict(n_layers=5, window=8, dtype="bfloat16")
 CFGS = {"reduced": REDUCED,
-        "gqa4": dataclasses.replace(REDUCED, n_kv_heads=1)}
+        "gqa4": dataclasses.replace(REDUCED, n_kv_heads=1),
+        "rg": dataclasses.replace(get_config("recurrentgemma-2b").reduced(), **RG)}
 
 
 def _tcfg(name):
+    if name == "rg":
+        return dataclasses.replace(tget_config("recurrentgemma-2b").reduced(), **RG)
     cfg = tget_config("granite-3-2b").reduced()
     return cfg if name == "reduced" else dataclasses.replace(cfg, n_kv_heads=1)
 
@@ -46,12 +52,38 @@ def _roundtrip(tree):
     return port
 
 
-@pytest.mark.parametrize("name", sorted(CFGS))
+@pytest.mark.parametrize("name", ["reduced", "gqa4"])
 def test_params_roundtrip_exact(name):
     cfg = CFGS[name]
     params = JM.init_model_params(cfg, jax.random.PRNGKey(0))
     port = _roundtrip(params)
     assert port["blocks"]["p0"]["wq"].shape[0] == cfg.n_layers   # stacked
+
+
+def test_rg_params_and_paged_cache_roundtrip_exact():
+    """rem/ subtrees, a bf16 model, and the float32 h inside its cache
+    keep their paths, dtypes and values."""
+    cfg = CFGS["rg"]
+    params = jax.device_get(JM.init_model_params(cfg, jax.random.PRNGKey(0)))
+    cache = jax.device_get(JM.init_paged_cache(cfg, 2, 64, 9, 16))
+    rng = np.random.default_rng(1)
+    cache = jax.tree.map(lambda a: np.asarray(
+        rng.standard_normal(a.shape), a.dtype), cache)
+    for tree in (params, cache):
+        port = bridge.from_jax(tree, device="cpu")
+        back = dict(iter_leaves(bridge.to_numpy(port)))
+        want = _jax_leaves(tree)
+        assert set(back) == set(want)
+        for path, t in iter_leaves(port):
+            assert str(t.dtype) == f"torch.{want[path].dtype}", path
+            np.testing.assert_array_equal(back[path], np.asarray(
+                want[path], np.float32), err_msg=path)
+    port = bridge.from_jax(params, device="cpu")
+    assert port["blocks"]["p0"]["w_x"].shape[0] == 1          # one period
+    assert set(port["rem"]) == {"r0", "r1"}
+    port_cache = bridge.from_jax(cache, device="cpu")
+    assert port_cache["rem"]["r0"]["h"].dtype == torch.float32
+    assert port_cache["blocks"]["p2"]["k"].dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("name", sorted(CFGS))
@@ -77,8 +109,16 @@ def test_port_specs_match_reference_tree(name):
     got_c = {p: tuple(t.shape) for p, t in iter_leaves(
         TM.init_paged_cache(tcfg, 2, 64, 9, 16, device="cpu"))}
     assert got_c == want_c
-    assert TM.paged_leaf_flags(tcfg, TM.init_paged_cache(
-        tcfg, 2, 64, 9, 16, device="cpu")) == [True, True]
+    want_d = {p: a.shape for p, a in _jax_leaves(
+        JM.init_cache(cfg, 2, 64)).items()}
+    got_d = {p: tuple(t.shape) for p, t in iter_leaves(
+        TM.init_cache(tcfg, 2, 64, device="cpu"))}
+    assert got_d == want_d
+    flags = TM.paged_leaf_flags(tcfg, TM.init_paged_cache(
+        tcfg, 2, 64, 9, 16, device="cpu"))
+    want_flags = JM.paged_leaf_flags(cfg, JM.init_paged_cache(cfg, 2, 64, 9, 16))
+    assert flags == want_flags
+    assert any(flags) == (name != "rg")    # recurrentgemma pools nothing
 
 
 def test_bfloat16_roundtrip_is_bit_exact():

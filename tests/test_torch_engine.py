@@ -1,8 +1,10 @@
-"""The port's paged ServingEngine against the JAX package's, token for token
+"""The port's ServingEngine against the JAX package's, token for token
 under greedy decoding, on the seeded schedules of
 ``tests/test_paged_engine.py``: plain paged, chunked prefill and
 tight-pool eviction, with the allocator's invariants checked after every
-run. Both engines get the same weights through the bridge. The sampled
+run, and the dense per-slot layout (``page_size=0``, decode through K3)
+against both the port's paged engine and JAX's dense one. Both sides get
+the same weights through the bridge. The sampled
 path keeps the reference's properties (reproducible per attempt, fresh per
 new attempt, varying with position); its draws are not JAX's bits."""
 import dataclasses
@@ -54,8 +56,9 @@ def run(engine, sched, request_cls):
     done = engine.generate(reqs)
     assert all(r.done for r in reqs) and len(done) == len(reqs)
     assert engine.free_slots() == list(range(engine.max_slots))
-    engine.allocator.check_invariants()
-    assert engine.allocator.n_free == engine.num_pages - 1, "page leak"
+    if engine.paged:
+        engine.allocator.check_invariants()
+        assert engine.allocator.n_free == engine.num_pages - 1, "page leak"
     return {r.req_id: list(r.output) for r in done}
 
 
@@ -150,9 +153,52 @@ def test_submit_rejects_impossible_requests(tight):
     assert not teng.waiting
 
 
-def test_dense_layout_needs_k3(params):
-    with pytest.raises(NotImplementedError):
-        ServingEngine(TCFG, params[1], page_size=0, device="cpu")
+@pytest.fixture(scope="module")
+def dense(params):
+    jp, tp = params
+    kw = dict(max_slots=2, max_len=MAX_LEN, page_size=0)
+    return JEngine(JCFG, jp, **kw), ServingEngine(TCFG, tp, device="cpu", **kw)
+
+
+def test_dense_layout_needs_k3(params, monkeypatch):
+    """The dense layout decodes through K3 (``decode_attention``) and never
+    through the paged kernel K1."""
+    from repro_torch.kernels import ops
+    calls = {"decode": 0, "paged": 0}
+    for name, key in (("decode_attention", "decode"),
+                      ("paged_decode_attention", "paged")):
+        fn = getattr(ops, name)
+
+        def counted(*a, _fn=fn, _key=key, **kw):
+            calls[_key] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(ops, name, counted)
+    eng = ServingEngine(TCFG, params[1], max_slots=2, max_len=MAX_LEN,
+                        page_size=0, device="cpu")
+    run(eng, schedule(5, n=2), Request)
+    assert calls["paged"] == 0
+    assert calls["decode"] == eng.n_decode_steps * TCFG.n_layers > 0
+    assert eng.stats()["paged"] == 0
+
+
+# the paged engine each schedule runs on, and the schedule
+DENSE_CASES = {
+    "plain": ("paged", lambda: schedule(1)),
+    "chunked": ("chunked", lambda: schedule(101, long_bias=True)),
+    "tight": ("tight", lambda: [([k + 1] * 15, 6) for k in range(3)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DENSE_CASES))
+def test_dense_layout_token_exact(dense, case, request):
+    """Dense == the port's paged engine == JAX's dense engine."""
+    jdense, tdense = dense
+    fixture, make = DENSE_CASES[case]
+    sched = make()
+    want = run(tdense, sched, Request)
+    assert want == run(jdense, sched, JRequest)
+    assert run(request.getfixturevalue(fixture)[1], sched, Request) == want
+    assert tdense.stats() == jdense.stats()
 
 
 # ----------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""The port's attention kernels against the JAX package's.
+"""The port's kernels (K1 paged, K2 flash, K3 decode attention, K5 RG-LRU
+scan) against the JAX package's.
 
 On the CPU the port's wrappers run their plain PyTorch versions; these are
 held against JAX's ``ref`` oracles and its Pallas kernels in interpret mode
@@ -15,9 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import rglru_scan as rs
 
 # tiny CPU shapes: one intra-op thread, so parallel test workers do not
 # spin every core that the suite's timing-based tests depend on
@@ -175,10 +178,111 @@ def test_gather_and_dense_decode_match_jax():
     np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[F32])
 
 
+# ----------------------------------------------------------------------
+# decode attention (K3): dense per-slot and ring caches
+# ----------------------------------------------------------------------
+def _decode_inputs(rng, G, hd, KV=2, S=40, kv_len=(1, 17, 40)):
+    """Ragged valid lengths, the last a full (wrapped) ring."""
+    B = len(kv_len)
+    return (_np(rng, (B, 1, G * KV, hd)), _np(rng, (B, S, KV, hd)),
+            _np(rng, (B, S, KV, hd)), np.asarray(kv_len, np.int32))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("G", [1, 4, 10])
+def test_decode_plain_matches_jax(G, hd, dtype):
+    from repro.kernels import ops as jops
+    rng = np.random.default_rng(G * 13 + hd)
+    q, k, v, kl = _decode_inputs(rng, G, hd)
+    got = ops.decode_attention(_torch(q, dtype), _torch(k, dtype),
+                               _torch(v, dtype), torch.from_numpy(kl))
+    assert got.dtype == getattr(torch, dtype) and got.shape == q.shape
+    args = (_jnp(q, dtype), _jnp(k, dtype), _jnp(v, dtype), kl)
+    for impl in ("ref", "interpret"):
+        want = jops.decode_attention(*args, impl=impl)
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[dtype],
+                                   err_msg=impl)
+
+
+def _int8_cache(kf, vf):
+    """Symmetric per-(sequence, kv head) int8 quantization
+    (tests/test_kernels.py::test_decode_attention_int8_cache)."""
+    ks = np.abs(kf).max(axis=(1, 3)) / 127.0
+    vs = np.abs(vf).max(axis=(1, 3)) / 127.0
+    k8 = np.round(kf / ks[:, None, :, None]).astype(np.int8)
+    v8 = np.round(vf / vs[:, None, :, None]).astype(np.int8)
+    return k8, v8, ks.astype(np.float32), vs.astype(np.float32)
+
+
+def test_decode_int8_plain_matches_jax():
+    from repro.kernels import ref as jref
+    from repro.kernels.decode_attention import decode_attention as pallas_dec
+    rng = np.random.default_rng(8)
+    q, kf, vf, _ = _decode_inputs(rng, 4, 64, S=256)
+    kl = np.array([100, 256, 3], np.int32)
+    k8, v8, ks, vs = _int8_cache(kf, vf)
+    got = ops.decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k8), torch.from_numpy(v8),
+        torch.from_numpy(kl), k_scale=torch.from_numpy(ks),
+        v_scale=torch.from_numpy(vs))
+    want_ref = jref.decode_attention(q, k8, v8, kl, k_scale=ks, v_scale=vs)
+    want_kernel = pallas_dec(q, k8, v8, kl, k_scale=ks, v_scale=vs,
+                             interpret=True, block_kv=128)
+    np.testing.assert_allclose(_f32(got), _f32(want_ref), atol=TOL[F32])
+    np.testing.assert_allclose(_f32(got), _f32(want_kernel), atol=TOL[F32])
+    # and within quantization error of the float cache
+    np.testing.assert_allclose(
+        _f32(got), _f32(ref.decode_attention(*map(torch.from_numpy, (
+            q, kf, vf, kl)))), atol=0.05)
+
+
+# ----------------------------------------------------------------------
+# RG-LRU scan (K5)
+# ----------------------------------------------------------------------
+def _scan_inputs(rng, B, S, D):
+    """Decay a in (0.3, 0.99) and input b as the RG-LRU gates give them."""
+    a = rng.uniform(0.3, 0.99, size=(B, S, D)).astype(np.float32)
+    return a, _np(rng, (B, S, D)), _np(rng, (B, D))
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,D", [(2, 37, 200), (1, 70, 130), (3, 5, 64)])
+def test_rglru_plain_matches_jax(B, S, D, with_h0):
+    from repro.kernels import ops as jops
+    rng = np.random.default_rng(S + D)
+    a, b, h0 = _scan_inputs(rng, B, S, D)
+    h0 = h0 if with_h0 else None
+    got = ops.rglru_scan(*(torch.from_numpy(x) if x is not None else None
+                           for x in (a, b, h0)))
+    assert got.dtype == torch.float32 and got.shape == (B, S, D)
+    args = [_jnp(x, F32) if x is not None else None for x in (a, b, h0)]
+    for impl in ("ref", "interpret"):
+        want = jops.rglru_scan(*args, impl=impl)
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5,
+                                   atol=2e-5, err_msg=impl)
+
+
+def test_rglru_plain_is_the_sequential_recurrence():
+    """One rounded multiply and one rounded add per step, in float32."""
+    rng = np.random.default_rng(1)
+    a, b, h0 = _scan_inputs(rng, 2, 33, 8)
+    h = h0.copy()
+    seq = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        seq.append(h.copy())
+    got = ref.rglru_scan(torch.from_numpy(a), torch.from_numpy(b),
+                         torch.from_numpy(h0))
+    np.testing.assert_array_equal(got.numpy(), np.stack(seq, axis=1))
+
+
 def test_wrappers_run_plain_on_cpu_without_counting():
     rng = np.random.default_rng(0)
-    before = (fa.flash_attention.launches, pa.paged_decode_attention.launches,
-              pa.paged_prefill_attention.launches)
+    counters = (fa.flash_attention, pa.paged_decode_attention,
+                pa.paged_prefill_attention, da.decode_attention,
+                rs.rglru_scan)
+    before = [f.launches for f in counters]
     q = _torch(_np(rng, (1, 8, 4, 64)), F32)
     k = _torch(_np(rng, (1, 8, 2, 64)), F32)
     out = fa.flash_attention(q, k, k)
@@ -186,8 +290,12 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     torch.testing.assert_close(ops.flash_attention(q, k, k, impl="ref"), out)
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, k, impl="pallas")
-    assert (fa.flash_attention.launches, pa.paged_decode_attention.launches,
-            pa.paged_prefill_attention.launches) == before
+    kl = torch.tensor([8], dtype=torch.int32)
+    torch.testing.assert_close(da.decode_attention(q[:, :1], k, k, kl),
+                               ref.decode_attention(q[:, :1], k, k, kl))
+    a = torch.rand((1, 6, 16))
+    torch.testing.assert_close(rs.rglru_scan(a, a), ops.rglru_scan(a, a, impl="ref"))
+    assert [f.launches for f in counters] == before
 
 
 # ----------------------------------------------------------------------
@@ -265,6 +373,61 @@ def test_paged_kernel_matches_plain(cuda, G, hd, dtype, C):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("G,KV,hd", [(1, 2, 64), (4, 8, 64), (4, 2, 128),
+                                     (10, 1, 256), (10, 2, 64), (24, 1, 64),
+                                     (64, 1, 128)])
+def test_decode_kernel_matches_plain(cuda, G, KV, hd, dtype):
+    rng = np.random.default_rng(G * 31 + hd)
+    kv_len = np.array([1, 31, 32, 33, 300, 1000], np.int32)   # 1000 = full
+    q, k, v, kl = _decode_inputs(rng, G, hd, KV=KV, S=1000, kv_len=kv_len)
+    args = [_torch(x, dtype, cuda) for x in (q, k, v)] + \
+        [torch.from_numpy(kl).to(cuda)]
+    n = da.decode_attention.launches
+    got = da.decode_attention(*args)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == n + 1
+    want = ref.decode_attention(*_up(*args[:3]), args[3]).to(got.dtype)
+    _held(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("G,hd", [(4, 64), (10, 256)])
+def test_decode_kernel_int8_matches_plain(cuda, G, hd, dtype):
+    rng = np.random.default_rng(G + hd)
+    q, kf, vf, kl = _decode_inputs(rng, G, hd, KV=2, S=512,
+                                   kv_len=(512, 7, 260))
+    k8, v8, ks, vs = _int8_cache(kf, vf)
+    args = [_torch(q, dtype, cuda)] + [torch.from_numpy(x).to(cuda)
+                                       for x in (k8, v8, kl)]
+    scales = dict(k_scale=torch.from_numpy(ks).to(cuda),
+                  v_scale=torch.from_numpy(vs).to(cuda))
+    got = da.decode_attention(*args, **scales)
+    want = ref.decode_attention(args[0].float(), *args[1:], **scales)
+    torch.cuda.synchronize()
+    _held(got, want.to(got.dtype), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,D", [(1, 1, 100), (2, 13, 300), (1, 1000, 2560)])
+def test_rglru_kernel_equals_plain(cuda, B, S, D, with_h0, dtype):
+    """Bit for bit: the kernel's multiplies and adds are not contracted,
+    and widening bf16 inputs to float32 is exact."""
+    rng = np.random.default_rng(S + D)
+    a, b, h0 = _scan_inputs(rng, B, S, D)
+    a, b = _torch(a, dtype, cuda), _torch(b, dtype, cuda)
+    h0 = _torch(h0, F32, cuda) if with_h0 else None
+    n = rs.rglru_scan.launches
+    got = rs.rglru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert rs.rglru_scan.launches == n + 1 and got.dtype == torch.float32
+    assert torch.equal(got, ref.rglru_scan(a, b, h0))
+
+
+@pytest.mark.gpu
 def test_kernel_wrappers_reject_bad_operands(cuda):
     q = torch.zeros((1, 4, 4, 48), device=cuda)      # hd 48 not templated
     with pytest.raises(ValueError):
@@ -272,3 +435,17 @@ def test_kernel_wrappers_reject_bad_operands(cuda):
     q = torch.zeros((1, 4, 4, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q, q)
+    q = torch.zeros((2, 1, 4, 64), device=cuda)
+    k = torch.zeros((2, 8, 2, 64), device=cuda)
+    kl = torch.ones((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                   # kv_len must be int32
+        da.decode_attention(q, k, k, kl.long())
+    with pytest.raises(ValueError):                   # int8 needs scales
+        da.decode_attention(q, k.to(torch.int8), k.to(torch.int8), kl)
+    with pytest.raises(TypeError):                    # bf16 cache, f32 q
+        da.decode_attention(q, k.bfloat16(), k.bfloat16(), kl)
+    a = torch.zeros((1, 4, 8), device=cuda)
+    with pytest.raises(ValueError):                   # h0 must be (B, D)
+        rs.rglru_scan(a, a, torch.zeros((1, 4), device=cuda))
+    with pytest.raises(TypeError):
+        rs.rglru_scan(a, a.bfloat16())

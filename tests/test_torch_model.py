@@ -152,12 +152,37 @@ def test_layers_match_jax(dtype):
 
 
 def test_unported_paths_raise():
+    from repro_torch.configs import BlockKind
     tcfg = tget_config("granite-3-2b").reduced()
-    params = TM.init_model_params(tcfg, 0, "cpu")
-    with pytest.raises(NotImplementedError):       # dense decode needs K3
-        TM.decode_step(tcfg, params, TM.init_paged_cache(
-            tcfg, 1, 16, 3, PAGE, device="cpu"),
-            torch.zeros((1, 1), dtype=torch.long),
-            torch.zeros((1,), dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        TM.param_specs(dataclasses.replace(tcfg, n_experts=4, moe_every=1))
+    for cfg in (dataclasses.replace(tcfg, n_experts=4, moe_every=1),   # MoE
+                dataclasses.replace(tcfg, pattern=(BlockKind.MLSTM,
+                                                   BlockKind.SLSTM)),  # xlstm
+                dataclasses.replace(tcfg, n_encoder_layers=2,
+                                    n_frames=16),                      # enc-dec
+                dataclasses.replace(tcfg, n_patches=16)):              # VLM
+        with pytest.raises(NotImplementedError):
+            TM.param_specs(cfg)
+        with pytest.raises(NotImplementedError):
+            TM.paged_cache_specs(cfg, 1, 16, 3, PAGE)
+
+
+def test_dense_decode_matches_jax(setup):
+    """The dense per-slot decode (page_size=0's path, through K3's plain
+    version) against the reference's, with the cache padded by prefill."""
+    jcfg, tcfg, jparams, tparams = setup
+    toks = _tokens(24, seed=3)
+    jl, jc = JM.prefill(jcfg, jparams, {"tokens": jnp.asarray(toks[:, :18])},
+                        cache_len=24)
+    tl, tc = TM.prefill(tcfg, tparams, {"tokens": torch.from_numpy(toks[:, :18])},
+                        cache_len=24)
+    for t in range(18, 24):
+        p = np.array([t], np.int32)
+        jl, jc = JM.decode_step(jcfg, jparams, jc, jnp.asarray(toks[:, t:t + 1]),
+                                jnp.asarray(p))
+        tl, tc = TM.decode_step(tcfg, tparams, tc,
+                                torch.from_numpy(toks[:, t:t + 1]),
+                                torch.from_numpy(p))
+        _close(tl, jl, f"decode at {t}")
+    want = dict(iter_leaves(jax.device_get(jc)))
+    for path, t in iter_leaves(tc):
+        _close(t, want[path], path)

@@ -2,6 +2,7 @@
 device rule, and the rule that the port imports nothing of JAX or of the
 JAX package."""
 import ast
+import dataclasses
 from pathlib import Path
 
 import pytest
@@ -110,12 +111,36 @@ def test_run_batch_pads_to_bucket():
     assert seen == [(4, 2, [1, 2, 2, 2])]
 
 
+def test_recurrentgemma_runtime_serves_prompt_events():
+    rg = dataclasses.replace(get_config("recurrentgemma-2b").reduced(),
+                             n_layers=5, window=8)
+    rdef = make_serve_runtime(rg, max_slots=2, max_len=64, device="cpu")
+    eng = rdef.setup()
+    config = {"handle": eng, "max_new_tokens": 3}
+    one = rdef.fn({"prompts": [[1, 2, 3] * 5, [4, 5]]}, config)
+    assert len(one["outputs"]) == 2 and all(len(o) == 3 for o in one["outputs"])
+    out = rdef.batch_fn([{"prompts": [[1, 2, 3] * 5]},
+                         {"prompts": [[4, 5], [6] * 20]}], config)
+    assert [len(r["outputs"]) for r in out] == [1, 2]
+    assert out[0]["outputs"] == one["outputs"][:1]       # greedy: same tokens
+    assert eng.stats()["paged"] == 1 and eng.free_slots() == [0, 1]
+
+
 def test_launcher_serves_on_cpu(capsys):
     assert launch_serve.main(["--reduced", "--device", "cpu", "--events", "3",
                               "--max-batch", "2", "--prefill-chunk", "16"]) == 0
     out = capsys.readouterr().out
     assert "cold start" in out and "3/3 events served" in out
     assert out.count("ELat=") == 3
+
+
+def test_launcher_serves_recurrentgemma_dense(capsys):
+    assert launch_serve.main(["--arch", "recurrentgemma-2b", "--reduced",
+                              "--device", "cpu", "--events", "2",
+                              "--page-size", "0"]) == 0
+    out = capsys.readouterr().out
+    assert "serve-recurrentgemma-2b-smoke" in out and "2/2 events served" in out
+    assert "'paged': 0" in out
 
 
 def test_entry_points_default_to_cuda():
