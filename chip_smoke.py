@@ -15,23 +15,37 @@ Phases (each raises on failure, so the script exits non-zero):
    window 2048, up to 3000 tokens), K1 paged attention (decode and chunked
    prefill), K3 decode attention (recurrentgemma's ring decode, B=8 S=2048
    G=10 hd=256; granite's dense per-slot decode, G=4 hd=64; an int8 cache)
-   and K5 the RG-LRU scan (B=1 D=2560, float32 held to 0 error). Each
-   kernel's time beside its bound, its plain version's time and, where one
-   PyTorch call computes the same function, that call's time
-   (``scaled_dot_product_attention``; the port never calls it).
+   and K5 the RG-LRU scan (B=1 D=2560, float32 held to 0 error); at
+   llama4-scout's widths (H=40 KV=8 hd=128, G=5) K2 (causal, and a chunk
+   mask crossed), K1 decode and K3 ring decode (L=8192, kv_len wrapped);
+   K4 the grouped matmul at the MoE path's shapes (llama4 prefill gate/up
+   and down, 1024 tokens top-1 over 16 experts; llama4 decode, 8 tokens;
+   grok-1 gate/up and down, 1024 tokens top-2 over 8 experts, group sizes
+   from a real routing) and edge cases (T=1, one expert, groups off the
+   tile, rows no group covers). Each kernel's time beside its bound, its
+   plain version's time and, where one PyTorch call computes the same
+   function, that call's time (``scaled_dot_product_attention``,
+   ``torch._grouped_mm``; the port never calls them).
 3. The served paths at full width through ``make_serve_runtime``, random
    weights from a seed, bf16: granite-3-2b (40 layers) paged with
    whole-prompt and 256-token chunked prefill, then dense (page_size=0),
    4 events of 2 prompts of 64..1024 tokens; recurrentgemma-2b (26 layers)
    paged, 4 events of 2 prompts of 64..3000 tokens, past its 2048-token
-   window. 32 new tokens each. Launch counts are zeroed before each run
-   and must grow for every kernel of that run's path. Cold start, TTFT,
-   decode ms/step, tokens/s, and profiles of a decode step and a prefill.
-4. Parity of the paths on the card: full-width bf16 logits of granite and
-   of recurrentgemma through the kernels against ``impl="ref"``;
-   float32 greedy tokens through the kernels identical to ``impl="ref"``
-   (granite 4 layers, recurrentgemma 5 layers at full width), and
-   granite's dense engine identical to its paged engine.
+   window; llama4-scout-17b-a16e cut to 8 of its 48 layers (2 periods,
+   35.3 GB; the published depth does not fit one card), every width as
+   published, paged, 4 events of 2 prompts of 64..2048 tokens and one of
+   8500 (past the 8192-token chunk). 32 new tokens each. Launch counts
+   are zeroed before each run and must grow for every kernel of that
+   run's path (K4 on llama4's). Cold start, TTFT, decode ms/step,
+   tokens/s, and profiles of a decode step and a prefill.
+4. Parity of the paths on the card: full-width bf16 logits of granite, of
+   recurrentgemma and of llama4 (chunk 1024, a 2100-token prompt; the
+   plain path follows the kernel path's expert choices, and those where
+   its own would differ are counted) through the kernels against
+   ``impl="ref"``; float32 greedy tokens through the kernels identical to
+   ``impl="ref"`` (granite 4 layers, recurrentgemma 5 layers, llama4 4
+   layers at full width), and granite's dense engine identical to its
+   paged engine.
 
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -40,6 +54,8 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import json
 import re
@@ -58,6 +74,11 @@ H, KV, HD, PAGE = 32, 8, 64, 16    # granite-3-2b attention widths
 RG_H, RG_KV, RG_HD, RG_WINDOW = 10, 1, 256, 2048   # recurrentgemma-2b
 RG_D = 2560
 DECODE_KV_LEN = [1, 100, 511, 1024, 1500, 2000, 2047, 2048]
+L4_H, L4_KV, L4_HD, L4_CHUNK = 40, 8, 128, 8192   # llama4-scout attention widths
+L4_KV_LEN = [1, 64, 200, 700, 1024, 1500, 2048, 2100]
+# ring decode of chunked attention: kv_len = pos % 8192 + 1, so a long
+# sequence's ring restarts small after a chunk boundary
+L4_RING_LEN = [1, 17, 309, 2048, 4096, 7777, 8191, 8192]
 
 
 def log(msg: str) -> None:
@@ -91,11 +112,14 @@ def event_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 
 def kernel_ms(torch, fn, kernel_name: str, iters: int = 20, attempts: int = 3) -> float:
     """Device time per call of the CUDA kernel whose name contains
-    ``kernel_name``, from the profiler (launch gaps excluded). The
-    profiler now and then records none of a session's launches of a
-    kernel launched through ctypes; the session is then repeated, and
-    after ``attempts`` empty sessions the time is taken with CUDA events
-    around back-to-back calls instead (launch gaps included)."""
+    ``kernel_name``, from the profiler (launch gaps excluded); each call
+    of ``fn`` launches that kernel once. The profiler now and then records
+    only some, or none, of a session's launches of a kernel launched
+    through ctypes, so the time is the recorded device time over the
+    recorded launches, and the shortfall is logged. An empty session is
+    repeated, and after ``attempts`` empty sessions the time is taken with
+    CUDA events around back-to-back calls instead (launch gaps
+    included)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -104,10 +128,15 @@ def kernel_ms(torch, fn, kernel_name: str, iters: int = 20, attempts: int = 3) -
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(ev.device_time_total for ev in prof.key_averages()
-                       if kernel_name in ev.key)
-        if total_us > 0:
-            return total_us / 1e3 / iters
+        evs = [ev for ev in prof.key_averages() if kernel_name in ev.key]
+        n = sum(ev.count for ev in evs)
+        if n > iters:
+            raise AssertionError(f"{n} {kernel_name} launches in {iters} calls: "
+                                 "more than one per call")
+        if n:
+            if n < iters:
+                log(f"  the profiler recorded {n} of {iters} {kernel_name} launches")
+            return sum(ev.device_time_total for ev in evs) / 1e3 / n
         log(f"  the profiler recorded no {kernel_name} launch "
             f"(session {attempt} of {attempts})")
     ms = event_ms(torch, fn, iters)
@@ -183,9 +212,11 @@ def bound_ms(n_bytes: float, n_ops: float, dtype: str):
 # ----------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ----------------------------------------------------------------------
-def paged_inputs(torch, rng, dev, dtype, kv_len, C):
+def paged_inputs(torch, rng, dev, dtype, kv_len, C, heads=(H, KV, HD)):
     """Pools, block tables (distinct pages, never the scratch page 0,
-    zero-padded to a power-of-two width) and queries for ``kv_len``."""
+    zero-padded to a power-of-two width) and queries for ``kv_len``;
+    ``heads`` = (query heads, kv heads, head dim)."""
+    n_heads, n_kv, hd = heads
     B = len(kv_len)
     need = [-(-int(n) // PAGE) for n in kv_len]
     P = 1 << max(max(need) - 1, 0).bit_length()
@@ -198,18 +229,20 @@ def paged_inputs(torch, rng, dev, dtype, kv_len, C):
         used += n
     t = lambda shape: torch.from_numpy(  # noqa: E731
         rng.standard_normal(shape).astype(np.float32)).to(dev, getattr(torch, dtype))
-    return (t((B, C, H, HD)), t((n_pages, PAGE, KV, HD)), t((n_pages, PAGE, KV, HD)),
-            torch.from_numpy(bt).to(dev), torch.from_numpy(np.asarray(kv_len, np.int32)).to(dev))
+    return (t((B, C, n_heads, hd)), t((n_pages, PAGE, n_kv, hd)),
+            t((n_pages, PAGE, n_kv, hd)), torch.from_numpy(bt).to(dev),
+            torch.from_numpy(np.asarray(kv_len, np.int32)).to(dev))
 
 
-def decode_inputs(torch, rng, dev, dtype, n_heads, n_kv, hd, S=2048):
+def decode_inputs(torch, rng, dev, dtype, n_heads, n_kv, hd, S=2048,
+                  kv_len=DECODE_KV_LEN):
     """q (B, 1, H, hd), a dense per-slot cache (B, S, KV, hd) and kv_len
-    spread over 1..S."""
+    (default spread over 1..2048)."""
     t = lambda shape: torch.from_numpy(  # noqa: E731
         rng.standard_normal(shape).astype(np.float32)).to(dev, getattr(torch, dtype))
-    B = len(DECODE_KV_LEN)
+    B = len(kv_len)
     return (t((B, 1, n_heads, hd)), t((B, S, n_kv, hd)), t((B, S, n_kv, hd)),
-            torch.tensor(DECODE_KV_LEN, dtype=torch.int32, device=dev))
+            torch.tensor(kv_len, dtype=torch.int32, device=dev))
 
 
 def int8_cache(torch, k, v):
@@ -430,22 +463,234 @@ def phase_kernels(torch, dev):
     return entries
 
 
+def routed_sizes(rng, n_tok, E, k, d):
+    """Group sizes (E,) of a real top-k routing of ``n_tok`` random hidden
+    states through a random router (scale 0.02, as the model's)."""
+    h = rng.standard_normal((n_tok, d)).astype(np.float32)
+    logits = h @ (0.02 * rng.standard_normal((d, E))).astype(np.float32)
+    top = np.argsort(-logits, axis=1, kind="stable")[:, :k]
+    return np.bincount(top.reshape(-1), minlength=E).astype(np.int32)
+
+
+def gmm_inputs(torch, dev, dtype, sizes, T, K, N, seed):
+    """x (T, K) ~ N(0, 1), w (E, K, N) ~ N(0, 1/K) (the model's init scale,
+    so outputs are O(1)), made on the card from ``seed``; group sizes on
+    the card."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn((T, K), generator=g, device=dev).to(getattr(torch, dtype))
+    w = torch.randn((len(sizes), K, N), generator=g, device=dev)
+    w = w.mul_(K ** -0.5).to(getattr(torch, dtype))
+    return x, w, torch.tensor(np.asarray(sizes), dtype=torch.int32, device=dev)
+
+
+def gmm_tol(dtype, want) -> float:
+    """float32: summation order, 2e-5 of the largest output (at least 1);
+    bf16: float32 sums taken in different orders, each rounded once to
+    bf16, can land one bf16 ulp apart: 2**-7 of the largest output."""
+    scale = max(want.float().abs().max().item(), 1.0)
+    return (2e-5 if dtype == "float32" else 2.0 ** -7) * scale
+
+
+def gmm_library(torch, x, w, gs):
+    """``torch._grouped_mm`` on the same operands (the yardstick the port
+    never calls), or the reason it cannot be timed."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "torch has no _grouped_mm"
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    try:
+        fn(x, w, offs=offs)
+        torch.cuda.synchronize()
+    except Exception as exc:                     # noqa: BLE001 (reported)
+        return None, f"_grouped_mm refused the operands: {type(exc).__name__}: {exc}"
+    return (lambda: fn(x, w, offs=offs)), None
+
+
+def phase_kernels_moe(torch, dev):
+    """Phase 2 at llama4-scout's and grok-1's widths: K1 decode, K2 and K3
+    at hd 128 with G = 5; K4 at the MoE path's shapes, and edge cases."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(3)
+    up = lambda *ts: [t.float() for t in ts]  # noqa: E731
+    heads = (L4_H, L4_KV, L4_HD)
+    l4_sizes = {"prefill": routed_sizes(rng, 1024, 16, 1, 5120),
+                "decode": routed_sizes(rng, 8, 16, 1, 5120)}
+    grok_sizes = routed_sizes(rng, 1024, 8, 2, 6144)
+    # key: (label, group sizes, T, K, N)
+    gmm_cases = {
+        "gmm_l4_prefill": ("llama4 prefill gate/up, 1024 tokens top-1",
+                           l4_sizes["prefill"], 1024, 5120, 8192),
+        "gmm_l4_down": ("llama4 prefill down", l4_sizes["prefill"], 1024, 8192, 5120),
+        "gmm_l4_decode": ("llama4 decode gate/up, 8 tokens over 16 experts",
+                          l4_sizes["decode"], 8, 5120, 8192),
+        "gmm_grok": ("grok-1 gate/up, 1024 tokens top-2", grok_sizes, 2048, 6144, 32768),
+        "gmm_grok_down": ("grok-1 down", grok_sizes, 2048, 32768, 6144),
+        "gmm_edge": None,
+    }
+    edge_cases = [("T=1", [0] * 9 + [1] + [0] * 6, 1, 5120, 8192),
+                  ("all rows in one expert", [0, 0, 0, 300] + [0] * 12, 300, 5120, 8192),
+                  ("groups off the 64-row tile, a tail no group covers",
+                   [65, 63, 1, 0, 127], 300, 5120, 1024)]
+    errs = {k: [] for k in ["flash_l4", "decode_l4", "dense_l4", *gmm_cases]}
+    log(f"phase 2: llama4-scout / grok-1 widths (H={L4_H} KV={L4_KV} hd={L4_HD}; "
+        f"K4 group sizes from a top-k routing of random hidden states: llama4 "
+        f"prefill {l4_sizes['prefill'].tolist()}, decode {l4_sizes['decode'].tolist()}, "
+        f"grok-1 {grok_sizes.tolist()})")
+    for dtype in ("bfloat16", "float32"):
+        t = lambda shape: torch.from_numpy(  # noqa: E731
+            rng.standard_normal(shape).astype(np.float32)).to(dev, getattr(torch, dtype))
+        for S, kw in ((1024, dict(causal=True)), (1500, dict(causal=True, chunk=1024))):
+            q, k, v = t((1, S, L4_H, L4_HD)), t((1, S, L4_KV, L4_HD)), t((1, S, L4_KV, L4_HD))
+            got = fa.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention(*up(q, k, v), **kw).to(q.dtype)
+            check(f"K2 flash hd=128 G=5 S={S} {kw}", dtype, got, want, errs["flash_l4"])
+        q, kp, vp, bt, kl = paged_inputs(torch, rng, dev, dtype, L4_KV_LEN, 1, heads)
+        got = pa.paged_decode_attention(q, kp, vp, bt, kl)
+        want = ref.paged_decode_attention(*up(q, kp, vp), bt, kl).to(q.dtype)
+        check(f"K1 decode hd=128 G=5 B=8 kv_len={L4_KV_LEN}", dtype, got, want,
+              errs["decode_l4"])
+        q, k, v, kl = decode_inputs(torch, rng, dev, dtype, *heads, S=L4_CHUNK,
+                                    kv_len=L4_RING_LEN)
+        got = da.decode_attention(q, k, v, kl)
+        want = ref.decode_attention(*up(q, k, v), kl).to(q.dtype)
+        check(f"K3 ring hd=128 G=5 L={L4_CHUNK} kv_len={L4_RING_LEN}", dtype, got, want,
+              errs["dense_l4"])
+        del q, k, v, kp, vp, got, want
+        cases = [(key, *c) for key, c in gmm_cases.items() if c] + \
+            [("gmm_edge", *c) for c in edge_cases]
+        for i, (key, label, sizes, T, K, N) in enumerate(cases):
+            x, w, gs = gmm_inputs(torch, dev, dtype, sizes, T, K, N, seed=10 + i)
+            got = gm.moe_gmm(x, w, gs)
+            want = ref.moe_gmm(x, w, gs)      # float32 inside, rounded once
+            check(f"K4 {label} T={T} K={K} N={N}", dtype, got, want, errs[key],
+                  tol=gmm_tol(dtype, want))
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"K4 {label}: non-finite output")
+            del x, w, gs, got, want
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+    log("phase 2: times at llama4-scout / grok-1 shapes, bf16 (kernel: profiler "
+        "device time; plain and library: CUDA events per call)")
+    entries = {}
+    dtype, isz = "bfloat16", 2
+    t = lambda shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # K2: a 2048-token prompt through a global (ATTN) layer, causal
+    S = 2048
+    q, k, v = t((1, S, L4_H, L4_HD)), t((1, S, L4_KV, L4_HD)), t((1, S, L4_KV, L4_HD))
+    b, by = bound_ms(isz * (2 * q.numel() + k.numel() + v.numel()),
+                     4 * L4_HD * S * (S + 1) // 2 * L4_H, dtype)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    entries["flash_l4"] = dict(
+        name="flash_attention (hd 128)", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:27",
+        shape=f"B=1 S={S} H={L4_H} KV={L4_KV} hd={L4_HD} causal bf16",
+        ms=kernel_ms(torch, lambda: fa.flash_attention(q, k, v), "flash_attention_kernel",
+                     iters=10),
+        plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v), 2),
+        bound_ms=b, bound_by=by,
+        library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True), 10))
+    # K1 decode at hd 128: the global layers' paged decode
+    q, kp, vp, bt, kl = paged_inputs(torch, rng, dev, dtype, L4_KV_LEN, 1, heads)
+    n_kv = sum(L4_KV_LEN)
+    b, by = bound_ms(isz * (2 * q.numel() + 2 * n_kv * L4_KV * L4_HD) + 4 * (bt.numel() + 8),
+                     4 * L4_HD * L4_H * n_kv, dtype)
+    entries["decode_l4"] = dict(
+        name="paged_decode_attention (hd 128)", route="cuda",
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:135",
+        shape=f"B=8 kv_len={L4_KV_LEN} H={L4_H} KV={L4_KV} hd={L4_HD} page={PAGE} bf16",
+        ms=kernel_ms(torch, lambda: pa.paged_decode_attention(q, kp, vp, bt, kl),
+                     "paged_rows_kernel"),
+        plain_ms=event_ms(torch, lambda: ref.paged_decode_attention(q, kp, vp, bt, kl), 10),
+        bound_ms=b, bound_by=by, library_ms=None)
+    # K3 at hd 128: the chunked layers' ring decode, kv_len wrapped
+    q, k, v, kl = decode_inputs(torch, rng, dev, dtype, *heads, S=L4_CHUNK,
+                                kv_len=L4_RING_LEN)
+    n_kv = sum(L4_RING_LEN)
+    b, by = bound_ms(isz * (2 * q.numel() + 2 * n_kv * L4_KV * L4_HD) + 4 * kl.numel(),
+                     4 * L4_HD * L4_H * n_kv, dtype)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lmask = (torch.arange(k.shape[1], device=dev)[None] < kl[:, None])[:, None, None]
+    entries["dense_l4"] = dict(
+        name="decode_attention (llama4 ring, hd 128)", route="cuda",
+        source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:31",
+        shape=f"B=8 L={L4_CHUNK} H={L4_H} KV={L4_KV} hd={L4_HD} kv_len {L4_RING_LEN} "
+              f"({n_kv} keys) bf16",
+        ms=kernel_ms(torch, lambda: da.decode_attention(q, k, v, kl),
+                     "decode_attention_kernel"),
+        plain_ms=event_ms(torch, lambda: ref.decode_attention(q, k, v, kl), 5),
+        bound_ms=b, bound_by=by,
+        library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=lmask,
+                                                 enable_gqa=True), 10))
+    del q, k, v, kp, vp, qt, kt, vt, lmask
+    # K4 at the MoE path's shapes
+    for i, (key, c) in enumerate(gmm_cases.items()):
+        if c is None:
+            continue
+        label, sizes, T, K, N = c
+        x, w, gs = gmm_inputs(torch, dev, dtype, sizes, T, K, N, seed=50 + i)
+        used = int((np.asarray(sizes) > 0).sum())
+        b, by = bound_ms(isz * (T * K + used * K * N + T * N) + 4 * len(sizes),
+                         2 * T * K * N, dtype)
+        lib, why = gmm_library(torch, x, w, gs)
+        if why:
+            log(f"  K4 {label}: library_ms none: {why}")
+        big = T * K * N > 1e11
+        entries[key] = dict(
+            name=f"moe_gmm ({label})", route="cuda",
+            source="src/repro_torch/csrc/moe_gmm.cu",
+            replaces="src/repro/kernels/moe_gmm.py:26",
+            shape=f"T={T} K={K} N={N} E={len(sizes)} ({used} used) bf16",
+            ms=kernel_ms(torch, lambda: gm.moe_gmm(x, w, gs), "moe_gmm_kernel",
+                         iters=3 if big else 20),
+            plain_ms=event_ms(torch, lambda: ref.moe_gmm(x, w, gs), 2, warmup=1),
+            bound_ms=b, bound_by=by,
+            library_ms=event_ms(torch, lib, 10) if lib else None)
+        del x, w, gs, lib
+        torch.cuda.empty_cache()
+    for key, e in entries.items():
+        e["max_abs_err"] = max(errs[key])
+        lib = f"{e['library_ms']:.4f}" if e["library_ms"] is not None else "n/a"
+        log(f"  {e['name']:40s} {e['shape']}: kernel {e['ms']:.4f} ms, bound "
+            f"{e['bound_ms']:.4f} ms ({e['bound_by']}), plain {e['plain_ms']:.4f} ms, "
+            f"library {lib} ms")
+    log(f"  K4 edge cases: max|err| {max(errs['gmm_edge']):.3e}")
+    return entries
+
+
 # ----------------------------------------------------------------------
 # phase 3: the served paths at full width
 # ----------------------------------------------------------------------
 GRANITE_PROMPTS = [64, 1024, 200, 700, 128, 512, 900, 333]
 RG_PROMPTS = [64, 700, 1024, 2100, 3000, 333, 1500, 2600]
+# 8500 tokens: K2's chunk mask splits the prompt at 8192 and the chunked
+# layers' rings restart at slot 0
+L4_PROMPTS = [64, 2048, 8500, 200, 700, 1024, 128, 1500]
+GMM_KEYS = ("gmm_l4_prefill", "gmm_l4_down", "gmm_l4_decode", "gmm_grok", "gmm_grok_down")
 MAX_NEW = 32
 
 
 def _counters():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gm
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rglru_scan as rs
     return {"flash": fa.flash_attention, "decode": pa.paged_decode_attention,
             "chunk": pa.paged_prefill_attention, "dense": da.decode_attention,
-            "scan": rs.rglru_scan}
+            "scan": rs.rglru_scan, "gmm": gm.moe_gmm}
 
 
 def launches():
@@ -563,10 +808,49 @@ def profile_served(torch, engine, cfg, context: int, prefill_len: int):
 # ----------------------------------------------------------------------
 # phase 4: parity of the paths on the card
 # ----------------------------------------------------------------------
+@contextlib.contextmanager
+def shared_routes():
+    """While open, the two paths share the MoE router's expert choices: a
+    kernel-path call (``cur[0]`` None) records its top-k, and the plain
+    path's (``cur[0]`` "ref") call at the same layer of the same pass
+    follows it, with its weights renormalised from its own probabilities.
+    Top-k is a discrete choice like the greedy token, which the check
+    teacher-forces for the same reason: in bf16 a near tie can flip it on
+    one path and change that token's logits wholesale, which says nothing
+    about the kernels. Yields a count of the decisions and of those where
+    the plain path's own top-k differs."""
+    import torch
+    from repro_torch.models import blocks as B
+    route, cur, queue = B.route, [None], collections.deque()
+    count = {"all": 0, "differ": 0}
+
+    def shared_route(cfg, params, xf):
+        probs, top_p, top_i = route(cfg, params, xf)
+        if cur[0] is None:
+            queue.append(top_i)
+            return probs, top_p, top_i
+        forced = queue.popleft()
+        count["all"] += forced.shape[0]
+        count["differ"] += int((forced != top_i).any(-1).sum())
+        top_p = probs.gather(-1, forced)
+        return probs, top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9), forced
+    B.route = shared_route
+    try:
+        yield count, cur
+    finally:
+        B.route = route
+    if queue:
+        raise AssertionError(f"{len(queue)} kernel-path routings had no plain-path twin")
+
+
 def logits_parity(torch, cfg, params, dev, S, paged):
     """Prefill + 8 decode steps through the kernels and through
     impl="ref", teacher-forced on the kernel path's greedy tokens; the
-    decode cache is paged (granite) or dense per-slot (recurrentgemma)."""
+    decode cache is paged (granite, llama4's global layers) or dense
+    per-slot (recurrentgemma). A MoE model's plain path follows the kernel
+    path's routing (``shared_routes``); the number of (token, layer)
+    decisions where its own would differ is logged, and reported beside a
+    failure."""
     from repro_torch.models import model as M
     from repro_torch.models.param import iter_leaves
     from repro_torch.serve.engine import install_slot
@@ -578,38 +862,45 @@ def logits_parity(torch, cfg, params, dev, S, paged):
     table = torch.arange(1, n_pages + 1, dtype=torch.int32, device=dev)[None] \
         if paged else None
     res, caches = {}, {}
-    for impl in (None, "ref"):
-        logits, dense = M.prefill(cfg, params, {"tokens": tokens},
-                                  cache_len=S + steps, impl=impl)
-        if paged:
-            caches[impl] = M.init_paged_cache(cfg, 1, S + steps, n_pages + 1, PAGE,
-                                              device=dev)
-            pooled = {path for (path, _), flag in zip(
-                iter_leaves(caches[impl]), M.paged_leaf_flags(cfg, caches[impl]))
-                if flag}
-            install_slot(caches[impl], dense, 0, table[0].long(), pooled)
-        else:
-            caches[impl] = dense
-        res[impl] = [logits[0, -1].float()]
-    toks = [int(torch.argmax(res[None][0]))]
-    for i in range(steps):
-        tok = torch.tensor([[toks[-1]]], device=dev)
-        pos = torch.tensor([S + i], dtype=torch.int32, device=dev)
+    with shared_routes() as (routes, cur):
         for impl in (None, "ref"):
-            logits, _ = M.decode_step(cfg, params, caches[impl], tok, pos,
-                                      block_tables=table, impl=impl)
-            res[impl].append(logits[0, 0].float())
-        toks.append(int(torch.argmax(res[None][-1])))
+            cur[0] = impl
+            logits, dense = M.prefill(cfg, params, {"tokens": tokens},
+                                      cache_len=S + steps, impl=impl)
+            if paged:
+                caches[impl] = M.init_paged_cache(cfg, 1, S + steps, n_pages + 1, PAGE,
+                                                  device=dev)
+                pooled = {path for (path, _), flag in zip(
+                    iter_leaves(caches[impl]), M.paged_leaf_flags(cfg, caches[impl]))
+                    if flag}
+                install_slot(caches[impl], dense, 0, table[0].long(), pooled)
+            else:
+                caches[impl] = dense
+            res[impl] = [logits[0, -1].float()]
+        toks = [int(torch.argmax(res[None][0]))]
+        for i in range(steps):
+            tok = torch.tensor([[toks[-1]]], device=dev)
+            pos = torch.tensor([S + i], dtype=torch.int32, device=dev)
+            for impl in (None, "ref"):
+                cur[0] = impl
+                logits, _ = M.decode_step(cfg, params, caches[impl], tok, pos,
+                                          block_tables=table, impl=impl)
+                res[impl].append(logits[0, 0].float())
+            toks.append(int(torch.argmax(res[None][-1])))
     diffs = [(a - b).abs().max().item() for a, b in zip(res[None], res["ref"])]
     agree = sum(int(torch.argmax(a)) == int(torch.argmax(b))
                 for a, b in zip(res[None], res["ref"]))
     scale = max(r.abs().max().item() for r in res["ref"])
     tol = 0.05 * scale
+    routing = ""
+    if cfg.n_experts:
+        routing = (f"; routing shared, the plain path's own choice differs in "
+                   f"{routes['differ']} of {routes['all']} (token x layer) decisions")
     log(f"  {cfg.name} full width bf16, {S}-token prompt: max|logit diff| per step "
         f"{['%.4f' % d for d in diffs]} (tol {tol:.4f} = 5% of max|logit| "
-        f"{scale:.3f}); greedy agreement {agree}/{len(diffs)}")
+        f"{scale:.3f}); greedy agreement {agree}/{len(diffs)}{routing}")
     if max(diffs) > tol:
-        raise AssertionError(f"bf16 logits differ by {max(diffs)} > {tol}")
+        raise AssertionError(f"bf16 logits differ by {max(diffs)} > {tol}{routing}")
 
 
 def engine_tokens(cfg, params, dev, lens, max_len, **kw):
@@ -652,6 +943,7 @@ def main() -> int:
     sys.path.insert(0, str(src))
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.models.param import iter_leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -667,6 +959,8 @@ def main() -> int:
             log(f"  ptxas {line}")
 
     entries = phase_kernels(torch, dev)
+    entries.update(phase_kernels_moe(torch, dev))
+    torch.cuda.empty_cache()
 
     # phase 3: granite-3-2b (paged whole-prompt, paged chunked, dense)
     cfg = get_config("granite-3-2b")
@@ -731,9 +1025,45 @@ def main() -> int:
                         dict(page_size=PAGE, prefill_chunk=256, impl="ref"),
                         dict(page_size=0), dict(page_size=0, impl="ref")])
 
+    # phase 3: llama4-scout, 8 of its 48 layers (2 periods of ATTN +
+    # 3 CHUNKED; the published depth does not fit one card), every width
+    # as published; MoE through K4, global layers paged (K1), chunked
+    # layers on ring caches (K3), every prefill through K2
+    l4 = dataclasses.replace(get_config("llama4-scout-17b-a16e"), n_layers=8)
+    log(f"phase 3: served path, {l4.name} cut to {l4.n_layers} layers (pattern "
+        f"{[k.value for k in l4.pattern]} x 2) d={l4.d_model} heads {l4.n_heads}/"
+        f"{l4.n_kv_heads} hd={l4.hd} chunk {l4.chunk} experts {l4.n_experts} top-"
+        f"{l4.top_k} d_ff={l4.d_ff} vocab {l4.padded_vocab} {l4.dtype}, random "
+        "weights (seed 0)")
+    torch.cuda.reset_peak_memory_stats()
+    engine, counts = serve_run(
+        torch, l4, dev, page_size=PAGE, prefill_chunk=0, max_len=9216,
+        prompt_lens=L4_PROMPTS, need=["flash", "decode", "dense", "gmm"],
+        absent=["chunk", "scan"])
+    log(f"  {l4.name}: {sum(t.numel() for _, t in iter_leaves(engine.params)) / 1e9:.2f} B "
+        f"parameters, {torch.cuda.max_memory_allocated() / 1e9:.1f} GB peak allocated")
+    total["flash_l4"], total["decode_l4"] = counts["flash"], counts["decode"]
+    total["dense_l4"] = counts["dense"]
+    for key in GMM_KEYS:
+        total[key] = counts["gmm"]
+    profile_served(torch, engine, l4, context=1024, prefill_len=2048)
+    params = engine.params
+    engine = None
+    # chunk 1024 so a 2100-token prompt crosses the mask boundary while the
+    # plain attention still fits
+    logits_parity(torch, dataclasses.replace(l4, chunk=1024), params, dev, S=2100,
+                  paged=True)
+    del params
+    torch.cuda.empty_cache()
+    # float32, one period (4 layers, 37.4 GB), chunk 512 so the longer
+    # prompts cross a chunk boundary
+    greedy_parity(torch, dataclasses.replace(l4, n_layers=4, dtype="float32", chunk=512),
+                  dev, lens=[40, 300, 700, 1000], max_len=1100,
+                  runs=[dict(page_size=PAGE), dict(page_size=PAGE, impl="ref")])
+
     kernels = []
     for key in ("decode", "chunk", "flash", "flash_rg", "dense_rg", "dense_granite",
-                "scan"):
+                "scan", "flash_l4", "decode_l4", "dense_l4", *GMM_KEYS):
         e = dict(entries[key])
         e["launches"] = total[key]
         kernels.append({k: e[k] for k in (

@@ -83,10 +83,18 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.n_encoder_layers > 0
 
+    def is_moe_layer(self, i: int) -> bool:
+        return bool(self.moe_every) and (i % self.moe_every == 0)
+
+    @property
+    def n_moe_layers(self) -> int:
+        return sum(self.is_moe_layer(i) for i in range(self.n_layers))
+
     # ------------------------------------------------------------------
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant with the same rules as ``repro``'s: <=2 layers
-        per pattern period, d_model<=256, <=4 heads, float32."""
+        per pattern period, d_model<=256, <=4 heads, <=4 experts, top-k
+        <=2, chunk <=64, float32."""
         d = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         n_kv = min(self.n_kv_heads, n_heads)

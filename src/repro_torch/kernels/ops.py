@@ -1,5 +1,5 @@
 """Kernel entry points with implementation dispatch (mirrors
-``repro.kernels.ops``; ``moe_gmm`` is not ported yet).
+``repro.kernels.ops``).
 
 ``impl``:
   * ``None`` — the kernel wrapper: the hand-written CUDA kernel for a CUDA
@@ -13,6 +13,7 @@ from typing import Optional
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_gmm as gm
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as rs
@@ -75,3 +76,11 @@ def rglru_scan(a, b, h0=None, *, impl: Optional[str] = None):
     if _use_ref(impl):
         return ref.rglru_scan(a, b, h0)
     return rs.rglru_scan(a, b, h0)
+
+
+def moe_gmm(x, w, group_sizes, *, impl: Optional[str] = None):
+    """Grouped (expert) matmul, ``ragged_dot`` semantics: rows of x sorted
+    by expert, x.dtype out."""
+    if _use_ref(impl):
+        return ref.moe_gmm(x, w, group_sizes)
+    return gm.moe_gmm(x, w, group_sizes)

@@ -7,6 +7,8 @@ and ``chip_smoke.py`` can hold the CUDA kernels against them on the card.
 ``chunk_prefill_attention`` divide after, as the reference does.
 ``rglru_scan`` walks time sequentially, as the Pallas body does, where the
 JAX oracle uses a log-depth associative scan: the two agree to rounding.
+``moe_gmm`` upcasts to float32 before each product, as the Pallas body
+does, where the JAX oracle multiplies in the operands' dtype.
 """
 from __future__ import annotations
 
@@ -189,3 +191,25 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
         h = af[:, t] * h + bf[:, t]
         out[:, t] = h
     return out
+
+
+def moe_gmm(x: torch.Tensor, w: torch.Tensor,
+            group_sizes: torch.Tensor) -> torch.Tensor:
+    """Grouped (expert) matmul with ``jax.lax.ragged_dot`` semantics: rows
+    of ``x`` are sorted by expert, the ``group_sizes[e]`` rows of expert
+    ``e`` multiply ``w[e]``; rows past the last group are zero.
+
+    x: (T, K); w: (E, K, N); group_sizes: (E,) int. One masked pass per
+    expert in float32, rounded once to ``x.dtype``: the slow, obviously
+    correct way, with no host sync (no data-dependent shapes)."""
+    T = x.shape[0]
+    E, _, N = w.shape
+    ends = torch.cumsum(group_sizes.long(), 0)
+    starts = ends - group_sizes.long()
+    rows = torch.arange(T, device=x.device)
+    xf = x.float()
+    out = torch.zeros((T, N), dtype=torch.float32, device=x.device)
+    for e in range(E):
+        mask = (rows >= starts[e]) & (rows < ends[e])
+        out = torch.where(mask[:, None], xf @ w[e].float(), out)
+    return out.to(x.dtype)

@@ -4,6 +4,8 @@
         --events 4 [--page-size 16] [--prefill-chunk C] [--max-batch B]
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-2b --events 4 [--page-size 0]
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch llama4-scout-17b-a16e --reduced --device cpu --events 2
 
 Builds the serve runtime of any registered arch (8 slots, max_len 2048;
 ``--page-size 0`` the dense per-slot cache), runs ``setup`` once
@@ -13,7 +15,9 @@ prompt), ``--max-batch`` events per engine call, and prints one line per
 event with its ELat (the wall time of the call that served it, ended by
 the host reading the tokens) and cold/warm. Runs on the card; ``--device
 cpu`` runs the plain PyTorch path, and ``--reduced`` the arch's
-smoke-test widths.
+smoke-test widths. The MoE archs (llama4-scout-17b-a16e, grok-1-314b) do
+not fit one card at their published depth: serve them ``--reduced``, or
+cut ``n_layers`` with ``dataclasses.replace`` as ``chip_smoke.py`` does.
 """
 from __future__ import annotations
 

@@ -22,6 +22,12 @@
 ``prefill`` and ``chunk`` modes; ``decode`` advances the state by one step
 in plain PyTorch, as the reference does.
 
+A MoE layer (``cfg.n_experts``; every layer, as ``moe_every`` is 0 or 1)
+replaces the MLP with ``moe_ffn``: token-choice top-k routing in float32
+and three grouped matmuls through K4 (``moe_gmm``), the reference's
+single-device branch. Nothing on that path reads a tensor back to the
+host.
+
 Cache writes in ``chunk`` and ``decode`` are IN PLACE: where the JAX engine
 donates the cache so XLA updates it in place, the port mutates the cache
 leaves it is handed and returns the same dict. ``mask`` (decode only,
@@ -63,7 +69,14 @@ def attn_specs(cfg: ModelConfig) -> Dict[str, Spec]:
         s["bq"] = Spec((H * hd,), init="zeros")
         s["bk"] = Spec((KV * hd,), init="zeros")
         s["bv"] = Spec((KV * hd,), init="zeros")
-    s.update(mlp_specs(d, cfg.d_ff))
+    if cfg.is_moe_layer(0):   # the reference decides at layer 0 for all
+        E, f = cfg.n_experts, cfg.d_ff
+        s["router"] = Spec((d, E), scale=0.02)
+        s["we_g"] = Spec((E, d, f))
+        s["we_u"] = Spec((E, d, f))
+        s["we_d"] = Spec((E, f, d))
+    else:
+        s.update(mlp_specs(d, cfg.d_ff))
     return s
 
 
@@ -102,8 +115,14 @@ def _qkv(cfg: ModelConfig, params, h: torch.Tensor):
             v.reshape(B, S, KV, hd))
 
 
-def _ffn(params, x: torch.Tensor) -> torch.Tensor:
-    return x + mlp(params, rms_norm(x, params["ln2"]))
+def _ffn(cfg: ModelConfig, params, x: torch.Tensor,
+         impl: Optional[str]) -> torch.Tensor:
+    h = rms_norm(x, params["ln2"])
+    if "router" in params:    # MoE layer (decided at spec time)
+        out, _ = moe_ffn(cfg, params, h, impl=impl)   # serving drops aux
+    else:
+        out = mlp(params, h)
+    return x + out
 
 
 def _keep_masked(new: torch.Tensor, old: torch.Tensor,
@@ -215,7 +234,71 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
         raise ValueError(f"unknown mode {mode!r}")
 
     x = x + attn.reshape(B, S, H * hd) @ params["wo"]
-    return _ffn(params, x), new_cache
+    return _ffn(cfg, params, x, impl), new_cache
+
+
+# ======================================================================
+# MoE FFN (token-choice top-k, expert-sorted grouped matmul): the
+# reference's single-device branch; the Megatron and all-to-all sharded
+# paths are not ported
+# ======================================================================
+def route(cfg: ModelConfig, params, xf: torch.Tensor):
+    """xf: (T, d) -> (probs (T, E), top_p (T, k), top_i (T, k)). Router and
+    softmax in float32 (on the card a float32 product is full float32
+    unless TF32 is turned on, which the port never does). Top-k takes the
+    lower expert index first on a tie, as ``jax.lax.top_k``: a stable
+    descending sort keeps equal probabilities in index order."""
+    rl = xf.float() @ params["router"].float()
+    probs = torch.softmax(rl, dim=-1)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = top_p[:, :cfg.top_k], top_i[:, :cfg.top_k]
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_p, top_i
+
+
+def _moe_local(cfg: ModelConfig, params, xf: torch.Tensor,
+               impl: Optional[str]):
+    """xf: (T, d) -> (out (T, d), frac_tokens (E,), mean_prob (E,))."""
+    T, d = xf.shape
+    E, k = cfg.n_experts, cfg.top_k
+    probs, top_p, top_i = route(cfg, params, xf)
+    flat_e = top_i.reshape(-1)                              # (T*k,)
+    order = torch.argsort(flat_e, stable=True)              # as jnp.argsort
+    tok_sorted = order // k                                 # token of each row
+    xs = xf[tok_sorted]                                     # (T*k, d)
+    # group sizes stay on the device: bincount would read its input's
+    # maximum back to the host
+    group_sizes = torch.zeros(E, dtype=torch.int32, device=xf.device)
+    group_sizes.scatter_add_(0, flat_e, torch.ones_like(flat_e, dtype=torch.int32))
+
+    g = ops.moe_gmm(xs, params["we_g"], group_sizes, impl=impl)
+    u = ops.moe_gmm(xs, params["we_u"], group_sizes, impl=impl)
+    hh = F.silu(g.float()).to(xs.dtype) * u
+    out_sorted = ops.moe_gmm(hh, params["we_d"], group_sizes, impl=impl)
+
+    w_sorted = top_p.reshape(-1)[order].to(out_sorted.dtype)
+    weighted = out_sorted * w_sorted[:, None]
+    # combine: undo the sort and sum each token's k rows, in place of the
+    # reference's scatter-add (deterministic, no atomics; for k <= 2 the
+    # same rounding as any order of that scatter-add)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(T * k, device=xf.device)
+    per_tok = weighted[inv].reshape(T, k, d)
+    out = per_tok[:, 0]
+    for j in range(1, k):
+        out = out + per_tok[:, j]
+    frac_tokens = group_sizes.float() / max(T * k, 1)
+    return out, frac_tokens, probs.mean(dim=0)
+
+
+def moe_ffn(cfg: ModelConfig, params, h: torch.Tensor, *,
+            impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h: (B, S, d) normed activations -> (out (B, S, d), aux), with the
+    load-balancing ``aux = E * sum(frac_tokens * mean_prob)`` (float32)."""
+    B, S, d = h.shape
+    out, frac, meanp = _moe_local(cfg, params, h.reshape(B * S, d), impl)
+    aux = cfg.n_experts * torch.sum(frac * meanp)
+    return out.reshape(B, S, d).to(h.dtype), aux
 
 
 # ======================================================================
@@ -319,4 +402,4 @@ def rglru_block(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
 
     gated = hseq.to(x.dtype) * F.gelu(gb.float(), approximate="tanh").to(x.dtype)
     x = x + gated @ params["w_out"]
-    return _ffn(params, x), new_cache
+    return _ffn(cfg, params, x, impl), new_cache

@@ -10,8 +10,9 @@ loops over the stacked axis in Python. Caches follow the same tree; layer
 ``(period, i)``'s cache is the view ``[period]`` of ``blocks/p{i}``, which
 the blocks update in place.
 
-Ported block kinds: global, sliding-window and chunked attention, and
-RG-LRU. MoE, encoder-decoder, vision-prefix and xLSTM models raise.
+Ported block kinds: global, sliding-window and chunked attention (with a
+dense or MoE feed-forward), and RG-LRU. Encoder-decoder, vision-prefix and
+xLSTM models raise.
 
 Public API (same names and arguments as the reference, plus ``device``):
   param_specs(cfg), init_model_params(cfg, seed, device)
@@ -45,12 +46,13 @@ def _stack(specs, n: int):
 
 def _check_supported(cfg: ModelConfig) -> None:
     bad = [k.value for k in cfg.pattern if k not in PORTED_KINDS]
-    if bad or cfg.is_encdec or cfg.n_experts or cfg.n_patches:
+    if bad or cfg.is_encdec or cfg.n_patches:
         raise NotImplementedError(
             f"{cfg.name}: not ported (block kinds {bad or 'ok'}, encoder "
-            f"{cfg.is_encdec}, experts {cfg.n_experts}, patches "
-            f"{cfg.n_patches}); the port serves attention and RG-LRU "
-            "decoders without MoE, encoder or vision prefix")
+            f"{cfg.is_encdec}, patches {cfg.n_patches}); the port serves "
+            "attention (dense or MoE FFN) and RG-LRU decoders without "
+            "encoder or vision prefix")
+    assert cfg.moe_every in (0, 1), "stacked periods require uniform MoE placement"
 
 
 def _layout(cfg: ModelConfig) -> Tuple[int, int]:

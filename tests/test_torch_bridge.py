@@ -23,14 +23,21 @@ REDUCED = get_config("granite-3-2b").reduced()
 # recurrentgemma: 1 period + 2 remainder layers (rem/), bf16 so its RG-LRU
 # state leaf h (float32) differs in dtype from the rest of the cache
 RG = dict(n_layers=5, window=8, dtype="bfloat16")
+# the MoE archs: llama4-scout reduced (3 rem/ layers, ATTN + CHUNKED) and
+# grok-1 reduced (one stacked period of 2 ATTN layers), router and expert
+# weights in place of the MLP
+MOE = {"llama4": "llama4-scout-17b-a16e", "grok": "grok-1-314b"}
 CFGS = {"reduced": REDUCED,
         "gqa4": dataclasses.replace(REDUCED, n_kv_heads=1),
-        "rg": dataclasses.replace(get_config("recurrentgemma-2b").reduced(), **RG)}
+        "rg": dataclasses.replace(get_config("recurrentgemma-2b").reduced(), **RG),
+        **{name: get_config(arch).reduced() for name, arch in MOE.items()}}
 
 
 def _tcfg(name):
     if name == "rg":
         return dataclasses.replace(tget_config("recurrentgemma-2b").reduced(), **RG)
+    if name in MOE:
+        return tget_config(MOE[name]).reduced()
     cfg = tget_config("granite-3-2b").reduced()
     return cfg if name == "reduced" else dataclasses.replace(cfg, n_kv_heads=1)
 
@@ -52,12 +59,19 @@ def _roundtrip(tree):
     return port
 
 
-@pytest.mark.parametrize("name", ["reduced", "gqa4"])
+@pytest.mark.parametrize("name", ["reduced", "gqa4", "llama4", "grok"])
 def test_params_roundtrip_exact(name):
     cfg = CFGS[name]
     params = JM.init_model_params(cfg, jax.random.PRNGKey(0))
     port = _roundtrip(params)
-    assert port["blocks"]["p0"]["wq"].shape[0] == cfg.n_layers   # stacked
+    if name == "llama4":        # 3 layers of a 4-layer period: all rem/
+        assert set(port) == {"embed", "final_ln", "rem"}
+        assert port["rem"]["r0"]["we_g"].shape == (4, cfg.d_model, cfg.d_ff)
+    else:
+        assert port["blocks"]["p0"]["wq"].shape[0] == cfg.n_layers   # stacked
+    if name == "grok":
+        assert port["blocks"]["p0"]["we_d"].shape == (2, 4, cfg.d_ff, cfg.d_model)
+        assert port["blocks"]["p0"]["router"].shape == (2, cfg.d_model, 4)
 
 
 def test_rg_params_and_paged_cache_roundtrip_exact():

@@ -1,5 +1,6 @@
 """The port's kernels (K1 paged, K2 flash, K3 decode attention, K5 RG-LRU
-scan) against the JAX package's.
+scan) against the JAX package's; K4 (``moe_gmm``) is held in
+``tests/test_torch_moe.py``.
 
 On the CPU the port's wrappers run their plain PyTorch versions; these are
 held against JAX's ``ref`` oracles and its Pallas kernels in interpret mode
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_gmm as gm
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rglru_scan as rs
@@ -281,7 +283,7 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     rng = np.random.default_rng(0)
     counters = (fa.flash_attention, pa.paged_decode_attention,
                 pa.paged_prefill_attention, da.decode_attention,
-                rs.rglru_scan)
+                rs.rglru_scan, gm.moe_gmm)
     before = [f.launches for f in counters]
     q = _torch(_np(rng, (1, 8, 4, 64)), F32)
     k = _torch(_np(rng, (1, 8, 2, 64)), F32)
@@ -295,6 +297,10 @@ def test_wrappers_run_plain_on_cpu_without_counting():
                                ref.decode_attention(q[:, :1], k, k, kl))
     a = torch.rand((1, 6, 16))
     torch.testing.assert_close(rs.rglru_scan(a, a), ops.rglru_scan(a, a, impl="ref"))
+    gs = torch.tensor([4, 0, 2], dtype=torch.int32)
+    w = torch.rand((3, 16, 8))
+    torch.testing.assert_close(gm.moe_gmm(a[0], w, gs),
+                               ops.moe_gmm(a[0], w, gs, impl="ref"))
     assert [f.launches for f in counters] == before
 
 

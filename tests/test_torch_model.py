@@ -154,8 +154,7 @@ def test_layers_match_jax(dtype):
 def test_unported_paths_raise():
     from repro_torch.configs import BlockKind
     tcfg = tget_config("granite-3-2b").reduced()
-    for cfg in (dataclasses.replace(tcfg, n_experts=4, moe_every=1),   # MoE
-                dataclasses.replace(tcfg, pattern=(BlockKind.MLSTM,
+    for cfg in (dataclasses.replace(tcfg, pattern=(BlockKind.MLSTM,
                                                    BlockKind.SLSTM)),  # xlstm
                 dataclasses.replace(tcfg, n_encoder_layers=2,
                                     n_frames=16),                      # enc-dec
@@ -164,6 +163,13 @@ def test_unported_paths_raise():
             TM.param_specs(cfg)
         with pytest.raises(NotImplementedError):
             TM.paged_cache_specs(cfg, 1, 16, 3, PAGE)
+    # MoE is ported: a dense arch given experts gets the reference's tree
+    jcfg = dataclasses.replace(get_config("granite-3-2b").reduced(),
+                               n_experts=4, top_k=2, moe_every=1)
+    moe = dataclasses.replace(tcfg, n_experts=4, top_k=2, moe_every=1)
+    want = {p: s.shape for p, s in iter_leaves(JM.param_specs(jcfg))}
+    got = {p: s.shape for p, s in iter_leaves(TM.param_specs(moe))}
+    assert got == want and "blocks/p0/we_g" in got
 
 
 def test_dense_decode_matches_jax(setup):

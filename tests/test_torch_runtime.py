@@ -143,6 +143,16 @@ def test_launcher_serves_recurrentgemma_dense(capsys):
     assert "'paged': 0" in out
 
 
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "grok-1-314b"])
+def test_launcher_serves_moe_archs(arch, capsys):
+    """64-token prompts: llama4's reduced chunk of 64 is crossed while
+    decoding; grok-1 prefills in chunks of 16."""
+    assert launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                              "--events", "2", "--prefill-chunk", "16"]) == 0
+    out = capsys.readouterr().out
+    assert f"serve-{arch}-smoke" in out and "2/2 events served" in out
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
