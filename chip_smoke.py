@@ -7,8 +7,10 @@ Phases (each raises on failure, so the script exits non-zero):
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
    every kernel of the paths built from ``src/repro_torch/csrc`` with nvcc
-   (one process per source, in parallel), with each instance's registers
-   and spills from ptxas.
+   (one process per source, in parallel), with each instance's registers,
+   spills and static shared memory from ptxas, and its count of
+   tensor-core instructions (HMMA, HGMMA) from ``cuobjdump -sass``; the
+   bf16 instances of K2 and K4 must have some.
 2. Kernels against their plain PyTorch versions on the card, in bf16 and
    float32, at the main paths' shapes: K2 flash attention (granite-3-2b
    prefill, H=32 KV=8 hd=64; recurrentgemma-2b prefill, H=10 KV=1 hd=256,
@@ -22,10 +24,12 @@ Phases (each raises on failure, so the script exits non-zero):
    and down, 1024 tokens top-1 over 16 experts; llama4 decode, 8 tokens;
    grok-1 gate/up and down, 1024 tokens top-2 over 8 experts, group sizes
    from a real routing) and edge cases (T=1, one expert, groups off the
-   tile, rows no group covers). Each kernel's time beside its bound, its
-   plain version's time and, where one PyTorch call computes the same
-   function, that call's time (``scaled_dot_product_attention``,
-   ``torch._grouped_mm``; the port never calls them).
+   tile, rows no group covers). Each kernel's time (``ms``: profiler
+   device time; ``event_ms``: CUDA events around back-to-back calls)
+   beside its bound, its plain version's time and, where one PyTorch call
+   computes the same function, that call's time (``library_ms``:
+   ``scaled_dot_product_attention``, ``torch._grouped_mm``; the port never
+   calls them) and ``ms_over_library_ms``.
 3. The served paths at full width through ``make_serve_runtime``, random
    weights from a seed, bf16: granite-3-2b (40 layers) paged with
    whole-prompt and 256-token chunked prefill, then dense (page_size=0),
@@ -144,6 +148,15 @@ def kernel_ms(torch, fn, kernel_name: str, iters: int = 20, attempts: int = 3) -
     return ms
 
 
+def kernel_times(torch, fn, kernel_name: str, iters: int = 20):
+    """A kernel row's two times per call: ``ms``, the profiler's device
+    time of the kernel (``kernel_ms``), and ``event_ms``, CUDA events
+    around ``iters`` back-to-back calls after a warm-up (launch gaps and
+    the wrapper's host work included where they exceed the kernel)."""
+    return dict(ms=kernel_ms(torch, fn, kernel_name, iters),
+                event_ms=event_ms(torch, fn, iters))
+
+
 def _template_args(args: str):
     """Itanium-mangled template arguments, readable: f = f32, a = int8,
     13__nv_bfloat16 = bf16, S1_ = the first argument again, Li64E = 64."""
@@ -187,7 +200,8 @@ def _kernel_name(mangled: str) -> str:
 
 def ptxas_summary(report: str):
     """One line per kernel instance from nvcc's -Xptxas -v report:
-    registers and spill bytes."""
+    registers, spill bytes and static shared memory (the dynamic share a
+    launch asks for is not in it)."""
     name = None
     spills = ""
     for line in report.splitlines():
@@ -199,8 +213,63 @@ def ptxas_summary(report: str):
             spills = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            yield f"{name}: {m.group(1)} registers, {spills} bytes spill stores"
+            smem = re.search(r"(\d+) bytes smem", line)
+            yield (f"{name}: {m.group(1)} registers, {spills} bytes spill stores, "
+                   f"{smem.group(1) if smem else 0} bytes static smem")
             name = None
+
+
+# the bf16 instances that must run on the tensor cores
+MMA_KERNELS = ("flash_attention_mma_kernel", "moe_gmm_mma_kernel")
+
+
+def cuobjdump_path() -> str:
+    """The toolkit's cuobjdump, or the copy Triton's package carries."""
+    import importlib.util
+    import shutil
+    found = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.submodule_search_locations:
+        found.append(str(Path(spec.submodule_search_locations[0]) /
+                         "backends" / "nvidia" / "bin" / "cuobjdump"))
+    for path in found:
+        if path and Path(path).is_file():
+            return path
+    raise RuntimeError(f"cuobjdump not found (looked at {found[1:]} and PATH): "
+                       "phase 1 cannot check the tensor-core instructions")
+
+
+def sass_mma_counts(cuobjdump: str, library: Path):
+    """{kernel instance: (HMMA, HGMMA) instruction counts} in the SASS of a
+    built library."""
+    out = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            counts[name] = [0, 0]
+        elif name:
+            counts[name][0] += bool(re.search(r"\bHMMA\b", line))
+            counts[name][1] += bool(re.search(r"\bHGMMA\b", line))
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def check_tensor_cores(build) -> None:
+    """Log every kernel instance's HMMA / HGMMA count; raise unless every
+    bf16 instance of K2 and K4 has some."""
+    tool = cuobjdump_path()
+    seen = {}
+    for name in build.KERNELS:
+        for kernel, (hmma, hgmma) in sass_mma_counts(tool, build.library_path(name)).items():
+            log(f"  sass {kernel}: {hmma} HMMA, {hgmma} HGMMA")
+            seen[kernel] = hmma + hgmma
+    for want in MMA_KERNELS:
+        found = {k: n for k, n in seen.items() if k.startswith(want)}
+        if not found or not all(found.values()):
+            raise AssertionError(f"{want}: no tensor-core instruction in "
+                                 f"{found or 'no instance'}")
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype: str):
@@ -278,6 +347,18 @@ def window_mask(torch, S, window, dev):
     """The causal sliding-window mask as SDPA's boolean attn_mask."""
     i = torch.arange(S, device=dev)
     return (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+
+def log_row(e) -> None:
+    """Log a kernel row and add ``ms_over_library_ms``, the kernel's
+    profiler time over the library call's (None where there is none)."""
+    lib = e["library_ms"]
+    e["ms_over_library_ms"] = e["ms"] / lib if lib else None
+    vs = f"library {lib:.4f} ms, kernel/library {e['ms_over_library_ms']:.2f}x" if lib \
+        else "library n/a"
+    log(f"  {e['name']:40s} {e['shape']}: kernel {e['ms']:.4f} ms (events "
+        f"{e['event_ms']:.4f}), bound {e['bound_ms']:.4f} ms ({e['bound_by']}), plain "
+        f"{e['plain_ms']:.4f} ms, {vs}")
 
 
 def phase_kernels(torch, dev):
@@ -365,7 +446,8 @@ def phase_kernels(torch, dev):
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:27",
         shape=f"B=1 S={S} H={H} KV={KV} hd={HD} causal bf16",
-        ms=kernel_ms(torch, lambda: fa.flash_attention(q, k, v), "flash_attention_kernel"),
+        **kernel_times(torch, lambda: fa.flash_attention(q, k, v),
+                       "flash_attention_mma_kernel"),
         plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v), 5),
         bound_ms=b, bound_by=by,
         library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
@@ -382,8 +464,8 @@ def phase_kernels(torch, dev):
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:27",
         shape=f"B=1 S={S} H={RG_H} KV={RG_KV} hd={RG_HD} window {RG_WINDOW} bf16",
-        ms=kernel_ms(torch, lambda: fa.flash_attention(q, k, v, window=RG_WINDOW),
-                     "flash_attention_kernel", iters=10),
+        **kernel_times(torch, lambda: fa.flash_attention(q, k, v, window=RG_WINDOW),
+                       "flash_attention_mma_kernel", iters=10),
         plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v, window=RG_WINDOW), 2),
         bound_ms=b, bound_by=by,
         library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
@@ -399,8 +481,8 @@ def phase_kernels(torch, dev):
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:135",
         shape=f"B=8 kv_len={kv_len} page={PAGE} bf16",
-        ms=kernel_ms(torch, lambda: pa.paged_decode_attention(q, kp, vp, bt, kl),
-                     "paged_rows_kernel"),
+        **kernel_times(torch, lambda: pa.paged_decode_attention(q, kp, vp, bt, kl),
+                       "paged_rows_kernel"),
         plain_ms=event_ms(torch, lambda: ref.paged_decode_attention(q, kp, vp, bt, kl), 10),
         bound_ms=b, bound_by=by, library_ms=None)
     # K1 chunk: the second 256-token chunk of a prompt
@@ -415,8 +497,8 @@ def phase_kernels(torch, dev):
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:135",
         shape=f"B=1 C={C} q_offset={q_off} page={PAGE} bf16",
-        ms=kernel_ms(torch, lambda: pa.paged_prefill_attention(q, kp, vp, bt, kl, qo),
-                     "paged_tiled_kernel"),
+        **kernel_times(torch, lambda: pa.paged_prefill_attention(q, kp, vp, bt, kl, qo),
+                       "paged_tiled_kernel"),
         plain_ms=event_ms(torch, lambda: ref.paged_prefill_attention(q, kp, vp, bt, kl, qo),
                           10),
         bound_ms=b, bound_by=by, library_ms=None)
@@ -436,8 +518,8 @@ def phase_kernels(torch, dev):
             replaces="src/repro/kernels/decode_attention.py:31",
             shape=f"{what}: B=8 S=2048 H={nh} KV={nkv} hd={hd} kv_len 1..2048 "
                   f"({n_kv} keys) bf16",
-            ms=kernel_ms(torch, lambda: da.decode_attention(q, k, v, kl),
-                         "decode_attention_kernel"),
+            **kernel_times(torch, lambda: da.decode_attention(q, k, v, kl),
+                           "decode_attention_kernel"),
             plain_ms=event_ms(torch, lambda: ref.decode_attention(q, k, v, kl), 10),
             bound_ms=b, bound_by=by,
             library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=lmask,
@@ -451,15 +533,12 @@ def phase_kernels(torch, dev):
         source="src/repro_torch/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan.py:26",
         shape=f"B=1 S={S} D={RG_D} float32",
-        ms=kernel_ms(torch, lambda: rs.rglru_scan(a, bb), "rglru_scan_kernel"),
+        **kernel_times(torch, lambda: rs.rglru_scan(a, bb), "rglru_scan_kernel"),
         plain_ms=event_ms(torch, lambda: ref.rglru_scan(a, bb), 2, warmup=1),
         bound_ms=b, bound_by=by, library_ms=None)
     for key, e in entries.items():
         e["max_abs_err"] = max(errs[key])
-        lib = f"{e['library_ms']:.4f}" if e["library_ms"] is not None else "n/a"
-        log(f"  {e['name']:40s} {e['shape']}: kernel {e['ms']:.4f} ms, bound "
-            f"{e['bound_ms']:.4f} ms ({e['bound_by']}), plain {e['plain_ms']:.4f} ms, "
-            f"library {lib} ms")
+        log_row(e)
     return entries
 
 
@@ -594,8 +673,8 @@ def phase_kernels_moe(torch, dev):
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:27",
         shape=f"B=1 S={S} H={L4_H} KV={L4_KV} hd={L4_HD} causal bf16",
-        ms=kernel_ms(torch, lambda: fa.flash_attention(q, k, v), "flash_attention_kernel",
-                     iters=10),
+        **kernel_times(torch, lambda: fa.flash_attention(q, k, v), "flash_attention_mma_kernel",
+                       iters=10),
         plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v), 2),
         bound_ms=b, bound_by=by,
         library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
@@ -610,8 +689,8 @@ def phase_kernels_moe(torch, dev):
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:135",
         shape=f"B=8 kv_len={L4_KV_LEN} H={L4_H} KV={L4_KV} hd={L4_HD} page={PAGE} bf16",
-        ms=kernel_ms(torch, lambda: pa.paged_decode_attention(q, kp, vp, bt, kl),
-                     "paged_rows_kernel"),
+        **kernel_times(torch, lambda: pa.paged_decode_attention(q, kp, vp, bt, kl),
+                       "paged_rows_kernel"),
         plain_ms=event_ms(torch, lambda: ref.paged_decode_attention(q, kp, vp, bt, kl), 10),
         bound_ms=b, bound_by=by, library_ms=None)
     # K3 at hd 128: the chunked layers' ring decode, kv_len wrapped
@@ -628,8 +707,8 @@ def phase_kernels_moe(torch, dev):
         replaces="src/repro/kernels/decode_attention.py:31",
         shape=f"B=8 L={L4_CHUNK} H={L4_H} KV={L4_KV} hd={L4_HD} kv_len {L4_RING_LEN} "
               f"({n_kv} keys) bf16",
-        ms=kernel_ms(torch, lambda: da.decode_attention(q, k, v, kl),
-                     "decode_attention_kernel"),
+        **kernel_times(torch, lambda: da.decode_attention(q, k, v, kl),
+                       "decode_attention_kernel"),
         plain_ms=event_ms(torch, lambda: ref.decode_attention(q, k, v, kl), 5),
         bound_ms=b, bound_by=by,
         library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=lmask,
@@ -653,8 +732,8 @@ def phase_kernels_moe(torch, dev):
             source="src/repro_torch/csrc/moe_gmm.cu",
             replaces="src/repro/kernels/moe_gmm.py:26",
             shape=f"T={T} K={K} N={N} E={len(sizes)} ({used} used) bf16",
-            ms=kernel_ms(torch, lambda: gm.moe_gmm(x, w, gs), "moe_gmm_kernel",
-                         iters=3 if big else 20),
+            **kernel_times(torch, lambda: gm.moe_gmm(x, w, gs), "moe_gmm_mma_kernel",
+                           iters=3 if big else 20),
             plain_ms=event_ms(torch, lambda: ref.moe_gmm(x, w, gs), 2, warmup=1),
             bound_ms=b, bound_by=by,
             library_ms=event_ms(torch, lib, 10) if lib else None)
@@ -662,10 +741,7 @@ def phase_kernels_moe(torch, dev):
         torch.cuda.empty_cache()
     for key, e in entries.items():
         e["max_abs_err"] = max(errs[key])
-        lib = f"{e['library_ms']:.4f}" if e["library_ms"] is not None else "n/a"
-        log(f"  {e['name']:40s} {e['shape']}: kernel {e['ms']:.4f} ms, bound "
-            f"{e['bound_ms']:.4f} ms ({e['bound_by']}), plain {e['plain_ms']:.4f} ms, "
-            f"library {lib} ms")
+        log_row(e)
     log(f"  K4 edge cases: max|err| {max(errs['gmm_edge']):.3e}")
     return entries
 
@@ -957,6 +1033,7 @@ def main() -> int:
     for name in build.KERNELS:
         for line in ptxas_summary(build.ptxas_report(name)):
             log(f"  ptxas {line}")
+    check_tensor_cores(build)
 
     entries = phase_kernels(torch, dev)
     entries.update(phase_kernels_moe(torch, dev))
@@ -1068,7 +1145,8 @@ def main() -> int:
         e["launches"] = total[key]
         kernels.append({k: e[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            "event_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "ms_over_library_ms")})
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,0 +1,66 @@
+// Tensor-core building blocks of the port's bf16 kernels (sm_90a, CUDA C++):
+// 16-byte cp.async copies into shared-memory rings, ldmatrix fragment loads
+// and the warp-level mma.sync m16n8k16 bf16 product with float32 sums.
+//
+// Fragment layouts of mma.sync.m16n8k16 (lane = 4 * g + t, g = lane / 4,
+// t = lane % 4), each register two bf16 values, the lower column first:
+//   A (16 x 16, row-major)  a0 (g, 2t..2t+1)   a1 (g+8, 2t..)   a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
+//   B (16 x 8, k by n)      b0 (k 2t..2t+1, n g)                b1 (k 2t+8.., n g)
+//   C (16 x 8, float32)     c0, c1 (g, 2t..2t+1)                c2, c3 (g+8, 2t..2t+1)
+// ldmatrix.x4 reads four 8 x 8 bf16 matrices whose row addresses come from
+// lanes 0-7, 8-15, 16-23 and 24-31; register i holds lane's share of
+// matrix i: row g, columns 2t..2t+1, or with .trans row 2t..2t+1 of column g.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mma {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; only the first src_bytes (0 or
+// 16) are read and the rest of the 16 are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a (16 x 16) * b (16 x 8), bf16 products summed in float32
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as one register of bf16 values, lo in the lower half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+}  // namespace mma

@@ -12,44 +12,133 @@
 // weights dominate the bytes and the work per weight byte is below the
 // ~295 operations per byte where the bf16 tensor cores, not the 3.35 TB/s
 // memory, set the limit: the bound is reading each used expert's weights
-// once. This first version computes with float32 FMA on CUDA cores (exact
-// for float32 inputs, no TF32), so at prefill its arithmetic, not its
-// bytes, is what it waits on.
+// once. grok-1's 256 rows per expert sit near that line.
 //
-// The design, against the TPU kernel: the Pallas wrapper scatters x into a
-// copy padded so that each row tile holds one expert, and gathers the
-// output back. Here nothing is copied: every block loads the group sizes
-// (E <= 256) into shared memory, scans them into row and tile offsets,
-// and finds its expert and row range itself; the ragged edge of each
-// group is masked. The host never learns the group sizes. The grid is the
-// static worst case, ceil(T / 64) + E row tiles by ceil(N / 64) column
+// Ragged groups, against the TPU kernel: the Pallas wrapper scatters x
+// into a copy padded so that each row tile holds one expert, and gathers
+// the output back. Here nothing is copied: every block loads the group
+// sizes (E <= 256) into shared memory, scans them into row and tile
+// offsets, and finds its expert and row range itself; the ragged edge of
+// each group is masked. The host never learns the group sizes. The grid is
+// the static worst case, ceil(T / 64) + E row tiles by ceil(N / BN) column
 // tiles (the Pallas bound Mp / bm); a tile past the last group zeroes its
-// share of the rows no group covers, or returns. A block reads its
-// (K, 64) slab of w[e] once for all its rows, so at decode each active
-// expert's weights stream once. Warps whose 8 rows are all past the
-// group's edge skip the arithmetic. The K loop stages a (64, 32) x tile
-// (transposed) and a (32, 64) w tile through shared memory, with the next
-// stage's 16-byte global loads in registers while the current one
-// computes; each thread accumulates a 4 x 4 patch in float32. Weights are
-// indexed with 64-bit offsets (grok-1's w per layer holds 1.6e9 elements).
+// share of the rows no group covers, or returns. A block reads its (K, BN)
+// slab of w[e] once for all its rows, so at decode each used expert's
+// weights stream once. Weights are indexed with 64-bit offsets (grok-1's w
+// per layer holds 1.6e9 elements).
 //
-// Next: tensor cores (mma.sync, then wgmma with TMA-fed shared memory
-// stages), and a persistent schedule that walks tiles ordered by expert so
-// a slab of w[e] stays in L2 for all of its row tiles.
+// bfloat16: moe_gmm_mma_kernel, on the tensor cores. A block tile is 64
+// rows x 256 columns, split across its 4 warps by columns (64 x 64 each),
+// so at decode, where a tile has 8 live rows, every warp has work and
+// every warp streams its share of the weight slab; m16 row blocks with no
+// live row are skipped (the ring is instantiated per count of live row
+// blocks, so no branch sits inside it). x (64 x 32) and w (32 x 256) tiles
+// stream through a 3-stage ring of shared memory filled by 16-byte
+// cp.async, two stages in flight while one computes: at decode's 6 used
+// experts x 32 column tiles, 192 blocks keep ~6 MB of weights in flight.
+// Of the tile shapes timed on the card side by side (64 to 256 columns,
+// 32 or 64 deep, 2 to 4 stages, 4 or 8 warps), none was faster at every
+// shape of the MoE path than this one (PERF.md). Rows past the
+// group's edge and K or N past theirs are zero-filled by cp.async's
+// src-size operand, not branched around. A fragments of x come from
+// ldmatrix.x4, B fragments of the row-major w (k by n, n contiguous) from
+// ldmatrix.x4.trans; rows are padded by 16 bytes so ldmatrix is free of
+// bank conflicts. mma.sync.m16n8k16 multiplies in bf16 and sums in
+// float32 (each product exact, as the Pallas body's float32 upcast). The
+// epilogue rounds to bf16 through shared memory and stores 16 bytes a
+// thread. Next: wgmma fed by TMA with warp specialisation, and a
+// persistent schedule by expert so a slab of w[e] stays in L2 for all of
+// its row tiles.
 //
-// Grid: (ceil(T / 64) + E, ceil(N / 64)); 256 threads; 17 KB of static
-// shared memory plus 3 KB for the group offsets.
+// float32: moe_gmm_kernel<float>, float32 FMA on CUDA cores (exact, no
+// TF32): a 64 x 64 tile, a (64, 32) x tile (transposed) and a (32, 64) w
+// tile through shared memory with the next stage's 16-byte global loads in
+// registers while the current one computes, each thread a 4 x 4 patch.
+//
+// Grid: (ceil(T / 64) + E, ceil(N / BN)). bf16: BN 256, 128 threads, 66 KB
+// of dynamic shared memory, 2 blocks an SM (242 registers); float32: BN 64,
+// 256 threads, 17 KB of static shared memory; both 3 KB more for the group
+// offsets.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_common.cuh"
+
 namespace {
 
+using bf16 = __nv_bfloat16;
+
+constexpr int BM = 64;      // rows per tile, both routes
+constexpr int MAX_E = 256;  // experts whose offsets fit the block's scan
+
+// Every block scans the group sizes into inclusive sums of rows and of row
+// tiles, s_rows / s_tiles[0 .. MAX_E), with its NT threads.
+template <int NT>
+__device__ void scan_groups(const int* __restrict__ group_sizes, int T_rows, int E,
+                            long long* s_rows, int* s_tiles) {
+  static_assert(MAX_E % NT == 0, "each thread scans MAX_E / NT entries");
+  constexpr int PER = MAX_E / NT;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = tid + j * NT;
+    const int g = i < E ? min(max(group_sizes[i], 0), T_rows) : 0;
+    s_rows[i] = g;
+    s_tiles[i] = (g + BM - 1) / BM;
+  }
+  __syncthreads();
+  for (int off = 1; off < E; off <<= 1) {
+    long long r[PER];
+    int c[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = tid + j * NT;
+      r[j] = i >= off ? s_rows[i - off] : 0;
+      c[j] = i >= off ? s_tiles[i - off] : 0;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      s_rows[tid + j * NT] += r[j];
+      s_tiles[tid + j * NT] += c[j];
+    }
+    __syncthreads();
+  }
+}
+
+// Row tile mtile of the scanned groups: its expert, first row and number
+// of rows (<= 0: nothing to compute); for a tile past the last group,
+// e = -1 and row0 is the first of the BM rows it zeroes.
+struct RowTile {
+  int e;
+  long long row0;
+  int rows;
+};
+
+__device__ RowTile find_row_tile(const long long* s_rows, const int* s_tiles, int T_rows,
+                                 int E, int mtile) {
+  const int total_tiles = s_tiles[E - 1];
+  if (mtile >= total_tiles)
+    return {-1, min(s_rows[E - 1], (long long)T_rows) + (long long)(mtile - total_tiles) * BM,
+            0};
+  int lo = 0, hi = E - 1;  // the expert whose tiles hold mtile
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (s_tiles[mid] > mtile) hi = mid;
+    else lo = mid + 1;
+  }
+  const int tile0 = lo ? s_tiles[lo - 1] : 0;
+  const long long row0 = (lo ? s_rows[lo - 1] : 0) + (long long)(mtile - tile0) * BM;
+  return {lo, row0, (int)min((long long)BM, min(s_rows[lo], (long long)T_rows) - row0)};
+}
+
+// ---------------------------------------------------------------------
+// float32: CUDA-core FMA
+// ---------------------------------------------------------------------
 constexpr int NT = 256;     // 16 x 16 threads, each owning a 4 x 4 output patch
-constexpr int BM = 64;      // rows per tile
 constexpr int BN = 64;      // columns per tile
 constexpr int BK = 32;      // depth per shared-memory stage
-constexpr int MAX_E = 256;  // experts whose offsets fit the block's scan
 
 // 16 bytes of T, widened to float
 template <typename T>
@@ -64,27 +153,6 @@ struct Vec<float> {
   }
   __device__ static void store4(float* p, const float* f) {
     *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void widen(const uint4& raw, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x, f[2 * i + 1] = t.y;
-    }
-  }
-  __device__ static void store4(__nv_bfloat16* p, const float* f) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(f[0], f[1]);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(f[2], f[3]);
-    uint2 u;
-    u.x = *reinterpret_cast<const unsigned*>(&lo);
-    u.y = *reinterpret_cast<const unsigned*>(&hi);
-    *reinterpret_cast<uint2*>(p) = u;
   }
 };
 
@@ -103,31 +171,12 @@ moe_gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   const int tid = threadIdx.x;
   const int n0 = blockIdx.y * BN;
-
-  // ---- group offsets: every block scans the group sizes itself ----
-  {
-    int g = 0;
-    if (tid < E) g = min(max(group_sizes[tid], 0), T_rows);
-    s_rows[tid] = g;
-    s_tiles[tid] = (g + BM - 1) / BM;
-    __syncthreads();
-    for (int off = 1; off < E; off <<= 1) {
-      const long long r = tid >= off ? s_rows[tid - off] : 0;
-      const int c = tid >= off ? s_tiles[tid - off] : 0;
-      __syncthreads();
-      s_rows[tid] += r;
-      s_tiles[tid] += c;
-      __syncthreads();
-    }
-  }
-  const int mtile = blockIdx.x;
-  const int total_tiles = s_tiles[E - 1];
-  if (mtile >= total_tiles) {
+  scan_groups<NT>(group_sizes, T_rows, E, s_rows, s_tiles);
+  const RowTile tile = find_row_tile(s_rows, s_tiles, T_rows, E, blockIdx.x);
+  if (tile.e < 0) {
     // rows no group covers are zero, as ragged_dot leaves them
-    const long long r0 = min(s_rows[E - 1], (long long)T_rows) +
-                         (long long)(mtile - total_tiles) * BM;
     for (int i = tid; i < BM * (BN / 4); i += NT) {
-      const long long r = r0 + i / (BN / 4);
+      const long long r = tile.row0 + i / (BN / 4);
       const int c = n0 + (i % (BN / 4)) * 4;
       if (r < T_rows && c < N) {
         const float z[4] = {0.f, 0.f, 0.f, 0.f};
@@ -136,19 +185,11 @@ moe_gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
     }
     return;
   }
-  int lo = 0, hi = E - 1;  // the expert whose tiles hold mtile
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (s_tiles[mid] > mtile) hi = mid;
-    else lo = mid + 1;
-  }
-  const int e = lo;
-  const int tile0 = e ? s_tiles[e - 1] : 0;
-  const long long row0 = (e ? s_rows[e - 1] : 0) + (long long)(mtile - tile0) * BM;
-  const int rows = (int)min((long long)BM, min(s_rows[e], (long long)T_rows) - row0);
+  const long long row0 = tile.row0;
+  const int rows = tile.rows;
   if (rows <= 0) return;
 
-  const T* we = w + (long long)e * K * N;
+  const T* we = w + (long long)tile.e * K * N;
   const int tx = tid & 15, ty = tid >> 4;
   const bool live = (ty & ~1) * 4 < rows;  // uniform per warp: rows 8w..8w+7
 
@@ -211,14 +252,183 @@ moe_gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* w, const void* gs, void* out, int T_rows, int K, int N,
-           int E, cudaStream_t stream) {
+// ---------------------------------------------------------------------
+// bfloat16: tensor cores (mma.sync m16n8k16), cp.async ring, ldmatrix
+// ---------------------------------------------------------------------
+constexpr int MMA_NT = 128;      // 4 warps, each 64 rows x WN columns
+constexpr int MMA_BN = 256;      // columns per tile
+constexpr int WN = MMA_BN / (MMA_NT / 32);   // columns per warp
+constexpr int NJ = WN / 8;       // n8 blocks per warp
+constexpr int MMA_BK = 32;       // depth per stage
+constexpr int MMA_STAGES = 3;    // stages in the ring
+constexpr int XLD = MMA_BK + 8;  // padded rows (elements): ldmatrix free of bank conflicts
+constexpr int WLD = MMA_BN + 8;
+constexpr int X_ELEMS = BM * XLD;       // one x stage
+constexpr int W_ELEMS = MMA_BK * WLD;   // one w stage
+constexpr size_t MMA_SMEM = sizeof(bf16) * MMA_STAGES * (X_ELEMS + W_ELEMS);
+static_assert(BM * WLD <= MMA_STAGES * (X_ELEMS + W_ELEMS), "epilogue tile fits the ring");
+static_assert((BM * MMA_BK / 8) % MMA_NT == 0 && (MMA_BK * MMA_BN / 8) % MMA_NT == 0 &&
+                  NJ % 2 == 0,
+              "whole 16-byte chunks per thread, n8 blocks in pairs");
+
+// The ring over K for a tile whose first MI m16 row blocks hold rows of
+// its group: acc[0..MI) += x tile @ w slab. load(kt, stage) issues stage
+// kt's cp.async copies. Every fragment of a 16-deep step is loaded before
+// its products, so the step's ldmatrix latencies overlap.
+template <int MI, class Load>
+__device__ __forceinline__ void mma_mainloop(float (&acc)[4][NJ][4], const bf16* Xs,
+                                             const bf16* Ws, int n_k, int warp, int lane,
+                                             const Load& load) {
+#pragma unroll
+  for (int st = 0; st < MMA_STAGES - 1; ++st) {
+    if (st < n_k) load(st, st);
+    mma::cp_async_commit();
+  }
+  for (int kt = 0; kt < n_k; ++kt) {
+    mma::cp_async_wait<MMA_STAGES - 2>();   // stage kt has landed ...
+    __syncthreads();   // ... for every thread, and stage kt - 1 is read out
+    if (kt + MMA_STAGES - 1 < n_k) load(kt + MMA_STAGES - 1, (kt + MMA_STAGES - 1) % MMA_STAGES);
+    mma::cp_async_commit();
+    const bf16* xs = Xs + (kt % MMA_STAGES) * X_ELEMS;
+    const bf16* ws = Ws + (kt % MMA_STAGES) * W_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < MMA_BK / 16; ++kk) {
+      // B fragments of this warp's WN columns: x4.trans = k +0..7 / +8..15
+      // by n +0..7 / +8..15; A fragments of the live row blocks: x4 = rows
+      // +0..7 / +8..15 by k +0..7 / +8..15
+      uint32_t bw[NJ][2], a[MI][4];
+#pragma unroll
+      for (int nb = 0; nb < NJ / 2; ++nb) {
+        uint32_t r[4];
+        mma::ldmatrix_x4_trans(r, ws + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * WLD +
+                                      warp * WN + nb * 16 + (lane >> 4) * 8);
+        bw[2 * nb][0] = r[0]; bw[2 * nb][1] = r[1];
+        bw[2 * nb + 1][0] = r[2]; bw[2 * nb + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        mma::ldmatrix_x4(a[mi], xs + (mi * 16 + (lane & 15)) * XLD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < NJ; ++nj) mma::mma_bf16(acc[mi][nj], a[mi], bw[nj][0], bw[nj][1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(MMA_NT)
+moe_gmm_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                   const int* __restrict__ group_sizes, bf16* __restrict__ out, int T_rows,
+                   int K, int N, int E) {
+  constexpr int XC = MMA_BK / 8, WC = MMA_BN / 8;   // 16-byte chunks per row
+  __shared__ long long s_rows[MAX_E];
+  __shared__ int s_tiles[MAX_E];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Xs = reinterpret_cast<bf16*>(smem_raw);   // [STAGES][BM][XLD]
+  bf16* Ws = Xs + MMA_STAGES * X_ELEMS;            // [STAGES][BK][WLD]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.y * MMA_BN;
+  scan_groups<MMA_NT>(group_sizes, T_rows, E, s_rows, s_tiles);
+  const RowTile tile = find_row_tile(s_rows, s_tiles, T_rows, E, blockIdx.x);
+  if (tile.e < 0) {
+    // rows no group covers are zero, as ragged_dot leaves them
+    for (int i = tid; i < BM * WC; i += MMA_NT) {
+      const long long r = tile.row0 + i / WC;
+      const int c = n0 + (i % WC) * 8;
+      if (r < T_rows && c < N) *reinterpret_cast<uint4*>(out + r * N + c) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  const int rows = tile.rows;
+  if (rows <= 0) return;
+  const bf16* xe = x + tile.row0 * K;
+  const bf16* we = w + (long long)tile.e * K * N;
+
+  // one stage: x rows past the group's edge, and K or N past theirs, are
+  // zero-filled (src-size 0, the source clamped to a valid address)
+  auto load = [&](int kt, int stage) {
+    const int k0 = kt * MMA_BK;
+    bf16* xs = Xs + stage * X_ELEMS;
+    bf16* ws = Ws + stage * W_ELEMS;
+#pragma unroll
+    for (int i = 0; i < BM * XC / MMA_NT; ++i) {
+      const int c = tid + i * MMA_NT, r = c / XC, kc = (c % XC) * 8;
+      const bool ok = r < rows && k0 + kc < K;
+      mma::cp_async16(xs + r * XLD + kc, ok ? xe + (long long)r * K + k0 + kc : x, ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < MMA_BK * WC / MMA_NT; ++i) {
+      const int c = tid + i * MMA_NT, kr = c / WC, nc = (c % WC) * 8;
+      const bool ok = k0 + kr < K && n0 + nc < N;
+      mma::cp_async16(ws + kr * WLD + nc, ok ? we + (long long)(k0 + kr) * N + n0 + nc : w,
+                      ok ? 16 : 0);
+    }
+  };
+
+  const int n_k = (K + MMA_BK - 1) / MMA_BK;
+  const int live_m = (rows + 15) / 16;   // m16 row blocks holding a row of the group
+  float acc[4][NJ][4];                   // [m16 block][n8 block][fragment]
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj)
+      acc[mi][nj][0] = acc[mi][nj][1] = acc[mi][nj][2] = acc[mi][nj][3] = 0.f;
+
+  switch (live_m) {   // the m16 loop unrolled without a branch in the ring
+    case 1: mma_mainloop<1>(acc, Xs, Ws, n_k, warp, lane, load); break;
+    case 2: mma_mainloop<2>(acc, Xs, Ws, n_k, warp, lane, load); break;
+    case 3: mma_mainloop<3>(acc, Xs, Ws, n_k, warp, lane, load); break;
+    default: mma_mainloop<4>(acc, Xs, Ws, n_k, warp, lane, load); break;
+  }
+  mma::cp_async_wait<0>();
+  __syncthreads();   // the ring is free for the epilogue tile
+
+  // epilogue: round to bf16 into shared memory, then 16-byte row stores
+  bf16* Os = Xs;   // [BM][WLD]
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+    if (mi < live_m) {
+#pragma unroll
+      for (int nj = 0; nj < NJ; ++nj) {
+        const int r = mi * 16 + g, c = warp * WN + nj * 8 + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(Os + r * WLD + c) =
+            __floats2bfloat162_rn(acc[mi][nj][0], acc[mi][nj][1]);
+        *reinterpret_cast<__nv_bfloat162*>(Os + (r + 8) * WLD + c) =
+            __floats2bfloat162_rn(acc[mi][nj][2], acc[mi][nj][3]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < BM * WC; i += MMA_NT) {
+    const int r = i / WC, c = (i % WC) * 8;
+    if (r < rows && n0 + c < N)
+      *reinterpret_cast<uint4*>(out + (tile.row0 + r) * N + n0 + c) =
+          *reinterpret_cast<const uint4*>(Os + r * WLD + c);
+  }
+}
+
+int launch_f32(const void* x, const void* w, const void* gs, void* out, int T_rows, int K, int N,
+               int E, cudaStream_t stream) {
   const dim3 grid((unsigned)((T_rows + BM - 1) / BM + E), (unsigned)((N + BN - 1) / BN));
-  moe_gmm_kernel<T><<<grid, NT, 0, stream>>>(static_cast<const T*>(x),
-                                             static_cast<const T*>(w),
-                                             static_cast<const int*>(gs), static_cast<T*>(out),
-                                             T_rows, K, N, E);
+  moe_gmm_kernel<float><<<grid, NT, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const int*>(gs),
+      static_cast<float*>(out), T_rows, K, N, E);
+  return (int)cudaGetLastError();
+}
+
+int launch_bf16(const void* x, const void* w, const void* gs, void* out, int T_rows, int K,
+                int N, int E, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(moe_gmm_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)MMA_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((T_rows + BM - 1) / BM + E),
+                  (unsigned)((N + MMA_BN - 1) / MMA_BN));
+  moe_gmm_mma_kernel<<<grid, MMA_NT, MMA_SMEM, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const int*>(gs),
+      static_cast<bf16*>(out), T_rows, K, N, E);
   return (int)cudaGetLastError();
 }
 
@@ -233,7 +443,7 @@ extern "C" int moe_gmm_launch(const void* x, const void* w, const void* group_si
   if (E < 1 || E > MAX_E || K % 8 || N % 8) return -1;
   if (T_rows <= 0 || N <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w, group_sizes, out, T_rows, K, N, E, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, group_sizes, out, T_rows, K, N, E, s);
+  if (dtype == 0) return launch_f32(x, w, group_sizes, out, T_rows, K, N, E, s);
+  if (dtype == 1) return launch_bf16(x, w, group_sizes, out, T_rows, K, N, E, s);
   return -1;
 }

@@ -4,7 +4,8 @@
 Whole-prompt prefill attention: GQA, queries are the last ``Sq`` of ``Skv``
 positions, masks causal / sliding ``window`` / same-``chunk`` / none. For a
 CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/flash_attention.cu`` on the current stream and counts the launch;
+``csrc/flash_attention.cu`` on the current stream and counts the launch
+(bf16 on the tensor cores, float32 with exact FMA on the CUDA cores);
 for a CPU tensor it runs the plain PyTorch version. There is no fallback:
 a CUDA operand the kernel does not take, or a failed build or launch,
 raises.

@@ -6,7 +6,8 @@ the ``group_sizes[e]`` rows of expert e multiply w[e] (K, N), products
 accumulate in float32, and the output (T, N) is ``x.dtype``; rows past the
 last group are zero. For a CUDA tensor the wrapper launches the
 hand-written kernel in ``csrc/moe_gmm.cu`` on the current stream and
-counts the launch; the group sizes stay on the card (the host never reads
+counts the launch (bf16 on the tensor cores, float32 with exact FMA on
+the CUDA cores); the group sizes stay on the card (the host never reads
 them). For a CPU tensor it runs the plain PyTorch version. There is no
 fallback: a CUDA operand the kernel does not take, or a failed build or
 launch, raises.
@@ -24,7 +25,8 @@ from repro_torch.kernels import build, ref
 # against on the card)
 moe_gmm_plain = ref.moe_gmm
 
-BN = 64              # the kernel's column tile (grid.y = ceil(N / BN))
+BN = 64              # the float32 kernel's column tile (grid.y = ceil(N / BN);
+                     # bf16's is 256, so its grid.y is smaller)
 MAX_EXPERTS = 256    # group offsets live in one block's shared memory
 
 

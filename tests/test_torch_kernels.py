@@ -326,10 +326,27 @@ def _up(*ts):
     return [t.float() for t in ts]
 
 
+# the bf16 kernel's fragment edges: Sq of 1, 17 and 1000 (not multiples
+# of its 16-row warp tile or 64-row block), G of 1, 4, 5 and 10 (a block's
+# 64 rows cut across query positions), window and chunk edges inside a
+# 64-key tile; k and v always hold Sq + 3 positions (Skv > Sq)
 GPU_FLASH_CASES = FLASH_CASES + [
     (1, 1000, 32, 8, 64, True, 0, 0, BF16),     # granite prefill width
     (1, 1000, 32, 8, 64, True, 0, 0, F32),
     (2, 77, 8, 8, 256, False, 0, 0, BF16),
+    (1, 1, 8, 8, 64, True, 0, 0, BF16),         # G=1, one query
+    (2, 17, 20, 4, 128, True, 0, 0, BF16),      # G=5
+    (1, 17, 10, 1, 256, True, 0, 0, BF16),      # G=10
+    (1, 1, 10, 1, 256, True, 0, 0, BF16),
+    (1, 17, 4, 1, 64, False, 0, 0, BF16),       # G=4, no mask
+    (1, 1000, 40, 8, 128, True, 0, 0, BF16),    # llama4 width
+    (1, 1000, 16, 4, 64, True, 100, 0, BF16),   # window edge inside a tile
+    (1, 1000, 10, 1, 256, True, 300, 0, BF16),
+    (1, 1000, 20, 4, 128, True, 0, 200, BF16),  # chunk edge inside a tile
+    (1, 1000, 10, 1, 256, True, 0, 200, BF16),
+    (1, 1000, 8, 8, 256, False, 0, 0, BF16),
+    (1, 1000, 20, 4, 128, False, 0, 200, BF16),
+    (1, 1000, 20, 4, 128, True, 0, 200, F32),
 ]
 
 

@@ -275,7 +275,12 @@ def cuda():
     ([10, 0, 25, 5], 40, 64, 32), ([0, 1, 0], 1, 32, 32),
     ([0, 0, 300, 0], 300, 256, 136), ([65, 63, 1, 0, 128], 257, 520, 200),
     (_sizes_16_over_8(), 8, 640, 1024),
-    ([30, 20], 130, 64, 64)])     # 50 of 130 rows: the other 80 are zero
+    ([30, 20], 130, 64, 64),      # 50 of 130 rows: the other 80 are zero
+    # the bf16 kernel's edges: T=1 and 8 over 16 experts, empty groups,
+    # groups that end inside an m16 fragment, K and N off its 32-deep,
+    # 128-wide tile, rows no group covers
+    ([0] * 9 + [1] + [0] * 6, 1, 200, 200), (_sizes_16_over_8(), 8, 200, 200),
+    ([5, 0, 11, 20, 3, 0], 45, 200, 200), ([70, 0, 9, 33], 120, 136, 264)])
 def test_moe_gmm_kernel_matches_plain(cuda, sizes, T, K, N, dtype):
     rng = np.random.default_rng(T + K)
     x = torch.from_numpy(rng.standard_normal((T, K)).astype(np.float32))
