@@ -10,13 +10,15 @@ Phases (each raises on failure, so the script exits non-zero):
    (one process per source, in parallel), with each instance's registers,
    spills and static shared memory from ptxas, and its count of
    tensor-core instructions (HMMA, HGMMA) from ``cuobjdump -sass``; the
-   bf16 instances of K2 and K4 must have some.
+   bf16 instances of K2, K4 and the split decode body (K1 decode, K3) must
+   have some.
 2. Kernels against their plain PyTorch versions on the card, in bf16 and
    float32, at the main paths' shapes: K2 flash attention (granite-3-2b
    prefill, H=32 KV=8 hd=64; recurrentgemma-2b prefill, H=10 KV=1 hd=256,
    window 2048, up to 3000 tokens), K1 paged attention (decode and chunked
-   prefill), K3 decode attention (recurrentgemma's ring decode, B=8 S=2048
-   G=10 hd=256; granite's dense per-slot decode, G=4 hd=64; an int8 cache)
+   prefill; decode also at hd 256), K3 decode attention (recurrentgemma's
+   ring decode, B=8 S=2048 G=10 hd=256; granite's dense per-slot decode,
+   G=4 hd=64; int8 caches at hd 64, 128 and 256)
    and K5 the RG-LRU scan (B=1 D=2560, float32 held to 0 error); at
    llama4-scout's widths (H=40 KV=8 hd=128, G=5) K2 (causal, and a chunk
    mask crossed), K1 decode and K3 ring decode (L=8192, kv_len wrapped);
@@ -28,8 +30,12 @@ Phases (each raises on failure, so the script exits non-zero):
    device time; ``event_ms``: CUDA events around back-to-back calls)
    beside its bound, its plain version's time and, where one PyTorch call
    computes the same function, that call's time (``library_ms``:
-   ``scaled_dot_product_attention``, ``torch._grouped_mm``; the port never
-   calls them) and ``ms_over_library_ms``.
+   ``scaled_dot_product_attention``, for K1 decode with a length mask over
+   the keys gathered to a contiguous copy before timing;
+   ``torch._grouped_mm``; the port never calls them) and
+   ``ms_over_library_ms``. K1 decode and K3 run the split-KV body of
+   ``csrc/decode_common.cuh`` and, with more than one split, its merge:
+   their ``ms`` is the two kernels' device time per call.
 3. The served paths at full width through ``make_serve_runtime``, random
    weights from a seed, bf16: granite-3-2b (40 layers) paged with
    whole-prompt and 256-token chunked prefill, then dense (page_size=0),
@@ -114,17 +120,20 @@ def event_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(torch, fn, kernel_name: str, iters: int = 20, attempts: int = 3) -> float:
-    """Device time per call of the CUDA kernel whose name contains
-    ``kernel_name``, from the profiler (launch gaps excluded); each call
-    of ``fn`` launches that kernel once. The profiler now and then records
-    only some, or none, of a session's launches of a kernel launched
-    through ctypes, so the time is the recorded device time over the
-    recorded launches, and the shortfall is logged. An empty session is
-    repeated, and after ``attempts`` empty sessions the time is taken with
-    CUDA events around back-to-back calls instead (launch gaps
-    included)."""
+def kernel_ms(torch, fn, kernel_names, iters: int = 20, attempts: int = 3) -> float:
+    """Device time per call of the CUDA kernels whose names contain one of
+    ``kernel_names`` (a name, or a tuple of them for a kernel that runs as
+    several launches, such as the split decode body and its merge), from
+    the profiler (launch gaps excluded); each call of ``fn`` launches each
+    named kernel at most once, and the first every time. The profiler now
+    and then records only some, or none, of a session's launches of a
+    kernel launched through ctypes, so each name's time is its recorded
+    device time over its recorded launches, and the shortfall is logged. A
+    session without the first name is repeated, and after ``attempts``
+    such sessions the time is taken with CUDA events around back-to-back
+    calls instead (launch gaps included)."""
     from torch.profiler import ProfilerActivity, profile
+    names = (kernel_names,) if isinstance(kernel_names, str) else tuple(kernel_names)
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, attempts + 1):
@@ -132,28 +141,33 @@ def kernel_ms(torch, fn, kernel_name: str, iters: int = 20, attempts: int = 3) -
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        evs = [ev for ev in prof.key_averages() if kernel_name in ev.key]
-        n = sum(ev.count for ev in evs)
-        if n > iters:
-            raise AssertionError(f"{n} {kernel_name} launches in {iters} calls: "
-                                 "more than one per call")
-        if n:
-            if n < iters:
-                log(f"  the profiler recorded {n} of {iters} {kernel_name} launches")
-            return sum(ev.device_time_total for ev in evs) / 1e3 / n
-        log(f"  the profiler recorded no {kernel_name} launch "
+        keys = prof.key_averages()
+        per_name = []
+        for name in names:
+            evs = [ev for ev in keys if name in ev.key]
+            n = sum(ev.count for ev in evs)
+            if n > iters:
+                raise AssertionError(f"{n} {name} launches in {iters} calls: "
+                                     "more than one per call")
+            if 0 < n < iters:
+                log(f"  the profiler recorded {n} of {iters} {name} launches")
+            per_name.append((n, sum(ev.device_time_total for ev in evs) / 1e3))
+        if per_name[0][0]:
+            return sum(t / n for n, t in per_name if n)
+        log(f"  the profiler recorded no {names[0]} launch "
             f"(session {attempt} of {attempts})")
     ms = event_ms(torch, fn, iters)
-    log(f"  {kernel_name}: timed with CUDA events instead, {ms:.4f} ms per call")
+    log(f"  {names[0]}: timed with CUDA events instead, {ms:.4f} ms per call")
     return ms
 
 
-def kernel_times(torch, fn, kernel_name: str, iters: int = 20):
+def kernel_times(torch, fn, kernel_names, iters: int = 20):
     """A kernel row's two times per call: ``ms``, the profiler's device
-    time of the kernel (``kernel_ms``), and ``event_ms``, CUDA events
-    around ``iters`` back-to-back calls after a warm-up (launch gaps and
-    the wrapper's host work included where they exceed the kernel)."""
-    return dict(ms=kernel_ms(torch, fn, kernel_name, iters),
+    time of the kernel (``kernel_ms``; several launches summed), and
+    ``event_ms``, CUDA events around ``iters`` back-to-back calls after a
+    warm-up (launch gaps and the wrapper's host work included where they
+    exceed the kernel)."""
+    return dict(ms=kernel_ms(torch, fn, kernel_names, iters),
                 event_ms=event_ms(torch, fn, iters))
 
 
@@ -173,6 +187,11 @@ def _template_args(args: str):
             j = args.index("E", i)
             out.append(args[i + 2:j])
             i = j + 1
+        elif c == "N":                      # a nested name: N [S<n>_] <len><name> E
+            m = re.match(r"N(?:S\d*_)?(\d+)", args[i:])
+            n = int(m.group(1))
+            out.append(args[i + m.end():i + m.end() + n])
+            i += m.end() + n + 1
         elif c.isdigit():
             n = re.match(r"\d+", args[i:]).group()
             name = args[i + len(n):i + len(n) + int(n)]
@@ -220,7 +239,9 @@ def ptxas_summary(report: str):
 
 
 # the bf16 instances that must run on the tensor cores
-MMA_KERNELS = ("flash_attention_mma_kernel", "moe_gmm_mma_kernel")
+MMA_KERNELS = ("flash_attention_mma_kernel", "moe_gmm_mma_kernel", "split_decode_mma_kernel")
+# the split-KV decode of K1 (C == 1) and K3 in bf16: the body and its merge
+SPLIT_DECODE = ("split_decode_mma_kernel", "split_decode_merge_kernel")
 
 
 def cuobjdump_path() -> str:
@@ -258,7 +279,8 @@ def sass_mma_counts(cuobjdump: str, library: Path):
 
 def check_tensor_cores(build) -> None:
     """Log every kernel instance's HMMA / HGMMA count; raise unless every
-    bf16 instance of K2 and K4 has some."""
+    bf16 instance of K2, K4 and the split decode body (K1 decode, K3) has
+    some."""
     tool = cuobjdump_path()
     seen = {}
     for name in build.KERNELS:
@@ -349,6 +371,28 @@ def window_mask(torch, S, window, dev):
     return (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
 
 
+def n_split(torch, q, n_kv, capacity) -> str:
+    """The split-KV decode body's plan for these shapes, for the row's label."""
+    from repro_torch.kernels import decode_attention as da
+    B, _, n_heads, _ = q.shape
+    n = da.split_plan(B, n_kv, n_heads // n_kv, capacity, da.sm_count(q.device.index))
+    return f"n_split={n}"
+
+
+def paged_sdpa(torch, q, kp, vp, bt, kl):
+    """K1 decode's yardstick: ``scaled_dot_product_attention`` with a length
+    mask over the same keys, gathered from the pool into a contiguous
+    (B, KV, P * page, hd) copy before timing (the gather is not timed).
+    Returns the call to time."""
+    from repro_torch.kernels import ref
+    kt = ref.gather_pages(kp, bt).transpose(1, 2).contiguous()
+    vt = ref.gather_pages(vp, bt).transpose(1, 2).contiguous()
+    qt = q.transpose(1, 2)
+    lmask = (torch.arange(kt.shape[2], device=q.device)[None] < kl[:, None])[:, None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qt, kt, vt, attn_mask=lmask, enable_gqa=True)
+
+
 def log_row(e) -> None:
     """Log a kernel row and add ``ms_over_library_ms``, the kernel's
     profiler time over the library call's (None where there is none)."""
@@ -356,6 +400,8 @@ def log_row(e) -> None:
     e["ms_over_library_ms"] = e["ms"] / lib if lib else None
     vs = f"library {lib:.4f} ms, kernel/library {e['ms_over_library_ms']:.2f}x" if lib \
         else "library n/a"
+    if e.get("library"):
+        vs += f" ({e['library']})"
     log(f"  {e['name']:40s} {e['shape']}: kernel {e['ms']:.4f} ms (events "
         f"{e['event_ms']:.4f}), bound {e['bound_ms']:.4f} ms ({e['bound_by']}), plain "
         f"{e['plain_ms']:.4f} ms, {vs}")
@@ -413,12 +459,23 @@ def phase_kernels(torch, dev):
             want = ref.decode_attention(*up(q, k, v), kl).to(q.dtype)
             check(f"K3 decode B=8 S=2048 H={nh} KV={nkv} hd={hd} kv_len 1..2048",
                   dtype, got, want, errs[key])
-        q, k, v, kl = decode_inputs(torch, rng, dev, dtype, RG_H, RG_KV, RG_HD)
-        k8, v8, ks, vs = int8_cache(torch, k, v)
-        got = da.decode_attention(q, k8, v8, kl, k_scale=ks, v_scale=vs)
-        want = ref.decode_attention(q.float(), k8, v8, kl, k_scale=ks,
-                                    v_scale=vs).to(q.dtype)
-        check("K3 decode int8 cache, rg shapes", dtype, got, want, errs["dense_rg"])
+        for key, (nh, nkv, hd) in (("dense_rg", (RG_H, RG_KV, RG_HD)),
+                                   ("dense_granite", (H, KV, HD))):
+            q, k, v, kl = decode_inputs(torch, rng, dev, dtype, nh, nkv, hd)
+            k8, v8, ks, vs = int8_cache(torch, k, v)
+            got = da.decode_attention(q, k8, v8, kl, k_scale=ks, v_scale=vs)
+            want = ref.decode_attention(q.float(), k8, v8, kl, k_scale=ks,
+                                        v_scale=vs).to(q.dtype)
+            check(f"K3 decode int8 cache H={nh} KV={nkv} hd={hd}", dtype, got, want,
+                  errs[key])
+        # K1 decode at hd 256 (no served model pages it; the split body's
+        # widest instance)
+        q, kp, vp, bt, kl = paged_inputs(torch, rng, dev, dtype, DECODE_KV_LEN, 1,
+                                         (RG_H, RG_KV, RG_HD))
+        got = pa.paged_decode_attention(q, kp, vp, bt, kl)
+        want = ref.paged_decode_attention(*up(q, kp, vp), bt, kl).to(q.dtype)
+        check(f"K1 decode hd=256 G=10 KV=1 kv_len={DECODE_KV_LEN}", dtype, got, want,
+              errs["decode"])
         for S in (1024, 3000):
             for with_h0 in (False, True):
                 a, b, h0 = scan_inputs(torch, rng, dev, dtype, S, with_h0)
@@ -478,13 +535,16 @@ def phase_kernels(torch, dev):
                      4 * HD * H * n_kv, dtype)
     entries["decode"] = dict(
         name="paged_decode_attention", route="cuda",
-        source="src/repro_torch/csrc/paged_attention.cu",
+        source="src/repro_torch/csrc/decode_common.cuh",
         replaces="src/repro/kernels/decode_attention.py:135",
-        shape=f"B=8 kv_len={kv_len} page={PAGE} bf16",
+        shape=f"B=8 kv_len={kv_len} page={PAGE} {n_split(torch, q, KV, bt.shape[1] * PAGE)} "
+              "bf16",
         **kernel_times(torch, lambda: pa.paged_decode_attention(q, kp, vp, bt, kl),
-                       "paged_rows_kernel"),
+                       SPLIT_DECODE),
         plain_ms=event_ms(torch, lambda: ref.paged_decode_attention(q, kp, vp, bt, kl), 10),
-        bound_ms=b, bound_by=by, library_ms=None)
+        bound_ms=b, bound_by=by,
+        library_ms=event_ms(torch, paged_sdpa(torch, q, kp, vp, bt, kl), 20),
+        library="SDPA, length mask, keys gathered to a contiguous copy before timing")
     # K1 chunk: the second 256-token chunk of a prompt
     C, q_off = 256, 256
     q, kp, vp, bt, kl = paged_inputs(torch, rng, dev, dtype, [q_off + C], C)
@@ -514,12 +574,12 @@ def phase_kernels(torch, dev):
         lmask = (torch.arange(k.shape[1], device=dev)[None] < kl[:, None])[:, None, None]
         entries[key] = dict(
             name=f"decode_attention ({what})", route="cuda",
-            source="src/repro_torch/csrc/decode_attention.cu",
+            source="src/repro_torch/csrc/decode_common.cuh",
             replaces="src/repro/kernels/decode_attention.py:31",
             shape=f"{what}: B=8 S=2048 H={nh} KV={nkv} hd={hd} kv_len 1..2048 "
-                  f"({n_kv} keys) bf16",
+                  f"({n_kv} keys) {n_split(torch, q, nkv, k.shape[1])} bf16",
             **kernel_times(torch, lambda: da.decode_attention(q, k, v, kl),
-                           "decode_attention_kernel"),
+                           SPLIT_DECODE),
             plain_ms=event_ms(torch, lambda: ref.decode_attention(q, k, v, kl), 10),
             bound_ms=b, bound_by=by,
             library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=lmask,
@@ -640,6 +700,12 @@ def phase_kernels_moe(torch, dev):
         want = ref.decode_attention(*up(q, k, v), kl).to(q.dtype)
         check(f"K3 ring hd=128 G=5 L={L4_CHUNK} kv_len={L4_RING_LEN}", dtype, got, want,
               errs["dense_l4"])
+        k8, v8, ks, vs = int8_cache(torch, k, v)
+        got = da.decode_attention(q, k8, v8, kl, k_scale=ks, v_scale=vs)
+        want = ref.decode_attention(q.float(), k8, v8, kl, k_scale=ks,
+                                    v_scale=vs).to(q.dtype)
+        check("K3 ring int8 cache hd=128 G=5", dtype, got, want, errs["dense_l4"])
+        del k8, v8
         del q, k, v, kp, vp, got, want
         cases = [(key, *c) for key, c in gmm_cases.items() if c] + \
             [("gmm_edge", *c) for c in edge_cases]
@@ -686,13 +752,16 @@ def phase_kernels_moe(torch, dev):
                      4 * L4_HD * L4_H * n_kv, dtype)
     entries["decode_l4"] = dict(
         name="paged_decode_attention (hd 128)", route="cuda",
-        source="src/repro_torch/csrc/paged_attention.cu",
+        source="src/repro_torch/csrc/decode_common.cuh",
         replaces="src/repro/kernels/decode_attention.py:135",
-        shape=f"B=8 kv_len={L4_KV_LEN} H={L4_H} KV={L4_KV} hd={L4_HD} page={PAGE} bf16",
+        shape=f"B=8 kv_len={L4_KV_LEN} H={L4_H} KV={L4_KV} hd={L4_HD} page={PAGE} "
+              f"{n_split(torch, q, L4_KV, bt.shape[1] * PAGE)} bf16",
         **kernel_times(torch, lambda: pa.paged_decode_attention(q, kp, vp, bt, kl),
-                       "paged_rows_kernel"),
+                       SPLIT_DECODE),
         plain_ms=event_ms(torch, lambda: ref.paged_decode_attention(q, kp, vp, bt, kl), 10),
-        bound_ms=b, bound_by=by, library_ms=None)
+        bound_ms=b, bound_by=by,
+        library_ms=event_ms(torch, paged_sdpa(torch, q, kp, vp, bt, kl), 20),
+        library="SDPA, length mask, keys gathered to a contiguous copy before timing")
     # K3 at hd 128: the chunked layers' ring decode, kv_len wrapped
     q, k, v, kl = decode_inputs(torch, rng, dev, dtype, *heads, S=L4_CHUNK,
                                 kv_len=L4_RING_LEN)
@@ -703,12 +772,12 @@ def phase_kernels_moe(torch, dev):
     lmask = (torch.arange(k.shape[1], device=dev)[None] < kl[:, None])[:, None, None]
     entries["dense_l4"] = dict(
         name="decode_attention (llama4 ring, hd 128)", route="cuda",
-        source="src/repro_torch/csrc/decode_attention.cu",
+        source="src/repro_torch/csrc/decode_common.cuh",
         replaces="src/repro/kernels/decode_attention.py:31",
         shape=f"B=8 L={L4_CHUNK} H={L4_H} KV={L4_KV} hd={L4_HD} kv_len {L4_RING_LEN} "
-              f"({n_kv} keys) bf16",
+              f"({n_kv} keys) {n_split(torch, q, L4_KV, L4_CHUNK)} bf16",
         **kernel_times(torch, lambda: da.decode_attention(q, k, v, kl),
-                       "decode_attention_kernel"),
+                       SPLIT_DECODE),
         plain_ms=event_ms(torch, lambda: ref.decode_attention(q, k, v, kl), 5),
         bound_ms=b, bound_by=by,
         library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=lmask,

@@ -5,10 +5,16 @@ One query token per sequence against k, v (B, S, KV, hd) of which the
 first ``kv_len[b]`` slots are valid: recurrentgemma's sliding-window ring
 caches and the dense per-slot layout (``page_size=0``). An int8 cache takes
 (B, KV) float32 ``k_scale`` / ``v_scale``. For a CUDA tensor the wrapper
-launches the hand-written kernel in ``csrc/decode_attention.cu`` on the
-current stream and counts the launch; for a CPU tensor it runs the plain
-PyTorch version. There is no fallback: a CUDA operand the kernel does not
-take, or a failed build or launch, raises.
+launches the hand-written kernel in ``csrc/decode_attention.cu`` (the
+split-KV body of ``csrc/decode_common.cuh`` and, with more than one split,
+its merge) on the current stream and counts the launch; for a CPU tensor it
+runs the plain PyTorch version. There is no fallback: a CUDA operand the
+kernel does not take, or a failed build or launch, raises.
+
+``split_plan`` fixes the number of key splits from shapes alone, and the
+kernel reads ``kv_len`` on the device, so neither wrapper of the split body
+(this one and K1's decode) reads ``kv_len`` on the host: the call can be
+captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -24,13 +30,38 @@ from repro_torch.kernels import build, ref
 # against on the card)
 decode_attention_plain = ref.decode_attention
 
-GMAX = 64    # most query heads per kv head the kernel takes
+ROWS_PER_GROUP = 16  # query heads per block (one m16 row group)
+
+
+def split_plan(B: int, KV: int, G: int, capacity: int, n_sm: int) -> int:
+    """Key splits per (sequence, kv head, row group) of the split-KV decode
+    body: enough blocks for about two per SM, and never more splits than
+    64-key tiles in the cache's ``capacity``. Shapes only, never kv_len, so
+    the grid is the same for every call at these shapes."""
+    blocks = B * KV * -(-G // ROWS_PER_GROUP)
+    want = -(-2 * n_sm // blocks)
+    return max(1, min(want, -(-capacity // ref.SPLIT_KEYS)))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def workspace(q: torch.Tensor, n_split: int) -> Optional[torch.Tensor]:
+    """The float32 partials (acc, m, l) of ``n_split`` splits of every query
+    head, or None with one split (the body then writes out directly)."""
+    if n_split == 1:
+        return None
+    B, _, H, hd = q.shape
+    return torch.empty(n_split * B * H * (hd + 2), dtype=torch.float32,
+                       device=q.device)
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.load("decode_attention").decode_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
         [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -55,10 +86,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)}")
     B, _, H, hd = q.shape
     _, S, KV, hd_k = k.shape
-    if hd_k != hd or hd not in build.HEAD_DIMS or H % KV or H // KV > GMAX:
+    if hd_k != hd or hd not in build.HEAD_DIMS or H % KV:
         raise ValueError(f"head_dim {hd} (cache {hd_k}) must be one of "
-                         f"{build.HEAD_DIMS}, H={H} a multiple of KV={KV} "
-                         f"and H / KV <= {GMAX}")
+                         f"{build.HEAD_DIMS} and H={H} a multiple of KV={KV}")
     if S == 0:
         raise ValueError("decode_attention needs a cache of at least one slot")
     kv_int8 = k.dtype == torch.int8
@@ -79,13 +109,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     operands.update({n: t for n, t in (("k_scale", k_scale),
                                         ("v_scale", v_scale)) if t is not None})
     build.check_operands(q.device, **operands)
+    n_split = split_plan(B, KV, H // KV, S, sm_count(q.device.index))
+    ws = workspace(q, n_split)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      kv_len.data_ptr(),
                      k_scale.data_ptr() if k_scale is not None else None,
                      v_scale.data_ptr() if v_scale is not None else None,
-                     out.data_ptr(), B, S, H, KV, hd, scale,
+                     out.data_ptr(), ws.data_ptr() if ws is not None else None,
+                     B, S, H, KV, hd, n_split, scale,
                      build.dtype_code(q), int(kv_int8), stream)
     build.check_launch("decode_attention", rc)
     decode_attention.launches += 1

@@ -5,7 +5,9 @@ Wrappers for the serving engine's decode step (``paged_decode_attention``,
 one query token per sequence) and chunked-prefill step
 (``paged_prefill_attention``). For a CUDA tensor each launches the
 hand-written kernel in ``csrc/paged_attention.cu`` on the current stream
-and counts the launch; for a CPU tensor it runs the plain PyTorch version
+and counts the launch (one query token per sequence takes the split-KV
+body of ``csrc/decode_common.cuh``, shared with K3, and its merge; a
+chunk the tiled body); for a CPU tensor it runs the plain PyTorch version
 below. There is no fallback: a CUDA operand the kernel does not take, or a
 failed build or launch, raises.
 """
@@ -18,6 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels import decode_attention as da
 
 # plain PyTorch versions of the same functions (the CPU path, and what the
 # kernel is held against on the card)
@@ -28,7 +31,7 @@ paged_prefill_plain = ref.paged_prefill_attention
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.load("paged_attention").paged_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + \
         [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -36,6 +39,8 @@ def _launcher():
 
 def _launch(q, k_pool, v_pool, block_tables, kv_len, q_offset,
             softmax_scale: Optional[float]) -> torch.Tensor:
+    """Launch K1; ``q_offset`` None means decode (C == 1, the causal limit
+    is kv_len)."""
     if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"q {tuple(q.shape)} must be (B, C, H, hd) and the "
                          f"pools (num_pages, page, KV, hd), got k "
@@ -47,23 +52,34 @@ def _launch(q, k_pool, v_pool, block_tables, kv_len, q_offset,
                          f"{build.HEAD_DIMS} and H={H} a multiple of KV={KV}")
     if q.dtype != k_pool.dtype or q.dtype != v_pool.dtype:
         raise TypeError("q and the pools must share one dtype")
+    if q_offset is None and C != 1:
+        raise ValueError("a chunk (C > 1) needs q_offset")
     for name, t, shape in (("block_tables", block_tables, (B, None)),
                            ("kv_len", kv_len, (B,)),
                            ("q_offset", q_offset, (B,))):
+        if t is None:
+            continue
         if t.dtype != torch.int32 or t.dim() != len(shape) or t.shape[0] != B:
             raise ValueError(f"{name} must be int32 of shape {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
     P = block_tables.shape[1]
     out = torch.empty_like(q)
-    build.check_operands(q.device, q=q, k_pool=k_pool, v_pool=v_pool,
-                         block_tables=block_tables, kv_len=kv_len,
-                         q_offset=q_offset, out=out)
+    operands = dict(q=q, k_pool=k_pool, v_pool=v_pool,
+                    block_tables=block_tables, kv_len=kv_len, out=out)
+    if q_offset is not None:
+        operands["q_offset"] = q_offset
+    build.check_operands(q.device, **operands)
+    n_split = da.split_plan(B, KV, H // KV, P * page,
+                            da.sm_count(q.device.index)) if C == 1 else 1
+    ws = da.workspace(q, n_split)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _launcher()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                      block_tables.data_ptr(), kv_len.data_ptr(),
-                     q_offset.data_ptr(), out.data_ptr(), B, C, H, KV, hd, P,
-                     page, scale, build.dtype_code(q), stream)
+                     q_offset.data_ptr() if q_offset is not None else None,
+                     out.data_ptr(), ws.data_ptr() if ws is not None else None,
+                     B, C, H, KV, hd, P, page, n_split, scale,
+                     build.dtype_code(q), stream)
     build.check_launch("paged_attention", rc)
     return out
 
@@ -81,8 +97,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
                                   softmax_scale=softmax_scale)
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"decode takes q of shape (B, 1, H, hd), got {tuple(q.shape)}")
-    q_offset = torch.clamp(kv_len - 1, min=0).to(torch.int32)
-    out = _launch(q, k_pool, v_pool, block_tables, kv_len, q_offset,
+    out = _launch(q, k_pool, v_pool, block_tables, kv_len, None,
                   softmax_scale)
     paged_decode_attention.launches += 1
     return out

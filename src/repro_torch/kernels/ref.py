@@ -5,6 +5,9 @@ normalisation order, so the CPU tests can hold them against the JAX oracles
 and ``chip_smoke.py`` can hold the CUDA kernels against them on the card.
 ``decode_attention`` normalises p before ``p @ v``; ``flash_attention`` and
 ``chunk_prefill_attention`` divide after, as the reference does.
+``split_decode_attention`` is decode attention in the split-KV kernel's
+two passes (partials over key ranges, then their merge), which the tests
+hold equal to the one-pass version.
 ``rglru_scan`` walks time sequentially, as the Pallas body does, where the
 JAX oracle uses a log-depth associative scan: the two agree to rounding.
 ``moe_gmm`` upcasts to float32 before each product, as the Pallas body
@@ -122,6 +125,72 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     out = torch.einsum("bkgs,bskd->bkgd", p, vf)
     return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+SPLIT_KEYS = 64     # a split of the split-KV decode holds a multiple of this
+
+
+def split_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          kv_len: torch.Tensor, n_split: int, *,
+                          softmax_scale: Optional[float] = None,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None):
+    """The split-KV decode kernel's first pass, plainly: split ``s`` of
+    sequence ``b`` holds keys ``[s * len, min((s + 1) * len, kv_len))`` with
+    ``len = round_up(ceil(kv_len / n_split), 64)``; for each split and query
+    head, float32 ``m`` (the range's max score, NEG_INF when empty), ``l``
+    (the sum of exp(s - m), 0 when empty) and ``acc`` (the exp-weighted sum
+    of v, not normalised). Shapes (n_split, B, H), (n_split, B, H) and
+    (n_split, B, H, hd); natural-log units."""
+    B, _, H, hd = q.shape
+    _, S, KV, _ = k.shape
+    G = H // KV
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    kf, vf = k.float(), v.float()
+    if k_scale is not None:
+        kf = kf * k_scale[:, None, :, None].float()
+    if v_scale is not None:
+        vf = vf * v_scale[:, None, :, None].float()
+    qr = q.reshape(B, KV, G, hd).float() * scale
+    s = torch.einsum("bkgd,bskd->bkgs", qr, kf)               # (B, KV, G, S)
+    kvl = torch.clamp(kv_len.long(), max=S)
+    per = (-(-kvl // n_split) + SPLIT_KEYS - 1) // SPLIT_KEYS * SPLIT_KEYS
+    kp = torch.arange(S, device=q.device)[None]
+    ms, ls, accs = [], [], []
+    for i in range(n_split):
+        lo = i * per
+        hi = torch.minimum(lo + per, kvl)
+        valid = ((kp >= lo[:, None]) & (kp < hi[:, None]))[:, None, None]
+        si = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m = si.amax(dim=-1)
+        p = torch.where(valid, torch.exp(si - m[..., None]), torch.zeros_like(si))
+        ms.append(m.reshape(B, H))
+        ls.append(p.sum(dim=-1).reshape(B, H))
+        accs.append(torch.einsum("bkgs,bskd->bkgd", p, vf).reshape(B, H, hd))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The merge pass: out = sum_s e^{m_s - M} acc_s / max(sum_s e^{m_s - M}
+    l_s, 1e-30) over the splits that hold a key (l_s > 0). Returns
+    (B, 1, H, hd) in ``dtype``."""
+    M = m.amax(dim=0)
+    w = torch.where(l > 0, torch.exp(m - M), torch.zeros_like(m))
+    out = (w[..., None] * acc).sum(dim=0) / \
+        torch.clamp((w * l).sum(dim=0), min=1e-30)[..., None]
+    return out[:, None].to(dtype)
+
+
+def split_decode_attention(q, k, v, kv_len, n_split: int, *,
+                           softmax_scale: Optional[float] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None):
+    """``decode_attention`` the way the split-KV kernel computes it: the
+    partials of ``n_split`` key ranges, then their merge."""
+    return merge_partials(*split_decode_partials(
+        q, k, v, kv_len, n_split, softmax_scale=softmax_scale,
+        k_scale=k_scale, v_scale=v_scale), q.dtype)
 
 
 def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:

@@ -240,6 +240,124 @@ def test_decode_int8_plain_matches_jax():
 
 
 # ----------------------------------------------------------------------
+# split-KV decode (the shared body of K1 decode and K3): the plain
+# split-and-merge, and the host-side split plan
+# ----------------------------------------------------------------------
+# kv_len 1 (every split but the first empty), 64 and 65 (a 64-key split
+# boundary at and across), 130 and the full cache of 200
+SPLIT_KV_LEN = [1, 64, 65, 130, 200]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("n_split", [1, 3, 8])
+def test_split_decode_plain_matches_jax(n_split, int8):
+    from repro.kernels import ops as jops
+    rng = np.random.default_rng(n_split + 40 * int8)
+    q, k, v, kl = _decode_inputs(rng, 5, 64, S=200, kv_len=SPLIT_KV_LEN)
+    scales = {}
+    if int8:
+        k, v, ks, vs = _int8_cache(k, v)
+        scales = dict(k_scale=ks, v_scale=vs)
+    tq, tk, tv, tkl = map(torch.from_numpy, (q, k, v, kl))
+    tscales = {n: torch.from_numpy(x) for n, x in scales.items()}
+    got = ref.split_decode_attention(tq, tk, tv, tkl, n_split, **tscales)
+    assert got.shape == q.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(
+        _f32(got), _f32(ref.decode_attention(tq, tk, tv, tkl, **tscales)),
+        atol=TOL[F32])
+    if int8:
+        from repro.kernels import ref as jref
+        from repro.kernels.decode_attention import decode_attention as pallas_dec
+        wants = {"ref": jref.decode_attention(q, k, v, kl, **scales),
+                 "interpret": pallas_dec(q, k, v, kl, interpret=True,
+                                         block_kv=128, **scales)}
+    else:
+        wants = {impl: jops.decode_attention(q, k, v, kl, impl=impl)
+                 for impl in ("ref", "interpret")}
+    for impl, want in wants.items():
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[F32],
+                                   err_msg=impl)
+
+
+@pytest.mark.parametrize("n_split", [1, 3, 8])
+def test_paged_split_decode_plain_matches_jax(n_split):
+    from repro.kernels import ops as jops
+    rng = np.random.default_rng(70 + n_split)
+    kv_len = [13, 64, 65, 128, 1]           # last row: the scratch page
+    q, kp, vp, bt, kl = _paged_inputs(rng, len(kv_len), 1, 10, 2, 64, 16, 10,
+                                      kv_len, F32)
+    args = list(map(torch.from_numpy, (q, kp, vp, bt, kl)))
+    got = ref.split_decode_attention(args[0], ref.gather_pages(args[1], args[3]),
+                                     ref.gather_pages(args[2], args[3]), args[4],
+                                     n_split)
+    np.testing.assert_allclose(_f32(got), _f32(ref.paged_decode_attention(*args)),
+                               atol=TOL[F32])
+    for impl in ("ref", "interpret"):
+        want = jops.paged_decode_attention(q, kp, vp, bt, kl, impl=impl)
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[F32],
+                                   err_msg=impl)
+
+
+def test_split_partials_of_empty_ranges():
+    """An empty split carries m = NEG_INF and l = 0, and the non-empty
+    ones start on 64-key boundaries and tile [0, kv_len) exactly."""
+    rng = np.random.default_rng(9)
+    q, k, v, kl = _decode_inputs(rng, 4, 64, S=200, kv_len=SPLIT_KV_LEN)
+    m, l, acc = ref.split_decode_partials(*map(torch.from_numpy, (q, k, v, kl)), 8)
+    assert m.shape == l.shape == (8, len(SPLIT_KV_LEN), 8)
+    assert acc.shape == (8, len(SPLIT_KV_LEN), 8, 64)
+    for b, n in enumerate(SPLIT_KV_LEN):
+        per = -(-(-(-n // 8)) // 64) * 64
+        live = [s for s in range(8) if s * per < n]
+        assert live == list(range(-(-n // per)))
+        for s in range(8):
+            if s in live:
+                assert (l[s, b] >= 1).all()     # the range's max key weighs 1
+            else:
+                assert (m[s, b] == ref.NEG_INF).all() and (l[s, b] == 0).all()
+                assert (acc[s, b] == 0).all()
+
+
+@pytest.mark.parametrize("B,KV,G,capacity,n_sm,want", [
+    (8, 1, 10, 2048, 132, 32),     # recurrentgemma ring: 8 blocks without a split
+    (8, 8, 4, 2048, 132, 5),       # granite decode, paged or dense
+    (8, 8, 5, 8192, 132, 5),       # llama4-scout chunked-attention ring
+    (8, 8, 5, 9216, 132, 5),       # llama4-scout paged global layers
+    (1, 1, 10, 100, 132, 2),       # capped by the cache: one tile a split
+    (1, 1, 1, 64, 132, 1),
+    (64, 8, 4, 4096, 132, 1),      # 512 blocks already fill the card
+    (33, 8, 1, 4096, 132, 1),      # 264 blocks: two an SM
+    (8, 2, 64, 4096, 132, 5),      # G = 64: four row groups
+    (8, 2, 17, 4096, 132, 9),      # G = 17: two row groups
+])
+def test_split_plan(B, KV, G, capacity, n_sm, want):
+    n = da.split_plan(B, KV, G, capacity, n_sm)
+    assert n == want
+    blocks = B * KV * -(-G // 16)
+    assert n <= -(-capacity // 64)                  # a tile at least a split
+    if blocks >= 2 * n_sm:
+        assert n == 1
+    else:
+        assert blocks * n >= min(2 * n_sm, blocks * -(-capacity // 64))
+
+
+def test_split_plan_reads_no_kv_len():
+    """The plan is a function of shapes alone; every kv_len up to the
+    capacity splits into at most n_split 64-aligned ranges covering it."""
+    import inspect
+    assert list(inspect.signature(da.split_plan).parameters) == \
+        ["B", "KV", "G", "capacity", "n_sm"]
+    cap = 2048
+    n = da.split_plan(8, 1, 10, cap, 132)
+    for kvl in range(1, cap + 1):
+        per = -(-(-(-kvl // n)) // 64) * 64
+        ranges = [(s * per, min((s + 1) * per, kvl)) for s in range(n)]
+        covered = [r for r in ranges if r[0] < r[1]]
+        assert covered[0][0] == 0 and covered[-1][1] == kvl
+        assert all(a[1] == b[0] for a, b in zip(covered, covered[1:]))
+
+
+# ----------------------------------------------------------------------
 # RG-LRU scan (K5)
 # ----------------------------------------------------------------------
 def _scan_inputs(rng, B, S, D):
@@ -368,14 +486,24 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, H, KV, hd, causal, window,
     _held(got, want, dtype)
 
 
+# decode's split body at G past one m16 row group (16, 17, 64) and between
+# (5, 10), every head dim, both dtypes
+GPU_PAGED_CASES = PAGED_CASES + [(4, 256, BF16), (5, 128, BF16), (10, 256, BF16),
+                                 (10, 64, F32), (16, 128, BF16), (17, 64, BF16),
+                                 (17, 256, F32), (64, 128, BF16)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("G,hd,dtype", PAGED_CASES + [(4, 256, BF16)])
+@pytest.mark.parametrize("G,hd,dtype", GPU_PAGED_CASES)
 @pytest.mark.parametrize("C", [1, 5, 70])
 def test_paged_kernel_matches_plain(cuda, G, hd, dtype, C):
+    """Pages out of order, tables wider than a sequence needs; decode
+    kv_len 64 / 65 at and across a 64-key split boundary, 256 = the table's
+    capacity, 1 (all but one split empty, and the scratch-page row)."""
     rng = np.random.default_rng(C * 13 + G + hd)
     KV, page, P = 2, 16, 16
     if C == 1:
-        kv_len = np.array([13, 200, 1, 64, 1], np.int32)
+        kv_len = np.array([13, 200, 1, 64, 65, 256, 129, 1], np.int32)
     else:
         kv_len = np.array([C, C + 9, C + 100], np.int32)
     q_off = np.maximum(kv_len - C, 0).astype(np.int32)
@@ -398,11 +526,14 @@ def test_paged_kernel_matches_plain(cuda, G, hd, dtype, C):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("G,KV,hd", [(1, 2, 64), (4, 8, 64), (4, 2, 128),
-                                     (10, 1, 256), (10, 2, 64), (24, 1, 64),
+                                     (5, 8, 128), (10, 1, 256), (10, 2, 64),
+                                     (16, 1, 128), (17, 2, 256), (24, 1, 64),
                                      (64, 1, 128)])
 def test_decode_kernel_matches_plain(cuda, G, KV, hd, dtype):
+    """kv_len 1 (all but one split empty), 63 / 64 / 65 and 129 at and
+    across 64-key split boundaries, 1000 = the cache's capacity."""
     rng = np.random.default_rng(G * 31 + hd)
-    kv_len = np.array([1, 31, 32, 33, 300, 1000], np.int32)   # 1000 = full
+    kv_len = np.array([1, 31, 63, 64, 65, 129, 300, 1000], np.int32)
     q, k, v, kl = _decode_inputs(rng, G, hd, KV=KV, S=1000, kv_len=kv_len)
     args = [_torch(x, dtype, cuda) for x in (q, k, v)] + \
         [torch.from_numpy(kl).to(cuda)]
@@ -416,11 +547,11 @@ def test_decode_kernel_matches_plain(cuda, G, KV, hd, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("G,hd", [(4, 64), (10, 256)])
+@pytest.mark.parametrize("G,hd", [(4, 64), (5, 128), (10, 256), (17, 64)])
 def test_decode_kernel_int8_matches_plain(cuda, G, hd, dtype):
     rng = np.random.default_rng(G + hd)
     q, kf, vf, kl = _decode_inputs(rng, G, hd, KV=2, S=512,
-                                   kv_len=(512, 7, 260))
+                                   kv_len=(512, 7, 260, 1, 65))
     k8, v8, ks, vs = _int8_cache(kf, vf)
     args = [_torch(q, dtype, cuda)] + [torch.from_numpy(x).to(cuda)
                                        for x in (k8, v8, kl)]
@@ -430,6 +561,45 @@ def test_decode_kernel_int8_matches_plain(cuda, G, hd, dtype):
     want = ref.decode_attention(args[0].float(), *args[1:], **scales)
     torch.cuda.synchronize()
     _held(got, want.to(got.dtype), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_decode_kernels_replay_in_cuda_graph(cuda, dtype):
+    """K1 decode and K3 read kv_len on the card only and launch a grid
+    fixed by shapes: captured once in a CUDA graph, a replay after new
+    kv_len values are written into the captured tensors gives what the
+    plain versions give for the new values."""
+    rng = np.random.default_rng(21)
+    G, hd, page, P = 5, 128, 16, 32
+    kv0 = [1, 100, 512, 300]
+    q, kp, vp, bt, kl = _paged_inputs(rng, 4, 1, 8 * G, 8, hd, page, P,
+                                      [P * page] * 4, dtype)
+    pa_args = [_torch(q, dtype, cuda), _torch(kp, dtype, cuda),
+               _torch(vp, dtype, cuda), torch.from_numpy(bt).to(cuda),
+               torch.tensor(kv0, dtype=torch.int32, device=cuda)]
+    dq, dk, dv, _ = _decode_inputs(rng, 10, 256, KV=1, S=2048, kv_len=kv0)
+    da_args = [_torch(x, dtype, cuda) for x in (dq, dk, dv)] + \
+        [torch.tensor(kv0, dtype=torch.int32, device=cuda)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):            # warm-up: build and first launch
+        pa.paged_decode_attention(*pa_args)
+        da.decode_attention(*da_args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_pa = pa.paged_decode_attention(*pa_args)
+        out_da = da.decode_attention(*da_args)
+    for kv_new in ([512, 1, 65, 2], [7, 511, 64, 129], [64, 64, 1, 512]):
+        pa_args[4].copy_(torch.tensor(kv_new, dtype=torch.int32))
+        da_args[3].copy_(torch.tensor([n * 4 for n in kv_new], dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        _held(out_pa, ref.paged_decode_attention(*_up(*pa_args[:3]), *pa_args[3:])
+              .to(out_pa.dtype), dtype)
+        _held(out_da, ref.decode_attention(*_up(*da_args[:3]), da_args[3])
+              .to(out_da.dtype), dtype)
 
 
 @pytest.mark.gpu
