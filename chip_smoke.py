@@ -10,8 +10,8 @@ Phases (each raises on failure, so the script exits non-zero):
    (one process per source, in parallel), with each instance's registers,
    spills and static shared memory from ptxas, and its count of
    tensor-core instructions (HMMA, HGMMA) from ``cuobjdump -sass``; the
-   bf16 instances of K2, K4 and the split decode body (K1 decode, K3) must
-   have some.
+   bf16 instances of K2, K1's chunks (the prefill body they share), K4 and
+   the split decode body (K1 decode, K3) must have some.
 2. Kernels against their plain PyTorch versions on the card, in bf16 and
    float32, at the main paths' shapes: K2 flash attention (granite-3-2b
    prefill, H=32 KV=8 hd=64; recurrentgemma-2b prefill, H=10 KV=1 hd=256,
@@ -19,7 +19,8 @@ Phases (each raises on failure, so the script exits non-zero):
    prefill; decode also at hd 256), K3 decode attention (recurrentgemma's
    ring decode, B=8 S=2048 G=10 hd=256; granite's dense per-slot decode,
    G=4 hd=64; int8 caches at hd 64, 128 and 256)
-   and K5 the RG-LRU scan (B=1 D=2560, float32 held to 0 error); at
+   and K5 the RG-LRU scan (B=1 D=2560, float32 and bf16 held to 0 error,
+   each channel count of its plan timed and the default's GB/s logged); at
    llama4-scout's widths (H=40 KV=8 hd=128, G=5) K2 (causal, and a chunk
    mask crossed), K1 decode and K3 ring decode (L=8192, kv_len wrapped);
    K4 the grouped matmul at the MoE path's shapes (llama4 prefill gate/up
@@ -30,8 +31,9 @@ Phases (each raises on failure, so the script exits non-zero):
    device time; ``event_ms``: CUDA events around back-to-back calls)
    beside its bound, its plain version's time and, where one PyTorch call
    computes the same function, that call's time (``library_ms``:
-   ``scaled_dot_product_attention``, for K1 decode with a length mask over
-   the keys gathered to a contiguous copy before timing;
+   ``scaled_dot_product_attention``, for K1 decode and chunks with a length
+   (and causal-offset) mask over the keys gathered to a contiguous copy
+   before timing;
    ``torch._grouped_mm``; the port never calls them) and
    ``ms_over_library_ms``. K1 decode and K3 run the split-KV body of
    ``csrc/decode_common.cuh`` and, with more than one split, its merge:
@@ -47,7 +49,9 @@ Phases (each raises on failure, so the script exits non-zero):
    8500 (past the 8192-token chunk). 32 new tokens each. Launch counts
    are zeroed before each run and must grow for every kernel of that
    run's path (K4 on llama4's). Cold start, TTFT, decode ms/step,
-   tokens/s, and profiles of a decode step and a prefill.
+   tokens/s, and profiles of a decode step and a prefill (with the shares
+   of K2, K5 and K1 chunk), and of granite's chunked prefill of one
+   1024-token prompt through the engine.
 4. Parity of the paths on the card: full-width bf16 logits of granite, of
    recurrentgemma and of llama4 (chunk 1024, a 2100-token prompt; the
    plain path follows the kernel path's expert choices, and those where
@@ -187,11 +191,14 @@ def _template_args(args: str):
             j = args.index("E", i)
             out.append(args[i + 2:j])
             i = j + 1
-        elif c == "N":                      # a nested name: N [S<n>_] <len><name> E
-            m = re.match(r"N(?:S\d*_)?(\d+)", args[i:])
-            n = int(m.group(1))
-            out.append(args[i + m.end():i + m.end() + n])
-            i += m.end() + n + 1
+        elif c == "N":                      # a nested name: N [S<n>_] (<len><name>)+ E
+            i += 1 + len(re.match(r"N(S\d*_)?", args[i:]).group(1) or "")
+            while args[i] != "E":
+                n = re.match(r"\d+", args[i:]).group()
+                name = args[i + len(n):i + len(n) + int(n)]
+                i += len(n) + int(n)
+            out.append(name)
+            i += 1
         elif c.isdigit():
             n = re.match(r"\d+", args[i:]).group()
             name = args[i + len(n):i + len(n) + int(n)]
@@ -239,7 +246,8 @@ def ptxas_summary(report: str):
 
 
 # the bf16 instances that must run on the tensor cores
-MMA_KERNELS = ("flash_attention_mma_kernel", "moe_gmm_mma_kernel", "split_decode_mma_kernel")
+MMA_KERNELS = ("flash_attention_mma_kernel", "paged_prefill_mma_kernel", "moe_gmm_mma_kernel",
+               "split_decode_mma_kernel")
 # the split-KV decode of K1 (C == 1) and K3 in bf16: the body and its merge
 SPLIT_DECODE = ("split_decode_mma_kernel", "split_decode_merge_kernel")
 
@@ -279,8 +287,8 @@ def sass_mma_counts(cuobjdump: str, library: Path):
 
 def check_tensor_cores(build) -> None:
     """Log every kernel instance's HMMA / HGMMA count; raise unless every
-    bf16 instance of K2, K4 and the split decode body (K1 decode, K3) has
-    some."""
+    bf16 instance of K2, K1 chunk, K4 and the split decode body (K1 decode,
+    K3) has some."""
     tool = cuobjdump_path()
     seen = {}
     for name in build.KERNELS:
@@ -393,6 +401,22 @@ def paged_sdpa(torch, q, kp, vp, bt, kl):
     return lambda: sdpa(qt, kt, vt, attn_mask=lmask, enable_gqa=True)
 
 
+def paged_chunk_sdpa(torch, q, kp, vp, bt, kl, qo):
+    """K1 chunk's yardstick: ``scaled_dot_product_attention`` with the
+    boolean mask ``kp < kv_len & kp <= q_offset + i`` over the same keys,
+    gathered from the pool into a contiguous (B, KV, P * page, hd) copy
+    before timing (the gather is not timed). Returns the call to time."""
+    from repro_torch.kernels import ref
+    kt = ref.gather_pages(kp, bt).transpose(1, 2).contiguous()
+    vt = ref.gather_pages(vp, bt).transpose(1, 2).contiguous()
+    qt = q.transpose(1, 2)
+    keys = torch.arange(kt.shape[2], device=q.device)
+    qpos = qo[:, None] + torch.arange(q.shape[1], device=q.device)[None]
+    mask = (keys[None, None] < kl[:, None, None]) & (keys[None, None] <= qpos[:, :, None])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)
+
+
 def log_row(e) -> None:
     """Log a kernel row and add ``ms_over_library_ms``, the kernel's
     profiler time over the library call's (None where there is none)."""
@@ -407,6 +431,13 @@ def log_row(e) -> None:
         f"{e['plain_ms']:.4f} ms, {vs}")
 
 
+def scan_plans(a, b):
+    """K5's plan for these operands at each channel count."""
+    from repro_torch.kernels import rglru_scan as rs
+    return [rs.scan_plan(a.shape[-1], a.element_size(), a.data_ptr(), b.data_ptr(), ch=ch)
+            for ch in rs.CH_CHOICES]
+
+
 def phase_kernels(torch, dev):
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -418,6 +449,7 @@ def phase_kernels(torch, dev):
     up = lambda *ts: [t.float() for t in ts]  # noqa: E731
     errs = {k: [] for k in ("flash", "flash_rg", "decode", "chunk", "dense_rg",
                             "dense_granite", "scan")}
+    errs["chunk_768"] = errs["chunk"]
     log("phase 2: kernels against their plain versions (bf16 kernels against "
         "the plain version in float32 on the same inputs)")
     for dtype in ("bfloat16", "float32"):
@@ -446,8 +478,11 @@ def phase_kernels(torch, dev):
         got = pa.paged_decode_attention(q, kp, vp, bt, kl)
         want = ref.paged_decode_attention(*up(q, kp, vp), bt, kl).to(q.dtype)
         check(f"K1 decode B=8 kv_len={kv_len}", dtype, got, want, errs["decode"])
-        for q_off in (0, 256):
-            q, kp, vp, bt, kl = paged_inputs(torch, rng, dev, dtype, [q_off + 256], 256)
+        for q_off in (0, 256, 768):
+            # the last chunk of a 1024-token prompt draws from a generator of
+            # its own, so every other check keeps its inputs
+            g = np.random.default_rng(768) if q_off == 768 else rng
+            q, kp, vp, bt, kl = paged_inputs(torch, g, dev, dtype, [q_off + 256], 256)
             qo = torch.tensor([q_off], dtype=torch.int32, device=dev)
             got = pa.paged_prefill_attention(q, kp, vp, bt, kl, qo)
             want = ref.paged_prefill_attention(*up(q, kp, vp), bt, kl, qo).to(q.dtype)
@@ -479,9 +514,14 @@ def phase_kernels(torch, dev):
         for S in (1024, 3000):
             for with_h0 in (False, True):
                 a, b, h0 = scan_inputs(torch, rng, dev, dtype, S, with_h0)
+                want = ref.rglru_scan(a, b, h0)
                 check(f"K5 rglru_scan B=1 S={S} D={RG_D} h0={with_h0}", dtype,
-                      rs.rglru_scan(a, b, h0), ref.rglru_scan(a, b, h0),
-                      errs["scan"], tol=0.0)
+                      rs.rglru_scan(a, b, h0), want, errs["scan"], tol=0.0)
+                if S == 3000 and with_h0:
+                    for plan in scan_plans(a, b):
+                        check(f"K5 rglru_scan S={S} h0=True ch={plan.ch}", dtype,
+                              rs.rglru_scan(a, b, h0, plan=plan), want, errs["scan"],
+                              tol=0.0)
     torch.cuda.synchronize()
 
     log("phase 2: times at the main paths' shapes, bf16 (K5 float32, as the "
@@ -545,23 +585,27 @@ def phase_kernels(torch, dev):
         bound_ms=b, bound_by=by,
         library_ms=event_ms(torch, paged_sdpa(torch, q, kp, vp, bt, kl), 20),
         library="SDPA, length mask, keys gathered to a contiguous copy before timing")
-    # K1 chunk: the second 256-token chunk of a prompt
-    C, q_off = 256, 256
-    q, kp, vp, bt, kl = paged_inputs(torch, rng, dev, dtype, [q_off + C], C)
-    qo = torch.tensor([q_off], dtype=torch.int32, device=dev)
-    pairs = sum(q_off + i + 1 for i in range(C)) * H
-    b, by = bound_ms(isz * (2 * q.numel() + 2 * (q_off + C) * KV * HD) + 4 * (bt.numel() + 2),
-                     4 * HD * pairs, dtype)
-    entries["chunk"] = dict(
-        name="paged_prefill_attention", route="cuda",
-        source="src/repro_torch/csrc/paged_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:135",
-        shape=f"B=1 C={C} q_offset={q_off} page={PAGE} bf16",
-        **kernel_times(torch, lambda: pa.paged_prefill_attention(q, kp, vp, bt, kl, qo),
-                       "paged_tiled_kernel"),
-        plain_ms=event_ms(torch, lambda: ref.paged_prefill_attention(q, kp, vp, bt, kl, qo),
-                          10),
-        bound_ms=b, bound_by=by, library_ms=None)
+    # K1 chunk: the second and the last 256-token chunk of a 1024-token prompt
+    for key, q_off in (("chunk", 256), ("chunk_768", 768)):
+        C = 256
+        q, kp, vp, bt, kl = paged_inputs(torch, rng, dev, dtype, [q_off + C], C)
+        qo = torch.tensor([q_off], dtype=torch.int32, device=dev)
+        pairs = sum(q_off + i + 1 for i in range(C)) * H
+        b, by = bound_ms(isz * (2 * q.numel() + 2 * (q_off + C) * KV * HD)
+                         + 4 * (bt.numel() + 2), 4 * HD * pairs, dtype)
+        entries[key] = dict(
+            name=f"paged_prefill_attention (q_offset {q_off})", route="cuda",
+            source="src/repro_torch/csrc/prefill_common.cuh",
+            replaces="src/repro/kernels/decode_attention.py:135",
+            shape=f"B=1 C={C} q_offset={q_off} H={H} KV={KV} hd={HD} page={PAGE} bf16",
+            **kernel_times(torch, lambda: pa.paged_prefill_attention(q, kp, vp, bt, kl, qo),
+                           "paged_prefill_mma_kernel"),
+            plain_ms=event_ms(torch, lambda: ref.paged_prefill_attention(q, kp, vp, bt, kl,
+                                                                         qo), 10),
+            bound_ms=b, bound_by=by,
+            library_ms=event_ms(torch, paged_chunk_sdpa(torch, q, kp, vp, bt, kl, qo), 20),
+            library="SDPA, length and causal-offset mask, keys gathered to a contiguous "
+                    "copy before timing")
     # K3: recurrentgemma ring decode and granite dense decode, kv_len 1..2048
     n_kv = sum(DECODE_KV_LEN)
     for key, (nh, nkv, hd), what in (
@@ -584,18 +628,27 @@ def phase_kernels(torch, dev):
             bound_ms=b, bound_by=by,
             library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=lmask,
                                                      enable_gqa=True), 20))
-    # K5: a 3000-token recurrentgemma prefill's scan, float32 a and b
+    # K5: a 3000-token recurrentgemma prefill's scan, float32 a and b; each
+    # channel count of the plan, then the default
     S = 3000
     a, bb, _ = scan_inputs(torch, rng, dev, "float32", S, False)
-    b, by = bound_ms(4 * 3 * S * RG_D, 2 * S * RG_D, "float32")
+    n_bytes = 4 * 3 * S * RG_D
+    b, by = bound_ms(n_bytes, 2 * S * RG_D, "float32")
+    for plan in scan_plans(a, bb):
+        ms = kernel_ms(torch, lambda: rs.rglru_scan(a, bb, plan=plan), "rglru_scan_kernel")
+        log(f"  K5 plan ch={plan.ch:2d} ({-(-RG_D // plan.ch)} blocks, 8 ring stages of 32 "
+            f"steps): {ms:.4f} ms, {n_bytes / ms / 1e6:.1f} GB/s")
+    plan = rs.scan_plan(RG_D, 4, a.data_ptr(), bb.data_ptr())
     entries["scan"] = dict(
         name="rglru_scan", route="cuda",
         source="src/repro_torch/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan.py:26",
-        shape=f"B=1 S={S} D={RG_D} float32",
+        shape=f"B=1 S={S} D={RG_D} float32, ch={plan.ch} vec={plan.vec}",
         **kernel_times(torch, lambda: rs.rglru_scan(a, bb), "rglru_scan_kernel"),
         plain_ms=event_ms(torch, lambda: ref.rglru_scan(a, bb), 2, warmup=1),
         bound_ms=b, bound_by=by, library_ms=None)
+    log(f"  K5 chosen plan {tuple(plan)}: {entries['scan']['ms']:.4f} ms, "
+        f"{n_bytes / entries['scan']['ms'] / 1e6:.1f} GB/s of {HBM_BYTES_PER_S / 1e9:.0f}")
     for key, e in entries.items():
         e["max_abs_err"] = max(errs[key])
         log_row(e)
@@ -902,18 +955,27 @@ def _device_us(ev) -> float:
     return ev.self_device_time_total
 
 
-def profile_breakdown(torch, label: str, run, n: int):
+def profile_breakdown(torch, label: str, run, n: int, shares=None):
     """Profile ``run()`` (``n`` units of work): wall ms per unit, device
     busy ms per unit (kernels and copies on the card), the idle share, the
-    host-side op count and the top device consumers."""
+    host-side op count, the top device consumers and, for each ``shares``
+    entry (label: kernel name), that kernel's device ms per unit and share
+    of busy, with the launches the profiler recorded beside those its
+    wrappers counted. Returns (wall ms, device busy ms, {label: ms}) per
+    unit."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    before = launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n * 1e3
+    after = launches()
+    counted = {what: after[key] - before[key] for what, key in (
+        ("K2", "flash"), ("K1 decode", "decode"), ("K1 chunk", "chunk"), ("K3", "dense"),
+        ("K5", "scan"), ("K4", "gmm"))}
     evs = prof.key_averages()
     dev = sorted((e for e in evs if e.device_type != DeviceType.CPU),
                  key=_device_us, reverse=True)
@@ -926,6 +988,17 @@ def profile_breakdown(torch, label: str, run, n: int):
         f"{n_ops} aten ops on the host (under the profiler)")
     for e in dev[:8]:
         log(f"    {_device_us(e) / 1e3 / n:8.3f} ms  x{e.count // n:<5d} {e.key[:90]}")
+    share_ms = {}
+    for what, kernel in (shares or {}).items():
+        evs = [e for e in dev if kernel in e.key]
+        share_ms[what] = ms = sum(_device_us(e) for e in evs) / 1e3 / n
+        log(f"    share {what}: {ms:.3f} ms of {busy:.2f} ms busy ({ms / busy:.3f}), "
+            f"{sum(e.count for e in evs)} launches recorded of {counted[what]} counted")
+    return wall, busy, share_ms
+
+
+PREFILL_SHARES = {"K2": "flash_attention_mma_kernel", "K5": "rglru_scan_kernel",
+                  "K4": "moe_gmm_mma_kernel"}
 
 
 def profile_served(torch, engine, cfg, context: int, prefill_len: int):
@@ -947,7 +1020,33 @@ def profile_served(torch, engine, cfg, context: int, prefill_len: int):
     toks = torch.from_numpy(rng.integers(3, cfg.vocab, size=(1, prefill_len))).to(engine.device)
     M.prefill(cfg, engine.params, {"tokens": toks})
     profile_breakdown(torch, f"{cfg.name} prefill (1 x {prefill_len} tokens)",
-                      lambda: M.prefill(cfg, engine.params, {"tokens": toks}), 1)
+                      lambda: M.prefill(cfg, engine.params, {"tokens": toks}), 1,
+                      shares=PREFILL_SHARES)
+
+
+def profile_chunked_prefill(torch, engine, cfg, prompt_len: int,
+                            chunk_kernel: str = "paged_prefill_mma_kernel"):
+    """One ``prompt_len``-token prompt through the engine at its
+    ``prefill_chunk``: the engine steps that prefill it, one chunk each
+    (the last also decodes the new request once), after one warm-up
+    prompt. Returns ``profile_breakdown``'s numbers, with K1 chunk's share
+    (``chunk_kernel``)."""
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(6)
+    n_steps = -(-prompt_len // engine.prefill_chunk)
+    for i, what in enumerate(("warm-up", "profiled")):
+        engine.submit(Request(prompt=rng.integers(3, cfg.vocab, size=prompt_len).tolist(),
+                              max_new_tokens=2, req_id=200 + i))
+        run = lambda: [engine.step() for _ in range(n_steps)]  # noqa: E731
+        if what == "warm-up":
+            run()
+        else:
+            res = profile_breakdown(
+                torch, f"{cfg.name} chunked prefill (1 x {prompt_len} tokens, {n_steps} "
+                f"chunks of {engine.prefill_chunk}, the last step decodes once)", run, 1,
+                shares={"K1 chunk": chunk_kernel})
+        engine.generate([])        # drain
+    return res
 
 
 # ----------------------------------------------------------------------
@@ -1128,10 +1227,13 @@ def main() -> int:
         total["flash"] += counts["flash"]
         total["decode"] += counts["decode"]
         total["chunk"] += counts["chunk"]
+        total["chunk_768"] = total["chunk"]
         total["dense_granite"] += counts["dense"]
         if page_size and not chunk:
             profile_served(torch, engine, cfg, context=256, prefill_len=1024)
             params = engine.params
+        if chunk:
+            profile_chunked_prefill(torch, engine, cfg, prompt_len=1024)
     engine = None
     torch.cuda.empty_cache()
 
@@ -1208,7 +1310,7 @@ def main() -> int:
                   runs=[dict(page_size=PAGE), dict(page_size=PAGE, impl="ref")])
 
     kernels = []
-    for key in ("decode", "chunk", "flash", "flash_rg", "dense_rg", "dense_granite",
+    for key in ("decode", "chunk", "chunk_768", "flash", "flash_rg", "dense_rg", "dense_granite",
                 "scan", "flash_l4", "decode_l4", "dense_l4", *GMM_KEYS):
         e = dict(entries[key])
         e["launches"] = total[key]

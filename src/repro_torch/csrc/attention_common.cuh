@@ -1,13 +1,17 @@
 // Shared pieces of the port's attention kernels (sm_90a, CUDA C++).
 //
-// tiled_attention() is the online-softmax body both K1 (paged chunk
-// prefill) and K2 (flash prefill) run: one block of 256 threads owns a tile
-// of BQ = 64 query rows of one (sequence, kv head); a row is a (query
-// position, head of the kv head's group) pair, so the G query heads that
-// share a kv head read each K/V tile once. The block walks key tiles of
-// BK = 64 and skips tiles the mask leaves empty. Where a key row lives is
-// the KeySrc's business: contiguous (B, S, KV, hd) for flash, a block-table
-// page lookup for the paged pool.
+// DenseCache and PagedCache map (sequence, kv head, key) to a K/V row for
+// every attention body: contiguous (B, S, KV, hd) for flash prefill and
+// the dense decode cache, a block-table page lookup for the paged pool.
+//
+// tiled_attention() is the float32 online-softmax body of K2 (flash
+// prefill) and K1's chunks (paged chunked prefill): one block of 256
+// threads owns a tile of BQ = 64 query rows of one (sequence, kv head); a
+// row is a (query position, head of the kv head's group) pair, so the G
+// query heads that share a kv head read each K/V tile once. The block walks
+// key tiles of BK = 64 and skips tiles the mask leaves empty. bf16 prefill
+// runs the tensor-core body of prefill_common.cuh instead, and decode the
+// split body of decode_common.cuh.
 //
 // Numerics follow the Pallas bodies: float32 scores, running max, sum and
 // accumulator (FMA on CUDA cores, no TF32 anywhere), NEG_INF = -1e30 rather
@@ -45,23 +49,21 @@ __device__ __forceinline__ float group16_sum(float x) {
   return x;
 }
 
-// Element offset of key position kp's row in a contiguous (B, S, KV, hd) tensor.
-struct ContiguousKeys {
-  long long seq0;   // b * S
-  int KV, kvh, hd;
-  __device__ __forceinline__ long long offset(int kp) const {
-    return ((seq0 + kp) * KV + kvh) * (long long)hd;
+// Row index (element offset / hd) of key kp of (sequence b, kv head kvh).
+struct DenseCache {              // (B, S, KV, hd)
+  int S, KV;
+  __device__ __forceinline__ int capacity() const { return S; }
+  __device__ __forceinline__ long long row(int b, int kvh, int kp) const {
+    return ((long long)b * S + kp) * KV + kvh;
   }
 };
-
-// Element offset of key position kp in a paged pool (num_pages, page, KV, hd)
-// read through one sequence's block table.
-struct PagedKeys {
-  const int* table;  // block_tables[b, :]
-  int page, KV, kvh, hd;
-  __device__ __forceinline__ long long offset(int kp) const {
-    const long long phys = table[kp / page];
-    return ((phys * page + kp % page) * KV + kvh) * (long long)hd;
+struct PagedCache {              // pool (num_pages, page, KV, hd), tables (B, P)
+  const int* tables;
+  int P, page, KV;
+  __device__ __forceinline__ int capacity() const { return P * page; }
+  __device__ __forceinline__ long long row(int b, int kvh, int kp) const {
+    const long long phys = tables[(long long)b * P + kp / page];
+    return (phys * page + kp % page) * KV + kvh;
   }
 };
 
@@ -71,16 +73,17 @@ constexpr size_t tile_smem_bytes() {
          sizeof(long long) * BK + sizeof(int) * BQ;
 }
 
-// One block's tile of query rows. q and out are (.., n_pos, H, HD) with the
-// sequence's first element at q_seq0; row r is query position r / G of head
-// kvh * G + r % G, at absolute position qbase + r / G. Keys [0, kv_len) are
-// valid; causal / window / chunk masks follow flash_attention.py:64-71.
-template <typename T, int HD, class KeySrc>
+// One block's tile of query rows of sequence b. q and out are (.., n_pos, H,
+// HD) with the sequence's first element at q_seq0; row r is query position
+// r / G of head kvh * G + r % G, at absolute position qbase + r / G. Keys
+// [0, kv_len) are valid; causal / window / chunk masks follow
+// flash_attention.py:64-71.
+template <typename T, int HD, class Cache>
 __device__ void tiled_attention(const T* __restrict__ q, const T* __restrict__ k,
                                 const T* __restrict__ v, T* __restrict__ out,
-                                long long q_seq0, int H, int kvh, int G, int n_pos,
+                                long long q_seq0, int b, int H, int kvh, int G, int n_pos,
                                 int qbase, int kv_len, int causal, int window,
-                                int chunk, float scale, const KeySrc& keys) {
+                                int chunk, float scale, const Cache& cache) {
   static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int QS = HD + 1;   // padded row stride: conflict-free column reads
   constexpr int PS = BK + 1;
@@ -131,7 +134,7 @@ __device__ void tiled_attention(const T* __restrict__ q, const T* __restrict__ k
     __syncthreads();       // the previous tile's readers are done
     if (tid < BK) {
       const int kp = k_lo + tid;
-      koff[tid] = kp < kv_len ? keys.offset(kp) : -1;
+      koff[tid] = kp < kv_len ? cache.row(b, kvh, kp) * HD : -1;
     }
     __syncthreads();
     for (int idx = tid; idx < BK * HD; idx += NT) {

@@ -15,7 +15,7 @@
 //
 // What bounds it on the H100: the bytes of K/V (a few operations per
 // byte). The body is the split-KV flash-decode of decode_common.cuh over
-// contiguous keys (dec::DenseCache): keys split across blocks by a plan
+// contiguous keys (rt::DenseCache): keys split across blocks by a plan
 // fixed from shapes, staged by a cp.async ring, bf16 products on mma.sync,
 // float32 and int8 on CUDA-core FMA, partials merged by a second kernel.
 #include "decode_common.cuh"
@@ -26,11 +26,11 @@ template <typename TQ, typename TKV, int HD>
 int launch(const void* q, const void* k, const void* v, const void* kv_len,
            const void* k_scale, const void* v_scale, void* out, void* ws, int B, int S, int H,
            int KV, int n_split, float scale, cudaStream_t stream) {
-  const dec::Params<TQ, TKV, dec::DenseCache> p{
+  const dec::Params<TQ, TKV, rt::DenseCache> p{
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
       static_cast<const int*>(kv_len), nullptr, static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<TQ*>(out), static_cast<float*>(ws),
-      dec::DenseCache{S, KV}, H, KV, n_split, scale * 1.4426950408889634f};
+      rt::DenseCache{S, KV}, H, KV, n_split, scale * 1.4426950408889634f};
   return dec::launch<HD>(p, B, stream);
 }
 

@@ -89,24 +89,6 @@ constexpr int NT = 32 * NW;      // threads per block
 constexpr int RG = 16;           // query rows per row group
 constexpr int SPLIT_KEYS = 64;   // a split's length is a multiple of this
 
-// Row index (element offset / hd) of key kp of (sequence b, kv head kvh).
-struct DenseCache {              // (B, S, KV, hd)
-  int S, KV;
-  __device__ __forceinline__ int capacity() const { return S; }
-  __device__ __forceinline__ long long row(int b, int kvh, int kp) const {
-    return ((long long)b * S + kp) * KV + kvh;
-  }
-};
-struct PagedCache {              // pool (num_pages, page, KV, hd), tables (B, P)
-  const int* tables;
-  int P, page, KV;
-  __device__ __forceinline__ int capacity() const { return P * page; }
-  __device__ __forceinline__ long long row(int b, int kvh, int kp) const {
-    const long long phys = tables[(long long)b * P + kp / page];
-    return (phys * page + kp % page) * KV + kvh;
-  }
-};
-
 template <typename TQ_, typename TKV_, class Cache>
 struct Params {
   using TQ = TQ_;

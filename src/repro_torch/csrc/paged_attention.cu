@@ -18,19 +18,26 @@
 //
 // Two schedules of the same arithmetic:
 // * decode (C == 1): the split-KV flash-decode of decode_common.cuh over
-//   block-table keys (dec::PagedCache): keys split across blocks by a plan
+//   block-table keys (rt::PagedCache): keys split across blocks by a plan
 //   fixed from shapes, each key row's page looked up as its cp.async copy
 //   is issued, bf16 products on mma.sync, float32 on CUDA-core FMA,
 //   partials merged by a second kernel. A null q_offset means decode: the
 //   causal limit is kv_len itself, so the wrapper builds no q_offset.
-// * chunks (C > 1): the tiled body of attention_common.cuh, one block per
-//   64 query rows of one (sequence, kv head), K/V tiles of 64 keys staged
-//   in shared memory through the block table, float32 FMA on CUDA cores
-//   (no TF32), acc / max(l, 1e-30) at the end.
+// * chunks (C > 1): one block per 64 query rows of one (sequence, kv
+//   head), K/V tiles of 64 keys staged in shared memory through the block
+//   table (rt::PagedCache), the query rows at positions q_offset[b] + [0,
+//   C) and the keys [0, min(kv_len[b], P * page)) read on the device, so
+//   the grid (ceil(C * G / 64), KV, B) depends on shapes only. bf16:
+//   paged_prefill_mma_kernel, the tensor-core body of prefill_common.cuh
+//   that K2 runs (mma.sync fed by ldmatrix from a 2-stage cp.async ring,
+//   each key row's page looked up as its copy is issued). float32:
+//   paged_tiled_kernel, the tiled body of attention_common.cuh, float32
+//   FMA on CUDA cores (no TF32), exact as the Pallas body's float32 dots.
 //
 // Inactive engine rows carry an all-zeros table and kv_len = 1, so they read
 // row 0 of the reserved scratch page 0: harmless.
 #include "decode_common.cuh"
+#include "prefill_common.cuh"
 
 namespace {
 
@@ -41,10 +48,25 @@ paged_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                    const int* __restrict__ kv_len, const int* __restrict__ q_offset,
                    T* __restrict__ out, int C, int H, int KV, int P, int page, float scale) {
   const int b = blockIdx.z, kvh = blockIdx.y;
-  const rt::PagedKeys keys{block_tables + (long long)b * P, page, KV, kvh, HD};
-  const int kvl = min(kv_len[b], P * page);
-  rt::tiled_attention<T, HD>(q, k_pool, v_pool, out, (long long)b * C * H * HD, H, kvh, H / KV,
-                             C, q_offset[b], kvl, /*causal=*/1, 0, 0, scale, keys);
+  const rt::PagedCache cache{block_tables, P, page, KV};
+  rt::tiled_attention<T, HD>(q, k_pool, v_pool, out, (long long)b * C * H * HD, b, H, kvh,
+                             H / KV, C, q_offset[b], min(kv_len[b], cache.capacity()),
+                             /*causal=*/1, 0, 0, scale, cache);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(pf::MT)
+paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k_pool,
+                         const __nv_bfloat16* __restrict__ v_pool,
+                         const int* __restrict__ block_tables, const int* __restrict__ kv_len,
+                         const int* __restrict__ q_offset, __nv_bfloat16* __restrict__ out,
+                         int C, int H, int KV, int P, int page, float scale_log2) {
+  const int b = blockIdx.z;
+  const rt::PagedCache cache{block_tables, P, page, KV};
+  pf::prefill_mma<HD>(q, k_pool, v_pool, out, C, H, KV, q_offset[b],
+                      min(kv_len[b], cache.capacity()), /*causal=*/1, 0, 0, scale_log2,
+                      cache);
 }
 
 template <typename T, int HD>
@@ -59,21 +81,26 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* bt
   const int* qo = static_cast<const int*>(q_offset);
   T* op = static_cast<T*>(out);
   if (C == 1) {
-    const dec::Params<T, T, dec::PagedCache> p{
+    const dec::Params<T, T, rt::PagedCache> p{
         qp, kp, vp, kl, qo, nullptr, nullptr, op, static_cast<float*>(ws),
-        dec::PagedCache{btp, P, page, KV}, H, KV, n_split, scale * 1.4426950408889634f};
+        rt::PagedCache{btp, P, page, KV}, H, KV, n_split, scale * 1.4426950408889634f};
     return dec::launch<HD>(p, B, stream);
   }
   if (!qo) return -1;
-  constexpr size_t smem = rt::tile_smem_bytes<HD>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      paged_tiled_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int G = H / KV;
-  const dim3 grid((unsigned)((C * G + rt::BQ - 1) / rt::BQ), (unsigned)KV, (unsigned)B);
-  paged_tiled_kernel<T, HD><<<grid, rt::NT, smem, stream>>>(qp, kp, vp, btp, kl, qo, op, C, H,
-                                                            KV, P, page, scale);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return pf::launch<HD>(paged_prefill_mma_kernel<HD>, B, C, H, KV, stream, qp, kp, vp, btp,
+                          kl, qo, op, C, H, KV, P, page, scale * 1.4426950408889634f);
+  } else {
+    constexpr size_t smem = rt::tile_smem_bytes<HD>();
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_tiled_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int G = H / KV;
+    const dim3 grid((unsigned)((C * G + rt::BQ - 1) / rt::BQ), (unsigned)KV, (unsigned)B);
+    paged_tiled_kernel<T, HD><<<grid, rt::NT, smem, stream>>>(qp, kp, vp, btp, kl, qo, op, C, H,
+                                                              KV, P, page, scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T>

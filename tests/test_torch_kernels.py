@@ -397,6 +397,27 @@ def test_rglru_plain_is_the_sequential_recurrence():
     np.testing.assert_array_equal(got.numpy(), np.stack(seq, axis=1))
 
 
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_rglru_plan_covers_every_row_length(itemsize):
+    """Every D the wrapper may be given, at every pointer alignment of its
+    dtype, has a kernel instance: a copy width that divides every row
+    start, and every explicit channel count honoured or refused."""
+    for D in range(1, 3000):
+        for base in (0, itemsize, 2 * itemsize, 8, 16):
+            ptrs = (1 << 20, (1 << 21) + base)
+            plan = rs.scan_plan(D, itemsize, *ptrs)
+            assert plan.ch == rs.DEFAULT_CH in rs.CH_CHOICES
+            assert plan.vec in rs.VEC_CHOICES and plan.vec >= itemsize
+            assert (D * itemsize) % plan.vec == 0
+            assert all(p % plan.vec == 0 for p in ptrs)
+            if D % 8 == 0 and base % 16 == 0:
+                assert plan.vec == 16
+    for ch in rs.CH_CHOICES:
+        assert rs.scan_plan(2560, 4, 0, 0, ch=ch) == rs.ScanPlan(ch, 16)
+    with pytest.raises(ValueError):
+        rs.scan_plan(2560, 4, 0, 0, ch=48)
+
+
 def test_wrappers_run_plain_on_cpu_without_counting():
     rng = np.random.default_rng(0)
     counters = (fa.flash_attention, pa.paged_decode_attention,
@@ -523,6 +544,69 @@ def test_paged_kernel_matches_plain(cuda, G, hd, dtype, C):
     _held(got, want.to(got.dtype), dtype)
 
 
+def _chunk_args(rng, dtype, device, G, KV, hd, C, q_off, page=16, P=96):
+    """Chunk operands for sequences at q_off: pages shuffled, tables wider
+    than a sequence needs (zero-padded: the scratch page 0), and page 0
+    filled with large values that would show if a valid key read it."""
+    kv_len = np.asarray(q_off, np.int32) + C
+    q, kp, vp, bt, kl = _paged_inputs(rng, len(kv_len), C, G * KV, KV, hd,
+                                      page, P, kv_len, dtype)
+    kp[0], vp[0] = 300.0, -300.0
+    return ([_torch(q, dtype, device), _torch(kp, dtype, device),
+             _torch(vp, dtype, device), torch.from_numpy(bt).to(device),
+             torch.from_numpy(kl).to(device)],
+            torch.from_numpy(np.asarray(q_off, np.int32)).to(device))
+
+
+# bf16 chunks run the tensor-core prefill body K2 runs: every head dim, G
+# of 1, 4, 5 and 10 (64-row blocks cut across query positions), C not a
+# multiple of 64, q_offset not a multiple of 64 or of the page
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,G,KV", [(64, 4, 8), (64, 1, 2), (128, 5, 8),
+                                     (256, 10, 1), (256, 4, 2)])
+@pytest.mark.parametrize("C", [37, 256])
+def test_paged_chunk_bf16_matches_plain(cuda, hd, G, KV, C):
+    rng = np.random.default_rng(C + hd + G)
+    args, qo = _chunk_args(rng, BF16, cuda, G, KV, hd, C,
+                           [0, 23, 256, 777, 1200])
+    n = pa.paged_prefill_attention.launches
+    got = pa.paged_prefill_attention(*args, qo)
+    torch.cuda.synchronize()
+    assert pa.paged_prefill_attention.launches == n + 1
+    want = ref.paged_prefill_attention(*_up(*args[:3]), *args[3:], qo)
+    _held(got, want.to(got.dtype), BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_paged_chunk_replays_in_cuda_graph(cuda, dtype):
+    """K1's chunk path reads q_offset and kv_len on the card only and
+    launches a grid fixed by shapes: captured once in a CUDA graph, a
+    replay after new values are written into the captured tensors gives
+    what the plain version gives for the new values."""
+    rng = np.random.default_rng(22)
+    C, G, KV, hd = 100, 4, 8, 64
+    # tables sized for the largest offsets the replays write
+    args, qo = _chunk_args(rng, dtype, cuda, G, KV, hd, C, [1150, 700, 1100, 300])
+    qo.copy_(torch.tensor([0, 300, 700, 100], dtype=torch.int32))
+    args[4].copy_(qo + C)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):            # warm-up: build and first launch
+        pa.paged_prefill_attention(*args, qo)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_prefill_attention(*args, qo)
+    for q_new in ([1150, 0, 64, 9], [5, 700, 1100, 300], [0, 0, 0, 0]):
+        qo.copy_(torch.tensor(q_new, dtype=torch.int32))
+        args[4].copy_(torch.tensor(q_new, dtype=torch.int32) + C)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ref.paged_prefill_attention(*_up(*args[:3]), *args[3:], qo)
+        _held(out, want.to(out.dtype), dtype)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("G,KV,hd", [(1, 2, 64), (4, 8, 64), (4, 2, 128),
@@ -602,22 +686,44 @@ def test_decode_kernels_replay_in_cuda_graph(cuda, dtype):
               .to(out_da.dtype), dtype)
 
 
+# ring-stage tails (S = 1, 31, 32, 33 around the kernel's 32-step stage,
+# and 3000), channel tails (D = 16, 100, 2560, 2561 against 16, 32 and 64
+# channels a block) and row alignments (float32 rows of 2561 take 4-byte
+# copies; bf16 rows of 100 8-byte and of 2561 2-byte ones)
+SCAN_TAIL_CASES = [(3, S, D) for S in (1, 31, 32, 33, 3000)
+                   for D in (16, 100, 2560, 2561)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("with_h0", [False, True])
-@pytest.mark.parametrize("B,S,D", [(1, 1, 100), (2, 13, 300), (1, 1000, 2560)])
+@pytest.mark.parametrize("B,S,D", [(1, 1, 100), (2, 13, 300), (1, 1000, 2560)]
+                         + SCAN_TAIL_CASES)
 def test_rglru_kernel_equals_plain(cuda, B, S, D, with_h0, dtype):
-    """Bit for bit: the kernel's multiplies and adds are not contracted,
-    and widening bf16 inputs to float32 is exact."""
+    """Bit for bit, at every channel count the plan offers and for rows
+    one element off 16-byte alignment: the kernel's multiplies and adds are
+    not contracted, and widening bf16 inputs to float32 is exact."""
     rng = np.random.default_rng(S + D)
     a, b, h0 = _scan_inputs(rng, B, S, D)
     a, b = _torch(a, dtype, cuda), _torch(b, dtype, cuda)
     h0 = _torch(h0, F32, cuda) if with_h0 else None
+    want = ref.rglru_scan(a, b, h0)
     n = rs.rglru_scan.launches
     got = rs.rglru_scan(a, b, h0)
     torch.cuda.synchronize()
     assert rs.rglru_scan.launches == n + 1 and got.dtype == torch.float32
-    assert torch.equal(got, ref.rglru_scan(a, b, h0))
+    assert torch.equal(got, want)
+    for ch in rs.CH_CHOICES:
+        plan = rs.scan_plan(D, a.element_size(), a.data_ptr(), b.data_ptr(), ch=ch)
+        assert torch.equal(rs.rglru_scan(a, b, h0, plan=plan), want), plan
+    # the same rows one element past an aligned address
+    off = []
+    for x in (a, b):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        off.append(buf[1:].view(x.shape).copy_(x))
+    plan = rs.scan_plan(D, a.element_size(), *(x.data_ptr() for x in off))
+    assert plan.vec == a.element_size()
+    assert torch.equal(rs.rglru_scan(*off, h0), want)
 
 
 @pytest.mark.gpu
