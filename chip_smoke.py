@@ -52,6 +52,23 @@ Phases (each raises on failure, so the script exits non-zero):
    tokens/s, and profiles of a decode step and a prefill (with the shares
    of K2, K5 and K1 chunk), and of granite's chunked prefill of one
    1024-token prompt through the engine.
+   Then granite-3-2b paged again through the serverless front door:
+   ``Gateway.invoke`` -> ``EngineBackend`` (its worker thread on the card)
+   -> ``make_serve_runtime``, with the tracer on: 8 one-prompt events
+   mapped at once (micro-batches of up to 4), then the same 8 invoked one
+   at a time. Every future's result is read; checks: one cold start then
+   warm starts, a micro-batch of 2 or more, the accelerator
+   ``local/w0(host-cuda)``, K2 and K1 decode launched and no other kernel,
+   no leaked page, a valid exported trace, each invocation's tiling spans
+   within 10% of its RLat (true by construction of the span tree: a
+   check of its shape), each batch's lead ``execute`` span holding
+   ``prefill`` and ``decode`` spans, and each one-at-a-time event's tokens
+   equal to ``run_batch`` of it on the main thread with the same engine.
+   Printed: RLat and ELat p50 / max, the gateway's host cost per event
+   (RLat - ELat, split into queue, warm dispatch and settle), the
+   ``cold_start`` span, batch sizes, tokens/s per wave and the mean
+   duration of each span name. The ``kernels`` line counts this path's
+   launches under entries of their own (``..., via Gateway.invoke``).
 4. Parity of the paths on the card: full-width bf16 logits of granite, of
    recurrentgemma and of llama4 (chunk 1024, a 2100-token prompt; the
    plain path follows the kernel path's expert choices, and those where
@@ -951,6 +968,162 @@ def serve_run(torch, cfg, dev, *, page_size, prefill_chunk, max_len, prompt_lens
     return engine, counts
 
 
+def partition_error(spans, root) -> float:
+    """|sum of the root's tiling children - RLat| / RLat (an abandoned
+    ``attempt`` overlaps the tiling and is left out)."""
+    rlat = root.t_end - root.t_start
+    tiled = sum(s.duration for s in spans if s.parent_id == root.span_id
+                and s.t_end is not None and s.name != "attempt")
+    return 0.0 if rlat == 0 else abs(tiled - rlat) / rlat
+
+
+def gateway_run(torch, cfg):
+    """Phase 3 through the serverless front door: ``Gateway.invoke`` ->
+    ``EngineBackend`` (one worker thread on the card) -> the serve
+    runtime, the tracer on. Wave 1 maps the 8 one-prompt events
+    (``GRANITE_PROMPTS``) at once, so the worker forms micro-batches; wave
+    2 invokes them one at a time, each waited. Every future's
+    ``result()`` is read, so a kernel that fails on the card fails the
+    run. Launch counts are zeroed before the waves and read after. Then
+    each wave-2 event runs once more through ``run_batch`` on this thread
+    with the same warm engine: a token that differs is a device, stream
+    or thread fault of the port. Returns the launch counts."""
+    import statistics
+    from repro_torch import obs
+    from repro_torch.core.runtime import run_batch
+    from repro_torch.gateway import EngineBackend, Gateway
+    from repro_torch.serve.api import make_serve_runtime
+
+    eb = EngineBackend(max_batch=4, batch_wait_s=0.05, max_warm=1)
+    gw = Gateway(eb)
+    obs.reset()
+    obs.enable(clock=eb.now, metrics=gw.metrics)
+    try:
+        rdef = make_serve_runtime(cfg, page_size=PAGE, max_slots=8, max_len=2048,
+                                  max_batch=4, seed=0)
+        rid = gw.register(rdef)
+        rng = np.random.default_rng(7)
+        events = [{"prompts": [rng.integers(3, cfg.vocab, size=n).tolist()]}
+                  for n in GRANITE_PROMPTS]
+        config = {"max_new_tokens": MAX_NEW}
+        zero_launches()
+        t0 = time.perf_counter()
+        wave1 = gw.map(rid, events, config=config)
+        out1 = [f.result(extra_time_s=600.0) for f in wave1]
+        wall1 = time.perf_counter() - t0
+        n_batches1 = eb.n_batches
+        t0 = time.perf_counter()
+        wave2, out2 = [], []
+        for ev in events:
+            wave2.append(gw.invoke(rid, ev, config=config))
+            out2.append(wave2[-1].result(extra_time_s=600.0))
+        wall2 = time.perf_counter() - t0
+        counts = launches()
+        spans = obs.TRACER.spans()
+        doc = json.loads(json.dumps(obs.to_trace_events(spans)))
+        engine = eb.handle(wave2[0].invocation.runtime_key)
+        # the same event through run_batch on this thread, same warm engine
+        direct = [run_batch(rdef, [ev], dict(config, handle=engine))[0]["outputs"]
+                  for ev in events]
+    finally:
+        eb.shutdown()
+        obs.reset()
+
+    futs = wave1 + wave2
+    outs = [o for r in out1 + out2 for o in r["outputs"]]
+    if len(outs) != 2 * len(events) or not all(1 <= len(o) <= MAX_NEW for o in outs):
+        raise AssertionError(f"gateway: not every request finished: {[len(o) for o in outs]}")
+    if (eb.n_cold_starts, min(eb.n_warm_starts, 1)) != (1, 1):
+        raise AssertionError(f"gateway: cold {eb.n_cold_starts}, warm {eb.n_warm_starts}")
+    if max(eb.batch_sizes[:n_batches1]) < 2:
+        raise AssertionError(f"gateway: wave 1 formed no micro-batch: {eb.batch_sizes}")
+    accs = {f.invocation.accelerator for f in futs}
+    if accs != {"local/w0(host-cuda)"}:
+        raise AssertionError(f"gateway: accelerators {accs}")
+    if not (counts["flash"] and counts["decode"]) or \
+            counts["chunk"] or counts["dense"] or counts["scan"] or counts["gmm"]:
+        raise AssertionError(f"gateway: launches {counts}: need K2 and K1 decode only")
+    engine.allocator.check_invariants()
+    if engine.allocator.n_free != engine.num_pages - 1 or \
+            engine.free_slots() != list(range(engine.max_slots)):
+        raise AssertionError(f"gateway: leaked pages or slots: {engine.stats()}")
+    problems = obs.validate_trace(doc)
+    if problems:
+        raise AssertionError(f"gateway: the exported trace is invalid: {problems[:5]}")
+    # the backend's child spans are cut from each invocation's own stamps
+    # into one chain from r_start to r_end, so this holds by construction:
+    # it guards the span tree's shape, it measures nothing
+    roots = [sp for sp in spans if sp.name == "invocation"]
+    errs = [partition_error(spans, r) for r in roots]
+    if len(roots) != len(futs) or max(errs) > 0.10:
+        raise AssertionError(f"gateway: {len(roots)} roots for {len(futs)} events, "
+                             f"partition errors {errs}")
+    # a batch's engine spans nest under its lead invocation's execute span
+    kids = collections.defaultdict(set)
+    for sp in spans:
+        kids[sp.parent_id].add(sp.name)
+    leads = [sp for sp in spans if sp.name == "execute" and kids[sp.span_id]]
+    if len(leads) != eb.n_batches or \
+            any(not {"prefill", "decode"} <= kids[sp.span_id] for sp in leads):
+        raise AssertionError(f"gateway: {len(leads)} execute spans with engine spans for "
+                             f"{eb.n_batches} batches: {[kids[sp.span_id] for sp in leads]}")
+    for i, (r, want) in enumerate(zip(out2, direct)):
+        if r["outputs"] != want:
+            raise AssertionError(
+                f"gateway: wave-2 event {i} (prompt {GRANITE_PROMPTS[i]} tokens) through the "
+                f"worker thread gave {r['outputs']}, run_batch on the main thread {want} "
+                f"(same engine; kernels K2 flash_attention_mma_kernel, K1 decode "
+                f"split_decode_mma_kernel)")
+
+    m = gw.metrics
+    rl, el = sorted(m.rlats()), sorted(m.elats())
+    cold = [sp.duration for sp in spans if sp.name == "cold_start"]
+    by_name = collections.defaultdict(list)
+    for sp in spans:
+        if sp.t_end is not None:
+            by_name[sp.name].append(sp.duration)
+    n1 = sum(len(o) for r in out1 for o in r["outputs"])
+    n2 = sum(len(o) for r in out2 for o in r["outputs"])
+    log(f"  gateway: {len(futs)} events, all succeeded; cold {eb.n_cold_starts} warm "
+        f"{eb.n_warm_starts}; batch sizes {eb.batch_sizes} (wave 1: "
+        f"{eb.batch_sizes[:n_batches1]}); RLat p50 {statistics.median(rl) * 1e3:.1f} ms "
+        f"max {rl[-1] * 1e3:.1f} ms; ELat p50 {statistics.median(el) * 1e3:.1f} ms max "
+        f"{el[-1] * 1e3:.1f} ms; cold_start span {cold[0]:.4f} s (on each of the cold "
+        f"batch's {len(cold)} events)")
+    log(f"  gateway: wave 1 (map of 8) {n1} tokens in {wall1:.3f} s = {n1 / wall1:.1f} "
+        f"tokens/s; wave 2 (8 invoked one at a time) {n2} tokens in {wall2:.3f} s = "
+        f"{n2 / wall2:.1f} tokens/s; launches {counts}; partition error max "
+        f"{max(errs):.4f}; trace {len(doc['traceEvents'])} events, valid; wave-2 tokens "
+        "equal run_batch on the main thread")
+    for name, wave in (("wave 1", wave1), ("wave 2", wave2)):
+        invs = [f.invocation for f in wave]
+        rl = sorted(i.rlat for i in invs)
+        el = sorted(i.elat for i in invs)
+        # the gateway's own host cost per event, RLat - ELat, in its measured
+        # parts: queue (submit to a worker's claim, the batch window
+        # included), dispatch (claim to execution: the cold start, reading
+        # the input) and settle (execution's end to r_end: persisting the
+        # result, settling under the lock)
+        host = [i.rlat - i.elat for i in invs]
+        queue = [i.n_start - i.r_start for i in invs]
+        warm = [i.e_start - i.n_start for i in invs if not i.cold_start]
+        settle = [i.r_end - i.e_end for i in invs]
+        log(f"  gateway {name}: RLat p50 {statistics.median(rl) * 1e3:.1f} ms max "
+            f"{rl[-1] * 1e3:.1f} ms; ELat p50 {statistics.median(el) * 1e3:.1f} ms max "
+            f"{el[-1] * 1e3:.1f} ms; ELat / RLat per event, mean "
+            f"{statistics.mean(i.elat / i.rlat for i in invs):.4f}; RLat - ELat per "
+            f"event mean {statistics.mean(host) * 1e3:.3f} ms max {max(host) * 1e3:.3f} "
+            f"ms = queue mean {statistics.mean(queue) * 1e3:.3f} ms + dispatch "
+            f"(warm, {len(warm)} events) mean "
+            f"{(statistics.mean(warm) if warm else 0.0) * 1e3:.3f} ms + settle mean "
+            f"{statistics.mean(settle) * 1e3:.3f} ms max {max(settle) * 1e3:.3f} ms")
+    log("  gateway spans (count, mean ms; batch_wait is the configured window cut to "
+        "the queue wait and store_put is empty by construction, neither is timed): " +
+        ", ".join(f"{n} {len(d)} x {statistics.mean(d) * 1e3:.2f}"
+                  for n, d in sorted(by_name.items())))
+    return counts
+
+
 def _device_us(ev) -> float:
     return ev.self_device_time_total
 
@@ -1242,6 +1415,17 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    log(f"phase 3: {cfg.name} through Gateway.invoke -> EngineBackend (max_batch 4, "
+        "batch wait 50 ms, max_warm 1) -> make_serve_runtime, tracer on")
+    counts = gateway_run(torch, cfg)
+    # the gateway path's own counts, beside the direct runs' (same kernels,
+    # same timings; launches counted from this path's run alone)
+    for key in ("flash", "decode"):
+        entries[f"{key}_gateway"] = dict(
+            entries[key], name=entries[key]["name"] + ", via Gateway.invoke")
+        total[f"{key}_gateway"] = counts[key]
+    torch.cuda.empty_cache()
+
     # phase 3: recurrentgemma-2b, paged (its ring caches and state are
     # per-slot; nothing is pooled), whole-prompt prefill
     rg = get_config("recurrentgemma-2b")
@@ -1311,7 +1495,8 @@ def main() -> int:
 
     kernels = []
     for key in ("decode", "chunk", "chunk_768", "flash", "flash_rg", "dense_rg", "dense_granite",
-                "scan", "flash_l4", "decode_l4", "dense_l4", *GMM_KEYS):
+                "scan", "flash_l4", "decode_l4", "dense_l4", *GMM_KEYS, "flash_gateway",
+                "decode_gateway"):
         e = dict(entries[key])
         e["launches"] = total[key]
         kernels.append({k: e[k] for k in (

@@ -4,7 +4,8 @@ runtime-instance contract for the port.
 A :class:`RuntimeDef` is the platform-owned, preconfigured stack: it
 declares which accelerator types can serve it and with what performance
 profile, plus the real-execution entry points. ``setup`` is the cold start
-(weights on the card); ``fn``/``batch_fn`` are the invocations. The port
+(weights on the card); ``fn``/``batch_fn`` are the invocations;
+:class:`RuntimeRegistry` is the catalogue a gateway backend keeps. The port
 imports nothing of ``repro``, so this framework-free module is copied.
 """
 from __future__ import annotations
@@ -31,9 +32,8 @@ class SimProfile:
 @dataclasses.dataclass
 class RuntimeDef:
     """A platform-owned runtime environment (§IV-A); field meanings are
-    those of ``repro.core.runtime.RuntimeDef``. Its gateway and cluster
-    fields (retry policy, warm-pool hints, spec loading) come with those
-    layers' port."""
+    those of ``repro.core.runtime.RuntimeDef``. Its warm-pool hints and
+    spec loading come with the control plane's and the cluster's port."""
 
     runtime_id: str
     profiles: Dict[str, SimProfile]
@@ -43,6 +43,9 @@ class RuntimeDef:
     batch_fn: Optional[Callable[[List[Any], Dict[str, Any]], List[Any]]] = None
     max_batch: int = 1
     batch_buckets: Optional[Tuple[int, ...]] = None
+    # total times one event may be started before a lost delivery (a
+    # worker crash) settles as a permanent ``retries exhausted`` record
+    max_attempts: int = 3
 
     def supports(self, acc_type: str) -> bool:
         """True when accelerator type ``acc_type`` can serve this runtime."""
@@ -103,3 +106,25 @@ def run_batch(rdef: RuntimeDef, datas: Sequence[Any],
         return results[:n]
     return [rdef.fn(data, dict(config, attempt=a))
             for data, a in zip(datas, attempts)]
+
+
+class RuntimeRegistry:
+    """The object-store-backed runtime catalogue."""
+
+    def __init__(self):
+        self._defs: Dict[str, RuntimeDef] = {}
+
+    def register(self, rdef: RuntimeDef) -> None:
+        """Add (or replace) a runtime definition under its id."""
+        self._defs[rdef.runtime_id] = rdef
+
+    def ids(self):
+        """All registered runtime ids, in registration order."""
+        return list(self._defs)
+
+    def get(self, runtime_id: str) -> RuntimeDef:
+        """The definition for ``runtime_id`` (KeyError when unknown)."""
+        return self._defs[runtime_id]
+
+    def __contains__(self, runtime_id: str) -> bool:
+        return runtime_id in self._defs

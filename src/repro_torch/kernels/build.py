@@ -8,6 +8,8 @@ unchanged checkout reuses what an earlier run built. Libraries go to
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
 with nvcc's ``-Xptxas -v`` report beside each. Several sources build in
 parallel, one ``nvcc`` each. A failed build raises with nvcc's stderr.
+Building and loading hold one lock, so threads that reach a kernel's first
+launch together (a gateway's workers) build it once and share one handle.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
@@ -28,6 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# the temporary library name is per process, not per thread
+_LOCK = threading.RLock()
 
 
 def nvcc_path() -> str:
@@ -51,6 +56,11 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     """Compile every library of ``names`` that is not built yet, one
     ``nvcc`` per source, all started together. Returns build seconds per
     compiled library (empty when everything was already built)."""
+    with _LOCK:
+        return _build(list(names))
+
+
+def _build(names) -> Dict[str, float]:
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
@@ -91,9 +101,12 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``name``, building it first if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LOADED[name] = lib
+        with _LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(library_path(name)))
+                _LOADED[name] = lib
     return lib
 
 

@@ -8,10 +8,16 @@ cache allocated (paged, or dense with ``page_size=0``; the kernels build
 at their first launch). ``fn`` serves
 one event; ``batch_fn`` merges several events' prompts into one shared
 continuous-batching stream.
+
+``setup`` builds the engine on the calling thread's current card (a
+gateway worker enters its own before the cold start); the engine then
+serves on that card, whichever thread calls it.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.runtime import HOST_ACC, RuntimeDef, SimProfile
@@ -37,12 +43,15 @@ def make_serve_runtime(cfg: ModelConfig, *,
         acc_types = {HOST_ACC: SimProfile(elat_median_s=0.4, cold_start_s=2.0)}
 
     def setup():
-        params = M.init_model_params(cfg, seed, dev)
+        where = dev
+        if where.type == "cuda" and where.index is None:
+            where = torch.device("cuda", torch.cuda.current_device())
+        params = M.init_model_params(cfg, seed, where)
         return ServingEngine(cfg, params, max_slots=max_slots,
                              max_len=max_len, page_size=page_size,
                              prefill_chunk=prefill_chunk,
                              kv_pool_tokens=kv_pool_tokens, greedy=greedy,
-                             sample_seed=seed, device=dev)
+                             sample_seed=seed, device=where)
 
     def _prompts(data: Any) -> List[List[int]]:
         # {"prompts": [...]} is the client form; {"outputs": [...]} a chained

@@ -22,6 +22,13 @@ Where the JAX engine donates the cache through every jitted step so XLA
 updates it in place, the port's model writes the cache tensors in place
 (``index_put_``, ``copy_``) and the engine keeps the same ``self.cache``.
 
+With the process tracer on (``repro_torch.obs``), prefill, chunk and decode
+steps emit spans under the invocation whose batch runs them, at the
+reference's sites and with its end points: a decode span ends after the
+host reads the step's tokens; a paged prefill span and every chunk span
+end when their work is dispatched (no synchronisation is added; the
+first token is read after the span).
+
 Greedy decoding is the default. Sampling seeds a ``torch.Generator`` from
 (seed, req_id, attempt, position): a new delivery attempt draws fresh
 randomness, while a preemption resume (same attempt, same positions)
@@ -44,6 +51,7 @@ from repro_torch.data.tokenizer import EOS
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.param import iter_leaves, map_tree
+from repro_torch.obs import TRACER, torch_profile
 from repro_torch.serve.paging import BlockAllocator, pages_for
 
 DEFAULT_PAGE_SIZE = 16
@@ -226,6 +234,7 @@ class ServingEngine:
             return False
         slot = slots[0]
         if not self.paged:
+            t0 = TRACER.now() if TRACER.enabled else 0.0
             prompt = self._tensor(np.asarray(req.prompt, np.int32)[None, :])
             logits, slot_cache = M.prefill(self.cfg, self.params,
                                            {"tokens": prompt},
@@ -237,6 +246,7 @@ class ServingEngine:
             self.active[slot] = req
             self.pos[slot] = len(req.prompt)
             self.n_prefills += 1
+            self._trace_span("prefill", t0, len(req.prompt))
             return True
         # resume-aware: a preempted request re-prefills prompt + all output
         # but the last sampled token (the next decode input)
@@ -255,6 +265,7 @@ class ServingEngine:
         return True
 
     def _full_prefill(self, slot: int, req: Request, seq: List[int]) -> None:
+        t0 = TRACER.now() if TRACER.enabled else 0.0
         prompt = self._tensor(np.asarray(seq, np.int32)[None, :])
         pages = self._tensor(np.asarray(
             self.allocator.table(slot)[:pages_for(len(seq), self.page)],
@@ -263,6 +274,7 @@ class ServingEngine:
                                   cache_len=self.max_len, impl=self.impl)
         install_slot(self.cache, dense, slot, pages, self._pooled)
         self.n_prefills += 1
+        self._trace_span("prefill", t0, len(seq))
         self._finish_prefill(slot, req, seq, logits)
 
     def _finish_prefill(self, slot: int, req: Request, seq: List[int],
@@ -292,6 +304,14 @@ class ServingEngine:
         for (p, C, width), members in groups.items():
             self._chunk_group(members, p, C, width)
 
+    def _trace_span(self, name: str, t0: float, tokens: int) -> None:
+        """Close one engine span against the batch executor's thread-local
+        trace context (how prefill/decode steps land under the owning
+        invocation's ``execute`` span); no-op untraced."""
+        if TRACER.enabled and TRACER.current() is not None:
+            TRACER.complete(name, t0, TRACER.now(),
+                            attrs={"tokens": int(tokens)})
+
     def _chunk_group(self, members: List[int], p: int, C: int,
                      width: int) -> None:
         kb = _next_pow2(len(members))
@@ -305,6 +325,7 @@ class ServingEngine:
         # per-slot leaves gather the group's rows along the batch axis and
         # scatter back after the chunk; duplicate padding rows re-write
         # identical values. Pools are updated in place.
+        t0 = TRACER.now() if TRACER.enabled else 0.0
         idx = self._tensor(np.asarray(rows, np.int64))
         view = map_tree(lambda path, leaf: leaf if path in self._pooled
                         else leaf.index_select(M.slot_batch_axis(path), idx),
@@ -317,6 +338,7 @@ class ServingEngine:
             if path not in self._pooled:
                 big.index_copy_(M.slot_batch_axis(path), idx, small)
         self.n_prefill_chunks += len(members)
+        self._trace_span("prefill_chunk", t0, C * len(members))
         finished = [(r, s) for r, s in enumerate(members)
                     if p + C == len(self._seq[s])]
         for slot in members:
@@ -364,7 +386,14 @@ class ServingEngine:
         """One scheduler step; returns requests finished by it. Paged: admit
         waiting requests into free slots, advance one prefill chunk, then
         one decode step for every decoding slot (with page growth /
-        preemption beforehand). Dense: one decode step over the slots."""
+        preemption beforehand). Dense: one decode step over the slots.
+        Traced, the step is a ``serve.step`` profiler range."""
+        if TRACER.enabled:
+            with torch_profile("serve.step"):
+                return self._step()
+        return self._step()
+
+    def _step(self) -> List[Request]:
         if not self.paged:
             return self._step_decode_dense()
         while self.waiting and self.free_slots():
@@ -374,9 +403,10 @@ class ServingEngine:
         self._advance_chunks()
         return self._decode_once()
 
-    def _decode_call(self, tokens, pos, **kw):
-        """One model decode step over every row; returns the logits and the
-        greedy tokens on the host."""
+    def _decode_call(self, tokens, pos, n_rows: int, **kw):
+        """One model decode step over every row (``n_rows`` of them live);
+        returns the logits and the greedy tokens on the host."""
+        t_span = TRACER.now() if TRACER.enabled else 0.0
         t0 = time.perf_counter()
         logits, self.cache = M.decode_step(
             self.cfg, self.params, self.cache, self._tensor(tokens)[:, None],
@@ -384,6 +414,7 @@ class ServingEngine:
         self.n_decode_steps += 1
         greedy_tok = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
         self.decode_s += time.perf_counter() - t0
+        self._trace_span("decode", t_span, n_rows)
         return logits, greedy_tok
 
     def _emit(self, slot: int, logits, greedy_tok) -> bool:
@@ -403,7 +434,8 @@ class ServingEngine:
         admission rewrites the whole slot)."""
         if all(r is None for r in self.active):
             return []
-        logits, greedy_tok = self._decode_call(self.last_token, self.pos)
+        logits, greedy_tok = self._decode_call(
+            self.last_token, self.pos, sum(r is not None for r in self.active))
         finished = []
         for i, req in enumerate(self.active):
             if req is not None and self._emit(i, logits, greedy_tok):
@@ -448,7 +480,7 @@ class ServingEngine:
             tables[i, :len(tab)] = tab
         logits, greedy_tok = self._decode_call(
             np.where(mask, self.last_token, 0).astype(np.int32),
-            np.where(mask, self.pos, 0).astype(np.int32),
+            np.where(mask, self.pos, 0).astype(np.int32), len(decoding),
             block_tables=self._tensor(tables), mask=self._tensor(mask))
 
         finished = []
@@ -479,7 +511,16 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def generate(self, requests: List[Request]) -> List[Request]:
-        """Serve a list of requests to completion (continuous batching)."""
+        """Serve a list of requests to completion (continuous batching).
+        The engine launches on its own card, whatever the calling thread's
+        current device (it is per thread, and a gateway worker serving this
+        warm engine may have entered another)."""
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                return self._generate(requests)
+        return self._generate(requests)
+
+    def _generate(self, requests: List[Request]) -> List[Request]:
         if not self.paged:
             now = time.perf_counter()
             for r in requests:          # queueing counts toward TTFT

@@ -13,10 +13,15 @@ versions on the card and skip where there is none. JAX is imported inside
 the comparison helpers so those cases also run where JAX is not installed
 (``python -m pytest -m gpu tests/test_torch_kernels.py``).
 """
+import subprocess
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gmm as gm
@@ -748,3 +753,89 @@ def test_kernel_wrappers_reject_bad_operands(cuda):
         rs.rglru_scan(a, a, torch.zeros((1, 4), device=cuda))
     with pytest.raises(TypeError):
         rs.rglru_scan(a, a.bfloat16())
+
+
+# ----------------------------------------------------------------------
+# building and loading from several threads (a gateway's workers)
+# ----------------------------------------------------------------------
+def _run_together(n, fn):
+    """Run ``fn`` on ``n`` threads released at once; their results."""
+    barrier, got = threading.Barrier(n), []
+
+    def work():
+        barrier.wait(timeout=10.0)
+        got.append(fn())
+    threads = [threading.Thread(target=work) for _ in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30.0)
+    assert not any(t.is_alive() for t in threads) and len(got) == n
+    return got
+
+
+def test_concurrent_loads_share_one_handle(monkeypatch):
+    """Two threads that reach a kernel's first launch together open its
+    library once and get the same handle. The build is stubbed (no nvcc
+    here) and both stubs are slow, so without the lock each thread would
+    build and open a library of its own."""
+    builds, opened = [], []
+
+    def slow_build(names):
+        builds.append(list(names))
+        time.sleep(0.05)
+        return {}
+
+    def slow_open(path):
+        time.sleep(0.05)
+        opened.append(object())
+        return opened[-1]
+    monkeypatch.setattr(build, "_LOADED", {})
+    monkeypatch.setattr(build, "build", slow_build)
+    monkeypatch.setattr(build.ctypes, "CDLL", slow_open)
+    a, b = _run_together(2, lambda: build.load("flash_attention"))
+    assert a is b and opened == [a] and builds == [["flash_attention"]]
+    assert build.load("flash_attention") is a and len(builds) == 1
+
+
+@pytest.mark.gpu
+def test_two_gateway_workers_build_a_kernel_once(cuda, tmp_path, monkeypatch):
+    """Two EngineBackend workers launch K2 for the first time at once,
+    into an empty build directory: one nvcc runs, both launches agree
+    with the plain version."""
+    from repro_torch.core.runtime import RuntimeDef
+    from repro_torch.gateway import EngineBackend, Gateway
+    compiles, popen = [], subprocess.Popen
+
+    def counting_popen(cmd, *args, **kwargs):
+        if str(cmd[0]).endswith("nvcc"):
+            compiles.append(cmd[-1])
+        return popen(cmd, *args, **kwargs)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_LOADED", {})
+    monkeypatch.setattr(subprocess, "Popen", counting_popen)
+    fa._launcher.cache_clear()
+    rng = np.random.default_rng(0)
+    q, k, v = (_torch(_np(rng, (1, 256, 32 if i == 0 else 8, 64)), BF16, cuda)
+               for i in range(3))
+    want = ref.flash_attention(*_up(q, k, v))
+    barrier = threading.Barrier(2)
+
+    def fn(data, config):
+        barrier.wait(timeout=60.0)
+        out = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        return (out.float() - want).abs().max().item()
+    eb = EngineBackend(n_workers=2, batch_wait_s=0.0)
+    try:
+        gw = Gateway(eb)
+        for rid in ("a", "b"):
+            gw.register(RuntimeDef(rid, {}, fn=fn))
+        futs = [gw.invoke(rid) for rid in ("a", "b")]
+        errs = [f.result(extra_time_s=600.0) for f in futs]
+    finally:
+        eb.shutdown()
+        fa._launcher.cache_clear()
+    assert compiles == [str(build.CSRC / "flash_attention.cu")]
+    assert {f.invocation.node for f in futs} == {"local/w0", "local/w1"}
+    assert max(errs) <= TOL[BF16]
