@@ -77,6 +77,23 @@ Phases (each raises on failure, so the script exits non-zero):
    ``impl="ref"`` (granite 4 layers, recurrentgemma 5 layers, llama4 4
    layers at full width), and granite's dense engine identical to its
    paged engine.
+5. Granite-3-2b (as registered) behind Hardless's control plane and on
+   the simulated cluster, printed under ``phase 5:`` after the gateway
+   phase: (a) a min-warm floor prewarms the engine on the plane's tick
+   thread, and the first invoke is prewarmed, not cold (its RLat beside a
+   fresh backend's cold first invoke); (b) a 0.5 s keep-alive TTL evicts
+   the idle engine and ``torch.cuda.memory_allocated()`` must come back
+   within 64 MiB of its value before setup (the next invoke is cold and
+   gives the same tokens); (c) a tenant quota (free=1:1) sheds the free
+   tenant's excess as ``InvocationRejected`` while the other tenant's 6
+   events are served; (d) the SLO scaler scales the workers out under a
+   burst of 16 events in two run configs (two engines; workers share the
+   card); (e) ``SimBackend`` with one node whose accelerator is this card
+   (2 slots) runs 8 events through the serve runtime's real ``fn`` in
+   virtual time, each event's tokens equal to ``run_batch`` of it on the
+   main thread. Each of the two paths launches K2 and K1 decode (and no
+   other kernel), counted on its own: the ``kernels`` line has them under
+   ``..., via ControlPlane`` ((a)-(d)) and ``..., via SimBackend`` ((e)).
 
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -1124,6 +1141,248 @@ def gateway_run(torch, cfg):
     return counts
 
 
+# ----------------------------------------------------------------------
+# phase 5: the control plane and the simulated cluster on the card
+# ----------------------------------------------------------------------
+CP_NEW = 16                        # new tokens per phase-5 prompt
+CP_EVICT_SLACK = 64 << 20          # memory_allocated() after a TTL eviction
+
+
+def _wait_for(pred, timeout_s: float, what: str) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"phase 5: timed out after {timeout_s} s waiting for {what}")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def _cp_runtime(cfg, **kw):
+    from repro_torch.serve.api import make_serve_runtime
+    return make_serve_runtime(cfg, page_size=PAGE, max_slots=4, max_len=1024, max_batch=4,
+                              seed=0, **kw)
+
+
+def _cp_backend(rdef):
+    from repro_torch.gateway import EngineBackend, Gateway
+    eb = EngineBackend(max_batch=4, batch_wait_s=0.01)
+    gw = Gateway(eb)
+    return eb, gw, gw.register(rdef)
+
+
+def _cp_close(eb, plane=None) -> None:
+    """Detach the plane, stop the workers and drop every warm engine, so
+    the next scenario starts from the card's memory before its setup."""
+    if plane is not None:
+        plane.detach()
+    eb.shutdown()
+    for key in eb.warm_keys():
+        eb.evict_warm(key)
+
+
+def control_plane_run(torch, cfg):
+    """Phase 5: granite-3-2b (as registered) behind Hardless's control
+    plane over ``EngineBackend``, then on ``SimBackend`` running the model
+    for real inside virtual time. Scenarios: (a) a min-warm floor prewarms
+    the engine off the critical path (first invoke prewarmed, not cold;
+    its RLat beside a fresh backend's cold first invoke), (b) a 0.5 s
+    keep-alive TTL evicts the idle engine and ``memory_allocated()`` comes
+    back within 64 MiB of its value before setup (the next invoke is cold
+    and gives the same tokens), (c) a tenant quota sheds the free tenant's
+    excess as ``InvocationRejected`` while the other tenant's 6 are served,
+    (d) the SLO scaler scales the workers out under a burst of 16 (two run
+    configs, so two engines serve at once; the workers share the card),
+    (e) one simulated node whose accelerator is this card (2 slots) runs 8
+    events through the serve runtime's real ``fn``, each event's tokens
+    equal to ``run_batch`` of it on this thread. Launch counts are zeroed
+    before (a) and read after (d), then zeroed just before (e)'s simulated
+    run and read just after it, before its comparison runs; each path must
+    launch K2 and K1 decode and no other kernel. Returns the two counts
+    (via ControlPlane, via SimBackend)."""
+    import statistics
+    from repro_torch.controlplane import (AdmissionPolicy, ControlPlane, ControlPlaneConfig,
+                                          SLOPolicy, WarmPolicy)
+    from repro_torch.core.cluster import Cluster
+    from repro_torch.core.runtime import SimProfile, run_batch
+    from repro_torch.launch.serve import accelerator_spec
+    from repro_torch.gateway import Gateway, InvocationRejected, SimBackend
+
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(3, cfg.vocab, size=int(n)).tolist()
+               for n in rng.integers(48, 256, size=32)]
+    run = {"max_new_tokens": CP_NEW}
+    rdef = _cp_runtime(cfg)
+    zero_launches()
+
+    # (a) prewarm: a fresh backend's first invoke pays the cold start;
+    # behind a min-warm floor it finds the engine already resident
+    eb, gw, rid = _cp_backend(rdef)
+    fresh = gw.invoke(rid, {"prompts": [prompts[0]]}, config=run)
+    fresh_out = fresh.result(extra_time_s=600.0)
+    _cp_close(eb)
+    eb, gw, rid = _cp_backend(rdef)
+    plane = ControlPlane(ControlPlaneConfig(
+        tick_interval_s=0.05,
+        warm=WarmPolicy(min_warm={rid: 1}, prewarm_config={rid: run}))).attach(eb)
+    plane.start()
+    t_prewarm = _wait_for(lambda: eb.n_prewarms == 1, 300.0, "the min-warm prewarm")
+    warm = gw.invoke(rid, {"prompts": [prompts[0]]}, config=run)
+    warm_out = warm.result(extra_time_s=600.0)
+    _cp_close(eb, plane)
+    inv_f, inv_w = fresh.invocation, warm.invocation
+    if not inv_f.cold_start or inv_w.cold_start or not inv_w.prewarmed:
+        raise AssertionError(f"phase 5 (a): fresh cold={inv_f.cold_start}, behind the floor "
+                             f"cold={inv_w.cold_start} prewarmed={inv_w.prewarmed}")
+    if warm_out["outputs"] != fresh_out["outputs"]:
+        raise AssertionError("phase 5 (a): the prewarmed engine's tokens differ from the fresh one's")
+    log(f"  (a) prewarm: first invoke on a fresh backend RLat {inv_f.rlat * 1e3:.1f} ms (cold, "
+        f"ELat {inv_f.elat * 1e3:.1f} ms, dispatch {(inv_f.e_start - inv_f.n_start) * 1e3:.1f} "
+        f"ms); behind min_warm 1 (prewarmed {t_prewarm:.3f} s after the plane started) RLat "
+        f"{inv_w.rlat * 1e3:.1f} ms (prewarmed, not cold, ELat {inv_w.elat * 1e3:.1f} ms, "
+        f"dispatch {(inv_w.e_start - inv_w.n_start) * 1e3:.1f} ms); plane "
+        f"{plane.summary()}")
+
+    # (b) keep-alive: the idle engine is evicted after its TTL and its
+    # memory comes back
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    eb, gw, rid = _cp_backend(rdef)
+    plane = ControlPlane(ControlPlaneConfig(
+        tick_interval_s=0.05,
+        warm=WarmPolicy(keep_alive_s={rid: 0.5}))).attach(eb)
+    first = gw.invoke(rid, {"prompts": [prompts[1]]}, config=run)
+    first_out = first.result(extra_time_s=600.0)
+    torch.cuda.synchronize()
+    mem_warm = torch.cuda.memory_allocated()
+    plane.start()
+    t_evict = _wait_for(lambda: any(a[1] == "ttl-evict" for a in plane.warmpool.actions),
+                        60.0, "the keep-alive eviction")
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    plane.detach()
+    again = gw.invoke(rid, {"prompts": [prompts[1]]}, config=run)
+    again_out = again.result(extra_time_s=600.0)
+    log(f"  (b) keep-alive 0.5 s: memory_allocated before setup {mem_before / 2**20:.1f} MiB, "
+        f"warm {mem_warm / 2**20:.1f} MiB, {t_evict:.3f} s after the plane started (ttl-evict) "
+        f"{mem_after / 2**20:.1f} MiB: freed {(mem_warm - mem_after) / 2**20:.1f} MiB of "
+        f"{(mem_warm - mem_before) / 2**20:.1f}; next invoke cold={again.invocation.cold_start} "
+        f"RLat {again.invocation.rlat * 1e3:.1f} ms; actions {plane.warmpool.actions}")
+    if not first.invocation.cold_start or mem_warm - mem_before < CP_EVICT_SLACK:
+        raise AssertionError(f"phase 5 (b): the first invoke was not a cold start holding memory "
+                             f"({mem_before} -> {mem_warm} bytes)")
+    if abs(mem_after - mem_before) > CP_EVICT_SLACK:
+        raise AssertionError(f"phase 5 (b): after the TTL eviction memory_allocated() is "
+                             f"{mem_after} bytes, {mem_before} before setup (slack {CP_EVICT_SLACK})")
+    if not again.invocation.cold_start or again_out["outputs"] != first_out["outputs"]:
+        raise AssertionError(f"phase 5 (b): after the eviction cold={again.invocation.cold_start}, "
+                             f"tokens equal={again_out['outputs'] == first_out['outputs']}")
+
+    # (c) tenant quota on the same backend and its warm engine: free is
+    # capped at 1 event/s with a burst of 1, paid is unlimited
+    plane = ControlPlane(ControlPlaneConfig(
+        tick_interval_s=0.05,
+        admission=AdmissionPolicy(tenant_quotas={"free": (1.0, 1.0)}))).attach(eb)
+    plane.start()
+    futs = {t: [gw.invoke(rid, {"prompts": [p]}, config=run, tenant=t) for p in prompts[2:8]]
+            for t in ("free", "paid")}
+    outcome = {t: [] for t in futs}
+    for t, fs in futs.items():
+        for f in fs:
+            try:
+                f.result(extra_time_s=600.0)
+                outcome[t].append("served")
+            except InvocationRejected:
+                outcome[t].append("shed")
+    plane.detach()
+    n_shed = outcome["free"].count("shed")
+    log(f"  (c) tenant quota free=1:1: free {outcome['free'].count('served')} served, {n_shed} "
+        f"shed; paid {outcome['paid'].count('served')} served, {outcome['paid'].count('shed')} "
+        f"shed; sheds by reason {plane.admission.shed_counts}; backend rejected "
+        f"{eb.n_rejected}")
+    if outcome["paid"] != ["served"] * 6 or n_shed < 1 or \
+            outcome["free"][0] != "served" or n_shed != eb.n_rejected:
+        raise AssertionError(f"phase 5 (c): outcomes {outcome}, rejected {eb.n_rejected}")
+
+    # (d) SLO scale-out: a burst of 16 events in two run configs (two warm
+    # identities, two engines) against one worker
+    plane = ControlPlane(ControlPlaneConfig(
+        tick_interval_s=0.05,
+        slo=SLOPolicy(slo_rlat_p99_s=1.0, target_concurrency=4.0, max_units=4,
+                      scale_down_cooldown=10 ** 6))).attach(eb)
+    plane.start()
+    t0 = time.perf_counter()
+    burst = [gw.invoke(rid, {"prompts": [prompts[8 + i]]},
+                       config=dict(run, max_new_tokens=CP_NEW - i % 2))
+             for i in range(16)]
+    outs = [f.result(extra_time_s=600.0) for f in burst]
+    wall = time.perf_counter() - t0
+    plane.stop()
+    decisions = list(plane.scaler.decisions)
+    caps = [(round(s.t, 2), s.capacity, s.outstanding) for s in plane.telemetry.history]
+    nodes = collections.Counter(f.invocation.node for f in burst)
+    plane.detach()
+    _cp_close(eb)
+    cp_counts = launches()
+    log(f"  (d) SLO scale-out (slo p99 1.0 s, target concurrency 4, max 4 units): 16 events in "
+        f"{wall:.3f} s; decisions {decisions}; (t, capacity, outstanding) "
+        f"{caps[:40]}{' ...' if len(caps) > 40 else ''}; served by {dict(nodes)}; batches "
+        f"{eb.batch_sizes}")
+    if not any(d[1] == "scale-out" for d in decisions) or len(nodes) < 2 or \
+            not all(len(o["outputs"][0]) >= 1 for o in outs):
+        raise AssertionError(f"phase 5 (d): decisions {decisions}, workers {dict(nodes)}")
+    log(f"  (a)-(d) launches via ControlPlane {cp_counts}")
+    _cp_need_k2_k1(cp_counts, "(a)-(d) via ControlPlane")
+
+    # (e) the simulated cluster on the card: one node, the card as its
+    # accelerator (2 slots), the serve runtime's real fn in virtual time
+    spec = accelerator_spec("cuda:0", cost_per_hour=0.0, slots=2)
+    sdef = _cp_runtime(cfg, device="cuda:0", acc_types={
+        spec.type: SimProfile(elat_median_s=2.0, cold_start_s=2.0)})
+    cluster = Cluster(scheduler="warm", seed=0)
+    node = cluster.add_node("card0", [spec])
+    sgw = Gateway(SimBackend(cluster))
+    sid = sgw.register(sdef)
+    events = [{"prompts": [p]} for p in prompts[24:32]]
+    zero_launches()
+    t0 = time.perf_counter()
+    sfuts = sgw.map(sid, events, config=run, at=0.0, spacing_s=0.5)
+    souts = [f.result(extra_time_s=3600.0) for f in sfuts]
+    swall = time.perf_counter() - t0
+    sim_counts = launches()
+    engine = node._real_handles[sfuts[0].invocation.runtime_key]
+    direct = [run_batch(sdef, [ev], dict(run, handle=engine))[0]["outputs"] for ev in events]
+    invs = [f.invocation for f in sfuts]
+    rl, el = sorted(i.rlat for i in invs), sorted(i.elat for i in invs)
+    # a cold event's virtual RLat holds the profile's cold start, a stated
+    # constant, not a measurement: report it net of that too
+    net = sorted(i.rlat - (sdef.profiles[spec.type].cold_start_s if i.cold_start else 0.0)
+                 for i in invs)
+    log(f"  (e) SimBackend: node {node.name} accelerator {spec.type} ({spec.mem_bytes / 2**30:.1f} "
+        f"GiB, 2 slots), 8 events 0.5 s apart in virtual time, served in {swall:.3f} s of wall "
+        f"time; ELat (measured: wall time of fn) p50 {statistics.median(el) * 1e3:.1f} ms max "
+        f"{el[-1] * 1e3:.1f} ms; virtual RLat net of the profile's stated "
+        f"{sdef.profiles[spec.type].cold_start_s} s cold start p50 {statistics.median(net):.3f} "
+        f"s max {net[-1]:.3f} s (with it p50 {statistics.median(rl):.3f} s max {rl[-1]:.3f} s); "
+        f"cold {node.n_cold_starts} warm {node.n_warm_starts}; placements "
+        f"{[i.accelerator for i in invs]}; launches via SimBackend {sim_counts}")
+    if not all(i.success for i in invs) or node.n_cold_starts + node.n_warm_starts != 8:
+        raise AssertionError(f"phase 5 (e): {[(i.success, i.error) for i in invs]}")
+    for i, (r, want) in enumerate(zip(souts, direct)):
+        if r["outputs"] != want:
+            raise AssertionError(f"phase 5 (e): event {i} through SimBackend gave {r['outputs']}, "
+                                 f"run_batch on this thread {want}")
+    _cp_need_k2_k1(sim_counts, "(e) via SimBackend")
+    log("  (e) every event's tokens equal run_batch on the main thread")
+    return cp_counts, sim_counts
+
+
+def _cp_need_k2_k1(counts, what: str) -> None:
+    """Phase 5's paths run K2 and K1 decode, and no other kernel."""
+    if not (counts["flash"] and counts["decode"]) or \
+            counts["chunk"] or counts["dense"] or counts["scan"] or counts["gmm"]:
+        raise AssertionError(f"phase 5 {what}: launches {counts}: need K2 and K1 decode only")
+
+
 def _device_us(ev) -> float:
     return ev.self_device_time_total
 
@@ -1426,6 +1685,19 @@ def main() -> int:
         total[f"{key}_gateway"] = counts[key]
     torch.cuda.empty_cache()
 
+    log(f"phase 5: {cfg.name} behind the control plane (ControlPlane -> EngineBackend, "
+        "max_batch 4) and on SimBackend (one node, this card, the model run for real in "
+        "virtual time)")
+    cp_counts, sim_counts = control_plane_run(torch, cfg)
+    for key in ("flash", "decode"):
+        entries[f"{key}_cp"] = dict(
+            entries[key], name=entries[key]["name"] + ", via ControlPlane")
+        total[f"{key}_cp"] = cp_counts[key]
+        entries[f"{key}_sim"] = dict(
+            entries[key], name=entries[key]["name"] + ", via SimBackend")
+        total[f"{key}_sim"] = sim_counts[key]
+    torch.cuda.empty_cache()
+
     # phase 3: recurrentgemma-2b, paged (its ring caches and state are
     # per-slot; nothing is pooled), whole-prompt prefill
     rg = get_config("recurrentgemma-2b")
@@ -1496,7 +1768,7 @@ def main() -> int:
     kernels = []
     for key in ("decode", "chunk", "chunk_768", "flash", "flash_rg", "dense_rg", "dense_granite",
                 "scan", "flash_l4", "decode_l4", "dense_l4", *GMM_KEYS, "flash_gateway",
-                "decode_gateway"):
+                "decode_gateway", "flash_cp", "decode_cp", "flash_sim", "decode_sim"):
         e = dict(entries[key])
         e["launches"] = total[key]
         kernels.append({k: e[k] for k in (

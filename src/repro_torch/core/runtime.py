@@ -11,6 +11,8 @@ imports nothing of ``repro``, so this framework-free module is copied.
 from __future__ import annotations
 
 import dataclasses
+import math
+import random
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 # accelerator type advertised for runtimes executing directly on this
@@ -20,20 +22,21 @@ HOST_ACC = "host-cuda"
 
 @dataclasses.dataclass(frozen=True)
 class SimProfile:
-    """Service-time profile an accelerator type advertises for a runtime
-    (lognormal around ``elat_median_s``; the simulator that samples it is
-    not ported yet)."""
+    """Lognormal service-time model with median ``elat_median_s``."""
     elat_median_s: float
     sigma: float = 0.05
     cold_start_s: float = 2.5       # process spawn + model load
     result_bytes: int = 65536
 
+    def sample_elat(self, rng: random.Random) -> float:
+        """Draw one service time (seconds) from the lognormal model."""
+        return self.elat_median_s * math.exp(rng.gauss(0.0, self.sigma))
+
 
 @dataclasses.dataclass
 class RuntimeDef:
     """A platform-owned runtime environment (§IV-A); field meanings are
-    those of ``repro.core.runtime.RuntimeDef``. Its warm-pool hints and
-    spec loading come with the control plane's and the cluster's port."""
+    those of ``repro.core.runtime.RuntimeDef``."""
 
     runtime_id: str
     profiles: Dict[str, SimProfile]
@@ -46,6 +49,12 @@ class RuntimeDef:
     # total times one event may be started before a lost delivery (a
     # worker crash) settles as a permanent ``retries exhausted`` record
     max_attempts: int = 3
+    # control-plane warm-pool hints (a WarmPolicy overrides them):
+    # keep at least this many instances resident (prewarmed on attach) ...
+    min_warm: int = 0
+    # ... and keep idle instances alive this long before evicting
+    # (None = the platform default keep-alive)
+    keep_alive_s: Optional[float] = None
 
     def supports(self, acc_type: str) -> bool:
         """True when accelerator type ``acc_type`` can serve this runtime."""

@@ -41,7 +41,7 @@ class InvocationRejected(InvocationError):
     retrying later is safe.  Sheds come from the engine's bounded queue
     (backpressure) or from an attached control plane — per-tenant
     token-bucket quotas and weighted fair-share limits
-    (``repro.controlplane.admission``, not ported yet); the reason is in
+    (``repro_torch.controlplane.admission``); the reason is in
     ``invocation.error``."""
 
 

@@ -4,16 +4,16 @@ The paper's programming model (§IV-B: an event is *(runtime reference,
 data-set reference, run configuration)*, asynchronous only, no placement
 control) exposed as a client API over pluggable backends:
 
-    gw = Gateway(EngineBackend())              # the card's workers
+    gw = Gateway(SimBackend(cluster))          # or EngineBackend()
     gw.register(runtime_def)
     fut = gw.invoke("onnx-tinyyolov2", payload, config={"model": "v1"})
     futs = gw.map("onnx-tinyyolov2", payloads)
     out = fut.result()                         # blocks; raises on failure
 
 Identical client code runs against any backend — the backend decides what
-an invocation *costs*, the gateway only decides what it *means*.  The port
-has the engine backend (real execution on the card, or on the host with
-``device="cpu"``); the simulated cluster backend is not ported yet.
+an invocation *costs*, the gateway only decides what it *means*: the
+calibrated simulation (with a real ``fn`` run inside virtual time) or real
+execution on the card (or on the host with ``device="cpu"``).
 
 The port's copy of ``repro.gateway.gateway`` (the port imports nothing of
 ``repro``); only docstrings and imports differ.

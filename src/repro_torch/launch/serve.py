@@ -9,24 +9,45 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
         --device cpu --max-batch 2 --trace-out /tmp/t.json
     PYTHONPATH=src python -m repro_torch.obs.validate /tmp/t.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --backend sim \\
+        --pods 2 --events 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --min-warm 1 \\
+        --slo-ms 30000 --tenant-quota free=2:4 --events 6
 
 Registers the serve runtime of any registered arch (8 slots, max_len 2048;
-``--page-size 0`` the dense per-slot cache) with a ``Gateway`` over an
-``EngineBackend`` and invokes it ``--events`` times, each event 2 random
-64-token prompts (16 new tokens per prompt). The backend's worker serves
-micro-batches of up to ``--max-batch`` compatible events, waiting up to
-``--batch-wait-ms`` for one to fill; the first batch pays the cold start
-(weights from seed 0 on the card). Prints one line per event from its
-future: cold or warm, ELat (the batch call that served it, ended by the
-host reading the tokens) and RLat (invoke to settled). ``--trace-out``
-turns the tracer on and writes the span tree as Perfetto trace_event
-JSON; ``--metrics-out`` writes the metrics collector (JSON for a ``.json``
-path, Prometheus text otherwise). Runs on the card; ``--device cpu`` runs
-the backend's worker and the model on the host (the plain PyTorch path),
-and ``--reduced`` the arch's smoke-test widths. The MoE archs
-(llama4-scout-17b-a16e, grok-1-314b) do not fit one card at their
-published depth: serve them ``--reduced``, or cut ``n_layers`` with
-``dataclasses.replace`` as ``chip_smoke.py`` does.
+``--page-size 0`` the dense per-slot cache) with a ``Gateway`` and invokes
+it ``--events`` times, each event 2 random 64-token prompts (16 new tokens
+per prompt). Two backends:
+
+* ``--backend engine`` (the default): an ``EngineBackend`` whose worker
+  serves micro-batches of up to ``--max-batch`` compatible events, waiting
+  up to ``--batch-wait-ms`` for one to fill; the first batch pays the cold
+  start (weights from seed 0 on the card).
+* ``--backend sim``: a simulated cluster of ``--pods`` nodes (placement by
+  ``--scheduler``), each node one accelerator of the card's own type and
+  memory (unpriced: the launcher states no price for the card, so the
+  cost counters read 0). The runtime's real ``fn`` runs inside virtual
+  time, on the card: its ELat is the measured wall time, its cold start
+  the profile's.
+
+Prints one line per event from its future: cold or warm, ELat and RLat
+(invoke to settled). ``--slo-ms``, ``--min-warm`` and ``--tenant-quota
+NAME=RATE[:BURST]`` attach a control plane (SLO scaler, warm-pool floors
+prewarmed off the critical path, per-tenant admission; ``--objective``
+steers its scale-out and, on the sim, picks the ``hetero-*`` scheduler);
+``--fault-spec`` arms a fault-injection schedule (sim: kill-node,
+stall-node; engine: crash-worker). ``--trace-out`` turns the tracer on and
+writes the span tree as Perfetto trace_event JSON; ``--metrics-out``
+writes the metrics collector (JSON for a ``.json`` path, Prometheus text
+otherwise). Runs on the card; ``--device cpu`` runs the backend and the
+model on the host (the plain PyTorch path), and ``--reduced`` the arch's
+smoke-test widths. The MoE archs (llama4-scout-17b-a16e, grok-1-314b) do
+not fit one card at their published depth: serve them ``--reduced``, or
+cut ``n_layers`` with ``dataclasses.replace`` as ``chip_smoke.py`` does.
+
+The reference launcher (``repro.launch.serve``) defaults to the sim
+backend; the port defaults to the engine, since its entry points run on
+the card.
 """
 from __future__ import annotations
 
@@ -34,10 +55,38 @@ import argparse
 import json
 import random
 
+import torch
+
 from repro_torch import obs
 from repro_torch.configs import get_config
-from repro_torch.gateway import EngineBackend, Gateway
+from repro_torch.controlplane import (AdmissionPolicy, ControlPlane,
+                                      ControlPlaneConfig, SLOPolicy,
+                                      WarmPolicy)
+from repro_torch.core.accelerator import AcceleratorSpec
+from repro_torch.core.cluster import Cluster
+from repro_torch.core.runtime import SimProfile
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.faults import inject, parse_fault_spec
+from repro_torch.gateway import EngineBackend, Gateway, SimBackend
 from repro_torch.serve.api import make_serve_runtime
+
+
+def accelerator_spec(device: DeviceLike = None, *, cost_per_hour: float,
+                     slots: int = 1) -> AcceleratorSpec:
+    """The accelerator type a simulated node offers when it runs on
+    ``device``: for a card, its name (``torch.cuda.get_device_name``) and
+    memory (``total_memory``); for ``"cpu"``, the type ``cpu``.
+    ``cost_per_hour`` is an input of the cost counters and the cost
+    objective, a price the caller states, not a measurement."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return AcceleratorSpec(type=dev.type, slots=slots,
+                               cost_per_hour=cost_per_hour)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    return AcceleratorSpec(
+        type=torch.cuda.get_device_name(idx), slots=slots,
+        mem_bytes=torch.cuda.get_device_properties(idx).total_memory,
+        cost_per_hour=cost_per_hour)
 
 
 def main(argv=None) -> int:
@@ -48,12 +97,44 @@ def main(argv=None) -> int:
     ap.add_argument("--events", type=int, default=4)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=0)
-    ap.add_argument("--max-batch", type=int, default=1,
-                    help="largest micro-batch of compatible events one "
-                         "engine call serves")
-    ap.add_argument("--batch-wait-ms", type=float, default=2.0,
-                    help="max wait for a micro-batch to fill before a "
-                         "partial one is dispatched")
+    ap.add_argument("--backend", default="engine", choices=["sim", "engine"],
+                    help="engine = worker threads on the card (default); "
+                         "sim = pod cluster on the event clock")
+    ap.add_argument("--pods", type=int, default=None,
+                    help="sim backend only (default 2)")
+    ap.add_argument("--scheduler", default=None,
+                    choices=["warm", "fifo", "cost", "hetero-latency",
+                             "hetero-cost", "hetero-energy"],
+                    help="sim backend only (default warm)")
+    ap.add_argument("--objective", default=None,
+                    choices=["latency", "cost", "energy"],
+                    help="placement objective (default latency): picks the "
+                         "matching hetero-* scheduler on the sim backend "
+                         "and steers control-plane scale-out/prewarm")
+    ap.add_argument("--max-batch", type=int, default=None,
+                    help="engine backend: largest micro-batch of compatible "
+                         "events one engine call serves (default 1)")
+    ap.add_argument("--batch-wait-ms", type=float, default=None,
+                    help="engine backend: max wait for a micro-batch to "
+                         "fill before a partial one is dispatched "
+                         "(default 2 ms)")
+    ap.add_argument("--slo-ms", type=float, default=None,
+                    help="attach a control plane whose SLO scaler targets "
+                         "this RLat p99 (milliseconds)")
+    ap.add_argument("--min-warm", type=int, default=None, metavar="N",
+                    help="control plane keeps N instances of the runtime "
+                         "warm (prewarmed off the critical path, pinned "
+                         "against eviction)")
+    ap.add_argument("--tenant-quota", action="append", default=None,
+                    metavar="NAME=RATE[:BURST]",
+                    help="per-tenant admission quota in events/s (burst "
+                         "defaults to 2*rate); repeatable; over-quota "
+                         "events are shed as rejected")
+    ap.add_argument("--fault-spec", default=None, metavar="JSON|@FILE",
+                    help="arm a fault-injection schedule: a JSON list of "
+                         "actions (or @path to a file holding one); sim "
+                         "ops: kill-node/stall-node, engine ops: "
+                         "crash-worker")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without a card)")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
@@ -63,30 +144,95 @@ def main(argv=None) -> int:
                     help="trace every invocation and write the span tree to "
                          "PATH as Perfetto trace_event JSON")
     args = ap.parse_args(argv)
+    if args.prefill_chunk and not args.page_size:
+        ap.error("--prefill-chunk needs --page-size > 0 (chunked prefill "
+                 "scatters into the paged KV pool)")
+    if args.backend == "engine":
+        if args.pods is not None or args.scheduler is not None:
+            ap.error("--pods/--scheduler only apply to --backend sim "
+                     "(the engine backend schedules on this host's devices)")
+    elif args.max_batch is not None or args.batch_wait_ms is not None:
+        ap.error("--max-batch/--batch-wait-ms only apply to "
+                 "--backend engine (the sim models batching in its "
+                 "service-time profiles)")
+    if args.objective is not None and args.scheduler is not None:
+        ap.error("--objective and --scheduler both pick the sim placement "
+                 "policy; pass one (--objective X equals --scheduler "
+                 "hetero-X plus the control-plane spend steer)")
+    quotas = {}
+    for spec_str in args.tenant_quota or []:
+        name, _, rate_s = spec_str.partition("=")
+        if not name or not rate_s:
+            ap.error(f"--tenant-quota {spec_str!r}: expected "
+                     f"NAME=RATE[:BURST]")
+        rate_part, _, burst_part = rate_s.partition(":")
+        rate = float(rate_part)
+        quotas[name] = (rate, float(burst_part) if burst_part else 2.0 * rate)
+    objective = args.objective if args.objective is not None else "latency"
+    pods = args.pods if args.pods is not None else 2
+    scheduler = args.scheduler if args.scheduler is not None else (
+        f"hetero-{args.objective}" if args.objective is not None else "warm")
+    max_batch = max(args.max_batch if args.max_batch is not None else 1, 1)
+    sim = args.backend == "sim"
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    max_batch = max(args.max_batch, 1)
-    eb = EngineBackend(max_batch=max_batch,
-                       batch_wait_s=args.batch_wait_ms / 1e3,
-                       device=args.device)
-    gw = Gateway(eb)
+    if sim:
+        spec = accelerator_spec(args.device, cost_per_hour=0.0)
+        cluster = Cluster(scheduler=scheduler, seed=0)
+        for p in range(pods):
+            cluster.add_node(f"pod{p}", [spec])
+        backend = SimBackend(cluster)
+        acc_types = {spec.type: SimProfile(elat_median_s=0.4,
+                                           cold_start_s=2.0)}
+    else:
+        backend = EngineBackend(
+            max_batch=max_batch,
+            batch_wait_s=(args.batch_wait_ms if args.batch_wait_ms
+                          is not None else 2.0) / 1e3,
+            device=args.device)
+        acc_types = None        # make_serve_runtime's host-cuda profile
+    gw = Gateway(backend)
     if args.trace_out:
         # on before the first invoke, so every event carries a trace
-        obs.enable(clock=eb.now, metrics=gw.metrics)
+        obs.enable(clock=backend.now, metrics=gw.metrics)
+    plane = injector = None
+    futs = []
+    ok = 0
     try:
         rid = gw.register(make_serve_runtime(
-            cfg, max_slots=8, max_len=2048, max_batch=max_batch,
-            page_size=args.page_size, prefill_chunk=args.prefill_chunk,
-            device=args.device))
+            cfg, acc_types=acc_types, max_slots=8, max_len=2048,
+            max_batch=max_batch, page_size=args.page_size,
+            prefill_chunk=args.prefill_chunk, device=args.device))
+        if args.slo_ms is not None or args.min_warm is not None or quotas:
+            plane = ControlPlane(ControlPlaneConfig(
+                tick_interval_s=5.0 if sim else 0.5,
+                objective=objective,
+                # the sim's pre-provisioned pods are the capacity floor
+                # (they are not drainable); the engine floors at one
+                slo=(SLOPolicy(slo_rlat_p99_s=args.slo_ms / 1e3,
+                               min_units=pods if sim else 1)
+                     if args.slo_ms is not None else None),
+                warm=(WarmPolicy(min_warm={rid: args.min_warm})
+                      if args.min_warm is not None else None),
+                admission=(AdmissionPolicy(tenant_quotas=quotas)
+                           if quotas else None),
+            )).attach(backend)
+            plane.start()
+        if args.fault_spec:
+            spec_text = args.fault_spec
+            if spec_text.startswith("@"):
+                with open(spec_text[1:]) as f:
+                    spec_text = f.read()
+            injector = inject(backend, parse_fault_spec(spec_text))
+
         rng = random.Random(0)
         events = [{"prompts": [[rng.randrange(3, cfg.vocab)
                                 for _ in range(64)] for _ in range(2)]}
                   for _ in range(args.events)]
         futs = gw.map(rid, events, config={"max_new_tokens": 16})
         gw.drain()
-        ok = 0
         cold = next((f.invocation for f in futs if f.invocation.cold_start),
                     None)
         if cold is not None and cold.e_start is not None:
@@ -100,16 +246,40 @@ def main(argv=None) -> int:
             ok += 1
             res = fut.result()
             n_tok = sum(len(o) for o in res["outputs"])
-            print(f"  ev{i} cold={int(inv.cold_start)} ELat={inv.elat:.3f}s "
-                  f"RLat={inv.rlat:.3f}s tokens={n_tok} "
+            print(f"  ev{i} cold={int(inv.cold_start)} "
+                  f"prewarmed={int(inv.prewarmed)} acc={inv.accelerator} "
+                  f"ELat={inv.elat:.3f}s RLat={inv.rlat:.3f}s tokens={n_tok} "
                   f"decode_steps={res['n_decode_steps']}")
-        handle = eb.handle(futs[0].invocation.runtime_key) if futs else None
-        stats = handle.stats() if handle is not None else {}
-        print(f"[{rid}] {ok}/{len(futs)} events served; cold="
-              f"{eb.n_cold_starts} warm={eb.n_warm_starts} batches="
-              f"{eb.batch_sizes}; stats {stats}")
+        if sim:
+            counts = "; ".join(f"{n.name}: cold={n.n_cold_starts} "
+                               f"warm={n.n_warm_starts} "
+                               f"prewarmed={n.n_prewarms}"
+                               for n in cluster.nodes)
+            print(f"[{rid}] {ok}/{len(futs)} events served; {counts}")
+        else:
+            handle = backend.handle(futs[0].invocation.runtime_key) \
+                if futs else None
+            stats = handle.stats() if handle is not None else {}
+            print(f"[{rid}] {ok}/{len(futs)} events served; cold="
+                  f"{backend.n_cold_starts} warm={backend.n_warm_starts} "
+                  f"prewarmed={backend.n_prewarms} rejected="
+                  f"{backend.n_rejected} batches={backend.batch_sizes}; "
+                  f"stats {stats}")
+        if plane is not None:
+            plane.stop()
+            print(f"controlplane: {plane.summary()}")
+        if injector is not None:
+            injector.disarm()
+            s = gw.metrics.summary()
+            print(f"faults: {injector.summary()} "
+                  f"retried={s['retried']:.0f} "
+                  f"failed={s['failed']:.0f} "
+                  f"exhausted={s['retries_exhausted']:.0f}")
     finally:
-        eb.shutdown()
+        if plane is not None:
+            plane.detach()
+        if not sim:
+            backend.shutdown()
         if args.metrics_out:
             with open(args.metrics_out, "w") as f:
                 if args.metrics_out.endswith(".json"):
@@ -121,7 +291,13 @@ def main(argv=None) -> int:
             n = obs.export(args.trace_out)
             obs.reset()
             print(f"wrote {args.trace_out} ({n} trace events)")
-    return 0 if ok == len(futs) else 1
+    # admission sheds are policy outcomes, not failures; with faults armed,
+    # a retries-exhausted record is the at-least-once contract (settled,
+    # not stranded)
+    settled = sum(1 for f in futs if f.invocation.r_end is not None and (
+        f.invocation.success or f.invocation.rejected or
+        (injector is not None and f.invocation.retries_exhausted)))
+    return 0 if settled == len(futs) else 1
 
 
 if __name__ == "__main__":
