@@ -94,6 +94,36 @@ Phases (each raises on failure, so the script exits non-zero):
    main thread. Each of the two paths launches K2 and K1 decode (and no
    other kernel), counted on its own: the ``kernels`` line has them under
    ``..., via ControlPlane`` ((a)-(d)) and ``..., via SimBackend`` ((e)).
+6. Granite-3-2b (as registered) through Hardless's multi-process cluster,
+   printed under ``phase 6:``: ``Gateway.invoke`` -> ``ClusterBackend``
+   -> the ``Master`` (queue, leases, store, keeper; RPC on the loopback)
+   -> 2 worker processes from ``start_cluster``, each with its own CUDA
+   context and engine on this card, serving this file's
+   ``counted_serve_runtime`` (the port's ``serve_runtime`` with the
+   worker's launch counts, pid, batch, weights checksum and cold-start
+   time riding every result; the parent counts nothing a worker launches,
+   and a worker sets its counts to 0 when it builds its engine). (a) A
+   prewarm directive to each worker (round-robin: each worker's one cold
+   start), then 8 one-prompt events mapped while the master holds the
+   takes (so each prewarmed worker takes a micro-batch of 4), then 4 one
+   at a time: both workers serve, no cold start, a valid trace whose
+   parents all resolve across the processes, each batch's worker-authored
+   ``execute`` span holding ``prefill`` and ``decode``, K2 and K1 decode
+   and no other kernel in each worker (its counts read from its latest
+   batch); (b) a ``kill-worker-process`` fault SIGKILLs the worker
+   holding an event's lease: the keeper requeues it, it runs again on the
+   survivor as attempt 1 with (a)'s tokens, and the dead process's card
+   memory comes back (``mem_get_info``); (c) two three-step chains
+   (generate -> refine -> polish); (d) an eviction broadcast frees the
+   survivor's engine on the card, and one more event cold-starts it
+   again. Every event's tokens equal ``run_batch`` of the same batch in
+   this process on an engine from the same seed (weights checksums
+   equal). Printed: start to hello, each worker's cold start (its
+   prewarm's setup) and (d)'s ``cold_start`` span, RLat and ELat (burst
+   vs one at a time), the host cost per event over
+   RPC beside phase 3's in-process gateway, SIGKILL to requeue, card
+   memory per worker. The ``kernels`` line has (a)'s launches, summed
+   over the workers, under ``..., via ClusterBackend``.
 
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -1004,7 +1034,9 @@ def gateway_run(torch, cfg):
     run. Launch counts are zeroed before the waves and read after. Then
     each wave-2 event runs once more through ``run_batch`` on this thread
     with the same warm engine: a token that differs is a device, stream
-    or thread fault of the port. Returns the launch counts."""
+    or thread fault of the port. Returns the launch counts, wave 2's mean
+    host cost per event (RLat - ELat, ms) and wave 1's ELat p50 (ms;
+    micro-batches of 4 in one process), phase 6's yardsticks."""
     import statistics
     from repro_torch import obs
     from repro_torch.core.runtime import run_batch
@@ -1138,7 +1170,9 @@ def gateway_run(torch, cfg):
         "the queue wait and store_put is empty by construction, neither is timed): " +
         ", ".join(f"{n} {len(d)} x {statistics.mean(d) * 1e3:.2f}"
                   for n, d in sorted(by_name.items())))
-    return counts
+    return counts, {
+        "host_ms": statistics.mean(f.invocation.rlat - f.invocation.elat for f in wave2) * 1e3,
+        "elat_ms": statistics.median(f.invocation.elat for f in wave1) * 1e3}
 
 
 # ----------------------------------------------------------------------
@@ -1381,6 +1415,448 @@ def _cp_need_k2_k1(counts, what: str) -> None:
     if not (counts["flash"] and counts["decode"]) or \
             counts["chunk"] or counts["dense"] or counts["scan"] or counts["gmm"]:
         raise AssertionError(f"phase 5 {what}: launches {counts}: need K2 and K1 decode only")
+
+
+# ----------------------------------------------------------------------
+# phase 6: the multi-process cluster on the card
+# ----------------------------------------------------------------------
+CL_PROMPTS = [64, 960, 200, 700, 128, 512, 900, 333]   # + 32 new < max_len 1024
+CL_SPEC = "chip_smoke:counted_serve_runtime"
+CL_KW = {"arch": "granite-3-2b", "max_batch": 4, "max_slots": 4, "max_len": 1024,
+         "page_size": PAGE, "device": "cuda"}
+CL_FREED = 0.9                     # share of an engine's bytes an eviction must give back
+
+
+def weights_checksum(params) -> int:
+    """An order-sensitive checksum of every weight's bits (integer sums on
+    the card, exact): equal checksums in two processes mean the same seed
+    gave the same weights there. Summed in slices of 2**24 elements: the
+    int64 sum casts its input, and a whole stacked leaf cast would leave
+    gigabytes in the caching allocator of a worker that shares the card."""
+    import torch
+    from repro_torch.models.param import iter_leaves
+    total = 0
+    for _, t in iter_leaves(params):
+        bits = t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+        s = sum(int(c.sum(dtype=torch.int64)) for c in bits.flatten().split(1 << 24))
+        total = (total * 1000003 + s) % (1 << 61)
+    return total
+
+
+def counted_serve_runtime(**kwargs):
+    """The port's cluster serve runtime (``repro_torch.cluster.runtimes:
+    serve_runtime``), loaded by spec in each worker process, with what only
+    that process can see riding every result: its kernel launch counts
+    (the wrappers' counters live in the process that launches; they are
+    set to 0 when its engine is built, before its first batch, and count
+    up over its batches), its pid, the micro-batch that served the event
+    (the process's batch number and the event's position, so the parent
+    can rerun the same batch), the checksum of its engine's weights and
+    the seconds its cold start took (both taken once, when the engine is
+    built) and the card memory its caching allocator holds."""
+    import itertools
+    import os
+    import torch
+    from repro_torch.cluster.runtimes import serve_runtime
+    rdef = serve_runtime(**kwargs)
+    numbers = itertools.count()
+    setup, fn, batch_fn = rdef.setup, rdef.fn, rdef.batch_fn
+
+    def counted_setup():
+        t0 = time.perf_counter()
+        engine = setup()
+        engine.setup_s = time.perf_counter() - t0
+        engine.weights_checksum = weights_checksum(engine.params)
+        zero_launches()
+        return engine
+
+    def stamp(results, config):
+        n, pid = next(numbers), os.getpid()
+        reserved = torch.cuda.memory_reserved() if torch.cuda.is_initialized() else 0
+        engine = config["handle"]
+        return [dict(r, launches=launches(), pid=pid, batch=[pid, n], pos=i,
+                     weights=engine.weights_checksum, setup_s=engine.setup_s,
+                     reserved=reserved)
+                for i, r in enumerate(results)]
+    return dataclasses.replace(
+        rdef, setup=counted_setup,
+        fn=lambda data, config: stamp([fn(data, config)], config)[0],
+        batch_fn=lambda datas, config: stamp(batch_fn(datas, config), config))
+
+
+@contextlib.contextmanager
+def _takes_held(master):
+    """Hold every worker's ``take`` at ``master`` (in this process) while
+    the block runs: the events submitted inside it are queued together,
+    so each parked worker's take forms a full micro-batch from them."""
+    master._take_for_worker_locked = lambda *args, **kwargs: None
+    try:
+        yield
+    finally:
+        with master._cond:
+            del master._take_for_worker_locked      # the class's method
+            master._cond.notify_all()
+
+
+def _mem_free(torch) -> int:
+    torch.cuda.synchronize()
+    return torch.cuda.mem_get_info()[0]
+
+
+def _apps_memory() -> str:
+    """Card memory per process as nvidia-smi reports it (a container may
+    hide other processes: then it says so)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    rows = out.stdout.strip().replace("\n", "; ")
+    return rows or f"nothing listed (exit {out.returncode})"
+
+
+def _same_batches(invs, results, payloads, prdef, engine, run, what: str) -> int:
+    """Every event's tokens against ``run_batch`` in this process on the same
+    batch as the worker served it (same events, same order: its batch
+    number and position ride the result), the parent's engine built from
+    the same seed. Returns the number of batches rerun."""
+    from repro_torch.core.runtime import run_batch
+    groups = collections.defaultdict(dict)
+    for inv, res in zip(invs, results):
+        groups[tuple(res["batch"])][res["pos"]] = (inv, res)
+    for key, members in sorted(groups.items()):
+        order = [members[p] for p in sorted(members)]
+        if sorted(members) != list(range(len(order))):
+            raise AssertionError(f"phase 6 {what}: batch {key} holds positions {sorted(members)}")
+        want = run_batch(prdef, [payloads[inv.inv_id] for inv, _ in order],
+                         dict(run, handle=engine))
+        for (inv, res), w in zip(order, want):
+            if res["outputs"] != w["outputs"]:
+                raise AssertionError(
+                    f"phase 6 {what}: event {inv.inv_id} (batch {key}, position {res['pos']}, "
+                    f"node {inv.node}, attempt {inv.attempt}) gave {res['outputs']}, run_batch "
+                    f"of the same batch in this process {w['outputs']}")
+    return len(groups)
+
+
+def cluster_run(torch, cfg, gw_ref):
+    """Phase 6: granite-3-2b (as registered) through the multi-process
+    cluster on the card: ``Gateway.invoke`` -> ``ClusterBackend`` (RPC
+    client, settlement pump) -> ``Master`` (queue, leases, store, keeper)
+    -> 2 ``repro_torch.cluster.worker`` processes, each with its own CUDA
+    context and engine on this card -> ``serve_runtime`` -> K2 and K1
+    decode; the tracer on. (a) a prewarm directive each (the workers'
+    cold starts), then 8 one-prompt events mapped at once while the
+    master's takes are held (a batch of 4 on each worker), then 4 invoked
+    one at a time; (b) a ``kill-worker-process`` fault SIGKILLs the worker
+    holding an event's lease, which the keeper requeues to the survivor;
+    (c) two three-step chains (generate -> refine -> polish); (d) an
+    eviction broadcast gives the survivor's engine back to the card, and
+    one more event cold-starts it again. Every event's tokens equal
+    ``run_batch`` of the same batch in this process on an engine from the
+    same seed (checksums of the weights equal). ``gw_ref`` holds phase 3's
+    in-process gateway readings
+    of the same run (``host_ms``, ``elat_ms``), printed beside the
+    cluster's. Returns the (a) launch counts summed over the workers, each
+    worker's counts read from its result of its latest batch in (a)."""
+    import os
+    import statistics
+    from repro_torch import obs
+    from repro_torch.cluster import start_cluster
+    from repro_torch.cluster.runtimes import serve_runtime
+    from repro_torch.core.events import runtime_key_for
+    from repro_torch.faults import inject
+    from repro_torch.gateway import Gateway, Workflow
+
+    # the workers import this file (the spec above) from the repo root
+    root = str(Path(__file__).resolve().parent)
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    run = {"max_new_tokens": MAX_NEW}
+    free0 = _mem_free(torch)
+    live0 = torch.cuda.memory_allocated()
+    prdef = serve_runtime(**CL_KW)              # the parent's comparison engine
+    engine = prdef.setup()
+    engine_bytes = torch.cuda.memory_allocated() - live0
+    checksum = weights_checksum(engine.params)
+    free_engine = _mem_free(torch)
+    log(f"  card memory free {free0 / 2**30:.2f} GiB before; the parent's comparison engine "
+        f"holds {engine_bytes / 2**30:.2f} GiB (weights and KV pool, memory_allocated), free "
+        f"{free_engine / 2**30:.2f} GiB after it (mem_get_info)")
+
+    t0 = time.perf_counter()
+    h = start_cluster(2, lease_s=300.0, heartbeat_timeout_s=5.0, keeper_interval_s=0.25,
+                      max_batch=4, ready_timeout_s=120.0)
+    t_ready = time.perf_counter() - t0
+    backend = h.backend
+    gw = Gateway(backend)
+    obs.reset()
+    obs.enable(clock=backend.now, metrics=gw.metrics)
+    payloads = {}
+
+    def invoke(payload):
+        fut = gw.invoke(rid, payload, config=run)
+        payloads[fut.invocation.inv_id] = payload
+        return fut
+    try:
+        rid = backend.register_spec(CL_SPEC, CL_KW)
+        log(f"  start_cluster(2): both worker processes spawned and said hello in "
+            f"{t_ready:.3f} s")
+        rng = np.random.default_rng(13)
+        events = [{"prompts": [rng.integers(3, cfg.vocab, size=n).tolist()]}
+                  for n in CL_PROMPTS]
+
+        # (a) a prewarm on each worker (the master routes the directives
+        # round-robin over the live workers), then a burst of 8 mapped
+        # while the takes are held, then 4 one at a time
+        hooks = backend.capacity_hooks()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            if not hooks.prewarm(rid, run):
+                raise AssertionError("phase 6 (a): the prewarm reached no worker")
+
+        def prewarms():
+            return {w: r["stats"].get("n_prewarms", 0)
+                    for w, r in backend.stats()["workers"].items()}
+        while prewarms() != {"w0": 1, "w1": 1}:
+            if time.perf_counter() - t0 > 300.0:
+                raise AssertionError(f"phase 6 (a): prewarms per worker {prewarms()}")
+            time.sleep(0.01)
+        t_warm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with _takes_held(h.master):
+            burst = [invoke(ev) for ev in events]
+        res_b = [f.result(extra_time_s=300.0) for f in burst]
+        wall_b = time.perf_counter() - t0
+        free_a = _mem_free(torch)
+        apps = _apps_memory()
+        t0 = time.perf_counter()
+        singles, res_s = [], []
+        for ev in events[:4]:
+            singles.append(invoke(ev))
+            res_s.append(singles[-1].result(extra_time_s=300.0))
+        wall_s = time.perf_counter() - t0
+        futs_a, res_a = burst + singles, res_b + res_s
+        invs_a = [f.invocation for f in futs_a]
+        spans = obs.TRACER.spans()
+        doc = json.loads(json.dumps(obs.to_trace_events(spans)))
+        latest = {}                              # each pid's result of its latest batch
+        for r in res_a:
+            if r["pid"] not in latest or r["batch"][1] > latest[r["pid"]]["batch"][1]:
+                latest[r["pid"]] = r
+        by_pid = {p: r["launches"] for p, r in latest.items()}
+        reserved = {p: r["reserved"] for p, r in latest.items()}
+        setup_s = {p: r["setup_s"] for p, r in latest.items()}
+        starts = {w: (r["stats"].get("n_cold_starts"), r["stats"].get("n_prewarms"))
+                  for w, r in backend.stats()["workers"].items()}
+
+        if not all(i.success for i in invs_a):
+            raise AssertionError(f"phase 6 (a): {[(i.success, i.error) for i in invs_a]}")
+        pids = {i.node: r["pid"] for i, r in zip(invs_a, res_a)}
+        served = set(pids.values())
+        if sorted(pids) != ["w0", "w1"] or len(served) != 2 or os.getpid() in served:
+            raise AssertionError(f"phase 6 (a): served by {pids} (this process {os.getpid()})")
+        if {r["weights"] for r in res_a} != {checksum}:
+            raise AssertionError(f"phase 6 (a): weight checksums {set(r['weights'] for r in res_a)}"
+                                 f", the parent's {checksum}: the seed gave other weights")
+        sizes = collections.Counter(tuple(r["batch"]) for r in res_b)
+        if sorted(sizes.values()) != [4, 4] or {b[0] for b in sizes} != served:
+            raise AssertionError(f"phase 6 (a): burst batches {dict(sizes)}: need a batch of 4 "
+                                 "on each worker")
+        if any(i.cold_start for i in invs_a) or \
+                not all(f.invocation.prewarmed for f in burst) or \
+                any(f.invocation.prewarmed for f in singles) or \
+                starts != {"w0": (0, 1), "w1": (0, 1)}:
+            raise AssertionError(f"phase 6 (a): cold starts and prewarms per worker {starts}; "
+                                 "need one cold start per worker, its prewarm, then warm "
+                                 "starts (the burst's first on its prewarmed engine)")
+        for pid, counts in by_pid.items():
+            if not (counts["flash"] and counts["decode"]) or any(
+                    counts[k] for k in ("chunk", "dense", "scan", "gmm")):
+                raise AssertionError(f"phase 6 (a): worker pid {pid} launches {counts}: need K2 "
+                                     "and K1 decode only")
+        problems = obs.validate_trace(doc)
+        if problems:
+            raise AssertionError(f"phase 6 (a): the exported trace is invalid: {problems[:5]}")
+        ids = {sp.span_id for sp in spans}
+        loose = [sp.span_id for sp in spans if sp.parent_id is not None and sp.parent_id not in ids]
+        if loose:
+            raise AssertionError(f"phase 6 (a): spans whose parent is not in the trace: "
+                                 f"{loose[:5]}")
+        kids = collections.defaultdict(set)
+        for sp in spans:
+            kids[sp.parent_id].add(sp.name)
+        execs = [sp for sp in spans if sp.name == "execute"]
+        leads = [sp for sp in execs if kids[sp.span_id]]
+        n_batches = len({tuple(r["batch"]) for r in res_a})
+        if len(execs) != len(futs_a) or any(sp.attrs.get("pid") not in served for sp in execs) \
+                or len(leads) != n_batches or \
+                any(not {"prefill", "decode"} <= kids[sp.span_id] for sp in leads):
+            raise AssertionError(f"phase 6 (a): {len(execs)} execute spans, {len(leads)} with "
+                                 f"engine spans for {n_batches} batches: "
+                                 f"{[kids[sp.span_id] for sp in leads]}")
+        n_rerun = _same_batches(invs_a, res_a, payloads, prdef, engine, run, "(a)")
+
+        rl = sorted(i.rlat for i in invs_a)
+        el_b = sorted(f.invocation.elat for f in burst)
+        el_s = sorted(f.invocation.elat for f in singles)
+        host = [f.invocation.rlat - f.invocation.elat for f in singles]
+        n_tok = sum(len(o) for r in res_b for o in r["outputs"])
+        log(f"  (a) a prewarm directive to each worker (round-robin): both warm "
+            f"{t_warm:.3f} s after the directives; cold start (the prewarm's setup, timed in the "
+            f"worker) per pid { {p: round(t, 4) for p, t in sorted(setup_s.items())} } s")
+        log(f"  (a) 12 events, all succeeded, served by {sorted(served)} (the burst mapped while "
+            f"the master held the takes of the two parked, prewarmed workers, so each took a "
+            f"micro-batch of 4: checked); batch sizes of the burst "
+            f"{sorted(sizes.values(), reverse=True)}; no cold start in (a), the burst's batches "
+            f"on prewarmed engines; weights checksum {checksum} in both workers and this process")
+        log(f"  (a) RLat p50 {statistics.median(rl) * 1e3:.1f} ms max {rl[-1] * 1e3:.1f} ms; "
+            f"ELat burst (two processes time-slicing the card, a batch of 4 each) p50 "
+            f"{statistics.median(el_b) * 1e3:.1f} ms max {el_b[-1] * 1e3:.1f} ms, beside the "
+            f"in-process gateway's batches of 4 (phase 3 wave 1, same run) p50 "
+            f"{gw_ref['elat_ms']:.1f} ms; one at a time p50 {statistics.median(el_s) * 1e3:.1f} "
+            f"ms max {el_s[-1] * 1e3:.1f} ms; burst {n_tok} tokens in {wall_b:.3f} s = "
+            f"{n_tok / wall_b:.1f} tokens/s; 4 one at a time in {wall_s:.3f} s")
+        log(f"  (a) host cost per event over RPC (RLat - ELat, one at a time) mean "
+            f"{statistics.mean(host) * 1e3:.3f} ms max {max(host) * 1e3:.3f} ms; in-process "
+            f"gateway (phase 3 wave 2, same run, its 50 ms batch window included) mean "
+            f"{gw_ref['host_ms']:.3f} ms")
+        log(f"  (a) launches per worker pid {by_pid}; every event's tokens equal run_batch of "
+            f"the same batch in this process ({n_rerun} batches); trace "
+            f"{len(doc['traceEvents'])} events, valid, every parent in the trace, "
+            f"{len(leads)} worker-authored execute spans holding prefill and decode")
+        log(f"  (a) card memory free {free_a / 2**30:.2f} GiB with both workers warm, "
+            f"{(free_engine - free_a) / 2**30:.2f} GiB below the free before the cluster "
+            f"(mem_get_info: both workers' engines, caches and CUDA contexts); each worker's "
+            f"caching allocator holds "
+            f"{ {p: round(b / 2**30, 2) for p, b in sorted(reserved.items())} } GiB "
+            f"(memory_reserved, by pid); nvidia-smi per process: {apps}")
+
+        # (b) SIGKILL the worker that holds an event's lease
+        before = {w: r["stats"].get("n_batches", 0) for w, r in backend.stats()["workers"].items()}
+        ev = events[1]
+        fut = invoke(ev)
+        holder = None
+        t0 = time.perf_counter()
+        while holder is None:
+            now = {w: r["stats"].get("n_batches", 0)
+                   for w, r in backend.stats()["workers"].items()}
+            holder = next((w for w in now if now[w] > before.get(w, 0)), None)
+            if time.perf_counter() - t0 > 60.0:
+                raise AssertionError("phase 6 (b): no worker took the event")
+            time.sleep(0.005)
+        free_kill = _mem_free(torch)
+        injector = inject(backend, [{"at": 0.0, "op": "kill-worker-process",
+                                     "worker": int(holder[1:])}])
+        res_k = fut.result(extra_time_s=300.0)
+        injector.disarm()
+        inv_k = fut.invocation
+        t_kill = injector.injected[0][0]
+        abandoned = obs.TRACER.find(name="attempt", status=obs.ABANDONED)
+        st = backend.stats()
+        survivor = ({"w0", "w1"} - {holder}).pop()
+        if injector.injected[0][3] != "SIGKILL" or st["workers_lost"] != 1 or \
+                st["requeued"] < 1 or inv_k.attempt < 1 or inv_k.node != survivor or \
+                not inv_k.success or len(abandoned) != 1:
+            raise AssertionError(f"phase 6 (b): injected {injector.injected}, stats {st}, event "
+                                 f"attempt {inv_k.attempt} node {inv_k.node} success "
+                                 f"{inv_k.success}, abandoned {len(abandoned)}")
+        if res_k["outputs"] != res_s[1]["outputs"] or res_k["batch"][0] != pids[survivor]:
+            raise AssertionError(f"phase 6 (b): the retried event gave {res_k['outputs']} on pid "
+                                 f"{res_k['batch'][0]}, in (a) {res_s[1]['outputs']}")
+        # all of it comes back: at least what its allocator held at its last
+        # batch (its CUDA context comes back too, on top), less what the
+        # survivor's allocator took meanwhile to serve the retry
+        grown = max(res_k["reserved"] - reserved[pids[survivor]], 0)
+        t_back = _wait_mem(torch, free_kill + reserved[pids[holder]] - grown, 60.0, "(b)")
+        free_b = _mem_free(torch)
+        log(f"  (b) kill-worker-process SIGKILLed {holder} (pid {pids[holder]}) holding the "
+            f"event's lease; requeued {abandoned[0].t_end - t_kill:.3f} s after the SIGKILL "
+            f"(heartbeat timeout 5.0 s, keeper tick 0.25 s); the event ran again on "
+            f"{inv_k.node} as attempt {inv_k.attempt}, RLat {inv_k.rlat:.3f} s, tokens equal to "
+            f"(a)'s; master workers_lost {st['workers_lost']} requeued {st['requeued']}; card "
+            f"memory free {free_kill / 2**30:.2f} -> {free_b / 2**30:.2f} GiB "
+            f"({(free_b - free_kill) / 2**30:.2f} GiB back, {t_back:.3f} s after the event "
+            f"settled)")
+
+        # (c) two three-step chains on the survivor
+        seeds = [{"prompts": [rng.integers(3, cfg.vocab, size=n).tolist()]} for n in (300, 600)]
+        wf_futs = []
+        t0 = time.perf_counter()
+        for w, seed in enumerate(seeds):
+            wf = Workflow(f"chain{w}")
+            prev = wf.step("generate", rid, payload=seed, config=run)
+            for stage in ("refine", "polish"):
+                prev = wf.step(stage, rid, after=prev, config=run)
+            wf_futs.append(gw.submit_workflow(wf))
+        outs = [f.result(extra_time_s=300.0) for f in wf_futs]
+        wall_c = time.perf_counter() - t0
+        steps, res_c = [], []
+        for f, seed in zip(wf_futs, seeds):
+            data = seed                         # each step reads the one before
+            for name in ("generate", "refine", "polish"):
+                sf = f.step_future(name)
+                r = sf.result(extra_time_s=60.0)
+                payloads[sf.invocation.inv_id] = data
+                steps.append(sf.invocation)
+                res_c.append(r)
+                data = r
+            if f.statuses() != {"generate": "done", "refine": "done", "polish": "done"}:
+                raise AssertionError(f"phase 6 (c): {f.name} {f.statuses()}")
+        n_rerun_c = _same_batches(steps, res_c, payloads, prdef, engine, run, "(c)")
+        if [o["outputs"] for o in outs] != [r["outputs"] for r in res_c[2::3]]:
+            raise AssertionError("phase 6 (c): a chain's result is not its polish step's")
+        last = res_c[-1]["launches"]
+        if any(last[k] for k in ("chunk", "dense", "scan", "gmm")):
+            raise AssertionError(f"phase 6 (c): the survivor launched {last}")
+        log(f"  (c) 2 chains (generate -> refine -> polish) in {wall_c:.3f} s on "
+            f"{sorted({i.node for i in steps})}; every step's tokens equal run_batch of the same "
+            f"batch in this process ({n_rerun_c} batches), so each chain equals the chain run "
+            f"here; step ELat p50 {statistics.median(i.elat for i in steps) * 1e3:.1f} ms")
+
+        # (d) an eviction directive gives the survivor's engine back to the card
+        free_d = _mem_free(torch)
+        key = runtime_key_for(rid, run)
+        if not backend.capacity_hooks().evict(key):
+            raise AssertionError("phase 6 (d): the eviction reached no worker")
+        t_evict = _wait_mem(torch, free_d + CL_FREED * engine_bytes, 60.0, "(d)")
+        free_e = _mem_free(torch)
+        t0 = time.perf_counter()
+        while key in backend.stats()["workers"][survivor]["stats"].get("warm_keys", ()):
+            if time.perf_counter() - t0 > 60.0:     # the beat after the drop says so
+                raise AssertionError(f"phase 6 (d): {survivor} still reports {key} warm")
+            time.sleep(0.01)
+        fut = invoke(events[0])                 # the evicted runtime cold-starts again
+        res_e = fut.result(extra_time_s=300.0)
+        inv_e = fut.invocation
+        spans_e = obs.TRACER.find(name="cold_start")
+        if not (inv_e.success and inv_e.cold_start and inv_e.node == survivor) or \
+                res_e["outputs"] != res_s[0]["outputs"] or len(spans_e) != 1:
+            raise AssertionError(f"phase 6 (d): the event after the eviction: success "
+                                 f"{inv_e.success} cold {inv_e.cold_start} on {inv_e.node}, "
+                                 f"{len(spans_e)} cold_start spans, tokens equal to (a)'s "
+                                 f"{res_e['outputs'] == res_s[0]['outputs']}")
+        log(f"  (d) evict broadcast: card memory free {free_d / 2**30:.2f} -> "
+            f"{free_e / 2**30:.2f} GiB {t_evict:.3f} s later (the worker drops its "
+            f"engine and empties its cache; at least {CL_FREED} of an engine's "
+            f"{engine_bytes / 2**30:.2f} GiB required); then one event cold-starts "
+            f"{inv_e.node} again: cold_start span {spans_e[0].duration:.4f} s (setup timed in "
+            f"the worker {res_e['setup_s']:.4f} s), ELat {inv_e.elat * 1e3:.1f} ms, tokens equal "
+            f"to (a)'s")
+    finally:
+        h.close()
+        obs.reset()
+        engine = None
+        torch.cuda.empty_cache()
+    log(f"  card memory free {_mem_free(torch) / 2**30:.2f} GiB after the cluster closed")
+    return {k: sum(c[k] for c in by_pid.values()) for k in by_pid[next(iter(by_pid))]}
+
+
+def _wait_mem(torch, free_at_least: float, timeout_s: float, what: str) -> float:
+    t0 = time.perf_counter()
+    while _mem_free(torch) < free_at_least:
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"phase 6 {what}: card memory free {_mem_free(torch)} bytes after "
+                                 f"{timeout_s} s, expected at least {int(free_at_least)}")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
 
 
 def _device_us(ev) -> float:
@@ -1676,7 +2152,7 @@ def main() -> int:
 
     log(f"phase 3: {cfg.name} through Gateway.invoke -> EngineBackend (max_batch 4, "
         "batch wait 50 ms, max_warm 1) -> make_serve_runtime, tracer on")
-    counts = gateway_run(torch, cfg)
+    counts, gw_ref = gateway_run(torch, cfg)
     # the gateway path's own counts, beside the direct runs' (same kernels,
     # same timings; launches counted from this path's run alone)
     for key in ("flash", "decode"):
@@ -1696,6 +2172,16 @@ def main() -> int:
         entries[f"{key}_sim"] = dict(
             entries[key], name=entries[key]["name"] + ", via SimBackend")
         total[f"{key}_sim"] = sim_counts[key]
+    torch.cuda.empty_cache()
+
+    log(f"phase 6: {cfg.name} through the multi-process cluster (Gateway.invoke -> "
+        "ClusterBackend -> Master over RPC -> 2 worker processes on this card, max_batch 4, "
+        "4 slots of 1024 tokens), tracer on")
+    cl_counts = cluster_run(torch, cfg, gw_ref)
+    for key in ("flash", "decode"):
+        entries[f"{key}_cluster"] = dict(
+            entries[key], name=entries[key]["name"] + ", via ClusterBackend")
+        total[f"{key}_cluster"] = cl_counts[key]
     torch.cuda.empty_cache()
 
     # phase 3: recurrentgemma-2b, paged (its ring caches and state are
@@ -1768,7 +2254,8 @@ def main() -> int:
     kernels = []
     for key in ("decode", "chunk", "chunk_768", "flash", "flash_rg", "dense_rg", "dense_granite",
                 "scan", "flash_l4", "decode_l4", "dense_l4", *GMM_KEYS, "flash_gateway",
-                "decode_gateway", "flash_cp", "decode_cp", "flash_sim", "decode_sim"):
+                "decode_gateway", "flash_cp", "decode_cp", "flash_sim", "decode_sim",
+                "flash_cluster", "decode_cluster"):
         e = dict(entries[key])
         e["launches"] = total[key]
         kernels.append({k: e[k] for k in (

@@ -17,9 +17,7 @@ A fault spec is a list of actions:
 * ``kill-worker-process`` — cluster: SIGKILL worker *process* ``worker``
   (its launcher index) — real process death, not thread death.  Its
   heartbeats stop, the master's keeper expires it, and its leased events
-  requeue for the surviving workers (``docs/cluster.md``).  The port has
-  no cluster backend yet: the op parses, and arming it raises
-  ``NotImplementedError``.
+  requeue for the surviving workers (``docs/cluster.md``).
 
 Specs parse from JSON (``launch.serve --fault-spec``)::
 
@@ -34,7 +32,7 @@ and, on the sim, starts the periodic lease-reap tick that turns expired
 leases into redeliveries.
 
 The port's copy of ``repro.core.faults`` (the port imports nothing of
-``repro``); the cluster op is the one difference (above).
+``repro``); only docstrings and imports differ.
 """
 from __future__ import annotations
 
@@ -95,9 +93,15 @@ class FaultInjector:
         self.n_reaped = 0                   # leases expired -> redelivered
         self._armed = False
         self._timers: List[threading.Timer] = []
-        self.cluster = getattr(backend, "cluster", None)
-        if self.cluster is None and hasattr(backend, "queue"):
-            self.cluster = backend      # a bare Cluster
+        # a ClusterBackend exposes its process launcher — that is the
+        # kill-worker-process actuator (real SIGKILL, not thread death)
+        self.launcher = getattr(backend, "launcher", None)
+        self.is_cluster = self.launcher is not None
+        self.cluster = None
+        if not self.is_cluster:
+            self.cluster = getattr(backend, "cluster", None)
+            if self.cluster is None and hasattr(backend, "queue"):
+                self.cluster = backend      # a bare Cluster
         self.is_sim = self.cluster is not None
 
     # ------------------------------------------------------------------
@@ -107,14 +111,11 @@ class FaultInjector:
         so the recurring timer cannot spin a drain forever)."""
         if self._armed:
             return self
-        cluster_ops = sorted({a.op for a in self.actions} & CLUSTER_OPS)
-        if cluster_ops:
-            raise NotImplementedError(
-                f"fault op(s) {cluster_ops} need the multi-process cluster "
-                f"backend, which the port does not have yet")
         self._armed = True
-        kind = "sim" if self.is_sim else "engine"
-        valid = {"sim": SIM_OPS, "engine": ENGINE_OPS}[kind]
+        kind = "sim" if self.is_sim else \
+            "cluster" if self.is_cluster else "engine"
+        valid = {"sim": SIM_OPS, "cluster": CLUSTER_OPS,
+                 "engine": ENGINE_OPS}[kind]
         bad = [a.op for a in self.actions if a.op not in valid]
         if bad:
             raise ValueError(
@@ -125,9 +126,10 @@ class FaultInjector:
                 clock.call_at(a.at, lambda a=a: self._apply_sim(a))
             clock.call_in(self.reap_interval_s, self._reap_tick)
         else:
+            apply = self._apply_cluster if self.is_cluster \
+                else self._apply_engine
             for a in self.actions:
-                t = threading.Timer(max(a.at, 0.0),
-                                    lambda a=a: self._apply_engine(a))
+                t = threading.Timer(max(a.at, 0.0), lambda a=a: apply(a))
                 t.daemon = True
                 self._timers.append(t)
                 t.start()
@@ -173,6 +175,14 @@ class FaultInjector:
         self.backend.crash_worker(a.worker)
         self.injected.append((self.backend.now(), "crash-worker",
                               a.worker, "armed"))
+
+    def _apply_cluster(self, a: FaultAction) -> None:
+        if not self._armed:
+            return      # timer fired in the disarm race window
+        killed = self.launcher.kill(a.worker)
+        self.injected.append((self.backend.now(), "kill-worker-process",
+                              a.worker,
+                              "SIGKILL" if killed else "already dead"))
 
     # ------------------------------------------------------------------
     def summary(self) -> Dict[str, int]:

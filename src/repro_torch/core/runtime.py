@@ -55,6 +55,13 @@ class RuntimeDef:
     # ... and keep idle instances alive this long before evicting
     # (None = the platform default keep-alive)
     keep_alive_s: Optional[float] = None
+    # importable factory reference ("pkg.module:callable") + its kwargs:
+    # callables cannot cross a process boundary, so the cluster backend
+    # registers runtimes by spec and every process (master bookkeeping,
+    # each worker) builds its own definition with
+    # ``repro_torch.cluster.runtimes.load_runtime_spec``, which stamps these
+    spec: Optional[str] = None
+    spec_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def supports(self, acc_type: str) -> bool:
         """True when accelerator type ``acc_type`` can serve this runtime."""

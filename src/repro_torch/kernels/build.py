@@ -10,10 +10,15 @@ with nvcc's ``-Xptxas -v`` report beside each. Several sources build in
 parallel, one ``nvcc`` each. A failed build raises with nvcc's stderr.
 Building and loading hold one lock, so threads that reach a kernel's first
 launch together (a gateway's workers) build it once and share one handle.
+Across processes (cluster workers on one card) a build holds an exclusive
+``flock`` on ``build/kernels/.lock``: the first process builds, the others
+wait for it and load what it built. The kernel releases the lock when the
+holder exits, killed or not, so a dead builder leaves no stale lock.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -55,9 +60,16 @@ def library_path(name: str) -> Path:
 def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     """Compile every library of ``names`` that is not built yet, one
     ``nvcc`` per source, all started together. Returns build seconds per
-    compiled library (empty when everything was already built)."""
+    library this process compiled (empty when everything was already
+    built, here or by another process that held the lock first)."""
+    names = list(names)
     with _LOCK:
-        return _build(list(names))
+        if all(library_path(n).exists() for n in names):
+            return {}
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / ".lock", "a") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)    # released at close or exit
+            return _build(names)
 
 
 def _build(names) -> Dict[str, float]:
@@ -65,7 +77,6 @@ def _build(names) -> Dict[str, float]:
     if not todo:
         return {}
     nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
     for name in todo:

@@ -13,11 +13,18 @@
         --pods 2 --events 6
     PYTHONPATH=src python -m repro_torch.launch.serve --min-warm 1 \\
         --slo-ms 30000 --tenant-quota free=2:4 --events 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --cluster 2 --events 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --cluster 2 \\
+        --workflow 2
 
-Registers the serve runtime of any registered arch (8 slots, max_len 2048;
-``--page-size 0`` the dense per-slot cache) with a ``Gateway`` and invokes
-it ``--events`` times, each event 2 random 64-token prompts (16 new tokens
-per prompt). Two backends:
+Registers the serve runtime of each registered arch of ``--arch`` (a
+comma-separated list; 8 slots, max_len 2048; ``--page-size 0`` the dense
+per-slot cache) with a ``Gateway`` and invokes them round-robin
+``--events`` times, each event 2 random 64-token prompts (16 new tokens
+per prompt); ``--workflow N`` submits N three-step chains instead
+(generate -> refine -> polish, each step's prompts the previous step's
+outputs, read through the object store; the steps round-robin over the
+runtimes). Three backends:
 
 * ``--backend engine`` (the default): an ``EngineBackend`` whose worker
   serves micro-batches of up to ``--max-batch`` compatible events, waiting
@@ -29,6 +36,12 @@ per prompt). Two backends:
   cost counters read 0). The runtime's real ``fn`` runs inside virtual
   time, on the card: its ELat is the measured wall time, its cold start
   the profile's.
+* ``--cluster N``: a real multi-process deployment, a master in this
+  process and N worker processes over the cluster RPC protocol. Every
+  worker holds its own CUDA context and model copy on the card (they
+  share it); the runtime travels as the importable spec
+  ``repro_torch.cluster.runtimes:serve_runtime`` with ``--reduced`` and
+  ``--device`` in its kwargs, and each worker builds its own copy.
 
 Prints one line per event from its future: cold or warm, ELat and RLat
 (invoke to settled). ``--slo-ms``, ``--min-warm`` and ``--tenant-quota
@@ -36,8 +49,9 @@ NAME=RATE[:BURST]`` attach a control plane (SLO scaler, warm-pool floors
 prewarmed off the critical path, per-tenant admission; ``--objective``
 steers its scale-out and, on the sim, picks the ``hetero-*`` scheduler);
 ``--fault-spec`` arms a fault-injection schedule (sim: kill-node,
-stall-node; engine: crash-worker). ``--trace-out`` turns the tracer on and
-writes the span tree as Perfetto trace_event JSON; ``--metrics-out``
+stall-node; engine: crash-worker; cluster: kill-worker-process).
+``--trace-out`` turns the tracer on and writes the span tree as Perfetto
+trace_event JSON; ``--metrics-out``
 writes the metrics collector (JSON for a ``.json`` path, Prometheus text
 otherwise). Runs on the card; ``--device cpu`` runs the backend and the
 model on the host (the plain PyTorch path), and ``--reduced`` the arch's
@@ -67,8 +81,11 @@ from repro_torch.core.cluster import Cluster
 from repro_torch.core.runtime import SimProfile
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.faults import inject, parse_fault_spec
-from repro_torch.gateway import EngineBackend, Gateway, SimBackend
+from repro_torch.gateway import (EngineBackend, Gateway, SimBackend, Workflow,
+                                 WorkflowStepError)
 from repro_torch.serve.api import make_serve_runtime
+
+SERVE_SPEC = "repro_torch.cluster.runtimes:serve_runtime"
 
 
 def accelerator_spec(device: DeviceLike = None, *, cost_per_hour: float,
@@ -91,7 +108,8 @@ def accelerator_spec(device: DeviceLike = None, *, cost_per_hour: float,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--arch", default="granite-3-2b",
+                    help="comma-separated arch ids")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the arch's reduced smoke-test widths")
     ap.add_argument("--events", type=int, default=4)
@@ -100,6 +118,14 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default="engine", choices=["sim", "engine"],
                     help="engine = worker threads on the card (default); "
                          "sim = pod cluster on the event clock")
+    ap.add_argument("--cluster", type=int, default=None, metavar="N",
+                    help="spawn a real master/worker deployment with N "
+                         "worker processes sharing the card (overrides "
+                         "--backend)")
+    ap.add_argument("--workflow", type=int, default=0, metavar="N",
+                    help="submit N generate->refine->polish chained "
+                         "workflows (one submission each) instead of "
+                         "--events flat invocations")
     ap.add_argument("--pods", type=int, default=None,
                     help="sim backend only (default 2)")
     ap.add_argument("--scheduler", default=None,
@@ -112,8 +138,9 @@ def main(argv=None) -> int:
                          "matching hetero-* scheduler on the sim backend "
                          "and steers control-plane scale-out/prewarm")
     ap.add_argument("--max-batch", type=int, default=None,
-                    help="engine backend: largest micro-batch of compatible "
-                         "events one engine call serves (default 1)")
+                    help="engine backend and cluster workers: largest "
+                         "micro-batch of compatible events one engine call "
+                         "serves (default 1)")
     ap.add_argument("--batch-wait-ms", type=float, default=None,
                     help="engine backend: max wait for a micro-batch to "
                          "fill before a partial one is dispatched "
@@ -134,7 +161,7 @@ def main(argv=None) -> int:
                     help="arm a fault-injection schedule: a JSON list of "
                          "actions (or @path to a file holding one); sim "
                          "ops: kill-node/stall-node, engine ops: "
-                         "crash-worker")
+                         "crash-worker, cluster ops: kill-worker-process")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without a card)")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
@@ -147,7 +174,17 @@ def main(argv=None) -> int:
     if args.prefill_chunk and not args.page_size:
         ap.error("--prefill-chunk needs --page-size > 0 (chunked prefill "
                  "scatters into the paged KV pool)")
-    if args.backend == "engine":
+    mode = "cluster" if args.cluster is not None else args.backend
+    if mode == "cluster":
+        if args.cluster < 1:
+            ap.error("--cluster needs at least 1 worker process")
+        if args.pods is not None or args.scheduler is not None:
+            ap.error("--sim/--pods/--scheduler only apply to --backend sim "
+                     "(--cluster runs real worker processes)")
+        if args.batch_wait_ms is not None:
+            ap.error("--batch-wait-ms only applies to --backend engine "
+                     "(cluster workers batch at the master's queue)")
+    elif mode == "engine":
         if args.pods is not None or args.scheduler is not None:
             ap.error("--pods/--scheduler only apply to --backend sim "
                      "(the engine backend schedules on this host's devices)")
@@ -173,12 +210,23 @@ def main(argv=None) -> int:
     scheduler = args.scheduler if args.scheduler is not None else (
         f"hetero-{args.objective}" if args.objective is not None else "warm")
     max_batch = max(args.max_batch if args.max_batch is not None else 1, 1)
-    sim = args.backend == "sim"
+    sim = mode == "sim"
 
-    cfg = get_config(args.arch)
+    archs = args.arch.split(",")
+    cfgs = [get_config(arch) for arch in archs]
     if args.reduced:
-        cfg = cfg.reduced()
-    if sim:
+        cfgs = [c.reduced() for c in cfgs]
+    cluster_h = None
+    if mode == "cluster":
+        from repro_torch.cluster import start_cluster
+        # the cold start (weights on the card, the kernels' first build)
+        # must not read as death: generous lease and heartbeat bounds
+        cluster_h = start_cluster(args.cluster, lease_s=300.0,
+                                  heartbeat_timeout_s=30.0,
+                                  max_batch=max_batch, ready_timeout_s=60.0)
+        backend = cluster_h.backend
+        acc_types = None
+    elif sim:
         spec = accelerator_spec(args.device, cost_per_hour=0.0)
         cluster = Cluster(scheduler=scheduler, seed=0)
         for p in range(pods):
@@ -200,11 +248,25 @@ def main(argv=None) -> int:
     plane = injector = None
     futs = []
     ok = 0
+    wf_ok = False
     try:
-        rid = gw.register(make_serve_runtime(
-            cfg, acc_types=acc_types, max_slots=8, max_len=2048,
-            max_batch=max_batch, page_size=args.page_size,
-            prefill_chunk=args.prefill_chunk, device=args.device))
+        rt_ids = []
+        for arch, cfg in zip(archs, cfgs):
+            if mode == "cluster":
+                # cluster runtimes travel as importable factory specs, never
+                # as closures: each worker process builds its own copy
+                from repro_torch.cluster import load_runtime_spec
+                rdef = load_runtime_spec(SERVE_SPEC, {
+                    "arch": arch, "max_batch": max_batch, "max_slots": 8,
+                    "max_len": 2048, "page_size": args.page_size,
+                    "prefill_chunk": args.prefill_chunk,
+                    "reduced": args.reduced, "device": args.device})
+            else:
+                rdef = make_serve_runtime(
+                    cfg, acc_types=acc_types, max_slots=8, max_len=2048,
+                    max_batch=max_batch, page_size=args.page_size,
+                    prefill_chunk=args.prefill_chunk, device=args.device)
+            rt_ids.append(gw.register(rdef))
         if args.slo_ms is not None or args.min_warm is not None or quotas:
             plane = ControlPlane(ControlPlaneConfig(
                 tick_interval_s=5.0 if sim else 0.5,
@@ -214,7 +276,8 @@ def main(argv=None) -> int:
                 slo=(SLOPolicy(slo_rlat_p99_s=args.slo_ms / 1e3,
                                min_units=pods if sim else 1)
                      if args.slo_ms is not None else None),
-                warm=(WarmPolicy(min_warm={rid: args.min_warm})
+                warm=(WarmPolicy(min_warm={rid: args.min_warm
+                                           for rid in rt_ids})
                       if args.min_warm is not None else None),
                 admission=(AdmissionPolicy(tenant_quotas=quotas)
                            if quotas else None),
@@ -228,11 +291,20 @@ def main(argv=None) -> int:
             injector = inject(backend, parse_fault_spec(spec_text))
 
         rng = random.Random(0)
-        events = [{"prompts": [[rng.randrange(3, cfg.vocab)
+        vocab = min(c.vocab for c in cfgs)
+        events = [{"prompts": [[rng.randrange(3, vocab)
                                 for _ in range(64)] for _ in range(2)]}
                   for _ in range(args.events)]
-        futs = gw.map(rid, events, config={"max_new_tokens": 16})
-        gw.drain()
+        run = {"max_new_tokens": 16}
+        if args.workflow:
+            seed = {"prompts": [[rng.randrange(3, vocab) for _ in range(64)]
+                                for _ in range(2)]}
+            wf_ok = run_workflows(gw, rt_ids, args.workflow, seed, run)
+        else:
+            futs = [gw.invoke(rt_ids[i % len(rt_ids)], ev, config=run)
+                    for i, ev in enumerate(events)]
+            gw.drain()
+        rid = ",".join(rt_ids)
         cold = next((f.invocation for f in futs if f.invocation.cold_start),
                     None)
         if cold is not None and cold.e_start is not None:
@@ -250,17 +322,34 @@ def main(argv=None) -> int:
                   f"prewarmed={int(inv.prewarmed)} acc={inv.accelerator} "
                   f"ELat={inv.elat:.3f}s RLat={inv.rlat:.3f}s tokens={n_tok} "
                   f"decode_steps={res['n_decode_steps']}")
+        done = gw.metrics.completed
+        served = f"{sum(i.success for i in done)}/{len(done)} workflow steps " \
+            "succeeded" if args.workflow else f"{ok}/{len(futs)} events served"
         if sim:
             counts = "; ".join(f"{n.name}: cold={n.n_cold_starts} "
                                f"warm={n.n_warm_starts} "
                                f"prewarmed={n.n_prewarms}"
                                for n in cluster.nodes)
-            print(f"[{rid}] {ok}/{len(futs)} events served; {counts}")
+            print(f"[{rid}] {served}; {counts}")
+        elif mode == "cluster":
+            st = backend.stats()
+            for name, rep in sorted(st.get("workers", {}).items()):
+                ws = rep.get("stats") or {}
+                print(f"{name}: pid={ws.get('pid')} "
+                      f"batches={ws.get('n_batches', 0)} "
+                      f"cold={ws.get('n_cold_starts', 0)} "
+                      f"warm={ws.get('n_warm_starts', 0)} "
+                      f"settled={ws.get('n_settled', 0)}")
+            print(f"[{rid}] {served}; master: "
+                  f"settled={st.get('settled')} "
+                  f"requeued={st.get('requeued')} "
+                  f"workers_lost={st.get('workers_lost')} "
+                  f"duplicate_settles={st.get('duplicate_settles')}")
         else:
             handle = backend.handle(futs[0].invocation.runtime_key) \
                 if futs else None
             stats = handle.stats() if handle is not None else {}
-            print(f"[{rid}] {ok}/{len(futs)} events served; cold="
+            print(f"[{rid}] {served}; cold="
                   f"{backend.n_cold_starts} warm={backend.n_warm_starts} "
                   f"prewarmed={backend.n_prewarms} rejected="
                   f"{backend.n_rejected} batches={backend.batch_sizes}; "
@@ -278,7 +367,9 @@ def main(argv=None) -> int:
     finally:
         if plane is not None:
             plane.detach()
-        if not sim:
+        if cluster_h is not None:
+            cluster_h.close()   # shut the master down, reap the workers
+        elif not sim:
             backend.shutdown()
         if args.metrics_out:
             with open(args.metrics_out, "w") as f:
@@ -291,6 +382,10 @@ def main(argv=None) -> int:
             n = obs.export(args.trace_out)
             obs.reset()
             print(f"wrote {args.trace_out} ({n} trace events)")
+    if args.workflow:
+        # a retried-then-recovered step leaves its failed attempt in the
+        # metrics; the verdict is whether the workflows completed
+        return 0 if wf_ok else 1
     # admission sheds are policy outcomes, not failures; with faults armed,
     # a retries-exhausted record is the at-least-once contract (settled,
     # not stranded)
@@ -298,6 +393,35 @@ def main(argv=None) -> int:
         f.invocation.success or f.invocation.rejected or
         (injector is not None and f.invocation.retries_exhausted)))
     return 0 if settled == len(futs) else 1
+
+
+def run_workflows(gw, rt_ids, n: int, seed_event, run) -> bool:
+    """Submit ``n`` three-step chains (generate -> refine -> polish): the
+    first step reads ``seed_event`` from the object store, each later
+    step's prompts are the previous step's outputs, and the steps
+    round-robin over ``rt_ids``. Prints each chain's step statuses;
+    True when every step of every chain is done."""
+    data_ref = gw.put(seed_event)
+    wf_futs = []
+    for w in range(n):
+        wf = Workflow(f"chain{w}")
+        prev = wf.step("generate", rt_ids[w % len(rt_ids)],
+                       data_ref=data_ref, config=run)
+        for j, stage in enumerate(("refine", "polish")):
+            prev = wf.step(stage, rt_ids[(w + j + 1) % len(rt_ids)],
+                           after=prev, config=run, retries=1)
+        wf_futs.append(gw.submit_workflow(wf))
+    ok = True
+    for fut in wf_futs:
+        try:
+            out = fut.result()
+            print(f"  workflow {fut.name}: {fut.statuses()} tokens="
+                  f"{sum(len(o) for o in out['outputs'])}")
+        except WorkflowStepError as e:
+            print(f"  workflow {fut.name} FAILED: {e}; {fut.statuses()}")
+            ok = False
+        ok &= all(s == "done" for s in fut.statuses().values())
+    return ok
 
 
 if __name__ == "__main__":

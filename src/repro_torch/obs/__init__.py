@@ -10,10 +10,11 @@ gate on ``TRACER.enabled`` before touching anything else.
     obs.export("trace.json")            # load at https://ui.perfetto.dev
 
 The port's copy of ``repro.obs``, with :func:`torch_profile` (a
-``torch.profiler`` / NVTX range) in place of ``jax_profile``.
+``torch.profiler`` / NVTX range) in place of ``jax_profile``. It resolves
+on first use, so a process that only traces (a cluster worker serving a
+runtime without a model) does not import torch.
 """
 from repro_torch.obs.export import to_trace_events, write_trace
-from repro_torch.obs.profile import torch_profile
 from repro_torch.obs.tracer import (ABANDONED, ERROR, OK, REJECTED,
                                     SPAN_NAMES, Span, Tracer)
 from repro_torch.obs.validate import validate_trace, validate_trace_file
@@ -39,6 +40,13 @@ def disable() -> None:
 def reset() -> None:
     """Back to pristine: disabled, empty, wall clock."""
     TRACER.reset()
+
+
+def __getattr__(name):
+    if name == "torch_profile":
+        from repro_torch.obs.profile import torch_profile
+        return torch_profile
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def export(path: str) -> int:

@@ -47,11 +47,17 @@ def make_serve_runtime(cfg: ModelConfig, *,
         if where.type == "cuda" and where.index is None:
             where = torch.device("cuda", torch.cuda.current_device())
         params = M.init_model_params(cfg, seed, where)
-        return ServingEngine(cfg, params, max_slots=max_slots,
-                             max_len=max_len, page_size=page_size,
-                             prefill_chunk=prefill_chunk,
-                             kv_pool_tokens=kv_pool_tokens, greedy=greedy,
-                             sample_seed=seed, device=where)
+        engine = ServingEngine(cfg, params, max_slots=max_slots,
+                               max_len=max_len, page_size=page_size,
+                               prefill_chunk=prefill_chunk,
+                               kv_pool_tokens=kv_pool_tokens, greedy=greedy,
+                               sample_seed=seed, device=where)
+        if where.type == "cuda":
+            # the weights are drawn in float32 and then cast: give those
+            # drafts back to the driver, where other processes on the card
+            # (cluster workers) can allocate them
+            torch.cuda.empty_cache()
+        return engine
 
     def _prompts(data: Any) -> List[List[int]]:
         # {"prompts": [...]} is the client form; {"outputs": [...]} a chained

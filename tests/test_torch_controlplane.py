@@ -731,7 +731,11 @@ FORBIDDEN = [["--backend", "engine", "--pods", "2"],
              ["--backend", "sim", "--objective", "cost", "--scheduler",
               "fifo"],
              ["--prefill-chunk", "16", "--page-size", "0"],
-             ["--backend", "sim", "--tenant-quota", "free"]]
+             ["--backend", "sim", "--tenant-quota", "free"],
+             ["--cluster", "0"],
+             ["--cluster", "1", "--pods", "2"],
+             ["--cluster", "1", "--scheduler", "fifo"],
+             ["--cluster", "1", "--batch-wait-ms", "3"]]
 
 
 @pytest.mark.parametrize("argv", FORBIDDEN, ids=lambda a: " ".join(a[-2:]))

@@ -13,9 +13,14 @@ versions on the card and skip where there is none. JAX is imported inside
 the comparison helpers so those cases also run where JAX is not installed
 (``python -m pytest -m gpu tests/test_torch_kernels.py``).
 """
+import json
+import os
+import shutil
 import subprocess
+import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -839,3 +844,119 @@ def test_two_gateway_workers_build_a_kernel_once(cuda, tmp_path, monkeypatch):
     assert compiles == [str(build.CSRC / "flash_attention.cu")]
     assert {f.invocation.node for f in futs} == {"local/w0", "local/w1"}
     assert max(errs) <= TOL[BF16]
+
+
+# ----------------------------------------------------------------------
+# building from several processes (cluster workers on one card)
+# ----------------------------------------------------------------------
+RACE = """
+import json, sys, time
+from pathlib import Path
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels import build
+build.BUILD_DIR = Path(sys.argv[2])
+Path(sys.argv[3]).touch()                   # ready
+go = Path(sys.argv[4])
+while not go.exists():
+    time.sleep(0.005)
+print(json.dumps(build.build(["flash_attention"])))
+"""
+
+
+def test_two_processes_racing_to_build_compile_once(tmp_path):
+    """Two processes released together call ``build()`` on an empty
+    build directory, with ``nvcc`` replaced by a stub that logs each call
+    and takes a second: one compiles, the other waits on the file lock
+    and finds the library built. Without the lock both would compile."""
+    bindir, out = tmp_path / "bin", tmp_path / "kernels"
+    bindir.mkdir()
+    calls = tmp_path / "nvcc.calls"
+    stub = bindir / "nvcc"
+    stub.write_text(
+        "#!/bin/sh\n"
+        f'echo "$$" >> "{calls}"\n'
+        "sleep 1\n"
+        'prev=""; for a in "$@"; do [ "$prev" = "-o" ] && : > "$a"; '
+        'prev="$a"; done\n')
+    stub.chmod(0o755)
+    env = dict(os.environ, PATH=f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    src = str(Path(build.__file__).resolve().parents[2])
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RACE, src, str(out), str(tmp_path / f"r{i}"),
+         str(tmp_path / "go")], env=env, stdout=subprocess.PIPE, text=True)
+        for i in range(2)]
+    try:
+        deadline = time.monotonic() + 60.0
+        while not all((tmp_path / f"r{i}").exists() for i in range(2)):
+            assert time.monotonic() < deadline, "the racers never started"
+            time.sleep(0.01)
+        (tmp_path / "go").touch()
+        results = [json.loads(p.communicate(timeout=60.0)[0]) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0]
+    assert len(calls.read_text().split()) == 1            # one nvcc
+    assert sorted(len(r) for r in results) == [0, 1]      # one built it
+    built = [p for p in out.iterdir() if p.suffix == ".so"]
+    assert [p.name for p in built] == [build.library_path(
+        "flash_attention").name]
+    assert (out / ".lock").exists()
+
+
+CLUSTER_DRIVER = """
+import json, sys, time
+sys.path.insert(0, "src")
+from repro_torch.cluster import start_cluster
+from repro_torch.gateway import Gateway
+h = start_cluster(2, lease_s=300.0, heartbeat_timeout_s=30.0, max_batch=4,
+                  ready_timeout_s=60.0)
+try:
+    gw = Gateway(h.backend)
+    rid = h.backend.register_spec("repro_torch.cluster.runtimes:serve_runtime",
+                                  {"reduced": True, "max_batch": 4})
+    run = {"max_new_tokens": 4}
+    hooks = h.backend.capacity_hooks()
+    assert hooks.prewarm(rid, run) and hooks.prewarm(rid, run)
+    deadline = time.monotonic() + 300.0
+    while sum(w["stats"].get("n_prewarms", 0)
+              for w in h.backend.stats()["workers"].values()) < 2:
+        assert time.monotonic() < deadline, "prewarms"
+        time.sleep(0.05)
+    futs = gw.map(rid, [{"prompts": [[5 + i, 9, 14] * (i + 1)]}
+                        for i in range(8)], config=run)
+    outs = [f.result(extra_time_s=600.0)["outputs"] for f in futs]
+    print(json.dumps({"nodes": sorted({f.invocation.node for f in futs}),
+                      "outputs": outs}))
+finally:
+    h.close()
+"""
+
+
+@pytest.mark.gpu
+def test_two_cluster_workers_build_each_kernel_once(cuda, tmp_path):
+    """Two cluster worker processes on one card, prewarmed, serve their
+    first batches together from a fresh checkout whose build directory
+    is empty: each kernel library on their path (K2, K1) is compiled
+    once, by one process, and the other loads it."""
+    checkout = tmp_path / "checkout"
+    shutil.copytree(Path(build.__file__).resolve().parents[1],
+                    checkout / "src" / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bindir, calls = tmp_path / "bin", tmp_path / "nvcc.calls"
+    bindir.mkdir()
+    stub = bindir / "nvcc"
+    stub.write_text(f'#!/bin/sh\necho "$$ $@" >> "{calls}"\n'
+                    f'exec "{build.nvcc_path()}" "$@"\n')
+    stub.chmod(0o755)
+    env = dict(os.environ, PATH=f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    env.pop("PYTHONPATH", None)
+    p = subprocess.run([sys.executable, "-c", CLUSTER_DRIVER], cwd=checkout,
+                       env=env, capture_output=True, text=True, timeout=900)
+    assert p.returncode == 0, p.stdout + p.stderr
+    seen = json.loads(p.stdout.strip().splitlines()[-1])
+    assert seen["nodes"] == ["w0", "w1"]
+    assert all(len(o) >= 1 for out in seen["outputs"] for o in out)
+    sources = sorted(Path(line.split()[-1]).name
+                     for line in calls.read_text().splitlines())
+    assert sources == ["flash_attention.cu", "paged_attention.cu"]

@@ -838,12 +838,18 @@ def test_sim_and_engine_scenario_agrees_with_jax(scenario, make):
 
 
 def test_cluster_fault_op_parses_and_raises_until_the_cluster_is_ported():
-    action, = TF.parse_fault_spec(
-        '[{"at": 0.5, "op": "kill-worker-process", "worker": 1}]')
-    assert action.op in TF.CLUSTER_OPS
-    cl = TC.Cluster(seed=0)
-    with pytest.raises(NotImplementedError, match="cluster backend"):
-        TF.inject(cl, [action])
+    """The cluster is ported: the cluster op parses in both packages and,
+    armed against the sim, is refused with the reference's error (its
+    arming on a real cluster is in tests/test_torch_cluster.py)."""
+    spec = '[{"at": 0.5, "op": "kill-worker-process", "worker": 1}]'
+    errors = []
+    for F, C in ((JF, JC), (TF, TC)):
+        action, = F.parse_fault_spec(spec)
+        assert action.op in F.CLUSTER_OPS
+        with pytest.raises(ValueError, match="do not apply to the sim") as e:
+            F.inject(C.Cluster(seed=0), [action])
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
 
 
 # ------------------------------------------------------------ the slice
