@@ -23,7 +23,11 @@ Phases (each raises on failure, so the script exits non-zero):
    each channel count of its plan timed and the default's GB/s logged); at
    llama4-scout's widths (H=40 KV=8 hd=128, G=5) K2 (causal, and a chunk
    mask crossed), K1 decode and K3 ring decode (L=8192, kv_len wrapped);
-   K4 the grouped matmul at the MoE path's shapes (llama4 prefill gate/up
+   at the dense catalogue's widths (phase 7's archs) K2 (S=1024, causal;
+   qwen2.5-14b H=40 KV=8 and deepseek-7b H=32 KV=32, hd 128), K1 decode
+   (both; deepseek's G = 1 puts one query row in each 16-row group), K1's
+   256-token chunks at q_offset 256 and 768 and K3 on the dense layout
+   (qwen, B=8 S=2048); K4 the grouped matmul at the MoE path's shapes (llama4 prefill gate/up
    and down, 1024 tokens top-1 over 16 experts; llama4 decode, 8 tokens;
    grok-1 gate/up and down, 1024 tokens top-2 over 8 experts, group sizes
    from a real routing) and edge cases (T=1, one expert, groups off the
@@ -125,6 +129,30 @@ Phases (each raises on failure, so the script exits non-zero):
    memory per worker. The ``kernels`` line has (a)'s launches, summed
    over the workers, under ``..., via ClusterBackend``.
 
+7. The rest of the dense catalogue at full width, then the roofline, printed
+   under ``phase 7:`` after phase 3's llama4-scout: (a) qwen2.5-14b as
+   registered (48 layers, d 5120, 40/8 heads, hd 128, d_ff 13824, vocab
+   152064, QKV bias, rope theta 1e6; bf16, max_len 2048, 8 slots) paged
+   whole-prompt (K2 + K1 decode), paged 256-token chunks (K1 chunk + K1
+   decode) and dense (K2 + K3), launches counted per path as phase 3's;
+   its bf16 logits against ``impl="ref"`` and float32 greedy tokens at 4
+   layers through all three layouts, with the QKV biases drawn non-zero
+   from a seed for both checks (the specs start them at zero); (b)
+   deepseek-7b as registered (30 layers, d 4096, 32/32 heads, hd 128)
+   paged whole-prompt, K2 and K1 decode at G = 1, with the logits check;
+   (c) for every served decode step of phases 3 and 7 (granite,
+   recurrentgemma, llama4-scout at 8 layers, qwen, deepseek) the analytic
+   memory bound (``roofline.analytic.memory_model`` in bf16 over the
+   datasheet's 3.35 TB/s) over the step's host-clock time (without the
+   profiler) and over its device busy time (under it), and each profiled
+   prefill's MFU (``model_flops`` over the time at 989 TFLOP/s): readings,
+   not gates; (d) ``python -m repro_torch.launch.serve --backend sim --sim``
+   over all eleven registered archs, one event each, as a subprocess: exit
+   0 with every event served; each arch's roofline profile (ELat median,
+   cold start) on the simulated 8-GPU H100 node, and for the archs served
+   here the profile's ELat beside the first event's ELat measured on this
+   card (2 prompts, 32 new tokens).
+
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -157,6 +185,9 @@ L4_KV_LEN = [1, 64, 200, 700, 1024, 1500, 2048, 2100]
 # ring decode of chunked attention: kv_len = pos % 8192 + 1, so a long
 # sequence's ring restarts small after a chunk boundary
 L4_RING_LEN = [1, 17, 309, 2048, 4096, 7777, 8191, 8192]
+QW_H, QW_KV, QW_HD = 40, 8, 128   # qwen2.5-14b attention widths (G = 5)
+DS_H, DS_KV, DS_HD = 32, 32, 128  # deepseek-7b (G = 1)
+QW_KV_LEN = [1, 37, 128, 255, 512, 700, 999, 1024]
 
 
 def log(msg: str) -> None:
@@ -932,6 +963,145 @@ def phase_kernels_moe(torch, dev):
     return entries
 
 
+def phase_kernels_catalogue(torch, dev):
+    """Phase 2 at the dense catalogue's widths (phase 7's served archs):
+    qwen2.5-14b (H=40 KV=8, G = 5, hd 128) through K2, K1 decode, K1's
+    256-token chunks and K3 on the dense layout; deepseek-7b (H=32 KV=32,
+    G = 1, hd 128) through K2 and K1 decode."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(11)
+    up = lambda *ts: [t.float() for t in ts]  # noqa: E731
+    heads = {"qwen": (QW_H, QW_KV, QW_HD), "ds": (DS_H, DS_KV, DS_HD)}
+    keys = ("flash_qwen", "flash_ds", "decode_qwen", "decode_ds", "chunk_qwen",
+            "chunk_qwen_768", "dense_qwen")
+    errs = {k: [] for k in keys}
+    log(f"phase 2: the dense catalogue's widths (qwen2.5-14b H={QW_H} KV={QW_KV} "
+        f"hd={QW_HD}, G=5; deepseek-7b H={DS_H} KV={DS_KV} hd={DS_HD}, G=1)")
+    for dtype in ("bfloat16", "float32"):
+        t = lambda shape: torch.from_numpy(  # noqa: E731
+            rng.standard_normal(shape).astype(np.float32)).to(dev, getattr(torch, dtype))
+        for arch, (nh, nkv, hd) in heads.items():
+            q, k, v = t((1, 1024, nh, hd)), t((1, 1024, nkv, hd)), t((1, 1024, nkv, hd))
+            check(f"K2 flash {arch} S=1024 H={nh} KV={nkv} hd={hd} causal", dtype,
+                  fa.flash_attention(q, k, v),
+                  ref.flash_attention(*up(q, k, v)).to(q.dtype), errs[f"flash_{arch}"])
+            q, kp, vp, bt, kl = paged_inputs(torch, rng, dev, dtype, QW_KV_LEN, 1,
+                                             (nh, nkv, hd))
+            check(f"K1 decode {arch} H={nh} KV={nkv} hd={hd} kv_len={QW_KV_LEN}", dtype,
+                  pa.paged_decode_attention(q, kp, vp, bt, kl),
+                  ref.paged_decode_attention(*up(q, kp, vp), bt, kl).to(q.dtype),
+                  errs[f"decode_{arch}"])
+        for key, q_off in (("chunk_qwen", 256), ("chunk_qwen_768", 768)):
+            q, kp, vp, bt, kl = paged_inputs(torch, rng, dev, dtype, [q_off + 256], 256,
+                                             heads["qwen"])
+            qo = torch.tensor([q_off], dtype=torch.int32, device=dev)
+            check(f"K1 chunk qwen C=256 q_offset={q_off}", dtype,
+                  pa.paged_prefill_attention(q, kp, vp, bt, kl, qo),
+                  ref.paged_prefill_attention(*up(q, kp, vp), bt, kl, qo).to(q.dtype),
+                  errs[key])
+        q, k, v, kl = decode_inputs(torch, rng, dev, dtype, *heads["qwen"])
+        check(f"K3 decode qwen dense B=8 S=2048 H={QW_H} KV={QW_KV} hd={QW_HD} "
+              "kv_len 1..2048", dtype, da.decode_attention(q, k, v, kl),
+              ref.decode_attention(*up(q, k, v), kl).to(q.dtype), errs["dense_qwen"])
+        del q, k, v, kp, vp
+    torch.cuda.synchronize()
+
+    log("phase 2: times at the dense catalogue's shapes, bf16 (kernel: profiler "
+        "device time; plain and library: CUDA events per call)")
+    entries = {}
+    dtype, isz = "bfloat16", 2
+    t = lambda shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    names = {"qwen": "qwen2.5-14b", "ds": "deepseek-7b"}
+    for arch, (nh, nkv, hd) in heads.items():
+        # K2: a 1024-token prompt, causal
+        S = 1024
+        q, k, v = t((1, S, nh, hd)), t((1, S, nkv, hd)), t((1, S, nkv, hd))
+        b, by = bound_ms(isz * (2 * q.numel() + k.numel() + v.numel()),
+                         4 * hd * S * (S + 1) // 2 * nh, dtype)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        entries[f"flash_{arch}"] = dict(
+            name=f"flash_attention (hd {hd}, {names[arch]})", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:27",
+            shape=f"B=1 S={S} H={nh} KV={nkv} hd={hd} causal bf16",
+            **kernel_times(torch, lambda: fa.flash_attention(q, k, v),
+                           "flash_attention_mma_kernel"),
+            plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v), 3),
+            bound_ms=b, bound_by=by,
+            library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                                     enable_gqa=True), 20))
+        # K1 decode: 8 sequences, kv_len spread over 1..1024
+        q, kp, vp, bt, kl = paged_inputs(torch, rng, dev, dtype, QW_KV_LEN, 1, (nh, nkv, hd))
+        n_kv = sum(QW_KV_LEN)
+        b, by = bound_ms(isz * (2 * q.numel() + 2 * n_kv * nkv * hd) + 4 * (bt.numel() + 8),
+                         4 * hd * nh * n_kv, dtype)
+        entries[f"decode_{arch}"] = dict(
+            name=f"paged_decode_attention (hd {hd}, G={nh // nkv}, {names[arch]})",
+            route="cuda", source="src/repro_torch/csrc/decode_common.cuh",
+            replaces="src/repro/kernels/decode_attention.py:135",
+            shape=f"B=8 kv_len={QW_KV_LEN} H={nh} KV={nkv} hd={hd} page={PAGE} "
+                  f"{n_split(torch, q, nkv, bt.shape[1] * PAGE)} bf16",
+            **kernel_times(torch, lambda: pa.paged_decode_attention(q, kp, vp, bt, kl),
+                           SPLIT_DECODE),
+            plain_ms=event_ms(torch, lambda: ref.paged_decode_attention(q, kp, vp, bt, kl),
+                              10),
+            bound_ms=b, bound_by=by,
+            library_ms=event_ms(torch, paged_sdpa(torch, q, kp, vp, bt, kl), 20),
+            library="SDPA, length mask, keys gathered to a contiguous copy before timing")
+    # K1 chunk: the second and the last 256-token chunk of a 1024-token prompt
+    for key, q_off in (("chunk_qwen", 256), ("chunk_qwen_768", 768)):
+        C = 256
+        q, kp, vp, bt, kl = paged_inputs(torch, rng, dev, dtype, [q_off + C], C, heads["qwen"])
+        qo = torch.tensor([q_off], dtype=torch.int32, device=dev)
+        pairs = sum(q_off + i + 1 for i in range(C)) * QW_H
+        b, by = bound_ms(isz * (2 * q.numel() + 2 * (q_off + C) * QW_KV * QW_HD)
+                         + 4 * (bt.numel() + 2), 4 * QW_HD * pairs, dtype)
+        entries[key] = dict(
+            name=f"paged_prefill_attention (hd 128, q_offset {q_off}, qwen2.5-14b)",
+            route="cuda", source="src/repro_torch/csrc/prefill_common.cuh",
+            replaces="src/repro/kernels/decode_attention.py:135",
+            shape=f"B=1 C={C} q_offset={q_off} H={QW_H} KV={QW_KV} hd={QW_HD} page={PAGE} "
+                  "bf16",
+            **kernel_times(torch, lambda: pa.paged_prefill_attention(q, kp, vp, bt, kl, qo),
+                           "paged_prefill_mma_kernel"),
+            plain_ms=event_ms(torch, lambda: ref.paged_prefill_attention(q, kp, vp, bt, kl,
+                                                                         qo), 10),
+            bound_ms=b, bound_by=by,
+            library_ms=event_ms(torch, paged_chunk_sdpa(torch, q, kp, vp, bt, kl, qo), 20),
+            library="SDPA, length and causal-offset mask, keys gathered to a contiguous "
+                    "copy before timing")
+    # K3 on the dense per-slot layout, kv_len 1..2048
+    q, k, v, kl = decode_inputs(torch, rng, dev, dtype, *heads["qwen"])
+    n_kv = sum(DECODE_KV_LEN)
+    b, by = bound_ms(isz * (2 * q.numel() + 2 * n_kv * QW_KV * QW_HD) + 4 * kl.numel(),
+                     4 * QW_HD * QW_H * n_kv, dtype)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lmask = (torch.arange(k.shape[1], device=dev)[None] < kl[:, None])[:, None, None]
+    entries["dense_qwen"] = dict(
+        name="decode_attention (qwen2.5-14b dense, hd 128)", route="cuda",
+        source="src/repro_torch/csrc/decode_common.cuh",
+        replaces="src/repro/kernels/decode_attention.py:31",
+        shape=f"B=8 S=2048 H={QW_H} KV={QW_KV} hd={QW_HD} kv_len 1..2048 ({n_kv} keys) "
+              f"{n_split(torch, q, QW_KV, k.shape[1])} bf16",
+        **kernel_times(torch, lambda: da.decode_attention(q, k, v, kl), SPLIT_DECODE),
+        plain_ms=event_ms(torch, lambda: ref.decode_attention(q, k, v, kl), 10),
+        bound_ms=b, bound_by=by,
+        library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=lmask,
+                                                 enable_gqa=True), 20),
+        library="SDPA, length mask")
+    del q, k, v, kp, vp, qt, kt, vt, lmask
+    for key, e in entries.items():
+        e["max_abs_err"] = max(errs[key])
+        log_row(e)
+    return entries
+
+
 # ----------------------------------------------------------------------
 # phase 3: the served paths at full width
 # ----------------------------------------------------------------------
@@ -969,7 +1139,9 @@ def serve_run(torch, cfg, dev, *, page_size, prefill_chunk, max_len, prompt_lens
     """Cold start, then 4 events of 2 prompts (one event alone, then a
     micro-batch of 3) through the runtime front door. Launch counts are
     zeroed just before the events and read just after: every kernel of
-    ``need`` must have launched and none of ``absent``."""
+    ``need`` must have launched and none of ``absent``. Returns the
+    engine, the counts and the first event's ELat (host clock; its result
+    is read on the host) with its prompt lengths."""
     from repro_torch.core.runtime import run_batch
     from repro_torch.serve.api import make_serve_runtime
 
@@ -988,6 +1160,7 @@ def serve_run(torch, cfg, dev, *, page_size, prefill_chunk, max_len, prompt_lens
     zero_launches()
     t0 = time.perf_counter()
     results = run_batch(rdef, events[:1], config)          # one event alone
+    first = dict(elat_s=time.perf_counter() - t0, prompt_lens=prompt_lens[:2])
     results += run_batch(rdef, events[1:], config)         # a micro-batch of 3
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1012,7 +1185,7 @@ def serve_run(torch, cfg, dev, *, page_size, prefill_chunk, max_len, prompt_lens
         f"max {ttft[-1] * 1e3:.1f} ms; decode {engine.decode_s / engine.n_decode_steps * 1e3:.2f}"
         f" ms/step over {engine.n_decode_steps} steps; launches {counts}; "
         f"stats {engine.stats()}")
-    return engine, counts
+    return engine, counts, first
 
 
 def partition_error(spans, root) -> float:
@@ -1911,8 +2084,12 @@ PREFILL_SHARES = {"K2": "flash_attention_mma_kernel", "K5": "rglru_scan_kernel",
 
 def profile_served(torch, engine, cfg, context: int, prefill_len: int):
     """Where the time of a served path goes: 3 decode steps of a full batch
-    (8 slots at ~``context`` tokens; the prompts prefill whole) and one
-    ``prefill_len``-token prefill."""
+    (8 slots at ~``context`` tokens; the prompts prefill whole), profiled,
+    then 3 more on the host clock alone; and one ``prefill_len``-token
+    prefill, after a warm-up, on the host clock alone and then profiled.
+    Returns the readings phase 7's roofline fractions read: the decode
+    step's batch, context and ms per step (host clock, device busy), the
+    prefill's length and ms (the same two)."""
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Request
 
@@ -1920,16 +2097,33 @@ def profile_served(torch, engine, cfg, context: int, prefill_len: int):
     steps = 3
     for i in range(engine.max_slots):
         engine.submit(Request(prompt=rng.integers(3, cfg.vocab, size=context).tolist(),
-                              max_new_tokens=steps + 4, req_id=100 + i))
+                              max_new_tokens=2 * steps + 4, req_id=100 + i))
     engine.step()                   # admits and prefills all 8, one decode
-    profile_breakdown(torch, f"{cfg.name} decode step (B=8, ~{context} context)",
-                      lambda: [engine.step() for _ in range(steps)], steps)
+    _, busy, _ = profile_breakdown(
+        torch, f"{cfg.name} decode step (B=8, ~{context} context)",
+        lambda: [engine.step() for _ in range(steps)], steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
     engine.generate([])             # drain
     toks = torch.from_numpy(rng.integers(3, cfg.vocab, size=(1, prefill_len))).to(engine.device)
     M.prefill(cfg, engine.params, {"tokens": toks})
-    profile_breakdown(torch, f"{cfg.name} prefill (1 x {prefill_len} tokens)",
-                      lambda: M.prefill(cfg, engine.params, {"tokens": toks}), 1,
-                      shares=PREFILL_SHARES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    M.prefill(cfg, engine.params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    _, prefill_busy, _ = profile_breakdown(
+        torch, f"{cfg.name} prefill (1 x {prefill_len} tokens)",
+        lambda: M.prefill(cfg, engine.params, {"tokens": toks}), 1, shares=PREFILL_SHARES)
+    log(f"  {cfg.name} without the profiler: decode step {step_ms:.2f} ms (B=8, ~{context + 4} "
+        f"context), prefill of {prefill_len} tokens {prefill_ms:.2f} ms (host clock)")
+    return dict(cfg=cfg, batch=engine.max_slots, context=context + 4, step_ms=step_ms,
+                step_busy_ms=busy, prefill_len=prefill_len, prefill_ms=prefill_ms,
+                prefill_busy_ms=prefill_busy)
 
 
 def profile_chunked_prefill(torch, engine, cfg, prompt_len: int,
@@ -2007,6 +2201,9 @@ def logits_parity(torch, cfg, params, dev, S, paged):
     from repro_torch.models.param import iter_leaves
     from repro_torch.serve.engine import install_slot
 
+    if cfg.qkv_bias:
+        log(f"  {cfg.name}: {draw_qkv_biases(torch, params, 12)} QKV bias values drawn "
+            f"non-zero (normal x {BIAS_SCALE}) for the logits check")
     rng = np.random.default_rng(2)
     steps = 8
     tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(1, S))).to(dev)
@@ -2070,6 +2267,9 @@ def greedy_parity(torch, cfg, dev, lens, max_len, runs):
     of ServingEngine) identical to the first's."""
     from repro_torch.models import model as M
     params = M.init_model_params(cfg, 3, dev)
+    if cfg.qkv_bias:
+        log(f"  {cfg.name}: {draw_qkv_biases(torch, params, 13)} QKV bias values drawn "
+            f"non-zero (normal x {BIAS_SCALE}) for the greedy check")
     outs = [engine_tokens(cfg, params, dev, lens, max_len, **kw) for kw in runs]
     for kw, out in zip(runs[1:], outs[1:]):
         if out != outs[0]:
@@ -2079,6 +2279,171 @@ def greedy_parity(torch, cfg, dev, lens, max_len, runs):
         f"{len(lens)} requests (prompts {lens}) across {runs}")
     del params
     torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------
+# phase 7: the dense catalogue and the roofline on the card
+# ----------------------------------------------------------------------
+BIAS_SCALE = 0.5                   # the drawn QKV biases: normal x 0.5
+
+
+def draw_qkv_biases(torch, params, seed: int) -> int:
+    """Draw every QKV bias leaf of ``params`` from ``seed`` (normal x
+    ``BIAS_SCALE``), in place: the specs start them at zero, which would
+    hide a path that leaves them out. Returns the number of values."""
+    from repro_torch.models.param import iter_leaves
+    gen = torch.Generator().manual_seed(seed)
+    n = 0
+    for path, leaf in iter_leaves(params):
+        if path.rsplit("/", 1)[-1] in ("bq", "bk", "bv"):
+            leaf.copy_(torch.randn(leaf.shape, generator=gen).mul_(BIAS_SCALE))
+            n += leaf.numel()
+    return n
+
+
+def catalogue_run(torch, dev):
+    """qwen2.5-14b as registered (paged whole-prompt, paged 256-token
+    chunks, dense; bf16 logits against impl="ref" and float32 greedy
+    tokens at 4 layers, QKV biases drawn non-zero for both checks), then
+    deepseek-7b as registered (paged whole-prompt; the logits check).
+    Returns the launch counts by kernel entry, the served paths' profile
+    readings and their first events' ELat."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.param import iter_leaves
+
+    total = collections.Counter()
+    readings, firsts = [], {}
+    qw = get_config("qwen2.5-14b")
+    log(f"phase 7: served path, {qw.name} {qw.n_layers} layers d={qw.d_model} heads "
+        f"{qw.n_heads}/{qw.n_kv_heads} hd={qw.hd} d_ff={qw.d_ff} vocab {qw.padded_vocab} "
+        f"qkv_bias={qw.qkv_bias} rope theta {qw.rope_theta:g} {qw.dtype}, random weights "
+        "(seed 0)")
+    for page_size, chunk in ((PAGE, 0), (PAGE, 256), (0, 0)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        need = ["flash"] + (["decode"] if page_size else ["dense"]) + \
+            (["chunk"] if chunk else [])
+        engine, counts, first = serve_run(
+            torch, qw, dev, page_size=page_size, prefill_chunk=chunk, max_len=2048,
+            prompt_lens=GRANITE_PROMPTS, need=need,
+            absent=["scan", "gmm"] + (["dense"] if page_size else ["decode", "chunk"]))
+        log(f"  {qw.name}: {sum(t.numel() for _, t in iter_leaves(engine.params)) / 1e9:.2f} B "
+            f"parameters, {torch.cuda.max_memory_allocated() / 1e9:.1f} GB peak allocated")
+        total["flash_qwen"] += counts["flash"]
+        total["decode_qwen"] += counts["decode"]
+        total["chunk_qwen"] += counts["chunk"]
+        total["dense_qwen"] += counts["dense"]
+        if page_size and not chunk:
+            firsts[qw.name] = (qw, first)
+            readings.append(profile_served(torch, engine, qw, context=256, prefill_len=1024))
+            # the parity check before the next engine: two copies of the
+            # weights (29.5 GB each) and a float32 draft do not fit
+            params = engine.params
+            engine = None
+            torch.cuda.empty_cache()
+            logits_parity(torch, qw, params, dev, S=300, paged=True)
+            del params
+        engine = None
+    total["chunk_qwen_768"] = total["chunk_qwen"]
+    torch.cuda.empty_cache()
+    greedy_parity(torch, dataclasses.replace(qw, n_layers=4, dtype="float32"), dev,
+                  lens=[40, 300, 700, 1000], max_len=1100,
+                  runs=[dict(page_size=PAGE), dict(page_size=PAGE, impl="ref"),
+                        dict(page_size=PAGE, prefill_chunk=256),
+                        dict(page_size=PAGE, prefill_chunk=256, impl="ref"),
+                        dict(page_size=0), dict(page_size=0, impl="ref")])
+
+    ds = get_config("deepseek-7b")
+    log(f"phase 7: served path, {ds.name} {ds.n_layers} layers d={ds.d_model} heads "
+        f"{ds.n_heads}/{ds.n_kv_heads} hd={ds.hd} d_ff={ds.d_ff} vocab {ds.padded_vocab} "
+        f"{ds.dtype}, random weights (seed 0)")
+    torch.cuda.reset_peak_memory_stats()
+    engine, counts, first = serve_run(
+        torch, ds, dev, page_size=PAGE, prefill_chunk=0, max_len=2048,
+        prompt_lens=GRANITE_PROMPTS, need=["flash", "decode"],
+        absent=["chunk", "dense", "scan", "gmm"])
+    log(f"  {ds.name}: {sum(t.numel() for _, t in iter_leaves(engine.params)) / 1e9:.2f} B "
+        f"parameters, {torch.cuda.max_memory_allocated() / 1e9:.1f} GB peak allocated")
+    total["flash_ds"], total["decode_ds"] = counts["flash"], counts["decode"]
+    firsts[ds.name] = (ds, first)
+    readings.append(profile_served(torch, engine, ds, context=256, prefill_len=1024))
+    params = engine.params
+    engine = None
+    torch.cuda.empty_cache()
+    logits_parity(torch, ds, params, dev, S=300, paged=True)
+    del params
+    torch.cuda.empty_cache()
+    return total, readings, firsts
+
+
+def roofline_fractions(readings) -> None:
+    """Phase 7 (c): each served decode step's analytic memory bound
+    (``memory_model`` in bf16 over the datasheet's HBM rate) over its
+    measured time on the host clock and over its device busy time; each
+    profiled prefill's MFU (``model_flops`` over the measured time at the
+    datasheet's bf16 peak). Readings, not gates."""
+    from repro_torch.configs import InputShape
+    from repro_torch.roofline.analysis import HBM_BW, PEAK_FLOPS, model_flops
+    from repro_torch.roofline.analytic import memory_model
+    for r in readings:
+        cfg = r["cfg"]
+        shape = InputShape("serve_decode", r["context"], r["batch"], "decode")
+        n_bytes = memory_model(cfg, shape, data=1, model=1)
+        bound = n_bytes / HBM_BW * 1e3
+        log(f"  roofline {cfg.name} ({cfg.n_layers} layers) decode step B={r['batch']} "
+            f"context {r['context']}: {n_bytes / 1e9:.3f} GB, memory bound {bound:.3f} ms; "
+            f"measured {r['step_ms']:.2f} ms (host clock), fraction {bound / r['step_ms']:.4f}; "
+            f"device busy {r['step_busy_ms']:.2f} ms, fraction "
+            f"{bound / r['step_busy_ms']:.4f}")
+        flops = model_flops(cfg, InputShape("serve_prefill", r["prefill_len"], 1, "prefill"))
+        ideal = flops / PEAK_FLOPS * 1e3
+        log(f"  roofline {cfg.name} ({cfg.n_layers} layers) prefill of {r['prefill_len']} "
+            f"tokens: {flops / 1e12:.3f} TFLOP, compute bound {ideal:.3f} ms; measured "
+            f"{r['prefill_ms']:.2f} ms (host clock), MFU {ideal / r['prefill_ms']:.4f}; "
+            f"device busy {r['prefill_busy_ms']:.2f} ms, MFU {ideal / r['prefill_busy_ms']:.4f}")
+
+
+def sim_run(firsts):
+    """Phase 7 (d): ``repro_torch.launch.serve --backend sim --sim`` over
+    every registered arch, one event each, as a subprocess (it runs no
+    model). It must exit 0 with every event served; prints each arch's
+    profile, and for the archs served here the profile's ELat for the
+    same batch, prompt lengths and new tokens beside the first event's
+    ELat measured on this card."""
+    import os
+    from repro_torch.configs import list_archs
+    from repro_torch.serve.service_model import SIM_NODE, roofline_profile
+    archs = list_archs()
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--backend", "sim", "--sim",
+           "--arch", ",".join(archs), "--events", str(len(archs))]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env)
+    secs = time.perf_counter() - t0
+    served = f"{len(archs)}/{len(archs)} events served"
+    if out.returncode != 0 or served not in out.stdout:
+        raise AssertionError(f"phase 7 (d): {' '.join(cmd[1:])} exited {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    profiles = dict(re.findall(r"profile serve-(\S+): (ELat median \S+ cold start \S+)",
+                               out.stdout))
+    if sorted(profiles) != archs:
+        raise AssertionError(f"phase 7 (d): profiles printed for {sorted(profiles)}")
+    log(f"phase 7 (d): --backend sim --sim over {len(archs)} archs on {SIM_NODE.type} nodes: "
+        f"exit 0, {served}, in {secs:.1f} s")
+    for arch in archs:
+        log(f"  profile {arch}: {profiles[arch]}")
+    for name, (cfg, first) in firsts.items():
+        lens = first["prompt_lens"]
+        prompt_len = sum(lens) // len(lens)
+        sim = roofline_profile(cfg, batch=len(lens), new_tokens=MAX_NEW, prompt_len=prompt_len)
+        one = roofline_profile(cfg, batch=len(lens), new_tokens=MAX_NEW, prompt_len=prompt_len,
+                               chips=1)
+        log(f"  ELat {name} ({cfg.n_layers} layers), {len(lens)} prompts of {lens} tokens, "
+            f"{MAX_NEW} new: profile {sim.elat_median_s * 1e3:.2f} ms on {SIM_NODE.type} "
+            f"({one.elat_median_s * 1e3:.2f} ms at 1 card), measured on this card "
+            f"{first['elat_s'] * 1e3:.1f} ms")
 
 
 # ----------------------------------------------------------------------
@@ -2113,7 +2478,9 @@ def main() -> int:
 
     entries = phase_kernels(torch, dev)
     entries.update(phase_kernels_moe(torch, dev))
+    entries.update(phase_kernels_catalogue(torch, dev))
     torch.cuda.empty_cache()
+    readings, firsts = [], {}
 
     # phase 3: granite-3-2b (paged whole-prompt, paged chunked, dense)
     cfg = get_config("granite-3-2b")
@@ -2128,7 +2495,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         need = ["flash"] + (["decode"] if page_size else ["dense"]) + \
             (["chunk"] if chunk else [])
-        engine, counts = serve_run(
+        engine, counts, first = serve_run(
             torch, cfg, dev, page_size=page_size, prefill_chunk=chunk, max_len=2048,
             prompt_lens=GRANITE_PROMPTS, need=need,
             absent=["scan"] + (["dense"] if page_size else ["decode", "chunk"]))
@@ -2138,7 +2505,8 @@ def main() -> int:
         total["chunk_768"] = total["chunk"]
         total["dense_granite"] += counts["dense"]
         if page_size and not chunk:
-            profile_served(torch, engine, cfg, context=256, prefill_len=1024)
+            firsts[cfg.name] = (cfg, first)
+            readings.append(profile_served(torch, engine, cfg, context=256, prefill_len=1024))
             params = engine.params
         if chunk:
             profile_chunked_prefill(torch, engine, cfg, prompt_len=1024)
@@ -2191,14 +2559,15 @@ def main() -> int:
         f"{[k.value for k in rg.pattern]} d={rg.d_model} heads {rg.n_heads}/"
         f"{rg.n_kv_heads} hd={rg.hd} window {rg.window} d_ff={rg.d_ff} vocab "
         f"{rg.padded_vocab} {rg.dtype}, random weights (seed 0)")
-    engine, counts = serve_run(
+    engine, counts, first = serve_run(
         torch, rg, dev, page_size=PAGE, prefill_chunk=0, max_len=4096,
         prompt_lens=RG_PROMPTS, need=["flash", "dense", "scan"],
         absent=["decode", "chunk"])
     total["flash_rg"] = counts["flash"]
     total["dense_rg"] = counts["dense"]
     total["scan"] = counts["scan"]
-    profile_served(torch, engine, rg, context=2100, prefill_len=3000)
+    firsts[rg.name] = (rg, first)
+    readings.append(profile_served(torch, engine, rg, context=2100, prefill_len=3000))
     params = engine.params
     engine = None
     logits_parity(torch, rg, params, dev, S=2100, paged=False)
@@ -2226,7 +2595,7 @@ def main() -> int:
         f"{l4.top_k} d_ff={l4.d_ff} vocab {l4.padded_vocab} {l4.dtype}, random "
         "weights (seed 0)")
     torch.cuda.reset_peak_memory_stats()
-    engine, counts = serve_run(
+    engine, counts, first = serve_run(
         torch, l4, dev, page_size=PAGE, prefill_chunk=0, max_len=9216,
         prompt_lens=L4_PROMPTS, need=["flash", "decode", "dense", "gmm"],
         absent=["chunk", "scan"])
@@ -2236,7 +2605,8 @@ def main() -> int:
     total["dense_l4"] = counts["dense"]
     for key in GMM_KEYS:
         total[key] = counts["gmm"]
-    profile_served(torch, engine, l4, context=1024, prefill_len=2048)
+    firsts[l4.name] = (l4, first)
+    readings.append(profile_served(torch, engine, l4, context=1024, prefill_len=2048))
     params = engine.params
     engine = None
     # chunk 1024 so a 2100-token prompt crosses the mask boundary while the
@@ -2250,12 +2620,26 @@ def main() -> int:
     greedy_parity(torch, dataclasses.replace(l4, n_layers=4, dtype="float32", chunk=512),
                   dev, lens=[40, 300, 700, 1000], max_len=1100,
                   runs=[dict(page_size=PAGE), dict(page_size=PAGE, impl="ref")])
+    torch.cuda.empty_cache()
+
+    # phase 7: the rest of the dense catalogue at full width, then the
+    # roofline fraction of every served step and --sim
+    counts, more, more_firsts = catalogue_run(torch, dev)
+    total.update(counts)
+    readings += more
+    firsts.update(more_firsts)
+    log("phase 7 (c): the roofline fraction of every served decode step and prefill "
+        "(memory_model and model_flops over the H100 SXM datasheet's 3.35 TB/s and "
+        f"989 TFLOP/s; card {smi})")
+    roofline_fractions(readings)
+    sim_run(firsts)
 
     kernels = []
     for key in ("decode", "chunk", "chunk_768", "flash", "flash_rg", "dense_rg", "dense_granite",
                 "scan", "flash_l4", "decode_l4", "dense_l4", *GMM_KEYS, "flash_gateway",
                 "decode_gateway", "flash_cp", "decode_cp", "flash_sim", "decode_sim",
-                "flash_cluster", "decode_cluster"):
+                "flash_cluster", "decode_cluster", "flash_qwen", "decode_qwen", "chunk_qwen",
+                "chunk_qwen_768", "dense_qwen", "flash_ds", "decode_ds"):
         e = dict(entries[key])
         e["launches"] = total[key]
         kernels.append({k: e[k] for k in (

@@ -1,10 +1,23 @@
-"""Architecture configs of the port. Only the archs whose serving path is
-ported are registered (granite-3-2b, recurrentgemma-2b, and the MoE archs
-llama4-scout-17b-a16e and grok-1-314b)."""
+"""Architecture configs of the port: the reference's eleven, one module
+each, with the reference's numbers. The engine serves the attention
+decoders (dense or MoE FFN) and RG-LRU hybrids among them; the xLSTM,
+encoder-decoder and vision-prefix families are registered for ``--sim``
+and the roofline, and the model raises for them."""
 import importlib
 
-_MODULES = ["granite_3_2b", "recurrentgemma_2b", "llama4_scout_17b_a16e",
-            "grok_1_314b"]
+_MODULES = [
+    "llama4_scout_17b_a16e",
+    "recurrentgemma_2b",
+    "qwen2_5_14b",
+    "grok_1_314b",
+    "whisper_tiny",
+    "deepseek_7b",
+    "xlstm_350m",
+    "mistral_large_123b",
+    "llava_next_34b",
+    "granite_3_2b",
+    "tinyyolo_v2",
+]
 
 _loaded = False
 
@@ -19,5 +32,6 @@ def load_all():
 
 
 from repro_torch.configs.base import (  # noqa: E402,F401
-    BlockKind, Family, ModelConfig, get_config, register,
+    SHAPES, BlockKind, Family, InputShape, ModelConfig, get_config,
+    list_archs, register,
 )

@@ -4,7 +4,10 @@ The port imports nothing of ``repro`` (whose ``configs.base`` imports JAX),
 so it keeps its own copy of :class:`ModelConfig`, :class:`Family`,
 :class:`BlockKind`, the registry and ``.reduced()``. Field names, defaults
 and the derived properties the port reads are identical, so a config built
-here describes the same model as its ``repro`` namesake.
+here describes the same model as its ``repro`` namesake. The derived
+sizes (``n_params``, ``n_active_params``) and the input shapes
+(:class:`InputShape`, ``SHAPES``) are the reference's, field for field;
+``input_specs`` (JAX shape structs for the dry-run) has no twin.
 """
 from __future__ import annotations
 
@@ -80,6 +83,12 @@ class ModelConfig:
         return -(-self.vocab // 256) * 256
 
     @property
+    def layer_pattern(self) -> Tuple[BlockKind, ...]:
+        """Full per-layer block list of length n_layers."""
+        reps = -(-self.n_layers // len(self.pattern))
+        return tuple((self.pattern * reps)[: self.n_layers])
+
+    @property
     def is_encdec(self) -> bool:
         return self.n_encoder_layers > 0
 
@@ -89,6 +98,40 @@ class ModelConfig:
     @property
     def n_moe_layers(self) -> int:
         return sum(self.is_moe_layer(i) for i in range(self.n_layers))
+
+    @property
+    def n_params(self) -> int:
+        """Approximate parameter count (embeddings + blocks)."""
+        d, f = self.d_model, self.d_ff
+        hd = self.hd
+        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d
+        mlp = 3 * d * f  # gate/up/down
+        total = 0
+        for i, kind in enumerate(self.layer_pattern):
+            if kind in (BlockKind.ATTN, BlockKind.LOCAL_ATTN, BlockKind.CHUNKED_ATTN):
+                ff = self.n_experts * mlp + d * self.n_experts if self.is_moe_layer(i) else mlp
+                total += attn + ff
+            elif kind == BlockKind.RGLRU:
+                # conv1d + lru gates + in/out proj + MLP
+                total += 2 * d * d + 3 * d * d + mlp
+            elif kind == BlockKind.MLSTM:
+                total += 2 * d * 2 * d + 4 * d * d  # up/down proj + qkv/gates
+            elif kind == BlockKind.SLSTM:
+                total += 4 * d * d + 2 * d * int(1.34 * d)
+        if self.is_encdec:
+            total += self.n_encoder_layers * (2 * attn + mlp)
+        total += self.vocab * d * (1 if self.tie_embeddings else 2)
+        return total
+
+    @property
+    def n_active_params(self) -> int:
+        """Parameters touched per token (MoE: only top_k experts)."""
+        if self.family != Family.MOE or not self.n_experts:
+            return self.n_params
+        d, f = self.d_model, self.d_ff
+        mlp = 3 * d * f
+        inactive = self.n_moe_layers * (self.n_experts - self.top_k) * mlp
+        return self.n_params - inactive
 
     # ------------------------------------------------------------------
     def reduced(self) -> "ModelConfig":
@@ -121,6 +164,25 @@ class ModelConfig:
 
 
 # ----------------------------------------------------------------------
+# Input shapes (the reference's assigned shapes; the roofline reads them)
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ----------------------------------------------------------------------
 # Registry
 # ----------------------------------------------------------------------
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
@@ -140,3 +202,9 @@ def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch '{arch_id}'; known: {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]()
+
+
+def list_archs():
+    from repro_torch import configs
+    configs.load_all()
+    return sorted(_REGISTRY)

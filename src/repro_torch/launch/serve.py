@@ -11,6 +11,8 @@
     PYTHONPATH=src python -m repro_torch.obs.validate /tmp/t.json
     PYTHONPATH=src python -m repro_torch.launch.serve --backend sim \\
         --pods 2 --events 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --backend sim --sim \\
+        --arch qwen2.5-14b,mistral-large-123b --events 4
     PYTHONPATH=src python -m repro_torch.launch.serve --min-warm 1 \\
         --slo-ms 30000 --tenant-quota free=2:4 --events 6
     PYTHONPATH=src python -m repro_torch.launch.serve --cluster 2 --events 6
@@ -35,7 +37,12 @@ runtimes). Three backends:
   memory (unpriced: the launcher states no price for the card, so the
   cost counters read 0). The runtime's real ``fn`` runs inside virtual
   time, on the card: its ELat is the measured wall time, its cold start
-  the profile's.
+  the profile's. With ``--sim`` the archs run as registered (full size)
+  and execute nothing: each node is one 8-GPU H100 node
+  (``serve.service_model.SIM_NODE``) and each runtime's service time is
+  its roofline profile (``roofline_profile``: analytic FLOPs over the
+  node's datasheet peak at 40% MFU) for an event's 2 prompts of 64
+  tokens and 16 new tokens. It needs no card.
 * ``--cluster N``: a real multi-process deployment, a master in this
   process and N worker processes over the cluster RPC protocol. Every
   worker holds its own CUDA context and model copy on the card (they
@@ -78,12 +85,13 @@ from repro_torch.controlplane import (AdmissionPolicy, ControlPlane,
                                       WarmPolicy)
 from repro_torch.core.accelerator import AcceleratorSpec
 from repro_torch.core.cluster import Cluster
-from repro_torch.core.runtime import SimProfile
+from repro_torch.core.runtime import RuntimeDef, SimProfile
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.faults import inject, parse_fault_spec
 from repro_torch.gateway import (EngineBackend, Gateway, SimBackend, Workflow,
                                  WorkflowStepError)
 from repro_torch.serve.api import make_serve_runtime
+from repro_torch.serve.service_model import SIM_NODE, roofline_profile
 
 SERVE_SPEC = "repro_torch.cluster.runtimes:serve_runtime"
 
@@ -126,6 +134,10 @@ def main(argv=None) -> int:
                     help="submit N generate->refine->polish chained "
                          "workflows (one submission each) instead of "
                          "--events flat invocations")
+    ap.add_argument("--sim", action="store_true",
+                    help="simulate full-size configs with roofline-derived "
+                         "service times on 8-GPU H100 nodes instead of "
+                         "running the model (sim backend only)")
     ap.add_argument("--pods", type=int, default=None,
                     help="sim backend only (default 2)")
     ap.add_argument("--scheduler", default=None,
@@ -178,13 +190,16 @@ def main(argv=None) -> int:
     if mode == "cluster":
         if args.cluster < 1:
             ap.error("--cluster needs at least 1 worker process")
-        if args.pods is not None or args.scheduler is not None:
+        if args.sim or args.pods is not None or args.scheduler is not None:
             ap.error("--sim/--pods/--scheduler only apply to --backend sim "
                      "(--cluster runs real worker processes)")
         if args.batch_wait_ms is not None:
             ap.error("--batch-wait-ms only applies to --backend engine "
                      "(cluster workers batch at the master's queue)")
     elif mode == "engine":
+        if args.sim:
+            ap.error("--sim requires --backend sim (the engine backend "
+                     "executes real code)")
         if args.pods is not None or args.scheduler is not None:
             ap.error("--pods/--scheduler only apply to --backend sim "
                      "(the engine backend schedules on this host's devices)")
@@ -227,7 +242,9 @@ def main(argv=None) -> int:
         backend = cluster_h.backend
         acc_types = None
     elif sim:
-        spec = accelerator_spec(args.device, cost_per_hour=0.0)
+        # --sim simulates 8-GPU H100 nodes; otherwise each node is the card
+        spec = SIM_NODE if args.sim else accelerator_spec(args.device,
+                                                          cost_per_hour=0.0)
         cluster = Cluster(scheduler=scheduler, seed=0)
         for p in range(pods):
             cluster.add_node(f"pod{p}", [spec])
@@ -261,6 +278,12 @@ def main(argv=None) -> int:
                     "max_len": 2048, "page_size": args.page_size,
                     "prefill_chunk": args.prefill_chunk,
                     "reduced": args.reduced, "device": args.device})
+            elif args.sim:
+                # an event is 2 prompts of 64 tokens, 16 new tokens each
+                rdef = RuntimeDef(
+                    runtime_id=f"serve-{cfg.name}",
+                    profiles={SIM_NODE.type: roofline_profile(
+                        cfg, batch=2, new_tokens=16, prompt_len=64)})
             else:
                 rdef = make_serve_runtime(
                     cfg, acc_types=acc_types, max_slots=8, max_len=2048,
@@ -317,11 +340,17 @@ def main(argv=None) -> int:
                 continue
             ok += 1
             res = fut.result()
-            n_tok = sum(len(o) for o in res["outputs"])
+            ran = "" if res is None else (   # a --sim profile returns nothing
+                f" tokens={sum(len(o) for o in res['outputs'])} "
+                f"decode_steps={res['n_decode_steps']}")
             print(f"  ev{i} cold={int(inv.cold_start)} "
                   f"prewarmed={int(inv.prewarmed)} acc={inv.accelerator} "
-                  f"ELat={inv.elat:.3f}s RLat={inv.rlat:.3f}s tokens={n_tok} "
-                  f"decode_steps={res['n_decode_steps']}")
+                  f"ELat={inv.elat:.3f}s RLat={inv.rlat:.3f}s{ran}")
+        if args.sim:
+            for rt in rt_ids:
+                prof = gw.backend.registry.get(rt).profiles[SIM_NODE.type]
+                print(f"  profile {rt}: ELat median {prof.elat_median_s:.6f}s "
+                      f"cold start {prof.cold_start_s:.3f}s on {SIM_NODE.type}")
         done = gw.metrics.completed
         served = f"{sum(i.success for i in done)}/{len(done)} workflow steps " \
             "succeeded" if args.workflow else f"{ok}/{len(futs)} events served"

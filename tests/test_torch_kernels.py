@@ -657,6 +657,43 @@ def test_decode_kernel_int8_matches_plain(cuda, G, hd, dtype):
     _held(got, want.to(got.dtype), dtype)
 
 
+# the full-width instances of the dense catalogue's two served archs:
+# deepseek-7b (32 heads over 32 kv heads, G = 1, hd 128) through K2 and K1
+# decode; qwen2.5-14b (40 over 8, G = 5, hd 128) through K1's 256-token
+# chunks at q_offset 256 and 768 and K3 on the dense layout
+CATALOGUE_CASES = ["k2_deepseek", "k1_decode_deepseek", "k1_chunk_qwen", "k3_dense_qwen"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("case", CATALOGUE_CASES)
+def test_catalogue_instances_match_plain(cuda, case, dtype):
+    rng = np.random.default_rng(CATALOGUE_CASES.index(case))
+    if case == "k2_deepseek":
+        q, k, v = (_torch(_np(rng, (1, 1024, 32, 128)), dtype, cuda) for _ in range(3))
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention(*_up(q, k, v), causal=True)
+    elif case == "k1_decode_deepseek":
+        kv_len = np.array([1, 37, 128, 255, 512, 700, 999, 1024], np.int32)
+        q, kp, vp, bt, kl = _paged_inputs(rng, 8, 1, 32, 32, 128, 16, 64, kv_len, dtype)
+        args = [_torch(x, dtype, cuda) for x in (q, kp, vp)] + \
+            [torch.from_numpy(bt).to(cuda), torch.from_numpy(kl).to(cuda)]
+        got = pa.paged_decode_attention(*args)
+        want = ref.paged_decode_attention(*_up(*args[:3]), *args[3:])
+    elif case == "k1_chunk_qwen":
+        args, qo = _chunk_args(rng, dtype, cuda, 5, 8, 128, 256, [256, 768])
+        got = pa.paged_prefill_attention(*args, qo)
+        want = ref.paged_prefill_attention(*_up(*args[:3]), *args[3:], qo)
+    else:
+        q, k, v, kl = _decode_inputs(rng, 5, 128, KV=8, S=2048,
+                                     kv_len=(1, 100, 511, 1024, 1500, 2000, 2047, 2048))
+        args = [_torch(x, dtype, cuda) for x in (q, k, v)] + [torch.from_numpy(kl).to(cuda)]
+        got = da.decode_attention(*args)
+        want = ref.decode_attention(*_up(*args[:3]), args[3])
+    torch.cuda.synchronize()
+    _held(got, want.to(got.dtype), dtype)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_decode_kernels_replay_in_cuda_graph(cuda, dtype):
