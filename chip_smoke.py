@@ -27,7 +27,10 @@ Phases (each raises on failure, so the script exits non-zero):
    qwen2.5-14b H=40 KV=8 and deepseek-7b H=32 KV=32, hd 128), K1 decode
    (both; deepseek's G = 1 puts one query row in each 16-row group), K1's
    256-token chunks at q_offset 256 and 768 and K3 on the dense layout
-   (qwen, B=8 S=2048); K4 the grouped matmul at the MoE path's shapes (llama4 prefill gate/up
+   (qwen, B=8 S=2048); at whisper-tiny's widths (H = KV = 6, G = 1, hd
+   64; phase 8 (b)'s shapes) K2 over the encoder's 1500 frames and for the
+   cross prefill (32 rows against 1500 frames), both without a mask, and
+   K3 for the cross decode (B=8, L = kv_len = 1500); K4 the grouped matmul at the MoE path's shapes (llama4 prefill gate/up
    and down, 1024 tokens top-1 over 16 experts; llama4 decode, 8 tokens;
    grok-1 gate/up and down, 1024 tokens top-2 over 8 experts, group sizes
    from a real routing) and edge cases (T=1, one expert, groups off the
@@ -151,7 +154,29 @@ Phases (each raises on failure, so the script exits non-zero):
    0 with every event served; each arch's roofline profile (ELat median,
    cold start) on the simulated 8-GPU H100 node, and for the archs served
    here the profile's ELat beside the first event's ELat measured on this
-   card (2 prompts, 32 new tokens).
+   card (2 prompts, 32 new tokens); the subprocess passes
+   ``--max-new-tokens 16``.
+8. The paper's multi-accelerator workflow, printed under ``phase 8`` after
+   phase 7: (a) tiny-YOLOv2 at its published 416x416, float32, batch 1 and
+   8 on the card against the port's CPU forward of the same weights within
+   1e-4 x max|out|, with cuDNN's TF32 switched on around it (the forward
+   must turn it off for itself); ms per image (CUDA events) beside the
+   bound (the convolutions' FLOPs at 67 TFLOP/s, the weights, images and
+   grids at 3.35 TB/s); (b) whisper-tiny as registered (4 + 4 layers, d
+   384, 6 heads, hd 64, 1500 frames; bf16, QKV biases drawn non-zero):
+   the encoder over (8, 1500, 384) frames, a 32-token prefill and 32
+   greedy decode steps on the dense cache, launch counts zeroed just
+   before and read just after (K2 and K3, no other kernel); encoder ms,
+   TTFT and decode ms/step; bf16 logits against ``impl="ref"`` (phase 4's
+   rule) and float32 greedy tokens through the kernels identical to
+   ``impl="ref"``; (c) ``repro_torch.examples.workflow_pipeline`` without
+   ``--reduced`` on ``--backend engine``: ``Gateway.submit_workflow`` ->
+   ``EngineBackend`` -> tiny-YOLOv2 on 4 images, whisper-tiny and the
+   granite-3-2b captioner (paged), twice: the first workflow cold-starts
+   each runtime, the second is warm and gives the same step results; each
+   step's ELat and cold start beside the paper's K600 / NCS medians (1675
+   / 1577 ms, the paper's testbed); its launches (K2 and K1 decode, counted
+   from the two workflows alone) are the ``..., via Workflow`` entries.
 
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -188,6 +213,9 @@ L4_RING_LEN = [1, 17, 309, 2048, 4096, 7777, 8191, 8192]
 QW_H, QW_KV, QW_HD = 40, 8, 128   # qwen2.5-14b attention widths (G = 5)
 DS_H, DS_KV, DS_HD = 32, 32, 128  # deepseek-7b (G = 1)
 QW_KV_LEN = [1, 37, 128, 255, 512, 700, 999, 1024]
+# whisper-tiny (G = 1, hd 64): the encoder over 1500 frames, 32-token
+# prompts cross-attending to them, and decode over the cached frames
+WH_H, WH_HD, WH_F, WH_B, WH_PROMPT = 6, 64, 1500, 8, 32
 
 
 def log(msg: str) -> None:
@@ -1096,6 +1124,82 @@ def phase_kernels_catalogue(torch, dev):
                                                  enable_gqa=True), 20),
         library="SDPA, length mask")
     del q, k, v, kp, vp, qt, kt, vt, lmask
+    for key, e in entries.items():
+        e["max_abs_err"] = max(errs[key])
+        log_row(e)
+    return entries
+
+
+def phase_kernels_whisper(torch, dev):
+    """Phase 2 at whisper-tiny's widths (H = KV = 6, G = 1, hd 64; phase 8
+    (b)'s shapes): K2 over the encoder's 1500 frames without a mask (Skv
+    off the 64-key tile), K2 for the cross prefill (32 prompt rows against
+    the 1500 frames, no mask) and K3 for the cross decode (every row's
+    kv_len the full 1500)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(21)
+    up = lambda *ts: [t.float() for t in ts]  # noqa: E731
+    B, F_, nh, hd = WH_B, WH_F, WH_H, WH_HD
+    errs = {k: [] for k in ("flash_enc", "flash_cross", "dense_cross")}
+    kv_len = [F_] * B
+    log(f"phase 2: whisper-tiny's widths (H=KV={nh}, G=1, hd={hd}; {F_} frames, "
+        f"{WH_PROMPT}-token prompts, B={B})")
+    for dtype in ("bfloat16", "float32"):
+        t = lambda shape: torch.from_numpy(  # noqa: E731
+            rng.standard_normal(shape).astype(np.float32)).to(dev, getattr(torch, dtype))
+        for key, sq in (("flash_enc", F_), ("flash_cross", WH_PROMPT)):
+            q, k, v = t((B, sq, nh, hd)), t((B, F_, nh, hd)), t((B, F_, nh, hd))
+            check(f"K2 flash whisper B={B} sq={sq} skv={F_} H=KV={nh} no mask", dtype,
+                  fa.flash_attention(q, k, v, causal=False),
+                  ref.flash_attention(*up(q, k, v), causal=False).to(q.dtype), errs[key])
+        q, k, v, kl = decode_inputs(torch, rng, dev, dtype, nh, nh, hd, S=F_, kv_len=kv_len)
+        check(f"K3 decode whisper cross B={B} L={F_} H=KV={nh} kv_len={F_}", dtype,
+              da.decode_attention(q, k, v, kl),
+              ref.decode_attention(*up(q, k, v), kl).to(q.dtype), errs["dense_cross"])
+    torch.cuda.synchronize()
+
+    log("phase 2: times at whisper-tiny's shapes, bf16 (kernel: profiler device time; "
+        "plain and library: CUDA events per call)")
+    entries = {}
+    dtype, isz = "bfloat16", 2
+    t = lambda shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for key, sq, what in (("flash_enc", F_, "encoder"),
+                          ("flash_cross", WH_PROMPT, "cross prefill")):
+        q, k, v = t((B, sq, nh, hd)), t((B, F_, nh, hd)), t((B, F_, nh, hd))
+        b, by = bound_ms(isz * (2 * q.numel() + k.numel() + v.numel()),
+                         4 * hd * nh * B * sq * F_, dtype)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        entries[key] = dict(
+            name=f"flash_attention (hd 64 G=1, whisper-tiny {what})", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:27",
+            shape=f"B={B} Sq={sq} Skv={F_} H=KV={nh} hd={hd} no mask bf16",
+            **kernel_times(torch, lambda: fa.flash_attention(q, k, v, causal=False),
+                           "flash_attention_mma_kernel"),
+            plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v, causal=False), 3),
+            bound_ms=b, bound_by=by,
+            library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt), 20), library="SDPA")
+    q, k, v, kl = decode_inputs(torch, rng, dev, dtype, nh, nh, hd, S=F_, kv_len=kv_len)
+    b, by = bound_ms(isz * (2 * q.numel() + k.numel() + v.numel()) + 4 * kl.numel(),
+                     4 * hd * nh * B * F_, dtype)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    entries["dense_cross"] = dict(
+        name="decode_attention (whisper-tiny cross decode, hd 64 G=1)", route="cuda",
+        source="src/repro_torch/csrc/decode_common.cuh",
+        replaces="src/repro/kernels/decode_attention.py:31",
+        shape=f"B={B} L={F_} H=KV={nh} hd={hd} kv_len {F_} every row "
+              f"{n_split(torch, q, nh, F_)} bf16",
+        **kernel_times(torch, lambda: da.decode_attention(q, k, v, kl), SPLIT_DECODE),
+        plain_ms=event_ms(torch, lambda: ref.decode_attention(q, k, v, kl), 10),
+        bound_ms=b, bound_by=by,
+        library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt), 20),
+        library="SDPA (no mask: every key valid)")
+    del q, k, v, qt, kt, vt
     for key, e in entries.items():
         e["max_abs_err"] = max(errs[key])
         log_row(e)
@@ -2189,11 +2293,12 @@ def shared_routes():
         raise AssertionError(f"{len(queue)} kernel-path routings had no plain-path twin")
 
 
-def logits_parity(torch, cfg, params, dev, S, paged):
+def logits_parity(torch, cfg, params, dev, S, paged, frames=None):
     """Prefill + 8 decode steps through the kernels and through
     impl="ref", teacher-forced on the kernel path's greedy tokens; the
     decode cache is paged (granite, llama4's global layers) or dense
-    per-slot (recurrentgemma). A MoE model's plain path follows the kernel
+    per-slot (recurrentgemma, whisper: its prefill also encodes
+    ``frames`` (1, F, d) and caches the cross K/V). A MoE model's plain path follows the kernel
     path's routing (``shared_routes``); the number of (token, layer)
     decisions where its own would differ is logged, and reported beside a
     failure."""
@@ -2207,6 +2312,7 @@ def logits_parity(torch, cfg, params, dev, S, paged):
     rng = np.random.default_rng(2)
     steps = 8
     tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(1, S))).to(dev)
+    batch = {"tokens": tokens} if frames is None else {"tokens": tokens, "frames": frames}
     n_pages = -(-(S + steps) // PAGE)
     table = torch.arange(1, n_pages + 1, dtype=torch.int32, device=dev)[None] \
         if paged else None
@@ -2214,8 +2320,7 @@ def logits_parity(torch, cfg, params, dev, S, paged):
     with shared_routes() as (routes, cur):
         for impl in (None, "ref"):
             cur[0] = impl
-            logits, dense = M.prefill(cfg, params, {"tokens": tokens},
-                                      cache_len=S + steps, impl=impl)
+            logits, dense = M.prefill(cfg, params, batch, cache_len=S + steps, impl=impl)
             if paged:
                 caches[impl] = M.init_paged_cache(cfg, 1, S + steps, n_pages + 1, PAGE,
                                                   device=dev)
@@ -2418,7 +2523,7 @@ def sim_run(firsts):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--backend", "sim", "--sim",
-           "--arch", ",".join(archs), "--events", str(len(archs))]
+           "--arch", ",".join(archs), "--events", str(len(archs)), "--max-new-tokens", "16"]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env)
     secs = time.perf_counter() - t0
@@ -2444,6 +2549,230 @@ def sim_run(firsts):
             f"{MAX_NEW} new: profile {sim.elat_median_s * 1e3:.2f} ms on {SIM_NODE.type} "
             f"({one.elat_median_s * 1e3:.2f} ms at 1 card), measured on this card "
             f"{first['elat_s'] * 1e3:.1f} ms")
+
+
+# ----------------------------------------------------------------------
+# phase 8: the paper's multi-accelerator workflow on the card
+# ----------------------------------------------------------------------
+YOLO_SIDE = 416                    # tiny-YOLOv2's published input
+WH_STEPS = 32                      # whisper decode steps in (b)
+# Hardless §V's measured medians (the paper's testbed, not this card)
+PAPER_ELAT_MS = {"vision-tinyyolo": ("NCS", 1577.0), "caption-lm": ("K600", 1675.0)}
+
+
+def yolo_cost(side: int, batch: int):
+    """(operations, bytes) of tiny-YOLOv2 on ``batch`` images of ``side``
+    squared: 2 x the convolutions' multiply-adds (scale, bias, activation
+    and pooling are elementwise and left out); each weight, input image and
+    output grid moved once, float32."""
+    from repro_torch.models.yolo import CHANNELS, HEAD_OUT, N_POOLED
+    h = w = side
+    c_in, ops, weights = 3, 0, 0
+    for i, c_out in enumerate(CHANNELS):
+        ops += 2 * h * w * 9 * c_in * c_out
+        weights += 9 * c_in * c_out + 2 * c_out
+        if i < N_POOLED:
+            h, w = -(-h // 2), -(-w // 2)
+        c_in = c_out
+    ops += 2 * h * w * c_in * HEAD_OUT
+    weights += (c_in + 1) * HEAD_OUT
+    return batch * ops, 4 * (weights + batch * (side * side * 3 + h * w * HEAD_OUT))
+
+
+def yolo_run(torch, dev) -> None:
+    """Phase 8 (a): tiny-YOLOv2 at 416x416, float32, batch 1 and 8 on the
+    card against the port's CPU forward of the same weights within 1e-4 x
+    max|out|. cuDNN's TF32 is switched ON around it (chip_smoke turns it
+    off globally): ``yolo_forward`` must turn it off for itself. Time per
+    image from CUDA events beside its bound."""
+    from repro_torch.models.yolo import init_yolo_params, yolo_forward
+    params = init_yolo_params(0, device=dev)
+    host = {k: v.cpu() for k, v in params.items()}
+    rng = np.random.default_rng(8)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for batch in (1, 8):
+            x = torch.from_numpy(rng.standard_normal(
+                (batch, YOLO_SIDE, YOLO_SIDE, 3)).astype(np.float32))
+            xd = x.to(dev)
+            got = yolo_forward(params, xd)
+            torch.cuda.synchronize()
+            if not torch.backends.cudnn.allow_tf32:
+                raise AssertionError("phase 8 (a): yolo_forward left cuDNN's TF32 setting changed")
+            want = yolo_forward(host, x)
+            scale = want.abs().max().item()
+            err = (got.cpu() - want).abs().max().item()
+            tol = 1e-4 * scale
+            grid = -(-YOLO_SIDE // 32)
+            if not torch.isfinite(got).all() or tuple(got.shape) != (batch, grid, grid, 125) \
+                    or err > tol:
+                raise AssertionError(f"phase 8 (a): yolo B={batch} {tuple(got.shape)} max|err| "
+                                     f"{err} > {tol} (1e-4 x max|out| {scale})")
+            ms = event_ms(torch, lambda: yolo_forward(params, xd), 10)
+            ops, n_bytes = yolo_cost(YOLO_SIDE, batch)
+            b, by = bound_ms(n_bytes, ops, "float32")
+            log(f"  phase 8 (a): tiny-YOLOv2 {YOLO_SIDE}x{YOLO_SIDE} float32 (TF32 off) B={batch}: "
+                f"max|err| vs the CPU forward {err:.3e} (tol {tol:.3e}); {ms:.3f} ms per call = "
+                f"{ms / batch:.3f} ms per image; bound {b / batch:.4f} ms per image ({by}: "
+                f"{ops / batch / 1e9:.3f} GFLOP at 67 TFLOP/s float32, {n_bytes / 1e6:.1f} MB at "
+                f"3.35 TB/s); {ops / ms / 1e9:.1f} TFLOP/s achieved")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    del params, host
+    torch.cuda.empty_cache()
+
+
+def whisper_run(torch, dev):
+    """Phase 8 (b): whisper-tiny as registered (4 + 4 layers, d 384, 6
+    heads, hd 64, 1500 frames, vocab 51865; bf16, QKV biases drawn), the
+    model's own ``prefill`` and ``decode_step`` on a dense cache: the
+    encoder over (8, 1500, 384) frames, a 32-token prefill, 32 greedy
+    decode steps (tokens fed back on the card, one synchronize at the
+    end). Launch counts are zeroed just before and read just after: K2
+    (encoder, self and cross prefill) and K3 (self and cross decode) and no
+    other kernel. Then the bf16 logits against impl="ref" and float32
+    greedy tokens through the kernels against impl="ref". Returns the
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("whisper-tiny")
+    log(f"phase 8 (b): {cfg.name} as registered: {cfg.n_encoder_layers} + {cfg.n_layers} layers "
+        f"d={cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} frames "
+        f"{cfg.n_frames} vocab {cfg.padded_vocab} {cfg.dtype}, random weights (seed 1)")
+    params = M.init_model_params(cfg, 1, dev)
+    n_bias = draw_qkv_biases(torch, params, 14)
+    rng = np.random.default_rng(9)
+    frames = torch.from_numpy(rng.standard_normal(
+        (WH_B, cfg.n_frames, cfg.d_model)).astype(np.float32)).to(dev, getattr(torch, cfg.dtype))
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(WH_B, WH_PROMPT))).to(dev)
+    batch = {"tokens": tokens, "frames": frames}
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(cfg, params, batch, cache_len=WH_PROMPT + WH_STEPS)
+    tok = logits[:, -1].argmax(-1)
+    torch.cuda.synchronize()
+    ttft_ms = (time.perf_counter() - t0) * 1e3
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(WH_STEPS):
+        pos = torch.full((WH_B,), WH_PROMPT + i, dtype=torch.int32, device=dev)
+        logits, cache = M.decode_step(cfg, params, cache, tok[:, None], pos)
+        tok = logits[:, -1].argmax(-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / WH_STEPS * 1e3
+    counts = launches()
+    if not (counts["flash"] and counts["dense"]) or counts["decode"] or counts["chunk"] or \
+            counts["scan"] or counts["gmm"]:
+        raise AssertionError(f"phase 8 (b): launches {counts}: need K2 and K3 only")
+    toks = torch.stack(out, 1)
+    if not torch.isfinite(logits).all() or tuple(logits.shape) != (WH_B, 1, cfg.padded_vocab) \
+            or int(toks.max()) >= cfg.padded_vocab:
+        raise AssertionError(f"phase 8 (b): logits {tuple(logits.shape)} finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    enc_ms = event_ms(torch, lambda: M._encode(cfg, params, frames, None), 10)
+    warm_ms = event_ms(torch, lambda: M.prefill(cfg, params, batch,
+                                                cache_len=WH_PROMPT + WH_STEPS), 5)
+    log(f"  phase 8 (b): {n_bias} QKV bias values drawn (normal x {BIAS_SCALE}); encoder over "
+        f"({WH_B}, {cfg.n_frames}, {cfg.d_model}) frames {enc_ms:.3f} ms (CUDA events); TTFT "
+        f"(encoder + {WH_PROMPT}-token prefill, B={WH_B}) first {ttft_ms:.2f} ms, warm "
+        f"{warm_ms:.3f} ms; decode {step_ms:.3f} ms/step over {WH_STEPS} steps (host clock, "
+        f"B={WH_B}, cross attention over {cfg.n_frames} cached frames); launches {counts}")
+    logits_parity(torch, cfg, params, dev, S=WH_PROMPT, paged=False, frames=frames[:1])
+    del params, cache, frames
+    torch.cuda.empty_cache()
+    whisper_greedy_parity(torch, dataclasses.replace(cfg, dtype="float32"), dev)
+    return counts
+
+
+def whisper_greedy_parity(torch, cfg, dev, steps: int = 12) -> None:
+    """float32 greedy tokens of 2 rows (16-token prompts over 1500
+    frames) through the kernels identical to impl="ref"."""
+    from repro_torch.models import model as M
+    params = M.init_model_params(cfg, 3, dev)
+    draw_qkv_biases(torch, params, 13)
+    rng = np.random.default_rng(10)
+    batch = {"tokens": torch.from_numpy(rng.integers(3, cfg.vocab, size=(2, 16))).to(dev),
+             "frames": torch.from_numpy(rng.standard_normal(
+                 (2, cfg.n_frames, cfg.d_model)).astype(np.float32)).to(dev)}
+    outs = {}
+    for impl in (None, "ref"):
+        logits, cache = M.prefill(cfg, params, batch, cache_len=16 + steps, impl=impl)
+        tok = logits[:, -1].argmax(-1)
+        seq = [tok]
+        for i in range(steps):
+            pos = torch.full((2,), 16 + i, dtype=torch.int32, device=dev)
+            logits, cache = M.decode_step(cfg, params, cache, tok[:, None], pos, impl=impl)
+            tok = logits[:, -1].argmax(-1)
+            seq.append(tok)
+        outs[impl] = torch.stack(seq, 1).tolist()
+    if outs[None] != outs["ref"]:
+        raise AssertionError(f"{cfg.name} f32 greedy tokens differ: kernels {outs[None]}, "
+                             f"ref {outs['ref']}")
+    log(f"  {cfg.name} float32: greedy tokens of 2 rows over {cfg.n_frames} frames identical "
+        f"through the kernels and impl='ref' ({steps + 1} tokens each)")
+    del params
+    torch.cuda.empty_cache()
+
+
+def workflow_run(torch):
+    """Phase 8 (c): the twin of examples/workflow_pipeline.py without
+    --reduced on --backend engine: Gateway.submit_workflow -> EngineBackend
+    (its worker thread on the card) -> tiny-YOLOv2 on 4 images of 416x416,
+    whisper-tiny and the granite-3-2b captioner (paged), all as registered.
+    Two workflows: the first cold-starts each runtime, the second is warm.
+    Launch counts are zeroed just before and read just after: K2 and K1
+    decode and no other kernel (whisper's step runs one forward, no
+    decode). Both workflows give the same step results. Returns the
+    counts."""
+    from repro_torch.examples import workflow_pipeline as wp
+    gw = wp.build_gateway("engine")
+    images = wp.make_images(4, wp.image_side(reduced=False))
+    runs = []
+    try:
+        zero_launches()
+        for w in range(2):
+            t0 = time.perf_counter()
+            fut = gw.submit_workflow(wp.make_workflow(images, name=f"caption-pipeline-{w}"))
+            out = fut.result(extra_time_s=600.0)
+            runs.append((fut, out, time.perf_counter() - t0))
+        counts = launches()
+    finally:
+        gw.backend.shutdown()
+    if not (counts["flash"] and counts["decode"]) or counts["dense"] or counts["chunk"] or \
+            counts["scan"] or counts["gmm"]:
+        raise AssertionError(f"phase 8 (c): launches {counts}: need K2 and K1 decode only")
+    results = []
+    for w, (fut, out, wall) in enumerate(runs):
+        if set(fut.statuses().values()) != {"done"}:
+            raise AssertionError(f"phase 8 (c): workflow {w}: {fut.statuses()}")
+        steps = {name: fut.step_future(name) for name in fut.statuses()}
+        invs = {name: f.invocation for name, f in steps.items()}
+        res = {name: f.result() for name, f in steps.items()}
+        results.append(res)
+        colds = {i.runtime_id for i in invs.values() if i.cold_start}
+        want = {i.runtime_id for i in invs.values()} if w == 0 else set()
+        if colds != want:
+            raise AssertionError(f"phase 8 (c): workflow {w} cold-started {colds}, expected {want}")
+        if not all(len(r["detections"]) == 4 for n, r in res.items() if n.startswith("see")) \
+                or len(res["hear"]["transcript"]) != 8 or \
+                not 1 <= len(out["caption"]) <= wp.CAPTION_NEW:
+            raise AssertionError(f"phase 8 (c): workflow {w} results {res}")
+        log(f"  phase 8 (c): workflow {w} ({'cold' if w == 0 else 'warm'}): every step done in "
+            f"{wall:.3f} s; caption {out['caption']}")
+        for name, inv in invs.items():
+            cold = f"cold start {inv.e_start - inv.n_start:.3f} s" if inv.cold_start else "warm"
+            paper = PAPER_ELAT_MS.get(inv.runtime_id)
+            ctx = f"; the paper's {paper[0]} median {paper[1]:.0f} ms" if paper else ""
+            log(f"    step {name:8s} {inv.runtime_id:20s} acc={inv.accelerator} {cold}; ELat "
+                f"{inv.elat * 1e3:.1f} ms, RLat {inv.rlat * 1e3:.1f} ms{ctx}")
+    if results[0] != results[1]:
+        raise AssertionError(f"phase 8 (c): the warm workflow gave {results[1]}, the cold one "
+                             f"{results[0]}")
+    log(f"  phase 8 (c): launches {counts}; both workflows gave the same step results")
+    return counts
 
 
 # ----------------------------------------------------------------------
@@ -2479,6 +2808,7 @@ def main() -> int:
     entries = phase_kernels(torch, dev)
     entries.update(phase_kernels_moe(torch, dev))
     entries.update(phase_kernels_catalogue(torch, dev))
+    entries.update(phase_kernels_whisper(torch, dev))
     torch.cuda.empty_cache()
     readings, firsts = [], {}
 
@@ -2634,12 +2964,30 @@ def main() -> int:
     roofline_fractions(readings)
     sim_run(firsts)
 
+    # phase 8: the paper's workflow (tiny-YOLOv2, whisper-tiny, granite)
+    t8 = time.perf_counter()
+    log(f"phase 8 (a): tiny-YOLOv2 at {YOLO_SIDE}x{YOLO_SIDE}, float32, on the card against "
+        "the port's CPU forward of the same weights")
+    yolo_run(torch, dev)
+    wh_counts = whisper_run(torch, dev)
+    for key in ("flash_enc", "flash_cross"):
+        total[key] = wh_counts["flash"]
+    total["dense_cross"] = wh_counts["dense"]
+    log("phase 8 (c): the workflow twin (repro_torch.examples.workflow_pipeline, as "
+        "registered) through Gateway.submit_workflow -> EngineBackend on the card")
+    wf_counts = workflow_run(torch)
+    for key, row in (("flash", "flash_enc"), ("decode", "decode")):
+        entries[f"{row}_workflow"] = dict(entries[row], name=entries[row]["name"] + ", via Workflow")
+        total[f"{row}_workflow"] = wf_counts[key]
+    log(f"phase 8: done in {time.perf_counter() - t8:.1f} s")
+
     kernels = []
     for key in ("decode", "chunk", "chunk_768", "flash", "flash_rg", "dense_rg", "dense_granite",
                 "scan", "flash_l4", "decode_l4", "dense_l4", *GMM_KEYS, "flash_gateway",
                 "decode_gateway", "flash_cp", "decode_cp", "flash_sim", "decode_sim",
                 "flash_cluster", "decode_cluster", "flash_qwen", "decode_qwen", "chunk_qwen",
-                "chunk_qwen_768", "dense_qwen", "flash_ds", "decode_ds"):
+                "chunk_qwen_768", "dense_qwen", "flash_ds", "decode_ds", "flash_enc",
+                "flash_cross", "dense_cross", "flash_enc_workflow", "decode_workflow"):
         e = dict(entries[key])
         e["launches"] = total[key]
         kernels.append({k: e[k] for k in (

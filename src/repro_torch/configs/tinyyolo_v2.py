@@ -3,8 +3,8 @@
 Hardless §V runs tinyyolov2.7 (ONNX) image detection on 2x K600 GPUs and
 one Movidius NCS. Registered under its own id with family DENSE and a
 2-layer stub transformer config, as ``repro.configs.tinyyolo_v2`` is (the
-reference's conv net lives in ``repro.models.yolo`` and is not ported
-yet).
+roofline and ``--sim`` read it). The conv net itself is
+``repro_torch.models.yolo``, the port of ``repro.models.yolo``.
 """
 from repro_torch.configs.base import Family, ModelConfig, register
 

@@ -18,12 +18,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --cluster 2 --events 6
     PYTHONPATH=src python -m repro_torch.launch.serve --cluster 2 \\
         --workflow 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --tuned \\
+        --max-new-tokens 16 --events 4
 
 Registers the serve runtime of each registered arch of ``--arch`` (a
 comma-separated list; 8 slots, max_len 2048; ``--page-size 0`` the dense
 per-slot cache) with a ``Gateway`` and invokes them round-robin
-``--events`` times, each event 2 random 64-token prompts (16 new tokens
-per prompt); ``--workflow N`` submits N three-step chains instead
+``--events`` times, each event 2 random 64-token prompts
+(``--max-new-tokens`` new tokens per prompt, default 6 as the
+reference's); ``--workflow N`` submits N three-step chains instead
 (generate -> refine -> polish, each step's prompts the previous step's
 outputs, read through the object store; the steps round-robin over the
 runtimes). Three backends:
@@ -42,7 +45,7 @@ runtimes). Three backends:
   (``serve.service_model.SIM_NODE``) and each runtime's service time is
   its roofline profile (``roofline_profile``: analytic FLOPs over the
   node's datasheet peak at 40% MFU) for an event's 2 prompts of 64
-  tokens and 16 new tokens. It needs no card.
+  tokens and ``--max-new-tokens`` new tokens. It needs no card.
 * ``--cluster N``: a real multi-process deployment, a master in this
   process and N worker processes over the cluster RPC protocol. Every
   worker holds its own CUDA context and model copy on the card (they
@@ -57,7 +60,9 @@ prewarmed off the critical path, per-tenant admission; ``--objective``
 steers its scale-out and, on the sim, picks the ``hetero-*`` scheduler);
 ``--fault-spec`` arms a fault-injection schedule (sim: kill-node,
 stall-node; engine: crash-worker; cluster: kill-worker-process).
-``--trace-out`` turns the tracer on and writes the span tree as Perfetto
+``--tuned`` re-execs the launcher once with the host tuning preset
+(``launch/tuning.py``: tcmalloc ``LD_PRELOAD``; never over a variable
+already exported). ``--trace-out`` turns the tracer on and writes the span tree as Perfetto
 trace_event JSON; ``--metrics-out``
 writes the metrics collector (JSON for a ``.json`` path, Prometheus text
 otherwise). Runs on the card; ``--device cpu`` runs the backend and the
@@ -121,6 +126,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reduced", action="store_true",
                     help="serve the arch's reduced smoke-test widths")
     ap.add_argument("--events", type=int, default=4)
+    ap.add_argument("--max-new-tokens", type=int, default=6,
+                    help="new tokens per prompt (events, workflow steps and "
+                         "--sim's profiles)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=0)
     ap.add_argument("--backend", default="engine", choices=["sim", "engine"],
@@ -182,7 +190,17 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="trace every invocation and write the span tree to "
                          "PATH as Perfetto trace_event JSON")
+    ap.add_argument("--tuned", action="store_true",
+                    help="re-exec once with the host tuning preset (tcmalloc "
+                         "LD_PRELOAD; launch/tuning.py) before the card is "
+                         "touched")
     args = ap.parse_args(argv)
+    if args.tuned and argv is None:
+        # LD_PRELOAD only binds at process start: apply the preset by
+        # re-exec (a no-op inside the tuned child); never for a call with
+        # argv given, so a test keeps its interpreter
+        from repro_torch.launch.tuning import maybe_reexec
+        maybe_reexec("repro_torch.launch.serve")
     if args.prefill_chunk and not args.page_size:
         ap.error("--prefill-chunk needs --page-size > 0 (chunked prefill "
                  "scatters into the paged KV pool)")
@@ -279,11 +297,12 @@ def main(argv=None) -> int:
                     "prefill_chunk": args.prefill_chunk,
                     "reduced": args.reduced, "device": args.device})
             elif args.sim:
-                # an event is 2 prompts of 64 tokens, 16 new tokens each
+                # an event is 2 prompts of 64 tokens
                 rdef = RuntimeDef(
                     runtime_id=f"serve-{cfg.name}",
                     profiles={SIM_NODE.type: roofline_profile(
-                        cfg, batch=2, new_tokens=16, prompt_len=64)})
+                        cfg, batch=2, new_tokens=args.max_new_tokens,
+                        prompt_len=64)})
             else:
                 rdef = make_serve_runtime(
                     cfg, acc_types=acc_types, max_slots=8, max_len=2048,
@@ -318,7 +337,7 @@ def main(argv=None) -> int:
         events = [{"prompts": [[rng.randrange(3, vocab)
                                 for _ in range(64)] for _ in range(2)]}
                   for _ in range(args.events)]
-        run = {"max_new_tokens": 16}
+        run = {"max_new_tokens": args.max_new_tokens}
         if args.workflow:
             seed = {"prompts": [[rng.randrange(3, vocab) for _ in range(64)]
                                 for _ in range(2)]}

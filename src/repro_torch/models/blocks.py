@@ -3,8 +3,10 @@
 ``rglru_specs``, ``rglru_cache_specs``, ``_rglru_gates``, ``rglru_block``).
 
 ``attn_block`` runs ``ATTN``, ``LOCAL_ATTN`` (sliding window) and
-``CHUNKED_ATTN`` in three modes, as the reference:
+``CHUNKED_ATTN`` in four modes, as the reference:
 
+* ``train`` — the whole sequence through K2, no cache; ``causal=False``
+  for the whisper encoder.
 * ``prefill`` — the whole prompt through K2 (``flash_attention``) with the
   kind's mask; returns the block's dense cache: global K/V zero-padded to
   ``cache_len``, or a ring of ``min(window or chunk, cache_len)`` slots
@@ -18,8 +20,13 @@
   cache write at slot ``pos % L`` and attend through K3
   (``decode_attention``).
 
+A whisper decoder block adds cross attention to the encoder's frames
+after its self attention: through K2 (no mask) in ``train`` and
+``prefill``, which also caches the cross K/V, and through K3 over those
+cached ``F`` frames in ``decode``.
+
 ``rglru_block`` runs the RG-LRU recurrence through K5 (``rglru_scan``) in
-``prefill`` and ``chunk`` modes; ``decode`` advances the state by one step
+``train``, ``prefill`` and ``chunk`` modes; ``decode`` advances the state by one step
 in plain PyTorch, as the reference does.
 
 A MoE layer (``cfg.n_experts``; every layer, as ``moe_every`` is 0 or 1)
@@ -54,7 +61,9 @@ ATTN_KINDS = (BlockKind.ATTN, BlockKind.LOCAL_ATTN, BlockKind.CHUNKED_ATTN)
 # ======================================================================
 # Attention blocks (global / local sliding-window / chunked) + FFN
 # ======================================================================
-def attn_specs(cfg: ModelConfig) -> Dict[str, Spec]:
+def attn_specs(cfg: ModelConfig, cross: bool = False) -> Dict[str, Spec]:
+    """The block's leaves; ``cross`` adds a whisper decoder block's cross
+    attention (``c_ln``, ``c_wq``, ``c_wk``, ``c_wv``, ``c_wo``)."""
     d, hd = cfg.d_model, cfg.hd
     H, KV = cfg.n_heads, cfg.n_kv_heads
     s: Dict[str, Spec] = {
@@ -69,6 +78,12 @@ def attn_specs(cfg: ModelConfig) -> Dict[str, Spec]:
         s["bq"] = Spec((H * hd,), init="zeros")
         s["bk"] = Spec((KV * hd,), init="zeros")
         s["bv"] = Spec((KV * hd,), init="zeros")
+    if cross:
+        s["c_ln"] = Spec((d,), init="zeros")
+        s["c_wq"] = Spec((d, H * hd))
+        s["c_wk"] = Spec((d, KV * hd))
+        s["c_wv"] = Spec((d, KV * hd))
+        s["c_wo"] = Spec((H * hd, d))
     if cfg.is_moe_layer(0):   # the reference decides at layer 0 for all
         E, f = cfg.n_experts, cfg.d_ff
         s["router"] = Spec((d, E), scale=0.02)
@@ -99,10 +114,16 @@ def attn_cache_len(cfg: ModelConfig, kind: BlockKind, seq_len: int) -> int:
 
 
 def attn_cache_specs(cfg: ModelConfig, kind: BlockKind, B: int,
-                     seq_len: int) -> Dict[str, Spec]:
+                     seq_len: int, cross: bool = False) -> Dict[str, Spec]:
+    """Self-attention K/V, and with ``cross`` the decoder's cross K/V
+    ``c_k``, ``c_v`` (B, n_frames, KV, hd), written once at prefill."""
     L = attn_cache_len(cfg, kind, seq_len)
     kv = Spec((B, L, cfg.n_kv_heads, cfg.hd), init="zeros")
-    return {"k": kv, "v": kv}
+    s = {"k": kv, "v": kv}
+    if cross:
+        s["c_k"] = s["c_v"] = Spec((B, cfg.n_frames, cfg.n_kv_heads, cfg.hd),
+                                   init="zeros")
+    return s
 
 
 def _qkv(cfg: ModelConfig, params, h: torch.Tensor):
@@ -133,18 +154,54 @@ def _keep_masked(new: torch.Tensor, old: torch.Tensor,
     return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
 
 
+def _prefill_cache(cfg: ModelConfig, kind: BlockKind, k: torch.Tensor,
+                   v: torch.Tensor, cache_len: int) -> Cache:
+    """The block's dense decode cache after a prefill of k, v (B, S, KV,
+    hd): global K/V zero-padded to ``cache_len`` slots, or a ring of
+    ``min(window or chunk, cache_len)`` slots holding the live suffix."""
+    B, S, KV, hd = k.shape
+    window, chunk = _attn_window(cfg, kind)
+    L = attn_cache_len(cfg, kind, cache_len)
+    if window or chunk:
+        # ring cache, slot(p) = p % L: the live positions are a suffix
+        # of the prompt (the last min(L, S) for a window, the current
+        # chunk for chunked attention; stale slots are masked by kv_len)
+        start = max(S - L, 0) if window else (S - 1) // L * L
+        slots = torch.arange(start, S, device=k.device) % L
+        new_cache = {}
+        for name, t in (("k", k), ("v", v)):
+            ring = t.new_zeros((B, L, KV, hd))
+            ring[:, slots] = t[:, start:]
+            new_cache[name] = ring
+        return new_cache
+    if L > S:
+        return {"k": F.pad(k, (0, 0, 0, 0, 0, L - S)),
+                "v": F.pad(v, (0, 0, 0, 0, 0, L - S))}
+    return {"k": k, "v": v}
+
+
 def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
                mode: str, rope_cs: Tuple[torch.Tensor, torch.Tensor],
                cache: Optional[Cache] = None,
                pos: Optional[torch.Tensor] = None,
+               causal: bool = True,
+               cross_x: Optional[torch.Tensor] = None,
                cache_len: Optional[int] = None,
                impl: Optional[str] = None,
                block_tables: Optional[torch.Tensor] = None,
                mask: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Returns (x, cache). ``prefill`` returns the block's dense cache
+    """Returns (x, cache). ``train`` runs the whole sequence with no cache
+    and returns None (``causal=False`` is the whisper encoder's
+    bidirectional attention); ``prefill`` returns the block's dense cache
     ``{"k", "v"}`` (B, L, KV, hd); ``chunk``/``decode`` write into ``cache``
-    in place and return it. ``pos``: chunk start (int) in ``chunk`` mode,
+    in place and return it. A block with cross attention (``c_wq`` in
+    ``params``, a whisper decoder block) attends after its self attention
+    to ``cross_x`` (B, F, d), the encoder's output, in ``train`` and
+    ``prefill`` through K2 with no mask (prefill also returns ``c_k``,
+    ``c_v`` (B, F, KV, hd)), and in ``decode`` to the cached ``c_k``,
+    ``c_v`` through K3 with every row's ``kv_len = F``; no rope touches the
+    cross K/V. ``pos``: chunk start (int) in ``chunk`` mode,
     per-sequence positions (B,) in ``decode``. ``cache_len``: the decode
     cache's capacity at prefill (default: the prompt length).
     ``block_tables`` present: a global-attention cache is a paged pool
@@ -161,26 +218,11 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
     q, k, v = _qkv(cfg, params, h)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
-    if mode == "prefill":
-        attn = ops.flash_attention(q, k, v, causal=True, window=window,
+    if mode in ("train", "prefill"):
+        attn = ops.flash_attention(q, k, v, causal=causal, window=window,
                                    chunk=chunk, impl=impl)
-        L = attn_cache_len(cfg, kind, cache_len or S)
-        if window or chunk:
-            # ring cache, slot(p) = p % L: the live positions are a suffix
-            # of the prompt (the last min(L, S) for a window, the current
-            # chunk for chunked attention; stale slots are masked by kv_len)
-            start = max(S - L, 0) if window else (S - 1) // L * L
-            slots = torch.arange(start, S, device=x.device) % L
-            new_cache = {}
-            for name, t in (("k", k), ("v", v)):
-                ring = t.new_zeros((B, L, KV, hd))
-                ring[:, slots] = t[:, start:]
-                new_cache[name] = ring
-        elif L > S:
-            new_cache = {"k": F.pad(k, (0, 0, 0, 0, 0, L - S)),
-                         "v": F.pad(v, (0, 0, 0, 0, 0, L - S))}
-        else:
-            new_cache = {"k": k, "v": v}
+        new_cache = None if mode == "train" else \
+            _prefill_cache(cfg, kind, k, v, cache_len or S)
     elif mode == "chunk":
         if cache is None or pos is None:
             raise ValueError("chunk mode needs cache and pos")
@@ -234,7 +276,43 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
         raise ValueError(f"unknown mode {mode!r}")
 
     x = x + attn.reshape(B, S, H * hd) @ params["wo"]
+    if "c_wq" in params:
+        x = _cross_attn(cfg, params, x, mode, cross_x, cache, new_cache, impl)
     return _ffn(cfg, params, x, impl), new_cache
+
+
+def _cross_attn(cfg: ModelConfig, params, x: torch.Tensor, mode: str,
+                cross_x: Optional[torch.Tensor], cache: Optional[Cache],
+                new_cache: Optional[Cache], impl: Optional[str]) -> torch.Tensor:
+    """The whisper decoder's cross sub-block (the reference's
+    ``attn_block`` :252-274): queries from this block's stream, keys and
+    values projected from the encoder output (no bias, no rope). Prefill
+    puts ``c_k``, ``c_v`` into ``new_cache``; decode reads them from
+    ``cache``."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hc = rms_norm(x, params["c_ln"])
+    qc = (hc @ params["c_wq"]).reshape(B, S, H, hd)
+    if mode in ("train", "prefill"):
+        if cross_x is None:
+            raise ValueError(f"{mode} of a cross-attention block needs cross_x "
+                             "(the encoder's output)")
+        Fr = cross_x.shape[1]
+        ck = (cross_x @ params["c_wk"]).reshape(B, Fr, KV, hd)
+        cv = (cross_x @ params["c_wv"]).reshape(B, Fr, KV, hd)
+        if mode == "prefill":
+            new_cache["c_k"], new_cache["c_v"] = ck, cv
+        cattn = ops.flash_attention(qc, ck, cv, causal=False, impl=impl)
+    elif mode == "decode":
+        ck, cv = cache["c_k"], cache["c_v"]
+        kv_len = torch.full((B,), ck.shape[1], dtype=torch.int32,
+                            device=x.device)
+        cattn = ops.decode_attention(qc, ck, cv, kv_len, impl=impl)
+    else:
+        raise NotImplementedError(
+            "chunked prefill: an encoder-decoder prefills whole "
+            "(see chunked_prefill_supported)")
+    return x + cattn.reshape(B, S, H * hd) @ params["c_wo"]
 
 
 # ======================================================================
@@ -359,8 +437,9 @@ def rglru_block(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
                 cache: Optional[Cache] = None, impl: Optional[str] = None,
                 mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Returns (x, cache). ``prefill`` returns a new cache ``{"h": (B, D)
-    float32, "conv": (B, 3, D)}``; ``chunk`` continues the conv and the
+    """Returns (x, cache). ``train`` runs the sequence with no cache (None);
+    ``prefill`` returns a new cache ``{"h": (B, D) float32, "conv": (B, 3,
+    D)}``; ``chunk`` continues the conv and the
     recurrence from ``cache`` and ``decode`` advances them one step, both
     writing ``cache`` in place (``decode`` only on rows where ``mask``)."""
     B, S, d = x.shape
@@ -368,13 +447,14 @@ def rglru_block(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
     xb = h @ params["w_x"]
     gb = h @ params["w_g"]
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         xp = F.pad(xb, (0, 0, 3, 0))
         y = _conv4(xp, params["conv_w"], S) + params["conv_b"]
         a, bterm = _rglru_gates(params, y)
         hseq = ops.rglru_scan(a, bterm, None, impl=impl)      # (B,S,D) f32
-        new_cache = {"h": hseq[:, -1].float(),
-                     "conv": xb[:, -3:] if S >= 3 else F.pad(xb, (0, 0, 3 - S, 0))}
+        new_cache = None if mode == "train" else {
+            "h": hseq[:, -1].float(),
+            "conv": xb[:, -3:] if S >= 3 else F.pad(xb, (0, 0, 3 - S, 0))}
     elif mode == "chunk":
         if cache is None:
             raise ValueError("chunk mode needs cache")

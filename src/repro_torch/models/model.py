@@ -11,8 +11,13 @@ loops over the stacked axis in Python. Caches follow the same tree; layer
 the blocks update in place.
 
 Ported block kinds: global, sliding-window and chunked attention (with a
-dense or MoE feed-forward), and RG-LRU. Encoder-decoder, vision-prefix and
-xLSTM models raise.
+dense or MoE feed-forward), and RG-LRU; and the encoder-decoder (whisper):
+an ``encoder`` subtree (``blocks`` stacked over ``n_encoder_layers``,
+``final_ln``) runs bidirectional attention over the stub frame embeddings
+``batch["frames"]`` (B, F, d) in ``train`` and ``prefill``, and every
+decoder block cross-attends to its output (cross K/V cached per slot as
+``c_k``, ``c_v``, read back in ``decode``). Vision-prefix and xLSTM models
+raise.
 
 Public API (same names and arguments as the reference, plus ``device``):
   param_specs(cfg), init_model_params(cfg, seed, device)
@@ -46,12 +51,12 @@ def _stack(specs, n: int):
 
 def _check_supported(cfg: ModelConfig) -> None:
     bad = [k.value for k in cfg.pattern if k not in PORTED_KINDS]
-    if bad or cfg.is_encdec or cfg.n_patches:
+    if bad or cfg.n_patches:
         raise NotImplementedError(
-            f"{cfg.name}: not ported (block kinds {bad or 'ok'}, encoder "
-            f"{cfg.is_encdec}, patches {cfg.n_patches}); the port serves "
-            "attention (dense or MoE FFN) and RG-LRU decoders without "
-            "encoder or vision prefix")
+            f"{cfg.name}: not ported (block kinds {bad or 'ok'}, patches "
+            f"{cfg.n_patches}); the port runs attention (dense or MoE FFN) "
+            "and RG-LRU stacks, with or without an encoder, and no vision "
+            "prefix")
     assert cfg.moe_every in (0, 1), "stacked periods require uniform MoE placement"
 
 
@@ -66,14 +71,16 @@ def _rem_kind(cfg: ModelConfig, j: int) -> BlockKind:
 
 
 def _block_specs(cfg: ModelConfig, kind: BlockKind):
-    return B.rglru_specs(cfg) if kind == BlockKind.RGLRU else B.attn_specs(cfg)
+    if kind == BlockKind.RGLRU:
+        return B.rglru_specs(cfg)
+    return B.attn_specs(cfg, cross=cfg.is_encdec)
 
 
 def _block_cache_specs(cfg: ModelConfig, kind: BlockKind, batch: int,
                        seq_len: int):
     if kind == BlockKind.RGLRU:
         return B.rglru_cache_specs(cfg, batch)
-    return B.attn_cache_specs(cfg, kind, batch, seq_len)
+    return B.attn_cache_specs(cfg, kind, batch, seq_len, cross=cfg.is_encdec)
 
 
 def _tree(cfg: ModelConfig, block_fn) -> Dict[str, Any]:
@@ -95,6 +102,11 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     specs["embed"] = embed_specs(cfg.padded_vocab, cfg.d_model,
                                  cfg.tie_embeddings)
     specs["final_ln"] = Spec((cfg.d_model,), init="zeros")
+    if cfg.is_encdec:
+        specs["encoder"] = {
+            "blocks": _stack(B.attn_specs(cfg), cfg.n_encoder_layers),
+            "final_ln": Spec((cfg.d_model,), init="zeros"),
+        }
     return specs
 
 
@@ -133,9 +145,10 @@ def paged_cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
     pool = Spec((num_pages, page_size, cfg.n_kv_heads, cfg.hd), init="zeros")
 
     def bcs(kind):
+        specs = _block_cache_specs(cfg, kind, batch, seq_len)
         if kind == BlockKind.ATTN:
-            return {"k": pool, "v": pool}
-        return _block_cache_specs(cfg, kind, batch, seq_len)
+            specs.update(k=pool, v=pool)
+        return specs
     return _tree(cfg, bcs)
 
 
@@ -170,7 +183,8 @@ def slot_batch_axis(path: str) -> int:
 def chunked_prefill_supported(cfg: ModelConfig) -> bool:
     """Chunked prefill needs every block to carry O(1) state between
     chunks: global attention (paged pool + explicit-position attention)
-    and RG-LRU (state continuation). Ring caches prefill whole."""
+    and RG-LRU (state continuation). Ring caches and an encoder-decoder's
+    cross attention prefill whole."""
     ok = {BlockKind.ATTN, BlockKind.RGLRU}
     return not cfg.is_encdec and all(k in ok for k in cfg.pattern)
 
@@ -195,6 +209,23 @@ def _layers(cfg: ModelConfig, params, cache
         yield "rem/" + key, _rem_kind(cfg, j), params["rem"][key], c
 
 
+def _encode(cfg: ModelConfig, params, frames: torch.Tensor,
+            impl: Optional[str]) -> torch.Tensor:
+    """The whisper encoder (the reference's ``_encode``): bidirectional
+    attention blocks over the stub frame embeddings (B, F, d), rope over
+    the frame positions, then ``rms_norm``."""
+    enc = params["encoder"]
+    F_ = frames.shape[1]
+    rope_cs = rope_tables(torch.arange(F_, device=frames.device)[None, :],
+                          cfg.hd, cfg.rope_theta)
+    x = frames
+    for i in range(cfg.n_encoder_layers):
+        p = {k: v[i] for k, v in enc["blocks"].items()}
+        x, _ = B.attn_block(cfg, BlockKind.ATTN, p, x, mode="train",
+                            causal=False, rope_cs=rope_cs, impl=impl)
+    return rms_norm(x, enc["final_ln"])
+
+
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
             mode: str, cache=None, pos=None,
             cache_len: Optional[int] = None, impl: Optional[str] = None,
@@ -202,7 +233,9 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
             mask: Optional[torch.Tensor] = None):
     """Returns (logits, cache).
 
-    ``batch``: tokens (B, S); decode mode: tokens (B, 1) + ``pos`` (B,).
+    ``batch``: tokens (B, S), and for an encoder-decoder in ``train`` and
+    ``prefill`` ``frames`` (B, F, d); decode mode: tokens (B, 1) + ``pos``
+    (B,). ``train`` returns the logits of every position and no cache.
     ``prefill`` returns a new dense cache (:func:`cache_specs` with
     ``seq_len = cache_len``, default S). ``chunk``: one prefill chunk at
     positions ``pos + [0, C)`` (``pos`` an int) against ``cache``;
@@ -212,12 +245,20 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     leave their per-slot cache leaves unchanged.
     """
     _check_supported(cfg)
-    if mode not in ("prefill", "chunk", "decode"):
+    if mode not in ("train", "prefill", "chunk", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    if mode != "prefill" and cache is None:
+    if mode in ("chunk", "decode") and cache is None:
         raise ValueError(f"{mode} mode needs a cache")
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens, cfg.d_model)
+    cross_x = None
+    if cfg.is_encdec and mode != "decode":
+        if mode == "chunk":
+            raise NotImplementedError(
+                "chunked prefill: an encoder-decoder prefills whole "
+                "(see chunked_prefill_supported)")
+        # decode reads the cross K/V from the cache; no encoder rerun
+        cross_x = _encode(cfg, params, batch["frames"].to(x.dtype), impl)
     S = tokens.shape[1]
     if mode == "decode":
         positions = pos[:, None]
@@ -226,21 +267,24 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
         positions = (start + torch.arange(S, device=tokens.device))[None, :]
     rope_cs = rope_tables(positions, cfg.hd, cfg.rope_theta)
     new: Dict[str, list] = {}
-    for key, kind, p, c in _layers(cfg, params, cache if mode != "prefill" else None):
+    fresh = mode in ("train", "prefill")
+    for key, kind, p, c in _layers(cfg, params, None if fresh else cache):
         if kind == BlockKind.RGLRU:
             x, nc = B.rglru_block(cfg, p, x, mode=mode, cache=c, impl=impl,
                                   mask=mask)
         else:
             x, nc = B.attn_block(cfg, kind, p, x, mode=mode, cache=c, pos=pos,
-                                 cache_len=cache_len, impl=impl,
-                                 block_tables=block_tables, rope_cs=rope_cs,
-                                 mask=mask)
+                                 cross_x=cross_x, cache_len=cache_len,
+                                 impl=impl, block_tables=block_tables,
+                                 rope_cs=rope_cs, mask=mask)
         new.setdefault(key, []).append(nc)
     x = rms_norm(x, params["final_ln"])
     if mode in ("prefill", "chunk"):
         # serving only needs the next-token distribution
         x = x[:, -1:]
     logits = unembed(params["embed"], x, cfg.tie_embeddings)
+    if mode == "train":
+        return logits, None
     if mode != "prefill":
         return logits, cache
     out: Dict[str, Any] = {}

@@ -37,7 +37,11 @@ def make_serve_runtime(cfg: ModelConfig, *,
                        device: DeviceLike = None) -> RuntimeDef:
     """RuntimeDef serving ``cfg`` on ``device`` (default: the card; raises
     without one unless ``device="cpu"``). Arguments as in
-    ``repro.serve.api.make_serve_runtime``."""
+    ``repro.serve.api.make_serve_runtime``. An encoder-decoder raises
+    here, as ``ServingEngine`` does, rather than at the cold start."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: the serving engine does not serve encoder-decoders")
     dev = resolve_device(device)
     if acc_types is None:
         acc_types = {HOST_ACC: SimProfile(elat_median_s=0.4, cold_start_s=2.0)}

@@ -129,7 +129,14 @@ class ServingEngine:
         rely on preemption. ``prefill_chunk`` > 0 prefills prompts longer
         than the chunk in chunk-sized pieces interleaved with decode (paged
         layout, supported block patterns only). ``impl="ref"`` runs the
-        plain kernel versions instead of the kernels."""
+        plain kernel versions instead of the kernels. An encoder-decoder
+        raises: the engine passes no frames, as the reference's, which fails
+        at its first prefill instead."""
+        if cfg.is_encdec:
+            raise NotImplementedError(
+                f"{cfg.name}: the serving engine does not serve "
+                "encoder-decoders (it has no frames to encode); run "
+                "models.model.prefill / decode_step with batch['frames']")
         self.device = resolve_device(device)
         w = params["embed"]["tok"]
         if w.device.type != self.device.type:

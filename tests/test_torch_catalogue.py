@@ -241,7 +241,8 @@ def test_sim_flag_errors_match_reference(case, capsys):
 def test_sim_serves_full_size_archs_on_the_cpu(capsys):
     from repro_torch.launch import serve as tserve
     rc = tserve.main(["--backend", "sim", "--sim", "--arch",
-                      "qwen2.5-14b,grok-1-314b", "--events", "4"])
+                      "qwen2.5-14b,grok-1-314b", "--events", "4",
+                      "--max-new-tokens", "16"])
     out = capsys.readouterr().out
     assert rc == 0, out
     assert "4/4 events served" in out

@@ -156,20 +156,21 @@ def test_unported_paths_raise():
     tcfg = tget_config("granite-3-2b").reduced()
     for cfg in (dataclasses.replace(tcfg, pattern=(BlockKind.MLSTM,
                                                    BlockKind.SLSTM)),  # xlstm
-                dataclasses.replace(tcfg, n_encoder_layers=2,
-                                    n_frames=16),                      # enc-dec
                 dataclasses.replace(tcfg, n_patches=16)):              # VLM
         with pytest.raises(NotImplementedError):
             TM.param_specs(cfg)
         with pytest.raises(NotImplementedError):
             TM.paged_cache_specs(cfg, 1, 16, 3, PAGE)
-    # MoE is ported: a dense arch given experts gets the reference's tree
-    jcfg = dataclasses.replace(get_config("granite-3-2b").reduced(),
-                               n_experts=4, top_k=2, moe_every=1)
-    moe = dataclasses.replace(tcfg, n_experts=4, top_k=2, moe_every=1)
-    want = {p: s.shape for p, s in iter_leaves(JM.param_specs(jcfg))}
-    got = {p: s.shape for p, s in iter_leaves(TM.param_specs(moe))}
-    assert got == want and "blocks/p0/we_g" in got
+    # MoE and the encoder-decoder are ported: a dense arch given experts,
+    # or an encoder, gets the reference's tree
+    jbase = get_config("granite-3-2b").reduced()
+    for kw, leaf in ((dict(n_experts=4, top_k=2, moe_every=1), "blocks/p0/we_g"),
+                     (dict(n_encoder_layers=2, n_frames=16), "encoder/final_ln")):
+        want = {p: s.shape for p, s in iter_leaves(
+            JM.param_specs(dataclasses.replace(jbase, **kw)))}
+        got = {p: s.shape for p, s in iter_leaves(
+            TM.param_specs(dataclasses.replace(tcfg, **kw)))}
+        assert got == want and leaf in got
 
 
 def test_dense_decode_matches_jax(setup):

@@ -7,6 +7,7 @@ so the ring cache wraps during prefill and decode.
   steps through ring wrap (the schedule of
   ``tests/test_decode_consistency.py``), on the sliding-window model and a
   chunked-attention variant;
+* ``train`` logits of every position within ``1e-4``, past the window;
 * RG-LRU chunked prefill continues the state: logits and state within
   ``1e-4`` of whole prefill (``tests/test_paged_engine.py``);
 * the port's paged and dense engines token-exact against JAX's under
@@ -110,6 +111,18 @@ def test_prefill_and_decode_through_ring_wrap(name):
         _close(tl, jl, f"decode at {t}")
     for path, t in iter_leaves(tc):
         _close(t, dict(iter_leaves(jax.device_get(jc)))[path], path)
+
+
+@pytest.mark.parametrize("name", ["local", "chunked"])
+def test_train_logits_match_reference(name):
+    """``train``: every position's logits, 20 tokens past the window (or
+    the chunk) of 8, through RG-LRU and the masked attention."""
+    jcfg, tcfg, jp, tp = _params(name)
+    toks = np.random.default_rng(2).integers(0, tcfg.vocab, size=(2, 20)).astype(np.int32)
+    jl, _, _ = JM.forward(jcfg, jp, {"tokens": jnp.asarray(toks)}, mode="train")
+    tl, cache = TM.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)}, mode="train")
+    assert cache is None and tuple(tl.shape) == jl.shape
+    _close(tl, jl, "train logits")
 
 
 def test_ring_prefill_longer_than_window(rg):
