@@ -3,6 +3,7 @@
 call.
 
     python3 chip_compare.py ROOT
+    python3 chip_compare.py ROOT --decode-split
 
 Imports the port from ``ROOT/src`` (its kernels build from ROOT's sources
 into ``ROOT/build/kernels``) and measures, in bf16 at the served widths,
@@ -15,6 +16,13 @@ with inputs from fixed seeds so that two checkouts see the same data:
 * device busy of recurrentgemma-2b's 3000-token prefill (26 layers) and of
   one 1024-token granite-3-2b prompt prefilled through the engine in four
   256-token chunks (40 layers), with K5's and K1 chunk's shares.
+
+With ``--decode-split`` it measures only qwen2.5-14b's eager decode step
+as registered (48 layers, bf16; B=8 at ~256 tokens of context, paged):
+the step's device busy split by kernel class (K1 decode, GEMMs, casts and
+copies, indexing, reductions, other elementwise), and the unembedding of
+the same step profiled alone (its kernels by class), which the split
+lists apart.
 
 Times from two calls may come from two cards: run the parent and the
 change in turns in one call (parent, change, change, parent). The last
@@ -103,9 +111,80 @@ def served(torch, dev, chunk_kernel: str) -> dict:
     return out
 
 
+# kernel classes by name fragment, the first match wins; the rest is
+# other elementwise work (rms_norm's arithmetic, rope, SwiGLU, residuals)
+KERNEL_CLASSES = (
+    ("K1 decode", ("split_decode", "paged_", "flash_attention", "decode_attention")),
+    ("GEMMs", ("gemm", "nvjet", "cutlass", "xmma", "splitKreduce", "gemv", "cublas")),
+    ("casts and copies", ("copy_kernel", "Memcpy", "Memset", "CatArrayBatchedCopy")),
+    ("indexing", ("index", "scatter", "gather")),
+    ("reductions", ("reduce_kernel", "argmax", "softmax")),
+)
+OTHER = "other elementwise"
+
+
+def device_by_class(torch, run, n: int) -> dict:
+    """Profile ``run()`` (``n`` units): device ms per unit by kernel class
+    (``KERNEL_CLASSES``), with ``busy``, the sum."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name, _ in KERNEL_CLASSES}
+    out[OTHER] = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        cls = next((name for name, frags in KERNEL_CLASSES
+                    if any(f in e.key for f in frags)), OTHER)
+        out[cls] += e.self_device_time_total / 1e3 / n
+    out["busy"] = sum(out.values())
+    return out
+
+
+def decode_split(torch, dev) -> dict:
+    """qwen2.5-14b's eager decode step (B=8, ~256 context) by kernel class,
+    and its unembedding alone."""
+    import inspect
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Request, ServingEngine
+    qw = get_config("qwen2.5-14b")
+    params = M.init_model_params(qw, 0, dev)
+    # the eager step: the parent has no graphs argument and is eager
+    kw = {"graphs": False} if "graphs" in inspect.signature(ServingEngine).parameters else {}
+    engine = ServingEngine(qw, params, max_slots=8, max_len=2048, page_size=cs.PAGE,
+                           device=dev, **kw)
+    rng = np.random.default_rng(5)
+    steps = 3
+    for i in range(engine.max_slots):
+        engine.submit(Request(prompt=rng.integers(3, qw.vocab, size=256).tolist(),
+                              max_new_tokens=3 * steps + 4, req_id=i))
+    engine.step()                   # admits and prefills all 8, one decode
+    engine.step()
+    step = device_by_class(torch, lambda: [engine.step() for _ in range(steps)], steps)
+    engine.generate([])
+    emb = params["embed"]
+    x = torch.randn(8, 1, qw.d_model, device=dev).to(torch.bfloat16)
+    L.unembed(emb, x, qw.tie_embeddings)
+    torch.cuda.synchronize()
+    unembed = device_by_class(torch, lambda: L.unembed(emb, x, qw.tie_embeddings), 1)
+    cs.log(f"  qwen2.5-14b eager decode step (B=8, ~256 context), device ms per step by "
+           f"kernel class: busy {step['busy']:.3f}")
+    for name in [n for n, _ in KERNEL_CLASSES] + [OTHER]:
+        cs.log(f"    {name:18s} {step[name]:8.3f} ms (of it the unembedding "
+               f"{unembed[name]:.3f} ms)")
+    cs.log(f"    the unembedding alone: {unembed['busy']:.3f} ms")
+    return {"decode step by class": step, "unembed by class": unembed}
+
+
 def main() -> int:
     import torch
-    if len(sys.argv) != 2:
+    split = sys.argv[2:] == ["--decode-split"]
+    if len(sys.argv) != 2 and not split:
         print(__doc__, file=sys.stderr)
         return 2
     root = Path(sys.argv[1]).resolve()
@@ -117,6 +196,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     build.build()
+    if split:
+        cs.log(f"chip_compare {root}: qwen2.5-14b decode split")
+        res = {"root": str(root), **decode_split(torch, dev)}
+        print(cs.nvidia_smi_line())
+        print(json.dumps(res))
+        return 0
     # K1's chunks run the shared prefill body where the checkout has it
     new = (root / "src" / "repro_torch" / "csrc" / "prefill_common.cuh").exists()
     chunk_kernel = "paged_prefill_mma_kernel" if new else "paged_tiled_kernel"

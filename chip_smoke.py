@@ -53,12 +53,24 @@ Phases (each raises on failure, so the script exits non-zero):
    window; llama4-scout-17b-a16e cut to 8 of its 48 layers (2 periods,
    35.3 GB; the published depth does not fit one card), every width as
    published, paged, 4 events of 2 prompts of 64..2048 tokens and one of
-   8500 (past the 8192-token chunk). 32 new tokens each. Launch counts
-   are zeroed before each run and must grow for every kernel of that
-   run's path (K4 on llama4's). Cold start, TTFT, decode ms/step,
-   tokens/s, and profiles of a decode step and a prefill (with the shares
-   of K2, K5 and K1 chunk), and of granite's chunked prefill of one
-   1024-token prompt through the engine.
+   8500 (past the 8192-token chunk). 32 new tokens each. Each
+   configuration is served twice, each time from a cold start of the same
+   seed: with the engine's step graphs off (every decode and chunk step
+   eager), then on (each step captured once per shape signature as a
+   CUDA graph and replayed); the captured run's tokens must equal the
+   eager run's. Launch counts are zeroed before each run and must grow
+   for every kernel of that run's path (K4 on llama4's); a replay adds
+   the launches its capture recorded, and each graph's kernel nodes are
+   held equal to them when it is captured. The captured run's counts
+   must equal the eager run's, kernel by kernel, and are the ones the
+   ``kernels`` line reports (the main path). Cold start, TTFT, decode
+   ms/step, tokens/s, the host-clock roofline fraction, the graph count,
+   capture ms and the graphs' pool, and profiles of a decode step (eager
+   and captured: profiler busy and a CUDA-event span), of the
+   unembedding (bf16 operands into float32 logits, beside the float32
+   upcast it replaced) and of a prefill (with the shares of K2, K5 and K1
+   chunk), and of granite's chunked prefill of one 1024-token prompt
+   through the engine (eager and captured).
    Then granite-3-2b paged again through the serverless front door:
    ``Gateway.invoke`` -> ``EngineBackend`` (its worker thread on the card)
    -> ``make_serve_runtime``, with the tracer on: 8 one-prompt events
@@ -144,10 +156,11 @@ Phases (each raises on failure, so the script exits non-zero):
    deepseek-7b as registered (30 layers, d 4096, 32/32 heads, hd 128)
    paged whole-prompt, K2 and K1 decode at G = 1, with the logits check;
    (c) for every served decode step of phases 3 and 7 (granite,
-   recurrentgemma, llama4-scout at 8 layers, qwen, deepseek) the analytic
-   memory bound (``roofline.analytic.memory_model`` in bf16 over the
-   datasheet's 3.35 TB/s) over the step's host-clock time (without the
-   profiler) and over its device busy time (under it), and each profiled
+   recurrentgemma, llama4-scout at 8 layers, qwen, deepseek), eager and
+   captured, the analytic memory bound
+   (``roofline.analytic.memory_model`` in bf16 over the datasheet's 3.35
+   TB/s) over the step's host-clock time (without the profiler), over
+   its device busy time (under it) and over its CUDA-event span, and each profiled
    prefill's MFU (``model_flops`` over the time at 989 TFLOP/s): readings,
    not gates; (d) ``python -m repro_torch.launch.serve --backend sim --sim``
    over all eleven registered archs, one event each, as a subprocess: exit
@@ -170,7 +183,8 @@ Phases (each raises on failure, so the script exits non-zero):
    TTFT and decode ms/step; bf16 logits against ``impl="ref"`` (phase 4's
    rule) and float32 greedy tokens through the kernels identical to
    ``impl="ref"``; (c) ``repro_torch.examples.workflow_pipeline`` without
-   ``--reduced`` on ``--backend engine``: ``Gateway.submit_workflow`` ->
+   ``--reduced`` on ``--backend engine`` (the captioner's decode steps
+   captured): ``Gateway.submit_workflow`` ->
    ``EngineBackend`` -> tiny-YOLOv2 on 4 images, whisper-tiny and the
    granite-3-2b captioner (paged), twice: the first workflow cold-starts
    each runtime, the second is warm and gives the same step results; each
@@ -1239,19 +1253,21 @@ def zero_launches() -> None:
 
 
 def serve_run(torch, cfg, dev, *, page_size, prefill_chunk, max_len, prompt_lens,
-              need, absent=()):
+              need, absent=(), graphs=True):
     """Cold start, then 4 events of 2 prompts (one event alone, then a
-    micro-batch of 3) through the runtime front door. Launch counts are
+    micro-batch of 3) through the runtime front door, the engine's decode
+    and chunk steps captured (``graphs``) or eager. Launch counts are
     zeroed just before the events and read just after: every kernel of
     ``need`` must have launched and none of ``absent``. Returns the
-    engine, the counts and the first event's ELat (host clock; its result
-    is read on the host) with its prompt lengths."""
+    engine, the counts, the first event's ELat (host clock; its result
+    is read on the host) with its prompt lengths, and every request's
+    tokens."""
     from repro_torch.core.runtime import run_batch
     from repro_torch.serve.api import make_serve_runtime
 
     rdef = make_serve_runtime(cfg, page_size=page_size, max_slots=8, max_len=max_len,
                               max_batch=4, prefill_chunk=prefill_chunk, seed=0,
-                              device=dev)
+                              device=dev, graphs=graphs)
     t0 = time.perf_counter()
     engine = rdef.setup()
     torch.cuda.synchronize()
@@ -1283,13 +1299,96 @@ def serve_run(torch, cfg, dev, *, page_size, prefill_chunk, max_len, prompt_lens
         raise AssertionError(f"launches {counts}: need {need}, absent {absent}")
     n_tok = sum(len(o) for o in outs)
     ttft = sorted(engine.ttft_s)
-    log(f"  page_size={page_size} prefill_chunk={prefill_chunk}: cold start "
-        f"{cold_s:.3f} s; {len(outs)} requests, {n_tok} tokens in {wall:.3f} s = "
-        f"{n_tok / wall:.1f} tokens/s; TTFT p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms "
-        f"max {ttft[-1] * 1e3:.1f} ms; decode {engine.decode_s / engine.n_decode_steps * 1e3:.2f}"
-        f" ms/step over {engine.n_decode_steps} steps; launches {counts}; "
-        f"stats {engine.stats()}")
-    return engine, counts, first
+    step_ms = engine.decode_s / engine.n_decode_steps * 1e3
+    # the steps decode all 8 rows at the prompts' mean length plus half the
+    # new tokens, about
+    context = int(np.mean(prompt_lens)) + MAX_NEW // 2
+    bound = decode_bound_ms(cfg, engine.max_slots, context)
+    log(f"  page_size={page_size} prefill_chunk={prefill_chunk} graphs "
+        f"{'on' if graphs else 'off'}: cold start {cold_s:.3f} s; {len(outs)} requests, "
+        f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s; TTFT p50 "
+        f"{ttft[len(ttft) // 2] * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} ms; decode "
+        f"{step_ms:.2f} ms/step over {engine.n_decode_steps} steps, roofline fraction "
+        f"(host clock) {bound / step_ms:.4f} (bound {bound:.3f} ms at B={engine.max_slots}, "
+        f"context ~{context}); launches {counts}; stats {engine.stats()}")
+    log(f"  {graphs_summary(torch, engine)}")
+    return engine, counts, first, outs
+
+
+def decode_bound_ms(cfg, batch: int, context: int) -> float:
+    """A decode step's memory bound: ``memory_model`` in bf16 over the
+    datasheet's HBM rate."""
+    from repro_torch.configs import InputShape
+    from repro_torch.roofline.analysis import HBM_BW
+    from repro_torch.roofline.analytic import memory_model
+    shape = InputShape("serve_decode", context, batch, "decode")
+    return memory_model(cfg, shape, data=1, model=1) / HBM_BW * 1e3
+
+
+def pool_bytes(torch, pool) -> int:
+    """Bytes the caching allocator holds in a graph memory pool (its
+    segments in ``memory_snapshot``)."""
+    if pool is None:
+        return 0
+    return sum(sg["total_size"] for sg in torch.cuda.memory_snapshot()
+               if tuple(sg["segment_pool_id"]) == tuple(pool))
+
+
+def graphs_summary(torch, engine) -> str:
+    """The engine's step programs: captured graphs, their kernel nodes, the
+    capture's host time and the graphs' memory pool."""
+    g = engine.step_graphs
+    if not g.capture:
+        return f"step graphs off: {len(g.programs)} eager step programs"
+    nodes = sorted(p.kernel_nodes for p in g.programs.values())
+    return (f"step graphs on: {g.n_graphs} graphs {sorted(g.programs)}, kernel nodes each "
+            f"{nodes[0] if nodes else 0}..{nodes[-1] if nodes else 0} (held equal to the "
+            f"launches recorded), captured in {g.capture_s * 1e3:.1f} ms of host time, "
+            f"pool {pool_bytes(torch, g.pool) / 2**20:.1f} MiB")
+
+
+def serve_pair(torch, cfg, dev, *, context=None, prefill_len=None, chunked_len=None, **kw):
+    """``serve_run`` with the engine's step graphs off, then on, each on a
+    fresh engine from the same seed (the eager one dropped first): both
+    runs' checks, and the captured run's tokens must equal the eager
+    run's. With ``context`` each engine's decode step is profiled
+    (``profile_decode``) and the captured engine's unembedding timed and
+    its ``prefill_len``-token prefill profiled; with ``chunked_len`` each
+    engine's chunked prefill of one prompt that long. The two runs serve
+    the same steps, so the captured run (replays counted) must launch
+    every kernel as often as the eager one. Returns the captured engine,
+    the captured run's launch counts (the main path's), its first event
+    and the readings of phase 7 (c)."""
+    engine, counts_e, _, outs_e = serve_run(torch, cfg, dev, graphs=False, **kw)
+    reading = {}
+    if context:
+        reading["eager"] = profile_decode(torch, engine, cfg, context)
+    if chunked_len:
+        profile_chunked_prefill(torch, engine, cfg, chunked_len)
+    engine = None
+    torch.cuda.empty_cache()
+    engine, counts, first, outs = serve_run(torch, cfg, dev, graphs=True, **kw)
+    if outs != outs_e:
+        bad = [i for i, (a, b) in enumerate(zip(outs, outs_e)) if a != b]
+        raise AssertionError(f"{cfg.name}: the captured steps' tokens differ from the eager "
+                             f"steps' in requests {bad}: {[outs[i] for i in bad]} vs "
+                             f"{[outs_e[i] for i in bad]}")
+    log(f"  captured tokens equal the eager ones ({len(outs)} requests, "
+        f"{sum(len(o) for o in outs)} tokens)")
+    if counts != counts_e:
+        raise AssertionError(f"{cfg.name}: the captured run's launches {counts} differ from "
+                             f"the eager run's {counts_e}")
+    log(f"  captured launches equal the eager ones: {counts}")
+    if context:
+        reading["captured"] = profile_decode(torch, engine, cfg, context)
+        reading.update(cfg=cfg, batch=engine.max_slots, context=context + 4)
+        unembed_times(torch, engine, cfg)
+        reading.update(profile_prefill(torch, engine, cfg, prefill_len))
+    if chunked_len:
+        profile_chunked_prefill(torch, engine, cfg, chunked_len)
+    if context or chunked_len:
+        log(f"  after the profiles: {graphs_summary(torch, engine)}")
+    return engine, counts, first, reading
 
 
 def partition_error(spans, root) -> float:
@@ -2186,15 +2285,12 @@ PREFILL_SHARES = {"K2": "flash_attention_mma_kernel", "K5": "rglru_scan_kernel",
                   "K4": "moe_gmm_mma_kernel"}
 
 
-def profile_served(torch, engine, cfg, context: int, prefill_len: int):
-    """Where the time of a served path goes: 3 decode steps of a full batch
-    (8 slots at ~``context`` tokens; the prompts prefill whole), profiled,
-    then 3 more on the host clock alone; and one ``prefill_len``-token
-    prefill, after a warm-up, on the host clock alone and then profiled.
-    Returns the readings phase 7's roofline fractions read: the decode
-    step's batch, context and ms per step (host clock, device busy), the
-    prefill's length and ms (the same two)."""
-    from repro_torch.models import model as M
+def profile_decode(torch, engine, cfg, context: int):
+    """Where a served decode step's time goes: 3 decode steps of a full
+    batch (8 slots at ~``context`` tokens; the prompts prefill whole),
+    profiled, then 3 more on the host clock alone with CUDA events around
+    them (their device span: busy plus the gaps the host leaves). Returns
+    the step's ms (host clock), device busy ms (profiler) and event ms."""
     from repro_torch.serve.engine import Request
 
     rng = np.random.default_rng(5)
@@ -2203,16 +2299,34 @@ def profile_served(torch, engine, cfg, context: int, prefill_len: int):
         engine.submit(Request(prompt=rng.integers(3, cfg.vocab, size=context).tolist(),
                               max_new_tokens=2 * steps + 4, req_id=100 + i))
     engine.step()                   # admits and prefills all 8, one decode
+    mode = "captured" if engine.step_graphs.capture else "eager"
     _, busy, _ = profile_breakdown(
-        torch, f"{cfg.name} decode step (B=8, ~{context} context)",
+        torch, f"{cfg.name} decode step (B=8, ~{context} context), {mode}",
         lambda: [engine.step() for _ in range(steps)], steps)
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
+    start.record()
     for _ in range(steps):
         engine.step()
+    end.record()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
+    span_ms = start.elapsed_time(end) / steps
     engine.generate([])             # drain
+    log(f"  {cfg.name} decode step {mode} without the profiler: {step_ms:.2f} ms (host "
+        f"clock), CUDA-event span {span_ms:.2f} ms; under the profiler busy {busy:.2f} ms"
+        + ("" if busy > 0.1 * span_ms else
+           " (the profiler recorded less than a tenth of the event span: read the span)"))
+    return dict(step_ms=step_ms, busy_ms=busy, span_ms=span_ms)
+
+
+def profile_prefill(torch, engine, cfg, prefill_len: int):
+    """One ``prefill_len``-token prefill (eager), after a warm-up, on the
+    host clock alone and then profiled (with the shares of K2, K5, K4)."""
+    from repro_torch.models import model as M
+    rng = np.random.default_rng(5)
     toks = torch.from_numpy(rng.integers(3, cfg.vocab, size=(1, prefill_len))).to(engine.device)
     M.prefill(cfg, engine.params, {"tokens": toks})
     torch.cuda.synchronize()
@@ -2223,11 +2337,28 @@ def profile_served(torch, engine, cfg, context: int, prefill_len: int):
     _, prefill_busy, _ = profile_breakdown(
         torch, f"{cfg.name} prefill (1 x {prefill_len} tokens)",
         lambda: M.prefill(cfg, engine.params, {"tokens": toks}), 1, shares=PREFILL_SHARES)
-    log(f"  {cfg.name} without the profiler: decode step {step_ms:.2f} ms (B=8, ~{context + 4} "
-        f"context), prefill of {prefill_len} tokens {prefill_ms:.2f} ms (host clock)")
-    return dict(cfg=cfg, batch=engine.max_slots, context=context + 4, step_ms=step_ms,
-                step_busy_ms=busy, prefill_len=prefill_len, prefill_ms=prefill_ms,
-                prefill_busy_ms=prefill_busy)
+    log(f"  {cfg.name} prefill of {prefill_len} tokens without the profiler: "
+        f"{prefill_ms:.2f} ms (host clock)")
+    return dict(prefill_len=prefill_len, prefill_ms=prefill_ms, prefill_busy_ms=prefill_busy)
+
+
+def unembed_times(torch, engine, cfg) -> None:
+    """The unembedding of a B=8 decode step on the card (CUDA events):
+    ``layers.unembed`` (bf16 operands, float32 out, no copy of the vocab
+    table) beside the float32 upcast it replaced, on the same inputs, with
+    its bound (the bf16 table read once, the float32 logits written once)."""
+    from repro_torch.models.layers import unembed
+    emb, tie = engine.params["embed"], cfg.tie_embeddings
+    w = emb["tok"].t() if tie else emb["head"]
+    gen = torch.Generator(device=engine.device).manual_seed(9)
+    x = torch.randn(engine.max_slots, 1, cfg.d_model, device=engine.device,
+                    generator=gen).to(w.dtype)
+    ms = event_ms(torch, lambda: unembed(emb, x, tie), 20)
+    up = event_ms(torch, lambda: x.float() @ w.float(), 5)
+    n_bytes = w.numel() * w.element_size() + x.shape[0] * w.shape[1] * 4
+    log(f"  unembed {cfg.name} B={x.shape[0]}, vocab {w.shape[1]} x d {w.shape[0]} "
+        f"{w.dtype}: {ms:.4f} ms (out_dtype float32), the float32 upcast {up:.4f} ms; "
+        f"bound {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({n_bytes / 1e9:.3f} GB, bytes)")
 
 
 def profile_chunked_prefill(torch, engine, cfg, prompt_len: int,
@@ -2240,6 +2371,10 @@ def profile_chunked_prefill(torch, engine, cfg, prompt_len: int,
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(6)
     n_steps = -(-prompt_len // engine.prefill_chunk)
+    # chip_compare.py also times engines of checkouts from before the step
+    # graphs, which have no ``step_graphs`` and are eager
+    graphs = getattr(engine, "step_graphs", None)
+    mode = "captured" if graphs is not None and graphs.capture else "eager"
     for i, what in enumerate(("warm-up", "profiled")):
         engine.submit(Request(prompt=rng.integers(3, cfg.vocab, size=prompt_len).tolist(),
                               max_new_tokens=2, req_id=200 + i))
@@ -2249,7 +2384,8 @@ def profile_chunked_prefill(torch, engine, cfg, prompt_len: int,
         else:
             res = profile_breakdown(
                 torch, f"{cfg.name} chunked prefill (1 x {prompt_len} tokens, {n_steps} "
-                f"chunks of {engine.prefill_chunk}, the last step decodes once)", run, 1,
+                f"chunks of {engine.prefill_chunk}, the last step decodes once), {mode}",
+                run, 1,
                 shares={"K1 chunk": chunk_kernel})
         engine.generate([])        # drain
     return res
@@ -2428,19 +2564,21 @@ def catalogue_run(torch, dev):
         torch.cuda.reset_peak_memory_stats()
         need = ["flash"] + (["decode"] if page_size else ["dense"]) + \
             (["chunk"] if chunk else [])
-        engine, counts, first = serve_run(
+        profiled = page_size and not chunk
+        engine, counts, first, reading = serve_pair(
             torch, qw, dev, page_size=page_size, prefill_chunk=chunk, max_len=2048,
             prompt_lens=GRANITE_PROMPTS, need=need,
-            absent=["scan", "gmm"] + (["dense"] if page_size else ["decode", "chunk"]))
+            absent=["scan", "gmm"] + (["dense"] if page_size else ["decode", "chunk"]),
+            context=256 if profiled else None, prefill_len=1024)
         log(f"  {qw.name}: {sum(t.numel() for _, t in iter_leaves(engine.params)) / 1e9:.2f} B "
             f"parameters, {torch.cuda.max_memory_allocated() / 1e9:.1f} GB peak allocated")
         total["flash_qwen"] += counts["flash"]
         total["decode_qwen"] += counts["decode"]
         total["chunk_qwen"] += counts["chunk"]
         total["dense_qwen"] += counts["dense"]
-        if page_size and not chunk:
+        if profiled:
             firsts[qw.name] = (qw, first)
-            readings.append(profile_served(torch, engine, qw, context=256, prefill_len=1024))
+            readings.append(reading)
             # the parity check before the next engine: two copies of the
             # weights (29.5 GB each) and a float32 draft do not fit
             params = engine.params
@@ -2463,15 +2601,15 @@ def catalogue_run(torch, dev):
         f"{ds.n_heads}/{ds.n_kv_heads} hd={ds.hd} d_ff={ds.d_ff} vocab {ds.padded_vocab} "
         f"{ds.dtype}, random weights (seed 0)")
     torch.cuda.reset_peak_memory_stats()
-    engine, counts, first = serve_run(
+    engine, counts, first, reading = serve_pair(
         torch, ds, dev, page_size=PAGE, prefill_chunk=0, max_len=2048,
         prompt_lens=GRANITE_PROMPTS, need=["flash", "decode"],
-        absent=["chunk", "dense", "scan", "gmm"])
+        absent=["chunk", "dense", "scan", "gmm"], context=256, prefill_len=1024)
     log(f"  {ds.name}: {sum(t.numel() for _, t in iter_leaves(engine.params)) / 1e9:.2f} B "
         f"parameters, {torch.cuda.max_memory_allocated() / 1e9:.1f} GB peak allocated")
     total["flash_ds"], total["decode_ds"] = counts["flash"], counts["decode"]
     firsts[ds.name] = (ds, first)
-    readings.append(profile_served(torch, engine, ds, context=256, prefill_len=1024))
+    readings.append(reading)
     params = engine.params
     engine = None
     torch.cuda.empty_cache()
@@ -2484,22 +2622,23 @@ def catalogue_run(torch, dev):
 def roofline_fractions(readings) -> None:
     """Phase 7 (c): each served decode step's analytic memory bound
     (``memory_model`` in bf16 over the datasheet's HBM rate) over its
-    measured time on the host clock and over its device busy time; each
-    profiled prefill's MFU (``model_flops`` over the measured time at the
-    datasheet's bf16 peak). Readings, not gates."""
+    measured time on the host clock and over its device busy time, with
+    the engine's step graphs off (eager steps) and on (captured steps);
+    each profiled prefill's MFU (``model_flops`` over the measured time at
+    the datasheet's bf16 peak). Readings, not gates."""
     from repro_torch.configs import InputShape
-    from repro_torch.roofline.analysis import HBM_BW, PEAK_FLOPS, model_flops
-    from repro_torch.roofline.analytic import memory_model
+    from repro_torch.roofline.analysis import PEAK_FLOPS, model_flops
     for r in readings:
         cfg = r["cfg"]
-        shape = InputShape("serve_decode", r["context"], r["batch"], "decode")
-        n_bytes = memory_model(cfg, shape, data=1, model=1)
-        bound = n_bytes / HBM_BW * 1e3
-        log(f"  roofline {cfg.name} ({cfg.n_layers} layers) decode step B={r['batch']} "
-            f"context {r['context']}: {n_bytes / 1e9:.3f} GB, memory bound {bound:.3f} ms; "
-            f"measured {r['step_ms']:.2f} ms (host clock), fraction {bound / r['step_ms']:.4f}; "
-            f"device busy {r['step_busy_ms']:.2f} ms, fraction "
-            f"{bound / r['step_busy_ms']:.4f}")
+        bound = decode_bound_ms(cfg, r["batch"], r["context"])
+        for mode in ("eager", "captured"):
+            d = r[mode]
+            log(f"  roofline {cfg.name} ({cfg.n_layers} layers) decode step {mode} "
+                f"B={r['batch']} context {r['context']}: memory bound {bound:.3f} ms; "
+                f"measured {d['step_ms']:.2f} ms (host clock), fraction "
+                f"{bound / d['step_ms']:.4f}; device busy {d['busy_ms']:.2f} ms, fraction "
+                f"{bound / d['busy_ms']:.4f}; CUDA-event span {d['span_ms']:.2f} ms, "
+                f"fraction {bound / d['span_ms']:.4f}")
         flops = model_flops(cfg, InputShape("serve_prefill", r["prefill_len"], 1, "prefill"))
         ideal = flops / PEAK_FLOPS * 1e3
         log(f"  roofline {cfg.name} ({cfg.n_layers} layers) prefill of {r['prefill_len']} "
@@ -2825,21 +2964,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         need = ["flash"] + (["decode"] if page_size else ["dense"]) + \
             (["chunk"] if chunk else [])
-        engine, counts, first = serve_run(
+        profiled = page_size and not chunk
+        engine, counts, first, reading = serve_pair(
             torch, cfg, dev, page_size=page_size, prefill_chunk=chunk, max_len=2048,
             prompt_lens=GRANITE_PROMPTS, need=need,
-            absent=["scan"] + (["dense"] if page_size else ["decode", "chunk"]))
+            absent=["scan"] + (["dense"] if page_size else ["decode", "chunk"]),
+            context=256 if profiled else None, prefill_len=1024,
+            chunked_len=1024 if chunk else None)
         total["flash"] += counts["flash"]
         total["decode"] += counts["decode"]
         total["chunk"] += counts["chunk"]
         total["chunk_768"] = total["chunk"]
         total["dense_granite"] += counts["dense"]
-        if page_size and not chunk:
+        if profiled:
             firsts[cfg.name] = (cfg, first)
-            readings.append(profile_served(torch, engine, cfg, context=256, prefill_len=1024))
+            readings.append(reading)
             params = engine.params
-        if chunk:
-            profile_chunked_prefill(torch, engine, cfg, prompt_len=1024)
     engine = None
     torch.cuda.empty_cache()
 
@@ -2889,15 +3029,15 @@ def main() -> int:
         f"{[k.value for k in rg.pattern]} d={rg.d_model} heads {rg.n_heads}/"
         f"{rg.n_kv_heads} hd={rg.hd} window {rg.window} d_ff={rg.d_ff} vocab "
         f"{rg.padded_vocab} {rg.dtype}, random weights (seed 0)")
-    engine, counts, first = serve_run(
+    engine, counts, first, reading = serve_pair(
         torch, rg, dev, page_size=PAGE, prefill_chunk=0, max_len=4096,
         prompt_lens=RG_PROMPTS, need=["flash", "dense", "scan"],
-        absent=["decode", "chunk"])
+        absent=["decode", "chunk"], context=2100, prefill_len=3000)
     total["flash_rg"] = counts["flash"]
     total["dense_rg"] = counts["dense"]
     total["scan"] = counts["scan"]
     firsts[rg.name] = (rg, first)
-    readings.append(profile_served(torch, engine, rg, context=2100, prefill_len=3000))
+    readings.append(reading)
     params = engine.params
     engine = None
     logits_parity(torch, rg, params, dev, S=2100, paged=False)
@@ -2910,8 +3050,10 @@ def main() -> int:
     greedy_parity(torch, dataclasses.replace(cfg, n_layers=4, dtype="float32"), dev,
                   lens=[40, 300, 700, 1000], max_len=1100,
                   runs=[dict(page_size=PAGE), dict(page_size=PAGE, impl="ref"),
+                        dict(page_size=PAGE, graphs=False),
                         dict(page_size=PAGE, prefill_chunk=256),
                         dict(page_size=PAGE, prefill_chunk=256, impl="ref"),
+                        dict(page_size=PAGE, prefill_chunk=256, graphs=False),
                         dict(page_size=0), dict(page_size=0, impl="ref")])
 
     # phase 3: llama4-scout, 8 of its 48 layers (2 periods of ATTN +
@@ -2925,10 +3067,10 @@ def main() -> int:
         f"{l4.top_k} d_ff={l4.d_ff} vocab {l4.padded_vocab} {l4.dtype}, random "
         "weights (seed 0)")
     torch.cuda.reset_peak_memory_stats()
-    engine, counts, first = serve_run(
+    engine, counts, first, reading = serve_pair(
         torch, l4, dev, page_size=PAGE, prefill_chunk=0, max_len=9216,
         prompt_lens=L4_PROMPTS, need=["flash", "decode", "dense", "gmm"],
-        absent=["chunk", "scan"])
+        absent=["chunk", "scan"], context=1024, prefill_len=2048)
     log(f"  {l4.name}: {sum(t.numel() for _, t in iter_leaves(engine.params)) / 1e9:.2f} B "
         f"parameters, {torch.cuda.max_memory_allocated() / 1e9:.1f} GB peak allocated")
     total["flash_l4"], total["decode_l4"] = counts["flash"], counts["decode"]
@@ -2936,7 +3078,7 @@ def main() -> int:
     for key in GMM_KEYS:
         total[key] = counts["gmm"]
     firsts[l4.name] = (l4, first)
-    readings.append(profile_served(torch, engine, l4, context=1024, prefill_len=2048))
+    readings.append(reading)
     params = engine.params
     engine = None
     # chunk 1024 so a 2100-token prompt crosses the mask boundary while the
@@ -2974,7 +3116,8 @@ def main() -> int:
         total[key] = wh_counts["flash"]
     total["dense_cross"] = wh_counts["dense"]
     log("phase 8 (c): the workflow twin (repro_torch.examples.workflow_pipeline, as "
-        "registered) through Gateway.submit_workflow -> EngineBackend on the card")
+        "registered) through Gateway.submit_workflow -> EngineBackend on the card, the "
+        "captioner's decode steps captured as CUDA graphs")
     wf_counts = workflow_run(torch)
     for key, row in (("flash", "flash_enc"), ("decode", "decode")):
         entries[f"{row}_workflow"] = dict(entries[row], name=entries[row]["name"] + ", via Workflow")

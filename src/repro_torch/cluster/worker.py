@@ -448,8 +448,9 @@ def _free_card_memory() -> None:
     torch = sys.modules.get("torch")
     if torch is None or not torch.cuda.is_initialized():
         return
+    from repro_torch.serve import step_graph
     gc.collect()
-    torch.cuda.empty_cache()
+    step_graph.empty_cache()          # not during another thread's capture
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -17,6 +17,7 @@ holder exits, killed or not, so a dead builder leaves no stale lock.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -26,7 +27,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -157,3 +158,66 @@ def check_launch(name: str, rc: int) -> None:
         raise ValueError(f"{name}: unsupported head_dim or dtype")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+# ----------------------------------------------------------------------
+# launch counts
+# ----------------------------------------------------------------------
+_CAPTURE = threading.local()
+
+
+def count_launch(wrapper: Callable) -> None:
+    """Count one launch of ``wrapper``'s kernel on ``wrapper.launches``.
+    While this thread captures a CUDA graph the launch is recorded into the
+    graph, not run: it goes to the capture's record instead, which every
+    replay of the graph adds to the counts (``serve/step_graph.py``).
+    Launches of other threads are counted as ever."""
+    record = getattr(_CAPTURE, "record", None)
+    if record is None:
+        wrapper.launches += 1
+    else:
+        record[wrapper] = record.get(wrapper, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Yield {wrapper: launches} of this thread's launches while it is open
+    (a capture), which then leave ``wrapper.launches`` unchanged."""
+    record: Dict[Callable, int] = {}
+    _CAPTURE.record = record
+    try:
+        yield record
+    finally:
+        _CAPTURE.record = None
+
+
+# ----------------------------------------------------------------------
+# the device kernels each wrapper launches
+# ----------------------------------------------------------------------
+# The body kernels of the port's kernels K1-K5, by fragments of their
+# mangled names; each wrapper names its kernel in ``wrapper.kernel``. The
+# split decode body may add its merge kernel, which is not a body. K1's
+# two wrappers share their kernels: a one-token chunk runs the decode body.
+BODIES: Tuple[Tuple[Tuple[str, ...], str], ...] = (
+    (("split_decode_mma_kernel", "PagedCache"), "K1"),
+    (("split_decode_fma_kernel", "PagedCache"), "K1"),
+    (("paged_prefill_mma_kernel",), "K1"),
+    (("paged_tiled_kernel",), "K1"),
+    (("split_decode_mma_kernel", "DenseCache"), "K3"),
+    (("split_decode_fma_kernel", "DenseCache"), "K3"),
+    (("flash_attention_mma_kernel",), "K2"),
+    (("flash_attention_kernel",), "K2"),
+    (("moe_gmm_mma_kernel",), "K4"),
+    (("moe_gmm_kernel",), "K4"),
+    (("rglru_scan_kernel",), "K5"),
+)
+
+
+def kernel_of_body(name: str) -> Optional[str]:
+    """The kernel (K1-K5) whose body the mangled device-kernel ``name`` is,
+    or None (an identifier matches with its length prefix, so
+    ``moe_gmm_kernel`` does not match ``moe_gmm_mma_kernel``)."""
+    for frags, kernel in BODIES:
+        if all(f"{len(f)}{f}" in name for f in frags):
+            return kernel
+    return None

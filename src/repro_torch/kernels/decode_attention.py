@@ -121,8 +121,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      B, S, H, KV, hd, n_split, scale,
                      build.dtype_code(q), int(kv_int8), stream)
     build.check_launch("decode_attention", rc)
-    decode_attention.launches += 1
+    build.count_launch(decode_attention)
     return out
 
 
 decode_attention.launches = 0
+decode_attention.kernel = "K3"  # its bodies: build.BODIES

@@ -65,8 +65,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      B, Sq, Skv, H, KV, hd, int(causal), int(window),
                      int(chunk), scale, build.dtype_code(q), stream)
     build.check_launch("flash_attention", rc)
-    flash_attention.launches += 1
+    build.count_launch(flash_attention)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.kernel = "K2"  # its bodies: build.BODIES

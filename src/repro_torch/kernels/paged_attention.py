@@ -99,7 +99,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
         raise ValueError(f"decode takes q of shape (B, 1, H, hd), got {tuple(q.shape)}")
     out = _launch(q, k_pool, v_pool, block_tables, kv_len, None,
                   softmax_scale)
-    paged_decode_attention.launches += 1
+    build.count_launch(paged_decode_attention)
     return out
 
 
@@ -113,9 +113,11 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, kv_len,
                                    q_offset, softmax_scale=softmax_scale)
     out = _launch(q, k_pool, v_pool, block_tables, kv_len, q_offset,
                   softmax_scale)
-    paged_prefill_attention.launches += 1
+    build.count_launch(paged_prefill_attention)
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.kernel = "K1"  # its bodies: build.BODIES
 paged_prefill_attention.launches = 0
+paged_prefill_attention.kernel = "K1"  # its bodies: build.BODIES

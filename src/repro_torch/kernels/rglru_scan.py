@@ -88,8 +88,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                      h0.data_ptr() if h0 is not None else None,
                      out.data_ptr(), B, S, D, code, plan.ch, plan.vec, stream)
     build.check_launch("rglru_scan", rc)
-    rglru_scan.launches += 1
+    build.count_launch(rglru_scan)
     return out
 
 
 rglru_scan.launches = 0
+rglru_scan.kernel = "K5"  # its bodies: build.BODIES

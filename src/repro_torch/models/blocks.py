@@ -201,8 +201,9 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
     ``prefill`` through K2 with no mask (prefill also returns ``c_k``,
     ``c_v`` (B, F, KV, hd)), and in ``decode`` to the cached ``c_k``,
     ``c_v`` through K3 with every row's ``kv_len = F``; no rope touches the
-    cross K/V. ``pos``: chunk start (int) in ``chunk`` mode,
-    per-sequence positions (B,) in ``decode``. ``cache_len``: the decode
+    cross K/V. ``pos``: chunk start (a 0-d int tensor, as
+    ``forward`` passes it) in ``chunk`` mode, per-sequence positions (B,)
+    in ``decode``. ``cache_len``: the decode
     cache's capacity at prefill (default: the prompt length).
     ``block_tables`` present: a global-attention cache is a paged pool
     (num_pages, page, KV, hd) rather than per-slot (B, L, KV, hd).
@@ -228,8 +229,8 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
             raise ValueError("chunk mode needs cache and pos")
         if block_tables is None or window or chunk:
             raise ValueError("chunked prefill requires paged global attention")
-        start = int(pos)
-        tokpos = start + torch.arange(S, device=x.device)        # (S,)
+        # pos: the chunk start, a 0-d int tensor on the card (no host read)
+        tokpos = pos.long() + torch.arange(S, device=x.device)   # (S,)
         k_pool, v_pool = cache["k"], cache["v"]
         page = k_pool.shape[1]
         phys = block_tables.long()[:, tokpos // page]              # (B, S)
@@ -237,8 +238,8 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
         # duplicate padding rows of a chunk group write identical values
         k_pool[phys, off] = k.to(k_pool.dtype)
         v_pool[phys, off] = v.to(v_pool.dtype)
-        kv_len = torch.full((B,), start + S, dtype=torch.int32, device=x.device)
-        q_off = torch.full((B,), start, dtype=torch.int32, device=x.device)
+        q_off = pos.to(torch.int32).expand(B).contiguous()
+        kv_len = q_off + S
         attn = ops.paged_prefill_attention(q, k_pool, v_pool, block_tables,
                                            kv_len, q_off, impl=impl)
         new_cache = cache

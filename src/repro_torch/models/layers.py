@@ -81,7 +81,15 @@ def embed(params, tokens: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def unembed(params, x: torch.Tensor, tie: bool) -> torch.Tensor:
-    """Logits in float32, as the reference's ``preferred_element_type``:
-    the operands are upcast so no bf16 rounding of the logits happens."""
+    """Logits in float32, as the reference's ``preferred_element_type``: no
+    bf16 rounding of the logits happens. On the card with bf16 operands,
+    one product of the bf16 operands with float32 accumulation and output
+    (``out_dtype``): exact products and no float32 copy of the vocab table
+    (the tied table is read transposed, in place). Elsewhere the operands
+    are upcast (``aten::mm.dtype`` is CUDA-only), the same exact products."""
     w = params["tok"].t() if tie else params["head"]
+    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+        logits = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                          out_dtype=torch.float32)
+        return logits.reshape(x.shape[:-1] + (w.shape[-1],))
     return x.float() @ w.float()

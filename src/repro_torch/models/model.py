@@ -238,7 +238,8 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     (B,). ``train`` returns the logits of every position and no cache.
     ``prefill`` returns a new dense cache (:func:`cache_specs` with
     ``seq_len = cache_len``, default S). ``chunk``: one prefill chunk at
-    positions ``pos + [0, C)`` (``pos`` an int) against ``cache``;
+    positions ``pos + [0, C)`` (``pos`` an int or a 0-d int tensor on the
+    card, which reads nothing on the host) against ``cache``;
     ``decode``: one token per sequence. Both update ``cache`` in place and
     return it. ``block_tables`` (B, P): page ids when global-attention K/V
     are paged pools. ``mask`` (B,) bool, decode only: rows where it is False
@@ -262,9 +263,13 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     S = tokens.shape[1]
     if mode == "decode":
         positions = pos[:, None]
+    elif mode == "chunk":
+        # the chunk start stays on the card, as the reference's traced
+        # ``pos``: one captured chunk step serves every start
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
+        positions = (pos + torch.arange(S, device=tokens.device))[None, :]
     else:
-        start = int(pos) if mode == "chunk" else 0
-        positions = (start + torch.arange(S, device=tokens.device))[None, :]
+        positions = torch.arange(S, device=tokens.device)[None, :]
     rope_cs = rope_tables(positions, cfg.hd, cfg.rope_theta)
     new: Dict[str, list] = {}
     fresh = mode in ("train", "prefill")
@@ -316,11 +321,12 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
 
 
 def prefill_chunk(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
-                  pos: int, block_tables: Optional[torch.Tensor], *,
+                  pos, block_tables: Optional[torch.Tensor], *,
                   impl=None):
     """Advance an in-flight prompt by one chunk at positions
-    ``pos + [0, C)``. Returns (last-position logits, cache); the logits
-    only mean "next token" once the final chunk has run."""
+    ``pos + [0, C)`` (``pos`` an int, or a 0-d int tensor on the tokens'
+    device). Returns (last-position logits, cache); the logits only mean
+    "next token" once the final chunk has run."""
     logits, cache = forward(cfg, params, {"tokens": tokens}, mode="chunk",
                             cache=cache, pos=pos, impl=impl,
                             block_tables=block_tables)

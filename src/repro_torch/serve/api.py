@@ -23,6 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.runtime import HOST_ACC, RuntimeDef, SimProfile
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as M
+from repro_torch.serve import step_graph
 from repro_torch.serve.engine import Request, ServingEngine
 
 
@@ -34,11 +35,14 @@ def make_serve_runtime(cfg: ModelConfig, *,
                        kv_pool_tokens: Optional[int] = None,
                        greedy: bool = True,
                        seed: int = 0,
-                       device: DeviceLike = None) -> RuntimeDef:
+                       device: DeviceLike = None,
+                       graphs: bool = True) -> RuntimeDef:
     """RuntimeDef serving ``cfg`` on ``device`` (default: the card; raises
     without one unless ``device="cpu"``). Arguments as in
-    ``repro.serve.api.make_serve_runtime``. An encoder-decoder raises
-    here, as ``ServingEngine`` does, rather than at the cold start."""
+    ``repro.serve.api.make_serve_runtime``; ``graphs`` is the engine's
+    (captured decode and chunk steps on the card, or eager ones). An
+    encoder-decoder raises here, as ``ServingEngine`` does, rather than at
+    the cold start."""
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: the serving engine does not serve encoder-decoders")
@@ -55,12 +59,13 @@ def make_serve_runtime(cfg: ModelConfig, *,
                                max_len=max_len, page_size=page_size,
                                prefill_chunk=prefill_chunk,
                                kv_pool_tokens=kv_pool_tokens, greedy=greedy,
-                               sample_seed=seed, device=where)
+                               sample_seed=seed, device=where,
+                               graphs=graphs)
         if where.type == "cuda":
             # the weights are drawn in float32 and then cast: give those
             # drafts back to the driver, where other processes on the card
             # (cluster workers) can allocate them
-            torch.cuda.empty_cache()
+            step_graph.empty_cache()
         return engine
 
     def _prompts(data: Any) -> List[List[int]]:

@@ -21,6 +21,12 @@ Two cache layouts share the same scheduler surface, as in the reference:
 Where the JAX engine donates the cache through every jitted step so XLA
 updates it in place, the port's model writes the cache tensors in place
 (``index_put_``, ``copy_``) and the engine keeps the same ``self.cache``.
+Where it jit-compiles each step once per shape, the port captures each
+decode and chunk step once per shape signature as a CUDA graph and replays
+it (``serve/step_graph.py``; ``graphs=False`` runs the same step eagerly,
+as the CPU does). The whole-prompt prefill stays eager: prompt lengths
+vary per request, and a graph per length would hold an activation pool per
+length.
 
 With the process tracer on (``repro_torch.obs``), prefill, chunk and decode
 steps emit spans under the invocation whose batch runs them, at the
@@ -53,6 +59,7 @@ from repro_torch.models import model as M
 from repro_torch.models.param import iter_leaves, map_tree
 from repro_torch.obs import TRACER, torch_profile
 from repro_torch.serve.paging import BlockAllocator, pages_for
+from repro_torch.serve.step_graph import StepGraphs
 
 DEFAULT_PAGE_SIZE = 16
 
@@ -121,7 +128,8 @@ class ServingEngine:
                  kv_pool_tokens: Optional[int] = None,
                  prefill_chunk: int = 0,
                  sample_seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 graphs: bool = True):
         """``device`` defaults to the card and must hold ``params``.
         ``page_size=0`` selects the dense per-slot cache; otherwise
         global-attention K/V are paged. ``kv_pool_tokens`` sizes the shared
@@ -129,7 +137,9 @@ class ServingEngine:
         rely on preemption. ``prefill_chunk`` > 0 prefills prompts longer
         than the chunk in chunk-sized pieces interleaved with decode (paged
         layout, supported block patterns only). ``impl="ref"`` runs the
-        plain kernel versions instead of the kernels. An encoder-decoder
+        plain kernel versions instead of the kernels. ``graphs`` (the card
+        only) captures each decode and chunk step once per shape signature
+        and replays it; False runs every step eagerly. An encoder-decoder
         raises: the engine passes no frames, as the reference's, which fails
         at its first prefill instead."""
         if cfg.is_encdec:
@@ -150,6 +160,7 @@ class ServingEngine:
         self.paged = page_size > 0
         self.prefill_chunk = int(prefill_chunk)
         self.sample_seed = sample_seed
+        self.step_graphs = StepGraphs(self.device, capture=graphs)
 
         self.pos = np.zeros((max_slots,), np.int32)
         self.active: List[Optional[Request]] = [None] * max_slots
@@ -329,21 +340,11 @@ class ServingEngine:
             piece[r] = self._seq[slot][p:p + C]
             tab = self.allocator.table(slot)[:width]
             table[r, :len(tab)] = tab
-        # per-slot leaves gather the group's rows along the batch axis and
-        # scatter back after the chunk; duplicate padding rows re-write
-        # identical values. Pools are updated in place.
         t0 = TRACER.now() if TRACER.enabled else 0.0
-        idx = self._tensor(np.asarray(rows, np.int64))
-        view = map_tree(lambda path, leaf: leaf if path in self._pooled
-                        else leaf.index_select(M.slot_batch_axis(path), idx),
-                        self.cache)
-        logits, view = M.prefill_chunk(
-            self.cfg, self.params, view, self._tensor(piece), p,
-            self._tensor(table), impl=self.impl)
-        for (path, big), (_, small) in zip(iter_leaves(self.cache),
-                                           iter_leaves(view)):
-            if path not in self._pooled:
-                big.index_copy_(M.slot_batch_axis(path), idx, small)
+        logits = self.step_graphs.run(
+            ("chunk", kb, C, width),
+            (piece, np.int32(p), table, np.asarray(rows, np.int64)),
+            self._chunk_step)
         self.n_prefill_chunks += len(members)
         self._trace_span("prefill_chunk", t0, C * len(members))
         finished = [(r, s) for r, s in enumerate(members)
@@ -356,6 +357,22 @@ class ServingEngine:
             del self._seq[slot], self._progress[slot]
             self.n_prefills += 1
             self._finish_prefill(slot, req, seq, logits[r:r + 1])
+
+    def _chunk_step(self, piece, start, table, idx):
+        """One chunk of the rows ``idx`` at ``start`` (all on the card): the
+        chunk step's program. Per-slot leaves gather the group's rows along
+        the batch axis and scatter back after the chunk; duplicate padding
+        rows re-write identical values. Pools are updated in place."""
+        view = map_tree(lambda path, leaf: leaf if path in self._pooled
+                        else leaf.index_select(M.slot_batch_axis(path), idx),
+                        self.cache)
+        logits, view = M.prefill_chunk(self.cfg, self.params, view, piece,
+                                       start, table, impl=self.impl)
+        for (path, big), (_, small) in zip(iter_leaves(self.cache),
+                                           iter_leaves(view)):
+            if path not in self._pooled:
+                big.index_copy_(M.slot_batch_axis(path), idx, small)
+        return logits
 
     # ------------------------------------------------------------------
     def _pick_victim(self, exclude: int) -> Optional[int]:
@@ -410,19 +427,27 @@ class ServingEngine:
         self._advance_chunks()
         return self._decode_once()
 
-    def _decode_call(self, tokens, pos, n_rows: int, **kw):
-        """One model decode step over every row (``n_rows`` of them live);
-        returns the logits and the greedy tokens on the host."""
+    def _decode_call(self, key: tuple, arrays, n_rows: int):
+        """One model decode step over every row (``n_rows`` of them live):
+        the program of signature ``key`` on the host ``arrays``; returns the
+        logits and the greedy tokens on the host (the step's one
+        synchronisation). The logits are valid until the engine's next
+        decode or chunk step (``StepGraphs.run``)."""
         t_span = TRACER.now() if TRACER.enabled else 0.0
         t0 = time.perf_counter()
-        logits, self.cache = M.decode_step(
-            self.cfg, self.params, self.cache, self._tensor(tokens)[:, None],
-            self._tensor(pos), impl=self.impl, **kw)
+        logits, greedy = self.step_graphs.run(key, arrays, self._decode_step)
         self.n_decode_steps += 1
-        greedy_tok = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        greedy_tok = greedy.cpu().numpy()
         self.decode_s += time.perf_counter() - t0
         self._trace_span("decode", t_span, n_rows)
         return logits, greedy_tok
+
+    def _decode_step(self, tokens, pos, block_tables=None, mask=None):
+        """The decode step's program: (logits, greedy tokens) on the card."""
+        logits, _ = M.decode_step(
+            self.cfg, self.params, self.cache, tokens[:, None], pos,
+            impl=self.impl, block_tables=block_tables, mask=mask)
+        return logits, torch.argmax(logits[:, 0], dim=-1)
 
     def _emit(self, slot: int, logits, greedy_tok) -> bool:
         """Record the token a decode step gave ``slot``; True when its
@@ -442,7 +467,8 @@ class ServingEngine:
         if all(r is None for r in self.active):
             return []
         logits, greedy_tok = self._decode_call(
-            self.last_token, self.pos, sum(r is not None for r in self.active))
+            ("dense",), (self.last_token, self.pos),
+            sum(r is not None for r in self.active))
         finished = []
         for i, req in enumerate(self.active):
             if req is not None and self._emit(i, logits, greedy_tok):
@@ -486,9 +512,10 @@ class ServingEngine:
             tab = self.allocator.table(i)
             tables[i, :len(tab)] = tab
         logits, greedy_tok = self._decode_call(
-            np.where(mask, self.last_token, 0).astype(np.int32),
-            np.where(mask, self.pos, 0).astype(np.int32), len(decoding),
-            block_tables=self._tensor(tables), mask=self._tensor(mask))
+            ("decode", width),
+            (np.where(mask, self.last_token, 0).astype(np.int32),
+             np.where(mask, self.pos, 0).astype(np.int32), tables, mask),
+            len(decoding))
 
         finished = []
         for i in decoding:
