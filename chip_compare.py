@@ -111,39 +111,6 @@ def served(torch, dev, chunk_kernel: str) -> dict:
     return out
 
 
-# kernel classes by name fragment, the first match wins; the rest is
-# other elementwise work (rms_norm's arithmetic, rope, SwiGLU, residuals)
-KERNEL_CLASSES = (
-    ("K1 decode", ("split_decode", "paged_", "flash_attention", "decode_attention")),
-    ("GEMMs", ("gemm", "nvjet", "cutlass", "xmma", "splitKreduce", "gemv", "cublas")),
-    ("casts and copies", ("copy_kernel", "Memcpy", "Memset", "CatArrayBatchedCopy")),
-    ("indexing", ("index", "scatter", "gather")),
-    ("reductions", ("reduce_kernel", "argmax", "softmax")),
-)
-OTHER = "other elementwise"
-
-
-def device_by_class(torch, run, n: int) -> dict:
-    """Profile ``run()`` (``n`` units): device ms per unit by kernel class
-    (``KERNEL_CLASSES``), with ``busy``, the sum."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    out = {name: 0.0 for name, _ in KERNEL_CLASSES}
-    out[OTHER] = 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CPU:
-            continue
-        cls = next((name for name, frags in KERNEL_CLASSES
-                    if any(f in e.key for f in frags)), OTHER)
-        out[cls] += e.self_device_time_total / 1e3 / n
-    out["busy"] = sum(out.values())
-    return out
-
-
 def decode_split(torch, dev) -> dict:
     """qwen2.5-14b's eager decode step (B=8, ~256 context) by kernel class,
     and its unembedding alone."""
@@ -165,16 +132,16 @@ def decode_split(torch, dev) -> dict:
                               max_new_tokens=3 * steps + 4, req_id=i))
     engine.step()                   # admits and prefills all 8, one decode
     engine.step()
-    step = device_by_class(torch, lambda: [engine.step() for _ in range(steps)], steps)
+    step = cs.device_by_class(torch, lambda: [engine.step() for _ in range(steps)], steps)
     engine.generate([])
     emb = params["embed"]
     x = torch.randn(8, 1, qw.d_model, device=dev).to(torch.bfloat16)
     L.unembed(emb, x, qw.tie_embeddings)
     torch.cuda.synchronize()
-    unembed = device_by_class(torch, lambda: L.unembed(emb, x, qw.tie_embeddings), 1)
+    unembed = cs.device_by_class(torch, lambda: L.unembed(emb, x, qw.tie_embeddings), 1)
     cs.log(f"  qwen2.5-14b eager decode step (B=8, ~256 context), device ms per step by "
            f"kernel class: busy {step['busy']:.3f}")
-    for name in [n for n, _ in KERNEL_CLASSES] + [OTHER]:
+    for name in [n for n, _ in cs.KERNEL_CLASSES] + [cs.OTHER]:
         cs.log(f"    {name:18s} {step[name]:8.3f} ms (of it the unembedding "
                f"{unembed[name]:.3f} ms)")
     cs.log(f"    the unembedding alone: {unembed['busy']:.3f} ms")

@@ -30,7 +30,11 @@ Phases (each raises on failure, so the script exits non-zero):
    (qwen, B=8 S=2048); at whisper-tiny's widths (H = KV = 6, G = 1, hd
    64; phase 8 (b)'s shapes) K2 over the encoder's 1500 frames and for the
    cross prefill (32 rows against 1500 frames), both without a mask, and
-   K3 for the cross decode (B=8, L = kv_len = 1500); K4 the grouped matmul at the MoE path's shapes (llama4 prefill gate/up
+   K3 for the cross decode (B=8, L = kv_len = 1500); at llava-next-34b's
+   widths (H=56 KV=8, G = 7, hd 128; phase 9 (b)'s shapes) K2 over 2880
+   patches + 128 tokens (S = 3008, causal), K3 on the dense layout (B=2,
+   L = 3024, kv_len 3009 and 3024) and K1 decode (B=8, kv_len 1..1024);
+   K4 the grouped matmul at the MoE path's shapes (llama4 prefill gate/up
    and down, 1024 tokens top-1 over 16 experts; llama4 decode, 8 tokens;
    grok-1 gate/up and down, 1024 tokens top-2 over 8 experts, group sizes
    from a real routing) and edge cases (T=1, one expert, groups off the
@@ -192,6 +196,37 @@ Phases (each raises on failure, so the script exits non-zero):
    / 1577 ms, the paper's testbed); its launches (K2 and K1 decode, counted
    from the two workflows alone) are the ``..., via Workflow`` entries.
 
+9. The catalogue's last one-card families, printed under ``phase 9``
+   after phase 8: (a) xlstm-350m as registered (24 layers = 3 x (1 sLSTM
+   + 7 mLSTM), d 1024, 4 heads, mLSTM inner 2048 at head dim 512, sLSTM
+   head dim 256 and post-MLP 1360, vocab 50304 untied; bf16, 8 slots,
+   max_len 2048), served through ``make_serve_runtime`` paged
+   whole-prompt, paged with 256-token chunks and dense, each eager then
+   captured (2 prompts of 1000 and 1024 tokens, 32 new tokens): captured
+   tokens equal eager ones, paged tokens equal dense ones, and no kernel
+   of K1-K5 launches anywhere in (a) (the xLSTM blocks have none); its
+   parameters and state, a B=8 decode step's bytes by my reckoning beside
+   ``roofline.analytic.memory_model``'s; cold start, TTFT, decode ms/step,
+   tokens/s, graphs, capture ms and pool MiB eager and captured; a B=8
+   decode step profiled (host, busy, event span, kernel classes) and the
+   1024-token prefill (host against busy); then a float32 copy at full
+   width cut to the pattern's first 8 layers against its CPU forward of
+   the same weights (prefill of 600 tokens and 8 greedy decode steps,
+   within 1e-4 x max|logit|) and its 256-token chunked prefill against its
+   whole prefill (last logits and every state leaf, rtol = atol = 1e-4);
+   (b) llava-next-34b at every registered width, cut from 60 to 40 layers
+   (45.6 GB of bf16 weights): after every earlier phase's models and
+   graphs are freed (the free memory printed), B=2 prompts of 128 tokens
+   behind 2880 random patch embeddings through ``prefill`` (K2 at S =
+   3008, G = 7) and 16 greedy ``decode_step``s on the dense cache at
+   positions 2880 + t (K3), each launch count exactly one a layer a call;
+   the logits move when the patches move; one served run through the
+   paged engine, text-only, captured (K2 and K1 decode, one a layer a
+   call); the bf16 logits against ``impl="ref"`` with the patches (phase
+   4's rule); prefill ms and MFU, decode ms/step against its memory
+   bound, the peak. Its launches are the llava rows of the ``kernels``
+   line, the engine's K2 under ``..., via ServingEngine``.
+
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -230,6 +265,11 @@ QW_KV_LEN = [1, 37, 128, 255, 512, 700, 999, 1024]
 # whisper-tiny (G = 1, hd 64): the encoder over 1500 frames, 32-token
 # prompts cross-attending to them, and decode over the cached frames
 WH_H, WH_HD, WH_F, WH_B, WH_PROMPT = 6, 64, 1500, 8, 32
+# llava-next-34b (G = 7, hd 128): B=2 prompts of 128 tokens behind 2880
+# patch embeddings, 16 decode steps on the dense cache
+LV_H, LV_KV, LV_HD, LV_PATCHES, LV_PROMPT, LV_STEPS, LV_B = 56, 8, 128, 2880, 128, 16, 2
+LV_CACHE = LV_PATCHES + LV_PROMPT + LV_STEPS
+LV_KV_LEN = [LV_PATCHES + LV_PROMPT + 1, LV_CACHE]
 
 
 def log(msg: str) -> None:
@@ -1220,6 +1260,110 @@ def phase_kernels_whisper(torch, dev):
     return entries
 
 
+def phase_kernels_llava(torch, dev):
+    """Phase 2 at llava-next-34b's widths (H=56 KV=8, G = 7, hd 128;
+    phase 9 (b)'s shapes): K2 over a prefill of 2880 patches and 128
+    tokens (S = 3008, causal), K3 on the dense layout after it (B=2,
+    L = 3024, kv_len 3009 and 3024) and K1 decode (B=8, kv_len 1..1024),
+    the first paths that run a group of 7."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(31)
+    up = lambda *ts: [t.float() for t in ts]  # noqa: E731
+    nh, nkv, hd, S = LV_H, LV_KV, LV_HD, LV_PATCHES + LV_PROMPT
+    errs = {k: [] for k in ("flash_llava", "dense_llava", "decode_llava")}
+    log(f"phase 2: llava-next-34b's widths (H={nh} KV={nkv}, G={nh // nkv}, hd={hd}; "
+        f"a prefill of {LV_PATCHES} patches + {LV_PROMPT} tokens)")
+    for dtype in ("bfloat16", "float32"):
+        t = lambda shape: torch.from_numpy(  # noqa: E731
+            rng.standard_normal(shape).astype(np.float32)).to(dev, getattr(torch, dtype))
+        q, k, v = t((1, S, nh, hd)), t((1, S, nkv, hd)), t((1, S, nkv, hd))
+        check(f"K2 flash llava S={S} H={nh} KV={nkv} hd={hd} causal", dtype,
+              fa.flash_attention(q, k, v), ref.flash_attention(*up(q, k, v)).to(q.dtype),
+              errs["flash_llava"])
+        del q, k, v
+        q, k, v, kl = decode_inputs(torch, rng, dev, dtype, nh, nkv, hd, S=LV_CACHE,
+                                    kv_len=LV_KV_LEN)
+        check(f"K3 decode llava dense B=2 L={LV_CACHE} H={nh} KV={nkv} kv_len={LV_KV_LEN}",
+              dtype, da.decode_attention(q, k, v, kl),
+              ref.decode_attention(*up(q, k, v), kl).to(q.dtype), errs["dense_llava"])
+        q, kp, vp, bt, kl = paged_inputs(torch, rng, dev, dtype, QW_KV_LEN, 1, (nh, nkv, hd))
+        check(f"K1 decode llava H={nh} KV={nkv} hd={hd} kv_len={QW_KV_LEN}", dtype,
+              pa.paged_decode_attention(q, kp, vp, bt, kl),
+              ref.paged_decode_attention(*up(q, kp, vp), bt, kl).to(q.dtype),
+              errs["decode_llava"])
+        del q, k, v, kp, vp
+    torch.cuda.synchronize()
+
+    log("phase 2: times at llava-next-34b's shapes, bf16 (kernel: profiler device time; "
+        "plain and library: CUDA events per call)")
+    entries = {}
+    dtype, isz = "bfloat16", 2
+    t = lambda shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = t((1, S, nh, hd)), t((1, S, nkv, hd)), t((1, S, nkv, hd))
+    b, by = bound_ms(isz * (2 * q.numel() + k.numel() + v.numel()),
+                     4 * hd * S * (S + 1) // 2 * nh, dtype)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    entries["flash_llava"] = dict(
+        name="flash_attention (hd 128 G=7, llava-next-34b)", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:27",
+        shape=f"B=1 S={S} H={nh} KV={nkv} hd={hd} causal bf16",
+        **kernel_times(torch, lambda: fa.flash_attention(q, k, v),
+                       "flash_attention_mma_kernel", iters=10),
+        plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v), 2, warmup=1),
+        bound_ms=b, bound_by=by,
+        library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True), 10),
+        library="SDPA")
+    del q, k, v, qt, kt, vt
+    q, k, v, kl = decode_inputs(torch, rng, dev, dtype, nh, nkv, hd, S=LV_CACHE,
+                                kv_len=LV_KV_LEN)
+    n_kv = sum(LV_KV_LEN)
+    b, by = bound_ms(isz * (2 * q.numel() + 2 * n_kv * nkv * hd) + 4 * kl.numel(),
+                     4 * hd * nh * n_kv, dtype)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lmask = (torch.arange(k.shape[1], device=dev)[None] < kl[:, None])[:, None, None]
+    entries["dense_llava"] = dict(
+        name="decode_attention (llava-next-34b dense, hd 128 G=7)", route="cuda",
+        source="src/repro_torch/csrc/decode_common.cuh",
+        replaces="src/repro/kernels/decode_attention.py:31",
+        shape=f"B=2 L={LV_CACHE} H={nh} KV={nkv} hd={hd} kv_len {LV_KV_LEN} "
+              f"{n_split(torch, q, nkv, k.shape[1])} bf16",
+        **kernel_times(torch, lambda: da.decode_attention(q, k, v, kl), SPLIT_DECODE),
+        plain_ms=event_ms(torch, lambda: ref.decode_attention(q, k, v, kl), 10),
+        bound_ms=b, bound_by=by,
+        library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=lmask,
+                                                 enable_gqa=True), 20),
+        library="SDPA, length mask")
+    q, kp, vp, bt, kl = paged_inputs(torch, rng, dev, dtype, QW_KV_LEN, 1, (nh, nkv, hd))
+    n_kv = sum(QW_KV_LEN)
+    b, by = bound_ms(isz * (2 * q.numel() + 2 * n_kv * nkv * hd) + 4 * (bt.numel() + 8),
+                     4 * hd * nh * n_kv, dtype)
+    entries["decode_llava"] = dict(
+        name="paged_decode_attention (hd 128 G=7, llava-next-34b)", route="cuda",
+        source="src/repro_torch/csrc/decode_common.cuh",
+        replaces="src/repro/kernels/decode_attention.py:135",
+        shape=f"B=8 kv_len={QW_KV_LEN} H={nh} KV={nkv} hd={hd} page={PAGE} "
+              f"{n_split(torch, q, nkv, bt.shape[1] * PAGE)} bf16",
+        **kernel_times(torch, lambda: pa.paged_decode_attention(q, kp, vp, bt, kl),
+                       SPLIT_DECODE),
+        plain_ms=event_ms(torch, lambda: ref.paged_decode_attention(q, kp, vp, bt, kl), 10),
+        bound_ms=b, bound_by=by,
+        library_ms=event_ms(torch, paged_sdpa(torch, q, kp, vp, bt, kl), 20),
+        library="SDPA, length mask, keys gathered to a contiguous copy before timing")
+    del q, k, v, kp, vp, qt, kt, vt, lmask
+    for key, e in entries.items():
+        e["max_abs_err"] = max(errs[key])
+        log_row(e)
+    return entries
+
+
 # ----------------------------------------------------------------------
 # phase 3: the served paths at full width
 # ----------------------------------------------------------------------
@@ -1254,8 +1398,9 @@ def zero_launches() -> None:
 
 def serve_run(torch, cfg, dev, *, page_size, prefill_chunk, max_len, prompt_lens,
               need, absent=(), graphs=True):
-    """Cold start, then 4 events of 2 prompts (one event alone, then a
-    micro-batch of 3) through the runtime front door, the engine's decode
+    """Cold start, then events of 2 prompts each (``prompt_lens`` in
+    pairs: the first event alone, then the rest as one micro-batch; 4
+    events for 8 lengths) through the runtime front door, the engine's decode
     and chunk steps captured (``graphs``) or eager. Launch counts are
     zeroed just before the events and read just after: every kernel of
     ``need`` must have launched and none of ``absent``. Returns the
@@ -1274,14 +1419,15 @@ def serve_run(torch, cfg, dev, *, page_size, prefill_chunk, max_len, prompt_lens
     cold_s = time.perf_counter() - t0
     rng = np.random.default_rng(1)
     prompts = [rng.integers(3, cfg.vocab, size=n).tolist() for n in prompt_lens]
-    events = [{"prompts": prompts[2 * i:2 * i + 2]} for i in range(4)]
+    events = [{"prompts": prompts[i:i + 2]} for i in range(0, len(prompts), 2)]
     config = {"handle": engine, "max_new_tokens": MAX_NEW}
 
     zero_launches()
     t0 = time.perf_counter()
     results = run_batch(rdef, events[:1], config)          # one event alone
     first = dict(elat_s=time.perf_counter() - t0, prompt_lens=prompt_lens[:2])
-    results += run_batch(rdef, events[1:], config)         # a micro-batch of 3
+    if events[1:]:
+        results += run_batch(rdef, events[1:], config)     # a micro-batch of 3
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launches()
@@ -1357,8 +1503,8 @@ def serve_pair(torch, cfg, dev, *, context=None, prefill_len=None, chunked_len=N
     engine's chunked prefill of one prompt that long. The two runs serve
     the same steps, so the captured run (replays counted) must launch
     every kernel as often as the eager one. Returns the captured engine,
-    the captured run's launch counts (the main path's), its first event
-    and the readings of phase 7 (c)."""
+    the captured run's launch counts (the main path's), its first event,
+    the readings of phase 7 (c) and every request's tokens."""
     engine, counts_e, _, outs_e = serve_run(torch, cfg, dev, graphs=False, **kw)
     reading = {}
     if context:
@@ -1388,7 +1534,7 @@ def serve_pair(torch, cfg, dev, *, context=None, prefill_len=None, chunked_len=N
         profile_chunked_prefill(torch, engine, cfg, chunked_len)
     if context or chunked_len:
         log(f"  after the profiles: {graphs_summary(torch, engine)}")
-    return engine, counts, first, reading
+    return engine, counts, first, reading, outs
 
 
 def partition_error(spans, root) -> float:
@@ -2281,6 +2427,39 @@ def profile_breakdown(torch, label: str, run, n: int, shares=None):
     return wall, busy, share_ms
 
 
+# kernel classes by name fragment, the first match wins; the rest is
+# other elementwise work (rms_norm's arithmetic, rope, SwiGLU, residuals)
+KERNEL_CLASSES = (
+    ("K1 decode", ("split_decode", "paged_", "flash_attention", "decode_attention")),
+    ("GEMMs", ("gemm", "nvjet", "cutlass", "xmma", "splitKreduce", "gemv", "cublas")),
+    ("casts and copies", ("copy_kernel", "Memcpy", "Memset", "CatArrayBatchedCopy")),
+    ("indexing", ("index", "scatter", "gather")),
+    ("reductions", ("reduce_kernel", "argmax", "softmax")),
+)
+OTHER = "other elementwise"
+
+
+def device_by_class(torch, run, n: int) -> dict:
+    """Profile ``run()`` (``n`` units): device ms per unit by kernel class
+    (``KERNEL_CLASSES``), with ``busy``, the sum."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name, _ in KERNEL_CLASSES}
+    out[OTHER] = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        cls = next((name for name, frags in KERNEL_CLASSES
+                    if any(f in e.key for f in frags)), OTHER)
+        out[cls] += e.self_device_time_total / 1e3 / n
+    out["busy"] = sum(out.values())
+    return out
+
+
 PREFILL_SHARES = {"K2": "flash_attention_mma_kernel", "K5": "rglru_scan_kernel",
                   "K4": "moe_gmm_mma_kernel"}
 
@@ -2429,12 +2608,14 @@ def shared_routes():
         raise AssertionError(f"{len(queue)} kernel-path routings had no plain-path twin")
 
 
-def logits_parity(torch, cfg, params, dev, S, paged, frames=None):
+def logits_parity(torch, cfg, params, dev, S, paged, frames=None, patches=None):
     """Prefill + 8 decode steps through the kernels and through
     impl="ref", teacher-forced on the kernel path's greedy tokens; the
     decode cache is paged (granite, llama4's global layers) or dense
     per-slot (recurrentgemma, whisper: its prefill also encodes
-    ``frames`` (1, F, d) and caches the cross K/V). A MoE model's plain path follows the kernel
+    ``frames`` (1, F, d) and caches the cross K/V; llava: ``patches``
+    (1, P, d) go before the S prompt tokens, which then sit at positions
+    P + [0, S)). A MoE model's plain path follows the kernel
     path's routing (``shared_routes``); the number of (token, layer)
     decisions where its own would differ is logged, and reported beside a
     failure."""
@@ -2448,7 +2629,12 @@ def logits_parity(torch, cfg, params, dev, S, paged, frames=None):
     rng = np.random.default_rng(2)
     steps = 8
     tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(1, S))).to(dev)
-    batch = {"tokens": tokens} if frames is None else {"tokens": tokens, "frames": frames}
+    batch = {"tokens": tokens}
+    if frames is not None:
+        batch["frames"] = frames
+    if patches is not None:
+        batch["patches"] = patches
+        S += patches.shape[1]       # the decode positions follow the prefix
     n_pages = -(-(S + steps) // PAGE)
     table = torch.arange(1, n_pages + 1, dtype=torch.int32, device=dev)[None] \
         if paged else None
@@ -2565,7 +2751,7 @@ def catalogue_run(torch, dev):
         need = ["flash"] + (["decode"] if page_size else ["dense"]) + \
             (["chunk"] if chunk else [])
         profiled = page_size and not chunk
-        engine, counts, first, reading = serve_pair(
+        engine, counts, first, reading, _ = serve_pair(
             torch, qw, dev, page_size=page_size, prefill_chunk=chunk, max_len=2048,
             prompt_lens=GRANITE_PROMPTS, need=need,
             absent=["scan", "gmm"] + (["dense"] if page_size else ["decode", "chunk"]),
@@ -2601,7 +2787,7 @@ def catalogue_run(torch, dev):
         f"{ds.n_heads}/{ds.n_kv_heads} hd={ds.hd} d_ff={ds.d_ff} vocab {ds.padded_vocab} "
         f"{ds.dtype}, random weights (seed 0)")
     torch.cuda.reset_peak_memory_stats()
-    engine, counts, first, reading = serve_pair(
+    engine, counts, first, reading, _ = serve_pair(
         torch, ds, dev, page_size=PAGE, prefill_chunk=0, max_len=2048,
         prompt_lens=GRANITE_PROMPTS, need=["flash", "decode"],
         absent=["chunk", "dense", "scan", "gmm"], context=256, prefill_len=1024)
@@ -2915,6 +3101,285 @@ def workflow_run(torch):
 
 
 # ----------------------------------------------------------------------
+# phase 9: the catalogue's last one-card families (xLSTM, the VLM prefix)
+# ----------------------------------------------------------------------
+XL_PROMPTS = [1000, 1024]          # (a): 2 prompts near 1024 tokens
+XL_CHECK_LEN = 600                 # float32 checks: two mLSTM chunks (512 + 88)
+XL_TOL = 1e-4
+LV_LAYERS = 40                     # (b): llava cut from 60 layers to fit
+
+
+def xlstm_decode_reckoning(cfg, batch: int):
+    """(parameters, state bytes, bytes a decode step moves): the bf16
+    weights read once, the float32 state (mLSTM C, n, m; sLSTM c, n, h,
+    m) read and written once."""
+    from repro_torch.models import model as M
+    from repro_torch.models.param import iter_leaves
+    n_params = sum(int(np.prod(s.shape)) for _, s in iter_leaves(M.param_specs(cfg)))
+    state = sum(4 * int(np.prod(s.shape))
+                for _, s in iter_leaves(M.cache_specs(cfg, batch, 1)))
+    return n_params, state, 2 * n_params + 2 * state
+
+
+def decode_by_class(torch, engine, cfg, context: int, steps: int = 3) -> None:
+    """A full B=8 decode step (8 slots at ``context`` tokens) by kernel
+    class (``device_by_class``, as ``chip_compare.py --decode-split``)."""
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(7)
+    for i in range(engine.max_slots):
+        engine.submit(Request(prompt=rng.integers(3, cfg.vocab, size=context).tolist(),
+                              max_new_tokens=2 * steps + 4, req_id=300 + i))
+    engine.step()                   # admits and prefills all 8, one decode
+    engine.step()
+    split = device_by_class(torch, lambda: [engine.step() for _ in range(steps)], steps)
+    engine.generate([])             # drain
+    mode = "captured" if engine.step_graphs.capture else "eager"
+    log(f"  {cfg.name} decode step (B={engine.max_slots}, ~{context} context), {mode}, "
+        f"device ms per step by kernel class: busy {split['busy']:.3f}; " + ", ".join(
+            f"{name} {split[name]:.3f}" for name in [n for n, _ in KERNEL_CLASSES] + [OTHER]))
+
+
+def xlstm_float32_checks(torch, cfg, dev) -> None:
+    """A float32 copy at full width cut to the pattern's first 8 layers
+    (1 sLSTM + 7 mLSTM): its prefill of ``XL_CHECK_LEN`` tokens and 8
+    greedy decode steps on the card against its CPU forward of the same
+    weights (within ``XL_TOL`` x max|logit|); then the prompt in 256-token
+    chunks on the card against the whole prefill (last logits and every
+    state leaf, rtol = atol = ``XL_TOL``)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.param import iter_leaves, map_tree
+    c8 = dataclasses.replace(cfg, n_layers=len(cfg.pattern), dtype="float32")
+    params = M.init_model_params(c8, 3, dev)
+    host = map_tree(lambda _, t: t.cpu(), params)
+    rng = np.random.default_rng(8)
+    toks = torch.from_numpy(rng.integers(3, c8.vocab, size=(1, XL_CHECK_LEN)))
+    cache_len = XL_CHECK_LEN + 8
+    got, cache = M.prefill(c8, params, {"tokens": toks.to(dev)}, cache_len=cache_len)
+    want, hcache = M.prefill(c8, host, {"tokens": toks}, cache_len=cache_len)
+    errs, scales = [], []
+    for i in range(9):
+        scale = want.abs().max().item()
+        errs.append((got.cpu() - want).abs().max().item())
+        scales.append(scale)
+        if errs[-1] > XL_TOL * scale:
+            raise AssertionError(f"phase 9 (a): float32 {c8.n_layers}-layer logits at step {i} "
+                                 f"differ from the CPU forward by {errs[-1]} > {XL_TOL} x {scale}")
+        if i == 8:
+            break
+        tok = torch.argmax(got[:, -1], dim=-1)[:, None]
+        pos = torch.tensor([XL_CHECK_LEN + i], dtype=torch.int32)
+        got, cache = M.decode_step(c8, params, cache, tok, pos.to(dev))
+        want, hcache = M.decode_step(c8, host, hcache, tok.cpu(), pos)
+    log(f"  {c8.name} {c8.n_layers} layers float32 ({[k.value for k in c8.pattern]}), full "
+        f"width: prefill of {XL_CHECK_LEN} tokens and 8 greedy decode steps on the card "
+        f"against the CPU forward: max|logit diff| {max(errs):.3e} (tol {XL_TOL:g} x "
+        f"max|logit| {min(scales):.3f}..{max(scales):.3f})")
+    full_logits, full = M.prefill(c8, params, {"tokens": toks.to(dev)}, cache_len=cache_len)
+    chunked = M.init_cache(c8, 1, cache_len, device=dev)
+    table = torch.zeros((1, 64), dtype=torch.int32, device=dev)   # no pool: unused
+    for start in range(0, XL_CHECK_LEN, 256):
+        logits, chunked = M.prefill_chunk(c8, params, chunked,
+                                          toks[:, start:start + 256].to(dev), start, table)
+    worst = {}
+    for (path, a), (_, b) in zip([("logits", logits[0, -1])] + list(iter_leaves(chunked)),
+                                 [("logits", full_logits[0, -1])] + list(iter_leaves(full))):
+        worst[path] = ((a - b).abs() - XL_TOL * b.abs()).max().item()
+    bad = {p: w for p, w in worst.items() if w > XL_TOL}
+    if bad:
+        raise AssertionError(f"phase 9 (a): chunked prefill differs from the whole one: {bad}")
+    log(f"  chunked prefill ({XL_CHECK_LEN} tokens in chunks of 256) against the whole "
+        f"prefill: last logits and {len(worst) - 1} state leaves within rtol = atol = "
+        f"{XL_TOL:g} (worst |a - b| - rtol |b|: {max(worst.values()):.3e})")
+    del params, host, cache, hcache, full, chunked
+    torch.cuda.empty_cache()
+
+
+def xlstm_run(torch, dev) -> None:
+    """Phase 9 (a): xlstm-350m as registered (bf16, 8 slots, max_len
+    2048), served through ``make_serve_runtime`` -> ``ServingEngine`` paged
+    whole-prompt, paged with 256-token chunks and dense, each eager then
+    captured (``serve_pair``: 2 prompts of ``XL_PROMPTS`` tokens, 32 new
+    tokens); captured tokens equal eager ones, paged tokens equal dense
+    ones, and no kernel of K1-K5 launches anywhere in the phase (the
+    xLSTM blocks have none). Then the float32 checks
+    (``xlstm_float32_checks``)."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.models import blocks as B
+    from repro_torch.roofline.analysis import HBM_BW
+    from repro_torch.roofline.analytic import memory_model
+    cfg = get_config("xlstm-350m")
+    di, nh, mhd = B._mlstm_dims(cfg)
+    _, shd, ffi = B._slstm_dims(cfg)
+    log(f"phase 9 (a): {cfg.name} as registered: {cfg.n_layers} layers pattern "
+        f"{[k.value for k in cfg.pattern]} x {cfg.n_layers // len(cfg.pattern)}, d={cfg.d_model}, "
+        f"{nh} heads, mLSTM inner {di} at head dim {mhd}, sLSTM head dim {shd} and post-MLP "
+        f"{ffi}, vocab {cfg.padded_vocab} untied, {cfg.dtype}, random weights (seed 0)")
+    n_params, state, n_bytes = xlstm_decode_reckoning(cfg, 8)
+    context = sum(XL_PROMPTS) // len(XL_PROMPTS) + MAX_NEW // 2
+    mm = memory_model(cfg, InputShape("serve_decode", context, 8, "decode"), data=1, model=1)
+    log(f"  {n_params / 1e6:.1f} M parameters ({2 * n_params / 1e9:.3f} GB bf16); state "
+        f"{state / 8 / 2**20:.1f} MiB a slot, {state / 2**20:.1f} MiB at 8 slots; a B=8 "
+        f"decode step reads the weights once and reads and writes the state once: "
+        f"{n_bytes / 1e9:.3f} GB, bound {n_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; "
+        f"roofline.analytic.memory_model: {mm / 1e9:.3f} GB, bound {mm / HBM_BW * 1e3:.3f} ms "
+        "(it counts the mLSTM state read and written, the activations and the logits, "
+        "not the sLSTM state)")
+    # each served run zeroes the counts and checks its own window
+    # (``absent``); the counts in between (profiles, checks) add up here
+    zero_launches()
+    seen = collections.Counter()
+    outs = {}
+    for page_size, chunk in ((PAGE, 0), (PAGE, 256), (0, 0)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        seen.update(launches())
+        profiled = page_size and not chunk
+        t0 = time.perf_counter()
+        engine, _, _, _, outs[(page_size, chunk)] = serve_pair(
+            torch, cfg, dev, page_size=page_size, prefill_chunk=chunk, max_len=2048,
+            prompt_lens=XL_PROMPTS, need=[], absent=list(_counters()),
+            context=64 if profiled else None, prefill_len=1024)
+        if profiled:
+            decode_by_class(torch, engine, cfg, 64)
+        log(f"  {cfg.name} page_size={page_size} prefill_chunk={chunk}: "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB peak allocated; served "
+            f"eager and captured{' and profiled' if profiled else ''} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        engine = None
+    if outs[(PAGE, 0)] != outs[(0, 0)]:
+        raise AssertionError(f"phase 9 (a): paged tokens {outs[(PAGE, 0)]} differ from dense "
+                             f"tokens {outs[(0, 0)]}")
+    log(f"  paged tokens equal dense tokens ({len(outs[(0, 0)])} requests)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    xlstm_float32_checks(torch, cfg, dev)
+    log(f"  the float32 checks took {time.perf_counter() - t0:.1f} s")
+    seen.update(launches())
+    counts = {k: seen[k] for k in _counters()}
+    if any(counts.values()):
+        raise AssertionError(f"phase 9 (a): kernel launches {counts} on the xLSTM paths")
+    log(f"  launches of K1-K5 over the whole of phase 9 (a): {counts} (all zero, as held)")
+
+
+def llava_run(torch, dev):
+    """Phase 9 (b): llava-next-34b at every registered width, cut from 60
+    to ``LV_LAYERS`` layers (bf16). B=2 prompts of ``LV_PROMPT`` tokens
+    behind ``LV_PATCHES`` random patch embeddings through ``prefill``
+    (K2 at S = 3008, G = 7) and ``LV_STEPS`` greedy ``decode_step``s on
+    the dense cache at positions n_patches + t (K3), each launch count
+    exactly one a layer a call; the logits move with the patches; a
+    served run through the paged engine, text-only, captured (K2 and K1
+    decode, again one a layer a call); then bf16 logits against
+    ``impl="ref"`` with the patches (phase 4's rule). Returns the launch
+    counts by kernel entry."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.param import iter_leaves
+    from repro_torch.roofline.analysis import PEAK_FLOPS, model_flops
+    from repro_torch.serve.engine import Request, ServingEngine
+    from repro_torch.serve.step_graph import empty_cache
+    reg = get_config("llava-next-34b")
+    cfg = dataclasses.replace(reg, n_layers=LV_LAYERS)
+    empty_cache()
+    free, total_mem = torch.cuda.mem_get_info()
+    log(f"phase 9 (b): {cfg.name} cut from {reg.n_layers} to {cfg.n_layers} layers, every "
+        f"width as registered: d={cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} "
+        f"d_ff={cfg.d_ff} vocab {cfg.padded_vocab} tied, rope theta {cfg.rope_theta:g}, "
+        f"{cfg.n_patches} patches, {cfg.dtype}, random weights (seed 0); card memory free "
+        f"before the cold start {free / 1e9:.1f} of {total_mem / 1e9:.1f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_model_params(cfg, 0, dev)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in iter_leaves(params))
+    log(f"  cold start {cold_s:.2f} s: {n_params / 1e9:.2f} B parameters "
+        f"({2 * n_params / 1e9:.1f} GB), {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
+        "peak allocated (each stacked leaf drafted in float32)")
+    P, L, S = cfg.n_patches, cfg.n_layers, LV_PROMPT
+    rng = np.random.default_rng(31)
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(LV_B, S))).to(dev)
+    patches = torch.from_numpy(rng.standard_normal((LV_B, P, cfg.d_model)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    batch = {"tokens": tokens, "patches": patches}
+    zero_launches()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(cfg, params, batch, cache_len=LV_CACHE)
+    tok = logits[:, -1].argmax(-1)
+    torch.cuda.synchronize()
+    ttft_ms = (time.perf_counter() - t0) * 1e3
+    after_prefill = launches()
+    t0 = time.perf_counter()
+    for i in range(LV_STEPS):
+        pos = torch.full((LV_B,), P + S + i, dtype=torch.int32, device=dev)
+        logits, cache = M.decode_step(cfg, params, cache, tok[:, None], pos)
+        tok = logits[:, -1].argmax(-1)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / LV_STEPS * 1e3
+    counts = launches()
+    want = {k: 0 for k in counts}
+    want.update(flash=L, dense=L * LV_STEPS)
+    if after_prefill != dict(want, dense=0) or counts != want:
+        raise AssertionError(f"phase 9 (b): launches after the prefill {after_prefill}, after "
+                             f"{LV_STEPS} decode steps {counts}: need {want}")
+    if not torch.isfinite(logits).all() or tuple(logits.shape) != (LV_B, 1, cfg.padded_vocab):
+        raise AssertionError(f"phase 9 (b): decode logits {tuple(logits.shape)} finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    del cache
+    prefill_ms = event_ms(torch, lambda: M.prefill(cfg, params, batch, cache_len=LV_CACHE),
+                          2, warmup=1)
+    flops = model_flops(cfg, InputShape("serve_prefill", P + S, LV_B, "prefill"))
+    ideal = flops / PEAK_FLOPS * 1e3
+    bound = decode_bound_ms(cfg, LV_B, P + S + LV_STEPS // 2)
+    log(f"  prefill B={LV_B} x ({P} patches + {S} tokens): first {ttft_ms:.1f} ms (host "
+        f"clock, to the first token), warm {prefill_ms:.2f} ms (CUDA events); "
+        f"{flops / 1e12:.2f} TFLOP, compute bound {ideal:.2f} ms, MFU {ideal / prefill_ms:.4f}; "
+        f"decode {step_ms:.2f} ms/step over {LV_STEPS} steps (host clock, dense cache of "
+        f"{LV_CACHE}), memory bound {bound:.2f} ms, fraction {bound / step_ms:.4f}; launches "
+        f"{counts} (one K2 a layer a prefill, one K3 a layer a decode step)")
+    moved, _ = M.prefill(cfg, params, {"tokens": tokens, "patches": patches + 1},
+                         cache_len=LV_CACHE)
+    base, _ = M.prefill(cfg, params, batch, cache_len=LV_CACHE)
+    shift = (moved - base).abs().max().item()
+    if not shift > 1e-3:
+        raise AssertionError(f"phase 9 (b): patches + 1 moved the logits by {shift}")
+    log(f"  patches + 1 move the last logits by {shift:.4f} (max |diff|)")
+    del moved, base, logits
+    torch.cuda.empty_cache()
+
+    zero_launches()
+    engine = ServingEngine(cfg, params, max_slots=LV_B, max_len=256, page_size=PAGE,
+                           device=dev)
+    reqs = [Request(prompt=rng.integers(3, cfg.vocab, size=S).tolist(),
+                    max_new_tokens=LV_STEPS, req_id=i) for i in range(LV_B)]
+    t0 = time.perf_counter()
+    done = engine.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    served = launches()
+    want = {k: 0 for k in served}
+    want.update(flash=L * engine.n_prefills, decode=L * engine.n_decode_steps)
+    if len(done) != LV_B or not all(1 <= len(r.output) <= LV_STEPS for r in done) or \
+            served != want:
+        raise AssertionError(f"phase 9 (b): the served run gave {[r.output for r in done]}, "
+                             f"launches {served}: need {want}")
+    log(f"  served text-only through the paged engine, captured: {LV_B} prompts of {S} "
+        f"tokens, {sum(len(r.output) for r in done)} tokens in {wall:.3f} s; TTFT "
+        f"{[round(t * 1e3, 1) for t in engine.ttft_s]} ms, decode "
+        f"{engine.decode_s / engine.n_decode_steps * 1e3:.2f} ms/step; launches {served}")
+    log(f"  {graphs_summary(torch, engine)}")
+    engine = None
+    torch.cuda.empty_cache()
+    logits_parity(torch, cfg, params, dev, S=S, paged=False, patches=patches[:1])
+    log(f"  {cfg.name}: {torch.cuda.max_memory_allocated() / 1e9:.1f} GB peak allocated "
+        "over phase 9 (b)")
+    del params, patches
+    torch.cuda.empty_cache()
+    return {"flash_llava": counts["flash"], "dense_llava": counts["dense"],
+            "flash_llava_engine": served["flash"], "decode_llava": served["decode"]}
+
+
+# ----------------------------------------------------------------------
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2948,6 +3413,7 @@ def main() -> int:
     entries.update(phase_kernels_moe(torch, dev))
     entries.update(phase_kernels_catalogue(torch, dev))
     entries.update(phase_kernels_whisper(torch, dev))
+    entries.update(phase_kernels_llava(torch, dev))
     torch.cuda.empty_cache()
     readings, firsts = [], {}
 
@@ -2965,7 +3431,7 @@ def main() -> int:
         need = ["flash"] + (["decode"] if page_size else ["dense"]) + \
             (["chunk"] if chunk else [])
         profiled = page_size and not chunk
-        engine, counts, first, reading = serve_pair(
+        engine, counts, first, reading, _ = serve_pair(
             torch, cfg, dev, page_size=page_size, prefill_chunk=chunk, max_len=2048,
             prompt_lens=GRANITE_PROMPTS, need=need,
             absent=["scan"] + (["dense"] if page_size else ["decode", "chunk"]),
@@ -3029,7 +3495,7 @@ def main() -> int:
         f"{[k.value for k in rg.pattern]} d={rg.d_model} heads {rg.n_heads}/"
         f"{rg.n_kv_heads} hd={rg.hd} window {rg.window} d_ff={rg.d_ff} vocab "
         f"{rg.padded_vocab} {rg.dtype}, random weights (seed 0)")
-    engine, counts, first, reading = serve_pair(
+    engine, counts, first, reading, _ = serve_pair(
         torch, rg, dev, page_size=PAGE, prefill_chunk=0, max_len=4096,
         prompt_lens=RG_PROMPTS, need=["flash", "dense", "scan"],
         absent=["decode", "chunk"], context=2100, prefill_len=3000)
@@ -3067,7 +3533,7 @@ def main() -> int:
         f"{l4.top_k} d_ff={l4.d_ff} vocab {l4.padded_vocab} {l4.dtype}, random "
         "weights (seed 0)")
     torch.cuda.reset_peak_memory_stats()
-    engine, counts, first, reading = serve_pair(
+    engine, counts, first, reading, _ = serve_pair(
         torch, l4, dev, page_size=PAGE, prefill_chunk=0, max_len=9216,
         prompt_lens=L4_PROMPTS, need=["flash", "decode", "dense", "gmm"],
         absent=["chunk", "scan"], context=1024, prefill_len=2048)
@@ -3124,13 +3590,22 @@ def main() -> int:
         total[f"{row}_workflow"] = wf_counts[key]
     log(f"phase 8: done in {time.perf_counter() - t8:.1f} s")
 
+    # phase 9: xLSTM served through the engine, llava's patch prefix
+    t9 = time.perf_counter()
+    xlstm_run(torch, dev)
+    total.update(llava_run(torch, dev))
+    entries["flash_llava_engine"] = dict(
+        entries["flash_llava"], name=entries["flash_llava"]["name"] + ", via ServingEngine")
+    log(f"phase 9: done in {time.perf_counter() - t9:.1f} s")
+
     kernels = []
     for key in ("decode", "chunk", "chunk_768", "flash", "flash_rg", "dense_rg", "dense_granite",
                 "scan", "flash_l4", "decode_l4", "dense_l4", *GMM_KEYS, "flash_gateway",
                 "decode_gateway", "flash_cp", "decode_cp", "flash_sim", "decode_sim",
                 "flash_cluster", "decode_cluster", "flash_qwen", "decode_qwen", "chunk_qwen",
                 "chunk_qwen_768", "dense_qwen", "flash_ds", "decode_ds", "flash_enc",
-                "flash_cross", "dense_cross", "flash_enc_workflow", "decode_workflow"):
+                "flash_cross", "dense_cross", "flash_enc_workflow", "decode_workflow",
+                "flash_llava", "dense_llava", "flash_llava_engine", "decode_llava"):
         e = dict(entries[key])
         e["launches"] = total[key]
         kernels.append({k: e[k] for k in (

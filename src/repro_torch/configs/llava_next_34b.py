@@ -1,9 +1,11 @@
 """LLaVA-NeXT 34B. [hf:llava-hf/llava-v1.6-mistral-7b-hf, 34B numbers]
 
 Dense LM backbone (Yi-34B class) behind a vision prefix of ``n_patches``
-patch embeddings. The same numbers as ``repro.configs.llava_next_34b``;
-the port's engine does not serve the vision prefix yet (``--sim`` and the
-roofline read the config).
+patch embeddings (a stub: the vision tower is not modelled; callers pass
+``batch["patches"]``). The same numbers as
+``repro.configs.llava_next_34b``; the port's model takes the prefix in
+``prefill``, and its engine serves the backbone text-only, as the
+reference's does.
 """
 from repro_torch.configs.base import Family, ModelConfig, register
 

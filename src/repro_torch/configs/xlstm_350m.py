@@ -2,8 +2,8 @@
 
 xLSTM[7:1]: one sLSTM block per 8, rest mLSTM; 24 = 3 x 8 periods.
 d_ff = 0: projections live inside the blocks. The same numbers as
-``repro.configs.xlstm_350m``; the port's engine does not serve the xLSTM
-blocks yet (``--sim`` and the roofline read the config).
+``repro.configs.xlstm_350m``; the port serves it through its engine (the
+mLSTM and sLSTM blocks of ``repro_torch.models.blocks``).
 """
 from repro_torch.configs.base import BlockKind, Family, ModelConfig, register
 

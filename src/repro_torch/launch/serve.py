@@ -6,6 +6,8 @@
         --arch recurrentgemma-2b --events 4 [--page-size 0]
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch llama4-scout-17b-a16e --reduced --device cpu --events 2
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch xlstm-350m --events 4 [--prefill-chunk 256]
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
         --device cpu --max-batch 2 --trace-out /tmp/t.json
     PYTHONPATH=src python -m repro_torch.obs.validate /tmp/t.json

@@ -1,6 +1,9 @@
-"""Attention and RG-LRU blocks (a port of ``repro.models.blocks``:
+"""Attention, RG-LRU and xLSTM blocks (a port of ``repro.models.blocks``:
 ``attn_specs``, ``attn_cache_specs``, ``_qkv``, ``_ffn``, ``attn_block``,
-``rglru_specs``, ``rglru_cache_specs``, ``_rglru_gates``, ``rglru_block``).
+``rglru_specs``, ``rglru_cache_specs``, ``_rglru_gates``, ``rglru_block``,
+``_mlstm_dims``, ``mlstm_specs``, ``mlstm_cache_specs``,
+``_mlstm_chunk_scan``, ``mlstm_block``, ``_slstm_dims``, ``slstm_specs``,
+``slstm_cache_specs``, ``_slstm_step``, ``slstm_block``).
 
 ``attn_block`` runs ``ATTN``, ``LOCAL_ATTN`` (sliding window) and
 ``CHUNKED_ATTN`` in four modes, as the reference:
@@ -28,6 +31,15 @@ cached ``F`` frames in ``decode``.
 ``rglru_block`` runs the RG-LRU recurrence through K5 (``rglru_scan``) in
 ``train``, ``prefill`` and ``chunk`` modes; ``decode`` advances the state by one step
 in plain PyTorch, as the reference does.
+
+``mlstm_block`` and ``slstm_block`` (xLSTM) have no kernel: the reference
+writes them in plain ``jnp``, and the port in plain PyTorch, op for op.
+The mLSTM runs the chunked-parallel scan with the max stabiliser in
+``train``, ``prefill`` and ``chunk`` (chunks of up to 512 tokens, one
+Python iteration each, where the reference scans) and the one-step
+recurrence in ``decode``; the sLSTM steps its recurrence over the tokens
+one at a time in every mode. Their state (mLSTM ``C``, ``n``, ``m``; sLSTM
+``c``, ``n``, ``h``, ``m``) is float32 and per slot.
 
 A MoE layer (``cfg.n_experts``; every layer, as ``moe_every`` is 0 or 1)
 replaces the MLP with ``moe_ffn``: token-choice top-k routing in float32
@@ -484,3 +496,261 @@ def rglru_block(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
     gated = hseq.to(x.dtype) * F.gelu(gb.float(), approximate="tanh").to(x.dtype)
     x = x + gated @ params["w_out"]
     return _ffn(cfg, params, x, impl), new_cache
+
+
+# ======================================================================
+# mLSTM block (xLSTM): chunked-parallel scan for train / prefill / chunk,
+# the one-step recurrence for decode
+# ======================================================================
+def _mlstm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(inner width, heads, head dim): projection factor 2, as the xLSTM
+    paper's."""
+    di = 2 * cfg.d_model
+    nh = cfg.n_heads
+    return di, nh, di // nh
+
+
+def mlstm_specs(cfg: ModelConfig) -> Dict[str, Spec]:
+    d = cfg.d_model
+    di, nh, _ = _mlstm_dims(cfg)
+    return {
+        "ln": Spec((d,), init="zeros"),
+        "w_up": Spec((d, 2 * di)),
+        "wq": Spec((di, di)),
+        "wk": Spec((di, di)),
+        "wv": Spec((di, di)),
+        "w_if": Spec((di, 2 * nh), scale=0.02),
+        "b_i": Spec((nh,), init="zeros"),
+        "b_f": Spec((nh,), init="ones"),
+        "w_down": Spec((di, d)),
+    }
+
+
+def mlstm_cache_specs(cfg: ModelConfig, B: int) -> Dict[str, Spec]:
+    """The matrix memory ``C`` (B, nh, hd, hd), normaliser ``n`` (B, nh,
+    hd) and stabiliser ``m`` (B, nh), all float32."""
+    _, nh, hd = _mlstm_dims(cfg)
+    return {
+        "C": Spec((B, nh, hd, hd), init="zeros", dtype="float32"),
+        "n": Spec((B, nh, hd), init="zeros", dtype="float32"),
+        "m": Spec((B, nh), init="zeros", dtype="float32"),
+    }
+
+
+def _mlstm_chunk_step(state, qc, kc, vc, ic, fc):
+    """One chunk of the scan: state (C0 (B, nh, hd, hd), n0 (B, nh, hd),
+    m0 (B, nh)); qc, kc, vc (B, Cn, nh, hd); ic, fc (B, Cn, nh). Returns
+    (h (B, Cn, nh, hd), the state at the chunk's end)."""
+    C0, n0, m0 = state
+    Cn = qc.shape[1]
+    b = torch.cumsum(fc, dim=1)                       # inclusive log f sums
+    u = torch.cummax(ic - b, dim=1).values            # running max of (i - b)
+    m_t = b + torch.maximum(m0[:, None], u)           # (B, Cn, nh)
+    s = torch.einsum("bqnd,bknd->bnqk", qc, kc)       # (B, nh, Cn, Cn)
+    logw = (ic - b).transpose(1, 2)[:, :, None, :] \
+        + (b - m_t).transpose(1, 2)[:, :, :, None]
+    causal = torch.ones((Cn, Cn), dtype=torch.bool, device=qc.device).tril()
+    w = torch.where(causal, torch.exp(logw), 0.0)
+    sw = s * w
+    inter_scale = torch.exp(b + m0[:, None] - m_t)    # (B, Cn, nh)
+    h_num = torch.einsum("bnqk,bknd->bqnd", sw, vc) \
+        + inter_scale[..., None] * torch.einsum("bqnd,bnde->bqne", qc, C0)
+    d_t = sw.sum(dim=-1).transpose(1, 2) \
+        + inter_scale * torch.einsum("bqnd,bnd->bqn", qc, n0)
+    denom = torch.maximum(torch.abs(d_t), torch.exp(-m_t))
+    h = h_num / denom[..., None]
+    b_tot = b[:, -1]                                  # (B, nh)
+    m_out = b_tot + torch.maximum(m0, u[:, -1])
+    kw = torch.exp(ic - b + b_tot[:, None] - m_out[:, None])   # (B, Cn, nh)
+    decay = torch.exp(m0 + b_tot - m_out)
+    C1 = decay[..., None, None] * C0 \
+        + torch.einsum("bknd,bkne->bnde", kc * kw[..., None], vc)
+    n1 = decay[..., None] * n0 + torch.einsum("bknd,bkn->bnd", kc, kw)
+    return h, (C1, n1, m_out)
+
+
+def _mlstm_chunk_scan(q, k, v, ig, fg, state, chunk: int):
+    """Chunked-parallel mLSTM with the max stabiliser (the reference's
+    ``_mlstm_chunk_scan``). q, k, v: (B, S, nh, hd) float32 (q and k
+    pre-scaled); ig, fg: (B, S, nh) float32 (fg log-sigmoided); state:
+    (C0, n0, m0). Chunks of ``min(chunk, S)``; a ragged end pads ``ig``
+    with -1e30 and the rest with 0, so the padded steps add nothing.
+    Returns h (B, S, nh, hd) float32 and the final state."""
+    B, S, nh, hd = q.shape
+    Cn = min(chunk, S)
+    pad = (-S) % Cn
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        ig = F.pad(ig, (0, 0, 0, pad), value=-1e30)
+        fg = F.pad(fg, (0, 0, 0, pad))
+    hs = []
+    for c in range(0, S + pad, Cn):
+        h, state = _mlstm_chunk_step(state, q[:, c:c + Cn], k[:, c:c + Cn],
+                                     v[:, c:c + Cn], ig[:, c:c + Cn],
+                                     fg[:, c:c + Cn])
+        hs.append(h)
+    h = hs[0] if len(hs) == 1 else torch.cat(hs, dim=1)
+    return h[:, :S], state
+
+
+def mlstm_block(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
+                cache: Optional[Cache] = None, chunk: int = 512,
+                mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """Returns (x, cache). ``train`` runs the chunked scan from a zero
+    state with no cache (None); ``prefill`` returns a new cache ``{"C",
+    "n", "m"}``; ``chunk`` continues the scan from ``cache`` and
+    ``decode`` advances it one step, both writing ``cache`` in place
+    (``decode`` only on rows where ``mask``). The gate products and the
+    state run in float32, as the reference's."""
+    B, S, _ = x.shape
+    di, nh, hd = _mlstm_dims(cfg)
+    h = rms_norm(x, params["ln"])
+    up = h @ params["w_up"]
+    x_in, z = up[..., :di], up[..., di:]
+    q = (x_in @ params["wq"]).reshape(B, S, nh, hd)
+    k = (x_in @ params["wk"]).reshape(B, S, nh, hd)
+    v = (x_in @ params["wv"]).reshape(B, S, nh, hd)
+    gates = x_in.float() @ params["w_if"].float()
+    ig = gates[..., :nh] + params["b_i"].float()
+    fg = F.logsigmoid(gates[..., nh:] + params["b_f"].float())
+    qf = q.float() * hd ** -0.5
+    kf = k.float() * hd ** -0.5
+    vf = v.float()
+
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("decode mode needs cache")
+        C0, n0, m0 = cache["C"], cache["n"], cache["m"]
+        i1, f1 = ig[:, 0], fg[:, 0]                         # (B, nh)
+        m1 = torch.maximum(f1 + m0, i1)
+        fw = torch.exp(f1 + m0 - m1)[..., None]
+        iw = torch.exp(i1 - m1)[..., None]
+        k1, v1, q1 = kf[:, 0], vf[:, 0], qf[:, 0]
+        C1 = fw[..., None] * C0 + iw[..., None] * k1[..., :, None] * v1[..., None, :]
+        n1 = fw * n0 + iw * k1
+        num = torch.einsum("bnd,bnde->bne", q1, C1)
+        den = torch.maximum(torch.abs(torch.einsum("bnd,bnd->bn", q1, n1)),
+                            torch.exp(-m1))
+        hseq = (num / den[..., None])[:, None]              # (B, 1, nh, hd)
+        for name, new in (("C", C1), ("n", n1), ("m", m1)):
+            cache[name].copy_(_keep_masked(new, cache[name], mask))
+        new_cache = cache
+    elif mode == "chunk":
+        if cache is None:
+            raise ValueError("chunk mode needs cache")
+        hseq, state = _mlstm_chunk_scan(qf, kf, vf, ig, fg,
+                                        (cache["C"], cache["n"], cache["m"]),
+                                        chunk)
+        for name, new in zip(("C", "n", "m"), state):
+            cache[name].copy_(new)
+        new_cache = cache
+    elif mode in ("train", "prefill"):
+        state0 = (x.new_zeros((B, nh, hd, hd), dtype=torch.float32),
+                  x.new_zeros((B, nh, hd), dtype=torch.float32),
+                  x.new_zeros((B, nh), dtype=torch.float32))
+        hseq, state = _mlstm_chunk_scan(qf, kf, vf, ig, fg, state0, chunk)
+        new_cache = None if mode == "train" else dict(zip(("C", "n", "m"), state))
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+
+    out = hseq.reshape(B, -1, di).to(x.dtype) * F.silu(z.float()).to(x.dtype)
+    return x + out @ params["w_down"], new_cache
+
+
+# ======================================================================
+# sLSTM block (xLSTM): a sequential scan (its recurrent weights rule out
+# a parallel form), exponential gating with a stabiliser state
+# ======================================================================
+def _slstm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(heads, head dim, post-block MLP width at ratio 4/3)."""
+    nh = cfg.n_heads
+    hd = cfg.d_model // nh
+    ffi = (int(cfg.d_model * 4 / 3) // 8) * 8
+    return nh, hd, ffi
+
+
+def slstm_specs(cfg: ModelConfig) -> Dict[str, Spec]:
+    d = cfg.d_model
+    nh, hd, ffi = _slstm_dims(cfg)
+    s = {
+        "ln1": Spec((d,), init="zeros"),
+        "w_gates": Spec((d, 4 * d)),
+        "b_gates": Spec((4 * d,), init="zeros"),
+        "r_gates": Spec((nh, hd, 4 * hd), scale=0.02),
+        "w_out": Spec((d, d)),
+        "ln2": Spec((d,), init="zeros"),
+    }
+    s.update(mlp_specs(d, ffi))
+    return s
+
+
+SLSTM_STATE = ("c", "n", "h", "m")
+
+
+def slstm_cache_specs(cfg: ModelConfig, B: int) -> Dict[str, Spec]:
+    nh, hd, _ = _slstm_dims(cfg)
+    return {name: Spec((B, nh, hd), init="zeros", dtype="float32")
+            for name in SLSTM_STATE}
+
+
+def _slstm_step(r_gates: torch.Tensor, carry, pre_t: torch.Tensor):
+    """carry: (c, n, h, m) each (B, nh, hd) float32; pre_t: (B, nh, 4,
+    hd) float32; r_gates: (nh, hd, 4 hd) float32."""
+    c, n, h, m = carry
+    B, nh, hd = h.shape
+    rec = torch.einsum("bnh,nhk->bnk", h, r_gates)
+    g = pre_t + rec.reshape(B, nh, 4, hd)
+    zt, it, ft, ot = g[:, :, 0], g[:, :, 1], g[:, :, 2], g[:, :, 3]
+    m_new = torch.maximum(ft + m, it)
+    i = torch.exp(it - m_new)
+    f = torch.exp(ft + m - m_new)
+    c_new = f * c + i * torch.tanh(zt)
+    n_new = f * n + i
+    h_new = torch.sigmoid(ot) * c_new / torch.clamp(n_new, min=1e-6)
+    return c_new, n_new, h_new, m_new
+
+
+def slstm_block(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
+                cache: Optional[Cache] = None,
+                mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """Returns (x, cache). ``train``, ``prefill`` and ``chunk`` step the
+    recurrence over the tokens one at a time (from a zero state, or from
+    ``cache`` in ``chunk``); ``prefill`` returns a new cache ``{"c", "n",
+    "h", "m"}``, ``chunk`` and ``decode`` write ``cache`` in place
+    (``decode`` only on rows where ``mask``). Then ``w_out`` and the
+    post-norm MLP."""
+    B, S, d = x.shape
+    nh, hd, _ = _slstm_dims(cfg)
+    xi = rms_norm(x, params["ln1"])
+    pre = (xi @ params["w_gates"] + params["b_gates"]).float()
+    pre = pre.reshape(B, S, nh, 4, hd)
+    r_gates = params["r_gates"].float()
+
+    if mode in ("chunk", "decode"):
+        if cache is None:
+            raise ValueError(f"{mode} mode needs cache")
+        carry = tuple(cache[name] for name in SLSTM_STATE)
+    elif mode in ("train", "prefill"):
+        zeros = x.new_zeros((B, nh, hd), dtype=torch.float32)
+        carry = (zeros,) * 4
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    hs = []
+    for t in range(S):
+        carry = _slstm_step(r_gates, carry, pre[:, t])
+        hs.append(carry[2])
+    hseq = torch.stack(hs, dim=1)                       # (B, S, nh, hd)
+
+    if mode == "train":
+        new_cache = None
+    elif mode == "prefill":
+        new_cache = dict(zip(SLSTM_STATE, carry))
+    else:
+        for name, new in zip(SLSTM_STATE, carry):
+            cache[name].copy_(_keep_masked(new, cache[name], mask))
+        new_cache = cache
+
+    x = x + hseq.reshape(B, -1, d).to(x.dtype) @ params["w_out"]
+    return x + mlp(params, rms_norm(x, params["ln2"])), new_cache

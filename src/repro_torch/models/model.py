@@ -10,14 +10,18 @@ loops over the stacked axis in Python. Caches follow the same tree; layer
 ``(period, i)``'s cache is the view ``[period]`` of ``blocks/p{i}``, which
 the blocks update in place.
 
-Ported block kinds: global, sliding-window and chunked attention (with a
-dense or MoE feed-forward), and RG-LRU; and the encoder-decoder (whisper):
-an ``encoder`` subtree (``blocks`` stacked over ``n_encoder_layers``,
+Every block kind of the reference is ported: global, sliding-window and
+chunked attention (with a dense or MoE feed-forward), RG-LRU, and the
+xLSTM's mLSTM and sLSTM. So are the encoder-decoder (whisper): an
+``encoder`` subtree (``blocks`` stacked over ``n_encoder_layers``,
 ``final_ln``) runs bidirectional attention over the stub frame embeddings
 ``batch["frames"]`` (B, F, d) in ``train`` and ``prefill``, and every
 decoder block cross-attends to its output (cross K/V cached per slot as
-``c_k``, ``c_v``, read back in ``decode``). Vision-prefix and xLSTM models
-raise.
+``c_k``, ``c_v``, read back in ``decode``); and the VLM's patch prefix:
+``batch["patches"]`` (B, n_patches, d), stub patch embeddings, go before
+the token embeddings in ``train``, ``prefill`` and ``chunk``, take the
+first positions (the tokens' rope positions start after them), and are
+stripped again before the unembedding, so the logits are the tokens'.
 
 Public API (same names and arguments as the reference, plus ``device``):
   param_specs(cfg), init_model_params(cfg, seed, device)
@@ -32,14 +36,11 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import BlockKind, ModelConfig
+from repro_torch.configs.base import BlockKind, Family, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import embed, embed_specs, rms_norm, rope_tables, unembed
 from repro_torch.models.param import Spec, init_params, iter_leaves, map_tree
-
-PORTED_KINDS = B.ATTN_KINDS + (BlockKind.RGLRU,)
-
 
 # ----------------------------------------------------------------------
 # Spec assembly
@@ -50,13 +51,6 @@ def _stack(specs, n: int):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    bad = [k.value for k in cfg.pattern if k not in PORTED_KINDS]
-    if bad or cfg.n_patches:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported (block kinds {bad or 'ok'}, patches "
-            f"{cfg.n_patches}); the port runs attention (dense or MoE FFN) "
-            "and RG-LRU stacks, with or without an encoder, and no vision "
-            "prefix")
     assert cfg.moe_every in (0, 1), "stacked periods require uniform MoE placement"
 
 
@@ -73,6 +67,10 @@ def _rem_kind(cfg: ModelConfig, j: int) -> BlockKind:
 def _block_specs(cfg: ModelConfig, kind: BlockKind):
     if kind == BlockKind.RGLRU:
         return B.rglru_specs(cfg)
+    if kind == BlockKind.MLSTM:
+        return B.mlstm_specs(cfg)
+    if kind == BlockKind.SLSTM:
+        return B.slstm_specs(cfg)
     return B.attn_specs(cfg, cross=cfg.is_encdec)
 
 
@@ -80,6 +78,10 @@ def _block_cache_specs(cfg: ModelConfig, kind: BlockKind, batch: int,
                        seq_len: int):
     if kind == BlockKind.RGLRU:
         return B.rglru_cache_specs(cfg, batch)
+    if kind == BlockKind.MLSTM:
+        return B.mlstm_cache_specs(cfg, batch)
+    if kind == BlockKind.SLSTM:
+        return B.slstm_cache_specs(cfg, batch)
     return B.attn_cache_specs(cfg, kind, batch, seq_len, cross=cfg.is_encdec)
 
 
@@ -120,7 +122,7 @@ def init_model_params(cfg: ModelConfig, seed: int = 0,
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
     """Dense per-slot decode caches: global K/V of ``seq_len`` slots, ring
-    K/V of ``min(window or chunk, seq_len)``, RG-LRU state."""
+    K/V of ``min(window or chunk, seq_len)``, RG-LRU and xLSTM state."""
     return _tree(cfg, lambda kind: _block_cache_specs(cfg, kind, batch,
                                                       seq_len))
 
@@ -183,9 +185,9 @@ def slot_batch_axis(path: str) -> int:
 def chunked_prefill_supported(cfg: ModelConfig) -> bool:
     """Chunked prefill needs every block to carry O(1) state between
     chunks: global attention (paged pool + explicit-position attention)
-    and RG-LRU (state continuation). Ring caches and an encoder-decoder's
-    cross attention prefill whole."""
-    ok = {BlockKind.ATTN, BlockKind.RGLRU}
+    and the recurrent kinds, RG-LRU, mLSTM and sLSTM (state continuation).
+    Ring caches and an encoder-decoder's cross attention prefill whole."""
+    ok = {BlockKind.ATTN, BlockKind.RGLRU, BlockKind.MLSTM, BlockKind.SLSTM}
     return not cfg.is_encdec and all(k in ok for k in cfg.pattern)
 
 
@@ -234,10 +236,12 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     """Returns (logits, cache).
 
     ``batch``: tokens (B, S), and for an encoder-decoder in ``train`` and
-    ``prefill`` ``frames`` (B, F, d); decode mode: tokens (B, 1) + ``pos``
-    (B,). ``train`` returns the logits of every position and no cache.
+    ``prefill`` ``frames`` (B, F, d); for a VLM, optionally ``patches``
+    (B, P, d) before the tokens (not in ``decode``), at positions [0, P),
+    the tokens at [P, P + S); decode mode: tokens (B, 1) + ``pos`` (B,).
+    ``train`` returns the logits of every token position and no cache.
     ``prefill`` returns a new dense cache (:func:`cache_specs` with
-    ``seq_len = cache_len``, default S). ``chunk``: one prefill chunk at
+    ``seq_len = cache_len``, default P + S). ``chunk``: one prefill chunk at
     positions ``pos + [0, C)`` (``pos`` an int or a 0-d int tensor on the
     card, which reads nothing on the host) against ``cache``;
     ``decode``: one token per sequence. Both update ``cache`` in place and
@@ -252,6 +256,11 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
         raise ValueError(f"{mode} mode needs a cache")
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens, cfg.d_model)
+    n_patches = 0
+    if cfg.family == Family.VLM and mode != "decode" and "patches" in batch:
+        patches = batch["patches"].to(x.dtype)
+        x = torch.cat([patches, x], dim=1)
+        n_patches = patches.shape[1]
     cross_x = None
     if cfg.is_encdec and mode != "decode":
         if mode == "chunk":
@@ -260,7 +269,7 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
                 "(see chunked_prefill_supported)")
         # decode reads the cross K/V from the cache; no encoder rerun
         cross_x = _encode(cfg, params, batch["frames"].to(x.dtype), impl)
-    S = tokens.shape[1]
+    S = x.shape[1]          # the patch prefix takes the first positions
     if mode == "decode":
         positions = pos[:, None]
     elif mode == "chunk":
@@ -277,6 +286,10 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
         if kind == BlockKind.RGLRU:
             x, nc = B.rglru_block(cfg, p, x, mode=mode, cache=c, impl=impl,
                                   mask=mask)
+        elif kind == BlockKind.MLSTM:
+            x, nc = B.mlstm_block(cfg, p, x, mode=mode, cache=c, mask=mask)
+        elif kind == BlockKind.SLSTM:
+            x, nc = B.slstm_block(cfg, p, x, mode=mode, cache=c, mask=mask)
         else:
             x, nc = B.attn_block(cfg, kind, p, x, mode=mode, cache=c, pos=pos,
                                  cross_x=cross_x, cache_len=cache_len,
@@ -284,6 +297,8 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
                                  rope_cs=rope_cs, mask=mask)
         new.setdefault(key, []).append(nc)
     x = rms_norm(x, params["final_ln"])
+    if n_patches:
+        x = x[:, n_patches:]
     if mode in ("prefill", "chunk"):
         # serving only needs the next-token distribution
         x = x[:, -1:]

@@ -6,7 +6,8 @@ Two cache layouts share the same scheduler surface, as in the reference:
 * **paged** (default): global-attention K/V live in a fixed pool of
   ``page_size``-token pages (``serve/paging.py`` owns the free list and the
   per-request block tables); every other cache leaf (sliding-window ring
-  caches, RG-LRU state) is per slot. Requests admit the moment a slot AND
+  caches, RG-LRU and xLSTM state) is per slot, and a model without global
+  attention (xLSTM) pools nothing. Requests admit the moment a slot AND
   pages are free, a finished request's pages free immediately, and pool
   exhaustion mid-decode preempts the youngest request (free its pages,
   requeue, re-prefill prompt + output later: recompute preemption).

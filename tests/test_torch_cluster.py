@@ -28,9 +28,12 @@ waits for a death it caused itself (a survivor starved of the CPU for a
 shorter timeout would read as dead too); every ``result()`` and ``drain()`` waits 60 s
 at most; spawned workers run with ``OMP_NUM_THREADS=1``; a test that
 needs a batch formed from several events holds the master's takes while
-it submits them (``takes_held``), and a test that kills a worker waits
-until the worker holds a lease, not for a fixed sleep.
+it submits them and releases them once every worker is parked in a take
+that offers the registered runtimes (``takes_held``), and a test that
+kills a worker waits until the worker holds a lease, not for a fixed
+sleep.
 """
+import collections
 import contextlib
 import os
 import pickle
@@ -103,17 +106,46 @@ def until(pred, what: str, timeout_s: float = 20.0) -> None:
 
 
 @contextlib.contextmanager
-def takes_held(master):
+def takes_held(master, workers=("w0", "w1")):
     """Hold every worker's ``take`` at ``master`` while the block runs:
     events submitted inside it are queued together, so the first take
     after it forms its micro-batch from all of them (the batches are then
-    the same on every run)."""
+    the same on every run). On leaving the block the hold lasts until
+    each of ``workers`` is parked in a ``take`` that offers every
+    registered runtime, and ends under the master's lock: each of them
+    then takes its share at once. A worker that has not yet synced the
+    catalogue after a register (or is between two polls) would otherwise
+    take late, and on a loaded machine the others could serve every held
+    event first."""
+    parked = collections.Counter()
+    op_take = master.op_take
+
+    def counted_take(**kwargs):
+        synced = set(kwargs["supported"]) >= set(master.registry.ids())
+        with master._cond:
+            parked[kwargs["worker"]] += synced
+        try:
+            return op_take(**kwargs)
+        finally:
+            with master._cond:
+                parked[kwargs["worker"]] -= synced
+
+    master.op_take = counted_take
     master._take_for_worker_locked = lambda *args, **kwargs: None
     try:
         yield
+        deadline = time.monotonic() + WAIT
+        while True:
+            with master._cond:
+                if all(parked[w] > 0 for w in workers):
+                    break
+            assert time.monotonic() < deadline, \
+                f"workers {workers} not all parked in a take: {dict(parked)}"
+            time.sleep(0.01)
     finally:
         with master._cond:
             del master._take_for_worker_locked      # the class's method
+            del master.op_take
             master._cond.notify_all()
 
 
@@ -197,16 +229,25 @@ def test_sigkill_mid_batch_requeues_lease_and_all_settle():
             futs = gw.map(rid, [{"i": i} for i in range(6)])
         until(lambda: leased(h) == 2, "both workers mid-sleep")
         assert h.launcher.kill(0)       # SIGKILL, no cleanup
+        settled_at_kill = h.master.op_stats()["settled"]
         results = [f.result(extra_time_s=WAIT) for f in futs]
         assert len(results) == 6        # none stranded
         m = gw.metrics
         assert m.r_success() == 6
         retried = [i for i in m.completed if i.attempt > 0]
         assert retried, "the kill must have lost leased work"
-        surviving_pid = results[0]["pid"]
+        # the survivor's pid from its beats (no event's result is sure to
+        # carry it: a test thread starved of the CPU can kill w0 after it
+        # finished an event or two)
+        surviving_pid = h.backend.stats()["workers"]["w1"]["stats"]["pid"]
         for inv in retried:
             assert inv.node == "w1"     # fresh placement on the survivor
-        assert all(r["pid"] == surviving_pid for r in results[-4:])
+        # w0 ran only events that settled before its death, each on its
+        # first attempt; the survivor ran every other event
+        on_dead = [f.invocation for f, r in zip(futs, results)
+                   if r["pid"] != surviving_pid]
+        assert len(on_dead) <= settled_at_kill
+        assert all(i.node == "w0" and i.attempt == 0 for i in on_dead)
         st = h.backend.stats()
         assert st["workers_lost"] == 1 and st["requeued"] >= 1
     finally:
@@ -676,7 +717,7 @@ def serve_slice(gw, backend, master, rid, prewarm_workers=0):
         until(lambda: sum(w["stats"].get("n_prewarms", 0) for w in
                           backend.stats()["workers"].values())
               == prewarm_workers, "the prewarms", timeout_s=WAIT)
-    with takes_held(master):
+    with takes_held(master, workers=tuple(backend.stats()["workers"])):
         futs = gw.map(rid, EVENTS, config=RUN)
     outs = [f.result(extra_time_s=WAIT) for f in futs]
     warm = gw.invoke(rid, EVENTS[0], config=RUN)

@@ -151,26 +151,36 @@ def test_layers_match_jax(dtype):
                                    atol=tol, rtol=tol, err_msg=str(i))
 
 
-def test_unported_paths_raise():
+# (config fields, a param leaf only that family has; a patch prefix adds
+# no leaf)
+FAMILY_VARIANTS = {
+    "xlstm": (dict(pattern=("mlstm", "slstm")), "blocks/p1/r_gates"),
+    "vlm": (dict(n_patches=16), "blocks/p0/wq"),
+    "moe": (dict(n_experts=4, top_k=2, moe_every=1), "blocks/p0/we_g"),
+    "encdec": (dict(n_encoder_layers=2, n_frames=16), "encoder/final_ln"),
+}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_VARIANTS))
+def test_family_variants_get_the_reference_trees(family):
+    """granite given xLSTM blocks, a patch prefix, experts or an encoder:
+    every family is ported, so each gets the reference's param and paged
+    cache trees (no family raises)."""
+    from repro.configs import BlockKind as JBlockKind
     from repro_torch.configs import BlockKind
-    tcfg = tget_config("granite-3-2b").reduced()
-    for cfg in (dataclasses.replace(tcfg, pattern=(BlockKind.MLSTM,
-                                                   BlockKind.SLSTM)),  # xlstm
-                dataclasses.replace(tcfg, n_patches=16)):              # VLM
-        with pytest.raises(NotImplementedError):
-            TM.param_specs(cfg)
-        with pytest.raises(NotImplementedError):
-            TM.paged_cache_specs(cfg, 1, 16, 3, PAGE)
-    # MoE and the encoder-decoder are ported: a dense arch given experts,
-    # or an encoder, gets the reference's tree
-    jbase = get_config("granite-3-2b").reduced()
-    for kw, leaf in ((dict(n_experts=4, top_k=2, moe_every=1), "blocks/p0/we_g"),
-                     (dict(n_encoder_layers=2, n_frames=16), "encoder/final_ln")):
-        want = {p: s.shape for p, s in iter_leaves(
-            JM.param_specs(dataclasses.replace(jbase, **kw)))}
-        got = {p: s.shape for p, s in iter_leaves(
-            TM.param_specs(dataclasses.replace(tcfg, **kw)))}
-        assert got == want and leaf in got
+    kw, leaf = FAMILY_VARIANTS[family]
+    kw, jkw = dict(kw), dict(kw)
+    if "pattern" in kw:
+        kw["pattern"] = tuple(BlockKind(k) for k in kw["pattern"])
+        jkw["pattern"] = tuple(JBlockKind(k) for k in jkw["pattern"])
+    jcfg = dataclasses.replace(get_config("granite-3-2b").reduced(), **jkw)
+    tcfg = dataclasses.replace(tget_config("granite-3-2b").reduced(), **kw)
+    for specs in (lambda M, c: M.param_specs(c),
+                  lambda M, c: M.paged_cache_specs(c, 1, 16, 3, PAGE)):
+        want = {p: s.shape for p, s in iter_leaves(specs(JM, jcfg))}
+        got = {p: s.shape for p, s in iter_leaves(specs(TM, tcfg))}
+        assert got == want
+    assert leaf in dict(iter_leaves(TM.param_specs(tcfg)))
 
 
 def test_dense_decode_matches_jax(setup):

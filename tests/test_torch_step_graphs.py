@@ -6,10 +6,10 @@ On the CPU nothing is captured and the static-buffer step runs eagerly:
 
 * the port's engine is token-exact against the JAX package's
   ``ServingEngine`` on ``.reduced()`` configs (same weights through the
-  bridge) for granite paged (prompts across the table widths 1, 2 and 4),
-  chunked (chunk groups of one and two slots at several widths) and dense,
-  recurrentgemma and llama4-scout, and it makes exactly one program per
-  signature and reuses it;
+  bridge) for granite and xlstm paged (prompts across the table widths
+  1, 2 and 4), chunked (chunk groups of one and two slots at several
+  widths) and dense, recurrentgemma and llama4-scout, and it makes exactly
+  one program per signature and reuses it;
 * a chunk whose start is a tensor equals the chunk whose start is an int,
   bit for bit (logits and every cache leaf);
 * ``unembed`` on the CPU is the float32 upcast, bit for bit;
@@ -50,7 +50,7 @@ from repro_torch.serve.engine import Request, ServingEngine
 torch.set_num_threads(1)
 
 ARCHS = {"granite": "granite-3-2b", "recurrentgemma": "recurrentgemma-2b",
-         "llama4": "llama4-scout-17b-a16e"}
+         "llama4": "llama4-scout-17b-a16e", "xlstm": "xlstm-350m"}
 MAX_LEN = 64            # 4 pages of 16: decode widths 1, 2 and 4
 # (arch, engine kwargs, schedule): prompts of 2-40 tokens, 3-6 new tokens
 CASES = {
@@ -60,6 +60,13 @@ CASES = {
     "granite_dense": ("granite", dict(page_size=0), [(5, 6), (20, 4), (40, 6)]),
     "recurrentgemma": ("recurrentgemma", {}, [(5, 6), (9, 3), (27, 4), (40, 6)]),
     "llama4": ("llama4", {}, [(5, 6), (9, 3), (27, 4), (40, 6)]),
+    # no attention: a paged cache with no pooled leaf, all-float32 state
+    # as the static step's cache, and chunk steps that unroll each sLSTM
+    # layer's recurrence over the chunk
+    "xlstm_paged": ("xlstm", {}, [(5, 6), (9, 3), (20, 4), (40, 6), (33, 5)]),
+    "xlstm_chunked": ("xlstm", dict(prefill_chunk=8),
+                      [(20, 4), (20, 6), (40, 6), (9, 3), (27, 5)]),
+    "xlstm_dense": ("xlstm", dict(page_size=0), [(5, 6), (20, 4), (40, 6)]),
 }
 
 
