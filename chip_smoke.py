@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -227,6 +227,42 @@ Phases (each raises on failure, so the script exits non-zero):
    bound, the peak. Its launches are the llava rows of the ``kernels``
    line, the engine's K2 under ``..., via ServingEngine``.
 
+10. Training on the card, printed under ``phase 10`` after phase 9: (a)
+   the training path's kernels against their plain versions in bf16 and
+   float32: K2's forward with its log-sum-exp (output at phase 2's
+   tolerance, the log-sum-exp at 1e-5, bit for bit against the launch
+   without it) and K2's backward (``csrc/flash_attention_bwd.cu``, its dQ
+   and dK/dV passes; tolerance x max|ref|, and each 256-row slab of the
+   sequence by its own relative error) at granite-3-2b's training shape
+   (B=4 S=2048 H=32 KV=8 hd 64, causal) and recurrentgemma-2b's (B=1
+   S=3072 H=10 KV=1 hd 256, window 2048), with Sq < Skv, a ragged
+   S=1000, G=1 and a chunk mask at hd 128, two backward launches bit for
+   bit; K5's forward and backward (``csrc/rglru_scan_bwd.cu``) at B=1
+   S=3072 D=2560 with and without h0, held to 0 error; their event times
+   beside bound, plain and the library's (SDPA's forward and backward);
+   (b) one train step through the kernels against the same step with
+   ``impl="ref"``, granite at full width cut to 4 layers (B=2 S=2048) and
+   recurrentgemma's first period (R, R, A; S=3072), bf16 (loss 1e-3, each
+   leaf's gradient 2e-2 relative norm) and float32 (1e-5, 1e-4), no
+   leaf's gradient zero or missing; (c) granite-3-2b at full width and
+   depth through the launcher's pieces (``repro_torch.launch.train``):
+   B=4 S=2048, 6 steps, remat on, the loss finite every step, s/step (the
+   window's rate: the unprofiled steps' host time over their count, the
+   median beside it; each step's gc time and cudaMalloc calls and
+   retries), tokens/s and MFU (model FLOPs over 989 TFLOP/s) from that
+   rate, peak memory, the last step profiled (host against device busy,
+   and each kernel's device ms per call: the ``ms`` of the training
+   rows), each step's launches the reckoning's (80 K2 forward, 40 K2
+   backward, nothing else), then one batch repeated 4 steps at lr 1e-3
+   with a falling loss; (d) recurrentgemma-2b at full width and depth,
+   B=1 S=3072, 4 steps, the same readings (16 K2 forward, 8 backward, 34
+   K5 forward, 18 backward a step); (e) the trained granite parameters
+   through ``train.checkpoint`` save / restore bit for bit, and a
+   llama4-scout ``.reduced()`` train step on the card raising K4's guard.
+   Its launches are the ``..., via train`` and ``flash_attention_bwd`` /
+   ``rglru_scan_bwd`` rows of the ``kernels`` line. Phase 1 also holds
+   the backward's bf16 instances to HMMA present and no spill.
+
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -424,7 +460,11 @@ def ptxas_summary(report: str):
 
 # the bf16 instances that must run on the tensor cores
 MMA_KERNELS = ("flash_attention_mma_kernel", "paged_prefill_mma_kernel", "moe_gmm_mma_kernel",
-               "split_decode_mma_kernel")
+               "split_decode_mma_kernel", "flash_attention_bwd_dq_mma_kernel",
+               "flash_attention_bwd_dkv_mma_kernel")
+# the bf16 instances that must not spill (the backward's, whose float32
+# dq, dk and dv sums are sized to the register file)
+NO_SPILL_KERNELS = ("flash_attention_bwd_dq_mma_kernel", "flash_attention_bwd_dkv_mma_kernel")
 # the split-KV decode of K1 (C == 1) and K3 in bf16: the body and its merge
 SPLIT_DECODE = ("split_decode_mma_kernel", "split_decode_merge_kernel")
 
@@ -460,6 +500,20 @@ def sass_mma_counts(cuobjdump: str, library: Path):
             counts[name][0] += bool(re.search(r"\bHMMA\b", line))
             counts[name][1] += bool(re.search(r"\bHGMMA\b", line))
     return {k: tuple(v) for k, v in counts.items()}
+
+
+def check_no_spill(build) -> None:
+    """Raise if a ``NO_SPILL_KERNELS`` instance spills (ptxas's report)."""
+    seen = 0
+    for name in build.KERNELS:
+        for line in ptxas_summary(build.ptxas_report(name)):
+            if line.startswith(NO_SPILL_KERNELS):
+                seen += 1
+                if " 0 bytes spill stores" not in line:
+                    raise AssertionError(f"a bf16 backward instance spills: {line}")
+    if seen < 2 * len(build.HEAD_DIMS):
+        raise AssertionError(f"{seen} backward mma instances in the ptxas reports, expected "
+                             f"{2 * len(build.HEAD_DIMS)} (built elsewhere?)")
 
 
 def check_tensor_cores(build) -> None:
@@ -1384,7 +1438,8 @@ def _counters():
     from repro_torch.kernels import rglru_scan as rs
     return {"flash": fa.flash_attention, "decode": pa.paged_decode_attention,
             "chunk": pa.paged_prefill_attention, "dense": da.decode_attention,
-            "scan": rs.rglru_scan, "gmm": gm.moe_gmm}
+            "scan": rs.rglru_scan, "gmm": gm.moe_gmm,
+            "flash_bwd": fa.flash_attention_bwd, "scan_bwd": rs.rglru_scan_bwd}
 
 
 def launches():
@@ -2385,14 +2440,17 @@ def _device_us(ev) -> float:
     return ev.self_device_time_total
 
 
-def profile_breakdown(torch, label: str, run, n: int, shares=None):
+def profile_breakdown(torch, label: str, run, n: int, shares=None, per_launch=None):
     """Profile ``run()`` (``n`` units of work): wall ms per unit, device
     busy ms per unit (kernels and copies on the card), the idle share, the
     host-side op count, the top device consumers and, for each ``shares``
     entry (label: kernel name), that kernel's device ms per unit and share
     of busy, with the launches the profiler recorded beside those its
     wrappers counted. Returns (wall ms, device busy ms, {label: ms}) per
-    unit."""
+    unit. A ``per_launch`` dict gets, for each ``shares`` label, the device
+    ms of one wrapper call: each matching kernel's recorded time over its
+    recorded launches, summed over the kernels (a call's passes), or None
+    where the profiler recorded none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2405,7 +2463,7 @@ def profile_breakdown(torch, label: str, run, n: int, shares=None):
     after = launches()
     counted = {what: after[key] - before[key] for what, key in (
         ("K2", "flash"), ("K1 decode", "decode"), ("K1 chunk", "chunk"), ("K3", "dense"),
-        ("K5", "scan"), ("K4", "gmm"))}
+        ("K5", "scan"), ("K4", "gmm"), ("K2 bwd", "flash_bwd"), ("K5 bwd", "scan_bwd"))}
     evs = prof.key_averages()
     dev = sorted((e for e in evs if e.device_type != DeviceType.CPU),
                  key=_device_us, reverse=True)
@@ -2422,6 +2480,8 @@ def profile_breakdown(torch, label: str, run, n: int, shares=None):
     for what, kernel in (shares or {}).items():
         evs = [e for e in dev if kernel in e.key]
         share_ms[what] = ms = sum(_device_us(e) for e in evs) / 1e3 / n
+        if per_launch is not None:
+            per_launch[what] = sum(_device_us(e) / e.count for e in evs) / 1e3 if evs else None
         log(f"    share {what}: {ms:.3f} ms of {busy:.2f} ms busy ({ms / busy:.3f}), "
             f"{sum(e.count for e in evs)} launches recorded of {counted[what]} counted")
     return wall, busy, share_ms
@@ -3380,6 +3440,471 @@ def llava_run(torch, dev):
 
 
 # ----------------------------------------------------------------------
+# ----------------------------------------------------------------------
+# phase 10: training on the card
+# ----------------------------------------------------------------------
+TR_B, TR_S, TR_STEPS = 4, 2048, 6             # granite-3-2b, the launcher's lr
+TR_REPEAT_STEPS, TR_REPEAT_LR = 4, 1e-3       # one batch repeated, its loss must fall
+RG_TR_B, RG_TR_S, RG_TR_STEPS = 1, 3072, 4    # recurrentgemma-2b
+# launches a step with remat per period: K2 forward twice a layer (the
+# forward and its recompute), its backward once; recurrentgemma's RG-LRU
+# layers: the 16 in checkpointed periods twice, the 2 remainder layers once
+TR_COUNTS = {"granite-3-2b": {"flash": 80, "flash_bwd": 40},
+             "recurrentgemma-2b": {"flash": 16, "flash_bwd": 8, "scan": 34, "scan_bwd": 18}}
+
+
+SLAB = 256   # sequence rows a slab: each held to its own scale
+
+
+def check_rel(name, dtype, got, want, errs, tol=None) -> float:
+    """Hold ``got`` to ``want`` within ``tol`` (phase 2's by dtype) of
+    max |want|, and each slab of ``SLAB`` rows along the sequence (dim 1)
+    by its relative Frobenius error within the same ``tol``: under a
+    causal mask dK and dV are ~40x smaller at late keys than at the first,
+    so an error confined to late tiles is held to their own scale there.
+    Records the max abs error."""
+    tol = TOL[dtype] if tol is None else tol
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    scale = w.abs().max().item()
+    slab_err = 0.0
+    for gs, ws in zip(g.split(SLAB, dim=1), w.split(SLAB, dim=1)):
+        d, n = (gs - ws).norm().item(), ws.norm().item()
+        slab_err = max(slab_err, d / n if n > 0 else (0.0 if d == 0 else float("inf")))
+    ok = err <= tol * scale and slab_err <= tol
+    log(f"  {name:60s} {dtype:8s} max|err| {err:.3e} = {err / max(scale, 1e-30):.2e} x "
+        f"max|ref|, worst {SLAB}-row slab rel {slab_err:.2e} (tol {tol:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} {dtype}: max abs err {err} > {tol} x {scale} or a "
+                             f"{SLAB}-row slab's relative error {slab_err} > {tol}")
+    errs.append(err)
+    return err
+
+
+def flash_bwd_case(torch, rng, dev, dtype, B, Sq, Skv, nh, nkv, hd, kw, errs, fwd_errs):
+    """One K2 backward check: the forward with its log-sum-exp (as
+    ``FlashAttentionFn`` launches it) against the plain forward, output
+    (phase 2's tolerance) and log-sum-exp, and bit for bit against the
+    launch without it; dq, dk and dv against ``ref.flash_attention_bwd``
+    on the same inputs, and a second launch bit for bit. The forward's
+    max abs error goes to ``fwd_errs``, the backward's to ``errs``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    t = lambda shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(dev, getattr(torch, dtype))
+    q, do = t((B, Sq, nh, hd)), t((B, Sq, nh, hd))
+    k, v = t((B, Skv, nkv, hd)), t((B, Skv, nkv, hd))
+    out, lse = fa._forward(q, k, v, kw.get("causal", True), kw.get("window", 0),
+                           kw.get("chunk", 0), None, True)
+    label = f"B={B} Sq={Sq} Skv={Skv} H={nh} KV={nkv} hd={hd} {kw}"
+    if not torch.equal(out, fa.flash_attention(q, k, v, **kw)):
+        raise AssertionError(f"K2 forward {label}: the output differs with the LSE stored")
+    want_out, want_lse = ref.flash_attention(q.float(), k.float(), v.float(), **kw,
+                                             return_lse=True)
+    check(f"K2 out {label}", dtype, out, want_out.to(q.dtype), fwd_errs)
+    check(f"K2 lse {label}", dtype, lse, want_lse, [], tol=1e-5)
+    del want_out, want_lse
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K2 bwd {label}: two launches differ")
+    want = ref.flash_attention_bwd(q.float(), k.float(), v.float(), out.float(), lse,
+                                   do.float(), **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check_rel(f"K2 bwd {name} {label}", dtype, g, w, errs)
+    return q, k, v, out, lse, do
+
+
+def sdpa_backward(torch, q, k, v, do, **sdpa_kw):
+    """The library yardstick: the backward of one SDPA call (GQA), a
+    retained graph's ``torch.autograd.grad``."""
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                           **sdpa_kw)
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+
+# phase 10's kernel entries: key -> the label of its kernel in a profiled
+# train step (``profile_breakdown``'s shares) and the arch whose step it is
+TRAIN_SHARES = {"K2": "flash_attention_mma_kernel", "K2 bwd": "flash_attention_bwd",
+                "K5": "rglru_scan_kernel", "K5 bwd": "rglru_scan_bwd_kernel"}
+TRAIN_ROWS = {"flash_train": ("granite-3-2b", "K2"),
+              "flash_bwd_granite": ("granite-3-2b", "K2 bwd"),
+              "flash_rg_train": ("recurrentgemma-2b", "K2"),
+              "flash_bwd_rg": ("recurrentgemma-2b", "K2 bwd"),
+              "scan_train": ("recurrentgemma-2b", "K5"),
+              "scan_bwd": ("recurrentgemma-2b", "K5 bwd")}
+
+
+def phase_kernels_train(torch, dev):
+    """Phase 10 (a): K2's forward with its log-sum-exp and K2's and K5's
+    backward kernels against their plain versions in bf16 and float32 at
+    the training paths' shapes and edges, K5's forward at its training
+    shape, then event, plain and library times at the training shapes.
+    Returns the entries without ``ms``: ``training_run`` adds each
+    kernel's device time per call from the profiled train steps, at the
+    same shapes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rs
+    rng = np.random.default_rng(10)
+    errs = {key: [] for key in TRAIN_ROWS}
+    log("phase 10 (a): kernels of the training path against their plain versions (the "
+        "plain version in float32 on the same inputs; backward: tolerance x max|ref| and "
+        f"per {SLAB}-row slab)")
+    granite = (TR_B, TR_S, TR_S, H, KV, HD, dict(causal=True))
+    rg = (1, RG_TR_S, RG_TR_S, RG_H, RG_KV, RG_HD, dict(causal=True, window=RG_WINDOW))
+    edges = [(1, 512, 2048, H, KV, HD, dict(causal=True)),          # Sq < Skv
+             (2, 1000, 1000, H, KV, HD, dict(causal=True)),         # a ragged tile
+             (1, 512, 512, 8, 8, HD, dict(causal=True)),            # G = 1
+             (1, 1024, 1024, L4_H, L4_KV, L4_HD, dict(causal=True, chunk=256))]
+    for dtype in ("bfloat16", "float32"):
+        for key, fkey, case in (("flash_bwd_granite", "flash_train", granite),
+                                ("flash_bwd_rg", "flash_rg_train", rg)):
+            flash_bwd_case(torch, rng, dev, dtype, *case, errs[key], errs[fkey])
+            torch.cuda.empty_cache()
+        for case in edges:
+            flash_bwd_case(torch, rng, dev, dtype, *case, errs["flash_bwd_granite"], [])
+    for with_h0 in (False, True):
+        a, b, h0 = scan_inputs(torch, rng, dev, "float32", RG_TR_S, with_h0)
+        check(f"K5 rglru_scan B=1 S={RG_TR_S} D={RG_D} h0={with_h0}", "float32",
+              rs.rglru_scan(a, b, h0), ref.rglru_scan(a, b, h0), errs["scan_train"], tol=0.0)
+        h = torch.from_numpy(rng.standard_normal(a.shape).astype(np.float32)).to(dev)
+        dh = torch.from_numpy(rng.standard_normal(a.shape).astype(np.float32)).to(dev)
+        got, want = rs.rglru_scan_bwd(a, h, dh, h0), ref.rglru_scan_bwd(a, h, dh, h0)
+        for name, g, w in zip(("da", "db", "dh0"), got, want):
+            if w is not None:
+                check(f"K5 bwd {name} B=1 S={RG_TR_S} D={RG_D} h0={with_h0}", "float32",
+                      g, w, errs["scan_bwd"], tol=0.0)
+    torch.cuda.synchronize()
+
+    log("phase 10 (a): times at the training paths' shapes, bf16 (K5 float32), CUDA events "
+        "(the kernels' device ms per call come from the profiled train steps, below)")
+    entries = {}
+    dtype, isz = "bfloat16", 2
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for key, fkey, (B, Sq, Skv, nh, nkv, hd, kw), what in (
+            ("flash_bwd_granite", "flash_train", granite, "hd 64"),
+            ("flash_bwd_rg", "flash_rg_train", rg, "hd 256, window")):
+        q, k, v, out, lse, do = flash_bwd_case(torch, rng, dev, dtype, B, Sq, Skv, nh, nkv,
+                                               hd, kw, [], [])
+        window = kw.get("window", 0)
+        pairs = sum(min(i + 1, window) if window else i + 1 for i in range(Sq)) * nh * B
+        lib_kw = dict(attn_mask=window_mask(torch, Sq, window, dev)) if window \
+            else dict(is_causal=True)
+        shape = f"B={B} S={Sq} H={nh} KV={nkv} hd={hd} {kw} bf16"
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        b, by = bound_ms(isz * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel(),
+                         4 * hd * pairs, dtype)
+        entries[fkey] = dict(
+            name=f"flash_attention ({what}), via train", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:27", shape=shape + ", with LSE",
+            event_ms=event_ms(torch, lambda: fa._forward(q, k, v, kw["causal"], window, 0,
+                                                         None, True), 10),
+            plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v, **kw,
+                                                                 return_lse=True), 1, warmup=1),
+            bound_ms=b, bound_by=by,
+            library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, enable_gqa=True, **lib_kw), 10),
+            library="SDPA forward" + (", explicit window mask" if window else ", is_causal"))
+        b, by = bound_ms(isz * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+                         10 * hd * pairs, dtype)
+        entries[key] = dict(
+            name=f"flash_attention_bwd ({what})", route="cuda",
+            source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/kernels/flash_attention.py:27", shape=shape,
+            event_ms=event_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw),
+                              10),
+            plain_ms=event_ms(torch, lambda: ref.flash_attention_bwd(q, k, v, out, lse, do,
+                                                                     **kw), 1, warmup=1),
+            bound_ms=b, bound_by=by,
+            library_ms=event_ms(torch, sdpa_backward(torch, q, k, v, do, **lib_kw), 5),
+            library="SDPA backward (torch.autograd.grad on a retained graph"
+                    + (", explicit window mask)" if window else ", is_causal)"))
+        del q, k, v, out, lse, do, qt, kt, vt
+        torch.cuda.empty_cache()
+    a, bb, _ = scan_inputs(torch, rng, dev, "float32", RG_TR_S, False)
+    plan = rs.scan_plan(RG_D, 4, a.data_ptr(), bb.data_ptr())
+    b, by = bound_ms(4 * 3 * a.numel(), 2 * a.numel(), "float32")
+    entries["scan_train"] = dict(
+        name="rglru_scan, via train", route="cuda", source="src/repro_torch/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:26",
+        shape=f"B=1 S={RG_TR_S} D={RG_D} float32, ch={plan.ch} vec={plan.vec}",
+        event_ms=event_ms(torch, lambda: rs.rglru_scan(a, bb), 20),
+        plain_ms=event_ms(torch, lambda: ref.rglru_scan(a, bb), 1, warmup=1),
+        bound_ms=b, bound_by=by, library_ms=None)
+    h = torch.from_numpy(rng.standard_normal(a.shape).astype(np.float32)).to(dev)
+    dh = torch.from_numpy(rng.standard_normal(a.shape).astype(np.float32)).to(dev)
+    b, by = bound_ms(4 * 5 * a.numel(), 3 * a.numel(), "float32")
+    plan = rs.scan_plan(RG_D, 4, a.data_ptr(), h.data_ptr(), dh.data_ptr())
+    entries["scan_bwd"] = dict(
+        name="rglru_scan_bwd", route="cuda", source="src/repro_torch/csrc/rglru_scan_bwd.cu",
+        replaces="src/repro/kernels/rglru_scan.py:26",
+        shape=f"B=1 S={RG_TR_S} D={RG_D} float32, ch={plan.ch} vec={plan.vec}",
+        event_ms=event_ms(torch, lambda: rs.rglru_scan_bwd(a, h, dh), 20),
+        plain_ms=event_ms(torch, lambda: ref.rglru_scan_bwd(a, h, dh), 1, warmup=0),
+        bound_ms=b, bound_by=by, library_ms=None)
+    for key, e in entries.items():
+        e["max_abs_err"] = max(errs[key])
+    return entries
+
+
+def _rel_norm(torch, got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp(min=1e-30))
+
+
+def train_step_parity(torch, cfg, dev, B, S):
+    """Phase 10 (b): one train step's loss and every leaf's gradient
+    through the kernels against the same step with impl="ref" (the plain
+    versions under autograd), on the same weights and batch; no leaf's
+    gradient may be zero or missing."""
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.models.param import iter_leaves
+    from repro_torch.train.train_loop import batch_to, loss_and_grads
+    tol_loss, tol_grad = (1e-3, 2e-2) if cfg.dtype == "bfloat16" else (1e-5, 1e-4)
+    params = M.init_model_params(cfg, 0, dev)
+    batch = batch_to(TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                                                  seed=1)).next_batch(), dev)
+    zero_launches()
+    l1, g1 = loss_and_grads(cfg, params, batch, remat=True)
+    counts = launches()
+    l2, g2 = loss_and_grads(cfg, params, batch, impl="ref", remat=True)
+    want = dict(iter_leaves(g2))
+    errs = {path: _rel_norm(torch, g, want[path]) for path, g in iter_leaves(g1)}
+    dead = [path for path, g in iter_leaves(g1) if not float(g.float().abs().max()) > 0]
+    missing = sorted(set(want) - set(errs))
+    worst = max(errs, key=errs.get)
+    loss_err = abs(float(l1) - float(l2)) / abs(float(l2))
+    log(f"  {cfg.name} {cfg.n_layers} layers {cfg.dtype} B={B} S={S}: loss {float(l1):.6f} "
+        f"vs ref {float(l2):.6f} (rel {loss_err:.2e}, tol {tol_loss:.0e}); worst leaf "
+        f"gradient {worst} rel norm err {errs[worst]:.2e} (tol {tol_grad:.0e}) over "
+        f"{len(errs)} leaves; kernel launches {counts}")
+    if loss_err > tol_loss or errs[worst] > tol_grad or dead or missing:
+        raise AssertionError(f"phase 10 (b) {cfg.name} {cfg.dtype}: loss rel err {loss_err}, "
+                             f"worst gradient {worst} {errs[worst]}, zero {dead}, "
+                             f"missing {missing}")
+    from repro_torch.configs.base import BlockKind
+    if not (counts["flash"] and counts["flash_bwd"]) or \
+            (BlockKind.RGLRU in cfg.pattern and not (counts["scan"] and counts["scan_bwd"])):
+        raise AssertionError(f"phase 10 (b) {cfg.name}: launches {counts}")
+
+
+def model_flops(cfg, B, S) -> float:
+    """A train step's model FLOPs: 6 per parameter per token, plus the
+    attention layers' scores and values forward and backward (3 x the
+    forward's 4 hd operations a visible pair)."""
+    from repro_torch.configs.base import BlockKind
+    window = cfg.window
+    n_attn = sum(k in (BlockKind.ATTN, BlockKind.LOCAL_ATTN) for k in
+                 (cfg.pattern * cfg.n_layers)[:cfg.n_layers])
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S)) * cfg.n_heads * B
+    return 6.0 * cfg.n_params * B * S + 3 * 4 * cfg.hd * pairs * n_attn
+
+
+def train_run(torch, cfg, dev, B, S, steps, repeat: bool):
+    """Phase 10 (c) / (d): ``steps`` steps through the launcher's pieces
+    (``repro_torch.launch.train.setup`` and ``next_batch``: seed 0, AdamW
+    as the launcher sets it, remat on, the update in place), each step's
+    loss finite, its launches the reckoning's, no K1, K3 or K4 launch;
+    the last step profiled (device busy against the host, and each
+    kernel's device ms per call). The rate is the window's: the
+    unprofiled steps' host time over their count (the median beside it).
+    Each step logs what can stall the host: the garbage collector's time
+    and the caching allocator's cudaMalloc calls and retries. With
+    ``repeat``, a second run of ``TR_REPEAT_STEPS`` steps on one batch at
+    lr 1e-3 whose loss must fall. Returns (params, launch totals, the
+    profiled step's device ms per call by ``TRAIN_SHARES`` label)."""
+    import gc
+    from repro_torch.launch import train as L
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step_fn, params, state, pipe = L.setup(cfg, steps=steps, batch=B, seq=S, lr=3e-4,
+                                           device=dev)
+    torch.cuda.synchronize()
+    flops = model_flops(cfg, B, S)
+    log(f"phase 10: {cfg.name} {cfg.n_layers} layers {cfg.dtype}, {cfg.n_params / 1e9:.3f} B "
+        f"parameters, B={B} S={S}: setup {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated (weights and AdamW state); "
+        f"model FLOPs a step {flops / 1e12:.1f} TFLOP")
+    want = TR_COUNTS[cfg.name]
+    total = collections.Counter()
+    times, losses, per_launch = [], [], {}
+    gc_ms, gc_t0 = [0.0], [0.0]
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_ms[0] += (time.perf_counter() - gc_t0[0]) * 1e3
+
+    def alloc_stats():
+        st = torch.cuda.memory_stats()
+        return st.get("num_device_alloc", 0), st.get("num_alloc_retries", 0)
+
+    gc.callbacks.append(on_gc)
+    try:
+        for step in range(1, steps + 1):
+            batch = L.next_batch(cfg, pipe, B)
+            torch.cuda.synchronize()
+            zero_launches()
+            gc_ms[0] = 0.0
+            mallocs, retries = alloc_stats()
+            t1 = time.perf_counter()
+            run = lambda: step_fn(params, state, batch)  # noqa: E731
+            if step < steps:
+                params, state, metrics = run()
+                loss = float(metrics["loss"])             # a host read: the step has ended
+                dt = time.perf_counter() - t1
+            else:
+                holder = {}
+
+                def profiled():
+                    gc0 = gc_ms[0]
+                    holder["out"] = run()
+                    holder["gc_ms"] = gc_ms[0] - gc0   # not the profiler's teardown
+                wall, _, _ = profile_breakdown(
+                    torch, f"{cfg.name} train step {step} (host against device busy)",
+                    profiled, 1, shares=TRAIN_SHARES, per_launch=per_launch)
+                params, state, metrics = holder["out"]
+                loss, dt = float(metrics["loss"]), wall / 1e3
+                gc_ms[0] = holder["gc_ms"]
+            mallocs, retries = (n - n0 for n, n0 in zip(alloc_stats(), (mallocs, retries)))
+            counts = launches()
+            total.update(counts)
+            got = {k: n for k, n in counts.items() if n}
+            if got != want:
+                raise AssertionError(f"phase 10 {cfg.name} step {step}: launches {got}, "
+                                     f"the reckoning {want}")
+            if not np.isfinite(loss):
+                raise AssertionError(f"phase 10 {cfg.name} step {step}: loss {loss}")
+            times.append(dt)
+            losses.append(loss)
+            log(f"  step {step}: loss {loss:.4f}, {dt:.4f} s (host clock, the loss read back"
+                f"{', under the profiler' if step == steps else ''}), grad norm "
+                f"{float(metrics['grad_norm']):.3f}, lr {metrics['lr']:.3e}; gc "
+                f"{gc_ms[0]:.1f} ms, cudaMalloc {mallocs}, allocator retries {retries}")
+    finally:
+        gc.callbacks.remove(on_gc)
+    window = times[:-1]
+    s_step = sum(window) / len(window)
+    log(f"  {cfg.name}: {s_step:.4f} s/step (the window: steps 1..{steps - 1}, "
+        f"{sum(window):.4f} s), median {float(np.median(window)):.4f}, slowest "
+        f"{max(window):.4f}; {B * S / s_step:.0f} tokens/s, MFU "
+        f"{flops / s_step / PEAK_OPS['bfloat16']:.4f} (model FLOPs over 989 TFLOP/s, the "
+        f"window's rate); peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated; "
+        f"launches a step {want}")
+    if repeat:
+        del state
+        torch.cuda.empty_cache()
+        ocfg = AdamWConfig(lr=TR_REPEAT_LR, warmup_steps=0, total_steps=50)
+        step_fn = make_train_step(cfg, ocfg, device=dev)
+        state = init_opt_state(ocfg, params)
+        batch = L.next_batch(cfg, pipe, B)
+        rep = []
+        for _ in range(TR_REPEAT_STEPS):
+            params, state, metrics = step_fn(params, state, batch)
+            rep.append(float(metrics["loss"]))
+        log(f"  {cfg.name}: one batch repeated {TR_REPEAT_STEPS} steps at lr "
+            f"{TR_REPEAT_LR:g}: losses {[round(x, 4) for x in rep]}")
+        if not rep[-1] < rep[0]:
+            raise AssertionError(f"phase 10 {cfg.name}: the repeated batch's loss did not "
+                                 f"fall: {rep}")
+    del state
+    torch.cuda.empty_cache()
+    return params, total, per_launch
+
+
+def checkpoint_and_guard(torch, params, dev):
+    """Phase 10 (e): the trained parameters through ``checkpoint.save`` /
+    ``restore`` on the port's ObjectStore, bit for bit; a llama4-scout
+    train step on the card raises K4's guard."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.storage import ObjectStore
+    from repro_torch.models import model as M
+    from repro_torch.models.param import iter_leaves
+    from repro_torch.train import checkpoint as C
+    from repro_torch.train.train_loop import loss_and_grads
+    t0 = time.perf_counter()
+    store = ObjectStore()
+    C.save(store, "granite", TR_STEPS, params)
+    back = C.restore(store, "granite", C.latest_step(store, "granite"), params)
+    bad = [p for (p, a), (_, b) in zip(iter_leaves(params), iter_leaves(back))
+           if a.dtype != b.dtype or a.device != b.device or not torch.equal(a, b)]
+    n_bytes = sum(store.size(k) for k in store._blobs)
+    log(f"phase 10 (e): checkpoint of {len(list(iter_leaves(params)))} leaves "
+        f"({n_bytes / 1e9:.2f} GB of npy blobs) saved and restored in "
+        f"{time.perf_counter() - t0:.1f} s: {'bit for bit' if not bad else bad}")
+    if bad or C.latest_step(store, "granite") != TR_STEPS:
+        raise AssertionError(f"phase 10 (e): restored leaves differ: {bad}")
+    del back, store
+    cfg = get_config("llama4-scout-17b-a16e").reduced()
+    p = M.init_model_params(cfg, 0, dev)
+    toks = torch.randint(0, cfg.vocab, (1, 33), device=dev)
+    try:
+        loss_and_grads(cfg, p, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    except NotImplementedError as e:
+        if "moe_gmm (K4)" not in str(e):
+            raise
+        log(f"phase 10 (e): a {cfg.name} train step on the card raises K4's guard: {e}")
+    else:
+        raise AssertionError("phase 10 (e): a MoE train step on the card did not raise")
+
+
+def training_run(torch, dev):
+    """Phase 10: the backward kernels, a train step's parity, granite-3-2b
+    and recurrentgemma-2b at full width and depth, the checkpoint and the
+    MoE guard. Returns (kernel entries, launch totals)."""
+    import gc
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total_mem = torch.cuda.mem_get_info()
+    log(f"phase 10: training on the card ({free / 1e9:.1f} of {total_mem / 1e9:.1f} GB free)")
+    t10 = time.perf_counter()
+    entries = phase_kernels_train(torch, dev)
+    torch.cuda.empty_cache()
+    granite, rg = get_config("granite-3-2b"), get_config("recurrentgemma-2b")
+    log("phase 10 (b): one train step through the kernels against impl='ref' (relative "
+        "error of the loss and of each leaf's gradient norm)")
+    for dtype in ("bfloat16", "float32"):
+        train_step_parity(torch, dataclasses.replace(granite, n_layers=4, dtype=dtype), dev,
+                          2, TR_S)
+        train_step_parity(torch, dataclasses.replace(rg, n_layers=3, dtype=dtype), dev,
+                          1, RG_TR_S)
+        torch.cuda.empty_cache()
+    params, g_total, g_ms = train_run(torch, granite, dev, TR_B, TR_S, TR_STEPS, repeat=True)
+    checkpoint_and_guard(torch, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    params, r_total, r_ms = train_run(torch, rg, dev, RG_TR_B, RG_TR_S, RG_TR_STEPS,
+                                      repeat=False)
+    del params
+    torch.cuda.empty_cache()
+    totals = {"flash_bwd_granite": g_total["flash_bwd"], "flash_train": g_total["flash"],
+              "flash_bwd_rg": r_total["flash_bwd"], "flash_rg_train": r_total["flash"],
+              "scan_bwd": r_total["scan_bwd"], "scan_train": r_total["scan"]}
+    log("phase 10: the training path's kernels (kernel: device ms per call in the profiled "
+        "train step at the same shape; events, plain and library: CUDA events in (a))")
+    per_call = {granite.name: g_ms, rg.name: r_ms}
+    for key, (arch, label) in TRAIN_ROWS.items():
+        e = entries[key]
+        e["ms"] = per_call[arch][label]
+        if e["ms"] is None:
+            log(f"  {e['name']}: the profiler recorded no launch in {arch}'s profiled step; "
+                "kernel ms = the event ms")
+            e["ms"] = e["event_ms"]
+        log_row(e)
+    log(f"phase 10: done in {time.perf_counter() - t10:.1f} s; launches {totals}")
+    return entries, totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3408,6 +3933,7 @@ def main() -> int:
         for line in ptxas_summary(build.ptxas_report(name)):
             log(f"  ptxas {line}")
     check_tensor_cores(build)
+    check_no_spill(build)
 
     entries = phase_kernels(torch, dev)
     entries.update(phase_kernels_moe(torch, dev))
@@ -3598,6 +4124,12 @@ def main() -> int:
         entries["flash_llava"], name=entries["flash_llava"]["name"] + ", via ServingEngine")
     log(f"phase 9: done in {time.perf_counter() - t9:.1f} s")
 
+    # phase 10: training on the card (backward kernels, granite-3-2b and
+    # recurrentgemma-2b at full width and depth, checkpoint, MoE guard)
+    train_entries, train_totals = training_run(torch, dev)
+    entries.update(train_entries)
+    total.update(train_totals)
+
     kernels = []
     for key in ("decode", "chunk", "chunk_768", "flash", "flash_rg", "dense_rg", "dense_granite",
                 "scan", "flash_l4", "decode_l4", "dense_l4", *GMM_KEYS, "flash_gateway",
@@ -3605,7 +4137,9 @@ def main() -> int:
                 "flash_cluster", "decode_cluster", "flash_qwen", "decode_qwen", "chunk_qwen",
                 "chunk_qwen_768", "dense_qwen", "flash_ds", "decode_ds", "flash_enc",
                 "flash_cross", "dense_cross", "flash_enc_workflow", "decode_workflow",
-                "flash_llava", "dense_llava", "flash_llava_engine", "decode_llava"):
+                "flash_llava", "dense_llava", "flash_llava_engine", "decode_llava",
+                "flash_train", "flash_rg_train", "scan_train", "flash_bwd_granite",
+                "flash_bwd_rg", "scan_bwd"):
         e = dict(entries[key])
         e["launches"] = total[key]
         kernels.append({k: e[k] for k in (

@@ -16,6 +16,9 @@
 // Numerics follow the Pallas bodies: float32 scores, running max, sum and
 // accumulator (FMA on CUDA cores, no TF32 anywhere), NEG_INF = -1e30 rather
 // than -inf, l clamped at 1e-30 and the accumulator divided once at the end.
+// Given an lse pointer (K2 under autograd), a block also stores each row's
+// log-sum-exp m + log(l) of the scaled scores, float32 (B, H, n_pos), for
+// the backward; a null pointer (serving, K1's chunks) stores nothing.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -77,13 +80,14 @@ constexpr size_t tile_smem_bytes() {
 // HD) with the sequence's first element at q_seq0; row r is query position
 // r / G of head kvh * G + r % G, at absolute position qbase + r / G. Keys
 // [0, kv_len) are valid; causal / window / chunk masks follow
-// flash_attention.py:64-71.
+// flash_attention.py:64-71. lse, where not null, is (B, H, n_pos).
 template <typename T, int HD, class Cache>
 __device__ void tiled_attention(const T* __restrict__ q, const T* __restrict__ k,
                                 const T* __restrict__ v, T* __restrict__ out,
                                 long long q_seq0, int b, int H, int kvh, int G, int n_pos,
                                 int qbase, int kv_len, int causal, int window,
-                                int chunk, float scale, const Cache& cache) {
+                                int chunk, float scale, const Cache& cache,
+                                float* __restrict__ lse = nullptr) {
   static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int QS = HD + 1;   // padded row stride: conflict-free column reads
   constexpr int PS = BK + 1;
@@ -215,6 +219,8 @@ __device__ void tiled_attention(const T* __restrict__ q, const T* __restrict__ k
     const int r = r0 + ty * 4 + i;
     if (r >= rows) continue;
     const float lc = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * H + kvh * G + r % G) * n_pos + r / G] = m[i] + logf(lc);
     const long long o = q_seq0 + ((long long)(r / G) * H + kvh * G + r % G) * HD;
 #pragma unroll
     for (int e = 0; e < E; ++e) out[o + tx + 16 * e] = from_f32<T>(acc[i][e] / lc);

@@ -52,6 +52,12 @@
 // are the step beyond. Numerics follow the Pallas bodies: NEG_INF = -1e30
 // rather than -inf, l clamped at 1e-30 and one division at the end.
 //
+// Given an lse pointer (K2 under autograd), each row's log-sum-exp of its
+// scaled scores in natural-log units, m * ln 2 + log(l) from the running
+// log2-domain max and sum, goes to lse (B, H, Sq) float32 for the
+// backward; a null pointer (serving, K1's chunks) stores nothing, so those
+// paths run as before.
+//
 // 128 threads; dynamic shared memory 2 * (64 + 2 * 2 * 64) * (hd + 8)
 // bytes (46 KB at hd 64, 87 KB at hd 128, 169 KB at hd 256).
 #pragma once
@@ -89,7 +95,8 @@ __device__ __forceinline__ void prefill_mma(const bf16* __restrict__ q,
                                             const bf16* __restrict__ v, bf16* __restrict__ out,
                                             int Sq, int H, int KV, int qbase, int kv_len,
                                             int causal, int window, int chunk, float scale_log2,
-                                            const Cache& cache) {
+                                            const Cache& cache,
+                                            float* __restrict__ lse = nullptr) {
   using Tile = MmaTile<HD>;
   constexpr int LD = Tile::LD;
   constexpr int KC = HD / 8;     // 16-byte chunks per row
@@ -305,6 +312,9 @@ __device__ __forceinline__ void prefill_mma(const bf16* __restrict__ q,
     const int r = r0 + warp * 16 + g + 8 * h;
     if (r >= rows) continue;
     const float lc = fmaxf(l[h], 1e-30f);
+    if (lse != nullptr && t == 0)
+      lse[((long long)b * H + kvh * G + r % G) * Sq + r / G] =
+          m[h] * 0.6931471805599453f + logf(lc);
     bf16* dst = out + q_seq0 + ((long long)(r / G) * H + kvh * G + r % G) * HD + 2 * t;
 #pragma unroll
     for (int j = 0; j < NDB; ++j)

@@ -32,7 +32,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("paged_attention", "flash_attention", "decode_attention",
-           "rglru_scan", "moe_gmm")
+           "rglru_scan", "moe_gmm", "flash_attention_bwd", "rglru_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -151,6 +151,21 @@ def check_operands(device, align: int = 16, **tensors) -> None:
             raise ValueError(f"{name} must be {align}-byte aligned")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` where autograd would need the gradient
+    of a kernel that has no backward kernel: its output, written through
+    ctypes, carries no ``grad_fn``, so the gradient would be cut without a
+    word. Inference under ``torch.no_grad()`` (and operands that need no
+    gradient) pass."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel on the card: call it under "
+            "torch.no_grad(), or on CPU tensors, where its plain version is "
+            "differentiable")
+
+
 def check_launch(name: str, rc: int) -> None:
     """Raise when the C launcher reports an error (it returns the
     ``cudaGetLastError()`` after the launch, or -1 for bad arguments)."""
@@ -194,10 +209,12 @@ def recording_launches():
 # ----------------------------------------------------------------------
 # the device kernels each wrapper launches
 # ----------------------------------------------------------------------
-# The body kernels of the port's kernels K1-K5, by fragments of their
-# mangled names; each wrapper names its kernel in ``wrapper.kernel``. The
-# split decode body may add its merge kernel, which is not a body. K1's
-# two wrappers share their kernels: a one-token chunk runs the decode body.
+# The body kernels of the port's kernels K1-K5 and of the backward kernels
+# of K2 and K5 ("K2 bwd": its dQ and dK/dV passes; "K5 bwd"), by fragments
+# of their mangled names; each wrapper names its kernel in
+# ``wrapper.kernel``. The split decode body may add its merge kernel, which
+# is not a body. K1's two wrappers share their kernels: a one-token chunk
+# runs the decode body.
 BODIES: Tuple[Tuple[Tuple[str, ...], str], ...] = (
     (("split_decode_mma_kernel", "PagedCache"), "K1"),
     (("split_decode_fma_kernel", "PagedCache"), "K1"),
@@ -210,13 +227,19 @@ BODIES: Tuple[Tuple[Tuple[str, ...], str], ...] = (
     (("moe_gmm_mma_kernel",), "K4"),
     (("moe_gmm_kernel",), "K4"),
     (("rglru_scan_kernel",), "K5"),
+    (("flash_attention_bwd_dq_mma_kernel",), "K2 bwd"),
+    (("flash_attention_bwd_dkv_mma_kernel",), "K2 bwd"),
+    (("flash_attention_bwd_dq_kernel",), "K2 bwd"),
+    (("flash_attention_bwd_dkv_kernel",), "K2 bwd"),
+    (("rglru_scan_bwd_kernel",), "K5 bwd"),
 )
 
 
 def kernel_of_body(name: str) -> Optional[str]:
-    """The kernel (K1-K5) whose body the mangled device-kernel ``name`` is,
-    or None (an identifier matches with its length prefix, so
-    ``moe_gmm_kernel`` does not match ``moe_gmm_mma_kernel``)."""
+    """The kernel (K1-K5, K2 bwd, K5 bwd) whose body the mangled
+    device-kernel ``name`` is, or None (an identifier matches with its
+    length prefix, so ``moe_gmm_kernel`` does not match
+    ``moe_gmm_mma_kernel``)."""
     for frags, kernel in BODIES:
         if all(f"{len(f)}{f}" in name for f in frags):
             return kernel

@@ -9,7 +9,9 @@ launches the hand-written kernel in ``csrc/decode_attention.cu`` (the
 split-KV body of ``csrc/decode_common.cuh`` and, with more than one split,
 its merge) on the current stream and counts the launch; for a CPU tensor it
 runs the plain PyTorch version. There is no fallback: a CUDA operand the
-kernel does not take, or a failed build or launch, raises.
+kernel does not take, or a failed build or launch, raises. K3 has no
+backward kernel: on the card, under autograd with an operand that requires
+grad, the wrapper raises ``NotImplementedError`` (``build.refuse_grad``).
 
 ``split_plan`` fixes the number of key splits from shapes alone, and the
 kernel reads ``kv_len`` on the device, so neither wrapper of the split body
@@ -79,6 +81,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return decode_attention_plain(q, k, v, kv_len,
                                       softmax_scale=softmax_scale,
                                       k_scale=k_scale, v_scale=v_scale)
+    build.refuse_grad("decode_attention (K3)", q, k, v)
     if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or \
             k.shape != v.shape or k.shape[0] != q.shape[0]:
         raise ValueError(f"q {tuple(q.shape)} must be (B, 1, H, hd) and k, v "

@@ -10,7 +10,10 @@ counts the launch (bf16 on the tensor cores, float32 with exact FMA on
 the CUDA cores); the group sizes stay on the card (the host never reads
 them). For a CPU tensor it runs the plain PyTorch version. There is no
 fallback: a CUDA operand the kernel does not take, or a failed build or
-launch, raises.
+launch, raises. K4's backward (dX = dY W^T and dW = X^T dY per group) is not
+written yet: on the card, under autograd with an operand that requires
+grad, the wrapper raises ``NotImplementedError`` (``build.refuse_grad``),
+so a MoE train step on the card stops there.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor,
     x.dtype."""
     if not x.is_cuda:
         return moe_gmm_plain(x, w, group_sizes)
+    build.refuse_grad("moe_gmm (K4)", x, w)
     if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1] or \
             group_sizes.shape != (w.shape[0],):
         raise ValueError(f"x {tuple(x.shape)} must be (T, K), w "

@@ -9,7 +9,10 @@ and counts the launch (one query token per sequence takes the split-KV
 body of ``csrc/decode_common.cuh``, shared with K3, and its merge; a
 chunk the tiled body); for a CPU tensor it runs the plain PyTorch version
 below. There is no fallback: a CUDA operand the kernel does not take, or a
-failed build or launch, raises.
+failed build or launch, raises. K1 has no backward kernel: on the card,
+under autograd with an operand that requires grad, both wrappers raise
+``NotImplementedError`` (``build.refuse_grad``) rather than return an
+output that cuts the gradient.
 """
 from __future__ import annotations
 
@@ -95,6 +98,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
     if not q.is_cuda:
         return paged_decode_plain(q, k_pool, v_pool, block_tables, kv_len,
                                   softmax_scale=softmax_scale)
+    build.refuse_grad("paged_decode_attention (K1)", q, k_pool, v_pool)
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"decode takes q of shape (B, 1, H, hd), got {tuple(q.shape)}")
     out = _launch(q, k_pool, v_pool, block_tables, kv_len, None,
@@ -111,6 +115,7 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, kv_len,
     if not q.is_cuda:
         return paged_prefill_plain(q, k_pool, v_pool, block_tables, kv_len,
                                    q_offset, softmax_scale=softmax_scale)
+    build.refuse_grad("paged_prefill_attention (K1)", q, k_pool, v_pool)
     out = _launch(q, k_pool, v_pool, block_tables, kv_len, q_offset,
                   softmax_scale)
     build.count_launch(paged_prefill_attention)

@@ -12,6 +12,14 @@ hold equal to the one-pass version.
 JAX oracle uses a log-depth associative scan: the two agree to rounding.
 ``moe_gmm`` upcasts to float32 before each product, as the Pallas body
 does, where the JAX oracle multiplies in the operands' dtype.
+
+The backward of the training path has two plain versions beside them:
+``flash_attention_bwd`` (the explicit formula from the forward's
+log-sum-exp, which ``flash_attention(..., return_lse=True)`` gives) and
+``rglru_scan_bwd`` (the reverse sequential walk). They are what the CUDA
+backward kernels are held against, and the CPU path of the autograd
+Functions in ``flash_attention.py`` and ``rglru_scan.py``. Sums run in
+float32, or in float64 for float64 inputs (``gradcheck``).
 """
 from __future__ import annotations
 
@@ -23,20 +31,47 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The type sums run in: float32, or float64 for float64 inputs."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def _gqa_scores(q, k):
-    """q: (B, bq, KV, G, hd), k: (B, bk, KV, hd) -> (B, KV, G, bq, bk) f32."""
-    return torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float())
+    """q: (B, bq, KV, G, hd), k: (B, bk, KV, hd) -> (B, KV, G, bq, bk) in
+    ``_acc``."""
+    acc = _acc(q)
+    return torch.einsum("bqkgd,bskd->bkgqs", q.to(acc), k.to(acc))
+
+
+def attention_mask(Sq: int, Skv: int, *, causal: bool, window: int,
+                   chunk: int, device) -> torch.Tensor:
+    """(Sq, Skv) bool: which keys each query sees, the queries being the
+    last Sq of Skv positions (flash_attention.py:64-71 of the reference)."""
+    qpos = Skv - Sq + torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window:
+        mask = mask & (kpos > qpos - window)
+    if chunk:
+        mask = mask & (kpos // chunk == qpos // chunk)
+    return mask
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, chunk: int = 0,
                     softmax_scale: Optional[float] = None,
-                    block_q: int = 512, block_kv: int = 1024) -> torch.Tensor:
+                    block_q: int = 512, block_kv: int = 1024,
+                    return_lse: bool = False):
     """Blocked exact attention with online softmax.
 
     q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); H a multiple of KV (GQA).
     Queries are the LAST Sq positions of the kv sequence. Returns
-    (B, Sq, H, hd) in q.dtype.
+    (B, Sq, H, hd) in q.dtype; with ``return_lse`` also the log-sum-exp of
+    each query row's scaled scores, ``m + log(l)`` in natural-log units,
+    (B, H, Sq) float32 (float64 for float64 inputs): what the backward
+    recomputes the probabilities from.
     """
     B, Sq, H, hd = q.shape
     _, Skv, KV, _ = k.shape
@@ -55,19 +90,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
     n_q, n_kv = Sq // bq, k.shape[1] // bkv
 
-    q = (q.float() * scale).to(q.dtype)
+    q = (q.to(_acc(q)) * scale).to(q.dtype)
     qr = q.reshape(B, n_q, bq, KV, G, hd)
     kr = k.reshape(B, n_kv, bkv, KV, hd)
     vr = v.reshape(B, n_kv, bkv, KV, hd)
     q_pos0 = Skv - orig_sq
     dev = q.device
+    ad = _acc(q)
 
-    outs = []
+    outs, lses = [], []
     for i in range(n_q):
         q_i = qr[:, i]
-        m = torch.full((B, KV, G, bq), NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((B, KV, G, bq), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, KV, G, bq, hd), dtype=torch.float32, device=dev)
+        m = torch.full((B, KV, G, bq), NEG_INF, dtype=ad, device=dev)
+        l = torch.zeros((B, KV, G, bq), dtype=ad, device=dev)
+        acc = torch.zeros((B, KV, G, bq, hd), dtype=ad, device=dev)
         qpos = q_pos0 + i * bq + torch.arange(bq, device=dev)
         for j in range(n_kv):
             k_j, v_j = kr[:, j], vr[:, j]
@@ -86,12 +122,61 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(dim=-1)
             acc = acc * alpha[..., None] + torch.einsum(
-                "bkgqs,bskd->bkgqd", p.to(v_j.dtype).float(), v_j.float())
+                "bkgqs,bskd->bkgqd", p.to(v_j.dtype).to(ad), v_j.to(ad))
             m = m_new
-        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        lc = torch.clamp(l, min=1e-30)
+        out = acc / lc[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, bq, H, hd))
-    out = torch.cat(outs, dim=1)
-    return out[:, :orig_sq].to(q.dtype)
+        lses.append((m + torch.log(lc)).reshape(B, H, bq))
+    out = torch.cat(outs, dim=1)[:, :orig_sq].to(q.dtype)
+    if return_lse:
+        return out, torch.cat(lses, dim=2)[:, :, :orig_sq]
+    return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, chunk: int = 0,
+                        softmax_scale: Optional[float] = None):
+    """The gradients of ``flash_attention`` by the explicit formula: the
+    probabilities recomputed from the forward's log-sum-exp, ``P = exp(s -
+    lse)`` with ``s = scale * q.k`` (0 where the mask hides the key),
+    ``D = rowsum(dout * out)``, ``dS = P * (dout.v - D)``; then ``dq =
+    scale * dS k``, ``dk = scale * dS^T q`` and ``dv = P^T dout``, ``dk``
+    and ``dv`` summed over the G query heads of each kv head. Every mask of
+    the forward; queries are the last Sq of Skv positions.
+
+    q, out, dout: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); lse: (B, H, Sq).
+    Returns (dq, dk, dv) in the dtypes of q, k and v; sums in float32
+    (float64 for float64 inputs). One sequence at a time, so the (H, Sq,
+    Skv) probabilities of one sequence are the largest temporary."""
+    B, Sq, H, hd = q.shape
+    _, Skv, KV, _ = k.shape
+    G = H // KV
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    ad = _acc(q)
+    mask = attention_mask(Sq, Skv, causal=causal, window=window, chunk=chunk,
+                          device=q.device)
+    dqs, dks, dvs = [], [], []
+    for b in range(B):
+        qf = q[b].to(ad).reshape(Sq, KV, G, hd)
+        dof = dout[b].to(ad).reshape(Sq, KV, G, hd)
+        of = out[b].to(ad).reshape(Sq, KV, G, hd)
+        kf, vf = k[b].to(ad), v[b].to(ad)
+        s = torch.einsum("qkgd,skd->kgqs", qf, kf) * scale
+        lse_b = lse[b].to(ad).reshape(KV, G, Sq)
+        p = torch.where(mask, torch.exp(s - lse_b[..., None]),
+                        torch.zeros((), dtype=ad, device=q.device))
+        dp = torch.einsum("qkgd,skd->kgqs", dof, vf)
+        d_row = (dof * of).sum(-1).permute(1, 2, 0)            # (KV, G, Sq)
+        ds = p * (dp - d_row[..., None])
+        dqs.append(torch.einsum("kgqs,skd->qkgd", ds, kf).reshape(Sq, H, hd)
+                   * scale)
+        dks.append(torch.einsum("kgqs,qkgd->skd", ds, qf) * scale)
+        dvs.append(torch.einsum("kgqs,qkgd->skd", p, dof))
+    return (torch.stack(dqs).to(q.dtype), torch.stack(dks).to(k.dtype),
+            torch.stack(dvs).to(v.dtype))
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -250,16 +335,45 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     """Diagonal linear recurrence h_t = a_t * h_{t-1} + b_t (the RG-LRU
     core), walked over time in float32: one multiply and one add, each
     rounded, per step. a, b: (B, S, D); h0: (B, D) or None (zeros).
-    Returns h: (B, S, D) float32."""
+    Returns h: (B, S, D) float32 (float64 for float64 inputs). The steps
+    are stacked once at the end, so autograd's graph of it holds one
+    stack, not S in-place writes into one buffer."""
     B, S, D = a.shape
-    af, bf = a.float(), b.float()
-    h = torch.zeros((B, D), dtype=torch.float32, device=a.device) \
-        if h0 is None else h0.float()
-    out = torch.empty((B, S, D), dtype=torch.float32, device=a.device)
+    ad = _acc(a)
+    af, bf = a.to(ad), b.to(ad)
+    h = torch.zeros((B, D), dtype=ad, device=a.device) \
+        if h0 is None else h0.to(ad)
+    hs = []
     for t in range(S):
         h = af[:, t] * h + bf[:, t]
-        out[:, t] = h
-    return out
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None):
+    """The gradients of ``rglru_scan`` by the reverse sequential walk:
+    ``g_t = dh_t + a_{t+1} * g_{t+1}`` (``a_S * g_S`` taken as 0 * 0), then
+    ``db_t = g_t``, ``da_t = g_t * h_{t-1}`` (``h_{-1}`` = h0, or zeros)
+    and ``dh0 = a_0 * g_0``; one rounded multiply and one rounded add a
+    step, the order of the CUDA kernel's chain. a: (B, S, D); h, dh:
+    (B, S, D) float32, the forward's output and its gradient; h0: (B, D)
+    or None. Returns (da, db, dh0) in float32 (float64 for float64
+    inputs); dh0 is None when h0 is."""
+    B, S, D = a.shape
+    ad = _acc(a)
+    af, hf, dhf = a.to(ad), h.to(ad), dh.to(ad)
+    zero = torch.zeros((B, D), dtype=ad, device=a.device)
+    h_init = zero if h0 is None else h0.to(ad)
+    g = zero
+    das, dbs = [None] * S, [None] * S
+    for t in range(S - 1, -1, -1):
+        a_next = af[:, t + 1] if t + 1 < S else zero
+        g = dhf[:, t] + a_next * g
+        dbs[t] = g
+        das[t] = g * (hf[:, t - 1] if t else h_init)
+    dh0 = None if h0 is None else af[:, 0] * g
+    return torch.stack(das, dim=1), torch.stack(dbs, dim=1), dh0
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor,

@@ -45,7 +45,9 @@ A MoE layer (``cfg.n_experts``; every layer, as ``moe_every`` is 0 or 1)
 replaces the MLP with ``moe_ffn``: token-choice top-k routing in float32
 and three grouped matmuls through K4 (``moe_gmm``), the reference's
 single-device branch. Nothing on that path reads a tensor back to the
-host.
+host. ``attn_block`` and ``rglru_block`` return ``(x, cache, aux)``, as the
+reference's blocks: ``aux`` is the MoE layer's load-balancing loss (None
+for a dense feed-forward), which ``model.loss_fn`` adds in ``train``.
 
 Cache writes in ``chunk`` and ``decode`` are IN PLACE: where the JAX engine
 donates the cache so XLA updates it in place, the port mutates the cache
@@ -148,14 +150,16 @@ def _qkv(cfg: ModelConfig, params, h: torch.Tensor):
             v.reshape(B, S, KV, hd))
 
 
-def _ffn(cfg: ModelConfig, params, x: torch.Tensor,
-         impl: Optional[str]) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, params, x: torch.Tensor, impl: Optional[str]
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(x + FFN(x), aux): a MoE layer's load-balancing aux (float32, 0-d),
+    None for a dense MLP (the reference returns 0.0 there)."""
     h = rms_norm(x, params["ln2"])
     if "router" in params:    # MoE layer (decided at spec time)
-        out, _ = moe_ffn(cfg, params, h, impl=impl)   # serving drops aux
+        out, aux = moe_ffn(cfg, params, h, impl=impl)
     else:
-        out = mlp(params, h)
-    return x + out
+        out, aux = mlp(params, h), None
+    return x + out, aux
 
 
 def _keep_masked(new: torch.Tensor, old: torch.Tensor,
@@ -202,9 +206,11 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
                impl: Optional[str] = None,
                block_tables: Optional[torch.Tensor] = None,
                mask: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Returns (x, cache). ``train`` runs the whole sequence with no cache
-    and returns None (``causal=False`` is the whisper encoder's
+               ) -> Tuple[torch.Tensor, Optional[Cache], Optional[torch.Tensor]]:
+    """Returns (x, cache, aux), ``aux`` the MoE feed-forward's
+    load-balancing loss (None for a dense one; ``loss_fn`` adds it in
+    ``train``, serving drops it). ``train`` runs the whole sequence with no
+    cache and returns None (``causal=False`` is the whisper encoder's
     bidirectional attention); ``prefill`` returns the block's dense cache
     ``{"k", "v"}`` (B, L, KV, hd); ``chunk``/``decode`` write into ``cache``
     in place and return it. A block with cross attention (``c_wq`` in
@@ -291,7 +297,8 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
     x = x + attn.reshape(B, S, H * hd) @ params["wo"]
     if "c_wq" in params:
         x = _cross_attn(cfg, params, x, mode, cross_x, cache, new_cache, impl)
-    return _ffn(cfg, params, x, impl), new_cache
+    x, aux = _ffn(cfg, params, x, impl)
+    return x, new_cache, aux
 
 
 def _cross_attn(cfg: ModelConfig, params, x: torch.Tensor, mode: str,
@@ -449,8 +456,9 @@ def _conv4(xp: torch.Tensor, conv_w: torch.Tensor, S: int) -> torch.Tensor:
 def rglru_block(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
                 cache: Optional[Cache] = None, impl: Optional[str] = None,
                 mask: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Returns (x, cache). ``train`` runs the sequence with no cache (None);
+                ) -> Tuple[torch.Tensor, Optional[Cache], Optional[torch.Tensor]]:
+    """Returns (x, cache, aux) (aux as ``attn_block``'s). ``train`` runs
+    the sequence with no cache (None);
     ``prefill`` returns a new cache ``{"h": (B, D) float32, "conv": (B, 3,
     D)}``; ``chunk`` continues the conv and the
     recurrence from ``cache`` and ``decode`` advances them one step, both
@@ -495,7 +503,8 @@ def rglru_block(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
 
     gated = hseq.to(x.dtype) * F.gelu(gb.float(), approximate="tanh").to(x.dtype)
     x = x + gated @ params["w_out"]
-    return _ffn(cfg, params, x, impl), new_cache
+    x, aux = _ffn(cfg, params, x, impl)
+    return x, new_cache, aux
 
 
 # ======================================================================

@@ -1,4 +1,4 @@
-"""Shared layers: RMSNorm, RoPE, SwiGLU MLP, embeddings.
+"""Shared layers: RMSNorm, RoPE, SwiGLU MLP, embeddings, cross-entropy.
 
 Each follows ``repro.models.layers`` op for op, including where values are
 upcast to float32 and cast back, so the port's logits match the reference
@@ -7,7 +7,7 @@ on the same weights.
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -80,16 +80,74 @@ def embed(params, tokens: torch.Tensor, d: int) -> torch.Tensor:
     return out * scale
 
 
+UNEMBED_CHUNK = 8192    # vocab columns a float32 product of the backward
+
+
+class _UnembedFn(torch.autograd.Function):
+    """The card's bf16 unembedding under autograd (``aten::mm.dtype`` has
+    no derivative). Forward: the ``out_dtype`` product. Backward as the
+    reference's transpose of a ``preferred_element_type=float32`` product
+    (``jax.vjp`` of ``layers.unembed``): the float32 cotangent g is NOT
+    rounded to bf16; ``dx = g w^T`` and ``dw = x^T g`` are float32 products
+    (the bf16 operand widened exactly) rounded once to bf16. They run as
+    plain ``torch.mm`` over vocab chunks of ``UNEMBED_CHUNK`` columns, so no
+    float32 copy of the table (or of its gradient) is made: one chunk's at
+    a time."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        dx = dw = None
+        chunks = range(0, w.shape[1], UNEMBED_CHUNK)
+        if ctx.needs_input_grad[0]:
+            acc = torch.zeros(x2.shape, dtype=torch.float32, device=x2.device)
+            for c in chunks:
+                acc.addmm_(g[:, c:c + UNEMBED_CHUNK],
+                           w[:, c:c + UNEMBED_CHUNK].float().t())
+            dx = acc.to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            xt = x2.float().t()
+            dw = torch.empty_like(w)
+            for c in chunks:
+                dw[:, c:c + UNEMBED_CHUNK] = xt @ g[:, c:c + UNEMBED_CHUNK]
+        return dx, dw
+
+
 def unembed(params, x: torch.Tensor, tie: bool) -> torch.Tensor:
     """Logits in float32, as the reference's ``preferred_element_type``: no
     bf16 rounding of the logits happens. On the card with bf16 operands,
     one product of the bf16 operands with float32 accumulation and output
     (``out_dtype``): exact products and no float32 copy of the vocab table
-    (the tied table is read transposed, in place). Elsewhere the operands
-    are upcast (``aten::mm.dtype`` is CUDA-only), the same exact products."""
+    (the tied table is read transposed, in place); under autograd through
+    ``_UnembedFn``. Elsewhere the operands are upcast (``aten::mm.dtype``
+    is CUDA-only), the same exact products, which autograd differentiates
+    as the reference does."""
     w = params["tok"].t() if tie else params["head"]
     if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
-        logits = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                          out_dtype=torch.float32)
+        x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            logits = _UnembedFn.apply(x2, w)
+        else:
+            logits = torch.mm(x2, w, out_dtype=torch.float32)
         return logits.reshape(x.shape[:-1] + (w.shape[-1],))
     return x.float() @ w.float()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy (the reference's ``cross_entropy``, op for
+    op): float32 ``logsumexp`` minus the gold logit; with ``mask``, the
+    masked mean over at least one token. logits (..., V), labels (...,)
+    int."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()

@@ -23,24 +23,42 @@ the token embeddings in ``train``, ``prefill`` and ``chunk``, take the
 first positions (the tokens' rope positions start after them), and are
 stripped again before the unembedding, so the logits are the tokens'.
 
+Training (``mode="train"``) differs from the serving modes in three ways:
+each stacked leaf is unbound once per forward (one ``unbind(0)``, whose
+backward stacks the per-layer gradients once, where slicing ``[pi]`` per
+layer would write a zero tensor of the whole stack per layer); ``remat``
+recomputes each period in the backward
+(``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` around a
+period, the counterpart of the reference's ``jax.checkpoint`` of its scan
+body; remainder layers run outside it); and the MoE layers' aux loss is
+summed in layer order for ``loss_fn``.
+
 Public API (same names and arguments as the reference, plus ``device``):
   param_specs(cfg), init_model_params(cfg, seed, device)
   cache_specs(cfg, batch, seq_len), init_cache(cfg, batch, seq_len, device)
   paged_cache_specs(...), init_paged_cache(...), paged_leaf_flags(cfg, cache)
   chunked_prefill_supported(cfg)
   forward(cfg, params, batch, mode=...), prefill, decode_step, prefill_chunk
+  loss_fn(cfg, params, batch, impl=..., remat=...)
+``forward`` keeps its serving signature, (logits, cache) with no cache in
+``train``; the reference's third value, the aux loss, is what ``loss_fn``
+reads through ``forward_with_aux``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockKind, Family, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks as B
-from repro_torch.models.layers import embed, embed_specs, rms_norm, rope_tables, unembed
+from repro_torch.models.layers import (cross_entropy, embed, embed_specs, rms_norm,
+                                       rope_tables, unembed)
 from repro_torch.models.param import Spec, init_params, iter_leaves, map_tree
+
+AUX_LOSS_WEIGHT = 0.01
 
 # ----------------------------------------------------------------------
 # Spec assembly
@@ -221,11 +239,75 @@ def _encode(cfg: ModelConfig, params, frames: torch.Tensor,
     rope_cs = rope_tables(torch.arange(F_, device=frames.device)[None, :],
                           cfg.hd, cfg.rope_theta)
     x = frames
+    layers = {k: v.unbind(0) for k, v in enc["blocks"].items()}
     for i in range(cfg.n_encoder_layers):
-        p = {k: v[i] for k, v in enc["blocks"].items()}
-        x, _ = B.attn_block(cfg, BlockKind.ATTN, p, x, mode="train",
-                            causal=False, rope_cs=rope_cs, impl=impl)
+        p = {k: v[i] for k, v in layers.items()}
+        x, _, _ = B.attn_block(cfg, BlockKind.ATTN, p, x, mode="train",
+                               causal=False, rope_cs=rope_cs, impl=impl)
     return rms_norm(x, enc["final_ln"])
+
+
+def _add(aux: Optional[torch.Tensor], a: Optional[torch.Tensor]):
+    """aux + a, where None is a zero (dense layers have no aux)."""
+    if a is None:
+        return aux
+    return a if aux is None else aux + a
+
+
+def _apply_block(cfg: ModelConfig, kind: BlockKind, p, x: torch.Tensor, *,
+                 mode: str, cache=None, pos=None, cross_x=None, cache_len=None,
+                 impl=None, block_tables=None, rope_cs=None, mask=None):
+    """One layer of any kind: (x, cache, aux or None), as the reference's
+    ``_apply_block``."""
+    if kind == BlockKind.RGLRU:
+        return B.rglru_block(cfg, p, x, mode=mode, cache=cache, impl=impl,
+                             mask=mask)
+    if kind == BlockKind.MLSTM:
+        return (*B.mlstm_block(cfg, p, x, mode=mode, cache=cache, mask=mask),
+                None)
+    if kind == BlockKind.SLSTM:
+        return (*B.slstm_block(cfg, p, x, mode=mode, cache=cache, mask=mask),
+                None)
+    return B.attn_block(cfg, kind, p, x, mode=mode, cache=cache, pos=pos,
+                        cross_x=cross_x, cache_len=cache_len, impl=impl,
+                        block_tables=block_tables, rope_cs=rope_cs, mask=mask)
+
+
+def _train_layers(cfg: ModelConfig, params, x: torch.Tensor, rope_cs,
+                  cross_x, impl, remat: bool):
+    """The layer stack in ``train`` mode: (x, summed aux or None). Each
+    stacked leaf is unbound once; with ``remat`` each period runs under a
+    non-reentrant checkpoint (its activations recomputed in the backward),
+    the remainder layers outside it."""
+    n_periods, rem = _layout(cfg)
+    aux = None
+
+    def block(kind, p, x):
+        return _apply_block(cfg, kind, p, x, mode="train", cross_x=cross_x,
+                            impl=impl, rope_cs=rope_cs)
+
+    def period(x, pp):
+        a_sum = None
+        for i, kind in enumerate(cfg.pattern):
+            x, _, a = block(kind, pp[f"p{i}"], x)
+            a_sum = _add(a_sum, a)
+        return x, a_sum
+
+    if n_periods:
+        layers = {key: {name: leaf.unbind(0) for name, leaf in sub.items()}
+                  for key, sub in params["blocks"].items()}
+        for pi in range(n_periods):
+            pp = {key: {name: ts[pi] for name, ts in sub.items()}
+                  for key, sub in layers.items()}
+            if remat:
+                x, a = checkpoint(period, x, pp, use_reentrant=False)
+            else:
+                x, a = period(x, pp)
+            aux = _add(aux, a)
+    for j in range(rem):
+        x, _, a = block(_rem_kind(cfg, j), params["rem"][f"r{j}"], x)
+        aux = _add(aux, a)
+    return x, aux
 
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
@@ -233,7 +315,23 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
             cache_len: Optional[int] = None, impl: Optional[str] = None,
             block_tables: Optional[torch.Tensor] = None,
             mask: Optional[torch.Tensor] = None):
-    """Returns (logits, cache).
+    """Returns (logits, cache): ``forward_with_aux`` without its aux."""
+    logits, cache, _ = forward_with_aux(
+        cfg, params, batch, mode=mode, cache=cache, pos=pos,
+        cache_len=cache_len, impl=impl, block_tables=block_tables, mask=mask)
+    return logits, cache
+
+
+def forward_with_aux(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+                     *, mode: str, cache=None, pos=None,
+                     cache_len: Optional[int] = None,
+                     impl: Optional[str] = None,
+                     block_tables: Optional[torch.Tensor] = None,
+                     mask: Optional[torch.Tensor] = None, remat: bool = False,
+                     remat_policy: Optional[str] = None):
+    """Returns (logits, cache, aux), as the reference's ``forward``: aux is
+    the MoE layers' load-balancing loss summed in layer order (float32,
+    0-d) in ``train`` mode, None without MoE layers or in serving modes.
 
     ``batch``: tokens (B, S), and for an encoder-decoder in ``train`` and
     ``prefill`` ``frames`` (B, F, d); for a VLM, optionally ``patches``
@@ -247,11 +345,19 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     ``decode``: one token per sequence. Both update ``cache`` in place and
     return it. ``block_tables`` (B, P): page ids when global-attention K/V
     are paged pools. ``mask`` (B,) bool, decode only: rows where it is False
-    leave their per-slot cache leaves unchanged.
+    leave their per-slot cache leaves unchanged. ``remat`` (``train``
+    only): recompute each period's activations in the backward;
+    ``remat_policy="dots"`` (the reference's save-the-matmuls policy) is
+    not ported yet and raises ``NotImplementedError``.
     """
     _check_supported(cfg)
     if mode not in ("train", "prefill", "chunk", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
+    if remat_policy == "dots":
+        raise NotImplementedError("remat_policy='dots' (save the matmul "
+                                  "outputs) is not ported; use remat=True")
+    if remat_policy is not None:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}")
     if mode in ("chunk", "decode") and cache is None:
         raise ValueError(f"{mode} mode needs a cache")
     tokens = batch["tokens"]
@@ -281,21 +387,18 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
         positions = torch.arange(S, device=tokens.device)[None, :]
     rope_cs = rope_tables(positions, cfg.hd, cfg.rope_theta)
     new: Dict[str, list] = {}
-    fresh = mode in ("train", "prefill")
-    for key, kind, p, c in _layers(cfg, params, None if fresh else cache):
-        if kind == BlockKind.RGLRU:
-            x, nc = B.rglru_block(cfg, p, x, mode=mode, cache=c, impl=impl,
-                                  mask=mask)
-        elif kind == BlockKind.MLSTM:
-            x, nc = B.mlstm_block(cfg, p, x, mode=mode, cache=c, mask=mask)
-        elif kind == BlockKind.SLSTM:
-            x, nc = B.slstm_block(cfg, p, x, mode=mode, cache=c, mask=mask)
-        else:
-            x, nc = B.attn_block(cfg, kind, p, x, mode=mode, cache=c, pos=pos,
-                                 cross_x=cross_x, cache_len=cache_len,
-                                 impl=impl, block_tables=block_tables,
-                                 rope_cs=rope_cs, mask=mask)
-        new.setdefault(key, []).append(nc)
+    aux = None
+    if mode == "train":
+        x, aux = _train_layers(cfg, params, x, rope_cs, cross_x, impl, remat)
+    else:
+        for key, kind, p, c in _layers(cfg, params,
+                                       None if mode == "prefill" else cache):
+            x, nc, _ = _apply_block(cfg, kind, p, x, mode=mode, cache=c,
+                                    pos=pos, cross_x=cross_x,
+                                    cache_len=cache_len, impl=impl,
+                                    block_tables=block_tables,
+                                    rope_cs=rope_cs, mask=mask)
+            new.setdefault(key, []).append(nc)
     x = rms_norm(x, params["final_ln"])
     if n_patches:
         x = x[:, n_patches:]
@@ -304,16 +407,16 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
         x = x[:, -1:]
     logits = unembed(params["embed"], x, cfg.tie_embeddings)
     if mode == "train":
-        return logits, None
+        return logits, None, aux
     if mode != "prefill":
-        return logits, cache
+        return logits, cache, None
     out: Dict[str, Any] = {}
     for key, caches in new.items():
         top, sub = key.split("/")
         leaves = caches[0] if top == "rem" else {
             name: torch.stack([c[name] for c in caches]) for name in caches[0]}
         out.setdefault(top, {})[sub] = leaves
-    return logits, out
+    return logits, out, None
 
 
 def prefill(cfg: ModelConfig, params, batch, *, cache_len=None, impl=None):
@@ -346,3 +449,15 @@ def prefill_chunk(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
                             cache=cache, pos=pos, impl=impl,
                             block_tables=block_tables)
     return logits[:, -1:], cache
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *, impl=None, remat=False,
+            remat_policy=None) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["labels"]`` plus
+    ``AUX_LOSS_WEIGHT`` times the MoE aux loss (the reference's
+    ``loss_fn``), a float32 scalar."""
+    logits, _, aux = forward_with_aux(cfg, params, batch, mode="train",
+                                      impl=impl, remat=remat,
+                                      remat_policy=remat_policy)
+    loss = cross_entropy(logits, batch["labels"])
+    return loss if aux is None else loss + AUX_LOSS_WEIGHT * aux

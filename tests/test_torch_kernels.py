@@ -15,6 +15,7 @@ the comparison helpers so those cases also run where JAX is not installed
 """
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -454,6 +455,135 @@ def test_wrappers_run_plain_on_cpu_without_counting():
 
 
 # ----------------------------------------------------------------------
+# the backward of K2 and K5: plain versions vs jax.grad of the reference's
+# XLA path (the Pallas kernels have no VJP), autograd and gradcheck
+# ----------------------------------------------------------------------
+# B, Sq, Skv, H, KV, hd, causal, window, chunk: every mask, G = 1, 4 and
+# 5, Sq < Skv, ragged lengths (not multiples of the plain version's blocks)
+FLASH_BWD_CASES = [
+    (2, 40, 40, 8, 2, 64, True, 0, 0),      # G = 4, causal
+    (1, 33, 33, 4, 4, 64, True, 0, 0),      # G = 1, ragged
+    (1, 24, 57, 10, 2, 64, True, 0, 0),     # G = 5, Sq < Skv
+    (1, 50, 50, 4, 1, 128, True, 16, 0),    # window
+    (1, 37, 61, 5, 1, 64, True, 16, 0),     # window, Sq < Skv, G = 5
+    (1, 45, 45, 8, 2, 64, True, 0, 16),     # chunk
+    (2, 30, 30, 4, 4, 64, False, 0, 0),     # no mask
+    (1, 19, 19, 2, 1, 256, True, 0, 0),     # hd 256, G = 2
+]
+
+
+def _flash_bwd_inputs(rng, B, Sq, Skv, H, KV, hd):
+    return (_np(rng, (B, Sq, H, hd)), _np(rng, (B, Skv, KV, hd)),
+            _np(rng, (B, Skv, KV, hd)), _np(rng, (B, Sq, H, hd)))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal,window,chunk", FLASH_BWD_CASES)
+def test_flash_bwd_plain_matches_jax_grad(B, Sq, Skv, H, KV, hd, causal,
+                                          window, chunk):
+    """``ref.flash_attention_bwd`` (from the forward's log-sum-exp) against
+    ``jax.vjp`` of the reference's XLA attention and against torch autograd
+    of the port's plain forward, float32 within 2e-5 of max |grad|."""
+    import jax
+    from repro.kernels import ref as jref
+    rng = np.random.default_rng(Sq * Skv + H)
+    q, k, v, do = _flash_bwd_inputs(rng, B, Sq, Skv, H, KV, hd)
+    kw = dict(causal=causal, window=window, chunk=chunk)
+    out, lse = ref.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                                   **kw, return_lse=True)
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    got = ref.flash_attention_bwd(*(torch.from_numpy(x) for x in (q, k, v)),
+                                  out, lse, torch.from_numpy(do), **kw)
+    jout, vjp = jax.vjp(lambda q, k, v: jref.flash_attention(q, k, v, **kw),
+                        *(_jnp(x, F32) for x in (q, k, v)))
+    np.testing.assert_allclose(_f32(out), _f32(jout), atol=2e-5)
+    want = vjp(_jnp(do, F32))
+    ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    auto = torch.autograd.grad(ref.flash_attention(*ts, **kw), ts,
+                               torch.from_numpy(do))
+    for name, g, w, a in zip("qkv", got, want, auto):
+        w = _f32(w)
+        tol = 2e-5 * max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(_f32(g), w, atol=tol, err_msg=f"d{name} vs jax")
+        np.testing.assert_allclose(_f32(g), _f32(a), atol=tol, err_msg=f"d{name} vs autograd")
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,D", [(2, 37, 24), (1, 70, 13)])
+def test_rglru_bwd_plain_matches_jax_grad(B, S, D, with_h0):
+    """``ref.rglru_scan_bwd`` (the reverse walk) against ``jax.vjp`` of the
+    reference's associative scan, float32 within 2e-5 (the scan's sums run
+    in another order)."""
+    import jax
+    from repro.kernels import ref as jref
+    rng = np.random.default_rng(S + D)
+    a, b, h0 = _scan_inputs(rng, B, S, D)
+    dh = _np(rng, (B, S, D))
+    h0 = h0 if with_h0 else None
+    ta = [torch.from_numpy(x) if x is not None else None for x in (a, b, h0)]
+    h = ref.rglru_scan(*ta)
+    da, db, dh0 = ref.rglru_scan_bwd(ta[0], h, torch.from_numpy(dh), ta[2])
+    if with_h0:
+        _, vjp = jax.vjp(jref.rglru_scan, *(_jnp(x, F32) for x in (a, b, h0)))
+        wa, wb, wh0 = vjp(_jnp(dh, F32))
+        np.testing.assert_allclose(_f32(dh0), _f32(wh0), rtol=2e-5, atol=2e-5)
+    else:
+        _, vjp = jax.vjp(lambda a, b: jref.rglru_scan(a, b),
+                         *(_jnp(x, F32) for x in (a, b)))
+        wa, wb = vjp(_jnp(dh, F32))
+        assert dh0 is None
+    np.testing.assert_allclose(_f32(da), _f32(wa), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(_f32(db), _f32(wb), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal,window,chunk,Sq,Skv", [
+    (True, 0, 0, 6, 6), (True, 3, 0, 5, 9), (True, 0, 4, 8, 8),
+    (False, 0, 0, 4, 7)])
+def test_flash_function_gradcheck(causal, window, chunk, Sq, Skv):
+    """``FlashAttentionFn`` on CPU tensors (the plain forward and
+    ``ref.flash_attention_bwd``) against finite differences, float64."""
+    rng = np.random.default_rng(Sq + Skv)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s)).requires_grad_()
+               for s in ((1, Sq, 4, 16), (1, Skv, 2, 16), (1, Skv, 2, 16)))
+    fn = lambda q, k, v: fa.flash_attention(q, k, v, causal=causal,  # noqa: E731
+                                            window=window, chunk=chunk)
+    assert fn(q, k, v).grad_fn.name().startswith("FlashAttentionFn")
+    assert torch.autograd.gradcheck(fn, (q, k, v))
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_function_gradcheck(with_h0):
+    """``RGLRUScanFn`` on CPU tensors (the plain scan and
+    ``ref.rglru_scan_bwd``) against finite differences, float64; gradients
+    reach a, b and h0."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.uniform(0.3, 0.99, (2, 11, 5))).requires_grad_()
+    b = torch.from_numpy(rng.standard_normal((2, 11, 5))).requires_grad_()
+    h0 = torch.from_numpy(rng.standard_normal((2, 5))).requires_grad_() \
+        if with_h0 else None
+    args = (a, b, h0) if with_h0 else (a, b)
+    assert rs.rglru_scan(*args).grad_fn.name().startswith("RGLRUScanFn")
+    assert torch.autograd.gradcheck(lambda *x: rs.rglru_scan(*x), args)
+
+
+def test_backward_wrappers_run_plain_on_cpu_without_counting():
+    rng = np.random.default_rng(1)
+    q, k, v, do = (torch.from_numpy(x) for x in
+                   _flash_bwd_inputs(rng, 1, 9, 9, 4, 2, 64))
+    out, lse = ref.flash_attention(q, k, v, return_lse=True)
+    n = (fa.flash_attention.launches, fa.flash_attention_bwd.launches,
+         rs.rglru_scan.launches, rs.rglru_scan_bwd.launches)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    for g, w in zip(got, ref.flash_attention_bwd(q, k, v, out, lse, do)):
+        assert torch.equal(g, w)
+    a = torch.rand((1, 6, 16))
+    h = rs.rglru_scan(a, a)
+    got = rs.rglru_scan_bwd(a, h, h)
+    assert got[2] is None and torch.equal(got[0], ref.rglru_scan_bwd(a, h, h)[0])
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches,
+            rs.rglru_scan.launches, rs.rglru_scan_bwd.launches) == n
+
+
+# ----------------------------------------------------------------------
 # CUDA kernels against their plain versions (on the card only)
 # ----------------------------------------------------------------------
 @pytest.fixture
@@ -771,6 +901,145 @@ def test_rglru_kernel_equals_plain(cuda, B, S, D, with_h0, dtype):
     plan = rs.scan_plan(D, a.element_size(), *(x.data_ptr() for x in off))
     assert plan.vec == a.element_size()
     assert torch.equal(rs.rglru_scan(*off, h0), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal,window,chunk", FLASH_BWD_CASES + [
+    (1, 1000, 1000, 32, 8, 64, True, 0, 0),      # granite's widths, ragged
+    (1, 700, 700, 10, 1, 256, True, 300, 0),     # recurrentgemma's, window
+    (1, 500, 500, 20, 4, 128, True, 0, 100)])    # G = 5 at hd 128, chunk
+def test_flash_bwd_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, hd, causal,
+                                        window, chunk, dtype):
+    """The backward kernel against ``ref.flash_attention_bwd`` on the same
+    inputs (the bf16 ones widened to float32), float32 2e-5 and bf16 2e-2
+    of max |grad|, and each 64-row block of the sequence within the same
+    tolerance by its own relative error (late keys' dK and dV are far
+    smaller than the first keys' under a causal mask); the forward with
+    its log-sum-exp against the plain forward (output and log-sum-exp);
+    a second launch gives the same bits (no atomics)."""
+    rng = np.random.default_rng(Sq + Skv)
+    q, k, v, do = (_torch(x, dtype, cuda) for x in
+                   _flash_bwd_inputs(rng, B, Sq, Skv, H, KV, hd))
+    kw = dict(causal=causal, window=window, chunk=chunk)
+    out, lse = fa._forward(q, k, v, causal, window, chunk, None, True)
+    assert torch.equal(out, fa.flash_attention(q, k, v, **kw))
+    want_out, want_lse = ref.flash_attention(*_up(q, k, v), **kw, return_lse=True)
+    _held(out, want_out.to(q.dtype), dtype)
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+    n = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == n + 2
+    want = ref.flash_attention_bwd(*_up(q, k, v, out), lse, do.float(), **kw)
+    for name, g, g2, w in zip("qkv", got, again, want):
+        assert g.dtype == q.dtype and torch.equal(g, g2), name
+        err = float((g.float() - w).abs().max() / w.abs().max())
+        assert err <= TOL[dtype], f"d{name}: {err}"
+        for i, (gb, wb) in enumerate(zip(g.float().split(64, dim=1), w.split(64, dim=1))):
+            err = float((gb - wb).norm() / wb.norm().clamp(min=1e-30))
+            assert err <= TOL[dtype], f"d{name} rows {64 * i}..: {err}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,D", [(1, 1, 100), (2, 13, 300), (1, 1000, 2560),
+                                   (1, 77, 2558)])
+def test_rglru_bwd_kernel_equals_plain(cuda, B, S, D, with_h0):
+    """The reverse scan kernel equals ``ref.rglru_scan_bwd`` bit for bit
+    at every channel count of the plan (the same rounded multiplies and
+    adds in the same order)."""
+    rng = np.random.default_rng(S + D)
+    a, _, h0 = _scan_inputs(rng, B, S, D)
+    a, h, dh = (_torch(x, F32, cuda) for x in (a, _np(rng, (B, S, D)),
+                                                _np(rng, (B, S, D))))
+    h0 = _torch(h0, F32, cuda) if with_h0 else None
+    want = ref.rglru_scan_bwd(a, h, dh, h0)
+    n = rs.rglru_scan_bwd.launches
+    got = rs.rglru_scan_bwd(a, h, dh, h0)
+    torch.cuda.synchronize()
+    assert rs.rglru_scan_bwd.launches == n + 1
+    for ch in rs.CH_CHOICES:
+        plan = rs.scan_plan(D, 4, a.data_ptr(), h.data_ptr(), ch=ch)
+        for g, w in zip(rs.rglru_scan_bwd(a, h, dh, h0, plan=plan), want):
+            assert (g is None and w is None) or torch.equal(g, w), plan
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_no_wrapper_cuts_the_gradient_on_the_card(cuda):
+    """Under autograd on the card K2 and K5 go through their Functions
+    (gradients from the backward kernels reach every operand, each
+    backward counted once), and K1, K3 and K4, which have no backward
+    kernel, raise instead of returning a detached output; under
+    ``torch.no_grad()`` they run."""
+    rng = np.random.default_rng(0)
+    q, k, v, do = (_torch(x, BF16, cuda).requires_grad_() for x in
+                   _flash_bwd_inputs(rng, 1, 64, 64, 8, 2, 64))
+    n = fa.flash_attention_bwd.launches
+    out = fa.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out, (q, k, v), do.detach())
+    assert fa.flash_attention_bwd.launches == n + 1
+    assert all(float(g.float().abs().max()) > 0 for g in grads)
+    a = torch.rand((1, 40, 64), device=cuda, requires_grad=True)
+    b = torch.rand((1, 40, 64), device=cuda, requires_grad=True)
+    h0 = torch.rand((1, 64), device=cuda, requires_grad=True)
+    n = rs.rglru_scan_bwd.launches
+    grads = torch.autograd.grad(rs.rglru_scan(a, b, h0).sum(), (a, b, h0))
+    assert rs.rglru_scan_bwd.launches == n + 1
+    assert all(float(g.abs().max()) > 0 for g in grads)
+    qd = q[:, :1]
+    kv_len = torch.tensor([64], dtype=torch.int32, device=cuda)
+    pool = k.reshape(4, 16, 2, 64)
+    tables = torch.arange(4, dtype=torch.int32, device=cuda)[None]
+    calls = {
+        "decode_attention (K3)": lambda: da.decode_attention(qd, k, v, kv_len),
+        "paged_decode_attention (K1)": lambda: pa.paged_decode_attention(
+            qd, pool, pool, tables, kv_len),
+        "paged_prefill_attention (K1)": lambda: pa.paged_prefill_attention(
+            q[:, :16], pool, pool, tables, kv_len,
+            torch.tensor([48], dtype=torch.int32, device=cuda)),
+        "moe_gmm (K4)": lambda: gm.moe_gmm(
+            q.reshape(-1, 64)[:32], torch.zeros((2, 64, 64), device=cuda,
+                                                dtype=torch.bfloat16,
+                                                requires_grad=True),
+            torch.tensor([16, 16], dtype=torch.int32, device=cuda)),
+    }
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError, match=re.escape(name)):
+            call()
+        with torch.no_grad():
+            call()
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """granite ``.reduced()`` in float32: the step through the kernels on
+    the card against the plain path on the CPU, the same weights and
+    batch (losses within 1e-5, every leaf's gradient within 1e-4 x max|g|)."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.models import model as TM
+    from repro_torch.models.param import iter_leaves
+    from repro_torch.train.train_loop import loss_and_grads
+    tcfg = get_config("granite-3-2b").reduced()
+    tp = TM.init_model_params(tcfg, 0, "cpu")
+    tb = {k: torch.from_numpy(v) for k, v in TokenPipeline(PipelineConfig(
+        vocab=tcfg.vocab, seq_len=64, global_batch=2)).next_batch().items()}
+    n = fa.flash_attention_bwd.launches
+    l0, g0 = loss_and_grads(tcfg, tp, tb)
+    dev_p = bridge.from_jax(bridge.to_numpy(tp), device=cuda)
+    l1, g1 = loss_and_grads(tcfg, dev_p, {k: v.to(cuda) for k, v in tb.items()})
+    assert fa.flash_attention_bwd.launches == n + tcfg.n_layers
+    np.testing.assert_allclose(float(l1), float(l0), rtol=1e-5)
+    want = dict(iter_leaves(g0))
+    for path, g in iter_leaves(g1):
+        w = want[path]
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max()), path
 
 
 @pytest.mark.gpu

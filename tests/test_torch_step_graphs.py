@@ -22,7 +22,8 @@ over runs that cross widths, with equal launch counts; a capture while
 another thread launches on the card; memory back within 64 MiB after the
 engine is dropped; and ``unembed``'s ``out_dtype`` product against the
 upcast (float32 summation order only: within 1e-5 of the sum of |products|)
-with a peak below the upcast's by the table's float32 bytes.
+with a peak below the upcast's by the table's float32 bytes, and its
+backward under autograd against the upcast's.
 """
 import dataclasses
 import gc
@@ -270,13 +271,19 @@ def test_every_wrapper_names_a_kernel_with_bodies():
     from repro_torch.kernels import rglru_scan as rs
     wrappers = {fa.flash_attention: "K2", pa.paged_decode_attention: "K1",
                 pa.paged_prefill_attention: "K1", da.decode_attention: "K3",
-                gm.moe_gmm: "K4", rs.rglru_scan: "K5"}
+                gm.moe_gmm: "K4", rs.rglru_scan: "K5",
+                fa.flash_attention_bwd: "K2 bwd", rs.rglru_scan_bwd: "K5 bwd"}
     assert {w: w.kernel for w in wrappers} == wrappers
     assert {k for _, k in build.BODIES} == set(wrappers.values())
     frags = [f for f, _ in build.BODIES]
     assert len(set(frags)) == len(frags)
     assert build.kernel_of_body("_Z17rglru_scan_kernelIfEvv") == "K5"
     assert build.kernel_of_body("_Z25split_decode_merge_kernelIfLi64EEv") is None
+    # the length prefix keeps the forward's bodies apart from the backward's
+    assert build.kernel_of_body("_Z22flash_attention_kernelIfLi64EEv") == "K2"
+    assert build.kernel_of_body(
+        "_Z33flash_attention_bwd_dq_mma_kernelILi64EEv") == "K2 bwd"
+    assert build.kernel_of_body("_Z21rglru_scan_bwd_kernelILi16ELi16EEv") == "K5 bwd"
 
 
 # ----------------------------------------------------------------------
@@ -432,3 +439,30 @@ def test_unembed_out_dtype_without_a_table_copy(cuda, tie):
     table32 = V * d * 4
     assert want_peak - got_peak >= table32 - (16 << 20), (want_peak, got_peak)
     assert got_peak < V * d * 2, "a copy of the table was made"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tie", [False, True])
+def test_unembed_backward_on_the_card(cuda, tie):
+    """The bf16 unembedding under autograd (``_UnembedFn``) against
+    autograd of the float32 upcast, the reference's arithmetic: float32
+    logits within 1e-5, dx and dw within two bf16 roundings (the float32
+    products summed over vocab chunks of 8192 in another order)."""
+    g = torch.Generator().manual_seed(0)
+    V, d = 20000, 256
+    x = torch.randn(2, 7, d, generator=g).to(cuda, torch.bfloat16).requires_grad_()
+    w = (torch.randn(V, d, generator=g) * 0.05).to(cuda, torch.bfloat16).requires_grad_()
+    params = {"tok": w} if tie else {"head": w.t().detach().contiguous().requires_grad_()}
+    leaf = params["tok"] if tie else params["head"]
+    logits = TL.unembed(params, x, tie)
+    assert logits.dtype == torch.float32 and logits.grad_fn is not None
+    cot = torch.randn(logits.shape, generator=g).to(cuda)
+    got = torch.autograd.grad(logits, (x, leaf), cot)
+    xf, wf = x.detach().float().requires_grad_(), leaf.detach().float().requires_grad_()
+    want_logits = xf @ (wf.t() if tie else wf)
+    torch.testing.assert_close(logits, want_logits, rtol=1e-5, atol=1e-5)
+    want = torch.autograd.grad(want_logits, (xf, wf), cot)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.to(torch.bfloat16).float(),
+                                   rtol=2 ** -7, atol=1e-6)
