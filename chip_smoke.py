@@ -11,7 +11,8 @@ Phases (each raises on failure, so the script exits non-zero):
    spills and static shared memory from ptxas, and its count of
    tensor-core instructions (HMMA, HGMMA) from ``cuobjdump -sass``; the
    bf16 instances of K2, K1's chunks (the prefill body they share), K4 and
-   the split decode body (K1 decode, K3) must have some.
+   its backward, K2's backward and the split decode body (K1 decode, K3)
+   must have some.
 2. Kernels against their plain PyTorch versions on the card, in bf16 and
    float32, at the main paths' shapes: K2 flash attention (granite-3-2b
    prefill, H=32 KV=8 hd=64; recurrentgemma-2b prefill, H=10 KV=1 hd=256,
@@ -257,11 +258,37 @@ Phases (each raises on failure, so the script exits non-zero):
    with a falling loss; (d) recurrentgemma-2b at full width and depth,
    B=1 S=3072, 4 steps, the same readings (16 K2 forward, 8 backward, 34
    K5 forward, 18 backward a step); (e) the trained granite parameters
-   through ``train.checkpoint`` save / restore bit for bit, and a
-   llama4-scout ``.reduced()`` train step on the card raising K4's guard.
+   through ``train.checkpoint`` save / restore bit for bit, and K1 (decode
+   and chunk) and K3, which have no backward kernel, raising under
+   autograd on the card (and running under ``torch.no_grad()``); (f) K4's
+   backward (``csrc/moe_gmm_bwd.cu``: dX = dY W[e]^T and dW[e] = X_e^T
+   dY_e) against ``ref.moe_gmm_bwd`` in bf16 and float32 at llama4-scout's
+   training shapes (4096 rows of a top-1 routing over 16 experts; gate/up
+   K=5120 N=8192, down K=8192 N=5120) and its edges (an empty group, a
+   one-row group, rows past the total, one expert, K and N off the
+   tiles): dX within ``gmm_tol`` of max|ref|, each expert's dW within it
+   of its own, empty groups and uncovered rows exactly zero, two
+   launches bit for bit, K4's forward at the same shapes; each body's
+   device ms, events, bound (bytes over 3.35 TB/s, operations over 989
+   TFLOP/s), the plain version's ms and ``torch._grouped_mm``'s for the
+   same dX and dW (checked to compute it first; timed only); (g) a
+   llama4-scout ``.reduced()`` train step through K2, K4 and their
+   backward kernels against ``impl="ref"`` (float32, and bf16 with the
+   expert choices shared) and against the CPU (float32), and grok-1
+   ``.reduced()`` (top-2, two checkpointed periods) under
+   ``remat_policy="dots"`` against ``remat=True`` on the card; (h)
+   llama4-scout-17b-a16e at every published width cut from 48 to 2
+   layers (ATTN, CHUNKED_ATTN; 5.19 B parameters), bf16 with float32
+   AdamW state, B=2 S=2048, 5 steps through the launcher's pieces with
+   (c)'s readings (MFU from the active parameters: top-1 of 16 experts),
+   each step's launches the reckoning's (2 K2 forward and backward, 6 K4
+   forward and backward: both layers are remainder layers of the 4-layer
+   pattern, outside the checkpoint), the repeated batch's loss falling
+   at lr 1e-4 (at 1e-3 it rose).
    Its launches are the ``..., via train`` and ``flash_attention_bwd`` /
-   ``rglru_scan_bwd`` rows of the ``kernels`` line. Phase 1 also holds
-   the backward's bf16 instances to HMMA present and no spill.
+   ``rglru_scan_bwd`` / ``moe_gmm_bwd`` rows of the ``kernels`` line.
+   Phase 1 also holds the backward's bf16 instances (K2's and K4's) to
+   HMMA present and no spill.
 
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -461,10 +488,13 @@ def ptxas_summary(report: str):
 # the bf16 instances that must run on the tensor cores
 MMA_KERNELS = ("flash_attention_mma_kernel", "paged_prefill_mma_kernel", "moe_gmm_mma_kernel",
                "split_decode_mma_kernel", "flash_attention_bwd_dq_mma_kernel",
-               "flash_attention_bwd_dkv_mma_kernel")
+               "flash_attention_bwd_dkv_mma_kernel", "moe_gmm_bwd_dx_mma_kernel",
+               "moe_gmm_bwd_dw_mma_kernel")
 # the bf16 instances that must not spill (the backward's, whose float32
-# dq, dk and dv sums are sized to the register file)
-NO_SPILL_KERNELS = ("flash_attention_bwd_dq_mma_kernel", "flash_attention_bwd_dkv_mma_kernel")
+# sums are sized to the register file), with their instance counts: K2's
+# two passes at each head dim, K4's dX and dW
+NO_SPILL_KERNELS = {"flash_attention_bwd_dq_mma_kernel": 3, "flash_attention_bwd_dkv_mma_kernel": 3,
+                    "moe_gmm_bwd_dx_mma_kernel": 1, "moe_gmm_bwd_dw_mma_kernel": 1}
 # the split-KV decode of K1 (C == 1) and K3 in bf16: the body and its merge
 SPLIT_DECODE = ("split_decode_mma_kernel", "split_decode_merge_kernel")
 
@@ -503,23 +533,25 @@ def sass_mma_counts(cuobjdump: str, library: Path):
 
 
 def check_no_spill(build) -> None:
-    """Raise if a ``NO_SPILL_KERNELS`` instance spills (ptxas's report)."""
-    seen = 0
+    """Raise if a ``NO_SPILL_KERNELS`` instance spills (ptxas's report), or
+    if the reports hold fewer instances than it names."""
+    seen = collections.Counter()
     for name in build.KERNELS:
         for line in ptxas_summary(build.ptxas_report(name)):
-            if line.startswith(NO_SPILL_KERNELS):
-                seen += 1
+            kernel = next((k for k in NO_SPILL_KERNELS if line.startswith(k)), None)
+            if kernel:
+                seen[kernel] += 1
                 if " 0 bytes spill stores" not in line:
                     raise AssertionError(f"a bf16 backward instance spills: {line}")
-    if seen < 2 * len(build.HEAD_DIMS):
-        raise AssertionError(f"{seen} backward mma instances in the ptxas reports, expected "
-                             f"{2 * len(build.HEAD_DIMS)} (built elsewhere?)")
+    if seen != collections.Counter(NO_SPILL_KERNELS):
+        raise AssertionError(f"backward mma instances in the ptxas reports {dict(seen)}, "
+                             f"expected {NO_SPILL_KERNELS} (built elsewhere?)")
 
 
 def check_tensor_cores(build) -> None:
     """Log every kernel instance's HMMA / HGMMA count; raise unless every
-    bf16 instance of K2, K1 chunk, K4 and the split decode body (K1 decode,
-    K3) has some."""
+    bf16 instance of ``MMA_KERNELS`` (K2, K1 chunk, K4, the split decode
+    body of K1 decode and K3, and the backward of K2 and K4) has some."""
     tool = cuobjdump_path()
     seen = {}
     for name in build.KERNELS:
@@ -1439,7 +1471,8 @@ def _counters():
     return {"flash": fa.flash_attention, "decode": pa.paged_decode_attention,
             "chunk": pa.paged_prefill_attention, "dense": da.decode_attention,
             "scan": rs.rglru_scan, "gmm": gm.moe_gmm,
-            "flash_bwd": fa.flash_attention_bwd, "scan_bwd": rs.rglru_scan_bwd}
+            "flash_bwd": fa.flash_attention_bwd, "scan_bwd": rs.rglru_scan_bwd,
+            "gmm_bwd": gm.moe_gmm_bwd}
 
 
 def launches():
@@ -2463,7 +2496,8 @@ def profile_breakdown(torch, label: str, run, n: int, shares=None, per_launch=No
     after = launches()
     counted = {what: after[key] - before[key] for what, key in (
         ("K2", "flash"), ("K1 decode", "decode"), ("K1 chunk", "chunk"), ("K3", "dense"),
-        ("K5", "scan"), ("K4", "gmm"), ("K2 bwd", "flash_bwd"), ("K5 bwd", "scan_bwd"))}
+        ("K5", "scan"), ("K4", "gmm"), ("K2 bwd", "flash_bwd"), ("K5 bwd", "scan_bwd"),
+        ("K4 bwd", "gmm_bwd"))}
     evs = prof.key_averages()
     dev = sorted((e for e in evs if e.device_type != DeviceType.CPU),
                  key=_device_us, reverse=True)
@@ -2654,7 +2688,7 @@ def shared_routes():
         if cur[0] is None:
             queue.append(top_i)
             return probs, top_p, top_i
-        forced = queue.popleft()
+        forced = queue.popleft().to(top_i.device)   # the plain path may run on the CPU
         count["all"] += forced.shape[0]
         count["differ"] += int((forced != top_i).any(-1).sum())
         top_p = probs.gather(-1, forced)
@@ -3444,13 +3478,29 @@ def llava_run(torch, dev):
 # phase 10: training on the card
 # ----------------------------------------------------------------------
 TR_B, TR_S, TR_STEPS = 4, 2048, 6             # granite-3-2b, the launcher's lr
-TR_REPEAT_STEPS, TR_REPEAT_LR = 4, 1e-3       # one batch repeated, its loss must fall
+# one batch repeated from a fresh AdamW state, its loss must fall; at 1e-3
+# llama4-scout's rose (10.67 -> 17.96 -> 17.00 -> 20.61 on an H100, see
+# PERF.md): Adam's first steps move every one of its 5.19 B weights by
+# about the rate, so it repeats at a tenth of it
+TR_REPEAT_STEPS = 4
+TR_REPEAT_LR = {"granite-3-2b": 1e-3, "llama4-scout-17b-a16e": 1e-4}
 RG_TR_B, RG_TR_S, RG_TR_STEPS = 1, 3072, 4    # recurrentgemma-2b
+# llama4-scout at every published width, cut from 48 to 2 layers (global
+# ATTN, then CHUNKED_ATTN): 5.19 B parameters, whose bf16 weights and
+# gradients and float32 AdamW state (62.3 GB) leave the activations and
+# the 202048-word logits room on one 80 GB card; 4096 rows over 16
+# experts, top-1 (256 an expert on average)
+L4_TR_LAYERS, L4_TR_B, L4_TR_S, L4_TR_STEPS = 2, 2, 2048, 5
 # launches a step with remat per period: K2 forward twice a layer (the
 # forward and its recompute), its backward once; recurrentgemma's RG-LRU
-# layers: the 16 in checkpointed periods twice, the 2 remainder layers once
+# layers: the 16 in checkpointed periods twice, the 2 remainder layers once;
+# llama4's 2 layers are both remainder layers of its 4-layer pattern, which
+# run outside the checkpoint (as in the reference's), so nothing is
+# recomputed: K2 once a layer forward and backward, K4 three times a layer
+# (gate, up, down) forward and backward
 TR_COUNTS = {"granite-3-2b": {"flash": 80, "flash_bwd": 40},
-             "recurrentgemma-2b": {"flash": 16, "flash_bwd": 8, "scan": 34, "scan_bwd": 18}}
+             "recurrentgemma-2b": {"flash": 16, "flash_bwd": 8, "scan": 34, "scan_bwd": 18},
+             "llama4-scout-17b-a16e": {"flash": 2, "flash_bwd": 2, "gmm": 6, "gmm_bwd": 6}}
 
 
 SLAB = 256   # sequence rows a slab: each held to its own scale
@@ -3530,13 +3580,17 @@ def sdpa_backward(torch, q, k, v, do, **sdpa_kw):
 # phase 10's kernel entries: key -> the label of its kernel in a profiled
 # train step (``profile_breakdown``'s shares) and the arch whose step it is
 TRAIN_SHARES = {"K2": "flash_attention_mma_kernel", "K2 bwd": "flash_attention_bwd",
-                "K5": "rglru_scan_kernel", "K5 bwd": "rglru_scan_bwd_kernel"}
+                "K5": "rglru_scan_kernel", "K5 bwd": "rglru_scan_bwd_kernel",
+                "K4": "moe_gmm_mma_kernel", "K4 bwd": "moe_gmm_bwd"}
 TRAIN_ROWS = {"flash_train": ("granite-3-2b", "K2"),
               "flash_bwd_granite": ("granite-3-2b", "K2 bwd"),
               "flash_rg_train": ("recurrentgemma-2b", "K2"),
               "flash_bwd_rg": ("recurrentgemma-2b", "K2 bwd"),
               "scan_train": ("recurrentgemma-2b", "K5"),
-              "scan_bwd": ("recurrentgemma-2b", "K5 bwd")}
+              "scan_bwd": ("recurrentgemma-2b", "K5 bwd"),
+              "flash_l4_train": ("llama4-scout-17b-a16e", "K2"),
+              "flash_bwd_l4": ("llama4-scout-17b-a16e", "K2 bwd"),
+              "gmm_train": ("llama4-scout-17b-a16e", "K4")}
 
 
 def phase_kernels_train(torch, dev):
@@ -3551,19 +3605,23 @@ def phase_kernels_train(torch, dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as rs
     rng = np.random.default_rng(10)
-    errs = {key: [] for key in TRAIN_ROWS}
+    errs = {key: [] for key in TRAIN_ROWS if key != "gmm_train"}
     log("phase 10 (a): kernels of the training path against their plain versions (the "
         "plain version in float32 on the same inputs; backward: tolerance x max|ref| and "
         f"per {SLAB}-row slab)")
     granite = (TR_B, TR_S, TR_S, H, KV, HD, dict(causal=True))
     rg = (1, RG_TR_S, RG_TR_S, RG_H, RG_KV, RG_HD, dict(causal=True, window=RG_WINDOW))
+    # llama4's (h): both layers see 2048 of the chunk's 8192 positions,
+    # so the chunk mask is the causal one
+    l4 = (L4_TR_B, L4_TR_S, L4_TR_S, L4_H, L4_KV, L4_HD, dict(causal=True))
     edges = [(1, 512, 2048, H, KV, HD, dict(causal=True)),          # Sq < Skv
              (2, 1000, 1000, H, KV, HD, dict(causal=True)),         # a ragged tile
              (1, 512, 512, 8, 8, HD, dict(causal=True)),            # G = 1
              (1, 1024, 1024, L4_H, L4_KV, L4_HD, dict(causal=True, chunk=256))]
     for dtype in ("bfloat16", "float32"):
         for key, fkey, case in (("flash_bwd_granite", "flash_train", granite),
-                                ("flash_bwd_rg", "flash_rg_train", rg)):
+                                ("flash_bwd_rg", "flash_rg_train", rg),
+                                ("flash_bwd_l4", "flash_l4_train", l4)):
             flash_bwd_case(torch, rng, dev, dtype, *case, errs[key], errs[fkey])
             torch.cuda.empty_cache()
         for case in edges:
@@ -3588,7 +3646,8 @@ def phase_kernels_train(torch, dev):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for key, fkey, (B, Sq, Skv, nh, nkv, hd, kw), what in (
             ("flash_bwd_granite", "flash_train", granite, "hd 64"),
-            ("flash_bwd_rg", "flash_rg_train", rg, "hd 256, window")):
+            ("flash_bwd_rg", "flash_rg_train", rg, "hd 256, window"),
+            ("flash_bwd_l4", "flash_l4_train", l4, "hd 128 G=5")):
         q, k, v, out, lse, do = flash_bwd_case(torch, rng, dev, dtype, B, Sq, Skv, nh, nkv,
                                                hd, kw, [], [])
         window = kw.get("window", 0)
@@ -3652,15 +3711,204 @@ def phase_kernels_train(torch, dev):
     return entries
 
 
+# K4's backward rows: key -> (projection, gradient); gate/up: K = d_model,
+# N = d_ff; down: K = d_ff, N = d_model
+GMM_BWD_ROWS = {"gmm_bwd_dx": ("gate/up", "dX"), "gmm_bwd_dw": ("gate/up", "dW"),
+                "gmm_bwd_dx_down": ("down", "dX"), "gmm_bwd_dw_down": ("down", "dW")}
+GMM_BWD_BODIES = {"dX": "moe_gmm_bwd_dx_mma_kernel", "dW": "moe_gmm_bwd_dw_mma_kernel"}
+
+
+def gmm_bwd_case(torch, dev, dtype, label, sizes, T, K, N, seed, errs, fwd_errs=None):
+    """One K4 backward check (with ``fwd_errs``, the forward's against
+    ``ref.moe_gmm`` first): dX and dW from one launcher call against
+    ``ref.moe_gmm_bwd`` on the same inputs (the bf16 ones widened to
+    float32 inside it), dX within ``gmm_tol`` of the whole, each expert's
+    dW within ``gmm_tol`` of its own (an expert with few rows has a small
+    dW), an empty group's dW and the rows no group covers exactly zero; a
+    second call bit for bit. Max abs errors go to ``errs["dX"]`` and
+    ``errs["dW"]``. Returns (x, w, gs, dout, dx, dw)."""
+    from repro_torch.kernels import moe_gmm as gm
+    from repro_torch.kernels import ref
+    x, w, gs = gmm_inputs(torch, dev, dtype, sizes, T, K, N, seed)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    dout = torch.randn((T, N), generator=g, device=dev).to(x.dtype)
+    if fwd_errs is not None:
+        want = ref.moe_gmm(x, w, gs)
+        check(f"K4 {label} T={T} K={K} N={N}", dtype, gm.moe_gmm(x, w, gs), want, fwd_errs,
+              tol=gmm_tol(dtype, want))
+        del want
+    dx, dw = gm.moe_gmm_bwd(x, w, gs, dout)
+    again = gm.moe_gmm_bwd(x, w, gs, dout)
+    torch.cuda.synchronize()
+    name = f"K4 bwd {label} T={T} K={K} N={N} E={len(sizes)}"
+    if not (torch.equal(dx, again[0]) and torch.equal(dw, again[1])):
+        raise AssertionError(f"{name}: two launches differ")
+    del again
+    want_dx, want_dw = ref.moe_gmm_bwd(x, w, gs, dout)
+    check(f"{name} dX", dtype, dx, want_dx, errs["dX"], tol=gmm_tol(dtype, want_dx))
+    if dx[int(sum(sizes)):].any():
+        raise AssertionError(f"{name}: dX rows past the groups are not zero")
+    worst, rel = 0.0, 0.0
+    for e, n in enumerate(sizes):
+        err = (dw[e].float() - want_dw[e].float()).abs().max().item()
+        tol = 0.0 if n == 0 else gmm_tol(dtype, want_dw[e])
+        if err > tol:
+            raise AssertionError(f"{name}: expert {e} ({n} rows) dW max abs err {err} > {tol}")
+        worst = max(worst, err)
+        rel = max(rel, err / max(want_dw[e].float().abs().max().item(), 1.0))
+    log(f"  {name + ' dW':60s} {dtype:8s} max|err| {worst:.3e}, worst expert "
+        f"{rel:.2e} x max(1, its max|ref|) (tol {gmm_tol(dtype, torch.ones(1)):.0e}; "
+        f"empty groups 0) ok")
+    errs["dW"].append(worst)
+    del want_dx, want_dw
+    return x, w, gs, dout, dx, dw
+
+
+def gmm_bwd_library(torch, x, w, gs, dout, dx, dw):
+    """``torch._grouped_mm`` for the same dX (dY against W[e] transposed)
+    and dW (X^T against dY, ragged over the rows), timed only, the port
+    never calls it; each checked against the kernel's result first. Returns
+    {"dX": fn or None, "dW": fn or None} and logs why one is missing."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        log("  K4 bwd library: torch has no _grouped_mm")
+        return {"dX": None, "dW": None}
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    wt, xt = w.transpose(1, 2), x.t()
+    calls = {"dX": (lambda: fn(dout, wt, offs=offs), dx),
+             "dW": (lambda: fn(xt, dout, offs=offs), dw)}
+    out = {}
+    for what, (call, mine) in calls.items():
+        try:
+            got = call()
+            torch.cuda.synchronize()
+        except Exception as exc:                 # noqa: BLE001 (reported)
+            log(f"  K4 bwd {what}: _grouped_mm refused the operands: "
+                f"{type(exc).__name__}: {str(exc)[:200]}")
+            out[what] = None
+            continue
+        rows = int(gs.sum())
+        a, b = (got[:rows], mine[:rows]) if what == "dX" else (got, mine)
+        err = (a.float() - b.float()).abs().max().item() if a.shape == b.shape else None
+        ok = err is not None and err <= 2 * gmm_tol(str(x.dtype)[6:], b)
+        log(f"  K4 bwd {what}: _grouped_mm gives shape {tuple(got.shape)}, max|diff| from "
+            f"the kernel {err if err is None else f'{err:.3e}'}: "
+            f"{'the same function' if ok else 'not the same function, not timed'}")
+        out[what] = call if ok else None
+        del got
+    return out
+
+
+def phase_kernels_moe_train(torch, dev):
+    """Phase 10 (f): K4's backward kernels (``csrc/moe_gmm_bwd.cu``)
+    against ``ref.moe_gmm_bwd`` in bf16 and float32 at llama4-scout's
+    training shapes (4096 rows of a top-1 routing over 16 experts; gate/up
+    and down) and at the edges (an empty group, a one-row group, rows past
+    the total, one expert, K and N off the tiles); then each body's
+    device time, CUDA events, bound, the plain version's time and
+    ``_grouped_mm``'s, bf16; the forward (K4) at the same shapes against
+    ``ref.moe_gmm``, timed at gate/up. Returns the four rows (dX and dW at
+    gate/up and down) and the forward's (``gmm_train``, without ``ms``:
+    ``training_run`` takes it from the profiled train step), without
+    ``launches``."""
+    from repro_torch.kernels import moe_gmm as gm
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(11)
+    T, d, ff = L4_TR_B * L4_TR_S, 5120, 8192
+    sizes = routed_sizes(rng, T, 16, 1, d)
+    shapes = {"gate/up": (d, ff), "down": (ff, d)}
+    edges = [("an empty group, a one-row group, 17 rows past the total",
+              [0, 1, 300, 0, 77, 5], 400, 1000, 1000),
+             ("one expert, K and N off the tiles", [200], 256, 264, 520),
+             ("six rows", [3, 0, 2], 6, 16, 8)]
+    errs = {key: [] for key in [*GMM_BWD_ROWS, "gmm_train"]}
+    log(f"phase 10 (f): K4 backward against ref.moe_gmm_bwd (group sizes of a top-1 routing "
+        f"of {T} random hidden states over 16 experts: {sizes.tolist()})")
+    for dtype in ("bfloat16", "float32"):
+        for i, (what, (K, N)) in enumerate(shapes.items()):
+            e = {grad: errs[key] for key, (shape_of, grad) in GMM_BWD_ROWS.items()
+                 if shape_of == what}
+            gmm_bwd_case(torch, dev, dtype, f"llama4 {what}", sizes, T, K, N, 60 + i, e,
+                         errs["gmm_train"])
+            torch.cuda.empty_cache()
+        for i, (label, esizes, eT, K, N) in enumerate(edges):
+            gmm_bwd_case(torch, dev, dtype, label, esizes, eT, K, N, 70 + i,
+                         {"dX": errs["gmm_bwd_dx"], "dW": errs["gmm_bwd_dw"]})
+    torch.cuda.synchronize()
+
+    log("phase 10 (f): K4 backward times at llama4's training shapes, bf16 (kernel: profiler "
+        "device time of the body; events: the wrapper asked for that gradient alone; plain: "
+        "ref.moe_gmm_bwd for it alone; library: torch._grouped_mm, CUDA events)")
+    entries, isz, used, rows = {}, 2, int((sizes > 0).sum()), int(sizes.sum())
+    for i, (what, (K, N)) in enumerate(shapes.items()):
+        x, w, gs, dout, dx, dw = gmm_bwd_case(torch, dev, "bfloat16", f"llama4 {what}", sizes,
+                                               T, K, N, 80 + i, {"dX": [], "dW": []})
+        lib = gmm_bwd_library(torch, x, w, gs, dout, dx, dw)
+        del dx, dw
+        if what == "gate/up":
+            fwd_lib, why = gmm_library(torch, x, w, gs)
+            if why:
+                log(f"  K4 train: library_ms none: {why}")
+            b, by = bound_ms(isz * (T * K + used * K * N + T * N) + 4 * 16, 2 * rows * K * N,
+                             "bfloat16")
+            entries["gmm_train"] = dict(
+                name="moe_gmm (llama4 train gate/up), via train", route="cuda",
+                source="src/repro_torch/csrc/moe_gmm.cu",
+                replaces="src/repro/kernels/moe_gmm.py:26",
+                shape=f"T={T} K={K} N={N} E=16 ({used} used) bf16",
+                event_ms=event_ms(torch, lambda: gm.moe_gmm(x, w, gs), 10),
+                plain_ms=event_ms(torch, lambda: ref.moe_gmm(x, w, gs), 1, warmup=1),
+                bound_ms=b, bound_by=by,
+                library_ms=event_ms(torch, fwd_lib, 10) if fwd_lib else None,
+                library="torch._grouped_mm")
+            del fwd_lib
+        # dX reads dY and each used expert's W once and writes dX; dW reads
+        # X and dY once and writes every expert's dW
+        bounds = {"dX": bound_ms(isz * (T * N + used * K * N + T * K) + 4 * 16,
+                                 2 * rows * K * N, "bfloat16"),
+                  "dW": bound_ms(isz * (T * K + T * N + 16 * K * N) + 4 * 16,
+                                 2 * rows * K * N, "bfloat16")}
+        for key, (shape_of, grad) in GMM_BWD_ROWS.items():
+            if shape_of != what:
+                continue
+            flags = dict(need_dx=grad == "dX", need_dw=grad == "dW")
+            call = lambda: gm.moe_gmm_bwd(x, w, gs, dout, **flags)  # noqa: E731
+            b, by = bounds[grad]
+            entries[key] = dict(
+                name=f"moe_gmm_bwd {grad} ({what}), via train", route="cuda",
+                source="src/repro_torch/csrc/moe_gmm_bwd.cu",
+                replaces="src/repro/kernels/moe_gmm.py:26",
+                shape=f"T={T} K={K} N={N} E=16 ({used} used) bf16",
+                **kernel_times(torch, call, GMM_BWD_BODIES[grad], iters=10),
+                plain_ms=event_ms(torch, lambda: ref.moe_gmm_bwd(x, w, gs, dout, **flags), 2,
+                                  warmup=1),
+                bound_ms=b, bound_by=by,
+                library_ms=event_ms(torch, lib[grad], 10) if lib[grad] else None,
+                library="torch._grouped_mm, " + ("dY x W[e]^T" if grad == "dX"
+                                                 else "X^T x dY ragged over the rows"))
+        del x, w, gs, dout, lib
+        torch.cuda.empty_cache()
+    for key, e in entries.items():
+        e["max_abs_err"] = max(errs[key])
+        if "ms" in e:
+            log_row(e)
+    return entries
+
+
 def _rel_norm(torch, got, want) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm().clamp(min=1e-30))
 
 
-def train_step_parity(torch, cfg, dev, B, S):
-    """Phase 10 (b): one train step's loss and every leaf's gradient
-    through the kernels against the same step with impl="ref" (the plain
-    versions under autograd), on the same weights and batch; no leaf's
-    gradient may be zero or missing."""
+def train_step_parity(torch, cfg, dev, B, S, on_cpu=False):
+    """Phase 10 (b) and (g): one train step's loss and every leaf's
+    gradient through the kernels against the same step with impl="ref"
+    (the plain versions under autograd), on the same weights and batch; no
+    leaf's gradient may be zero or missing. A MoE model's two steps share
+    their expert choices (``shared_routes``: a bf16 near tie may flip one,
+    which says nothing about the kernels). With ``on_cpu`` the plain step
+    runs on the CPU from the same weights."""
+    from repro_torch import bridge
     from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
     from repro_torch.models import model as M
     from repro_torch.models.param import iter_leaves
@@ -3669,54 +3917,105 @@ def train_step_parity(torch, cfg, dev, B, S):
     params = M.init_model_params(cfg, 0, dev)
     batch = batch_to(TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=S, global_batch=B,
                                                   seed=1)).next_batch(), dev)
-    zero_launches()
-    l1, g1 = loss_and_grads(cfg, params, batch, remat=True)
-    counts = launches()
-    l2, g2 = loss_and_grads(cfg, params, batch, impl="ref", remat=True)
-    want = dict(iter_leaves(g2))
+    with (shared_routes() if cfg.n_experts else contextlib.nullcontext(({}, [None]))) \
+            as (routes, cur):
+        zero_launches()
+        l1, g1 = loss_and_grads(cfg, params, batch, remat=True)
+        counts = launches()
+        cur[0] = "ref"
+        if on_cpu:
+            cpu = torch.device("cpu")
+            l2, g2 = loss_and_grads(cfg, bridge.from_jax(bridge.to_numpy(params), device=cpu),
+                                    batch_to(batch, cpu), remat=True)
+        else:
+            l2, g2 = loss_and_grads(cfg, params, batch, impl="ref", remat=True)
+    want = {path: g.to(dev) for path, g in iter_leaves(g2)}
     errs = {path: _rel_norm(torch, g, want[path]) for path, g in iter_leaves(g1)}
     dead = [path for path, g in iter_leaves(g1) if not float(g.float().abs().max()) > 0]
     missing = sorted(set(want) - set(errs))
     worst = max(errs, key=errs.get)
     loss_err = abs(float(l1) - float(l2)) / abs(float(l2))
+    shared = f"; expert choices shared, {routes['differ']} of {routes['all']} the plain " \
+        "path's own top-k would change" if routes else ""
     log(f"  {cfg.name} {cfg.n_layers} layers {cfg.dtype} B={B} S={S}: loss {float(l1):.6f} "
-        f"vs ref {float(l2):.6f} (rel {loss_err:.2e}, tol {tol_loss:.0e}); worst leaf "
-        f"gradient {worst} rel norm err {errs[worst]:.2e} (tol {tol_grad:.0e}) over "
-        f"{len(errs)} leaves; kernel launches {counts}")
+        f"vs {'the CPU' if on_cpu else 'ref'} {float(l2):.6f} (rel {loss_err:.2e}, tol "
+        f"{tol_loss:.0e}); worst leaf gradient {worst} rel norm err {errs[worst]:.2e} (tol "
+        f"{tol_grad:.0e}) over {len(errs)} leaves; kernel launches "
+        f"{ {k: n for k, n in counts.items() if n} }{shared}")
     if loss_err > tol_loss or errs[worst] > tol_grad or dead or missing:
-        raise AssertionError(f"phase 10 (b) {cfg.name} {cfg.dtype}: loss rel err {loss_err}, "
+        raise AssertionError(f"phase 10 parity {cfg.name} {cfg.dtype}: loss rel err {loss_err}, "
                              f"worst gradient {worst} {errs[worst]}, zero {dead}, "
                              f"missing {missing}")
     from repro_torch.configs.base import BlockKind
     if not (counts["flash"] and counts["flash_bwd"]) or \
-            (BlockKind.RGLRU in cfg.pattern and not (counts["scan"] and counts["scan_bwd"])):
-        raise AssertionError(f"phase 10 (b) {cfg.name}: launches {counts}")
+            (BlockKind.RGLRU in cfg.pattern and not (counts["scan"] and counts["scan_bwd"])) or \
+            (cfg.n_experts and not (counts["gmm"] and counts["gmm_bwd"])):
+        raise AssertionError(f"phase 10 parity {cfg.name}: launches {counts}")
+
+
+def dots_parity(torch, cfg, dev, B, S):
+    """Phase 10 (g): ``remat_policy="dots"`` on the card (selective
+    checkpointing that keeps the matrix products' outputs, around the
+    kernels' autograd Functions) against plain ``remat=True`` on the same
+    weights and batch: the loss and every leaf's gradient within 1e-6
+    relative (the kernels recompute the same values, but autograd may add
+    a leaf's gradient contributions in another order; whether they agree
+    bit for bit is logged), K2's and K4's backward launched."""
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.models.param import iter_leaves
+    from repro_torch.train.train_loop import batch_to, loss_and_grads
+    params = M.init_model_params(cfg, 0, dev)
+    batch = batch_to(TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                                                  seed=2)).next_batch(), dev)
+    runs = []
+    for policy in (None, "dots"):
+        zero_launches()
+        loss, grads = loss_and_grads(cfg, params, batch, remat=True, remat_policy=policy)
+        runs.append((float(loss), dict(iter_leaves(grads)),
+                     {k: n for k, n in launches().items() if n}))
+    (l1, g1, c1), (l2, g2, c2) = runs
+    errs = {path: _rel_norm(torch, g2[path], g) for path, g in g1.items()}
+    worst = max(errs, key=errs.get)
+    bits = l1 == l2 and all(torch.equal(g, g2[path]) for path, g in g1.items())
+    log(f"  {cfg.name} {cfg.n_layers} layers {cfg.dtype} B={B} S={S}, remat_policy='dots' "
+        f"against remat=True: loss {l2:.6f} vs {l1:.6f}, worst leaf {worst} rel norm err "
+        f"{errs[worst]:.2e} (tol 1e-06), {'bit for bit' if bits else 'not bit for bit'}; "
+        f"launches {c2} (remat=True: {c1})")
+    if abs(l2 - l1) > 1e-6 * abs(l1) or errs[worst] > 1e-6 or \
+            not all(c2.get(k) for k in ("flash_bwd", "gmm_bwd")):
+        raise AssertionError(f"phase 10 (g) dots {cfg.name}: loss {l2} vs {l1}, worst "
+                             f"{worst} {errs[worst]}, launches {c2}")
 
 
 def model_flops(cfg, B, S) -> float:
-    """A train step's model FLOPs: 6 per parameter per token, plus the
-    attention layers' scores and values forward and backward (3 x the
-    forward's 4 hd operations a visible pair)."""
+    """A train step's model FLOPs: 6 per active parameter per token (a MoE
+    layer's top-k experts, not all of them), plus the attention layers'
+    scores and values forward and backward (3 x the forward's 4 hd
+    operations a visible pair: causal, within the window, or within the
+    chunk)."""
     from repro_torch.configs.base import BlockKind
-    window = cfg.window
-    n_attn = sum(k in (BlockKind.ATTN, BlockKind.LOCAL_ATTN) for k in
-                 (cfg.pattern * cfg.n_layers)[:cfg.n_layers])
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S)) * cfg.n_heads * B
-    return 6.0 * cfg.n_params * B * S + 3 * 4 * cfg.hd * pairs * n_attn
+    visible = {BlockKind.ATTN: lambda i: i + 1,
+               BlockKind.LOCAL_ATTN: lambda i: min(i + 1, cfg.window) if cfg.window else i + 1,
+               BlockKind.CHUNKED_ATTN: lambda i: i % cfg.chunk + 1}
+    pairs = sum(sum(visible[k](i) for i in range(S)) for k in
+                (cfg.pattern * cfg.n_layers)[:cfg.n_layers] if k in visible)
+    return 6.0 * cfg.n_active_params * B * S + 3 * 4 * cfg.hd * pairs * cfg.n_heads * B
 
 
 def train_run(torch, cfg, dev, B, S, steps, repeat: bool):
-    """Phase 10 (c) / (d): ``steps`` steps through the launcher's pieces
-    (``repro_torch.launch.train.setup`` and ``next_batch``: seed 0, AdamW
-    as the launcher sets it, remat on, the update in place), each step's
-    loss finite, its launches the reckoning's, no K1, K3 or K4 launch;
+    """Phase 10 (c), (d) and (h): ``steps`` steps through the launcher's
+    pieces (``repro_torch.launch.train.setup`` and ``next_batch``: seed 0,
+    AdamW as the launcher sets it, remat on, the update in place), each
+    step's loss finite, its launches the reckoning's (``TR_COUNTS``: no
+    other kernel's);
     the last step profiled (device busy against the host, and each
     kernel's device ms per call). The rate is the window's: the
     unprofiled steps' host time over their count (the median beside it).
     Each step logs what can stall the host: the garbage collector's time
     and the caching allocator's cudaMalloc calls and retries. With
     ``repeat``, a second run of ``TR_REPEAT_STEPS`` steps on one batch at
-    lr 1e-3 whose loss must fall. Returns (params, launch totals, the
+    ``TR_REPEAT_LR`` whose loss must fall. Returns (params, launch totals, the
     profiled step's device ms per call by ``TRAIN_SHARES`` label)."""
     import gc
     from repro_torch.launch import train as L
@@ -3772,7 +4071,7 @@ def train_run(torch, cfg, dev, B, S, steps, repeat: bool):
                 wall, _, _ = profile_breakdown(
                     torch, f"{cfg.name} train step {step} (host against device busy)",
                     profiled, 1, shares=TRAIN_SHARES, per_launch=per_launch)
-                params, state, metrics = holder["out"]
+                params, state, metrics = holder.pop("out")
                 loss, dt = float(metrics["loss"]), wall / 1e3
                 gc_ms[0] = holder["gc_ms"]
             mallocs, retries = (n - n0 for n, n0 in zip(alloc_stats(), (mallocs, retries)))
@@ -3803,7 +4102,7 @@ def train_run(torch, cfg, dev, B, S, steps, repeat: bool):
     if repeat:
         del state
         torch.cuda.empty_cache()
-        ocfg = AdamWConfig(lr=TR_REPEAT_LR, warmup_steps=0, total_steps=50)
+        ocfg = AdamWConfig(lr=TR_REPEAT_LR[cfg.name], warmup_steps=0, total_steps=50)
         step_fn = make_train_step(cfg, ocfg, device=dev)
         state = init_opt_state(ocfg, params)
         batch = L.next_batch(cfg, pipe, B)
@@ -3812,7 +4111,7 @@ def train_run(torch, cfg, dev, B, S, steps, repeat: bool):
             params, state, metrics = step_fn(params, state, batch)
             rep.append(float(metrics["loss"]))
         log(f"  {cfg.name}: one batch repeated {TR_REPEAT_STEPS} steps at lr "
-            f"{TR_REPEAT_LR:g}: losses {[round(x, 4) for x in rep]}")
+            f"{TR_REPEAT_LR[cfg.name]:g}: losses {[round(x, 4) for x in rep]}")
         if not rep[-1] < rep[0]:
             raise AssertionError(f"phase 10 {cfg.name}: the repeated batch's loss did not "
                                  f"fall: {rep}")
@@ -3821,16 +4120,16 @@ def train_run(torch, cfg, dev, B, S, steps, repeat: bool):
     return params, total, per_launch
 
 
-def checkpoint_and_guard(torch, params, dev):
+def checkpoint_and_guards(torch, params, dev):
     """Phase 10 (e): the trained parameters through ``checkpoint.save`` /
-    ``restore`` on the port's ObjectStore, bit for bit; a llama4-scout
-    train step on the card raises K4's guard."""
-    from repro_torch.configs import get_config
+    ``restore`` on the port's ObjectStore, bit for bit; K1 (decode and
+    chunk) and K3, which have no backward kernel, raise under autograd on
+    the card and run under ``torch.no_grad()``."""
     from repro_torch.core.storage import ObjectStore
-    from repro_torch.models import model as M
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.models.param import iter_leaves
     from repro_torch.train import checkpoint as C
-    from repro_torch.train.train_loop import loss_and_grads
     t0 = time.perf_counter()
     store = ObjectStore()
     C.save(store, "granite", TR_STEPS, params)
@@ -3844,23 +4143,39 @@ def checkpoint_and_guard(torch, params, dev):
     if bad or C.latest_step(store, "granite") != TR_STEPS:
         raise AssertionError(f"phase 10 (e): restored leaves differ: {bad}")
     del back, store
-    cfg = get_config("llama4-scout-17b-a16e").reduced()
-    p = M.init_model_params(cfg, 0, dev)
-    toks = torch.randint(0, cfg.vocab, (1, 33), device=dev)
-    try:
-        loss_and_grads(cfg, p, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
-    except NotImplementedError as e:
-        if "moe_gmm (K4)" not in str(e):
-            raise
-        log(f"phase 10 (e): a {cfg.name} train step on the card raises K4's guard: {e}")
-    else:
-        raise AssertionError("phase 10 (e): a MoE train step on the card did not raise")
+    t = lambda *shape: torch.randn(shape, device=dev, dtype=torch.bfloat16,  # noqa: E731
+                                   requires_grad=True)
+    q, k, v = t(1, 16, H, HD), t(1, 64, KV, HD), t(1, 64, KV, HD)
+    pool_k, pool_v = k.reshape(4, PAGE, KV, HD), v.reshape(4, PAGE, KV, HD)
+    tables = torch.arange(4, dtype=torch.int32, device=dev)[None]
+    kv_len = torch.tensor([64], dtype=torch.int32, device=dev)
+    calls = {"paged_decode_attention (K1)": lambda: pa.paged_decode_attention(
+                 q[:, :1], pool_k, pool_v, tables, kv_len),
+             "paged_prefill_attention (K1)": lambda: pa.paged_prefill_attention(
+                 q, pool_k, pool_v, tables, kv_len,
+                 torch.tensor([48], dtype=torch.int32, device=dev)),
+             "decode_attention (K3)": lambda: da.decode_attention(q[:, :1], k, v, kv_len)}
+    for name, call in calls.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            if name not in str(e):
+                raise
+        else:
+            raise AssertionError(f"phase 10 (e): {name} under autograd on the card did not raise")
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+    log(f"phase 10 (e): {', '.join(calls)} raise NotImplementedError under autograd on the "
+        "card (no backward kernel) and run under torch.no_grad()")
 
 
 def training_run(torch, dev):
     """Phase 10: the backward kernels, a train step's parity, granite-3-2b
     and recurrentgemma-2b at full width and depth, the checkpoint and the
-    MoE guard. Returns (kernel entries, launch totals)."""
+    guards of K1 and K3; K4's backward kernels, a MoE train step's parity
+    and llama4-scout at full width, cut to 2 layers. Returns (kernel
+    entries, launch totals)."""
     import gc
     from repro_torch.configs import get_config
     gc.collect()
@@ -3880,19 +4195,51 @@ def training_run(torch, dev):
                           1, RG_TR_S)
         torch.cuda.empty_cache()
     params, g_total, g_ms = train_run(torch, granite, dev, TR_B, TR_S, TR_STEPS, repeat=True)
-    checkpoint_and_guard(torch, params, dev)
+    checkpoint_and_guards(torch, params, dev)
     del params
     torch.cuda.empty_cache()
     params, r_total, r_ms = train_run(torch, rg, dev, RG_TR_B, RG_TR_S, RG_TR_STEPS,
                                       repeat=False)
     del params
     torch.cuda.empty_cache()
+    entries.update(phase_kernels_moe_train(torch, dev))
+    torch.cuda.empty_cache()
+    l4 = get_config("llama4-scout-17b-a16e")
+    log("phase 10 (g): a MoE train step through K2, K4 and their backward kernels against "
+        "impl='ref' and against the CPU (relative error of the loss and of each leaf's "
+        "gradient norm); remat_policy='dots' against remat=True")
+    small = l4.reduced()
+    train_step_parity(torch, small, dev, 2, 160)
+    train_step_parity(torch, small, dev, 2, 160, on_cpu=True)
+    train_step_parity(torch, dataclasses.replace(small, dtype="bfloat16"), dev, 2, 160)
+    dots_parity(torch, get_config("grok-1-314b").reduced(), dev, 2, 160)
+    torch.cuda.empty_cache()
+    l4 = dataclasses.replace(l4, n_layers=L4_TR_LAYERS)
+    log(f"phase 10 (h): {l4.name} at every published width, cut from 48 to {l4.n_layers} "
+        f"layers ({[k.value for k in l4.pattern[:l4.n_layers]]}; d={l4.d_model} heads "
+        f"{l4.n_heads}/{l4.n_kv_heads} hd={l4.hd} experts {l4.n_experts} top-{l4.top_k} "
+        f"d_ff={l4.d_ff} vocab {l4.padded_vocab}); reckoned: {l4.n_params / 1e9:.2f} B "
+        f"parameters, {12 * l4.n_params / 1e9:.1f} GB of bf16 weights and gradients and "
+        "float32 AdamW state, float32 logits and their cotangent "
+        f"{2 * 4 * L4_TR_B * L4_TR_S * l4.padded_vocab / 1e9:.1f} GB, an expert leaf's dW "
+        f"{2 * l4.n_experts * l4.d_model * l4.d_ff / 1e9:.2f} GB: ~70 GB peak; launches a "
+        f"step {TR_COUNTS[l4.name]}")
+    params, l_total, l_ms = train_run(torch, l4, dev, L4_TR_B, L4_TR_S, L4_TR_STEPS,
+                                      repeat=True)
+    del params
+    torch.cuda.empty_cache()
     totals = {"flash_bwd_granite": g_total["flash_bwd"], "flash_train": g_total["flash"],
               "flash_bwd_rg": r_total["flash_bwd"], "flash_rg_train": r_total["flash"],
-              "scan_bwd": r_total["scan_bwd"], "scan_train": r_total["scan"]}
+              "scan_bwd": r_total["scan_bwd"], "scan_train": r_total["scan"],
+              "flash_bwd_l4": l_total["flash_bwd"], "flash_l4_train": l_total["flash"],
+              "gmm_train": l_total["gmm"]}
+    for key in GMM_BWD_ROWS:
+        totals[key] = l_total["gmm_bwd"]
     log("phase 10: the training path's kernels (kernel: device ms per call in the profiled "
-        "train step at the same shape; events, plain and library: CUDA events in (a))")
-    per_call = {granite.name: g_ms, rg.name: r_ms}
+        "train step at the same shape, K4's forward averaged over its gate, up and down "
+        "calls; K4 backward rows: the body's device time in (f); events, plain and "
+        "library: CUDA events in (a) and (f))")
+    per_call = {granite.name: g_ms, rg.name: r_ms, l4.name: l_ms}
     for key, (arch, label) in TRAIN_ROWS.items():
         e = entries[key]
         e["ms"] = per_call[arch][label]
@@ -4125,7 +4472,8 @@ def main() -> int:
     log(f"phase 9: done in {time.perf_counter() - t9:.1f} s")
 
     # phase 10: training on the card (backward kernels, granite-3-2b and
-    # recurrentgemma-2b at full width and depth, checkpoint, MoE guard)
+    # recurrentgemma-2b at full width and depth, checkpoint, guards; K4's
+    # backward, llama4-scout at full width cut to 2 layers)
     train_entries, train_totals = training_run(torch, dev)
     entries.update(train_entries)
     total.update(train_totals)
@@ -4139,7 +4487,8 @@ def main() -> int:
                 "flash_cross", "dense_cross", "flash_enc_workflow", "decode_workflow",
                 "flash_llava", "dense_llava", "flash_llava_engine", "decode_llava",
                 "flash_train", "flash_rg_train", "scan_train", "flash_bwd_granite",
-                "flash_bwd_rg", "scan_bwd"):
+                "flash_bwd_rg", "scan_bwd", "flash_l4_train", "flash_bwd_l4", "gmm_train",
+                *GMM_BWD_ROWS):
         e = dict(entries[key])
         e["launches"] = total[key]
         kernels.append({k: e[k] for k in (

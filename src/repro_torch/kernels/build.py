@@ -32,7 +32,8 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("paged_attention", "flash_attention", "decode_attention",
-           "rglru_scan", "moe_gmm", "flash_attention_bwd", "rglru_scan_bwd")
+           "rglru_scan", "moe_gmm", "flash_attention_bwd", "rglru_scan_bwd",
+           "moe_gmm_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -210,7 +211,8 @@ def recording_launches():
 # the device kernels each wrapper launches
 # ----------------------------------------------------------------------
 # The body kernels of the port's kernels K1-K5 and of the backward kernels
-# of K2 and K5 ("K2 bwd": its dQ and dK/dV passes; "K5 bwd"), by fragments
+# of K2, K4 and K5 ("K2 bwd": its dQ and dK/dV passes; "K4 bwd": its dX
+# and dW kernels; "K5 bwd"), by fragments
 # of their mangled names; each wrapper names its kernel in
 # ``wrapper.kernel``. The split decode body may add its merge kernel, which
 # is not a body. K1's two wrappers share their kernels: a one-token chunk
@@ -232,11 +234,15 @@ BODIES: Tuple[Tuple[Tuple[str, ...], str], ...] = (
     (("flash_attention_bwd_dq_kernel",), "K2 bwd"),
     (("flash_attention_bwd_dkv_kernel",), "K2 bwd"),
     (("rglru_scan_bwd_kernel",), "K5 bwd"),
+    (("moe_gmm_bwd_dx_mma_kernel",), "K4 bwd"),
+    (("moe_gmm_bwd_dw_mma_kernel",), "K4 bwd"),
+    (("moe_gmm_bwd_dx_kernel",), "K4 bwd"),
+    (("moe_gmm_bwd_dw_kernel",), "K4 bwd"),
 )
 
 
 def kernel_of_body(name: str) -> Optional[str]:
-    """The kernel (K1-K5, K2 bwd, K5 bwd) whose body the mangled
+    """The kernel (K1-K5, K2 bwd, K4 bwd, K5 bwd) whose body the mangled
     device-kernel ``name`` is, or None (an identifier matches with its
     length prefix, so ``moe_gmm_kernel`` does not match
     ``moe_gmm_mma_kernel``)."""

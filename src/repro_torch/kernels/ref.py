@@ -13,12 +13,13 @@ JAX oracle uses a log-depth associative scan: the two agree to rounding.
 ``moe_gmm`` upcasts to float32 before each product, as the Pallas body
 does, where the JAX oracle multiplies in the operands' dtype.
 
-The backward of the training path has two plain versions beside them:
+The backward of the training path has three plain versions beside them:
 ``flash_attention_bwd`` (the explicit formula from the forward's
-log-sum-exp, which ``flash_attention(..., return_lse=True)`` gives) and
-``rglru_scan_bwd`` (the reverse sequential walk). They are what the CUDA
-backward kernels are held against, and the CPU path of the autograd
-Functions in ``flash_attention.py`` and ``rglru_scan.py``. Sums run in
+log-sum-exp, which ``flash_attention(..., return_lse=True)`` gives),
+``rglru_scan_bwd`` (the reverse sequential walk) and ``moe_gmm_bwd`` (two
+matmuls per group). They are what the CUDA backward kernels are held
+against, and the CPU path of the autograd Functions in
+``flash_attention.py``, ``rglru_scan.py`` and ``moe_gmm.py``. Sums run in
 float32, or in float64 for float64 inputs (``gradcheck``).
 """
 from __future__ import annotations
@@ -383,16 +384,49 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor,
     ``e`` multiply ``w[e]``; rows past the last group are zero.
 
     x: (T, K); w: (E, K, N); group_sizes: (E,) int. One masked pass per
-    expert in float32, rounded once to ``x.dtype``: the slow, obviously
-    correct way, with no host sync (no data-dependent shapes)."""
+    expert in float32 (float64 for float64 inputs), rounded once to
+    ``x.dtype``: the slow, obviously correct way, with no host sync (no
+    data-dependent shapes)."""
     T = x.shape[0]
     E, _, N = w.shape
+    acc = _acc(x)
     ends = torch.cumsum(group_sizes.long(), 0)
     starts = ends - group_sizes.long()
     rows = torch.arange(T, device=x.device)
-    xf = x.float()
-    out = torch.zeros((T, N), dtype=torch.float32, device=x.device)
+    xf = x.to(acc)
+    out = torch.zeros((T, N), dtype=acc, device=x.device)
     for e in range(E):
         mask = (rows >= starts[e]) & (rows < ends[e])
-        out = torch.where(mask[:, None], xf @ w[e].float(), out)
+        out = torch.where(mask[:, None], xf @ w[e].to(acc), out)
     return out.to(x.dtype)
+
+
+def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+                dout: torch.Tensor, *, need_dx: bool = True,
+                need_dw: bool = True):
+    """The gradients (dx, dw) of ``moe_gmm`` for the output's gradient
+    ``dout`` (T, N): ``dx[r] = dout[r] @ w[e(r)].T`` for each row of group
+    e, zero for rows past ``sum(group_sizes)``; ``dw[e] = x_e.T @ dout_e``
+    over the rows of group e, zero for an empty group; either is None
+    where its ``need_`` flag is False. Sums in float32 (float64 for
+    float64 inputs), returned in x's and w's dtypes. Group sizes are
+    clamped to [0, T] and every group's rows to [0, T), as the kernels do.
+    It reads the group sizes on the host to slice each group's rows (the
+    plain version; the card's path never calls it)."""
+    T = x.shape[0]
+    E, K, N = w.shape
+    acc = _acc(x)
+    xf, df = x.to(acc), dout.to(acc)
+    dx = torch.zeros((T, K), dtype=acc, device=x.device) if need_dx else None
+    dw = torch.zeros((E, K, N), dtype=acc, device=x.device) if need_dw else None
+    start = 0
+    for e, g in enumerate(group_sizes.tolist()):
+        size = min(max(int(g), 0), T)
+        end = min(start + size, T)
+        if end > start and need_dx:
+            dx[start:end] = df[start:end] @ w[e].to(acc).T
+        if end > start and need_dw:
+            dw[e] = xf[start:end].T @ df[start:end]
+        start += size
+    return (dx.to(x.dtype) if need_dx else None,
+            dw.to(w.dtype) if need_dw else None)

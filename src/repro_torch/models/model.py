@@ -30,8 +30,11 @@ layer would write a zero tensor of the whole stack per layer); ``remat``
 recomputes each period in the backward
 (``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` around a
 period, the counterpart of the reference's ``jax.checkpoint`` of its scan
-body; remainder layers run outside it); and the MoE layers' aux loss is
-summed in layer order for ``loss_fn``.
+body; remainder layers run outside it), and with ``remat_policy="dots"``
+saves the outputs of matrix products without batch dimensions
+(``aten.mm`` / ``addmm``: the projections and the router) and recomputes
+the rest, the reference's ``dots_with_no_batch_dims_saveable``; and the
+MoE layers' aux loss is summed in layer order for ``loss_fn``.
 
 Public API (same names and arguments as the reference, plus ``device``):
   param_specs(cfg), init_model_params(cfg, seed, device)
@@ -48,8 +51,11 @@ from __future__ import annotations
 
 from typing import Any, Dict, Iterator, Optional, Tuple
 
+import functools
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import BlockKind, Family, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -59,6 +65,7 @@ from repro_torch.models.layers import (cross_entropy, embed, embed_specs, rms_no
 from repro_torch.models.param import Spec, init_params, iter_leaves, map_tree
 
 AUX_LOSS_WEIGHT = 0.01
+REMAT_POLICIES = (None, "dots")
 
 # ----------------------------------------------------------------------
 # Spec assembly
@@ -273,14 +280,35 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p, x: torch.Tensor, *,
                         block_tables=block_tables, rope_cs=rope_cs, mask=mask)
 
 
+# the matrix products without batch dimensions: what "dots" saves
+_DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``dots`` policy of selective checkpointing: keep the outputs of
+    products without batch dimensions (a projection ``x @ w`` reaches
+    ``aten.mm``), recompute everything else (batched products, the kernels'
+    outputs, norms and elementwise work), as the reference's
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``, which
+    saves neither batched dots nor ``ragged_dot``."""
+    if op.overloadpacket in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _train_layers(cfg: ModelConfig, params, x: torch.Tensor, rope_cs,
-                  cross_x, impl, remat: bool):
+                  cross_x, impl, remat: bool, remat_policy: Optional[str]):
     """The layer stack in ``train`` mode: (x, summed aux or None). Each
     stacked leaf is unbound once; with ``remat`` each period runs under a
-    non-reentrant checkpoint (its activations recomputed in the backward),
-    the remainder layers outside it."""
+    non-reentrant checkpoint (its activations recomputed in the backward;
+    under ``remat_policy="dots"`` the matrix products' outputs kept), the
+    remainder layers outside it."""
     n_periods, rem = _layout(cfg)
     aux = None
+    ckpt = dict(use_reentrant=False)
+    if remat_policy == "dots":
+        ckpt["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
 
     def block(kind, p, x):
         return _apply_block(cfg, kind, p, x, mode="train", cross_x=cross_x,
@@ -300,7 +328,7 @@ def _train_layers(cfg: ModelConfig, params, x: torch.Tensor, rope_cs,
             pp = {key: {name: ts[pi] for name, ts in sub.items()}
                   for key, sub in layers.items()}
             if remat:
-                x, a = checkpoint(period, x, pp, use_reentrant=False)
+                x, a = checkpoint(period, x, pp, **ckpt)
             else:
                 x, a = period(x, pp)
             aux = _add(aux, a)
@@ -347,16 +375,14 @@ def forward_with_aux(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     are paged pools. ``mask`` (B,) bool, decode only: rows where it is False
     leave their per-slot cache leaves unchanged. ``remat`` (``train``
     only): recompute each period's activations in the backward;
-    ``remat_policy="dots"`` (the reference's save-the-matmuls policy) is
-    not ported yet and raises ``NotImplementedError``.
+    ``remat_policy="dots"`` (with ``remat``) keeps the outputs of the
+    matrix products without batch dimensions and recomputes the rest; any
+    other policy but None raises ``ValueError``.
     """
     _check_supported(cfg)
     if mode not in ("train", "prefill", "chunk", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    if remat_policy == "dots":
-        raise NotImplementedError("remat_policy='dots' (save the matmul "
-                                  "outputs) is not ported; use remat=True")
-    if remat_policy is not None:
+    if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
     if mode in ("chunk", "decode") and cache is None:
         raise ValueError(f"{mode} mode needs a cache")
@@ -389,7 +415,8 @@ def forward_with_aux(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     new: Dict[str, list] = {}
     aux = None
     if mode == "train":
-        x, aux = _train_layers(cfg, params, x, rope_cs, cross_x, impl, remat)
+        x, aux = _train_layers(cfg, params, x, rope_cs, cross_x, impl, remat,
+                               remat_policy)
     else:
         for key, kind, p, c in _layers(cfg, params,
                                        None if mode == "prefill" else cache):

@@ -9,11 +9,14 @@ no mesh (one card; sharded training waits for the port's multi-GPU
 work), and the update written in place into the parameters and optimizer
 state it is given, the counterpart of the reference's ``donate_argnums``.
 
-On the card the step runs through the kernels: K2 (flash attention) and
-K5 (the RG-LRU scan) forward and backward through their autograd
-Functions; ``impl="ref"`` runs their plain PyTorch versions under autograd
-instead. K1, K3 and K4 raise under autograd on the card (they have no
-backward kernel), so a MoE model does not train there yet.
+On the card the step runs through the kernels: K2 (flash attention), K4
+(the MoE layers' grouped matmul) and K5 (the RG-LRU scan) forward and
+backward through their autograd Functions; ``impl="ref"`` runs their
+plain PyTorch versions under autograd instead. ``remat_policy="dots"``
+(with ``remat``) keeps the matrix products' outputs of a checkpointed
+period and recomputes the rest, as the reference's. K1 and K3, the
+serving paths' attention, raise under autograd on the card (they have no
+backward kernel).
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """The port's kernels (K1 paged, K2 flash, K3 decode attention, K5 RG-LRU
 scan) against the JAX package's; K4 (``moe_gmm``) is held in
-``tests/test_torch_moe.py``.
+``tests/test_torch_moe.py`` and its backward's plain version in
+``tests/test_torch_moe_train.py`` (its kernels' ``gpu`` case is here).
 
 On the CPU the port's wrappers run their plain PyTorch versions; these are
 held against JAX's ``ref`` oracles and its Pallas kernels in interpret mode
@@ -968,12 +969,62 @@ def test_rglru_bwd_kernel_equals_plain(cuda, B, S, D, with_h0):
         assert (g is None and w is None) or torch.equal(g, w)
 
 
+# group sizes, T, K, N: the edges of K4's backward (an empty group, a
+# one-row group, rows past the total, one expert, K and N off the tiles)
+# and llama4-scout's training shapes (4096 rows top-1 over 16 experts)
+GPU_GMM_BWD_CASES = [
+    ([0, 1, 300, 0, 77, 5], 400, 1000, 1000),
+    ([200], 256, 264, 520),
+    ([3, 0, 2], 6, 16, 8),
+    ([256] * 16, 4096, 5120, 8192),
+    ([240, 272] * 8, 4096, 8192, 5120),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("sizes,T,K,N", GPU_GMM_BWD_CASES)
+def test_moe_gmm_bwd_kernel_matches_plain(cuda, sizes, T, K, N, dtype):
+    """K4's backward kernels (dX and dW) against ``ref.moe_gmm_bwd`` on the
+    same inputs: dX within float32 2e-5 and bf16 2**-7 (one bf16 ulp) of
+    max |ref|, each expert's dW within the same share of its own max (an
+    expert with few rows has a small dW), an empty group's dW and the
+    uncovered rows' dX exactly zero; a second launch gives the same bits;
+    either gradient alone equals the pair's."""
+    rng = np.random.default_rng(T + K)
+    x = _torch(_np(rng, (T, K)), dtype, cuda)
+    w = _torch(_np(rng, (len(sizes), K, N)) / np.sqrt(K), dtype, cuda)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    dout = _torch(_np(rng, (T, N)), dtype, cuda)
+    n = gm.moe_gmm_bwd.launches
+    dx, dw = gm.moe_gmm_bwd(x, w, gs, dout)
+    dx2, dw2 = gm.moe_gmm_bwd(x, w, gs, dout)
+    only_dx, none = gm.moe_gmm_bwd(x, w, gs, dout, need_dw=False)
+    none2, only_dw = gm.moe_gmm_bwd(x, w, gs, dout, need_dx=False)
+    torch.cuda.synchronize()
+    assert gm.moe_gmm_bwd.launches == n + 4 and none is None and none2 is None
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert torch.equal(dx, only_dx) and torch.equal(dw, only_dw)
+    want_dx, want_dw = ref.moe_gmm_bwd(x, w, gs, dout)
+    tol = 2e-5 if dtype == F32 else 2.0 ** -7
+    assert dx.dtype == dw.dtype == x.dtype
+    assert float((dx.float() - want_dx.float()).abs().max()) <= \
+        tol * float(want_dx.float().abs().max())
+    assert not dx[sum(sizes):].any()
+    for e, g in enumerate(sizes):
+        got, want = dw[e].float(), want_dw[e].float()
+        if g == 0:
+            assert not got.any(), e
+        else:
+            assert float((got - want).abs().max()) <= tol * float(want.abs().max()), e
+
+
 @pytest.mark.gpu
 def test_no_wrapper_cuts_the_gradient_on_the_card(cuda):
-    """Under autograd on the card K2 and K5 go through their Functions
+    """Under autograd on the card K2, K4 and K5 go through their Functions
     (gradients from the backward kernels reach every operand, each
-    backward counted once), and K1, K3 and K4, which have no backward
-    kernel, raise instead of returning a detached output; under
+    backward counted once), and K1 and K3, which have no backward kernel,
+    raise instead of returning a detached output; under
     ``torch.no_grad()`` they run."""
     rng = np.random.default_rng(0)
     q, k, v, do = (_torch(x, BF16, cuda).requires_grad_() for x in
@@ -991,6 +1042,15 @@ def test_no_wrapper_cuts_the_gradient_on_the_card(cuda):
     grads = torch.autograd.grad(rs.rglru_scan(a, b, h0).sum(), (a, b, h0))
     assert rs.rglru_scan_bwd.launches == n + 1
     assert all(float(g.abs().max()) > 0 for g in grads)
+    x = q.reshape(-1, 64)[:48].detach().requires_grad_()
+    w = (torch.randn((2, 64, 64), device=cuda) * 0.1).to(torch.bfloat16).requires_grad_()
+    gs = torch.tensor([16, 32], dtype=torch.int32, device=cuda)
+    n = gm.moe_gmm_bwd.launches
+    out = gm.moe_gmm(x, w, gs)
+    assert out.grad_fn.name() == "MoeGmmFnBackward"
+    grads = torch.autograd.grad(out.float().square().sum(), (x, w))
+    assert gm.moe_gmm_bwd.launches == n + 1
+    assert all(float(g.float().abs().max()) > 0 for g in grads)
     qd = q[:, :1]
     kv_len = torch.tensor([64], dtype=torch.int32, device=cuda)
     pool = k.reshape(4, 16, 2, 64)
@@ -1002,11 +1062,6 @@ def test_no_wrapper_cuts_the_gradient_on_the_card(cuda):
         "paged_prefill_attention (K1)": lambda: pa.paged_prefill_attention(
             q[:, :16], pool, pool, tables, kv_len,
             torch.tensor([48], dtype=torch.int32, device=cuda)),
-        "moe_gmm (K4)": lambda: gm.moe_gmm(
-            q.reshape(-1, 64)[:32], torch.zeros((2, 64, 64), device=cuda,
-                                                dtype=torch.bfloat16,
-                                                requires_grad=True),
-            torch.tensor([16, 16], dtype=torch.int32, device=cuda)),
     }
     for name, call in calls.items():
         with pytest.raises(NotImplementedError, match=re.escape(name)):
@@ -1043,6 +1098,59 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
 
 
 @pytest.mark.gpu
+def test_moe_train_step_on_the_card_matches_the_cpu(cuda):
+    """llama4-scout ``.reduced()`` in float32: the step through K2, K4 and
+    their backward kernels on the card against the plain path on the CPU,
+    the same weights and batch (losses within 1e-5, every leaf's gradient
+    within 1e-4 x max|g|), three K4 backward launches a layer."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.models import model as TM
+    from repro_torch.models.param import iter_leaves
+    from repro_torch.train.train_loop import loss_and_grads
+    tcfg = get_config("llama4-scout-17b-a16e").reduced()
+    tp = TM.init_model_params(tcfg, 0, "cpu")
+    tb = {k: torch.from_numpy(v) for k, v in TokenPipeline(PipelineConfig(
+        vocab=tcfg.vocab, seq_len=80, global_batch=2)).next_batch().items()}
+    l0, g0 = loss_and_grads(tcfg, tp, tb)
+    dev_p = bridge.from_jax(bridge.to_numpy(tp), device=cuda)
+    n = gm.moe_gmm_bwd.launches
+    l1, g1 = loss_and_grads(tcfg, dev_p, {k: v.to(cuda) for k, v in tb.items()})
+    assert gm.moe_gmm_bwd.launches == n + 3 * tcfg.n_layers
+    np.testing.assert_allclose(float(l1), float(l0), rtol=1e-5)
+    want = dict(iter_leaves(g0))
+    for path, g in iter_leaves(g1):
+        w = want[path]
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max()), path
+
+
+@pytest.mark.gpu
+def test_remat_dots_on_the_card_equals_remat(cuda):
+    """grok-1 ``.reduced()`` in float32 (top-2 MoE, two checkpointed
+    periods): ``remat_policy="dots"`` on the card, selective checkpointing
+    around the kernels' autograd Functions, gives the loss and gradients
+    of plain ``remat=True`` (within 1e-6) and runs K2's and K4's backward."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.models import model as TM
+    from repro_torch.models.param import iter_leaves
+    from repro_torch.train.train_loop import loss_and_grads
+    tcfg = get_config("grok-1-314b").reduced()
+    tp = TM.init_model_params(tcfg, 0, cuda)
+    tb = {k: torch.from_numpy(v).to(cuda) for k, v in TokenPipeline(PipelineConfig(
+        vocab=tcfg.vocab, seq_len=64, global_batch=2)).next_batch().items()}
+    l0, g0 = loss_and_grads(tcfg, tp, tb, remat=True)
+    n = (fa.flash_attention_bwd.launches, gm.moe_gmm_bwd.launches)
+    l1, g1 = loss_and_grads(tcfg, tp, tb, remat=True, remat_policy="dots")
+    assert fa.flash_attention_bwd.launches > n[0] and gm.moe_gmm_bwd.launches > n[1]
+    np.testing.assert_allclose(float(l1), float(l0), rtol=1e-6)
+    want = dict(iter_leaves(g0))
+    for path, g in iter_leaves(g1):
+        torch.testing.assert_close(g, want[path], rtol=1e-6, atol=1e-7, msg=path)
+
+
+@pytest.mark.gpu
 def test_kernel_wrappers_reject_bad_operands(cuda):
     q = torch.zeros((1, 4, 4, 48), device=cuda)      # hd 48 not templated
     with pytest.raises(ValueError):
@@ -1064,6 +1172,12 @@ def test_kernel_wrappers_reject_bad_operands(cuda):
         rs.rglru_scan(a, a, torch.zeros((1, 4), device=cuda))
     with pytest.raises(TypeError):
         rs.rglru_scan(a, a.bfloat16())
+    x, w = torch.zeros((4, 16), device=cuda), torch.zeros((2, 16, 8), device=cuda)
+    gs = torch.tensor([2, 2], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                   # dout must be (T, N)
+        gm.moe_gmm_bwd(x, w, gs, torch.zeros((4, 16), device=cuda))
+    with pytest.raises(ValueError):                   # dout in x's dtype
+        gm.moe_gmm_bwd(x, w, gs, torch.zeros((4, 8), device=cuda).bfloat16())
 
 
 # ----------------------------------------------------------------------

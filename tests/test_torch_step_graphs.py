@@ -272,7 +272,8 @@ def test_every_wrapper_names_a_kernel_with_bodies():
     wrappers = {fa.flash_attention: "K2", pa.paged_decode_attention: "K1",
                 pa.paged_prefill_attention: "K1", da.decode_attention: "K3",
                 gm.moe_gmm: "K4", rs.rglru_scan: "K5",
-                fa.flash_attention_bwd: "K2 bwd", rs.rglru_scan_bwd: "K5 bwd"}
+                fa.flash_attention_bwd: "K2 bwd", rs.rglru_scan_bwd: "K5 bwd",
+                gm.moe_gmm_bwd: "K4 bwd"}
     assert {w: w.kernel for w in wrappers} == wrappers
     assert {k for _, k in build.BODIES} == set(wrappers.values())
     frags = [f for f, _ in build.BODIES]
@@ -284,6 +285,8 @@ def test_every_wrapper_names_a_kernel_with_bodies():
     assert build.kernel_of_body(
         "_Z33flash_attention_bwd_dq_mma_kernelILi64EEv") == "K2 bwd"
     assert build.kernel_of_body("_Z21rglru_scan_bwd_kernelILi16ELi16EEv") == "K5 bwd"
+    assert build.kernel_of_body("_ZN12_GLOBAL__N_125moe_gmm_bwd_dw_mma_kernelEv") == "K4 bwd"
+    assert build.kernel_of_body("_ZN12_GLOBAL__N_118moe_gmm_mma_kernelEv") == "K4"
 
 
 # ----------------------------------------------------------------------

@@ -225,12 +225,30 @@ def test_remat_equals_no_remat(case):
         torch.testing.assert_close(g, want[path], rtol=1e-6, atol=1e-7, msg=path)
 
 
-def test_remat_policy_dots_is_not_ported():
-    _, tcfg = _cfgs("granite-3-2b")
-    tp = TM.init_model_params(tcfg, 0, "cpu")
-    _, tb = _batch(tcfg, 1, 8)
-    with pytest.raises(NotImplementedError):
-        TM.loss_fn(tcfg, tp, tb, remat=True, remat_policy="dots")
+@pytest.mark.parametrize("case", ["granite", "recurrentgemma-5", "llama4-scout"])
+def test_remat_policy_dots_matches_reference(case):
+    """``remat_policy="dots"`` (selective checkpointing that keeps the
+    matrix products without batch dimensions): the loss and every leaf's
+    gradient against the reference's ``jax.checkpoint`` under
+    ``dots_with_no_batch_dims_saveable``, and equal to the port's
+    ``remat=True`` (the same arithmetic recomputed); an unknown policy
+    raises."""
+    name, over, B, S = LOSS_CASES[case]
+    jcfg, tcfg = _cfgs(name, **over)
+    jp, tp = _params(jcfg, seed=2)
+    jb, tb = _batch(tcfg, B, S, seed=3)
+    jloss, jgrads = jax.value_and_grad(lambda p: JM.loss_fn(
+        jcfg, p, jb, remat=True, remat_policy="dots"))(jp)
+    tloss, tgrads = loss_and_grads(tcfg, tp, tb, remat=True, remat_policy="dots")
+    np.testing.assert_allclose(float(tloss), float(jloss), atol=LOSS_TOL)
+    _assert_grads_close(tgrads, jgrads, f"{case} dots")
+    l1, g1 = loss_and_grads(tcfg, tp, tb, remat=True)
+    assert float(l1) == float(tloss)
+    want = dict(iter_leaves(g1))
+    for path, g in iter_leaves(tgrads):
+        torch.testing.assert_close(g, want[path], rtol=1e-6, atol=1e-7, msg=path)
+    with pytest.raises(ValueError):
+        TM.loss_fn(tcfg, tp, tb, remat=True, remat_policy="everything")
 
 
 def test_forward_keeps_its_serving_signature():
