@@ -4,6 +4,8 @@ call.
 
     python3 chip_compare.py ROOT
     python3 chip_compare.py ROOT --decode-split
+    python3 chip_compare.py ROOT --train-bwd
+    python3 chip_compare.py ROOT --train-step
 
 Imports the port from ``ROOT/src`` (its kernels build from ROOT's sources
 into ``ROOT/build/kernels``) and measures, in bf16 at the served widths,
@@ -23,6 +25,25 @@ the step's device busy split by kernel class (K1 decode, GEMMs, casts and
 copies, indexing, reductions, other elementwise), and the unembedding of
 the same step profiled alone (its kernels by class), which the split
 lists apart.
+
+With ``--train-bwd`` it measures only the backward kernels at the training
+shapes of ``chip_smoke.py`` phase 10, through the wrappers a train step
+calls (so the body each checkout runs for the shape): K2's backward
+(granite-3-2b B=4 S=2048 H=32 KV=8 hd 64 causal; llama4-scout B=2 S=2048
+H=40 KV=8 hd 128 causal; recurrentgemma-2b B=1 S=3072 H=10 KV=1 hd 256,
+window 2048) and K4's (dX alone and dW alone, llama4-scout's gate/up K=5120
+N=8192 and down K=8192 N=5120, 4096 rows of a top-1 routing over 16
+experts): device ms per call (every kernel of the call summed), CUDA
+events per call, and host ms per call (the wrapper's Python, allocations
+and launcher call, no sync: the time a train step's host spends on it).
+
+With ``--train-step`` it runs only ``chip_smoke.py`` phase 10 (c) and (h)'s
+train loops through ROOT's package: granite-3-2b at full width and depth
+(B=4 S=2048, 6 steps) and llama4-scout-17b-a16e at full width cut to 2
+layers (B=2 S=2048, 5 steps), each step's launches checked, the last step
+profiled; it reports each run's window rate (s/step over the unprofiled
+steps), median and slowest step, and the profiled step's device ms per
+call of K2's and K4's backward.
 
 Times from two calls may come from two cards: run the parent and the
 change in turns in one call (parent, change, change, parent). The last
@@ -148,10 +169,100 @@ def decode_split(torch, dev) -> dict:
     return {"decode step by class": step, "unembed by class": unembed}
 
 
+def host_ms(torch, fn, iters: int = 10) -> float:
+    """Host ms per call of ``fn``: the Python and launch work until it
+    returns, with no sync inside the timed calls (the card runs behind)."""
+    import time
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
+def call_ms(torch, fn, iters: int = 10):
+    """(device ms per call of every kernel ``fn`` launches, from the
+    profiler; CUDA-event ms per call; host ms per call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    if not evs:
+        raise RuntimeError("the profiler recorded no kernel")
+    device = sum(e.self_device_time_total for e in evs) / 1e3 / iters
+    return device, cs.event_ms(torch, fn, iters), host_ms(torch, fn, iters)
+
+
+def train_bwd(torch, dev) -> dict:
+    """K2's and K4's backward at the training shapes, through the
+    wrappers."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    t = lambda shape: torch.randn(shape, generator=gen, device=dev).to(  # noqa: E731
+        torch.bfloat16)
+    out = {}
+    for key, (B, S, nh, nkv, hd), kw in (
+            ("K2 bwd hd 64 granite", (cs.TR_B, cs.TR_S, cs.H, cs.KV, cs.HD), {}),
+            ("K2 bwd hd 128 llama4", (cs.L4_TR_B, cs.L4_TR_S, cs.L4_H, cs.L4_KV, cs.L4_HD), {}),
+            ("K2 bwd hd 256 recurrentgemma",
+             (cs.RG_TR_B, cs.RG_TR_S, cs.RG_H, cs.RG_KV, cs.RG_HD), dict(window=cs.RG_WINDOW))):
+        q, do = t((B, S, nh, hd)), t((B, S, nh, hd))
+        k, v = t((B, S, nkv, hd)), t((B, S, nkv, hd))
+        o, lse = fa._forward(q, k, v, True, kw.get("window", 0), 0, None, True)
+        out[key] = call_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                                 causal=True, **kw))
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+    T, E = cs.L4_TR_B * cs.L4_TR_S, 16
+    sizes = cs.routed_sizes(np.random.default_rng(11), T, E, 1, 5120)
+    gs = torch.from_numpy(np.asarray(sizes, np.int32)).to(dev)
+    for what, (K, N) in (("gate/up", (5120, 8192)), ("down", (8192, 5120))):
+        x, dy = t((T, K)), t((T, N))
+        w = (t((E, K, N)) * K ** -0.5).to(torch.bfloat16)
+        for grad in ("dX", "dW"):
+            out[f"K4 bwd {grad} {what}"] = call_ms(torch, lambda: gm.moe_gmm_bwd(
+                x, w, gs, dy, need_dx=grad == "dX", need_dw=grad == "dW"))
+        del x, dy, w
+        torch.cuda.empty_cache()
+    for key, (ms, ev, host) in out.items():
+        cs.log(f"  {key}: {ms:.4f} ms (events {ev:.4f}, host {host:.4f})")
+    return out
+
+
+def train_step(torch, dev) -> dict:
+    """Phase 10 (c) and (h)'s train loops through the launcher's pieces:
+    the window's s/step, median, slowest step and the profiled step's
+    device ms per call of K2's and K4's backward, for each model."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    out = {}
+    l4 = dataclasses.replace(get_config("llama4-scout-17b-a16e"), n_layers=cs.L4_TR_LAYERS)
+    for cfg, B, S, steps in ((get_config("granite-3-2b"), cs.TR_B, cs.TR_S, cs.TR_STEPS),
+                             (l4, cs.L4_TR_B, cs.L4_TR_S, cs.L4_TR_STEPS)):
+        params, _, per_call, rate = cs.train_run(torch, cfg, dev, B, S, steps, repeat=False)
+        del params
+        torch.cuda.empty_cache()
+        out[cfg.name] = dict(rate, **{k: per_call.get(k) for k in ("K2 bwd", "K4 bwd")})
+        cs.log(f"  {cfg.name}: {out[cfg.name]}")
+    return out
+
+
 def main() -> int:
     import torch
     split = sys.argv[2:] == ["--decode-split"]
-    if len(sys.argv) != 2 and not split:
+    bwd = sys.argv[2:] == ["--train-bwd"]
+    step = sys.argv[2:] == ["--train-step"]
+    if len(sys.argv) != 2 and not (split or bwd or step):
         print(__doc__, file=sys.stderr)
         return 2
     root = Path(sys.argv[1]).resolve()
@@ -163,6 +274,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     build.build()
+    if bwd or step:
+        cs.log(f"chip_compare {root}: " + ("K2 and K4 backward at the training shapes"
+                                           if bwd else "granite and llama4 train steps"))
+        res = {"root": str(root), **(train_bwd if bwd else train_step)(torch, dev)}
+        print(cs.nvidia_smi_line())
+        print(json.dumps(res))
+        return 0
     if split:
         cs.log(f"chip_compare {root}: qwen2.5-14b decode split")
         res = {"root": str(root), **decode_split(torch, dev)}

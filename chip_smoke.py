@@ -11,8 +11,9 @@ Phases (each raises on failure, so the script exits non-zero):
    spills and static shared memory from ptxas, and its count of
    tensor-core instructions (HMMA, HGMMA) from ``cuobjdump -sass``; the
    bf16 instances of K2, K1's chunks (the prefill body they share), K4 and
-   its backward, K2's backward and the split decode body (K1 decode, K3)
-   must have some.
+   the split decode body (K1 decode, K3) must have some, and every bf16
+   instance of K2's and K4's backward (their wgmma bodies) HGMMA (Hopper's
+   warpgroup products), with no spill.
 2. Kernels against their plain PyTorch versions on the card, in bf16 and
    float32, at the main paths' shapes: K2 flash attention (granite-3-2b
    prefill, H=32 KV=8 hd=64; recurrentgemma-2b prefill, H=10 KV=1 hd=256,
@@ -268,8 +269,8 @@ Phases (each raises on failure, so the script exits non-zero):
    one-row group, rows past the total, one expert, K and N off the
    tiles): dX within ``gmm_tol`` of max|ref|, each expert's dW within it
    of its own, empty groups and uncovered rows exactly zero, two
-   launches bit for bit, K4's forward at the same shapes; each body's
-   device ms, events, bound (bytes over 3.35 TB/s, operations over 989
+   launches bit for bit, K4's forward at the same shapes; the bf16
+   kernel's device ms, events, bound (bytes over 3.35 TB/s, operations over 989
    TFLOP/s), the plain version's ms and ``torch._grouped_mm``'s for the
    same dX and dW (checked to compute it first; timed only); (g) a
    llama4-scout ``.reduced()`` train step through K2, K4 and their
@@ -287,8 +288,12 @@ Phases (each raises on failure, so the script exits non-zero):
    at lr 1e-4 (at 1e-3 it rose).
    Its launches are the ``..., via train`` and ``flash_attention_bwd`` /
    ``rglru_scan_bwd`` / ``moe_gmm_bwd`` rows of the ``kernels`` line.
-   Phase 1 also holds the backward's bf16 instances (K2's and K4's) to
-   HMMA present and no spill.
+   Phase 1 holds the backward's bf16 instances
+   (``flash_attention_bwd_{dq,dkv}_wgmma_kernel`` at hd 64, 128 and 256,
+   ``moe_gmm_bwd_{dx,dw}_wgmma_kernel``: warp-specialised, TMA-fed wgmma)
+   to HGMMA in every instance and no spill. (a) and (f) print each bf16
+   backward's profiler ms called alone (K2: also per pass) and its
+   CUDA-event ms beside the bound and the library's ms.
 
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -487,14 +492,14 @@ def ptxas_summary(report: str):
 
 # the bf16 instances that must run on the tensor cores
 MMA_KERNELS = ("flash_attention_mma_kernel", "paged_prefill_mma_kernel", "moe_gmm_mma_kernel",
-               "split_decode_mma_kernel", "flash_attention_bwd_dq_mma_kernel",
-               "flash_attention_bwd_dkv_mma_kernel", "moe_gmm_bwd_dx_mma_kernel",
-               "moe_gmm_bwd_dw_mma_kernel")
-# the bf16 instances that must not spill (the backward's, whose float32
-# sums are sized to the register file), with their instance counts: K2's
-# two passes at each head dim, K4's dX and dW
-NO_SPILL_KERNELS = {"flash_attention_bwd_dq_mma_kernel": 3, "flash_attention_bwd_dkv_mma_kernel": 3,
-                    "moe_gmm_bwd_dx_mma_kernel": 1, "moe_gmm_bwd_dw_mma_kernel": 1}
+               "split_decode_mma_kernel")
+# the bf16 backward bodies (K2's dQ pass at each head dim, its dK/dV pass at
+# hd 64 and 128 and, at hd 256, its dV and dK halves; K4's dX and dW), with
+# their instance counts: each must run on wgmma (HGMMA in every instance)
+# and must not spill (their float32 sums are sized to the register file)
+HGMMA_KERNELS = {"flash_attention_bwd_dq_wgmma_kernel": 3,
+                 "flash_attention_bwd_dkv_wgmma_kernel": 4,
+                 "moe_gmm_bwd_dx_wgmma_kernel": 1, "moe_gmm_bwd_dw_wgmma_kernel": 1}
 # the split-KV decode of K1 (C == 1) and K3 in bf16: the body and its merge
 SPLIT_DECODE = ("split_decode_mma_kernel", "split_decode_merge_kernel")
 
@@ -533,35 +538,42 @@ def sass_mma_counts(cuobjdump: str, library: Path):
 
 
 def check_no_spill(build) -> None:
-    """Raise if a ``NO_SPILL_KERNELS`` instance spills (ptxas's report), or
-    if the reports hold fewer instances than it names."""
+    """Raise if a ``HGMMA_KERNELS`` instance spills (ptxas's report), or
+    if the reports hold other counts of instances than it names."""
     seen = collections.Counter()
     for name in build.KERNELS:
         for line in ptxas_summary(build.ptxas_report(name)):
-            kernel = next((k for k in NO_SPILL_KERNELS if line.startswith(k)), None)
+            kernel = next((k for k in HGMMA_KERNELS if line.startswith(k)), None)
             if kernel:
                 seen[kernel] += 1
                 if " 0 bytes spill stores" not in line:
                     raise AssertionError(f"a bf16 backward instance spills: {line}")
-    if seen != collections.Counter(NO_SPILL_KERNELS):
-        raise AssertionError(f"backward mma instances in the ptxas reports {dict(seen)}, "
-                             f"expected {NO_SPILL_KERNELS} (built elsewhere?)")
+    if seen != collections.Counter(HGMMA_KERNELS):
+        raise AssertionError(f"backward wgmma instances in the ptxas reports {dict(seen)}, "
+                             f"expected {HGMMA_KERNELS} (built elsewhere?)")
 
 
 def check_tensor_cores(build) -> None:
     """Log every kernel instance's HMMA / HGMMA count; raise unless every
     bf16 instance of ``MMA_KERNELS`` (K2, K1 chunk, K4, the split decode
-    body of K1 decode and K3, and the backward of K2 and K4) has some."""
+    body of K1 decode and K3) has some, and unless every instance of
+    ``HGMMA_KERNELS`` (the bf16 bodies of K2's and K4's backward) has HGMMA,
+    as many instances as it names."""
     tool = cuobjdump_path()
     seen = {}
     for name in build.KERNELS:
         for kernel, (hmma, hgmma) in sass_mma_counts(tool, build.library_path(name)).items():
             log(f"  sass {kernel}: {hmma} HMMA, {hgmma} HGMMA")
-            seen[kernel] = hmma + hgmma
+            seen[kernel] = (hmma, hgmma)
     for want in MMA_KERNELS:
-        found = {k: n for k, n in seen.items() if k.startswith(want)}
+        found = {k: sum(n) for k, n in seen.items() if k.startswith(want)}
         if not found or not all(found.values()):
             raise AssertionError(f"{want}: no tensor-core instruction in "
+                                 f"{found or 'no instance'}")
+    for want, count in HGMMA_KERNELS.items():
+        found = {k: n[1] for k, n in seen.items() if k.startswith(want)}
+        if len(found) != count or not all(found.values()):
+            raise AssertionError(f"{want}: {count} instances with HGMMA expected, found "
                                  f"{found or 'no instance'}")
 
 
@@ -644,9 +656,9 @@ def window_mask(torch, S, window, dev):
 
 def n_split(torch, q, n_kv, capacity) -> str:
     """The split-KV decode body's plan for these shapes, for the row's label."""
-    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import build, decode_attention as da
     B, _, n_heads, _ = q.shape
-    n = da.split_plan(B, n_kv, n_heads // n_kv, capacity, da.sm_count(q.device.index))
+    n = da.split_plan(B, n_kv, n_heads // n_kv, capacity, build.sm_count(q.device.index))
     return f"n_split={n}"
 
 
@@ -3481,7 +3493,10 @@ TR_B, TR_S, TR_STEPS = 4, 2048, 6             # granite-3-2b, the launcher's lr
 # one batch repeated from a fresh AdamW state, its loss must fall; at 1e-3
 # llama4-scout's rose (10.67 -> 17.96 -> 17.00 -> 20.61 on an H100, see
 # PERF.md): Adam's first steps move every one of its 5.19 B weights by
-# about the rate, so it repeats at a tenth of it
+# about the rate, so it repeats at a tenth of it. That rise is the model's,
+# not the port's: on the CPU the port's MoE steps follow the reference's
+# with a batch repeated at 1e-3 (tests/test_torch_train.py::
+# test_repeated_batch_matches_reference, llama4-scout and grok-1)
 TR_REPEAT_STEPS = 4
 TR_REPEAT_LR = {"granite-3-2b": 1e-3, "llama4-scout-17b-a16e": 1e-4}
 RG_TR_B, RG_TR_S, RG_TR_STEPS = 1, 3072, 4    # recurrentgemma-2b
@@ -3537,16 +3552,16 @@ def flash_bwd_case(torch, rng, dev, dtype, B, Sq, Skv, nh, nkv, hd, kw, errs, fw
     ``FlashAttentionFn`` launches it) against the plain forward, output
     (phase 2's tolerance) and log-sum-exp, and bit for bit against the
     launch without it; dq, dk and dv against ``ref.flash_attention_bwd``
-    on the same inputs, and a second launch bit for bit. The forward's
-    max abs error goes to ``fwd_errs``, the backward's to ``errs``."""
+    on the same inputs, and a second launch bit for bit. The forward's max
+    abs error goes to ``fwd_errs``, the backward's to ``errs``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     t = lambda shape: torch.from_numpy(  # noqa: E731
         rng.standard_normal(shape).astype(np.float32)).to(dev, getattr(torch, dtype))
     q, do = t((B, Sq, nh, hd)), t((B, Sq, nh, hd))
     k, v = t((B, Skv, nkv, hd)), t((B, Skv, nkv, hd))
-    out, lse = fa._forward(q, k, v, kw.get("causal", True), kw.get("window", 0),
-                           kw.get("chunk", 0), None, True)
+    causal, window, chunk = kw.get("causal", True), kw.get("window", 0), kw.get("chunk", 0)
+    out, lse = fa._forward(q, k, v, causal, window, chunk, None, True)
     label = f"B={B} Sq={Sq} Skv={Skv} H={nh} KV={nkv} hd={hd} {kw}"
     if not torch.equal(out, fa.flash_attention(q, k, v, **kw)):
         raise AssertionError(f"K2 forward {label}: the output differs with the LSE stored")
@@ -3555,16 +3570,31 @@ def flash_bwd_case(torch, rng, dev, dtype, B, Sq, Skv, nh, nkv, hd, kw, errs, fw
     check(f"K2 out {label}", dtype, out, want_out.to(q.dtype), fwd_errs)
     check(f"K2 lse {label}", dtype, lse, want_lse, [], tol=1e-5)
     del want_out, want_lse
+    want = ref.flash_attention_bwd(q.float(), k.float(), v.float(), out.float(), lse,
+                                   do.float(), **kw)
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
     again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"K2 bwd {label}: two launches differ")
-    want = ref.flash_attention_bwd(q.float(), k.float(), v.float(), out.float(), lse,
-                                   do.float(), **kw)
+    del again
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         check_rel(f"K2 bwd {name} {label}", dtype, g, w, errs)
+    del got
     return q, k, v, out, lse, do
+
+
+def flash_bwd_kernels(hd: int) -> dict:
+    """The device kernels of K2 backward's bf16 dQ and dK/dV passes (each
+    launched once a call): at hd 256 the dK/dV pass is its dV and dK
+    kernels, then the head groups' sum where there are several."""
+    if hd == 256:
+        dkv = ("flash_attention_bwd_dkv_wgmma_kernel<256, 1>",
+               "flash_attention_bwd_dkv_wgmma_kernel<256, 2>",
+               "flash_attention_bwd_dkv_reduce_kernel")
+    else:
+        dkv = ("flash_attention_bwd_dkv_wgmma_kernel",)
+    return {"dq": ("flash_attention_bwd_dq_wgmma_kernel",), "dkv": dkv}
 
 
 def sdpa_backward(torch, q, k, v, do, **sdpa_kw):
@@ -3683,6 +3713,16 @@ def phase_kernels_train(torch, dev):
             library_ms=event_ms(torch, sdpa_backward(torch, q, k, v, do, **lib_kw), 5),
             library="SDPA backward (torch.autograd.grad on a retained graph"
                     + (", explicit window mask)" if window else ", is_causal)"))
+        e = entries[key]
+        call = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)  # noqa: E731
+        names = flash_bwd_kernels(hd)
+        alone = dict(ms=kernel_ms(torch, call, names["dq"] + names["dkv"], iters=10),
+                     **{p + "_ms": kernel_ms(torch, call, names[p], iters=10)
+                        for p in ("dq", "dkv")})
+        log(f"  K2 bwd ({what}) called alone: kernel {alone['ms']:.4f} ms (dQ pass "
+            f"{alone['dq_ms']:.4f}, dK/dV pass {alone['dkv_ms']:.4f}; events "
+            f"{e['event_ms']:.4f}), bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+            f"library {e['library_ms']:.4f} ms")
         del q, k, v, out, lse, do, qt, kt, vt
         torch.cuda.empty_cache()
     a, bb, _ = scan_inputs(torch, rng, dev, "float32", RG_TR_S, False)
@@ -3715,7 +3755,11 @@ def phase_kernels_train(torch, dev):
 # N = d_ff; down: K = d_ff, N = d_model
 GMM_BWD_ROWS = {"gmm_bwd_dx": ("gate/up", "dX"), "gmm_bwd_dw": ("gate/up", "dW"),
                 "gmm_bwd_dx_down": ("down", "dX"), "gmm_bwd_dw_down": ("down", "dW")}
-GMM_BWD_BODIES = {"dX": "moe_gmm_bwd_dx_mma_kernel", "dW": "moe_gmm_bwd_dw_mma_kernel"}
+
+
+def gmm_bwd_kernel(grad: str) -> str:
+    """The device kernel of K4 backward's bf16 ``grad`` ("dX", "dW")."""
+    return f"moe_gmm_bwd_{grad.lower()}_wgmma_kernel"
 
 
 def gmm_bwd_case(torch, dev, dtype, label, sizes, T, K, N, seed, errs, fwd_errs=None):
@@ -3725,8 +3769,9 @@ def gmm_bwd_case(torch, dev, dtype, label, sizes, T, K, N, seed, errs, fwd_errs=
     float32 inside it), dX within ``gmm_tol`` of the whole, each expert's
     dW within ``gmm_tol`` of its own (an expert with few rows has a small
     dW), an empty group's dW and the rows no group covers exactly zero; a
-    second call bit for bit. Max abs errors go to ``errs["dX"]`` and
-    ``errs["dW"]``. Returns (x, w, gs, dout, dx, dw)."""
+    second call bit for bit. Max abs errors go to
+    ``errs["dX"]`` and ``errs["dW"]``. Returns (x, w, gs, dout, dx, dw) of
+    the last call."""
     from repro_torch.kernels import moe_gmm as gm
     from repro_torch.kernels import ref
     x, w, gs = gmm_inputs(torch, dev, dtype, sizes, T, K, N, seed)
@@ -3738,6 +3783,7 @@ def gmm_bwd_case(torch, dev, dtype, label, sizes, T, K, N, seed, errs, fwd_errs=
         check(f"K4 {label} T={T} K={K} N={N}", dtype, gm.moe_gmm(x, w, gs), want, fwd_errs,
               tol=gmm_tol(dtype, want))
         del want
+    want_dx, want_dw = ref.moe_gmm_bwd(x, w, gs, dout)
     dx, dw = gm.moe_gmm_bwd(x, w, gs, dout)
     again = gm.moe_gmm_bwd(x, w, gs, dout)
     torch.cuda.synchronize()
@@ -3745,7 +3791,6 @@ def gmm_bwd_case(torch, dev, dtype, label, sizes, T, K, N, seed, errs, fwd_errs=
     if not (torch.equal(dx, again[0]) and torch.equal(dw, again[1])):
         raise AssertionError(f"{name}: two launches differ")
     del again
-    want_dx, want_dw = ref.moe_gmm_bwd(x, w, gs, dout)
     check(f"{name} dX", dtype, dx, want_dx, errs["dX"], tol=gmm_tol(dtype, want_dx))
     if dx[int(sum(sizes)):].any():
         raise AssertionError(f"{name}: dX rows past the groups are not zero")
@@ -3754,7 +3799,8 @@ def gmm_bwd_case(torch, dev, dtype, label, sizes, T, K, N, seed, errs, fwd_errs=
         err = (dw[e].float() - want_dw[e].float()).abs().max().item()
         tol = 0.0 if n == 0 else gmm_tol(dtype, want_dw[e])
         if err > tol:
-            raise AssertionError(f"{name}: expert {e} ({n} rows) dW max abs err {err} > {tol}")
+            raise AssertionError(f"{name}: expert {e} ({n} rows) dW max abs err {err} > "
+                                 f"{tol}")
         worst = max(worst, err)
         rel = max(rel, err / max(want_dw[e].float().abs().max().item(), 1.0))
     log(f"  {name + ' dW':60s} {dtype:8s} max|err| {worst:.3e}, worst expert "
@@ -3805,7 +3851,7 @@ def phase_kernels_moe_train(torch, dev):
     against ``ref.moe_gmm_bwd`` in bf16 and float32 at llama4-scout's
     training shapes (4096 rows of a top-1 routing over 16 experts; gate/up
     and down) and at the edges (an empty group, a one-row group, rows past
-    the total, one expert, K and N off the tiles); then each body's
+    the total, one expert, K and N off the tiles); then the bf16 kernel's
     device time, CUDA events, bound, the plain version's time and
     ``_grouped_mm``'s, bf16; the forward (K4) at the same shapes against
     ``ref.moe_gmm``, timed at gate/up. Returns the four rows (dX and dW at
@@ -3838,7 +3884,7 @@ def phase_kernels_moe_train(torch, dev):
     torch.cuda.synchronize()
 
     log("phase 10 (f): K4 backward times at llama4's training shapes, bf16 (kernel: profiler "
-        "device time of the body; events: the wrapper asked for that gradient alone; plain: "
+        "device time; events: the wrapper asked for that gradient alone; plain: "
         "ref.moe_gmm_bwd for it alone; library: torch._grouped_mm, CUDA events)")
     entries, isz, used, rows = {}, 2, int((sizes > 0).sum()), int(sizes.sum())
     for i, (what, (K, N)) in enumerate(shapes.items()):
@@ -3880,13 +3926,18 @@ def phase_kernels_moe_train(torch, dev):
                 source="src/repro_torch/csrc/moe_gmm_bwd.cu",
                 replaces="src/repro/kernels/moe_gmm.py:26",
                 shape=f"T={T} K={K} N={N} E=16 ({used} used) bf16",
-                **kernel_times(torch, call, GMM_BWD_BODIES[grad], iters=10),
+                **kernel_times(torch, call, gmm_bwd_kernel(grad), iters=10),
                 plain_ms=event_ms(torch, lambda: ref.moe_gmm_bwd(x, w, gs, dout, **flags), 2,
                                   warmup=1),
                 bound_ms=b, bound_by=by,
                 library_ms=event_ms(torch, lib[grad], 10) if lib[grad] else None,
                 library="torch._grouped_mm, " + ("dY x W[e]^T" if grad == "dX"
                                                  else "X^T x dY ragged over the rows"))
+            e = entries[key]
+            lib_ms = f"{e['library_ms']:.4f}" if e["library_ms"] else "n/a"
+            log(f"  K4 bwd {grad} ({what}): kernel {e['ms']:.4f} ms (events "
+                f"{e['event_ms']:.4f}), bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+                f"library {lib_ms} ms")
         del x, w, gs, dout, lib
         torch.cuda.empty_cache()
     for key, e in entries.items():
@@ -4016,7 +4067,8 @@ def train_run(torch, cfg, dev, B, S, steps, repeat: bool):
     and the caching allocator's cudaMalloc calls and retries. With
     ``repeat``, a second run of ``TR_REPEAT_STEPS`` steps on one batch at
     ``TR_REPEAT_LR`` whose loss must fall. Returns (params, launch totals, the
-    profiled step's device ms per call by ``TRAIN_SHARES`` label)."""
+    profiled step's device ms per call by ``TRAIN_SHARES`` label, the
+    window's s/step, median and slowest step)."""
     import gc
     from repro_torch.launch import train as L
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
@@ -4093,6 +4145,7 @@ def train_run(torch, cfg, dev, B, S, steps, repeat: bool):
         gc.callbacks.remove(on_gc)
     window = times[:-1]
     s_step = sum(window) / len(window)
+    rate = dict(s_step=s_step, median=float(np.median(window)), slowest=max(window))
     log(f"  {cfg.name}: {s_step:.4f} s/step (the window: steps 1..{steps - 1}, "
         f"{sum(window):.4f} s), median {float(np.median(window)):.4f}, slowest "
         f"{max(window):.4f}; {B * S / s_step:.0f} tokens/s, MFU "
@@ -4117,7 +4170,7 @@ def train_run(torch, cfg, dev, B, S, steps, repeat: bool):
                                  f"fall: {rep}")
     del state
     torch.cuda.empty_cache()
-    return params, total, per_launch
+    return params, total, per_launch, rate
 
 
 def checkpoint_and_guards(torch, params, dev):
@@ -4194,12 +4247,13 @@ def training_run(torch, dev):
         train_step_parity(torch, dataclasses.replace(rg, n_layers=3, dtype=dtype), dev,
                           1, RG_TR_S)
         torch.cuda.empty_cache()
-    params, g_total, g_ms = train_run(torch, granite, dev, TR_B, TR_S, TR_STEPS, repeat=True)
+    params, g_total, g_ms, _ = train_run(torch, granite, dev, TR_B, TR_S, TR_STEPS,
+                                         repeat=True)
     checkpoint_and_guards(torch, params, dev)
     del params
     torch.cuda.empty_cache()
-    params, r_total, r_ms = train_run(torch, rg, dev, RG_TR_B, RG_TR_S, RG_TR_STEPS,
-                                      repeat=False)
+    params, r_total, r_ms, _ = train_run(torch, rg, dev, RG_TR_B, RG_TR_S, RG_TR_STEPS,
+                                         repeat=False)
     del params
     torch.cuda.empty_cache()
     entries.update(phase_kernels_moe_train(torch, dev))
@@ -4224,8 +4278,8 @@ def training_run(torch, dev):
         f"{2 * 4 * L4_TR_B * L4_TR_S * l4.padded_vocab / 1e9:.1f} GB, an expert leaf's dW "
         f"{2 * l4.n_experts * l4.d_model * l4.d_ff / 1e9:.2f} GB: ~70 GB peak; launches a "
         f"step {TR_COUNTS[l4.name]}")
-    params, l_total, l_ms = train_run(torch, l4, dev, L4_TR_B, L4_TR_S, L4_TR_STEPS,
-                                      repeat=True)
+    params, l_total, l_ms, _ = train_run(torch, l4, dev, L4_TR_B, L4_TR_S, L4_TR_STEPS,
+                                         repeat=True)
     del params
     torch.cuda.empty_cache()
     totals = {"flash_bwd_granite": g_total["flash_bwd"], "flash_train": g_total["flash"],
@@ -4237,7 +4291,7 @@ def training_run(torch, dev):
         totals[key] = l_total["gmm_bwd"]
     log("phase 10: the training path's kernels (kernel: device ms per call in the profiled "
         "train step at the same shape, K4's forward averaged over its gate, up and down "
-        "calls; K4 backward rows: the body's device time in (f); events, plain and "
+        "calls; K4 backward rows: the kernel's device time in (f); events, plain and "
         "library: CUDA events in (a) and (f))")
     per_call = {granite.name: g_ms, rg.name: r_ms, l4.name: l_ms}
     for key, (arch, label) in TRAIN_ROWS.items():

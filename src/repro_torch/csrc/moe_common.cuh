@@ -14,19 +14,21 @@ constexpr int BM = 64;      // rows per tile, both routes
 constexpr int MAX_E = 256;  // experts whose offsets fit the block's scan
 
 // Every block scans the group sizes into inclusive sums of rows and of row
-// tiles, s_rows / s_tiles[0 .. MAX_E), with its NT threads.
-template <int NT>
+// tiles of TILE rows, s_rows / s_tiles[0 .. MAX_E), with its NT threads
+// (threads past MAX_E only join the barriers).
+template <int NT, int TILE = BM>
 __device__ inline void scan_groups(const int* __restrict__ group_sizes, int T_rows, int E,
                                    long long* s_rows, int* s_tiles) {
-  static_assert(MAX_E % NT == 0, "each thread scans MAX_E / NT entries");
-  constexpr int PER = MAX_E / NT;
+  constexpr int PER = (MAX_E + NT - 1) / NT;
   const int tid = threadIdx.x;
 #pragma unroll
   for (int j = 0; j < PER; ++j) {
     const int i = tid + j * NT;
-    const int g = i < E ? min(max(group_sizes[i], 0), T_rows) : 0;
-    s_rows[i] = g;
-    s_tiles[i] = (g + BM - 1) / BM;
+    if (i < MAX_E) {
+      const int g = i < E ? min(max(group_sizes[i], 0), T_rows) : 0;
+      s_rows[i] = g;
+      s_tiles[i] = (g + TILE - 1) / TILE;
+    }
   }
   __syncthreads();
   for (int off = 1; off < E; off <<= 1) {
@@ -35,14 +37,17 @@ __device__ inline void scan_groups(const int* __restrict__ group_sizes, int T_ro
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
       const int i = tid + j * NT;
-      r[j] = i >= off ? s_rows[i - off] : 0;
-      c[j] = i >= off ? s_tiles[i - off] : 0;
+      r[j] = i < MAX_E && i >= off ? s_rows[i - off] : 0;
+      c[j] = i < MAX_E && i >= off ? s_tiles[i - off] : 0;
     }
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
-      s_rows[tid + j * NT] += r[j];
-      s_tiles[tid + j * NT] += c[j];
+      const int i = tid + j * NT;
+      if (i < MAX_E) {
+        s_rows[i] += r[j];
+        s_tiles[i] += c[j];
+      }
     }
     __syncthreads();
   }

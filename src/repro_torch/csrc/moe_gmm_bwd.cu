@@ -23,48 +23,50 @@
 // TB/s) and the operations bound (0.35 ms at 989 TFLOP/s) are near, so
 // both the tensor-core rate and the streaming of w / dW matter.
 //
-// dX (moe_gmm_bwd_dx_*): the forward's row tiling and group scan
-// (csrc/moe_common.cuh): a grid of ceil(T / 64) + E row tiles by column
-// tiles of K, each block finding its expert and rows itself; a tile past
-// the last group zeroes its rows. The reduction runs over N. W[e] is read
-// in place, transposed by the operand layout and never copied: w is
-// (K, N) with N contiguous, so a (256 of K) x (32 of N) slab is 256 rows
-// of 64 contiguous bytes, which for this product is a column-major B
-// operand: its fragments come from a plain ldmatrix where the forward's
-// row-major slab needs ldmatrix.trans.
+// The group sizes stay on the card (every block scans them,
+// csrc/moe_common.cuh); the host never reads them, so a train step costs
+// no sync and can be captured. Weights and their gradients are indexed
+// with 64-bit offsets. Each output element is summed by one thread in one
+// order: no atomics, so a backward repeats bit for bit.
 //
-// dW (moe_gmm_bwd_dw_*): a grid of N tiles (fastest, so the blocks of one
-// expert's K tile share its rows of x in L2) by E x K tiles; each block
-// owns one (64 of K) x (BN of N) tile of one expert and reduces over that
-// group's rows in steps of 32. X_e^T is read in place: a (32 rows) x (64
-// of K) tile of x, K contiguous, gives the A fragments through
-// ldmatrix.trans; dY_e's (32 rows) x (256 of N) tile is the same
-// row-major B operand as the forward's w. The group's ragged edge is
-// zero-filled through cp.async's src-size operand, not branched around; a
-// block whose group is empty runs no step and stores its zero sums. Each
-// output element is summed by one thread in one order: no atomics, so a
-// backward repeats bit for bit.
+// bfloat16 (moe_gmm_bwd_{dx,dw}_wgmma_kernel): one persistent block an SM
+// walks output tiles in a static order (below), three warpgroups: a
+// producer whose one thread keeps TMA loads in flight into a 3-stage ring
+// on mbarriers (24 registers after setmaxnreg), two consumers (240)
+// running wgmma.m64n256k16 on 64 rows each, one wgmma group in flight so
+// that a stage is released while the next one runs. Operands are boxes of
+// rows x 64 bf16 in the 128-byte swizzle. dX: A = dY's rows (K-major), B =
+// W[e] as stored, (K, N) with N contiguous, K-major for this product, so W
+// is never transposed or copied; a tile is 128 rows of one expert x 256 of
+// K, ordered expert, column tile, row tile, so the row tiles that read one
+// slab of W[e] run side by side; rows past the group are computed and not
+// stored; the rounded tile goes out through a padded shared-memory tile
+// with 16-byte stores, while the producer loads the next tile; the
+// producer's other warps zero the rows no group covers. dW: A = X_e^T and
+// B = dY_e, both MN-major through the descriptor, a tile 128 of K x 256 of
+// N; TMA cannot stop at a group's edge, so the rows past it are zeroed in
+// the stage of the group's last step before its products; the tile goes
+// out by TMA stores from 4 swizzled boxes, which clip at K's and N's
+// edges, overlapped with the next tile's loads; an empty group stores
+// zeros. Registers and dynamic shared memory (ptxas and cuobjdump,
+// sm_90a): 168 a thread at launch, the consumers using up to 178 (dX) and
+// 162 (dW); 219184 and 217136 bytes; no spill.
 //
-// The group sizes stay on the card (every block scans them); the host
-// never reads them, so a train step costs no sync and can be captured.
-// Weights and their gradients are indexed with 64-bit offsets.
-//
-// bfloat16: mma.sync.m16n8k16 (bf16 products, float32 sums), 4 warps a
-// block, 64 x 256 tiles (each warp 64 x 64), a 3-stage cp.async ring,
-// ldmatrix from rows padded by 16 bytes (free of bank conflicts), the
-// epilogue rounding to bf16 through shared memory and storing 16 bytes a
-// thread. dX: 75 KB of dynamic shared memory; dW: 63 KB.
-// float32: exact FMA on the CUDA cores (no TF32): 64 x 64 tiles, 256
-// threads each a 4 x 4 patch, a 32-deep stage through shared memory with
-// the next stage's 16-byte loads in registers while this one computes.
-//
-// Next: wgmma fed by TMA, and dX and dW in one persistent launch ordered
-// by expert so that an expert's rows are read once for both.
+// float32 (moe_gmm_bwd_{dx,dw}_kernel): exact FMA on the CUDA cores (no
+// TF32): 64 x 64 tiles, 256 threads each a 4 x 4 patch, a 32-deep stage
+// through shared memory with the next stage's 16-byte loads in registers
+// while this one computes. dX: the forward's row tiling, a grid of
+// ceil(T / 64) + E row tiles by column tiles of K, each block finding its
+// expert and rows itself; a tile past the last group zeroes its rows; the
+// reduction runs over N. dW: a grid of N tiles (fastest, so the blocks of
+// one expert's K tile share its rows of x in L2) by E x K tiles; each block
+// reduces over its group's rows, the ragged edge loaded as zeros; a block
+// whose group is empty stores its zero sums.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_common.cuh"
+#include "hopper_common.cuh"
 #include "moe_common.cuh"
 
 namespace {
@@ -259,286 +261,361 @@ moe_gmm_bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ dou
 }
 
 // ---------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16), cp.async ring, ldmatrix
+// bfloat16 on wgmma: persistent, warp-specialised, fed by TMA
 // ---------------------------------------------------------------------
-constexpr int MMA_NT = 128;                  // 4 warps
-constexpr int MMA_BN = 256;                  // output columns per tile
-constexpr int WN = MMA_BN / (MMA_NT / 32);   // columns per warp
-constexpr int NJ = WN / 8;                   // n8 blocks per warp
-constexpr int MMA_BK = 32;                   // reduction depth per stage
-constexpr int STAGES = 3;
-constexpr int PAD = 8;                       // 16 bytes a row: ldmatrix free of bank conflicts
-// dX stages: dY (64 rows x 32 of N) and W[e] (256 of K x 32 of N)
-constexpr int DX_LD = MMA_BK + PAD;
-constexpr int DX_D_ELEMS = BM * DX_LD;
-constexpr int DX_W_ELEMS = MMA_BN * DX_LD;
-constexpr size_t DX_SMEM = sizeof(bf16) * STAGES * (DX_D_ELEMS + DX_W_ELEMS);
-// dW stages: x (32 rows x 64 of K) and dY (32 rows x 256 of N)
-constexpr int DW_XLD = BM + PAD;
-constexpr int DW_DLD = MMA_BN + PAD;
-constexpr int DW_X_ELEMS = MMA_BK * DW_XLD;
-constexpr int DW_D_ELEMS = MMA_BK * DW_DLD;
-constexpr size_t DW_SMEM = sizeof(bf16) * STAGES * (DW_X_ELEMS + DW_D_ELEMS);
-// the epilogue's 64 x 256 tile reuses the ring
-constexpr int OUT_LD = MMA_BN + PAD;
-static_assert(BM * OUT_LD <= STAGES * (DX_D_ELEMS + DX_W_ELEMS) &&
-                  BM * OUT_LD <= STAGES * (DW_X_ELEMS + DW_D_ELEMS),
-              "epilogue tile fits the ring");
-static_assert(NJ % 2 == 0 && (BM * MMA_BK / 8) % MMA_NT == 0 &&
-                  (MMA_BN * MMA_BK / 8) % MMA_NT == 0,
-              "n8 blocks in pairs, whole 16-byte chunks per thread");
+// One block an SM walks output tiles in a static order (tile = blockIdx.x
+// + i * gridDim.x), so each output element has one owner and one summation
+// order: no atomics, a backward repeats bit for bit. Warpgroup 0 produces
+// (warp 0's lane 0 issues the TMA loads into a ring of W_STAGES stages on
+// mbarriers; 24 registers a thread), warpgroups 1 and 2 consume (240
+// registers): wgmma m64n256k16, each consumer 64 rows of the tile, one
+// wgmma group kept in flight so a stage is released while the next runs.
+// The schedule comes from the group sizes scanned on the card
+// (moe_common.cuh); the host reads nothing. Operand stages are boxes of
+// rows x 64 bf16 in the 128-byte swizzle (hopper_common.cuh).
+constexpr int WS_THREADS = 384;
+constexpr int WS_CONSUMER_WARPS = 8;
+constexpr int W_STAGES = 3;
+constexpr int W_DEPTH = 64;    // reduction a stage
+constexpr int W_COLS = 256;    // output columns a tile (dX: of K, dW: of N)
+constexpr int DX_ROWS = 128;   // dX: rows of one expert a tile
+constexpr int DW_KROWS = 128;  // dW: rows of K a tile
 
-// The ring over the reduction: load(kt, stage) issues stage kt's cp.async
-// copies, step(stage) runs the products of a landed stage.
-template <class Load, class Step>
-__device__ __forceinline__ void ring(int n_k, const Load& load, const Step& step) {
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < n_k) load(st, st);
-    mma::cp_async_commit();
-  }
-  for (int kt = 0; kt < n_k; ++kt) {
-    mma::cp_async_wait<STAGES - 2>();   // stage kt has landed ...
-    __syncthreads();   // ... for every thread, and stage kt - 1 is read out
-    if (kt + STAGES - 1 < n_k) load(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
-    mma::cp_async_commit();
-    step(kt % STAGES);
-  }
-  mma::cp_async_wait<0>();
-  __syncthreads();   // the ring is free for the epilogue tile
+// dX: stages of dY (128 rows x 64 of N) and W[e] (256 of K x 64 of N), an
+// epilogue tile a consumer (64 x 256, rows padded by 16 bytes), the scan,
+// the barriers. kernels/moe_gmm.py wgmma_smem_bytes mirrors these bytes.
+struct DxLayout {
+  static constexpr int A = 0, B = DX_ROWS * W_DEPTH * 2;
+  static constexpr int STAGE = B + W_COLS * W_DEPTH * 2;
+  static constexpr int EPI_LD = W_COLS + 8, EPI = W_STAGES * STAGE;
+  static constexpr int EPI_WG = 64 * EPI_LD * 2;
+  static constexpr int SCAN = EPI + 2 * EPI_WG;
+  static constexpr int BARS = SCAN + MAX_E * (8 + 4);
+  static constexpr int BYTES = BARS + 2 * W_STAGES * 8 + 1024;
+  static_assert(BYTES <= 232448 && STAGE % 1024 == 0, "shared memory of a block");
+};
+// dW: stages of x (64 rows x 128 of K: 2 boxes) and dY (64 rows x 256 of
+// N: 4 boxes), an epilogue tile a consumer (64 of K x 256 of N as 4
+// swizzled boxes, stored by TMA), the scan, the barriers
+struct DwLayout {
+  static constexpr int X = 0, D = W_DEPTH * DW_KROWS * 2;
+  static constexpr int STAGE = D + W_DEPTH * W_COLS * 2;
+  static constexpr int EPI = W_STAGES * STAGE, EPI_WG = 64 * W_COLS * 2;
+  static constexpr int SCAN = EPI + 2 * EPI_WG;
+  static constexpr int BARS = SCAN + MAX_E * (8 + 4);
+  static constexpr int BYTES = BARS + 2 * W_STAGES * 8 + 1024;
+  static_assert(BYTES <= 232448 && STAGE % 1024 == 0, "shared memory of a block");
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (hop::smem_u32(p) & 1023)) & 1023);
 }
 
-__device__ __forceinline__ void zero_acc(float (&acc)[4][NJ][4]) {
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < NJ; ++nj)
-      acc[mi][nj][0] = acc[mi][nj][1] = acc[mi][nj][2] = acc[mi][nj][3] = 0.f;
+// dX tile u of the static order: experts slowest, then column tiles of K,
+// then the expert's row tiles, so the row tiles that read one slab of W[e]
+// run side by side and the slab comes from HBM once. rows <= 0: nothing.
+struct DxTile {
+  int e, c, rows;
+  long long row0;
+};
+__device__ __forceinline__ DxTile dx_tile(const long long* s_rows, const int* s_tiles,
+                                          int T_rows, int E, int n_ct, int u) {
+  int lo = 0, hi = E - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (s_tiles[mid] * n_ct > u) hi = mid;
+    else lo = mid + 1;
+  }
+  const int t0 = lo ? s_tiles[lo - 1] : 0, rt = s_tiles[lo] - t0, local = u - t0 * n_ct;
+  const long long row0 = (lo ? s_rows[lo - 1] : 0) + (long long)(local % rt) * DX_ROWS;
+  const long long end = min(s_rows[lo], (long long)T_rows);
+  return {lo, local / rt, (int)max(min((long long)DX_ROWS, end - row0), -1LL), row0};
 }
 
-// Round the first live_m m16 blocks of acc to bf16 into Os [BM][OUT_LD]
-// (this warp's WN columns), then make the tile visible to the block.
-__device__ __forceinline__ void stage_out(bf16* Os, const float (&acc)[4][NJ][4], int live_m,
-                                          int warp, int lane) {
-  const int g = lane >> 2, t = lane & 3;
+// dX = dY W[e]^T: A = dY's rows (K-major: N contiguous), B = W[e] as
+// stored, (K, N) with N contiguous, K-major for this product.
+__global__ void __launch_bounds__(WS_THREADS, 1)
+moe_gmm_bwd_dx_wgmma_kernel(const __grid_constant__ CUtensorMap tm_dy,
+                            const __grid_constant__ CUtensorMap tm_w,
+                            const int* __restrict__ group_sizes, bf16* __restrict__ dx,
+                            int T_rows, int K, int N, int E) {
+  using L = DxLayout;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  long long* s_rows = reinterpret_cast<long long*>(sm + L::SCAN);
+  int* s_tiles = reinterpret_cast<int*>(s_rows + MAX_E);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* empty = full + W_STAGES;
+  const int tid = threadIdx.x, wg = hop::warpgroup_idx(), warp = hop::warp_in_group();
+  const int lane = tid % 32;
+  if (tid == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      hop::bar_init(&full[s], 1);
+      hop::bar_init(&empty[s], WS_CONSUMER_WARPS);
+    }
+    hop::fence_bar_init();
+  }
+  moe::scan_groups<WS_THREADS, DX_ROWS>(group_sizes, T_rows, E, s_rows, s_tiles);
+  const int n_ct = (K + W_COLS - 1) / W_COLS, n_k = (N + W_DEPTH - 1) / W_DEPTH;
+  const int total = s_tiles[E - 1] * n_ct;
+  const long long covered = min(s_rows[E - 1], (long long)T_rows);
+
+  if (wg == 0) {
+    hop::regs_dec<24>();
+    if (warp == 0) {
+      if (lane == 0) {
+        int it = 0;
+        for (int u = blockIdx.x; u < total; u += gridDim.x) {
+          const DxTile tl = dx_tile(s_rows, s_tiles, T_rows, E, n_ct, u);
+          if (tl.rows <= 0) continue;
+          for (int n = 0; n < n_k; ++n, ++it) {
+            const int s = it % W_STAGES;
+            hop::bar_wait(&empty[s], ((it / W_STAGES) & 1) ^ 1);
+            unsigned char* st = sm + s * L::STAGE;
+            hop::bar_arrive_tx(&full[s], L::STAGE);
+            hop::tma_load_2d(st + L::A, &tm_dy, &full[s], n * W_DEPTH, (int)tl.row0);
+            hop::tma_load_2d(st + L::B, &tm_w, &full[s], n * W_DEPTH,
+                             tl.e * K + tl.c * W_COLS);
+          }
+        }
+      }
+    } else {
+      // warps 1-3: rows no group covers are zero, as ragged_dot's gradient
+      // leaves them
+      const long long n16 = (T_rows - covered) * K / 8;
+      uint4* z = reinterpret_cast<uint4*>(dx + covered * K);
+      for (long long i = (long long)blockIdx.x * 96 + tid - 32; i < n16;
+           i += (long long)gridDim.x * 96)
+        z[i] = make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    hop::regs_inc<240>();
+    const int cw = wg - 1, g = lane >> 2, t = lane & 3, wtid = tid - 128 * wg;
+    bf16* epi = reinterpret_cast<bf16*>(sm + L::EPI + cw * L::EPI_WG);
+    int it = 0;
+    for (int u = blockIdx.x; u < total; u += gridDim.x) {
+      const DxTile tl = dx_tile(s_rows, s_tiles, T_rows, E, n_ct, u);
+      if (tl.rows <= 0) continue;
+      float acc[W_COLS / 2];
+      for (int n = 0; n < n_k; ++n, ++it) {
+        const int s = it % W_STAGES;
+        hop::bar_wait(&full[s], (it / W_STAGES) & 1);
+        const unsigned char* st = sm + s * L::STAGE;
+        hop::wg_fence();
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-    if (mi < live_m) {
+        for (int kk = 0; kk < W_DEPTH / 16; ++kk)
+          hop::mma_ss<0, 0>(acc, hop::desc(st + L::A + cw * 64 * 128 + kk * 32, 16, 1024),
+                            hop::desc(st + L::B + kk * 32, 16, 1024), n > 0 || kk > 0,
+                            hop::Tag<W_COLS>());
+        hop::wg_commit();
+        hop::wg_wait<1>();   // the previous stage's products are done
+        if (n > 0 && lane == 0) hop::bar_arrive(&empty[(it - 1) % W_STAGES]);
+      }
+      hop::wg_wait<0>();
+      hop::fence_acc(acc);
+      if (lane == 0) hop::bar_arrive(&empty[(it - 1) % W_STAGES]);
+
+      // epilogue: round to bf16 through shared memory (the producer is
+      // already loading the next tile), rows of the group only
+      hop::named_sync(1 + cw, 128);   // the previous tile's reads are done
 #pragma unroll
-      for (int nj = 0; nj < NJ; ++nj) {
-        const int r = mi * 16 + g, c = warp * WN + nj * 8 + 2 * t;
-        *reinterpret_cast<__nv_bfloat162*>(Os + r * OUT_LD + c) =
-            __floats2bfloat162_rn(acc[mi][nj][0], acc[mi][nj][1]);
-        *reinterpret_cast<__nv_bfloat162*>(Os + (r + 8) * OUT_LD + c) =
-            __floats2bfloat162_rn(acc[mi][nj][2], acc[mi][nj][3]);
+      for (int j = 0; j < W_COLS / 8; ++j) {
+        const int r = warp * 16 + g, c = j * 8 + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(epi + r * L::EPI_LD + c) =
+            __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(epi + (r + 8) * L::EPI_LD + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+      hop::named_sync(1 + cw, 128);
+      const int rows = tl.rows - 64 * cw, c0 = tl.c * W_COLS;
+      const long long row0 = tl.row0 + 64 * cw;
+      for (int i = wtid; i < 64 * (W_COLS / 8); i += 128) {
+        const int r = i / (W_COLS / 8), c = (i % (W_COLS / 8)) * 8;
+        if (r < rows && c0 + c < K)
+          *reinterpret_cast<uint4*>(dx + (row0 + r) * K + c0 + c) =
+              *reinterpret_cast<const uint4*>(epi + r * L::EPI_LD + c);
       }
     }
   }
-  __syncthreads();
 }
 
-// dX's products of one landed stage for a tile whose first MI m16 blocks
-// hold rows: A = dY (rows x 32 of N, row-major: ldmatrix.x4), B = W[e]'s
-// slab (256 of K x 32 of N: for this product column-major, so a plain
-// ldmatrix.x4 gives b0 / b1 of two n8 blocks: matrices rows +0..7 by n
-// +0..7 / +8..15, then rows +8..15 by the same).
-template <int MI>
-__device__ __forceinline__ void dx_step(float (&acc)[4][NJ][4], const bf16* ds, const bf16* ws,
-                                        int warp, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < MMA_BK / 16; ++kk) {
-    uint32_t bw[NJ][2], a[MI][4];
-#pragma unroll
-    for (int nb = 0; nb < NJ / 2; ++nb) {
-      uint32_t r[4];
-      mma::ldmatrix_x4(r, ws + (warp * WN + nb * 16 + (lane & 7) + (lane >> 4) * 8) * DX_LD +
-                              kk * 16 + ((lane >> 3) & 1) * 8);
-      bw[2 * nb][0] = r[0]; bw[2 * nb][1] = r[1];
-      bw[2 * nb + 1][0] = r[2]; bw[2 * nb + 1][1] = r[3];
+// dW[e] = X_e^T dY_e: A = X_e^T, MN-major (x's K contiguous), B = dY_e,
+// MN-major (N contiguous). TMA cannot stop at a group's edge: in a group's
+// last step the rows past it (the next group's, or past T, which load as
+// zeros) are zeroed in the stage before its products. The tile goes out
+// through shared memory by TMA stores, which clip at K's and N's edges.
+__global__ void __launch_bounds__(WS_THREADS, 1)
+moe_gmm_bwd_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                            const __grid_constant__ CUtensorMap tm_dy,
+                            const __grid_constant__ CUtensorMap tm_dw,
+                            const int* __restrict__ group_sizes, int T_rows, int K, int N,
+                            int E) {
+  using L = DwLayout;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  long long* s_rows = reinterpret_cast<long long*>(sm + L::SCAN);
+  int* s_tiles = reinterpret_cast<int*>(s_rows + MAX_E);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* empty = full + W_STAGES;
+  const int tid = threadIdx.x, wg = hop::warpgroup_idx(), warp = hop::warp_in_group();
+  const int lane = tid % 32;
+  if (tid == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      hop::bar_init(&full[s], 1);
+      hop::bar_init(&empty[s], WS_CONSUMER_WARPS);
     }
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-      mma::ldmatrix_x4(a[mi], ds + (mi * 16 + (lane & 15)) * DX_LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int nj = 0; nj < NJ; ++nj) mma::mma_bf16(acc[mi][nj], a[mi], bw[nj][0], bw[nj][1]);
+    hop::fence_bar_init();
   }
-}
-
-template <int MI, class Load>
-__device__ __forceinline__ void dx_mainloop(float (&acc)[4][NJ][4], const bf16* Ds,
-                                            const bf16* Ws, int n_k, int warp, int lane,
-                                            const Load& load) {
-  ring(n_k, load, [&](int stage) {
-    dx_step<MI>(acc, Ds + stage * DX_D_ELEMS, Ws + stage * DX_W_ELEMS, warp, lane);
-  });
-}
-
-// dX = dY W[e]^T: grid (ceil(T / 64) + E, ceil(K / 256)).
-__global__ void __launch_bounds__(MMA_NT)
-moe_gmm_bwd_dx_mma_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ w,
-                          const int* __restrict__ group_sizes, bf16* __restrict__ dx,
-                          int T_rows, int K, int N, int E) {
-  constexpr int CH = MMA_BK / 8;   // 16-byte chunks a row of a stage
-  __shared__ long long s_rows[MAX_E];
-  __shared__ int s_tiles[MAX_E];
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ds = reinterpret_cast<bf16*>(smem_raw);   // [STAGES][BM][DX_LD]
-  bf16* Ws = Ds + STAGES * DX_D_ELEMS;              // [STAGES][MMA_BN][DX_LD]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int c0 = blockIdx.y * MMA_BN;
-  constexpr int OC = MMA_BN / 8;   // 16-byte chunks a row of the output tile
-  scan_groups<MMA_NT>(group_sizes, T_rows, E, s_rows, s_tiles);
-  const RowTile tile = find_row_tile(s_rows, s_tiles, T_rows, E, blockIdx.x);
-  if (tile.e < 0) {
-    // rows no group covers are zero, as ragged_dot's gradient leaves them
-    for (int i = tid; i < BM * OC; i += MMA_NT) {
-      const long long r = tile.row0 + i / OC;
-      const int c = c0 + (i % OC) * 8;
-      if (r < T_rows && c < K) *reinterpret_cast<uint4*>(dx + r * K + c) = make_uint4(0, 0, 0, 0);
-    }
-    return;
-  }
-  const int rows = tile.rows;
-  if (rows <= 0) return;
-  const bf16* de = dout + tile.row0 * N;
-  const bf16* we = w + (long long)tile.e * K * N;
-
-  // one stage: dY rows past the group's edge, and K or N past theirs, are
-  // zero-filled (src-size 0, the source clamped to a valid address)
-  auto load = [&](int kt, int stage) {
-    const int n0 = kt * MMA_BK;
-    bf16* ds = Ds + stage * DX_D_ELEMS;
-    bf16* ws = Ws + stage * DX_W_ELEMS;
-#pragma unroll
-    for (int i = 0; i < BM * CH / MMA_NT; ++i) {
-      const int c = tid + i * MMA_NT, r = c / CH, nc = (c % CH) * 8;
-      const bool ok = r < rows && n0 + nc < N;
-      mma::cp_async16(ds + r * DX_LD + nc, ok ? de + (long long)r * N + n0 + nc : dout,
-                      ok ? 16 : 0);
-    }
-#pragma unroll
-    for (int i = 0; i < MMA_BN * CH / MMA_NT; ++i) {
-      const int c = tid + i * MMA_NT, kr = c / CH, nc = (c % CH) * 8;
-      const bool ok = c0 + kr < K && n0 + nc < N;
-      mma::cp_async16(ws + kr * DX_LD + nc, ok ? we + (long long)(c0 + kr) * N + n0 + nc : w,
-                      ok ? 16 : 0);
-    }
+  moe::scan_groups<WS_THREADS>(group_sizes, T_rows, E, s_rows, s_tiles);
+  const int n_kt = (K + DW_KROWS - 1) / DW_KROWS, n_nt = (N + W_COLS - 1) / W_COLS;
+  const int total = E * n_kt * n_nt;
+  // tile u: expert u / (n_kt n_nt), then K tiles, then N tiles
+  auto group = [&](int e, long long& start) {
+    start = e ? s_rows[e - 1] : 0;
+    return (int)max(min(s_rows[e], (long long)T_rows) - start, 0LL);
   };
 
-  const int n_k = (N + MMA_BK - 1) / MMA_BK;
-  const int live_m = (rows + 15) / 16;   // m16 row blocks holding a row of the group
-  float acc[4][NJ][4];                   // [m16 block][n8 block][fragment]
-  zero_acc(acc);
-  switch (live_m) {   // the m16 loop unrolled without a branch in the ring
-    case 1: dx_mainloop<1>(acc, Ds, Ws, n_k, warp, lane, load); break;
-    case 2: dx_mainloop<2>(acc, Ds, Ws, n_k, warp, lane, load); break;
-    case 3: dx_mainloop<3>(acc, Ds, Ws, n_k, warp, lane, load); break;
-    default: dx_mainloop<4>(acc, Ds, Ws, n_k, warp, lane, load); break;
-  }
+  if (wg == 0) {
+    hop::regs_dec<24>();
+    if (warp == 0 && lane == 0) {
+      int it = 0;
+      for (int u = blockIdx.x; u < total; u += gridDim.x) {
+        const int e = u / (n_kt * n_nt), kt = u / n_nt % n_kt, nt = u % n_nt;
+        long long start;
+        const int count = group(e, start);
+        for (int r = 0; r < count; r += W_DEPTH, ++it) {
+          const int s = it % W_STAGES;
+          hop::bar_wait(&empty[s], ((it / W_STAGES) & 1) ^ 1);
+          unsigned char* st = sm + s * L::STAGE;
+          hop::bar_arrive_tx(&full[s], L::STAGE);
+          for (int j = 0; j < DW_KROWS / 64; ++j)
+            hop::tma_load_2d(st + L::X + j * 8192, &tm_x, &full[s], kt * DW_KROWS + 64 * j,
+                             (int)(start + r));
+          for (int j = 0; j < W_COLS / 64; ++j)
+            hop::tma_load_2d(st + L::D + j * 8192, &tm_dy, &full[s], nt * W_COLS + 64 * j,
+                             (int)(start + r));
+        }
+      }
+    }
+  } else {
+    hop::regs_inc<240>();
+    const int cw = wg - 1, g = lane >> 2, t = lane & 3, wtid = tid - 128 * wg;
+    unsigned char* epi = sm + L::EPI + cw * L::EPI_WG;
+    int it = 0;
+    for (int u = blockIdx.x; u < total; u += gridDim.x) {
+      const int e = u / (n_kt * n_nt), kt = u / n_nt % n_kt, nt = u % n_nt;
+      long long start;
+      const int count = group(e, start);
+      float acc[W_COLS / 2];
+      hop::zero_acc(acc);   // an empty group stores its zero sums
+      for (int r = 0; r < count; r += W_DEPTH, ++it) {
+        const int s = it % W_STAGES;
+        hop::bar_wait(&full[s], (it / W_STAGES) & 1);
+        unsigned char* st = sm + s * L::STAGE;
+        const int valid = count - r;
+        if (valid < W_DEPTH) {
+          // zero rows valid.. of this consumer's x box and of half the dY
+          // boxes, then both consumers meet before either's products
+          const int n16 = (W_DEPTH - valid) * 8;   // 16-byte chunks a box
+          uint4* zx = reinterpret_cast<uint4*>(st + L::X + cw * 8192 + valid * 128);
+          uint4* zd0 = reinterpret_cast<uint4*>(st + L::D + 2 * cw * 8192 + valid * 128);
+          uint4* zd1 = reinterpret_cast<uint4*>(st + L::D + (2 * cw + 1) * 8192 + valid * 128);
+          for (int i = wtid; i < n16; i += 128) {
+            zx[i] = make_uint4(0, 0, 0, 0);
+            zd0[i] = make_uint4(0, 0, 0, 0);
+            zd1[i] = make_uint4(0, 0, 0, 0);
+          }
+          hop::fence_async_smem();
+          hop::named_sync(3, 256);
+        }
+        hop::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < W_DEPTH / 16; ++kk)
+          hop::mma_ss<1, 1>(acc, hop::desc(st + L::X + cw * 8192 + kk * 2048, 8192, 1024),
+                            hop::desc(st + L::D + kk * 2048, 8192, 1024), 1,
+                            hop::Tag<W_COLS>());
+        hop::wg_commit();
+        hop::wg_wait<1>();
+        if (r > 0 && lane == 0) hop::bar_arrive(&empty[(it - 1) % W_STAGES]);
+      }
+      hop::wg_wait<0>();
+      hop::fence_acc(acc);
+      if (count > 0 && lane == 0) hop::bar_arrive(&empty[(it - 1) % W_STAGES]);
 
-  bf16* Os = Ds;   // [BM][OUT_LD]
-  stage_out(Os, acc, live_m, warp, lane);
-  for (int i = tid; i < BM * OC; i += MMA_NT) {
-    const int r = i / OC, c = (i % OC) * 8;
-    if (r < rows && c0 + c < K)
-      *reinterpret_cast<uint4*>(dx + (tile.row0 + r) * K + c0 + c) =
-          *reinterpret_cast<const uint4*>(Os + r * OUT_LD + c);
+      // epilogue: bf16 into 4 swizzled boxes (64 of K x 64 of N), then TMA
+      // stores while the producer loads the next tile
+      if (wtid == 0) hop::tma_store_wait_read();   // the previous tile's stores read out
+      hop::named_sync(1 + cw, 128);
+#pragma unroll
+      for (int j = 0; j < W_COLS / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = warp * 16 + g + 8 * h;
+          const int off = (j / 8) * 8192 + r * 128 + (((j % 8) ^ (r & 7)) << 4) + 4 * t;
+          *reinterpret_cast<__nv_bfloat162*>(epi + off) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
+      hop::fence_async_smem();
+      hop::named_sync(1 + cw, 128);
+      if (wtid == 0) {
+        for (int j = 0; j < W_COLS / 64; ++j)
+          hop::tma_store_3d(&tm_dw, epi + j * 8192, nt * W_COLS + 64 * j,
+                            kt * DW_KROWS + 64 * cw, e);
+        hop::tma_store_commit();
+      }
+    }
+    if (wtid == 0) hop::tma_store_wait();
   }
 }
 
-// dW's products of one landed stage (32 rows): A = X_e^T (64 of K x
-// rows), from the stage x (rows x 64 of K, K contiguous) by ldmatrix.x4
-// .trans: matrices rows +0..7 / +0..7 / +8..15 / +8..15 of the stage by
-// K +0..7 / +8..15 / +0..7 / +8..15, giving a0..a3; B = dY_e (rows x 256
-// of N, row-major), by ldmatrix.x4.trans as the forward's w.
-__device__ __forceinline__ void dw_step(float (&acc)[4][NJ][4], const bf16* xs, const bf16* ds,
-                                        int warp, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < MMA_BK / 16; ++kk) {
-    uint32_t bw[NJ][2], a[4][4];
-#pragma unroll
-    for (int nb = 0; nb < NJ / 2; ++nb) {
-      uint32_t r[4];
-      mma::ldmatrix_x4_trans(r, ds + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * DW_DLD +
-                                    warp * WN + nb * 16 + (lane >> 4) * 8);
-      bw[2 * nb][0] = r[0]; bw[2 * nb][1] = r[1];
-      bw[2 * nb + 1][0] = r[2]; bw[2 * nb + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-      mma::ldmatrix_x4_trans(a[mi], xs + (kk * 16 + (lane & 7) + (lane >> 4) * 8) * DW_XLD +
-                                        mi * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int nj = 0; nj < NJ; ++nj) mma::mma_bf16(acc[mi][nj], a[mi], bw[nj][0], bw[nj][1]);
+int launch_bf16(const void* x, const void* w, const void* gs, const void* dout, void* dx,
+                void* dw, int T_rows, int K, int N, int E, int blocks, int dx_smem, int dw_smem,
+                cudaStream_t stream) {
+  if (dx_smem != DxLayout::BYTES || dw_smem != DwLayout::BYTES || blocks < 1) return -1;
+  if (T_rows == 0) {
+    // no rows: dX is empty and every dW[e] is zero
+    if (dw) return (int)cudaMemsetAsync(dw, 0, (size_t)E * K * N * 2, stream);
+    return 0;
   }
-}
-
-// dW[e] = X_e^T dY_e: grid (ceil(N / 256), E * k_tiles), one (64 of K) x
-// (256 of N) tile of one expert a block.
-__global__ void __launch_bounds__(MMA_NT)
-moe_gmm_bwd_dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dout,
-                          const int* __restrict__ group_sizes, bf16* __restrict__ dw,
-                          int T_rows, int K, int N, int E, int k_tiles) {
-  constexpr int XC = BM / 8, DC = MMA_BN / 8;   // 16-byte chunks a row
-  __shared__ long long s_rows[MAX_E];
-  __shared__ int s_tiles[MAX_E];
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem_raw);   // [STAGES][MMA_BK][DW_XLD]
-  bf16* Ds = Xs + STAGES * DW_X_ELEMS;             // [STAGES][MMA_BK][DW_DLD]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int e = blockIdx.y / k_tiles;
-  const int k0 = (blockIdx.y % k_tiles) * BM;
-  const int n0 = blockIdx.x * MMA_BN;
-  scan_groups<MMA_NT>(group_sizes, T_rows, E, s_rows, s_tiles);
-  const Group grp = group_rows(s_rows, T_rows, e);
-  const bf16* xe = x + grp.start * K;
-  const bf16* de = dout + grp.start * N;
-
-  // one stage of 32 rows: rows past the group's edge, and K or N past
-  // theirs, are zero-filled (src-size 0, the source clamped to a valid
-  // address)
-  auto load = [&](int kt, int stage) {
-    const int r0 = kt * MMA_BK;
-    bf16* xs = Xs + stage * DW_X_ELEMS;
-    bf16* ds = Ds + stage * DW_D_ELEMS;
-#pragma unroll
-    for (int i = 0; i < MMA_BK * XC / MMA_NT; ++i) {
-      const int c = tid + i * MMA_NT, r = c / XC, kc = (c % XC) * 8;
-      const bool ok = r0 + r < grp.count && k0 + kc < K;
-      mma::cp_async16(xs + r * DW_XLD + kc, ok ? xe + (long long)(r0 + r) * K + k0 + kc : x,
-                      ok ? 16 : 0);
-    }
-#pragma unroll
-    for (int i = 0; i < MMA_BK * DC / MMA_NT; ++i) {
-      const int c = tid + i * MMA_NT, r = c / DC, nc = (c % DC) * 8;
-      const bool ok = r0 + r < grp.count && n0 + nc < N;
-      mma::cp_async16(ds + r * DW_DLD + nc, ok ? de + (long long)(r0 + r) * N + n0 + nc : dout,
-                      ok ? 16 : 0);
-    }
-  };
-
-  float acc[4][NJ][4];
-  zero_acc(acc);
-  // an empty group runs no step: its tile stores the zero sums
-  ring((grp.count + MMA_BK - 1) / MMA_BK, load, [&](int stage) {
-    dw_step(acc, Xs + stage * DW_X_ELEMS, Ds + stage * DW_D_ELEMS, warp, lane);
-  });
-
-  bf16* Os = Xs;   // [BM][OUT_LD]
-  stage_out(Os, acc, 4, warp, lane);
-  bf16* dwe = dw + (long long)e * K * N;
-  for (int i = tid; i < BM * DC; i += MMA_NT) {
-    const int r = i / DC, c = (i % DC) * 8;
-    if (k0 + r < K && n0 + c < N)
-      *reinterpret_cast<uint4*>(dwe + (long long)(k0 + r) * N + n0 + c) =
-          *reinterpret_cast<const uint4*>(Os + r * OUT_LD + c);
+  if (dx) {
+    CUtensorMap mdy, mw;
+    const uint64_t dy_dims[2] = {(uint64_t)N, (uint64_t)T_rows}, dy_str[1] = {(uint64_t)N * 2};
+    const uint32_t dy_box[2] = {W_DEPTH, DX_ROWS};
+    const uint64_t w_dims[2] = {(uint64_t)N, (uint64_t)E * K}, w_str[1] = {(uint64_t)N * 2};
+    const uint32_t w_box[2] = {W_DEPTH, W_COLS};
+    if (hop::make_tmap(&mdy, dout, 2, dy_dims, dy_str, dy_box) ||
+        hop::make_tmap(&mw, w, 2, w_dims, w_str, w_box))
+      return -2;
+    cudaError_t err = cudaFuncSetAttribute(moe_gmm_bwd_dx_wgmma_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           DxLayout::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    moe_gmm_bwd_dx_wgmma_kernel<<<blocks, WS_THREADS, DxLayout::BYTES, stream>>>(
+        mdy, mw, static_cast<const int*>(gs), static_cast<bf16*>(dx), T_rows, K, N, E);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
+  if (dw) {
+    CUtensorMap mx, mdy, mdw;
+    const uint64_t x_dims[2] = {(uint64_t)K, (uint64_t)T_rows}, x_str[1] = {(uint64_t)K * 2};
+    const uint64_t dy_dims[2] = {(uint64_t)N, (uint64_t)T_rows}, dy_str[1] = {(uint64_t)N * 2};
+    const uint32_t box[2] = {64, W_DEPTH};
+    const uint64_t dw_dims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)E};
+    const uint64_t dw_str[2] = {(uint64_t)N * 2, (uint64_t)K * N * 2};
+    const uint32_t dw_box[3] = {64, 64, 1};
+    if (hop::make_tmap(&mx, x, 2, x_dims, x_str, box) ||
+        hop::make_tmap(&mdy, dout, 2, dy_dims, dy_str, box) ||
+        hop::make_tmap(&mdw, dw, 3, dw_dims, dw_str, dw_box))
+      return -2;
+    cudaError_t err = cudaFuncSetAttribute(moe_gmm_bwd_dw_wgmma_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           DwLayout::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    moe_gmm_bwd_dw_wgmma_kernel<<<blocks, WS_THREADS, DwLayout::BYTES, stream>>>(
+        mx, mdy, mdw, static_cast<const int*>(gs), T_rows, K, N, E);
+  }
+  return (int)cudaGetLastError();
 }
 
 int launch_f32(const void* x, const void* w, const void* gs, const void* dout, void* dx,
@@ -561,50 +638,29 @@ int launch_f32(const void* x, const void* w, const void* gs, const void* dout, v
   return (int)cudaGetLastError();
 }
 
-int launch_bf16(const void* x, const void* w, const void* gs, const void* dout, void* dx,
-                void* dw, int T_rows, int K, int N, int E, cudaStream_t stream) {
-  const int k_tiles = (K + BM - 1) / BM;
-  if (dx && T_rows > 0) {
-    cudaError_t err = cudaFuncSetAttribute(moe_gmm_bwd_dx_mma_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)DX_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)((T_rows + BM - 1) / BM + E),
-                    (unsigned)((K + MMA_BN - 1) / MMA_BN));
-    moe_gmm_bwd_dx_mma_kernel<<<grid, MMA_NT, DX_SMEM, stream>>>(
-        static_cast<const bf16*>(dout), static_cast<const bf16*>(w),
-        static_cast<const int*>(gs), static_cast<bf16*>(dx), T_rows, K, N, E);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (dw) {
-    cudaError_t err = cudaFuncSetAttribute(moe_gmm_bwd_dw_mma_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)DW_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)((N + MMA_BN - 1) / MMA_BN), (unsigned)(E * k_tiles));
-    moe_gmm_bwd_dw_mma_kernel<<<grid, MMA_NT, DW_SMEM, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(dout),
-        static_cast<const int*>(gs), static_cast<bf16*>(dw), T_rows, K, N, E, k_tiles);
-  }
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // x: (T, K); w: (E, K, N); dout: (T, N); dx: (T, K) or null (not computed);
 // dw: (E, K, N) or null; all contiguous, 16-byte aligned, one dtype, 0 =
 // float32, 1 = bfloat16; group_sizes: (E,) int32 on the device. K and N
-// multiples of 8, 1 <= E <= 256, E * ceil(K / 64) <= 65535. Returns 0, a
-// cudaError_t code, or -1 for unsupported arguments.
+// multiples of 8 (16-byte rows, which TMA's strides need), 1 <= E <= 256;
+// float32 (a grid of tiles) also E * ceil(K / 64) <= 65535. For bf16 the
+// wrapper passes the wgmma body's geometry: persistent blocks and the dX
+// and dW kernels' dynamic shared memory bytes (checked against this
+// build's). Returns 0, a cudaError_t code, -1 for unsupported arguments,
+// or -2 when a tensor map cannot be encoded.
 extern "C" int moe_gmm_bwd_launch(const void* x, const void* w, const void* group_sizes,
                                   const void* dout, void* dx, void* dw, int T_rows, int K,
-                                  int N, int E, int dtype, void* stream) {
+                                  int N, int E, int dtype, int blocks, int dx_smem, int dw_smem,
+                                  void* stream) {
   if (E < 1 || E > MAX_E || K % 8 || N % 8 || T_rows < 0) return -1;
-  if ((long long)E * ((K + BM - 1) / BM) > 65535) return -1;
   if (K <= 0 || N <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(x, w, group_sizes, dout, dx, dw, T_rows, K, N, E, s);
-  if (dtype == 1) return launch_bf16(x, w, group_sizes, dout, dx, dw, T_rows, K, N, E, s);
-  return -1;
+  if (dtype == 0) {
+    if ((long long)E * ((K + BM - 1) / BM) > 65535) return -1;
+    return launch_f32(x, w, group_sizes, dout, dx, dw, T_rows, K, N, E, s);
+  }
+  if (dtype != 1) return -1;
+  return launch_bf16(x, w, group_sizes, dout, dx, dw, T_rows, K, N, E, blocks, dx_smem,
+                     dw_smem, s);
 }

@@ -20,6 +20,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -138,6 +139,13 @@ def dtype_code(t) -> int:
     return code
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def check_operands(device, align: int = 16, **tensors) -> None:
     """Every operand on ``device`` and contiguous; floating and int8
     operands, which the attention kernels read with 16-byte vector loads,
@@ -212,8 +220,7 @@ def recording_launches():
 # ----------------------------------------------------------------------
 # The body kernels of the port's kernels K1-K5 and of the backward kernels
 # of K2, K4 and K5 ("K2 bwd": its dQ and dK/dV passes; "K4 bwd": its dX
-# and dW kernels; "K5 bwd"), by fragments
-# of their mangled names; each wrapper names its kernel in
+# and dW kernels; "K5 bwd"), by fragments of their mangled names; each wrapper names its kernel in
 # ``wrapper.kernel``. The split decode body may add its merge kernel, which
 # is not a body. K1's two wrappers share their kernels: a one-token chunk
 # runs the decode body.
@@ -229,13 +236,13 @@ BODIES: Tuple[Tuple[Tuple[str, ...], str], ...] = (
     (("moe_gmm_mma_kernel",), "K4"),
     (("moe_gmm_kernel",), "K4"),
     (("rglru_scan_kernel",), "K5"),
-    (("flash_attention_bwd_dq_mma_kernel",), "K2 bwd"),
-    (("flash_attention_bwd_dkv_mma_kernel",), "K2 bwd"),
+    (("flash_attention_bwd_dq_wgmma_kernel",), "K2 bwd"),
+    (("flash_attention_bwd_dkv_wgmma_kernel",), "K2 bwd"),
     (("flash_attention_bwd_dq_kernel",), "K2 bwd"),
     (("flash_attention_bwd_dkv_kernel",), "K2 bwd"),
     (("rglru_scan_bwd_kernel",), "K5 bwd"),
-    (("moe_gmm_bwd_dx_mma_kernel",), "K4 bwd"),
-    (("moe_gmm_bwd_dw_mma_kernel",), "K4 bwd"),
+    (("moe_gmm_bwd_dx_wgmma_kernel",), "K4 bwd"),
+    (("moe_gmm_bwd_dw_wgmma_kernel",), "K4 bwd"),
     (("moe_gmm_bwd_dx_kernel",), "K4 bwd"),
     (("moe_gmm_bwd_dw_kernel",), "K4 bwd"),
 )

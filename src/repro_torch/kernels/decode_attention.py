@@ -45,11 +45,6 @@ def split_plan(B: int, KV: int, G: int, capacity: int, n_sm: int) -> int:
     return max(1, min(want, -(-capacity // ref.SPLIT_KEYS)))
 
 
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def workspace(q: torch.Tensor, n_split: int) -> Optional[torch.Tensor]:
     """The float32 partials (acc, m, l) of ``n_split`` splits of every query
     head, or None with one split (the body then writes out directly)."""
@@ -112,7 +107,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     operands.update({n: t for n, t in (("k_scale", k_scale),
                                         ("v_scale", v_scale)) if t is not None})
     build.check_operands(q.device, **operands)
-    n_split = split_plan(B, KV, H // KV, S, sm_count(q.device.index))
+    n_split = split_plan(B, KV, H // KV, S, build.sm_count(q.device.index))
     ws = workspace(q, n_split)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -46,10 +46,116 @@ def _launcher():
 @functools.lru_cache(maxsize=None)
 def _bwd_launcher():
     fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + \
-        [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + \
+        [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+# ----------------------------------------------------------------------
+# the backward's launch geometry (csrc/flash_attention_bwd.cu), which the
+# wrapper passes to the launcher and the launcher checks against its build
+# ----------------------------------------------------------------------
+# bf16 runs the wgmma body (warp-specialised: a TMA producer warpgroup,
+# two wgmma consumer warpgroups), float32 its FMA body. The wgmma body's
+# tiles (WCfg<HD>): keys a dK/dV block (64 a consumer warpgroup at hd 64;
+# at hd 128 and 256 both consumers take the same 64 keys and split hd),
+# query positions a step of it, its ring's stages; query positions a dQ
+# block (64 a consumer), keys a step of it, its ring's stages
+WGMMA_TILES = {
+    64: dict(kv_keys=128, kv_rows=64, kv_stages=4, q_rows=128, q_keys=64, q_stages=4),
+    128: dict(kv_keys=64, kv_rows=64, kv_stages=4, q_rows=128, q_keys=64, q_stages=4),
+    256: dict(kv_keys=64, kv_rows=32, kv_stages=4, q_rows=128, q_keys=32, q_stages=2),
+}
+SMEM_LIMIT = 232448   # bytes of shared memory a block may take on the H100
+
+
+def wgmma_smem_bytes(hd: int):
+    """(dQ pass, dK/dV pass) dynamic shared memory bytes of the wgmma body
+    (DqLayout / DkvLayout): the operand boxes, the ring, lse and D, the
+    barriers and 1024 bytes to align the base."""
+    t = WGMMA_TILES[hd]
+    kb, bq, st = t["kv_keys"], t["kv_rows"], t["kv_stages"]
+    stage = -(-(2 * bq * hd * 2 + 2 * bq * 4) // 1024) * 1024
+    dkv = 2 * kb * hd * 2 + st * stage + (1 + 2 * st) * 8 + 1024
+    qr, bk, qs = t["q_rows"], t["q_keys"], t["q_stages"]
+    dq = 2 * qr * hd * 2 + qs * 2 * bk * hd * 2 + qr * 4 + (1 + 2 * qs) * 8 + 1024
+    return dq, dkv
+
+
+def dkv_head_groups(B: int, Skv: int, H: int, KV: int, hd: int, n_sm: int) -> int:
+    """Head groups HS of the wgmma dK/dV pass: 1 where its key blocks x kv
+    heads x batches fill the card's ``n_sm`` SMs, else enough groups of each
+    kv head's G query heads to fill it (at most G); each group sums its
+    heads into a float32 workspace, then the groups are added in order."""
+    blocks = -(-Skv // WGMMA_TILES[hd]["kv_keys"]) * KV * B
+    return 1 if blocks >= n_sm else min(H // KV, -(-n_sm // blocks))
+
+
+def wgmma_blocks(B: int, Sq: int, Skv: int, H: int, KV: int, hd: int, hs: int = 1):
+    """(dQ blocks, dK/dV blocks) of the wgmma body's one-dimensional grids,
+    the dK/dV pass with ``hs`` head groups."""
+    t = WGMMA_TILES[hd]
+    return (-(-Sq // t["q_rows"]) * H * B, -(-Skv // t["kv_keys"]) * KV * B * hs)
+
+
+def tiles_meet(k_lo, k_hi, q_lo, q_hi, causal, window, chunk) -> bool:
+    """Whether keys [k_lo, k_hi] and query positions [q_lo, q_hi] can hold
+    a visible pair (the kernels' ``tiles_meet``)."""
+    ok = True
+    if causal:
+        ok = ok and k_lo <= q_hi
+    if window:
+        ok = ok and k_hi > q_lo - window
+    if chunk:
+        ok = ok and k_hi // chunk >= q_lo // chunk and k_lo // chunk <= q_hi // chunk
+    return ok
+
+
+def dkv_block(i: int, B: int, KV: int, hs: int = 1):
+    """(key block, kv head, batch, head group) of the dK/dV pass's block
+    ``i`` with ``hs`` head groups: key blocks slowest, so the first wave
+    holds the first key block of every (head group, kv head, batch), under a
+    causal mask the heaviest."""
+    per = KV * B * hs
+    return i // per, i % KV, i // KV % B, i % per // (KV * B)
+
+
+def dkv_walk(kb: int, Sq: int, Skv: int, G: int, hd: int, causal: bool,
+             window: int, chunk: int, group: int = 0, hs: int = 1):
+    """The steps of key block ``kb`` for head group ``group`` of ``hs`` in
+    order: (position tile, head of the kv head's G), the live position
+    tiles (one interval) times the group's heads."""
+    t = WGMMA_TILES[hd]
+    kbn, bq, qbase = t["kv_keys"], t["kv_rows"], Skv - Sq
+    k_lo, k_hi = kb * kbn, min(kb * kbn + kbn, Skv) - 1
+    live = [pt for pt in range(-(-Sq // bq))
+            if tiles_meet(k_lo, k_hi, qbase + pt * bq,
+                          qbase + min(pt * bq + bq, Sq) - 1, causal, window, chunk)]
+    if live:
+        live = list(range(live[0], live[-1] + 1))
+    heads = range(group * G // hs, (group + 1) * G // hs)
+    return [(pt, g) for pt in live for g in heads]
+
+
+def dq_block(i: int, B: int, H: int, Sq: int, hd: int, causal: bool):
+    """(query block, head, batch) of the dQ pass's block ``i``: query
+    blocks slowest; under a causal mask the last (heaviest) first."""
+    n_qb = -(-Sq // WGMMA_TILES[hd]["q_rows"])
+    rank = i // (H * B)
+    return (n_qb - 1 - rank if causal else rank), i % H, i // H % B
+
+
+def dq_walk(qb: int, Sq: int, Skv: int, hd: int, causal: bool, window: int,
+            chunk: int):
+    """The key tiles query block ``qb`` walks, in order (one interval)."""
+    t = WGMMA_TILES[hd]
+    qr, bk, qbase = t["q_rows"], t["q_keys"], Skv - Sq
+    q_lo, q_hi = qbase + qb * qr, qbase + min(qb * qr + qr, Sq) - 1
+    live = [kt for kt in range(-(-Skv // bk))
+            if (not causal or kt <= q_hi // bk)
+            and tiles_meet(kt * bk, kt * bk + bk - 1, q_lo, q_hi, causal, window, chunk)]
+    return list(range(live[0], live[-1] + 1)) if live else []
 
 
 def _check_shapes(q, k, v, window: int, chunk: int) -> None:
@@ -139,16 +245,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(lse.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    hs = dkv_head_groups(B, Skv, H, KV, hd, build.sm_count(q.device.index)) \
+        if q.dtype == torch.bfloat16 else 1
+    ws = torch.empty(2 * hs * B * Skv * KV * hd, dtype=torch.float32,
+                     device=q.device) if hs > 1 else None
     build.check_operands(q.device, q=q, k=k, v=v, out=out, dout=dout, lse=lse,
                          delta=delta, dq=dq, dk=dk, dv=dv)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    geo = (*wgmma_blocks(B, Sq, Skv, H, KV, hd, hs), *wgmma_smem_bytes(hd), hs)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _bwd_launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                          delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                         dv.data_ptr(), B, Sq, Skv, H, KV, hd, int(causal),
-                         int(window), int(chunk), scale, build.dtype_code(q),
-                         stream)
+                         dv.data_ptr(), ws.data_ptr() if ws is not None else None,
+                         B, Sq, Skv, H, KV, hd, int(causal), int(window),
+                         int(chunk), scale, build.dtype_code(q), *geo, stream)
     build.check_launch("flash_attention_bwd", rc)
     build.count_launch(flash_attention_bwd)
     return dq, dk, dv

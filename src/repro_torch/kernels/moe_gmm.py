@@ -37,7 +37,7 @@ moe_gmm_bwd_plain = ref.moe_gmm_bwd
 BN = 64              # the float32 kernel's column tile (grid.y = ceil(N / BN);
                      # bf16's is 256, so its grid.y is smaller)
 MAX_EXPERTS = 256    # group offsets live in one block's shared memory
-DW_ROWS = 64         # the dW kernels' K tile: grid.y = E * ceil(K / DW_ROWS)
+DW_ROWS = 64         # the float32 dW kernel's K tile: grid.y = E * ceil(K / DW_ROWS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,9 +51,70 @@ def _launcher():
 @functools.lru_cache(maxsize=None)
 def _bwd_launcher():
     fn = build.load("moe_gmm_bwd").moe_gmm_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+# ----------------------------------------------------------------------
+# the backward's launch geometry (csrc/moe_gmm_bwd.cu), which the wrapper
+# passes to the launcher and the launcher checks against its build
+# ----------------------------------------------------------------------
+# bf16 runs the wgmma body (persistent, warp-specialised: a TMA producer
+# warpgroup, two wgmma consumer warpgroups), float32 its FMA body (a grid
+# of tiles).
+W_STAGES = 3       # the wgmma body's ring
+W_DEPTH = 64       # reduction a stage
+W_COLS = 256       # output columns a tile (dX: of K, dW: of N)
+DX_ROWS = 128      # dX: rows of one expert a tile (64 a consumer warpgroup)
+DW_KROWS = 128     # dW: rows of K a tile (64 a consumer warpgroup)
+SMEM_LIMIT = 232448   # bytes of shared memory a block may take on the H100
+
+
+def check_strides(K: int, N: int, dtype) -> None:
+    """Raise unless K and N are multiples of 8: the rows of x (K), w and
+    dout (N) are then whole 16-byte units in bf16, which TMA's strides and
+    the other bodies' 16-byte loads need (the float32 bodies' too). No
+    fallback."""
+    for name, n in (("K", K), ("N", N)):
+        if n % 8:
+            raise ValueError(f"{name}={n} must be a multiple of 8: a {dtype} row of "
+                             f"{n} is not a whole number of 16-byte units")
+
+
+def wgmma_smem_bytes():
+    """(dX, dW) dynamic shared memory bytes of the wgmma body (DxLayout,
+    DwLayout): the ring, the two consumers' epilogue tiles, the scanned
+    group offsets, the barriers and 1024 bytes to align the base."""
+    scan, bars = MAX_EXPERTS * (8 + 4), 2 * W_STAGES * 8 + 1024
+    dx_stage = (DX_ROWS + W_COLS) * W_DEPTH * 2
+    dx = W_STAGES * dx_stage + 2 * 64 * (W_COLS + 8) * 2 + scan + bars
+    dw_stage = (DW_KROWS + W_COLS) * W_DEPTH * 2
+    dw = W_STAGES * dw_stage + 2 * 64 * W_COLS * 2 + scan + bars
+    return dx, dw
+
+
+def dx_tiles(group_sizes, T: int, K: int):
+    """The wgmma dX kernel's static tile order: [(expert, column tile of K,
+    first row, rows)], experts slowest, then column tiles, then the
+    expert's row tiles of DX_ROWS (so the tiles that read one slab of W[e]
+    are adjacent); tiles past T have rows <= 0 and compute nothing."""
+    n_ct, out, start = -(-K // W_COLS), [], 0
+    for e, g in enumerate(group_sizes):
+        g = min(max(int(g), 0), T)
+        for c in range(n_ct):
+            for m in range(-(-g // DX_ROWS)):
+                row0 = start + m * DX_ROWS
+                out.append((e, c, row0, min(DX_ROWS, min(start + g, T) - row0)))
+        start += g
+    return out
+
+
+def dw_tiles(E: int, K: int, N: int):
+    """The wgmma dW kernel's static tile order: [(expert, K tile of
+    DW_KROWS, N tile of W_COLS)], experts slowest, N tiles fastest."""
+    return [(e, kt, nt) for e in range(E) for kt in range(-(-K // DW_KROWS))
+            for nt in range(-(-N // W_COLS))]
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> None:
@@ -68,10 +129,9 @@ def _check(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> None:
     if group_sizes.dtype != torch.int32:
         raise ValueError(f"group_sizes must be int32, got {group_sizes.dtype}")
     E, K, N = w.shape
-    if not 1 <= E <= MAX_EXPERTS or K % 8 or N % 8 or -(-N // BN) > 65535:
-        raise ValueError(f"E={E} must be in [1, {MAX_EXPERTS}], K={K} and "
-                         f"N={N} multiples of 8 (16-byte row loads), "
-                         f"N <= {65535 * BN}")
+    if not 1 <= E <= MAX_EXPERTS:
+        raise ValueError(f"E={E} must be in [1, {MAX_EXPERTS}]")
+    check_strides(K, N, x.dtype)
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor,
@@ -87,6 +147,8 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor,
     _check(x, w, group_sizes)
     T, K = x.shape
     E, _, N = w.shape
+    if -(-N // BN) > 65535:
+        raise ValueError(f"N={N} must be at most {65535 * BN}")
     out = torch.empty((T, N), dtype=x.dtype, device=x.device)
     build.check_operands(x.device, x=x, w=w, out=out, group_sizes=group_sizes)
     if T == 0 or N == 0:
@@ -122,9 +184,11 @@ def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     if dout.shape != (T, N) or dout.dtype != x.dtype:
         raise ValueError(f"dout must be {x.dtype} {(T, N)}, got {dout.dtype} "
                          f"{tuple(dout.shape)}")
-    if K == 0 or N == 0 or E * -(-K // DW_ROWS) > 65535:
-        raise ValueError(f"K={K} and N={N} must be positive and E={E} x "
-                         f"ceil(K / {DW_ROWS}) dW tiles at most 65535")
+    if K == 0 or N == 0:
+        raise ValueError(f"K={K} and N={N} must be positive")
+    if x.dtype == torch.float32 and E * -(-K // DW_ROWS) > 65535:
+        raise ValueError(f"float32: E={E} x ceil(K / {DW_ROWS}) dW tiles must be "
+                         f"at most 65535")
     dx = torch.empty_like(x) if need_dx else None
     dw = torch.empty_like(w) if need_dw else None
     operands = dict(x=x, w=w, group_sizes=group_sizes, dout=dout)
@@ -132,11 +196,12 @@ def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     build.check_operands(x.device, **operands)
     if not (need_dx or need_dw):
         return dx, dw
+    geo = (build.sm_count(x.device.index), *wgmma_smem_bytes())   # one block an SM
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     rc = _bwd_launcher()(x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(),
                          dout.data_ptr(), ptr(dx), ptr(dw), T, K, N, E,
-                         build.dtype_code(x), stream)
+                         build.dtype_code(x), *geo, stream)
     build.check_launch("moe_gmm_bwd", rc)
     build.count_launch(moe_gmm_bwd)
     return dx, dw

@@ -73,7 +73,7 @@ def _launch(q, k_pool, v_pool, block_tables, kv_len, q_offset,
         operands["q_offset"] = q_offset
     build.check_operands(q.device, **operands)
     n_split = da.split_plan(B, KV, H // KV, P * page,
-                            da.sm_count(q.device.index)) if C == 1 else 1
+                            build.sm_count(q.device.index)) if C == 1 else 1
     ws = da.workspace(q, n_split)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -909,7 +909,10 @@ def test_rglru_kernel_equals_plain(cuda, B, S, D, with_h0, dtype):
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal,window,chunk", FLASH_BWD_CASES + [
     (1, 1000, 1000, 32, 8, 64, True, 0, 0),      # granite's widths, ragged
     (1, 700, 700, 10, 1, 256, True, 300, 0),     # recurrentgemma's, window
-    (1, 500, 500, 20, 4, 128, True, 0, 100)])    # G = 5 at hd 128, chunk
+    (1, 500, 500, 20, 4, 128, True, 0, 100),     # G = 5 at hd 128, chunk
+    (1, 500, 520, 20, 4, 128, True, 0, 100),     # the same with Sq < Skv
+    (2, 77, 77, 8, 8, 256, False, 0, 0),         # hd 256, G = 1, no mask
+    (1, 1, 3, 4, 1, 128, True, 0, 0)])           # one query, three keys
 def test_flash_bwd_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, hd, causal,
                                         window, chunk, dtype):
     """The backward kernel against ``ref.flash_attention_bwd`` on the same
@@ -978,6 +981,7 @@ GPU_GMM_BWD_CASES = [
     ([3, 0, 2], 6, 16, 8),
     ([256] * 16, 4096, 5120, 8192),
     ([240, 272] * 8, 4096, 8192, 5120),
+    ([100, 0, 156], 300, 512, 768),
 ]
 
 
@@ -1017,6 +1021,157 @@ def test_moe_gmm_bwd_kernel_matches_plain(cuda, sizes, T, K, N, dtype):
             assert not got.any(), e
         else:
             assert float((got - want).abs().max()) <= tol * float(want.abs().max()), e
+
+
+# ----------------------------------------------------------------------
+# the wgmma bodies of K2's and K4's backward: their launch geometry (plain
+# functions the wrappers pass to the launchers) on the CPU, each body on
+# the card
+# ----------------------------------------------------------------------
+# Sq, Skv, H, KV, causal, window, chunk
+BWD_WALK_CASES = [
+    (300, 300, 4, 2, True, 0, 0),
+    (200, 520, 4, 2, True, 0, 0),      # Sq < Skv
+    (300, 300, 2, 1, True, 100, 0),    # window
+    (300, 300, 2, 2, True, 0, 96),     # chunk
+    (300, 300, 2, 2, False, 0, 96),    # chunk alone
+    (130, 130, 3, 3, False, 0, 0),     # no mask
+    (1, 1, 10, 1, True, 0, 0),
+]
+
+
+def _visible(Sq, Skv, causal, window, chunk):
+    qp, kp = np.arange(Skv - Sq, Skv)[:, None], np.arange(Skv)[None, :]
+    ok = np.ones((Sq, Skv), bool)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= kp > qp - window
+    if chunk:
+        ok &= kp // chunk == qp // chunk
+    return ok
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("Sq,Skv,H,KV,causal,window,chunk", BWD_WALK_CASES)
+def test_flash_bwd_wgmma_walks_each_visible_tile_once(hd, Sq, Skv, H, KV, causal,
+                                                      window, chunk):
+    """Each pass of the wgmma body walks every (query tile, key tile) pair
+    that holds a visible pair exactly once, for every head and batch, and
+    no pair twice, the dK/dV pass with its heads in one group and in as
+    many groups as fill the card; every block of its grid is a distinct
+    tile."""
+    B, G, t = 2, H // KV, fa.WGMMA_TILES[hd]
+    vis = _visible(Sq, Skv, causal, window, chunk)
+    n_dq, n_dkv = fa.wgmma_blocks(B, Sq, Skv, H, KV, hd)
+
+    kbn, bq = t["kv_keys"], t["kv_rows"]
+    # head groups: one, and as many as fill 132 SMs (at most G)
+    for hs in sorted({1, fa.dkv_head_groups(B, Skv, H, KV, hd, 132)}):
+        n_dkv = fa.wgmma_blocks(B, Sq, Skv, H, KV, hd, hs)[1]
+        blocks = [fa.dkv_block(i, B, KV, hs) for i in range(n_dkv)]
+        assert len(set(blocks)) == n_dkv == -(-Skv // kbn) * KV * B * hs
+        seen = {}
+        for kb, kvh, b, grp in blocks:
+            for pt, g in fa.dkv_walk(kb, Sq, Skv, G, hd, causal, window, chunk, grp, hs):
+                key = (b, kvh, g, kb, pt)
+                assert key not in seen, key
+                seen[key] = 1
+        for kb in range(-(-Skv // kbn)):
+            for pt in range(-(-Sq // bq)):
+                if vis[pt * bq:pt * bq + bq, kb * kbn:kb * kbn + kbn].any():
+                    assert all((b, kvh, g, kb, pt) in seen for b in range(B)
+                               for kvh in range(KV) for g in range(G)), (kb, pt)
+
+    qr, bk = t["q_rows"], t["q_keys"]
+    blocks = [fa.dq_block(i, B, H, Sq, hd, causal) for i in range(n_dq)]
+    assert len(set(blocks)) == n_dq == -(-Sq // qr) * H * B
+    for qb, h, b in blocks:
+        walk = fa.dq_walk(qb, Sq, Skv, hd, causal, window, chunk)
+        assert len(set(walk)) == len(walk)
+        for kt in range(-(-Skv // bk)):
+            if vis[qb * qr:qb * qr + qr, kt * bk:kt * bk + bk].any():
+                assert kt in walk, (qb, kt)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("Sq,Skv", [(2048, 2048), (512, 2048), (1000, 1000)])
+def test_flash_bwd_wgmma_causal_order_is_heaviest_first(hd, Sq, Skv):
+    """Under a causal mask both passes launch their blocks in order of
+    falling work (live steps), so the heavy blocks start in the first
+    wave."""
+    B, H, KV = 2, 8, 2
+    n_dq, n_dkv = fa.wgmma_blocks(B, Sq, Skv, H, KV, hd)
+    work = [len(fa.dkv_walk(fa.dkv_block(i, B, KV)[0], Sq, Skv, H // KV, hd, True, 0, 0))
+            for i in range(n_dkv)]
+    assert work == sorted(work, reverse=True) and work[0] > work[-1]
+    hs = 3          # head groups: key blocks still slowest
+    n_dkv = fa.wgmma_blocks(B, Sq, Skv, H, KV, hd, hs)[1]
+    work = [len(fa.dkv_walk(kb, Sq, Skv, H // KV, hd, True, 0, 0, grp, hs))
+            for kb, _, _, grp in (fa.dkv_block(i, B, KV, hs) for i in range(n_dkv))]
+    work = [sum(work[i:i + KV * B * hs]) for i in range(0, n_dkv, KV * B * hs)]
+    assert work == sorted(work, reverse=True) and work[0] > work[-1]
+    work = [len(fa.dq_walk(fa.dq_block(i, B, H, Sq, hd, True)[0], Sq, Skv, hd, True, 0, 0))
+            for i in range(n_dq)]
+    assert work == sorted(work, reverse=True) and work[0] > work[-1]
+
+
+def test_wgmma_bodies_fit_shared_memory():
+    """Every wgmma instance's dynamic shared memory (its operand boxes,
+    ring, epilogue, barriers and alignment) is at most the 227 KB a block
+    may take, and holds at least its operand tiles."""
+    for hd, t in fa.WGMMA_TILES.items():
+        dq, dkv = fa.wgmma_smem_bytes(hd)
+        assert dq <= fa.SMEM_LIMIT and dkv <= fa.SMEM_LIMIT, hd
+        assert dq > 2 * (t["q_rows"] + t["q_stages"] * t["q_keys"]) * hd * 2
+        assert dkv > 2 * (t["kv_keys"] + t["kv_stages"] * t["kv_rows"]) * hd * 2
+    dx, dw = gm.wgmma_smem_bytes()
+    assert max(dx, dw) <= gm.SMEM_LIMIT
+    assert min(dx, dw) > gm.W_STAGES * (gm.DX_ROWS + gm.W_COLS) * gm.W_DEPTH * 2
+
+
+@pytest.mark.parametrize("sizes,T,K", [
+    ([0, 1, 300, 0, 77, 5], 400, 1000), ([200], 256, 264), ([3, 0, 2], 6, 16),
+    ([256] * 16, 4096, 5120), ([500, 500], 600, 512)])
+def test_moe_gmm_bwd_wgmma_dx_tiles_cover_each_row_once(sizes, T, K):
+    """The dX kernel's static order computes every row a group covers for
+    every column tile of K exactly once, inside its group, in tiles of at
+    most DX_ROWS rows; rows past the groups (or past T) are in no tile; an
+    expert's row tiles of one column tile are adjacent."""
+    tiles = gm.dx_tiles(sizes, T, K)
+    n_ct = -(-K // gm.W_COLS)
+    hits = np.zeros((T, n_ct), int)
+    starts = np.concatenate([[0], np.cumsum([min(max(g, 0), T) for g in sizes])])
+    for e, c, row0, rows in tiles:
+        assert rows <= gm.DX_ROWS and row0 >= starts[e]
+        if rows > 0:
+            assert row0 + rows <= starts[e + 1]
+            hits[row0:row0 + rows, c] += 1
+    covered = min(starts[-1], T)
+    assert (hits[:covered] == 1).all() and not hits[covered:].any()
+    keys = [(e, c) for e, c, _, _ in tiles]
+    assert keys == sorted(keys)
+
+
+@pytest.mark.parametrize("E,K,N", [(16, 5120, 8192), (6, 1000, 1000), (1, 16, 8)])
+def test_moe_gmm_bwd_wgmma_dw_tiles_cover_each_output_once(E, K, N):
+    """The dW kernel's static order holds every (expert, K tile, N tile)
+    once, experts slowest."""
+    tiles = gm.dw_tiles(E, K, N)
+    assert len(set(tiles)) == len(tiles) == \
+        E * -(-K // gm.DW_KROWS) * -(-N // gm.W_COLS)
+    assert tiles == sorted(tiles)
+
+
+def test_moe_gmm_bwd_refuses_strides_tma_cannot_take():
+    """TMA needs rows of a multiple of 16 bytes: the K4 backward's check
+    raises for a bf16 K or N that is not a multiple of 8 (no fallback)."""
+    for K, N in ((12, 8), (16, 4), (1000, 1001), (6, 6)):
+        with pytest.raises(ValueError):
+            gm.check_strides(K, N, torch.bfloat16)
+    for K, N in ((16, 8), (264, 520), (1000, 1000), (5120, 8192)):
+        gm.check_strides(K, N, torch.bfloat16)
+        gm.check_strides(K, N, torch.float32)
 
 
 @pytest.mark.gpu
@@ -1178,6 +1333,9 @@ def test_kernel_wrappers_reject_bad_operands(cuda):
         gm.moe_gmm_bwd(x, w, gs, torch.zeros((4, 16), device=cuda))
     with pytest.raises(ValueError):                   # dout in x's dtype
         gm.moe_gmm_bwd(x, w, gs, torch.zeros((4, 8), device=cuda).bfloat16())
+    with pytest.raises(ValueError):                   # K = 12: no 16-byte rows
+        gm.moe_gmm_bwd(x[:, :12].bfloat16().contiguous(), w[:, :12].bfloat16().contiguous(),
+                       gs, torch.zeros((4, 8), device=cuda).bfloat16())
 
 
 # ----------------------------------------------------------------------

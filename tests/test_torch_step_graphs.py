@@ -283,10 +283,17 @@ def test_every_wrapper_names_a_kernel_with_bodies():
     # the length prefix keeps the forward's bodies apart from the backward's
     assert build.kernel_of_body("_Z22flash_attention_kernelIfLi64EEv") == "K2"
     assert build.kernel_of_body(
-        "_Z33flash_attention_bwd_dq_mma_kernelILi64EEv") == "K2 bwd"
+        "_Z29flash_attention_bwd_dq_kernelILi64EEv") == "K2 bwd"
     assert build.kernel_of_body("_Z21rglru_scan_bwd_kernelILi16ELi16EEv") == "K5 bwd"
-    assert build.kernel_of_body("_ZN12_GLOBAL__N_125moe_gmm_bwd_dw_mma_kernelEv") == "K4 bwd"
+    assert build.kernel_of_body("_ZN12_GLOBAL__N_121moe_gmm_bwd_dw_kernelEv") == "K4 bwd"
     assert build.kernel_of_body("_ZN12_GLOBAL__N_118moe_gmm_mma_kernelEv") == "K4"
+    # the backward's wgmma bodies; the head groups' sum is not a body
+    assert build.kernel_of_body(
+        "_ZN12_GLOBAL__N_136flash_attention_bwd_dkv_wgmma_kernelILi256ELi1EEEv") == "K2 bwd"
+    assert build.kernel_of_body(
+        "_ZN12_GLOBAL__N_127moe_gmm_bwd_dx_wgmma_kernelEv") == "K4 bwd"
+    assert build.kernel_of_body(
+        "_ZN12_GLOBAL__N_137flash_attention_bwd_dkv_reduce_kernelEv") is None
 
 
 # ----------------------------------------------------------------------

@@ -187,6 +187,8 @@ LOSS_CASES = {
     # MoE on every layer (the aux loss), global + chunked attention, the
     # chunk of 64 crossed
     "llama4-scout": ("llama4-scout-17b-a16e", {}, 2, 80),
+    # top-2 of 4 experts, two checkpointed periods
+    "grok-1": ("grok-1-314b", {}, 2, 24),
 }
 
 
@@ -266,7 +268,8 @@ def test_forward_keeps_its_serving_signature():
 # ----------------------------------------------------------------------
 # the train step
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("case", ["granite", "recurrentgemma"])
+@pytest.mark.parametrize("case", ["granite", "recurrentgemma", "llama4-scout",
+                                  "grok-1"])
 def test_three_train_steps_match_reference(case):
     """One reference step first, then both packages start from its bridged
     parameters and optimizer state and take three steps on the same
@@ -297,6 +300,27 @@ def test_three_train_steps_match_reference(case):
                                    atol=1e-4, err_msg=path)
     back = bridge.opt_state_to_numpy(ts)
     assert back.step == int(js.step) == 4
+
+
+@pytest.mark.parametrize("case", ["llama4-scout", "grok-1"])
+def test_repeated_batch_matches_reference(case):
+    """One batch repeated 4 steps from a fresh AdamW state at lr 1e-3 (no
+    warmup), as ``chip_smoke.py`` phase 10 repeats one on the card, through
+    both packages from the same weights: the MoE step's losses (the aux
+    term in) within 1e-4 at every step, whatever way they move."""
+    name, over, B, S = LOSS_CASES[case]
+    jcfg, tcfg = _cfgs(name, **over)
+    cfg = dict(lr=1e-3, warmup_steps=0, total_steps=50)
+    jo, to = JO.AdamWConfig(**cfg), TO.AdamWConfig(**cfg)
+    jp, tp = _params(jcfg, seed=4)
+    jb, tb = _batch(tcfg, B, S, seed=6)
+    step = jax.jit(lambda p, o, b: jtrain_step(jcfg, jo, p, o, b, remat=False))
+    js, ts = JO.init_opt_state(jo, jp), TO.init_opt_state(to, tp)
+    for i in range(4):
+        jp, js, jm = step(jp, js, jb)
+        tp, ts, tm = train_step(tcfg, to, tp, ts, tb, remat=True)
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   atol=LOSS_TOL, err_msg=f"step {i}")
 
 
 def test_microbatch_equals_one_batch():
