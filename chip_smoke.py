@@ -295,6 +295,50 @@ Phases (each raises on failure, so the script exits non-zero):
    backward's profiler ms called alone (K2: also per pass) and its
    CUDA-event ms beside the bound and the library's ms.
 
+11. int8 weights and int8 K/V caches, printed under ``phase 11`` after
+   phase 10: (a) K1's int8 instances (decode: the split body's FMA
+   instance over int8 keys; bf16 chunks: the tensor-core body staging
+   int8 tiles and widening them in shared memory; float32 chunks: the
+   tiled body) at granite's widths (B=8 kv_len 1..1024; C=256 at q_offset
+   256 and 768) and qwen's (H 40, KV 8, hd 128), and K3 on int8 caches
+   with no scales (bit for bit the launch with ones) at recurrentgemma's
+   ring and granite's dense cache, against their plain versions (bf16
+   and float32 queries, K/V drawn N(0, 40^2) and narrowed; phase 2's
+   tolerance x max|ref|), then each bf16 row's times, its bound at int8
+   K/V bytes and SDPA's over the widened keys; (b) ``kv_dtype="int8"`` at
+   the model's API, granite-3-2b at full width and depth with wk x 2 and
+   wv x 40 (V spans int8's range, some values saturate): 8 prompts of
+   1024 tokens in 256-token chunks into an int8 paged pool and 32 decode
+   steps, the same prompts prefilled whole into a dense int8 cache and 32
+   steps, and recurrentgemma-2b's int8 rings over 2100-token prompts and
+   16 steps, each against ``impl="ref"`` teacher-forced (phase 4's rule),
+   the decode step's device busy beside a bf16 pool's, the pool's bytes;
+   at wk x 40 (K saturates too) the first layer held the same way, the
+   first 4 and all 40 read, not held, on an int8 pool beside a bf16 pool
+   with the K entries the two int8 pools differ in a layer; qwen2.5-14b
+   at full width and depth on an int8 paged pool (1024-token prompts in
+   256-token chunks, 8 steps: K1's hd-128 int8 instances) held the same
+   way; (c) granite-3-2b's int8 weights
+   (``narrow_weights``) through ``ServingEngine``, paged and captured:
+   prefill logits bit for bit those of the host-dequantized bf16 tree,
+   which the same engine serves to the same tokens; greedy tokens beside
+   the engine's ``impl="ref"`` run, the teacher-forced logits against it;
+   peak GB, TTFT p50 and decode ms/step of both trees; (d) llava-next-34b
+   at all 60 layers from int8 weights made a slice at a time, text-only,
+   paged, B=2, captured: peak GB, TTFT, decode ms/step against its memory
+   bound at int8 weights, logits against ``impl="ref"`` at the first
+   decode step; (e) one ``Gateway.invoke`` through ``EngineBackend``
+   priced by ``AcceleratorSpec(type="h100", active_watts=<power
+   limit>)``, its energy counter against active_watts x ELat; (f) the
+   engine example twins (``repro_torch.examples.unified_gateway``,
+   ``serve_cluster``, ``cluster_quickstart``) as subprocesses on the card,
+   each ending with its reference's last line. Its launches are the int8
+   rows of the ``kernels`` line, each read from (b)'s run of its own
+   widths; (c) and (d) run the same K2 and K1 decode instances as bf16
+   weights (the activations stay bf16) and log their launches beside their
+   times. Phase 1 also holds every ``paged_prefill_mma_kernel`` instance
+   (bf16 and int8 K/V) to HMMA and no spill.
+
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -493,13 +537,17 @@ def ptxas_summary(report: str):
 # the bf16 instances that must run on the tensor cores
 MMA_KERNELS = ("flash_attention_mma_kernel", "paged_prefill_mma_kernel", "moe_gmm_mma_kernel",
                "split_decode_mma_kernel")
-# the bf16 backward bodies (K2's dQ pass at each head dim, its dK/dV pass at
-# hd 64 and 128 and, at hd 256, its dV and dK halves; K4's dX and dW), with
-# their instance counts: each must run on wgmma (HGMMA in every instance)
-# and must not spill (their float32 sums are sized to the register file)
-HGMMA_KERNELS = {"flash_attention_bwd_dq_wgmma_kernel": 3,
-                 "flash_attention_bwd_dkv_wgmma_kernel": 4,
-                 "moe_gmm_bwd_dx_wgmma_kernel": 1, "moe_gmm_bwd_dw_wgmma_kernel": 1}
+# the bf16 tensor-core bodies held to no spill (their float32 sums are sized
+# to the register file), with their instance counts and the instruction
+# every instance must hold: K2's backward (its dQ pass at each head dim,
+# its dK/dV pass at hd 64 and 128 and, at hd 256, its dV and dK halves) and
+# K4's dX and dW on wgmma; K1's chunks (hd 64, 128 and 256, bf16 and int8
+# K/V) on mma.sync
+NO_SPILL_KERNELS = {"flash_attention_bwd_dq_wgmma_kernel": (3, "HGMMA"),
+                    "flash_attention_bwd_dkv_wgmma_kernel": (4, "HGMMA"),
+                    "moe_gmm_bwd_dx_wgmma_kernel": (1, "HGMMA"),
+                    "moe_gmm_bwd_dw_wgmma_kernel": (1, "HGMMA"),
+                    "paged_prefill_mma_kernel": (6, "HMMA")}
 # the split-KV decode of K1 (C == 1) and K3 in bf16: the body and its merge
 SPLIT_DECODE = ("split_decode_mma_kernel", "split_decode_merge_kernel")
 
@@ -538,27 +586,28 @@ def sass_mma_counts(cuobjdump: str, library: Path):
 
 
 def check_no_spill(build) -> None:
-    """Raise if a ``HGMMA_KERNELS`` instance spills (ptxas's report), or
-    if the reports hold other counts of instances than it names."""
+    """Raise if a ``NO_SPILL_KERNELS`` instance spills (ptxas's report),
+    or if the reports hold other counts of instances than it names."""
     seen = collections.Counter()
     for name in build.KERNELS:
         for line in ptxas_summary(build.ptxas_report(name)):
-            kernel = next((k for k in HGMMA_KERNELS if line.startswith(k)), None)
+            kernel = next((k for k in NO_SPILL_KERNELS if line.startswith(k)), None)
             if kernel:
                 seen[kernel] += 1
                 if " 0 bytes spill stores" not in line:
-                    raise AssertionError(f"a bf16 backward instance spills: {line}")
-    if seen != collections.Counter(HGMMA_KERNELS):
-        raise AssertionError(f"backward wgmma instances in the ptxas reports {dict(seen)}, "
-                             f"expected {HGMMA_KERNELS} (built elsewhere?)")
+                    raise AssertionError(f"a bf16 tensor-core instance spills: {line}")
+    want = collections.Counter({k: n for k, (n, _) in NO_SPILL_KERNELS.items()})
+    if seen != want:
+        raise AssertionError(f"instances in the ptxas reports {dict(seen)}, expected "
+                             f"{dict(want)} (built elsewhere?)")
 
 
 def check_tensor_cores(build) -> None:
     """Log every kernel instance's HMMA / HGMMA count; raise unless every
     bf16 instance of ``MMA_KERNELS`` (K2, K1 chunk, K4, the split decode
     body of K1 decode and K3) has some, and unless every instance of
-    ``HGMMA_KERNELS`` (the bf16 bodies of K2's and K4's backward) has HGMMA,
-    as many instances as it names."""
+    ``NO_SPILL_KERNELS`` holds the instruction it names (HGMMA: K2's and
+    K4's backward; HMMA: K1's chunks), as many instances as it names."""
     tool = cuobjdump_path()
     seen = {}
     for name in build.KERNELS:
@@ -570,10 +619,10 @@ def check_tensor_cores(build) -> None:
         if not found or not all(found.values()):
             raise AssertionError(f"{want}: no tensor-core instruction in "
                                  f"{found or 'no instance'}")
-    for want, count in HGMMA_KERNELS.items():
-        found = {k: n[1] for k, n in seen.items() if k.startswith(want)}
+    for want, (count, instr) in NO_SPILL_KERNELS.items():
+        found = {k: n[instr == "HGMMA"] for k, n in seen.items() if k.startswith(want)}
         if len(found) != count or not all(found.values()):
-            raise AssertionError(f"{want}: {count} instances with HGMMA expected, found "
+            raise AssertionError(f"{want}: {count} instances with {instr} expected, found "
                                  f"{found or 'no instance'}")
 
 
@@ -2714,8 +2763,8 @@ def shared_routes():
         raise AssertionError(f"{len(queue)} kernel-path routings had no plain-path twin")
 
 
-def logits_parity(torch, cfg, params, dev, S, paged, frames=None, patches=None):
-    """Prefill + 8 decode steps through the kernels and through
+def logits_parity(torch, cfg, params, dev, S, paged, frames=None, patches=None, steps=8):
+    """Prefill + ``steps`` decode steps through the kernels and through
     impl="ref", teacher-forced on the kernel path's greedy tokens; the
     decode cache is paged (granite, llama4's global layers) or dense
     per-slot (recurrentgemma, whisper: its prefill also encodes
@@ -2733,7 +2782,6 @@ def logits_parity(torch, cfg, params, dev, S, paged, frames=None, patches=None):
         log(f"  {cfg.name}: {draw_qkv_biases(torch, params, 12)} QKV bias values drawn "
             f"non-zero (normal x {BIAS_SCALE}) for the logits check")
     rng = np.random.default_rng(2)
-    steps = 8
     tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(1, S))).to(dev)
     batch = {"tokens": tokens}
     if frames is not None:
@@ -4306,6 +4354,767 @@ def training_run(torch, dev):
     return entries, totals
 
 
+# ----------------------------------------------------------------------
+# phase 11: int8 weights and int8 K/V caches on the card
+# ----------------------------------------------------------------------
+# (b): wv x 40, so V spans int8's range (std ~40: some values saturate);
+# over granite's 40 layers wk x 2, so K spans a few units. At wk x 40 (K
+# saturates too) two paths that are each right part within a few layers:
+# over all 40 the kernels' logits against impl="ref" differ wholesale on a
+# bf16 pool as on an int8 one. So at wk x 40 the check holds one layer,
+# where both paths write the same K and the int8 kernels alone tell them
+# apart, and reads (does not hold) 4 and all 40 layers on both pools, with
+# the K entries the two int8 pools differ in, layer by layer
+KV8_WK, KV8_WV, KV8_WK_SAT, KV8_WITNESS_DEPTHS = 2.0, 40.0, 40.0, (4, 40)
+KV8_B, KV8_PROMPT, KV8_CHUNK, KV8_STEPS, KV8_WITNESS_STEPS = 8, 1024, 256, 32, 8
+QW8_B, QW8_STEPS = 8, 8
+RG8_B, RG8_PROMPT, RG8_STEPS = 2, 2100, 16
+LV8_PROMPT, LV8_STEPS = 128, 16
+SPLIT_FMA = ("split_decode_fma_kernel", "split_decode_merge_kernel")
+
+
+def int8_kv(torch, rng, shape, dev):
+    """K or V drawn N(0, 40^2) and narrowed as the model's cache writes are
+    (``saturate_cast``): int8's whole range, some values saturated."""
+    from repro_torch.models.layers import saturate_cast
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 40)
+    return saturate_cast(x.to(dev), torch.int8)
+
+
+def int8_paged_inputs(torch, rng, dev, dtype, kv_len, C, heads):
+    """``paged_inputs`` with int8 pools and q times 0.02 (scores over int8
+    keys a few units wide, as the served model's)."""
+    q, kp, vp, bt, kl = paged_inputs(torch, rng, dev, dtype, kv_len, C, heads)
+    return q * 0.02, int8_kv(torch, rng, kp.shape, dev), int8_kv(torch, rng, vp.shape, dev), \
+        bt, kl
+
+
+def widened_sdpa(torch, make, *args):
+    """The yardstick of an int8 row: SDPA over the keys widened to bf16
+    (and, paged, gathered) before timing."""
+    return make(torch, args[0], args[1].to(torch.bfloat16), args[2].to(torch.bfloat16),
+                *args[3:])
+
+
+def phase_kernels_int8(torch, dev):
+    """Phase 11 (a): K1's int8 instances (decode: the split body's FMA
+    instance; chunks: bf16 the tensor-core body staging int8 tiles, float32
+    the tiled body) at granite's widths (H 32, KV 8, hd 64; B=8 kv_len
+    1..1024; C=256 at q_offset 256 and 768) and qwen's (H 40, KV 8, hd
+    128), and K3 on int8 caches with no scales (ones) at recurrentgemma's
+    ring (hd 256) and granite's dense cache, against their plain versions
+    (bf16 and float32 queries; tolerance phase 2's, relative to max|ref|,
+    as outputs are int8-sized); then each row's times at bf16, its bound
+    counting int8 K/V bytes, the plain version's and SDPA's over the
+    widened (and gathered) keys."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(27)
+    heads = {"granite": (H, KV, HD), "qwen": (QW_H, QW_KV, QW_HD)}
+    keys = ("decode_int8", "decode_int8_qwen", "chunk_int8", "chunk_int8_768",
+            "chunk_int8_qwen", "chunk_int8_qwen_768", "dense_int8_rg", "dense_int8_granite")
+    errs = {k: [] for k in keys}
+    log("phase 11 (a): K1 on int8 pools and K3 on int8 caches without scales against "
+        "their plain versions (K/V drawn N(0, 40^2) and narrowed; tolerance phase 2's "
+        "x max|ref|)")
+    for dtype in ("bfloat16", "float32"):
+        for arch, hds in heads.items():
+            sfx = "" if arch == "granite" else "_qwen"
+            q, kp, vp, bt, kl = int8_paged_inputs(torch, rng, dev, dtype, QW_KV_LEN, 1, hds)
+            check_rel(f"K1 decode int8 {arch} H={hds[0]} KV={hds[1]} hd={hds[2]}", dtype,
+                      pa.paged_decode_attention(q, kp, vp, bt, kl),
+                      ref.paged_decode_attention(q.float(), kp, vp, bt, kl),
+                      errs[f"decode_int8{sfx}"])
+            for q_off, key in ((256, f"chunk_int8{sfx}"), (768, f"chunk_int8{sfx}_768")):
+                q, kp, vp, bt, kl = int8_paged_inputs(torch, rng, dev, dtype, [q_off + 256],
+                                                      256, hds)
+                qo = torch.tensor([q_off], dtype=torch.int32, device=dev)
+                check_rel(f"K1 chunk int8 {arch} C=256 q_offset={q_off}", dtype,
+                          pa.paged_prefill_attention(q, kp, vp, bt, kl, qo),
+                          ref.paged_prefill_attention(q.float(), kp, vp, bt, kl, qo),
+                          errs[key])
+        for key, (nh, nkv, hd) in (("dense_int8_rg", (RG_H, RG_KV, RG_HD)),
+                                   ("dense_int8_granite", (H, KV, HD))):
+            q, k, _, kl = decode_inputs(torch, rng, dev, dtype, nh, nkv, hd)
+            k8, v8 = int8_kv(torch, rng, k.shape, dev), int8_kv(torch, rng, k.shape, dev)
+            q = q * 0.02
+            got = da.decode_attention(q, k8, v8, kl)
+            ones = torch.ones((q.shape[0], nkv), dtype=torch.float32, device=dev)
+            if not torch.equal(got, da.decode_attention(q, k8, v8, kl, k_scale=ones,
+                                                          v_scale=ones)):
+                raise AssertionError(f"phase 11 (a): K3 int8 without scales differs from the "
+                                     f"launch with ones ({key}, {dtype})")
+            check_rel(f"K3 decode int8, no scales, H={nh} KV={nkv} hd={hd} (= ones)", dtype,
+                      got, ref.decode_attention(q.float(), k8, v8, kl), errs[key])
+    torch.cuda.synchronize()
+
+    log("phase 11 (a): times at the int8 paths' shapes, bf16 queries (kernel: profiler "
+        "device time; plain and library: CUDA events per call; bound: int8 K/V bytes)")
+    entries = {}
+    dtype = "bfloat16"
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    names = {"granite": "granite-3-2b", "qwen": "qwen2.5-14b"}
+    for arch, (nh, nkv, hd) in heads.items():
+        sfx = "" if arch == "granite" else "_qwen"
+        q, kp, vp, bt, kl = int8_paged_inputs(torch, rng, dev, dtype, QW_KV_LEN, 1,
+                                              (nh, nkv, hd))
+        n_kv = sum(QW_KV_LEN)
+        b, by = bound_ms(2 * 2 * q.numel() + 2 * n_kv * nkv * hd + 4 * (bt.numel() + 8),
+                         4 * hd * nh * n_kv, dtype)
+        entries[f"decode_int8{sfx}"] = dict(
+            name=f"paged_decode_attention, int8 pool (hd {hd}, {names[arch]})", route="cuda",
+            source="src/repro_torch/csrc/decode_common.cuh",
+            replaces="src/repro/kernels/decode_attention.py:135",
+            shape=f"B=8 kv_len={QW_KV_LEN} H={nh} KV={nkv} hd={hd} page={PAGE} "
+                  f"{n_split(torch, q, nkv, bt.shape[1] * PAGE)} bf16 q, int8 K/V",
+            **kernel_times(torch, lambda: pa.paged_decode_attention(q, kp, vp, bt, kl),
+                           SPLIT_FMA),
+            plain_ms=event_ms(torch, lambda: ref.paged_decode_attention(q, kp, vp, bt, kl),
+                              10),
+            bound_ms=b, bound_by=by,
+            library_ms=event_ms(torch, widened_sdpa(torch, paged_sdpa, q, kp, vp, bt, kl), 20),
+            library="SDPA, length mask, keys widened to bf16 and gathered before timing")
+        for key, q_off in ((f"chunk_int8{sfx}", 256), (f"chunk_int8{sfx}_768", 768)):
+            C = 256
+            q, kp, vp, bt, kl = int8_paged_inputs(torch, rng, dev, dtype, [q_off + C], C,
+                                                  (nh, nkv, hd))
+            qo = torch.tensor([q_off], dtype=torch.int32, device=dev)
+            pairs = sum(q_off + i + 1 for i in range(C)) * nh
+            b, by = bound_ms(2 * 2 * q.numel() + 2 * (q_off + C) * nkv * hd
+                             + 4 * (bt.numel() + 2), 4 * hd * pairs, dtype)
+            entries[key] = dict(
+                name=f"paged_prefill_attention, int8 pool (hd {hd}, q_offset {q_off}, "
+                     f"{names[arch]})",
+                route="cuda", source="src/repro_torch/csrc/prefill_common.cuh",
+                replaces="src/repro/kernels/decode_attention.py:135",
+                shape=f"B=1 C={C} q_offset={q_off} H={nh} KV={nkv} hd={hd} page={PAGE} "
+                      "bf16 q, int8 K/V",
+                **kernel_times(torch,
+                               lambda: pa.paged_prefill_attention(q, kp, vp, bt, kl, qo),
+                               "paged_prefill_mma_kernel"),
+                plain_ms=event_ms(torch, lambda: ref.paged_prefill_attention(
+                    q, kp, vp, bt, kl, qo), 10),
+                bound_ms=b, bound_by=by,
+                library_ms=event_ms(torch, widened_sdpa(torch, paged_chunk_sdpa, q, kp, vp,
+                                                        bt, kl, qo), 20),
+                library="SDPA, length and causal-offset mask, keys widened to bf16 and "
+                        "gathered before timing")
+    n_kv = sum(DECODE_KV_LEN)
+    for key, (nh, nkv, hd), what in (
+            ("dense_int8_rg", (RG_H, RG_KV, RG_HD), "recurrentgemma ring"),
+            ("dense_int8_granite", (H, KV, HD), "granite dense")):
+        q, k, _, kl = decode_inputs(torch, rng, dev, dtype, nh, nkv, hd)
+        k8, v8 = int8_kv(torch, rng, k.shape, dev), int8_kv(torch, rng, k.shape, dev)
+        q = q * 0.02
+        b, by = bound_ms(2 * 2 * q.numel() + 2 * n_kv * nkv * hd + 4 * kl.numel(),
+                         4 * hd * nh * n_kv, dtype)
+        qt = q.transpose(1, 2)
+        kt, vt = (x.to(torch.bfloat16).transpose(1, 2) for x in (k8, v8))
+        lmask = (torch.arange(k.shape[1], device=dev)[None] < kl[:, None])[:, None, None]
+        entries[key] = dict(
+            name=f"decode_attention, int8 cache, no scales ({what})", route="cuda",
+            source="src/repro_torch/csrc/decode_common.cuh",
+            replaces="src/repro/kernels/decode_attention.py:31",
+            shape=f"{what}: B=8 S=2048 H={nh} KV={nkv} hd={hd} kv_len 1..2048 ({n_kv} keys) "
+                  f"{n_split(torch, q, nkv, k.shape[1])} bf16 q, int8 K/V",
+            **kernel_times(torch, lambda: da.decode_attention(q, k8, v8, kl), SPLIT_FMA),
+            plain_ms=event_ms(torch, lambda: ref.decode_attention(q, k8, v8, kl), 10),
+            bound_ms=b, bound_by=by,
+            library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=lmask,
+                                                     enable_gqa=True), 20),
+            library="SDPA, length mask, keys widened to bf16 before timing")
+    for key, e in entries.items():
+        e["max_abs_err"] = max(errs[key])
+        log_row(e)
+    return entries
+
+
+def scaled_kv(torch, params, wk: float, wv: float) -> None:
+    """wk (and bk) times ``wk``, wv (and bv) times ``wv``, in place."""
+    from repro_torch.models.param import iter_leaves
+    for path, leaf in iter_leaves(params):
+        name = path.rsplit("/", 1)[-1]
+        if name in ("wk", "bk"):
+            leaf.mul_(wk)
+        elif name in ("wv", "bv"):
+            leaf.mul_(wv)
+
+
+def saturated(torch, cache) -> str:
+    """The int8 K and V leaves' share of values at -128 or 127."""
+    from repro_torch.models.param import iter_leaves
+    n = {"k": [0, 0], "v": [0, 0]}
+    for path, t in iter_leaves(cache):
+        name = path.rsplit("/", 1)[-1]
+        if name in n and t.dtype == torch.int8:
+            n[name][0] += int(((t == 127) | (t == -128)).sum())
+            n[name][1] += int((t != 0).sum())
+    return ", ".join(f"{k}: {a} of {b} nonzero values saturated" for k, (a, b) in n.items())
+
+
+def cache_nbytes(cache) -> int:
+    from repro_torch.models.param import iter_leaves
+    return sum(t.numel() * t.element_size() for p, t in iter_leaves(cache)
+               if p.rsplit("/", 1)[-1] in ("k", "v"))
+
+
+def narrowed_cache(torch, cfg, cache, kv_dtype: str):
+    """A prefill's dense cache in the leaves' dtypes of ``cache_specs(...,
+    kv_dtype)``, through ``saturate_cast`` (the engine's install narrows a
+    prefill into a narrower pool the same way)."""
+    from repro_torch.device import torch_dtype
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import saturate_cast
+    from repro_torch.models.param import iter_leaves, map_tree
+    dtypes = {path: spec.dtype for path, spec in iter_leaves(M.cache_specs(cfg, 1, 1, kv_dtype))}
+    return map_tree(lambda path, t: saturate_cast(t, torch_dtype(kv_dtype))
+                    if dtypes[path] == kv_dtype else t, cache)
+
+
+def kv8_paged(torch, cfg, params, dev, B, T, kv_dtype="int8"):
+    """B seeded prompts of ``KV8_PROMPT`` tokens in ``KV8_CHUNK``-token
+    chunks into a paged pool of ``kv_dtype``, then T greedy decode steps,
+    through the kernels (launch counts zeroed just before, read just
+    after), then through ``impl="ref"`` on a pool of its own, teacher-forced
+    on the kernels' tokens. Returns (launches, the kernels' logits a step,
+    the plain path's, the kernels' pool, the plain path's pool)."""
+    from repro_torch.models import model as M
+    S, C = KV8_PROMPT, KV8_CHUNK
+    rng = np.random.default_rng(41)
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(B, S))).to(dev)
+    P = -(-(S + T) // PAGE)
+    table = (1 + torch.arange(B * P, dtype=torch.int32, device=dev)).reshape(B, P)
+
+    def run(impl, force=None):
+        cache = M.init_paged_cache(cfg, B, S + T, B * P + 1, PAGE, device=dev,
+                                   kv_dtype=kv_dtype)
+        for pos in range(0, S, C):
+            logits, cache = M.prefill_chunk(cfg, params, cache, tokens[:, pos:pos + C], pos,
+                                            table, impl=impl)
+        out = [logits[:, -1].float()]
+        for i in range(T):
+            tok = out[-1].argmax(-1) if force is None else force[i]
+            pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+            logits, cache = M.decode_step(cfg, params, cache, tok[:, None], pos, impl=impl,
+                                          block_tables=table)
+            out.append(logits[:, 0].float())
+        return out, cache
+
+    zero_launches()
+    got, cache = run(None)
+    torch.cuda.synchronize()
+    c = launches()
+    want, cache_r = run("ref", force=[g.argmax(-1) for g in got[:-1]])
+    return c, got, want, cache, cache_r
+
+
+def held_logits(label, got, want, hold=True) -> float:
+    """Log the kernels' logits a step against the plain path's (phase 4's
+    rule: 5% of max|logit|) and the greedy agreement; raise past the
+    tolerance if ``hold``. Returns the max difference."""
+    diffs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+    scale = max(r.abs().max().item() for r in want)
+    agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum()) for a, b in zip(got, want))
+    log(f"  {label}: max|logit diff| over {len(got)} steps x {got[0].shape[0]} rows "
+        f"{max(diffs):.4f} (tol {0.05 * scale:.4f} = 5% of max|logit| {scale:.3f}"
+        f"{'' if hold else ', read, not held'}; the prefill's, then every 8th step's "
+        f"{['%.4f' % d for d in diffs[::8]]}); greedy agreement "
+        f"{agree}/{len(got) * got[0].shape[0]}")
+    if hold and max(diffs) > 0.05 * scale:
+        raise AssertionError(f"phase 11 (b) {label}: logits differ by {max(diffs)}")
+    return max(diffs)
+
+
+def k_flips(torch, cache, cache_r) -> list:
+    """Per attention layer, the int8 K entries in which two pools differ."""
+    from repro_torch.models.param import iter_leaves
+    other = dict(iter_leaves(cache_r))
+    return [n for path, t in iter_leaves(cache) if path.rsplit("/", 1)[-1] == "k"
+            for n in (t != other[path]).flatten(1).sum(1).tolist()]
+
+
+def kv8_run(torch, dev):
+    """Phase 11 (b): int8 K/V at the model's API (``kv_dtype="int8"``),
+    granite-3-2b at full width and depth with wk x ``KV8_WK`` and wv x
+    ``KV8_WV`` (V spans int8's range): 8 prompts of 1024 tokens in
+    256-token chunks into an int8 paged pool (K1's int8 chunk instance),
+    32 decode steps at B=8 (K1's int8 decode instance), then the same
+    prompts prefilled whole into a dense int8 cache (narrowed) and 32
+    decode steps (K3 int8, no scales); each through the kernels and
+    through ``impl="ref"`` on its own cache, teacher-forced on the kernel
+    path's greedy tokens, logits within phase 4's bf16 tolerance; the
+    decode step's device busy beside the same step on a bf16 pool. Then wk
+    x ``KV8_WK_SAT`` (K saturates): held over the first layer; over the
+    first 4 and all 40 read, not held, on an int8 pool beside a bf16
+    pool, with the K entries the two int8 pools differ in a layer. Then
+    qwen2.5-14b at full width
+    and depth on an int8 paged pool (K1's hd-128 int8 instances) and
+    recurrentgemma-2b's int8 rings over 2100-token prompts the same way.
+    Returns the launch counts of the kernel paths by row key."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import BlockKind
+    from repro_torch.models import model as M
+    from repro_torch.models.param import map_tree
+
+    cfg = get_config("granite-3-2b")
+    params = M.init_model_params(cfg, 0, dev)
+    scaled_kv(torch, params, KV8_WK, KV8_WV)
+    rng = np.random.default_rng(41)
+    B, S, C, T = KV8_B, KV8_PROMPT, KV8_CHUNK, KV8_STEPS
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(B, S))).to(dev)
+    log(f"phase 11 (b): {cfg.name} {cfg.n_layers} layers bf16, wk x {KV8_WK:g}, wv x "
+        f"{KV8_WV:g}; "
+        f"int8 K/V at the model's API (kv_dtype='int8'): B={B} prompts of {S} tokens in "
+        f"{C}-token chunks into a paged pool, then {T} decode steps; the same prompts "
+        "prefilled whole into a dense cache, then the same steps")
+
+    def decode_run(impl, cache, first, force=None):
+        out, tok = [first], first.argmax(-1)
+        for i in range(T):
+            if force is not None:
+                tok = force[i]
+            pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+            logits, cache = M.decode_step(cfg, params, cache, tok[:, None], pos, impl=impl)
+            out.append(logits[:, 0].float())
+            tok = out[-1].argmax(-1)
+        return out
+
+    counts = {}
+    want_c = {"chunk": cfg.n_layers * (S // C), "decode": cfg.n_layers * T}
+    with torch.no_grad():
+        c, got, want, cache, cache_r = kv8_paged(torch, cfg, params, dev, B, T)
+        counts.update(chunk_int8=c["chunk"], chunk_int8_768=c["chunk"],
+                      decode_int8=c["decode"])
+        if c["chunk"] != want_c["chunk"] or c["decode"] != want_c["decode"] or \
+                c["flash"] or c["dense"]:
+            raise AssertionError(f"phase 11 (b): paged int8 launches {c}: need {want_c}")
+        n_pages = cache_r["blocks"]["p0"]["k"].shape[1]
+        pool8 = cache_nbytes(cache)
+        log(f"  int8 paged pool: {pool8} B of K/V for {n_pages} pages of {PAGE} tokens "
+            f"({pool8 // (n_pages * PAGE)} B a token over {cfg.n_layers} layers; "
+            f"{saturated(torch, cache)}); launches {c}")
+        held_logits("paged int8 pool, kernels vs impl='ref'", got, want)
+        del cache_r
+        P = -(-(S + T) // PAGE)
+        table = (1 + torch.arange(B * P, dtype=torch.int32, device=dev)).reshape(B, P)
+        pos_t = torch.full((B,), S + T // 2, dtype=torch.int32, device=dev)
+        tok_t = got[-1].argmax(-1)[:, None]
+        busy = {}
+        for kv_dtype in ("int8", "bfloat16"):
+            if kv_dtype != "int8":
+                cache = M.init_paged_cache(cfg, B, S + T, n_pages, PAGE, device=dev)
+                for pos in range(0, S, C):
+                    _, cache = M.prefill_chunk(cfg, params, cache, tokens[:, pos:pos + C],
+                                               pos, table)
+            nb = cache_nbytes(cache)
+            _, busy[kv_dtype], _ = profile_breakdown(
+                torch, f"{cfg.name} B={B} decode step, {kv_dtype} pool ({nb} B)",
+                lambda: [M.decode_step(cfg, params, cache, tok_t, pos_t, block_tables=table)
+                         for _ in range(5)], 5)
+        log(f"  decode step device busy: int8 pool {busy['int8']:.3f} ms, bf16 pool "
+            f"{busy['bfloat16']:.3f} ms (same call, eager); K/V a token "
+            f"{2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd} B int8 vs "
+            f"{4 * cfg.n_layers * cfg.n_kv_heads * cfg.hd} B bf16")
+        del cache
+        torch.cuda.empty_cache()
+
+        # the dense layout: a whole prefill, narrowed into the int8 cache
+        res = {}
+        for impl in (None, "ref"):
+            zero_launches()
+            logits, dense = M.prefill(cfg, params, {"tokens": tokens}, cache_len=S + T,
+                                      impl=impl)
+            dense = narrowed_cache(torch, cfg, dense, "int8")
+            if impl is None:
+                zero_launches()
+                res[impl] = decode_run(impl, dense, logits[:, -1].float())
+                torch.cuda.synchronize()
+                c = launches()
+                counts["dense_int8_granite"] = c["dense"]
+                if c["dense"] != cfg.n_layers * T or c["decode"] or c["chunk"]:
+                    raise AssertionError(f"phase 11 (b): dense int8 launches {c}")
+            else:
+                res[impl] = decode_run(impl, dense, logits[:, -1].float(),
+                                       force=[g.argmax(-1) for g in res[None][:-1]])
+            del dense
+        held_logits("dense int8 cache, kernels vs impl='ref'", res[None], res["ref"])
+        del res, got, want
+
+        # wk x KV8_WK_SAT: K saturates too; held over the first layer, read
+        # over 4 and 40 on both pools
+        scaled_kv(torch, params, KV8_WK_SAT / KV8_WK, 1.0)
+        for depth in (1, *KV8_WITNESS_DEPTHS):
+            sub = dataclasses.replace(cfg, n_layers=depth)
+            sub_params = map_tree(lambda path, t: t[:depth] if path.startswith("blocks/")
+                                  else t, params)
+            steps = T if depth == 1 else KV8_WITNESS_STEPS
+            for kv_dtype in ("int8",) if depth == 1 else ("bfloat16", "int8"):
+                c, got, want, cache, cache_r = kv8_paged(torch, sub, sub_params, dev, B, steps,
+                                                         kv_dtype)
+                what = f"wk x {KV8_WK_SAT:g}, the first {depth} of {cfg.n_layers} layers, " \
+                       f"{kv_dtype} pool"
+                if kv_dtype == "int8":
+                    k_sat = int(((cache["blocks"]["p0"]["k"] == 127) |
+                                 (cache["blocks"]["p0"]["k"] == -128)).sum())
+                    log(f"  {what}: {saturated(torch, cache)}; K entries the two pools differ "
+                        f"in, a layer: {k_flips(torch, cache, cache_r)}; launches {c}")
+                    if not c["chunk"] or not c["decode"] or not k_sat:
+                        raise AssertionError(f"phase 11 (b) {what}: launches {c}, or no K "
+                                             "value saturated")
+                held_logits(f"{what}, kernels vs impl='ref'", got, want, hold=depth == 1)
+                del cache, cache_r
+            del sub_params
+    del params, got, want
+    torch.cuda.empty_cache()
+
+    qw = get_config("qwen2.5-14b")
+    params = M.init_model_params(qw, 0, dev)
+    scaled_kv(torch, params, KV8_WK, KV8_WV)
+    log(f"phase 11 (b): {qw.name} {qw.n_layers} layers, wk x {KV8_WK:g}, wv x {KV8_WV:g}: "
+        f"B={QW8_B} prompts of {S} tokens in {C}-token chunks into an int8 paged pool, then "
+        f"{QW8_STEPS} decode steps (K1's hd-128 int8 instances)")
+    with torch.no_grad():
+        c, got, want, cache, cache_r = kv8_paged(torch, qw, params, dev, QW8_B, QW8_STEPS)
+        want_c = {"chunk": qw.n_layers * (S // C), "decode": qw.n_layers * QW8_STEPS}
+        if c["chunk"] != want_c["chunk"] or c["decode"] != want_c["decode"] or \
+                c["flash"] or c["dense"]:
+            raise AssertionError(f"phase 11 (b): qwen int8 launches {c}: need {want_c}")
+        log(f"  {saturated(torch, cache)}; launches {c}")
+        held_logits("qwen paged int8 pool, kernels vs impl='ref'", got, want)
+        counts.update(chunk_int8_qwen=c["chunk"], chunk_int8_qwen_768=c["chunk"],
+                      decode_int8_qwen=c["decode"])
+        del cache, cache_r, got, want
+    del params
+    torch.cuda.empty_cache()
+
+    rg = get_config("recurrentgemma-2b")
+    params = M.init_model_params(rg, 0, dev)
+    scaled_kv(torch, params, KV8_WK, KV8_WV)
+    toks = torch.from_numpy(rng.integers(3, rg.vocab, size=(RG8_B, RG8_PROMPT))).to(dev)
+    log(f"phase 11 (b): {rg.name} {rg.n_layers} layers, wk x {KV8_WK:g}, wv x {KV8_WV:g}: "
+        f"B={RG8_B} "
+        f"prompts of {RG8_PROMPT} tokens prefilled whole, the window rings narrowed to int8, "
+        f"{RG8_STEPS} decode steps (the rings wrap at {rg.window})")
+    out = {}
+    with torch.no_grad():
+        for impl in (None, "ref"):
+            logits, cache = M.prefill(rg, params, {"tokens": toks}, cache_len=RG8_PROMPT
+                                      + RG8_STEPS, impl=impl)
+            cache = narrowed_cache(torch, rg, cache, "int8")
+            seq, tok = [logits[:, -1].float()], logits[:, -1].argmax(-1)
+            if impl is None:
+                zero_launches()
+            for i in range(RG8_STEPS):
+                if impl == "ref":
+                    tok = out[None][i].argmax(-1)
+                pos = torch.full((RG8_B,), RG8_PROMPT + i, dtype=torch.int32, device=dev)
+                logits, cache = M.decode_step(rg, params, cache, tok[:, None], pos, impl=impl)
+                seq.append(logits[:, 0].float())
+                tok = seq[-1].argmax(-1)
+            if impl is None:
+                torch.cuda.synchronize()
+                c = launches()
+                counts["dense_int8_rg"] = c["dense"]
+                n_local = sum(rg.pattern[j % len(rg.pattern)] == BlockKind.LOCAL_ATTN
+                              for j in range(rg.n_layers))
+                if c["dense"] != n_local * RG8_STEPS or c["decode"] or c["chunk"]:
+                    raise AssertionError(f"phase 11 (b): recurrentgemma int8 ring launches "
+                                         f"{c}: need {n_local} K3 a step")
+                log(f"  ring decode launches {c} ({n_local} local-attention layers x "
+                    f"{RG8_STEPS} steps)")
+            out[impl] = seq
+            del cache
+    diffs = [(a - b).abs().max().item() for a, b in zip(out[None], out["ref"])]
+    scale = max(r.abs().max().item() for r in out["ref"])
+    log(f"  recurrentgemma int8 rings, kernels vs impl='ref': max|logit diff| {max(diffs):.4f} "
+        f"(tol {0.05 * scale:.4f} = 5% of max|logit| {scale:.3f})")
+    if max(diffs) > 0.05 * scale:
+        raise AssertionError(f"phase 11 (b): recurrentgemma int8 ring logits differ by "
+                             f"{max(diffs)}")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def w8_serve(torch, cfg, params, dev, prompts, new_tokens, **kw):
+    """Serve ``prompts`` twice on one paged engine (the first run captures
+    the step graphs) and read the second run: (engine, {req_id: tokens},
+    TTFT p50 ms, decode ms/step, wall s of the second run, peak GB over
+    both runs); the engine's own counters hold both runs."""
+    from repro_torch.serve.engine import Request, ServingEngine
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServingEngine(cfg, params, max_slots=len(prompts), max_len=2048,
+                           page_size=PAGE, device=dev, **kw)
+    outs = []
+    for _ in range(2):
+        k0, s0, n0 = len(engine.ttft_s), engine.decode_s, engine.n_decode_steps
+        reqs = [Request(prompt=list(p), max_new_tokens=new_tokens, req_id=i)
+                for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        done = engine.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        outs.append({r.req_id: list(r.output) for r in done})
+    if outs[0] != outs[1]:
+        raise AssertionError(f"phase 11: {cfg.name} served the same prompts twice with other "
+                             f"tokens: {outs}")
+    ttft = sorted(engine.ttft_s[k0:])
+    step_ms = (engine.decode_s - s0) / (engine.n_decode_steps - n0) * 1e3
+    return (engine, outs[1], ttft[len(ttft) // 2] * 1e3, step_ms, wall,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def tree_bytes(params) -> int:
+    from repro_torch.models.param import iter_leaves
+    return sum(t.numel() * t.element_size() for _, t in iter_leaves(params))
+
+
+def agreement(outs, want) -> str:
+    """Greedy tokens of ``outs`` against ``want``: requests equal, and the
+    tokens of the common prefixes before the first difference."""
+    same = sum(outs[i] == want[i] for i in want)
+    prefix = sum(next((j for j, (a, b) in enumerate(zip(outs[i], want[i])) if a != b),
+                      min(len(outs[i]), len(want[i]))) for i in want)
+    total = sum(len(w) for w in want.values())
+    return f"{same}/{len(want)} requests equal, {prefix}/{total} tokens before the first " \
+           "difference"
+
+
+def w8_run(torch, dev) -> None:
+    """Phase 11 (c): int8 weights (``narrow_weights`` of granite-3-2b's
+    seeded bf16 tree) served by the paged engine, captured: K2 and K1
+    decode launched (counts zeroed just before, read just after); the
+    first logits of a prefill bit for bit those of the same int8 values
+    dequantized once on the host into a bf16 tree, and that tree served by
+    the same engine gives the same tokens (same values, same kernels);
+    greedy tokens beside the engine's ``impl="ref"`` run and the
+    teacher-forced logits against ``impl="ref"`` (phase 4's rule); peak
+    GB, TTFT p50 and decode ms/step of both trees, the launches beside
+    them (the same K2 and K1 decode instances as bf16 weights: the
+    activations stay bf16)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import dequantize
+    from repro_torch.models.param import iter_leaves, map_tree
+
+    cfg = get_config("granite-3-2b")
+    params8 = M.narrow_weights(M.init_model_params(cfg, 0, dev))
+    torch.cuda.empty_cache()
+    n8 = sum(t.dtype == torch.int8 for _, t in iter_leaves(params8))
+    log(f"phase 11 (c): {cfg.name} {cfg.n_layers} layers, int8 weights (narrow_weights of the "
+        f"seed-0 bf16 tree: {n8} of {len(list(iter_leaves(params8)))} leaves int8, "
+        f"{tree_bytes(params8) / 1e9:.2f} GB) through ServingEngine, paged, captured; "
+        f"{len(GRANITE_PROMPTS)} prompts {GRANITE_PROMPTS}, {MAX_NEW} new tokens")
+    t0 = time.perf_counter()
+    host = map_tree(lambda _, t: dequantize(t.cpu(), torch.bfloat16), params8)
+    log(f"  the same values dequantized once on the host into a bf16 tree "
+        f"({tree_bytes(host) / 1e9:.2f} GB, {time.perf_counter() - t0:.1f} s)")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(3, cfg.vocab, size=n).tolist() for n in GRANITE_PROMPTS]
+    res = {}
+    with torch.no_grad():
+        zero_launches()
+        engine, res["int8"], ttft, step, wall, peak = w8_serve(torch, cfg, params8, dev,
+                                                               prompts, MAX_NEW)
+        c = launches()
+        if not c["flash"] or not c["decode"] or c["chunk"] or c["dense"]:
+            raise AssertionError(f"phase 11 (c): int8-weight launches {c}: need K2 and K1 "
+                                 "decode only")
+        log(f"  int8 weights: peak {peak:.2f} GB allocated, TTFT p50 {ttft:.1f} ms, decode "
+            f"{step:.2f} ms/step, {wall:.3f} s for the second run; launches {c} over both "
+            f"runs; {graphs_summary(torch, engine)}")
+        engine = None
+        torch.cuda.empty_cache()
+        _, res["ref"], *_ = w8_serve(torch, cfg, params8, dev, prompts, MAX_NEW, impl="ref")
+        log(f"  greedy tokens against the engine's impl='ref' run (bf16; a near tie may "
+            f"flip one, as phase 4 counts): {agreement(res['int8'], res['ref'])}")
+        torch.cuda.empty_cache()
+        logits_parity(torch, cfg, params8, dev, S=300, paged=True)
+        deq = map_tree(lambda _, t: t.to(dev), host)
+        del host
+        batch = {"tokens": torch.from_numpy(rng.integers(3, cfg.vocab, size=(2, 300))).to(dev)}
+        l8, _ = M.prefill(cfg, params8, batch)
+        lb, _ = M.prefill(cfg, deq, batch)
+        if not torch.equal(l8, lb):
+            raise AssertionError(f"phase 11 (c): int8-weight logits differ from the host-"
+                                 f"dequantized tree's by {(l8 - lb).abs().max().item()}")
+        log(f"  first logits (prefill B=2 x 300 tokens) bit for bit equal: int8 weights "
+            f"dequantized at use vs the host-dequantized bf16 tree")
+        del params8, l8, lb
+        torch.cuda.empty_cache()
+        engine, res["bf16"], ttft_b, step_b, wall_b, peak_b = w8_serve(torch, cfg, deq, dev,
+                                                                       prompts, MAX_NEW)
+        engine = None
+    if res["bf16"] != res["int8"]:
+        raise AssertionError(f"phase 11 (c): the dequantized bf16 tree served other tokens: "
+                             f"{agreement(res['bf16'], res['int8'])}")
+    log(f"  bf16 tree of the same values: the same tokens; peak {peak_b:.2f} GB, TTFT p50 "
+        f"{ttft_b:.1f} ms, decode {step_b:.2f} ms/step ({wall_b:.3f} s); int8 / bf16 decode "
+        f"ms/step {step / step_b:.3f}, peak {peak / peak_b:.3f}")
+    del deq
+    torch.cuda.empty_cache()
+
+
+def int8_model_params(torch, cfg, seed: int, dev):
+    """Random int8 weights of ``cfg`` made on ``dev`` a layer at a time: each
+    leaf of ``param_specs`` drawn (bf16) one period slice at a time and
+    narrowed as ``narrow_weights`` narrows the tree as laid out (every
+    leaf of 2 or more dimensions, stacked slices included), so neither the
+    bf16 tree nor a float32 draft of a whole stacked leaf is ever held;
+    1-d leaves stay bf16."""
+    from repro_torch.models import model as M
+    from repro_torch.models.param import Spec, init_params, map_tree
+
+    def leaf(path, spec):
+        if len(spec.shape) < 2:
+            return init_params({path: spec}, seed, cfg.dtype, dev)[path]
+        scale = spec.scale if spec.scale is not None else spec.shape[-2] ** -0.5
+        out = torch.empty(spec.shape, dtype=torch.int8, device=dev)
+        stacked = path.split("/")[0] in ("blocks", "encoder")
+        for i in range(spec.shape[0] if stacked else 1):
+            one = Spec(spec.shape[1:] if stacked else spec.shape, init=spec.init,
+                       scale=scale, dtype=spec.dtype)
+            w = init_params({f"{path}/{i}": one}, seed, cfg.dtype, dev)[f"{path}/{i}"]
+            q = M.narrow_weights({"w": w[None] if stacked else w})["w"]
+            if stacked:
+                out[i] = q[0]
+            else:
+                out.copy_(q)
+        return out
+    return map_tree(leaf, M.param_specs(cfg))
+
+
+def llava8_run(torch, dev) -> None:
+    """Phase 11 (d): llava-next-34b at all 60 layers from int8 weights
+    (``int8_model_params``), text-only through the paged engine, B=2,
+    captured: peak GB, TTFT, decode ms/step and its memory bound
+    (``memory_model`` with ``weight_bytes=1``), launches one K2 a layer a
+    prefill and one K1 decode a layer a step; then its logits against
+    ``impl="ref"`` at the first decode step (phase 4's rule)."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.roofline.analysis import HBM_BW
+    from repro_torch.roofline.analytic import memory_model
+    from repro_torch.serve.step_graph import empty_cache
+
+    cfg = get_config("llava-next-34b")
+    empty_cache()
+    free, total_mem = torch.cuda.mem_get_info()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params8 = int8_model_params(torch, cfg, 0, dev)
+    torch.cuda.synchronize()
+    made_s, made_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+    log(f"phase 11 (d): {cfg.name} at all {cfg.n_layers} layers (d={cfg.d_model} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} d_ff={cfg.d_ff} vocab {cfg.padded_vocab}), "
+        f"int8 weights: {cfg.n_params / 1e9:.2f} B parameters, {tree_bytes(params8) / 1e9:.2f} "
+        f"GB, made in {made_s:.1f} s ({made_peak:.1f} GB peak; {free / 1e9:.1f} of "
+        f"{total_mem / 1e9:.1f} GB free before)")
+    rng = np.random.default_rng(33)
+    prompts = [rng.integers(3, cfg.vocab, size=LV8_PROMPT).tolist() for _ in range(LV_B)]
+    L = cfg.n_layers
+    with torch.no_grad():
+        zero_launches()
+        engine, outs, ttft, step, wall, peak = w8_serve(torch, cfg, params8, dev, prompts,
+                                                        LV8_STEPS)
+        c = launches()
+        want = {k: 0 for k in c}
+        want.update(flash=L * engine.n_prefills, decode=L * engine.n_decode_steps)
+        if c != want or not all(1 <= len(o) <= LV8_STEPS for o in outs.values()):
+            raise AssertionError(f"phase 11 (d): launches {c}, need {want}; outputs {outs}")
+        context = LV8_PROMPT + LV8_STEPS // 2
+        bound = memory_model(cfg, InputShape("serve_decode", context, LV_B, "decode"),
+                             data=1, model=1, weight_bytes=1) / HBM_BW * 1e3
+        log(f"  served text-only, paged, captured, B={LV_B} x {LV8_PROMPT} tokens, "
+            f"{LV8_STEPS} new: peak {peak:.2f} GB allocated, TTFT p50 {ttft:.1f} ms, decode "
+            f"{step:.2f} ms/step, memory bound {bound:.2f} ms at int8 weights (fraction "
+            f"{bound / step:.4f}), {wall:.3f} s for the second run; launches {c} over both "
+            "runs (one K2 a layer a prefill, one K1 decode a layer a step)")
+        log(f"  {graphs_summary(torch, engine)}")
+        engine = None
+        torch.cuda.empty_cache()
+        logits_parity(torch, cfg, params8, dev, S=LV8_PROMPT, paged=True, steps=1)
+    log(f"  {cfg.name}: {torch.cuda.max_memory_allocated() / 1e9:.1f} GB peak allocated over "
+        "phase 11 (d)")
+    del params8
+    torch.cuda.empty_cache()
+
+
+def priced_backend_run(torch, dev, smi: str) -> None:
+    """Phase 11 (e): one ``Gateway.invoke`` through ``EngineBackend(
+    accelerator_spec=AcceleratorSpec(type="h100", active_watts=<the card's
+    power limit>))``: the invocation runs on the spec's type and the
+    metrics' energy counter equals the reference's formula, active_watts x
+    ELat, over its held seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.accelerator import AcceleratorSpec
+    from repro_torch.gateway import EngineBackend, Gateway
+    from repro_torch.serve.api import make_serve_runtime
+
+    watts = float(smi.split(",")[1].split()[0])
+    spec = AcceleratorSpec(type="h100", active_watts=watts)
+    eb = EngineBackend(accelerator_spec=spec, n_workers=1, device=dev)
+    try:
+        gw = Gateway(eb)
+        rdef = make_serve_runtime(get_config("granite-3-2b"), max_slots=2, max_len=256,
+                                  device=dev)
+        gw.register(rdef)
+        fut = gw.invoke(rdef.runtime_id, {"prompts": [list(range(3, 67))]},
+                        config={"max_new_tokens": 8})
+        out = fut.result()
+        inv = fut.invocation
+        row = gw.metrics.accelerator_usage()["h100"]
+        joules = spec.invocation_joules(inv.elat)
+        if not inv.accelerator.endswith("(h100)") or len(out["outputs"][0]) != 8 or \
+                abs(row["energy_joules"] - joules) > 1e-9 * max(joules, 1.0):
+            raise AssertionError(f"phase 11 (e): accelerator {inv.accelerator}, outputs {out}, "
+                                 f"energy {row} against {joules} J")
+        log(f"phase 11 (e): Gateway.invoke -> EngineBackend(accelerator_spec=AcceleratorSpec("
+            f"type='h100', active_watts={watts})) -> granite-3-2b: ran on {inv.accelerator}, "
+            f"cold={int(inv.cold_start)} ELat {inv.elat:.4f} s; energy counter "
+            f"{row['energy_joules']:.4f} J = {watts} W x {inv.elat:.4f} s ({joules:.4f} J), "
+            f"busy {row['busy_s']:.4f} s, {int(row['n_invocations'])} invocation; backlog "
+            f"{eb.backlog_by_type()}")
+    finally:
+        eb.shutdown()
+        torch.cuda.empty_cache()
+
+
+# each engine twin's last line (its reference example's, numbers aside, in
+# the twin's wording)
+TWIN_LAST = {
+    "unified_gateway": r"  \[engine\] ELat pN = Ns, cold starts = N, RSuccess = N/N",
+    "serve_cluster": r"OK — serverless serving with real PyTorch execution",
+    "cluster_quickstart": r"workflow chain \(\(N\+N\)\+N\)\+N = N across worker processes "
+                          r"in Ns",
+}
+
+
+def example_twins_run() -> None:
+    """Phase 11 (f): the three engine example twins as subprocesses on the
+    card (their default device), at the reference examples' own reduced
+    sizes; each must exit 0 and end with its reference's last line."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    for name, last in TWIN_LAST.items():
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", f"repro_torch.examples.{name}"],
+                             capture_output=True, text=True, timeout=300, env=env, cwd=root)
+        lines = out.stdout.splitlines()
+        shape = re.sub(r"\d+(\.\d+)?", "N", lines[-1]) if lines else ""
+        if out.returncode != 0 or not re.fullmatch(last, shape):
+            raise AssertionError(f"phase 11 (f): {name} exited {out.returncode}, last line "
+                                 f"{lines[-1:]}:\n{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+        log(f"phase 11 (f): repro_torch.examples.{name} on the card in "
+            f"{time.perf_counter() - t0:.1f} s, {len(lines)} lines, last: {lines[-1]!r}")
+        for line in lines[:-1]:
+            log(f"    {line}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4532,6 +5341,20 @@ def main() -> int:
     entries.update(train_entries)
     total.update(train_totals)
 
+    # phase 11: int8 weights and int8 K/V caches (K1's int8 instances, K3
+    # without scales; granite and recurrentgemma at the model's API,
+    # granite's int8 weights through the engine, llava-next-34b at all 60
+    # layers), the priced EngineBackend, the engine example twins
+    t11 = time.perf_counter()
+    entries.update(phase_kernels_int8(torch, dev))
+    torch.cuda.empty_cache()
+    total.update(kv8_run(torch, dev))
+    w8_run(torch, dev)
+    llava8_run(torch, dev)
+    priced_backend_run(torch, dev, smi)
+    example_twins_run()
+    log(f"phase 11: done in {time.perf_counter() - t11:.1f} s")
+
     kernels = []
     for key in ("decode", "chunk", "chunk_768", "flash", "flash_rg", "dense_rg", "dense_granite",
                 "scan", "flash_l4", "decode_l4", "dense_l4", *GMM_KEYS, "flash_gateway",
@@ -4542,7 +5365,9 @@ def main() -> int:
                 "flash_llava", "dense_llava", "flash_llava_engine", "decode_llava",
                 "flash_train", "flash_rg_train", "scan_train", "flash_bwd_granite",
                 "flash_bwd_rg", "scan_bwd", "flash_l4_train", "flash_bwd_l4", "gmm_train",
-                *GMM_BWD_ROWS):
+                *GMM_BWD_ROWS, "decode_int8", "decode_int8_qwen", "chunk_int8",
+                "chunk_int8_768", "chunk_int8_qwen", "chunk_int8_qwen_768", "dense_int8_rg",
+                "dense_int8_granite"):
         e = dict(entries[key])
         e["launches"] = total[key]
         kernels.append({k: e[k] for k in (

@@ -5,7 +5,8 @@
 // the dense decode cache, a block-table page lookup for the paged pool.
 //
 // tiled_attention() is the float32 online-softmax body of K2 (flash
-// prefill) and K1's chunks (paged chunked prefill): one block of 256
+// prefill) and K1's chunks (paged chunked prefill; its pool may be int8,
+// widened exactly on the load into shared memory): one block of 256
 // threads owns a tile of BQ = 64 query rows of one (sequence, kv head); a
 // row is a (query position, head of the kv head's group) pair, so the G
 // query heads that share a kv head read each K/V tile once. The block walks
@@ -34,6 +35,7 @@ constexpr int NT = 256;   // threads per block: 16 row groups x 16 column lanes
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -80,10 +82,11 @@ constexpr size_t tile_smem_bytes() {
 // HD) with the sequence's first element at q_seq0; row r is query position
 // r / G of head kvh * G + r % G, at absolute position qbase + r / G. Keys
 // [0, kv_len) are valid; causal / window / chunk masks follow
-// flash_attention.py:64-71. lse, where not null, is (B, H, n_pos).
-template <typename T, int HD, class Cache>
-__device__ void tiled_attention(const T* __restrict__ q, const T* __restrict__ k,
-                                const T* __restrict__ v, T* __restrict__ out,
+// flash_attention.py:64-71. lse, where not null, is (B, H, n_pos). K and V
+// are T, or int8 (TKV) read as their integer values.
+template <typename T, typename TKV, int HD, class Cache>
+__device__ void tiled_attention(const T* __restrict__ q, const TKV* __restrict__ k,
+                                const TKV* __restrict__ v, T* __restrict__ out,
                                 long long q_seq0, int b, int H, int kvh, int G, int n_pos,
                                 int qbase, int kv_len, int causal, int window,
                                 int chunk, float scale, const Cache& cache,

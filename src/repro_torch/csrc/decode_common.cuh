@@ -58,8 +58,6 @@
 #include "mma_common.cuh"
 
 namespace rt {
-__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
-
 // 16-byte vector loads of a cache row: 4 floats or 16 int8 values, widened
 // to float
 template <typename T> struct Vec;

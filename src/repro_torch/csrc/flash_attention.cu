@@ -40,9 +40,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int Sq, int Skv, int H, int KV, int causal, int window, int chunk,
                        float scale) {
   const int b = blockIdx.z, kvh = blockIdx.y;
-  rt::tiled_attention<T, HD>(q, k, v, out, (long long)b * Sq * H * HD, b, H, kvh, H / KV, Sq,
-                             Skv - Sq, Skv, causal, window, chunk, scale,
-                             rt::DenseCache{Skv, KV}, lse);
+  rt::tiled_attention<T, T, HD>(q, k, v, out, (long long)b * Sq * H * HD, b, H, kvh, H / KV, Sq,
+                                Skv - Sq, Skv, causal, window, chunk, scale,
+                                rt::DenseCache{Skv, KV}, lse);
 }
 
 template <int HD>

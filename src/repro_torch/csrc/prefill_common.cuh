@@ -58,8 +58,18 @@
 // backward; a null pointer (serving, K1's chunks) stores nothing, so those
 // paths run as before.
 //
+// An int8 pool (K1's chunks over a pool from kv_dtype="int8", TKV =
+// int8_t) is staged as int8: the cp.async ring carries 16 keys' bytes a
+// copy, half the bf16 bytes, and once a tile has landed the block widens it
+// into one bf16 tile (every int8 value is exact in bf16) behind one more
+// barrier, so ldmatrix and the mma.sync products are those of the bf16 body
+// on exact inputs, and the scores and output are the bf16 body's on the
+// widened keys. The next tile's int8 copies are in flight meanwhile.
+//
 // 128 threads; dynamic shared memory 2 * (64 + 2 * 2 * 64) * (hd + 8)
-// bytes (46 KB at hd 64, 87 KB at hd 128, 169 KB at hd 256).
+// bytes (46 KB at hd 64, 87 KB at hd 128, 169 KB at hd 256); with an int8
+// pool 2 * (64 + 2 * 64) * (hd + 8) + 2 * 2 * 64 * hd bytes (43, 83 and
+// 163 KB).
 #pragma once
 
 #include <type_traits>
@@ -76,37 +86,64 @@ constexpr int MBQ = 16 * MW;   // query rows per block
 constexpr int MBK = 64;        // keys per tile
 constexpr int STAGES = 2;      // K/V tiles in the ring
 
-template <int HD>
+template <int HD, typename TKV = bf16>
 struct MmaTile {
   static constexpr int LD = HD + 8;   // padded row: ldmatrix free of bank conflicts
   static constexpr int Q_ELEMS = MBQ * LD;
-  static constexpr int KV_ELEMS = MBK * LD;   // one K or V tile
-  static constexpr size_t SMEM = sizeof(bf16) * (Q_ELEMS + 2 * STAGES * KV_ELEMS);
+  static constexpr int KV_ELEMS = MBK * LD;   // one bf16 K or V tile
+  // an int8 pool: the ring holds int8 tiles (rows of HD bytes), widened
+  // into one bf16 tile each of K and V; a bf16 pool: the ring is bf16
+  static constexpr bool NARROW = !std::is_same_v<TKV, bf16>;
+  static constexpr int BF_STAGES = NARROW ? 1 : STAGES;
+  static constexpr int LDS = NARROW ? HD : LD;   // a ring row, in TKV elements
+  static constexpr int ST_ELEMS = MBK * LDS;     // one ring tile of K or V
+  static constexpr size_t SMEM = sizeof(bf16) * (Q_ELEMS + 2 * BF_STAGES * KV_ELEMS) +
+                                 (NARROW ? sizeof(TKV) * 2 * STAGES * ST_ELEMS : 0);
   static constexpr bool Q_IN_REGS = HD <= 128;
 };
+
+// 16 int8 values widened to bf16 (exact), shared -> shared: byte j of the
+// 16 is value j (little-endian words), values 2i and 2i + 1 one bf16 pair
+__device__ __forceinline__ void widen16(const int8_t* src, bf16* dst) {
+  const int4 u = *reinterpret_cast<const int4*>(src);
+  const uint32_t w[4] = {(uint32_t)u.x, (uint32_t)u.y, (uint32_t)u.z, (uint32_t)u.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t x = w[i / 2] >> (16 * (i % 2));
+    o[i] = mma::pack_bf16((float)(int8_t)(x & 0xffu), (float)(int8_t)((x >> 8) & 0xffu));
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
+}
 
 // The block (blockIdx.x: 64 query rows, .y: kv head, .z: sequence b) of a
 // prefill. q and out are (B, Sq, H, HD); row r is query position r / G of
 // head kvh * G + r % G, at absolute position qbase + r / G; keys [0,
-// kv_len) of cache are valid.
-template <int HD, class Cache>
+// kv_len) of cache are valid. K and V are bf16, or int8 (TKV) widened.
+template <int HD, class Cache, typename TKV = bf16>
 __device__ __forceinline__ void prefill_mma(const bf16* __restrict__ q,
-                                            const bf16* __restrict__ k,
-                                            const bf16* __restrict__ v, bf16* __restrict__ out,
+                                            const TKV* __restrict__ k,
+                                            const TKV* __restrict__ v, bf16* __restrict__ out,
                                             int Sq, int H, int KV, int qbase, int kv_len,
                                             int causal, int window, int chunk, float scale_log2,
                                             const Cache& cache,
                                             float* __restrict__ lse = nullptr) {
-  using Tile = MmaTile<HD>;
-  constexpr int LD = Tile::LD;
-  constexpr int KC = HD / 8;     // 16-byte chunks per row
+  using Tile = MmaTile<HD, TKV>;
+  constexpr int LD = Tile::LD, LDS = Tile::LDS;
+  constexpr int KC = HD / 8;     // 16-byte chunks per bf16 row
+  constexpr int KCS = HD * (int)sizeof(TKV) / 16;   // 16-byte chunks per ring row
+  constexpr int ECS = 16 / (int)sizeof(TKV);        // elements per chunk
   constexpr int NKB = MBK / 8;   // n8 blocks of scores per tile
   constexpr int NDB = HD / 8;    // n8 blocks of the output
-  static_assert(HD % 16 == 0 && (MBQ * KC) % MT == 0 && (MBK * KC) % MT == 0, "tile shape");
+  static_assert(HD % 16 == 0 && (MBQ * KC) % MT == 0 && (MBK * KCS) % MT == 0, "tile shape");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + Tile::Q_ELEMS;              // [STAGES][MBK][LD]
-  bf16* Vs = Ks + STAGES * Tile::KV_ELEMS;    // [STAGES][MBK][LD]
+  bf16* Ks = Qs + Tile::Q_ELEMS;                    // [BF_STAGES][MBK][LD]
+  bf16* Vs = Ks + Tile::BF_STAGES * Tile::KV_ELEMS;  // [BF_STAGES][MBK][LD]
+  // the ring: the bf16 tiles themselves, or int8 tiles after them
+  TKV* Kr = reinterpret_cast<TKV*>(Tile::NARROW ? Vs + Tile::KV_ELEMS : Ks);
+  TKV* Vr = Tile::NARROW ? Kr + STAGES * Tile::ST_ELEMS : reinterpret_cast<TKV*>(Vs);
 
   const int b = blockIdx.z, kvh = blockIdx.y;
   const int G = H / KV, rows = Sq * G, r0 = blockIdx.x * MBQ;
@@ -147,17 +184,17 @@ __device__ __forceinline__ void prefill_mma(const bf16* __restrict__ q,
   // a contiguous key row is address arithmetic, a block-table row a load:
   // holding all of a thread's lookups of a tile in flight (16 at hd 256)
   // spills, so the paged layout issues 4 at a time
-  constexpr int N_KV = MBK * KC / MT;   // 16-byte copies of K (and of V) a thread
+  constexpr int N_KV = MBK * KCS / MT;   // 16-byte copies of K (and of V) a thread
   constexpr int U_KV = std::is_same_v<Cache, rt::PagedCache> && N_KV > 4 ? 4 : N_KV;
   auto load_kv = [&](int kt, int stage) {
-    bf16* ks = Ks + stage * Tile::KV_ELEMS;
-    bf16* vs = Vs + stage * Tile::KV_ELEMS;
+    TKV* ks = Kr + stage * Tile::ST_ELEMS;
+    TKV* vs = Vr + stage * Tile::ST_ELEMS;
     auto copy = [&](int i) {
-      const int c = tid + i * MT, kr = c / KC, d = (c % KC) * 8, kp = kt * MBK + kr;
+      const int c = tid + i * MT, kr = c / KCS, d = (c % KCS) * ECS, kp = kt * MBK + kr;
       const bool ok = kp < kv_len;
       const long long o = ok ? cache.row(b, kvh, kp) * HD + d : 0;
-      mma::cp_async16(ks + kr * LD + d, k + o, ok ? 16 : 0);
-      mma::cp_async16(vs + kr * LD + d, v + o, ok ? 16 : 0);
+      mma::cp_async16(ks + kr * LDS + d, k + o, ok ? 16 : 0);
+      mma::cp_async16(vs + kr * LDS + d, v + o, ok ? 16 : 0);
     };
     if constexpr (U_KV == N_KV) {
 #pragma unroll
@@ -202,8 +239,22 @@ __device__ __forceinline__ void prefill_mma(const bf16* __restrict__ q,
     __syncthreads();           // ... for every thread, and the other stage is free
     if (i + 1 < n_live) load_kv(kt + 1, (i + 1) % STAGES);
     mma::cp_async_commit();
-    const bf16* ks = Ks + stage * Tile::KV_ELEMS;
-    const bf16* vs = Vs + stage * Tile::KV_ELEMS;
+    if constexpr (Tile::NARROW) {
+      // widen the landed int8 tile into the bf16 tile: every thread is past
+      // the last tile's products (the barrier above), and the barrier below
+      // holds the products until the whole tile is widened
+      const TKV* k8 = Kr + stage * Tile::ST_ELEMS;
+      const TKV* v8 = Vr + stage * Tile::ST_ELEMS;
+#pragma unroll
+      for (int j = 0; j < N_KV; ++j) {
+        const int c = tid + j * MT, kr = c / KCS, d = (c % KCS) * 16;
+        widen16(k8 + kr * LDS + d, Ks + kr * LD + d);
+        widen16(v8 + kr * LDS + d, Vs + kr * LD + d);
+      }
+      __syncthreads();
+    }
+    const bf16* ks = Ks + (Tile::NARROW ? 0 : stage) * Tile::KV_ELEMS;
+    const bf16* vs = Vs + (Tile::NARROW ? 0 : stage) * Tile::KV_ELEMS;
 
     // S = Q K^T: K rows are keys, hd contiguous, i.e. B (k = hd, n = key)
     // stored column-major; x4 = keys +0..7 / +8..15 by hd +0..7 / +8..15
@@ -323,11 +374,12 @@ __device__ __forceinline__ void prefill_mma(const bf16* __restrict__ q,
   }
 }
 
-// Launch kernel (a __global__ wrapper of prefill_mma<HD, ...>) over the grid
-// (ceil(Sq * G / 64), KV, B), with its dynamic shared memory allowed.
-template <int HD, class Kernel, class... Args>
+// Launch kernel (a __global__ wrapper of prefill_mma<HD, Cache, TKV>) over
+// the grid (ceil(Sq * G / 64), KV, B), with its dynamic shared memory
+// allowed.
+template <int HD, typename TKV = bf16, class Kernel, class... Args>
 int launch(Kernel kernel, int B, int Sq, int H, int KV, cudaStream_t stream, Args... args) {
-  constexpr size_t smem = MmaTile<HD>::SMEM;
+  constexpr size_t smem = MmaTile<HD, TKV>::SMEM;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -465,12 +465,17 @@ class EngineBackend(Backend):
     cards, and raises here when there is none, as every entry point of
     the port does; ``"cuda:N"`` one card; ``"cpu"`` the host, which is
     what the CPU tests pass. There is no silent fallback to the host.
+    ``accelerator`` names the type the workers report (``host-cuda``);
+    an ``accelerator_spec`` prices this host's invocations (the metrics'
+    cost and energy counters, ``register_accelerator``) and its type
+    becomes the reported one, as in the reference.
     """
 
     name = "engine"
     autonomous = True       # worker threads progress without client driving
 
-    def __init__(self, *, max_warm: int = 4,
+    def __init__(self, *, max_warm: int = 4, accelerator: str = HOST_ACC,
+                 accelerator_spec: Optional[AcceleratorSpec] = None,
                  n_workers: Optional[int] = None, max_batch: int = 8,
                  batch_wait_s: float = 0.002, max_queue: int = 256,
                  monitor_interval_s: float = 0.05,
@@ -485,7 +490,12 @@ class EngineBackend(Backend):
         self.registry = RuntimeRegistry()
         self.metrics = MetricsCollector()
         self.max_warm = max_warm
-        self.accelerator = HOST_ACC
+        self.accelerator = accelerator
+        if accelerator_spec is not None:
+            # price this host's invocations (cost/energy counters) from
+            # the spec's model; the spec's type becomes the reported type
+            self.accelerator = accelerator_spec.type
+            self.metrics.register_accelerator(accelerator_spec)
         self.max_batch = max(int(max_batch), 1)
         self.batch_wait_s = max(float(batch_wait_s), 0.0)
         self.max_queue = max(int(max_queue), 1)

@@ -4,7 +4,10 @@ Pallas ``_decode_kernel`` (``src/repro/kernels/decode_attention.py:31``).
 One query token per sequence against k, v (B, S, KV, hd) of which the
 first ``kv_len[b]`` slots are valid: recurrentgemma's sliding-window ring
 caches and the dense per-slot layout (``page_size=0``). An int8 cache takes
-(B, KV) float32 ``k_scale`` / ``v_scale``. For a CUDA tensor the wrapper
+(B, KV) float32 ``k_scale`` / ``v_scale``; a scale that is not given is
+1.0, as the reference's ``decode_attention`` defaults both to ones (the
+model's int8 caches pass none). The kernel reads a null scale as 1.0, which
+is the product by a ones tensor. For a CUDA tensor the wrapper
 launches the hand-written kernel in ``csrc/decode_attention.cu`` (the
 split-KV body of ``csrc/decode_common.cuh`` and, with more than one split,
 its merge) on the current stream and counts the launch; for a CPU tensor it
@@ -70,8 +73,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, 1, H, hd) float32 or bfloat16; k, v: (B, S, KV, hd) in q's
-    dtype or int8 (then with both scales); kv_len: (B,) int32 in [1, S].
-    Returns (B, 1, H, hd) in q.dtype."""
+    dtype or int8 (scales optional, 1.0 where None); kv_len: (B,) int32 in
+    [1, S]. Returns (B, 1, H, hd) in q.dtype."""
     if not q.is_cuda:
         return decode_attention_plain(q, k, v, kv_len,
                                       softmax_scale=softmax_scale,
@@ -93,8 +96,6 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if v.dtype != k.dtype or not (kv_int8 or k.dtype == q.dtype):
         raise TypeError(f"k and v must share q's dtype {q.dtype} or be int8, "
                         f"got {k.dtype} and {v.dtype}")
-    if kv_int8 and (k_scale is None or v_scale is None):
-        raise ValueError("an int8 cache needs k_scale and v_scale")
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
         if t is not None and (t.dtype != torch.float32 or t.shape != (B, KV)):
             raise ValueError(f"{name} must be float32 of shape {(B, KV)}, got "

@@ -9,7 +9,13 @@ and counts the launch (one query token per sequence takes the split-KV
 body of ``csrc/decode_common.cuh``, shared with K3, and its merge; a
 chunk the tiled body); for a CPU tensor it runs the plain PyTorch version
 below. There is no fallback: a CUDA operand the kernel does not take, or a
-failed build or launch, raises. K1 has no backward kernel: on the card,
+failed build or launch, raises. An int8 pool (``model.paged_cache_specs(...,
+kv_dtype="int8")``) is read as its integer values, unit scales, as the
+reference's body upcasts it, with bf16 or float32 queries: decode through
+the split body's int8 FMA instance, bf16 chunks through the tensor-core
+body staging int8 tiles and widening them in shared memory, float32 chunks
+through the tiled body with an int8 load; any other mix of dtypes raises.
+K1 has no backward kernel: on the card,
 under autograd with an operand that requires grad, both wrappers raise
 ``NotImplementedError`` (``build.refuse_grad``) rather than return an
 output that cuts the gradient.
@@ -35,7 +41,7 @@ paged_prefill_plain = ref.paged_prefill_attention
 def _launcher():
     fn = build.load("paged_attention").paged_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + \
-        [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -53,8 +59,10 @@ def _launch(q, k_pool, v_pool, block_tables, kv_len, q_offset,
     if hd_k != hd or hd not in build.HEAD_DIMS or H % KV:
         raise ValueError(f"head_dim {hd} (pool {hd_k}) must be one of "
                          f"{build.HEAD_DIMS} and H={H} a multiple of KV={KV}")
-    if q.dtype != k_pool.dtype or q.dtype != v_pool.dtype:
-        raise TypeError("q and the pools must share one dtype")
+    kv_int8 = k_pool.dtype == torch.int8
+    if v_pool.dtype != k_pool.dtype or not (kv_int8 or k_pool.dtype == q.dtype):
+        raise TypeError(f"the pools must share q's dtype {q.dtype} or be int8, "
+                        f"got {k_pool.dtype} and {v_pool.dtype}")
     if q_offset is None and C != 1:
         raise ValueError("a chunk (C > 1) needs q_offset")
     for name, t, shape in (("block_tables", block_tables, (B, None)),
@@ -82,7 +90,7 @@ def _launch(q, k_pool, v_pool, block_tables, kv_len, q_offset,
                      q_offset.data_ptr() if q_offset is not None else None,
                      out.data_ptr(), ws.data_ptr() if ws is not None else None,
                      B, C, H, KV, hd, P, page, n_split, scale,
-                     build.dtype_code(q), stream)
+                     build.dtype_code(q), int(kv_int8), stream)
     build.check_launch("paged_attention", rc)
     return out
 
@@ -91,9 +99,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
                            softmax_scale: Optional[float] = None):
     """One query token per sequence against a paged KV pool.
 
-    q: (B, 1, H, hd); pools: (num_pages, page, KV, hd); block_tables:
-    (B, P) int32 physical page ids (0 = reserved scratch page); kv_len:
-    (B,) int32.
+    q: (B, 1, H, hd) float32 or bfloat16; pools: (num_pages, page, KV, hd)
+    in q's dtype or int8; block_tables: (B, P) int32 physical page ids
+    (0 = reserved scratch page); kv_len: (B,) int32.
     """
     if not q.is_cuda:
         return paged_decode_plain(q, k_pool, v_pool, block_tables, kv_len,

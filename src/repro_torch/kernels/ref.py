@@ -11,7 +11,9 @@ hold equal to the one-pass version.
 ``rglru_scan`` walks time sequentially, as the Pallas body does, where the
 JAX oracle uses a log-depth associative scan: the two agree to rounding.
 ``moe_gmm`` upcasts to float32 before each product, as the Pallas body
-does, where the JAX oracle multiplies in the operands' dtype.
+does, where the JAX oracle multiplies in the operands' dtype. An int8
+cache or pool is upcast with ``.float()`` to its integer values, scaled
+only where scales are given, as the JAX oracle does.
 
 The backward of the training path has three plain versions beside them:
 ``flash_attention_bwd`` (the explicit formula from the forward's

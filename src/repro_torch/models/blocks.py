@@ -49,6 +49,11 @@ host. ``attn_block`` and ``rglru_block`` return ``(x, cache, aux)``, as the
 reference's blocks: ``aux`` is the MoE layer's load-balancing loss (None
 for a dense feed-forward), which ``model.loss_fn`` adds in ``train``.
 
+A cache may be narrower than the activations (an int8 K/V cache,
+``model.cache_specs(..., kv_dtype="int8")``): every write into it goes
+through ``layers.saturate_cast``, XLA's saturating convert, and the
+attention kernels read it widened (unit scales).
+
 Cache writes in ``chunk`` and ``decode`` are IN PLACE: where the JAX engine
 donates the cache so XLA updates it in place, the port mutates the cache
 leaves it is handed and returns the same dict. ``mask`` (decode only,
@@ -65,7 +70,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import BlockKind, ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, mlp, mlp_specs, rms_norm
+from repro_torch.models.layers import (apply_rope, mlp, mlp_specs, rms_norm,
+                                       saturate_cast)
 from repro_torch.models.param import Spec
 
 Cache = Dict[str, torch.Tensor]
@@ -254,8 +260,8 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
         phys = block_tables.long()[:, tokpos // page]              # (B, S)
         off = (tokpos % page)[None, :].expand(B, S)
         # duplicate padding rows of a chunk group write identical values
-        k_pool[phys, off] = k.to(k_pool.dtype)
-        v_pool[phys, off] = v.to(v_pool.dtype)
+        k_pool[phys, off] = saturate_cast(k, k_pool.dtype)
+        v_pool[phys, off] = saturate_cast(v, v_pool.dtype)
         q_off = pos.to(torch.int32).expand(B).contiguous()
         kv_len = q_off + S
         attn = ops.paged_prefill_attention(q, k_pool, v_pool, block_tables,
@@ -272,8 +278,8 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
             off = posl % page
             # inactive engine rows carry an all-zeros table: their writes
             # land in the reserved scratch page 0
-            k_cache[phys, off] = k[:, 0].to(k_cache.dtype)
-            v_cache[phys, off] = v[:, 0].to(v_cache.dtype)
+            k_cache[phys, off] = saturate_cast(k[:, 0], k_cache.dtype)
+            v_cache[phys, off] = saturate_cast(v[:, 0], v_cache.dtype)
             attn = ops.paged_decode_attention(q, k_cache, v_cache, block_tables,
                                               (pos + 1).to(torch.int32),
                                               impl=impl)
@@ -282,7 +288,7 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
             slot = posl % L
             bidx = torch.arange(B, device=x.device)
             for c, new in ((k_cache, k), (v_cache, v)):
-                c[bidx, slot] = _keep_masked(new[:, 0].to(c.dtype),
+                c[bidx, slot] = _keep_masked(saturate_cast(new[:, 0], c.dtype),
                                              c[bidx, slot], mask)
             if chunk:
                 kv_len = slot + 1

@@ -3,6 +3,12 @@
 Each follows ``repro.models.layers`` op for op, including where values are
 upcast to float32 and cast back, so the port's logits match the reference
 on the same weights.
+
+Two casts of the int8 configurations live here too: ``dequantize``, an
+integer weight leaf at its use (the reference's forward,
+``repro/models/model.py:276-285``), and ``saturate_cast``, every write of
+K/V into a cache of another dtype (XLA's convert, which the reference's
+``astype`` is).
 """
 from __future__ import annotations
 
@@ -12,6 +18,36 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.models.param import Spec
+
+WEIGHT_STEP = 0.01   # the value of one step of an integer weight
+
+
+def dequantize(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An integer weight leaf upcast at its use, as the reference's
+    ``leaf.astype(dtype) * asarray(0.01, dtype)``: the step rounded to
+    ``dtype`` first, then one product rounded to ``dtype``. One
+    elementwise pass (int8 in, ``dtype`` out, the product in float32): an
+    int8 value and a bf16 step multiply exactly in float32, so rounding
+    once gives the reference's bits, on the CPU and on the card. A
+    floating leaf is returned as it is, uncopied."""
+    if w.is_floating_point():
+        return w
+    step = float(torch.tensor(WEIGHT_STEP, dtype=dtype))
+    return torch.mul(w, step, out=torch.empty(w.shape, dtype=dtype, device=w.device))
+
+
+def saturate_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in ``dtype`` for a store into a cache of that dtype, as XLA's
+    convert: to an integer dtype it maps NaN to 0, saturates to the
+    dtype's range and truncates toward zero, where ``Tensor.to`` wraps
+    (bf16 127.9 rounds to 128, which ``.to(torch.int8)`` makes -128). The
+    same elementwise ops on the CPU and on the card. To a floating dtype
+    it is ``Tensor.to``."""
+    if x.dtype == dtype or dtype.is_floating_point or not x.is_floating_point():
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    x = torch.nan_to_num(x, nan=0.0).clamp(info.min, info.max)
+    return x.trunc().to(dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -72,8 +108,13 @@ def embed_specs(vocab: int, d: int, tie: bool) -> Dict[str, Spec]:
     return specs
 
 
-def embed(params, tokens: torch.Tensor, d: int) -> torch.Tensor:
+def embed(params, tokens: torch.Tensor, d: int,
+          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The tokens' rows of the table times sqrt(d). An integer table is
+    dequantized to ``dtype`` (the model's) in the gathered rows only."""
     out = params["tok"][tokens]
+    if not out.is_floating_point():
+        out = dequantize(out, dtype)
     # sqrt(d) rounded to the table's dtype, as the reference multiplies by
     # jnp.asarray(d ** 0.5, dtype); rounded on the host, so no device sync
     scale = float(torch.tensor(d ** 0.5, dtype=out.dtype))
@@ -126,8 +167,10 @@ def unembed(params, x: torch.Tensor, tie: bool) -> torch.Tensor:
     (the tied table is read transposed, in place); under autograd through
     ``_UnembedFn``. Elsewhere the operands are upcast (``aten::mm.dtype``
     is CUDA-only), the same exact products, which autograd differentiates
-    as the reference does."""
-    w = params["tok"].t() if tie else params["head"]
+    as the reference does. An integer table is dequantized to x's dtype
+    at this use."""
+    w = dequantize(params["tok"], x.dtype).t() if tie else \
+        dequantize(params["head"], x.dtype)
     if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
         x2 = x.reshape(-1, x.shape[-1])
         if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):

@@ -36,9 +36,20 @@ saves the outputs of matrix products without batch dimensions
 the rest, the reference's ``dots_with_no_batch_dims_saveable``; and the
 MoE layers' aux loss is summed in layer order for ``loss_fn``.
 
+The int8 configurations of the reference are served too. Integer weight
+leaves (``narrow_weights`` makes them from a tree) are upcast at their use,
+a layer at a time (``layers.dequantize``, in ``_apply_block``, ``embed``,
+``unembed``, the final norm and the encoder), as the reference's forward
+computes them, so no bf16 copy of the whole tree is ever held; training
+refuses them. ``kv_dtype`` narrows the attention K/V leaves of a cache
+(global pools, dense caches and rings), as the reference's ``cache_specs``
+and ``paged_cache_specs`` do; it is a model-API configuration, and the
+engine takes none, as the reference's.
+
 Public API (same names and arguments as the reference, plus ``device``):
-  param_specs(cfg), init_model_params(cfg, seed, device)
-  cache_specs(cfg, batch, seq_len), init_cache(cfg, batch, seq_len, device)
+  param_specs(cfg), init_model_params(cfg, seed, device), narrow_weights
+  cache_specs(cfg, batch, seq_len, kv_dtype),
+  init_cache(cfg, batch, seq_len, device, kv_dtype)
   paged_cache_specs(...), init_paged_cache(...), paged_leaf_flags(cfg, cache)
   chunked_prefill_supported(cfg)
   forward(cfg, params, batch, mode=...), prefill, decode_step, prefill_chunk
@@ -51,6 +62,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Iterator, Optional, Tuple
 
+import dataclasses
 import functools
 
 import torch
@@ -58,9 +70,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import BlockKind, Family, ModelConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.models import blocks as B
-from repro_torch.models.layers import (cross_entropy, embed, embed_specs, rms_norm,
+from repro_torch.models.layers import (WEIGHT_STEP, cross_entropy, dequantize,
+                                       embed, embed_specs, rms_norm,
                                        rope_tables, unembed)
 from repro_torch.models.param import Spec, init_params, iter_leaves, map_tree
 
@@ -145,17 +158,45 @@ def init_model_params(cfg: ModelConfig, seed: int = 0,
                        resolve_device(device))
 
 
-def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
+def narrow_weights(params, dtype: str = "int8"):
+    """Integer weights from a floating tree: the concrete form of the
+    reference's ``_quantize_abstract`` (``launch/dryrun.py:175-180``).
+    Every leaf with 2 or more dimensions of the tree as laid out (so the
+    per-period norms stacked on their periods too, as in the reference's
+    abstract tree) becomes ``dtype`` holding ``clamp(round(w / 0.01), -127,
+    127)``; 1-d leaves stay. For the tests and the chip smoke: weights
+    drawn from a seed, narrowed; the forward upcasts them at use."""
+    dt = torch_dtype(dtype)
+
+    def narrow(_, w: torch.Tensor) -> torch.Tensor:
+        if w.dim() < 2:
+            return w
+        return torch.round(w.float() / WEIGHT_STEP).clamp_(-127, 127).to(dt)
+    return map_tree(narrow, params)
+
+
+def _narrow_kv(specs: Dict[str, Spec], kv_dtype: Optional[str]):
+    """The attention ``k``, ``v`` leaves of one block's cache specs in
+    ``kv_dtype`` (the reference's rule; cross K/V and state stay)."""
+    if not kv_dtype:
+        return specs
+    return {k: dataclasses.replace(v, dtype=kv_dtype) if k in ("k", "v")
+            else v for k, v in specs.items()}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
+                kv_dtype: Optional[str] = None) -> Dict[str, Any]:
     """Dense per-slot decode caches: global K/V of ``seq_len`` slots, ring
-    K/V of ``min(window or chunk, seq_len)``, RG-LRU and xLSTM state."""
-    return _tree(cfg, lambda kind: _block_cache_specs(cfg, kind, batch,
-                                                      seq_len))
+    K/V of ``min(window or chunk, seq_len)``, RG-LRU and xLSTM state.
+    ``kv_dtype`` (e.g. "int8"): the attention K/V leaves' dtype."""
+    return _tree(cfg, lambda kind: _narrow_kv(
+        _block_cache_specs(cfg, kind, batch, seq_len), kv_dtype))
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device: DeviceLike = None):
-    return init_params(cache_specs(cfg, batch, seq_len), 0, cfg.dtype,
-                       resolve_device(device))
+               device: DeviceLike = None, kv_dtype: Optional[str] = None):
+    return init_params(cache_specs(cfg, batch, seq_len, kv_dtype), 0,
+                       cfg.dtype, resolve_device(device))
 
 
 # ----------------------------------------------------------------------
@@ -165,25 +206,28 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 # O(window) per sequence already
 # ----------------------------------------------------------------------
 def paged_cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
-                      num_pages: int, page_size: int) -> Dict[str, Any]:
+                      num_pages: int, page_size: int,
+                      kv_dtype: Optional[str] = None) -> Dict[str, Any]:
     """Like :func:`cache_specs`, with global-attention k/v replaced by
     pooled pages (each stacked layer owns its pool on the leading axis,
-    addressed by the same block table)."""
+    addressed by the same block table); ``kv_dtype`` narrows the pools and
+    the per-slot rings alike."""
     pool = Spec((num_pages, page_size, cfg.n_kv_heads, cfg.hd), init="zeros")
 
     def bcs(kind):
         specs = _block_cache_specs(cfg, kind, batch, seq_len)
         if kind == BlockKind.ATTN:
             specs.update(k=pool, v=pool)
-        return specs
+        return _narrow_kv(specs, kv_dtype)
     return _tree(cfg, bcs)
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, seq_len: int,
                      num_pages: int, page_size: int,
-                     device: DeviceLike = None):
+                     device: DeviceLike = None,
+                     kv_dtype: Optional[str] = None):
     return init_params(paged_cache_specs(cfg, batch, seq_len, num_pages,
-                                         page_size),
+                                         page_size, kv_dtype),
                        0, cfg.dtype, resolve_device(device))
 
 
@@ -246,12 +290,13 @@ def _encode(cfg: ModelConfig, params, frames: torch.Tensor,
     rope_cs = rope_tables(torch.arange(F_, device=frames.device)[None, :],
                           cfg.hd, cfg.rope_theta)
     x = frames
+    wdt = torch_dtype(cfg.dtype)
     layers = {k: v.unbind(0) for k, v in enc["blocks"].items()}
     for i in range(cfg.n_encoder_layers):
-        p = {k: v[i] for k, v in layers.items()}
+        p = {k: dequantize(v[i], wdt) for k, v in layers.items()}
         x, _, _ = B.attn_block(cfg, BlockKind.ATTN, p, x, mode="train",
                                causal=False, rope_cs=rope_cs, impl=impl)
-    return rms_norm(x, enc["final_ln"])
+    return rms_norm(x, dequantize(enc["final_ln"], wdt))
 
 
 def _add(aux: Optional[torch.Tensor], a: Optional[torch.Tensor]):
@@ -265,7 +310,10 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p, x: torch.Tensor, *,
                  mode: str, cache=None, pos=None, cross_x=None, cache_len=None,
                  impl=None, block_tables=None, rope_cs=None, mask=None):
     """One layer of any kind: (x, cache, aux or None), as the reference's
-    ``_apply_block``."""
+    ``_apply_block``. Integer weight leaves are dequantized here, for this
+    layer alone; the copies die with the call."""
+    wdt = torch_dtype(cfg.dtype)
+    p = {k: dequantize(v, wdt) for k, v in p.items()}
     if kind == BlockKind.RGLRU:
         return B.rglru_block(cfg, p, x, mode=mode, cache=cache, impl=impl,
                              mask=mask)
@@ -386,8 +434,14 @@ def forward_with_aux(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
     if mode in ("chunk", "decode") and cache is None:
         raise ValueError(f"{mode} mode needs a cache")
+    if mode == "train" and any(not t.is_floating_point()
+                               for _, t in iter_leaves(params)):
+        raise TypeError(
+            "train mode takes floating weights: integer (narrowed) weights "
+            "are served only, as jax.grad cannot differentiate them either")
+    wdt = torch_dtype(cfg.dtype)
     tokens = batch["tokens"]
-    x = embed(params["embed"], tokens, cfg.d_model)
+    x = embed(params["embed"], tokens, cfg.d_model, wdt)
     n_patches = 0
     if cfg.family == Family.VLM and mode != "decode" and "patches" in batch:
         patches = batch["patches"].to(x.dtype)
@@ -426,7 +480,7 @@ def forward_with_aux(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
                                     block_tables=block_tables,
                                     rope_cs=rope_cs, mask=mask)
             new.setdefault(key, []).append(nc)
-    x = rms_norm(x, params["final_ln"])
+    x = rms_norm(x, dequantize(params["final_ln"], wdt))
     if n_patches:
         x = x[:, n_patches:]
     if mode in ("prefill", "chunk"):

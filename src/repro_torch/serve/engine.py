@@ -57,6 +57,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokenizer import EOS
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as M
+from repro_torch.models.layers import saturate_cast
 from repro_torch.models.param import iter_leaves, map_tree
 from repro_torch.obs import TRACER, torch_profile
 from repro_torch.serve.paging import BlockAllocator, pages_for
@@ -99,13 +100,15 @@ def install_slot(cache, slot_cache, slot: int,
     """Install a B=1 prefill cache into the engine's cache, in place: each
     per-slot leaf is written into ``slot``; each pooled global-attention
     K/V leaf (path in ``pooled``) scatters its rows of positions
-    [0, npages * page) to ``pages`` in order, zero-padded past the prompt."""
+    [0, npages * page) to ``pages`` in order, zero-padded past the prompt.
+    A leaf narrower than the prefill's is written through
+    ``saturate_cast``, as every cache write of the model is."""
     for (path, big), (_, small) in zip(iter_leaves(cache),
                                        iter_leaves(slot_cache)):
         ax = M.slot_batch_axis(path)
         seg = small.select(ax, 0)
         if path not in pooled:
-            big.select(ax, slot).copy_(seg)
+            big.select(ax, slot).copy_(saturate_cast(seg, big.dtype))
             continue
         # seg: (n_periods, L, KV, hd) under blocks/, (L, KV, hd) under rem/;
         # big: (n_periods, num_pages, page, KV, hd) or (num_pages, page, ..)
@@ -116,9 +119,9 @@ def install_slot(cache, slot_cache, slot: int,
         seg = seg.narrow(ax, 0, span)
         seg = seg.reshape(seg.shape[:ax] + (npages, page) + seg.shape[ax + 1:])
         if ax == 1:
-            big[:, pages] = seg.to(big.dtype)
+            big[:, pages] = saturate_cast(seg, big.dtype)
         else:
-            big[pages] = seg.to(big.dtype)
+            big[pages] = saturate_cast(seg, big.dtype)
 
 
 class ServingEngine:

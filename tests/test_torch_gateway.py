@@ -264,6 +264,38 @@ def priced_accelerator(pkg, make):
             spec.invocation_joules(2.0)]
 
 
+# ------------------------------------ tests/test_hetero_placement.py
+def engine_backlog_by_type_reports_registered_spec(pkg, make):
+    """The twin of test_engine_backlog_by_type_reports_registered_spec: a
+    spec given to the backend becomes its reported type and arms the
+    metrics' pricing."""
+    eb = make(pkg, n_workers=1, accelerator_spec=pkg.A.AcceleratorSpec(
+        type="host-priced", slots=1, cost_per_hour=0.25, active_watts=65.0))
+    bt = eb.backlog_by_type()
+    assert set(bt) == {"host-priced"}
+    assert bt["host-priced"]["free"] >= 1 and bt["host-priced"]["queued"] == 0
+    assert eb.metrics._acc_pricing["host-priced"].cost_per_hour == 0.25
+    return [sorted(bt), sorted(bt["host-priced"]), eb.accelerator]
+
+
+def accelerator_spec_prices_invocations(pkg, make):
+    """Invocations served under a spec run on its type and are priced from
+    their ELat: active_watts x ELat joules each; without a spec the named
+    ``accelerator`` is reported."""
+    spec = pkg.A.AcceleratorSpec(type="card-x", cost_per_hour=36.0, active_watts=700.0)
+    gw = pkg.G.Gateway(make(pkg, n_workers=1, accelerator_spec=spec))
+    gw.register(toy_real_runtime(pkg))
+    futs = [gw.invoke("toy", {"x": i}) for i in range(2)]
+    gw.gather(futs)
+    row = gw.metrics.accelerator_usage()["card-x"]
+    busy = sum(f.invocation.elat for f in futs)
+    assert row["energy_joules"] == pytest.approx(700.0 * busy)
+    assert row["cost_dollars"] == pytest.approx(spec.invocation_dollars(busy))
+    named = make(pkg, n_workers=1, accelerator="card-y")
+    return [[f.invocation.accelerator for f in futs], row["n_invocations"],
+            sorted(named.backlog_by_type())]
+
+
 # -------------------------------------- tests/test_engine_concurrency.py
 def micro_batches(pkg, make):
     rdef, calls = counting_batch_runtime(pkg, max_batch=4)
@@ -497,7 +529,9 @@ def worker_crash_exhausted(pkg, make):
 
 SCENARIOS = [cold_then_warm, distinct_configs, lru_eviction, runtime_failure,
              cold_start_failure, setupless, profile_only_rejected,
-             monotone_timestamps, priced_accelerator, micro_batches, max_batch_of_runtime,
+             monotone_timestamps, priced_accelerator,
+             engine_backlog_by_type_reports_registered_spec,
+             accelerator_spec_prices_invocations, micro_batches, max_batch_of_runtime,
              pad_to_bucket, incompatible_configs, max_wait_deadline,
              two_workers, per_key_serialised, per_event_wait, queue_shedding,
              batch_failure, submit_after_shutdown, unserializable_result,

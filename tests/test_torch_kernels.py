@@ -788,6 +788,86 @@ def test_decode_kernel_int8_matches_plain(cuda, G, hd, dtype):
     _held(got, want.to(got.dtype), dtype)
 
 
+def _held_rel(got, want, dtype):
+    """Outputs of int8 values: each sequence (row b) held to its own scale,
+    its max abs error within the dtype's tolerance of its largest output
+    and its relative Frobenius error within the same tolerance (a row of
+    one key returns a V row, up to 127; a row of a thousand keys averages
+    to a few units, and an error there must not hide under the first)."""
+    for b, (g, w) in enumerate(zip(got.float(), want.float())):
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        rel = (g - w).norm().item() / max(w.norm().item(), 1e-30)
+        assert err <= TOL[dtype] * scale and rel <= TOL[dtype], \
+            f"row {b}: max abs err {err} > {TOL[dtype]} x {scale} or relative error {rel}"
+
+
+def _int8_kv(rng, shape):
+    """K/V drawn N(0, 40^2) and narrowed as the model's cache writes are
+    (``saturate_cast``): the whole int8 range, some values saturated."""
+    from repro_torch.models.layers import saturate_cast
+    return saturate_cast(torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 40),
+                         torch.int8).numpy()
+
+
+# an int8 pool (kv_dtype="int8") through K1's int8 instances: decode (the
+# split body's FMA instance) and chunks (bf16: the tensor-core body staging
+# int8 tiles; float32: the tiled body), at granite's and qwen's widths and
+# recurrentgemma's head dim
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("G,KV,hd", [(4, 8, 64), (5, 8, 128), (10, 1, 256)])
+@pytest.mark.parametrize("C", [1, 37, 256])
+def test_paged_kernel_int8_pool_matches_plain(cuda, G, KV, hd, dtype, C):
+    rng = np.random.default_rng(C + 7 * G + hd)
+    page, P = 16, 80
+    kv_len = np.array([1, 64, 65, 300, 1024, 1], np.int32) if C == 1 else \
+        np.array([C, C + 23, C + 256, C + 768], np.int32)
+    q, kp, _, bt, kl = _paged_inputs(rng, len(kv_len), C, G * KV, KV, hd, page, P,
+                                     kv_len, dtype)
+    q = q * 0.02     # scores over int8 keys a few units wide
+    k8, v8 = _int8_kv(rng, kp.shape), _int8_kv(rng, kp.shape)
+    args = [_torch(q, dtype, cuda)] + [torch.from_numpy(x).to(cuda)
+                                       for x in (k8, v8, bt, kl)]
+    if C == 1:
+        n = pa.paged_decode_attention.launches
+        got = pa.paged_decode_attention(*args)
+        want = ref.paged_decode_attention(args[0].float(), *args[1:])
+        assert pa.paged_decode_attention.launches == n + 1
+    else:
+        qo = torch.from_numpy(kv_len - C).to(cuda)
+        n = pa.paged_prefill_attention.launches
+        got = pa.paged_prefill_attention(*args, qo)
+        want = ref.paged_prefill_attention(args[0].float(), *args[1:], qo)
+        assert pa.paged_prefill_attention.launches == n + 1
+    torch.cuda.synchronize()
+    _held_rel(got, want.to(got.dtype), dtype)
+    with pytest.raises(TypeError):          # an int8 K with a bf16 V pool
+        pa.paged_decode_attention(args[0][:, :1].contiguous(), args[1],
+                                  args[2].bfloat16(), *args[3:])
+
+
+# K3 on an int8 cache with no scales (the model's int8 rings and dense
+# caches pass none): ones, as the reference's decode_attention defaults
+# them, bit for bit the launch with ones tensors
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("G,KV,hd,S", [(10, 1, 256, 2048), (4, 8, 64, 1024)])
+def test_decode_kernel_int8_without_scales(cuda, G, KV, hd, S, dtype):
+    rng = np.random.default_rng(G + S)
+    kv_len = np.array([1, 63, 64, 65, 700, S, S // 2, 2], np.int32)
+    q, _, _, kl = _decode_inputs(rng, G, hd, KV=KV, S=S, kv_len=kv_len)
+    k8, v8 = (_int8_kv(rng, (len(kv_len), S, KV, hd)) for _ in range(2))
+    args = [_torch(q * 0.02, dtype, cuda)] + [torch.from_numpy(x).to(cuda)
+                                              for x in (k8, v8, kl)]
+    got = da.decode_attention(*args)
+    ones = torch.ones((len(kv_len), KV), dtype=torch.float32, device=cuda)
+    with_ones = da.decode_attention(*args, k_scale=ones, v_scale=ones)
+    want = ref.decode_attention(args[0].float(), *args[1:])
+    torch.cuda.synchronize()
+    _held_rel(got, want.to(got.dtype), dtype)
+    assert torch.equal(got, with_ones)
+
+
 # the full-width instances of the dense catalogue's two served archs:
 # deepseek-7b (32 heads over 32 kv heads, G = 1, hd 128) through K2 and K1
 # decode; qwen2.5-14b (40 over 8, G = 5, hd 128) through K1's 256-token
@@ -1318,8 +1398,8 @@ def test_kernel_wrappers_reject_bad_operands(cuda):
     kl = torch.ones((2,), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):                   # kv_len must be int32
         da.decode_attention(q, k, k, kl.long())
-    with pytest.raises(ValueError):                   # int8 needs scales
-        da.decode_attention(q, k.to(torch.int8), k.to(torch.int8), kl)
+    with pytest.raises(TypeError):                    # int8 k, float32 v
+        da.decode_attention(q, k.to(torch.int8), k, kl)
     with pytest.raises(TypeError):                    # bf16 cache, f32 q
         da.decode_attention(q, k.bfloat16(), k.bfloat16(), kl)
     a = torch.zeros((1, 4, 8), device=cuda)
