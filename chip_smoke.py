@@ -339,6 +339,33 @@ Phases (each raises on failure, so the script exits non-zero):
    times. Phase 1 also holds every ``paged_prefill_mma_kernel`` instance
    (bf16 and int8 K/V) to HMMA and no spill.
 
+12. The sharded paths, printed under ``phase 12`` after phase 11: worlds
+   of 8 processes sharing this card over gloo (``launch.mesh.run_world``,
+   spawned; each rank imports this file and loads the libraries phase 1
+   built; NCCL refuses two ranks on one device), each after its
+   one-process run on the card: (a) grok-1 cut to 1 layer, every width,
+   the Megatron MoE on a (2, 4) data x model mesh, and (b) llama4-scout
+   cut to 2 layers with 4 experts, the all-to-all MoE on (2, 4) at
+   capacity factors 4 (no copy drops: held) and 1.25 (drops printed), in
+   one world: B=4 S=512, the whole-sequence forward under ``no_grad``,
+   the ranks sharing the one-process run's expert choices (the flips
+   their own would make printed), each rank's logits held to 5% of
+   max|logit|; (c) granite-3-2b cut to 4 layers, 2 steps of
+   ``make_train_step(cfg, opt, mesh)`` from ``init_sharded`` on (4, 2),
+   B=8 S=1024, losses and every leaf against the one-process step and
+   every rank's copy of a replicated shard against the other ranks'; then
+   the same steps twice more, each with a fault planted in the
+   collectives (``P12_FAULTS``: a model rank's part of an input gradient
+   left unsummed; the weights' gradients left unsummed over the data
+   axes), which the same checks must fail, so a check that cannot see
+   such a fault fails the run. Then
+   K2 (forward and backward) and K4 at the shard shapes those worlds ran,
+   against their plain versions, timed beside SDPA and ``_grouped_mm``;
+   their launches are every rank's counts in the worlds' driven runs,
+   summed. Each line gives the rank's and the card's peak memory, and the
+   sharded seconds as costs of 8 processes time-slicing one card, not
+   scaling figures.
+
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -4975,7 +5002,8 @@ def int8_model_params(torch, cfg, seed: int, dev):
         out = torch.empty(spec.shape, dtype=torch.int8, device=dev)
         stacked = path.split("/")[0] in ("blocks", "encoder")
         for i in range(spec.shape[0] if stacked else 1):
-            one = Spec(spec.shape[1:] if stacked else spec.shape, init=spec.init,
+            one = Spec(spec.shape[1:] if stacked else spec.shape,
+                       spec.axes[1:] if stacked else spec.axes, init=spec.init,
                        scale=scale, dtype=spec.dtype)
             w = init_params({f"{path}/{i}": one}, seed, cfg.dtype, dev)[f"{path}/{i}"]
             q = M.narrow_weights({"w": w[None] if stacked else w})["w"]
@@ -5113,6 +5141,670 @@ def example_twins_run() -> None:
             f"{time.perf_counter() - t0:.1f} s, {len(lines)} lines, last: {lines[-1]!r}")
         for line in lines[:-1]:
             log(f"    {line}")
+
+
+# ----------------------------------------------------------------------
+# phase 12: the sharded paths, 8 processes sharing this card over gloo
+# ----------------------------------------------------------------------
+P12_WORLD = 8
+P12_TIMEOUT = 420                 # seconds, each world
+P12_B, P12_S = 4, 512             # (a), (b): the whole-sequence forward
+P12_TRAIN_B, P12_TRAIN_S, P12_TRAIN_STEPS = 8, 1024, 2     # (c)
+P12_LR = 3e-4                     # the launcher's default rate
+# (c)'s tolerances sit between the true step's readings and its planted
+# faults' on the H100 (PERF.md, PR 28): losses (|loss| ~ 10 in bf16) 1.5e-3
+# apart against 1.8e-2 and 2.9e-2; the worst leaf's update ratio 0.0039
+# against 0.44 and 0.61; replicas equal bit for bit against ~6.6e-4 apart
+P12_LOSS_TOL = 5e-3               # (c): the largest loss difference of a step
+P12_UPDATE_TOL = 0.04             # (c): mean |p - p_ref| over mean |p_ref - p0|
+P12_SPREAD_TOL = 0.0              # (c): two ranks' copies of a replicated shard
+# (c)'s planted faults, each run after the true step from the same start:
+# the check must fail on each, or it is blind to the fault
+P12_FAULTS = {
+    "model_unsummed": "copy_to's backward sum over model dropped (each model "
+                      "rank keeps its own part of the heads' and the MLP's input gradient)",
+    "data_unsummed": "the weights' gradients left unsummed over the data axes (each "
+                     "data shard's rows alone, a quarter of the batch)",
+}
+P12_ROWS = ("flash_p12_grok", "flash_p12_l4", "flash_p12_granite", "flash_bwd_p12_granite",
+            "gmm_p12_grok", "gmm_p12_grok_down")
+
+
+def p12_configs():
+    """(a) grok-1 cut to 1 layer; (b) llama4-scout cut to its ATTN and
+    CHUNKED layers with 16 experts cut to 4 (the all-to-all branch needs
+    one expert a model rank); (c) granite-3-2b cut to 4 of its 40
+    layers. Every width as published."""
+    from repro_torch.configs import get_config
+    return {"a": dataclasses.replace(get_config("grok-1-314b"), n_layers=1),
+            "b": dataclasses.replace(get_config("llama4-scout-17b-a16e"), n_layers=2,
+                                     n_experts=4),
+            "c": dataclasses.replace(get_config("granite-3-2b"), n_layers=4)}
+
+
+class RouteLog:
+    """While open, records the MoE router's top-k of every call (the
+    routed rows, in order), as ``B.route`` returns it. With ``forced``
+    (layer -> the rows' top-k of the one-process run) each call takes the
+    forced choices, its weights renormalised from its own probabilities,
+    and counts the decisions where its own choice differs (a bf16 router
+    near tie flips an expert: ``shared_routes``, across processes)."""
+
+    def __init__(self, forced=None):
+        self.calls, self.forced, self.differ, self.all = [], forced, 0, 0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import blocks as B
+        self.B, self.route = B, B.route
+
+        def recording(cfg, params, xf):
+            probs, top_p, top_i = self.route(cfg, params, xf)
+            if self.forced is not None:
+                want = torch.from_numpy(self.forced(len(self.calls))).to(top_i.device)
+                self.all += want.shape[0]
+                self.differ += int((want != top_i).any(-1).sum())
+                top_i = want
+                top_p = probs.gather(-1, want)
+                top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+            self.calls.append(top_i.detach().cpu().numpy())
+            return probs, top_p, top_i
+        B.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.B.route = self.route
+
+
+class GmmLog:
+    """While open, counts K4's launches by weight shape (K, N) (the
+    wrapper's count grows by one a launch)."""
+
+    def __init__(self):
+        self.by_shape = collections.Counter()
+
+    def __enter__(self):
+        from repro_torch.kernels import moe_gmm as gm
+        from repro_torch.kernels import ops
+        self.ops, self.orig, kernel = ops, ops.moe_gmm, gm.moe_gmm
+
+        def counted(x, w, gs, **kw):
+            before = kernel.launches
+            out = self.orig(x, w, gs, **kw)
+            if kernel.launches > before:
+                self.by_shape[tuple(w.shape[1:])] += kernel.launches - before
+            return out
+        ops.moe_gmm = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.moe_gmm = self.orig
+
+
+def p12_serial_params(torch, cfg, mesh, rules, dev):
+    """The sharded tree of ``init_model_params(cfg, 0)`` (each leaf from its
+    own generator, the same weights), drawn one rank at a time: eight ranks
+    drawing grok-1's 3.2 GB expert leaves (and their float32 draws) at once
+    would not fit the card they share."""
+    import torch.distributed as dist
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as S
+    from repro_torch.models.param import init_leaf, iter_leaves, map_tree
+    placed = dict(iter_leaves(S.param_shardings(M.param_specs(cfg), rules, mesh)))
+
+    def leaf(path, spec):
+        out = None
+        for r in range(dist.get_world_size()):
+            if r == dist.get_rank():
+                out = S.shard_tensor(init_leaf(path, spec, 0, cfg.dtype, dev), mesh,
+                                     placed[path])
+                torch.cuda.empty_cache()
+            dist.barrier()
+        return out
+    return map_tree(leaf, M.param_specs(cfg))
+
+
+def p12_local_rows(mesh, plan, B):
+    """The global batch rows of this rank's shard of a (B, ...) tensor."""
+    from repro_torch.models import sharding as S
+    n = 1
+    idx = 0
+    for a in plan.batch:          # mesh order: the outer axis first
+        size = S.mesh_axis_sizes(mesh)[a]
+        idx = idx * size + mesh.get_local_rank(a)
+        n *= size
+    b = B // n
+    return slice(idx * b, (idx + 1) * b)
+
+
+def p12_forward_rank(torch, job, mesh, dev):
+    """(a) / (b) on one rank: the whole-sequence forward (``mode="train"``
+    under ``no_grad``) at each capacity factor of the job, counts zeroed
+    just before each run, the expert choices the one-process run's
+    (``RouteLog``); this rank's logits held against that run's (read from
+    disk)."""
+    import torch.distributed as dist
+    from repro_torch.models import blocks as B
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as S
+    cfg = p12_configs()[job["check"]]
+    rules = S.rules_for("train", moe_a2a=job["a2a"])
+    params = p12_serial_params(torch, cfg, mesh, rules, dev)
+    tokens = torch.from_numpy(np.load(job["tokens"])).to(dev)
+    ref_logits = np.load(job["ref_logits"], mmap_mode="r")
+    ref_routes = np.load(job["ref_routes"])            # (layers, B*S, k)
+    plan = S.make_plan(mesh, rules, P12_B)
+    rows = p12_local_rows(mesh, plan, P12_B)
+    out = []
+    for cf in job["capacity"]:
+        B.MOE_A2A_CAPACITY_FACTOR = cf
+        dist.barrier()
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # routes: the Megatron body routes its rows' tokens (B_loc * S); the
+        # all-to-all body this model rank's slice of the sequence
+        if job["a2a"]:
+            m = S.mesh_axis_sizes(mesh)["model"]
+            j = mesh.get_local_rank("model")
+            pos = np.arange(j * P12_S // m, (j + 1) * P12_S // m)
+        else:
+            pos = np.arange(P12_S)
+        tok_ids = (np.arange(rows.start, rows.stop)[:, None] * P12_S + pos[None, :]).reshape(-1)
+        forced = lambda layer: ref_routes[layer][tok_ids]  # noqa: E731
+        with torch.no_grad(), S.axis_rules(mesh, rules), RouteLog(forced) as rl, \
+                GmmLog() as gl:
+            logits, _, aux = M.forward_with_aux(cfg, params, {"tokens": tokens},
+                                                mode="train")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launches()
+        local = logits.to_local().float()
+        # this rank's logits: its batch rows, its vocab columns
+        vtp = [a for a, pl in zip(mesh.mesh_dim_names, logits.placements) if pl.is_shard(2)]
+        V = local.shape[-1]
+        c0 = mesh.get_local_rank(vtp[0]) * V if vtp else 0
+        want = torch.from_numpy(np.array(ref_logits[rows, :, c0:c0 + V])).to(dev)
+        drops = 0
+        if job["a2a"]:
+            for got in rl.calls:
+                T, k = got.shape
+                C = int(np.ceil(T * k / m * cf))
+                per_e = np.bincount(got.reshape(-1), minlength=cfg.n_experts)
+                drops += int(np.maximum(per_e - C, 0).sum())
+        err = float((local - want).abs().max())
+        # the Megatron body's model ranks route the same rows: count them once
+        once = float(job["a2a"] or mesh.get_local_rank("model") == 0)
+        stats = torch.tensor([err, float(want.abs().max()), once * rl.differ,
+                              once * rl.all, float((~torch.isfinite(local)).sum()),
+                              float(drops)], device=dev)
+        gathered = [torch.zeros_like(stats) for _ in range(dist.get_world_size())]
+        dist.all_gather(gathered, stats)
+        g = torch.stack(gathered).cpu().numpy()
+        out.append(dict(check=job["check"], capacity=cf, secs=secs, counts=counts,
+                        gmm=dict(gl.by_shape),
+                        err=float(g[:, 0].max()), scale=float(g[:, 1].max()),
+                        differ=int(g[:, 2].sum()), decisions=int(g[:, 3].sum()),
+                        nonfinite=int(g[:, 4].sum()), drops=int(g[:, 5].sum()),
+                        aux=float(aux.to_local()),
+                        local_logits=tuple(local.shape),
+                        peak=torch.cuda.max_memory_allocated()))
+        del logits, local, want
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def p12_planted(fault):
+    """While open, the sharded step runs with ``fault`` (a key of
+    ``P12_FAULTS``) planted in the port's collectives; None plants
+    nothing."""
+    from torch.distributed.tensor import Replicate
+    from repro_torch.models import sharding as S
+    saved = (S._CopyTo.backward, S.Plan.grad)
+    if fault == "model_unsummed":
+        S._CopyTo.backward = staticmethod(lambda ctx, grad: (grad, None))
+    elif fault == "data_unsummed":
+        grad = S.Plan.grad
+
+        def unsummed(plan, tp_dim, partial_on_model=False):
+            return [Replicate() if a in plan.batch else pl for a, pl in
+                    zip(plan.mesh.mesh_dim_names, grad(plan, tp_dim, partial_on_model))]
+        S.Plan.grad = unsummed
+    try:
+        yield
+    finally:
+        S._CopyTo.backward, S.Plan.grad = saved
+
+
+def p12_replica_spread(torch, params, mesh) -> float:
+    """The largest difference between two ranks' copies of the same shard
+    of a leaf, over every leaf and every mesh dim it is replicated on."""
+    import torch.distributed as dist
+    from repro_torch.models.param import iter_leaves
+    worst = 0.0
+    for _, t in iter_leaves(params):
+        local = t.to_local().float().contiguous()
+        for i, pl in enumerate(t.placements):
+            if pl.is_replicate():
+                group = mesh.get_group(i)
+                parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
+                dist.all_gather(parts, local, group=group)
+                worst = max(worst, max(float((q - parts[0]).abs().max()) for q in parts))
+    return worst
+
+
+def p12_train_rank(torch, job, mesh, dev):
+    """(c) on one rank: ``make_train_step(cfg, opt, mesh)`` from
+    ``init_sharded`` (seed 0), the launcher's batches, counts zeroed just
+    before the true run's steps and read just after; then the same run
+    with each planted fault (``P12_FAULTS``). Per run: each leaf's final
+    shard against the one-process step's (read from disk), the update's
+    mean size summed over the mesh with each element counted once, and
+    the largest difference between replicas."""
+    import torch.distributed as dist
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from repro_torch.models.param import iter_leaves
+    from repro_torch.train.optimizer import AdamWConfig, _counts_here
+    from repro_torch.train.train_loop import init_sharded, make_train_step
+    cfg = p12_configs()["c"]
+    ocfg = AdamWConfig(lr=P12_LR, warmup_steps=1, total_steps=P12_TRAIN_STEPS)
+    batches = np.load(job["batches"])
+    runs, counts = {}, None
+    for fault in (None,) + tuple(P12_FAULTS):
+        params, state, _, _, _ = init_sharded(cfg, ocfg, mesh, seed=0, device=dev)
+        init = {p: t.to_local().clone() for p, t in iter_leaves(params)}
+        step = make_train_step(cfg, ocfg, mesh, device=dev)
+        dist.barrier()
+        if fault is None:
+            zero_launches()
+        losses, secs = [], []
+        with p12_planted(fault):
+            for i in range(P12_TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, metrics = step(params, state,
+                                              {"tokens": batches["tokens"][i],
+                                               "labels": batches["labels"][i]})
+                losses.append(float(metrics["loss"]))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        if fault is None:
+            counts = launches()
+        leaves = {}
+        for path, t in iter_leaves(params):
+            shape, off = compute_local_shape_and_global_offset(t.shape, mesh, t.placements)
+            sl = tuple(slice(o, o + n) for o, n in zip(off, shape))
+            ref = np.load(f"{job['ref_dir']}/{path.replace('/', '.')}.npy", mmap_mode="r")
+            want = torch.from_numpy(np.array(ref[sl])).to(dev)
+            got, p0 = t.to_local().float(), init[path].float()
+            once = float(_counts_here(t))
+            v = torch.tensor([float((got - want).abs().sum()) * once,
+                              float((want - p0).abs().sum()) * once,
+                              float((got - want).abs().max())], device=dev)
+            sums, maxes = v[:2].clone(), v[2:].clone()
+            dist.all_reduce(sums)
+            dist.all_reduce(maxes, op=dist.ReduceOp.MAX)
+            leaves[path] = (float(sums[0]), float(sums[1]), float(maxes[0]))
+        runs[fault or "true"] = dict(losses=losses, secs=secs, leaves=leaves,
+                                     spread=p12_replica_spread(torch, params, mesh))
+        del params, state, step, init
+        torch.cuda.empty_cache()
+    return dict(runs=runs, counts=counts, peak=torch.cuda.max_memory_allocated())
+
+
+def p12_rank(rank: int, job: dict):
+    """One rank of a phase 12 world (spawned: imports the port from this
+    file's checkout). Rank 0 returns the check's result."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(job.get("device", "cuda"), 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = make_mesh(job["mesh"], ("data", "model"), device=dev, backend="gloo")
+    if job["check"] == "c":
+        out = p12_train_rank(torch, job, mesh, dev)
+    else:   # (a) then (b), each freeing its weights before the next
+        out = [r for sub in job["checks"] for r in p12_forward_rank(torch, sub, mesh, dev)]
+    # every rank's launch counts; the rest from rank 0
+    runs = out if isinstance(out, list) else [out]
+    counts = [dict(counts=r["counts"], gmm=r.get("gmm", {})) for r in runs]
+    return (out, counts) if rank == 0 else (None, counts)
+
+
+def p12_reference_forward(torch, cfg, dev, tokens, work: Path, tag: str):
+    """The one-process forward of (a) / (b) on the card (local routing:
+    the MoE layers' one-rank branch), its float32 logits and each layer's
+    expert choices saved for the ranks; its memory freed."""
+    from repro_torch.models import model as M
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_model_params(cfg, 0, dev)
+    with torch.no_grad():     # a first call, untimed
+        M.forward_with_aux(cfg, params, {"tokens": tokens}, mode="train")
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), RouteLog() as rl:
+        logits, _, aux = M.forward_with_aux(cfg, params, {"tokens": tokens}, mode="train")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    np.save(work / f"{tag}_logits.npy", logits.float().cpu().numpy())
+    np.save(work / f"{tag}_routes.npy", np.stack(rl.calls))
+    peak = torch.cuda.max_memory_allocated()
+    del params, logits
+    torch.cuda.empty_cache()
+    return dict(secs=secs, aux=float(aux), peak=peak, counts=launches())
+
+
+def p12_world(job, work: Path):
+    """Run a world of ``P12_WORLD`` ranks on the card; its rank-0 result
+    with each run's launches summed over the ranks, and the card's peak of
+    used memory (``mem_get_info`` sampled every 50 ms from this process:
+    every process's allocations and CUDA contexts)."""
+    import threading
+    import torch
+    from repro_torch.launch.mesh import run_world
+    free0, total = torch.cuda.mem_get_info()
+    peak, done = [total - free0], threading.Event()
+
+    def sample():
+        while not done.wait(0.05):
+            free, _ = torch.cuda.mem_get_info()
+            peak[0] = max(peak[0], total - free)
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        ranks = run_world(p12_rank, P12_WORLD, job, run_dir=work / f"world_{job['check']}",
+                          backend="gloo", timeout_s=P12_TIMEOUT)
+    finally:
+        done.set()
+        sampler.join()
+    out = ranks[0][0]
+    # each run's launches summed over the ranks
+    n_runs = len(ranks[0][1])
+    summed = []
+    for i in range(n_runs):
+        c, g = collections.Counter(), collections.Counter()
+        for _, per in ranks:
+            c.update(per[i]["counts"])
+            g.update(per[i]["gmm"])
+        summed.append(dict(counts=dict(c), gmm=dict(g)))
+    for run, tot in zip(out if isinstance(out, list) else [out], summed):
+        run["all_counts"], run["all_gmm"] = tot["counts"], tot["gmm"]
+        run["card_peak"] = peak[0]
+    return out, time.perf_counter() - t0
+
+
+def p12_forward_checks(torch, dev, smi, work: Path):
+    """(a) and (b): each one-process reference on the card first, then
+    one (2, 4) world that runs both; a line per check and capacity factor.
+    Returns the world's runs."""
+    cfgs, refs, subs = p12_configs(), {}, []
+    for check, capacity in (("a", (None,)), ("b", (4.0, 1.25))):
+        cfg = cfgs[check]
+        tokens = np.random.default_rng(12).integers(0, cfg.vocab, (P12_B, P12_S))
+        np.save(work / f"{check}_tokens.npy", tokens)
+        refs[check] = p12_reference_forward(torch, cfg, dev,
+                                            torch.from_numpy(tokens).to(dev), work, check)
+        subs.append(dict(check=check, a2a=check == "b",
+                         capacity=[c if c else 1.25 for c in capacity],
+                         tokens=str(work / f"{check}_tokens.npy"),
+                         ref_logits=str(work / f"{check}_logits.npy"),
+                         ref_routes=str(work / f"{check}_routes.npy")))
+    runs, wall = p12_world(dict(check="ab", mesh=(2, 4), checks=subs), work)
+    for r in runs:
+        check, cfg, ref = r["check"], cfgs[r["check"]], refs[r["check"]]
+        a2a = check == "b"
+        tol = 0.05 * r["scale"]
+        held = not a2a or r["capacity"] > 2   # drop-free: equal to local routing
+        what = f"all-to-all MoE, capacity factor {r['capacity']}" if a2a else "Megatron MoE"
+        log(f"phase 12 ({check}): {cfg.name} {cfg.n_layers} layer(s) {cfg.n_experts} experts "
+            f"top-{cfg.top_k} {what}, mesh (2, 4) data x model, backend gloo, "
+            f"{P12_WORLD} processes sharing {smi}, B={P12_B} S={P12_S} bf16: logits max|err| "
+            f"{r['err']:.4f} (tol {tol:.4f} = 5% of max|logit| {r['scale']:.3f}"
+            f"{'' if held else ', not held: copies drop'}); expert choices shared with the "
+            f"one-process run, the ranks' own differ in {r['differ']} of {r['decisions']} "
+            f"(token x layer) decisions; copies dropped {r['drops']}; aux {r['aux']:.5f} (one "
+            f"process {ref['aux']:.5f}); non-finite {r['nonfinite']}; first forward "
+            f"{r['secs']:.3f} s sharded (8 processes time-slicing one card over gloo: not a "
+            f"scaling figure) vs {ref['secs']:.3f} s one process (second call); rank 0 logits "
+            f"{r['local_logits']}, rank-0 peak {r['peak'] / 1e9:.2f} GB, the card's peak in "
+            f"use {r['card_peak'] / 1e9:.2f} GB, one-process peak {ref['peak'] / 1e9:.2f} GB; "
+            f"K4 launches by (K, N), all ranks {r['all_gmm']}; world {wall:.1f} s")
+        if r["nonfinite"] or (held and r["err"] > tol):
+            raise AssertionError(f"phase 12 ({check}) capacity {r['capacity']}: err "
+                                 f"{r['err']} > {tol}, non-finite {r['nonfinite']}")
+        if not r["all_counts"]["flash"] or (not a2a and not r["all_counts"]["gmm"]):
+            raise AssertionError(f"phase 12 ({check}): launched {r['all_counts']}")
+        if a2a and held and r["drops"]:
+            raise AssertionError(f"phase 12 (b): {r['drops']} copies dropped at capacity "
+                                 f"{r['capacity']}")
+    return runs
+
+
+def p12_train_check(torch, dev, smi, work: Path):
+    """(c): the one-process ``make_train_step`` from ``init_model_params``
+    (seed 0), then the world from ``init_sharded``; losses and each leaf's
+    final value held (``P12_LOSS_TOL``, ``P12_UPDATE_TOL``)."""
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.models.param import iter_leaves
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+    cfg = p12_configs()["c"]
+    pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=P12_TRAIN_S,
+                                        global_batch=P12_TRAIN_B, seed=12))
+    bs = [pipe.next_batch() for _ in range(P12_TRAIN_STEPS)]
+    np.savez(work / "c_batches.npz", tokens=np.stack([b["tokens"] for b in bs]),
+             labels=np.stack([b["labels"] for b in bs]))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ocfg = AdamWConfig(lr=P12_LR, warmup_steps=1, total_steps=P12_TRAIN_STEPS)
+    params = M.init_model_params(cfg, 0, dev)
+    state = init_opt_state(ocfg, params)
+    step = make_train_step(cfg, ocfg, device=dev)
+    losses, secs = [], []
+    for b in bs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    ref_dir = work / "c_final"
+    ref_dir.mkdir(exist_ok=True)
+    for path, t in iter_leaves(params):
+        np.save(ref_dir / f"{path.replace('/', '.')}.npy", t.float().cpu().numpy())
+    del params, state, step
+    torch.cuda.empty_cache()
+    out, wall = p12_world(dict(check="c", mesh=(4, 2), batches=str(work / "c_batches.npz"),
+                               ref_dir=str(ref_dir)), work)
+
+    def reading(run):
+        worst = max(run["leaves"], key=lambda p: run["leaves"][p][0] /
+                    max(run["leaves"][p][1], 1e-30))
+        d_sum, u_sum, d_max = run["leaves"][worst]
+        loss_err = max(abs(a - b) for a, b in zip(run["losses"], losses))
+        ratio = d_sum / max(u_sum, 1e-30)
+        fails = [what for what, bad in (
+            ("loss", loss_err > P12_LOSS_TOL), ("update", ratio > P12_UPDATE_TOL),
+            ("replicas", run["spread"] > P12_SPREAD_TOL)) if bad]
+        return worst, loss_err, ratio, d_max, fails
+
+    true = out["runs"]["true"]
+    worst, loss_err, ratio, d_max, fails = reading(true)
+    log(f"phase 12 (c): {cfg.name} cut to {cfg.n_layers} of 40 layers, every width as "
+        f"published, bf16, mesh (4, 2) data x model, backend gloo, {P12_WORLD} processes "
+        f"sharing {smi}: B={P12_TRAIN_B} S={P12_TRAIN_S}, {P12_TRAIN_STEPS} steps from "
+        f"init_sharded at lr {P12_LR}: losses {['%.5f' % x for x in true['losses']]} vs one "
+        f"process {['%.5f' % x for x in losses]} (max diff {loss_err:.2e}, tol "
+        f"{P12_LOSS_TOL:.0e}); worst leaf {worst}: mean |p - p_one| / mean |p_one - p0| "
+        f"{ratio:.4f} (tol {P12_UPDATE_TOL}), max |p - p_one| {d_max:.3e}; replicas differ "
+        f"by at most {true['spread']:.3e} (tol {P12_SPREAD_TOL}); s/step "
+        f"{['%.3f' % x for x in true['secs']]} sharded (8 processes time-slicing one card over "
+        f"gloo: not a scaling figure) vs {['%.3f' % x for x in secs]} one process; launches, "
+        f"all ranks {out['all_counts']}; rank-0 peak {out['peak'] / 1e9:.2f} GB, the card's peak "
+        f"in use {out['card_peak'] / 1e9:.2f} GB, one-process peak {peak / 1e9:.2f} GB; "
+        f"world {wall:.1f} s (with the planted faults' runs)")
+    blind = []
+    for fault, what in P12_FAULTS.items():
+        f_worst, f_loss, f_ratio, f_max, f_fails = reading(out["runs"][fault])
+        log(f"phase 12 (c) planted fault {fault} ({what}): loss diff {f_loss:.2e}, worst leaf "
+            f"{f_worst} update ratio {f_ratio:.4f}, max |p - p_one| {f_max:.3e}, replicas "
+            f"differ by {out['runs'][fault]['spread']:.3e}: fails {f_fails or 'nothing'}")
+        if not f_fails:
+            blind.append(fault)
+    if fails:
+        raise AssertionError(f"phase 12 (c): {fails} out of tolerance: loss diff {loss_err}, "
+                             f"update ratio {ratio} at {worst}, replicas {true['spread']}")
+    if blind:
+        raise AssertionError(f"phase 12 (c): the checks pass the planted faults {blind}")
+    if not (out["all_counts"]["flash"] and out["all_counts"]["flash_bwd"]):
+        raise AssertionError(f"phase 12 (c): launched {out['all_counts']}")
+    return out
+
+
+def p12_kernel_rows(torch, dev):
+    """The new instances of K2, K2 bwd and K4 at phase 12's local shard
+    shapes, each against its plain version on the same inputs and timed
+    beside its library call."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gm
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(13)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t = lambda shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+    entries, isz, dtype = {}, 2, "bfloat16"
+    flash_cases = {
+        # key: (label, B_loc, S, local q heads, local kv heads, hd)
+        "flash_p12_grok": ("grok-1 on (2, 4), G = 6", P12_B // 2, P12_S, 12, 2, 128),
+        "flash_p12_l4": ("llama4-scout on (2, 4), G = 5", P12_B // 2, P12_S, 10, 2, 128),
+        "flash_p12_granite": ("granite-3-2b train on (4, 2)", P12_TRAIN_B // 4, P12_TRAIN_S,
+                              16, 4, 64),
+    }
+    for key, (label, B, S, Hh, KVh, hd) in flash_cases.items():
+        q, k, v = t((B, S, Hh, hd)), t((B, S, KVh, hd)), t((B, S, KVh, hd))
+        errs = []
+        check(f"K2 {label} B={B} S={S}", dtype, fa.flash_attention(q, k, v),
+              ref.flash_attention(q.float(), k.float(), v.float()).to(q.dtype), errs)
+        b, by = bound_ms(isz * (2 * q.numel() + k.numel() + v.numel()),
+                         4 * hd * S * (S + 1) // 2 * Hh * B, dtype)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        entries[key] = dict(
+            name=f"flash_attention ({label}, local shard)", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:27",
+            shape=f"B={B} S={S} H={Hh} KV={KVh} hd={hd} causal bf16",
+            **kernel_times(torch, lambda: fa.flash_attention(q, k, v),
+                           "flash_attention_mma_kernel", iters=10),
+            plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v), 2),
+            bound_ms=b, bound_by=by, max_abs_err=max(errs),
+            library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                                     enable_gqa=True), 10))
+    # K2 backward at granite's local train shape
+    label, B, S, Hh, KVh, hd = flash_cases["flash_p12_granite"]
+    kw = dict(causal=True)
+    errs = []
+    q, k, v, out, lse, do = flash_bwd_case(torch, rng, dev, dtype, B, S, S, Hh, KVh, hd, kw,
+                                           errs, [])
+    pairs = S * (S + 1) // 2 * Hh * B
+    b, by = bound_ms(isz * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+                     10 * hd * pairs, dtype)
+    call = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)  # noqa: E731
+    names = flash_bwd_kernels(hd)
+    entries["flash_bwd_p12_granite"] = dict(
+        name=f"flash_attention_bwd ({label}, local shard)", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:27",
+        shape=f"B={B} S={S} H={Hh} KV={KVh} hd={hd} causal bf16",
+        ms=kernel_ms(torch, call, names["dq"] + names["dkv"], iters=10),
+        event_ms=event_ms(torch, call, 10),
+        plain_ms=event_ms(torch, lambda: ref.flash_attention_bwd(q, k, v, out, lse, do, **kw),
+                          1, warmup=1),
+        bound_ms=b, bound_by=by, max_abs_err=max(errs),
+        library_ms=event_ms(torch, sdpa_backward(torch, q, k, v, do, is_causal=True), 5),
+        library="SDPA backward (torch.autograd.grad on a retained graph, is_causal)")
+    del q, k, v, do, out, lse
+    # K4 at grok-1's shard widths: d_ff / 4 columns (gate/up), rows (down)
+    sizes = routed_sizes(rng, (P12_B // 2) * P12_S, 8, 2, 6144)
+    T = (P12_B // 2) * P12_S * 2
+    for key, label, K, N in (("gmm_p12_grok", "grok-1 gate/up, d_ff / 4 columns", 6144, 8192),
+                             ("gmm_p12_grok_down", "grok-1 down, d_ff / 4 rows", 8192, 6144)):
+        x, w, gs = gmm_inputs(torch, dev, dtype, sizes, T, K, N, seed=120 + K)
+        errs = []
+        want = ref.moe_gmm(x, w, gs)
+        check(f"K4 {label} T={T} K={K} N={N}", dtype, gm.moe_gmm(x, w, gs), want, errs,
+              tol=gmm_tol(dtype, want))
+        used = int((np.asarray(sizes) > 0).sum())
+        b, by = bound_ms(isz * (T * K + used * K * N + T * N) + 4 * len(sizes),
+                         2 * T * K * N, dtype)
+        lib, why = gmm_library(torch, x, w, gs)
+        if why:
+            log(f"  K4 {label}: library_ms none: {why}")
+        entries[key] = dict(
+            name=f"moe_gmm ({label}, local shard)", route="cuda",
+            source="src/repro_torch/csrc/moe_gmm.cu",
+            replaces="src/repro/kernels/moe_gmm.py:26",
+            shape=f"T={T} K={K} N={N} E={len(sizes)} ({used} used) bf16",
+            **kernel_times(torch, lambda: gm.moe_gmm(x, w, gs), "moe_gmm_mma_kernel",
+                           iters=20),
+            plain_ms=event_ms(torch, lambda: ref.moe_gmm(x, w, gs), 2, warmup=1),
+            bound_ms=b, bound_by=by, max_abs_err=max(errs),
+            library_ms=event_ms(torch, lib, 10) if lib else None)
+        del x, w, gs, want
+    for e in entries.values():
+        log_row(e)
+    return entries
+
+
+def sharded_run(torch, dev, smi):
+    """Phase 12: the sharded paths in worlds of 8 processes sharing this
+    card over gloo (NCCL refuses two ranks on one device): (a) grok-1's
+    Megatron MoE, (b) llama4-scout's all-to-all MoE, (c) granite-3-2b's
+    sharded train step, each against its one-process run on the card;
+    then the kernel instances they ran at their shard shapes. Returns
+    (entries, launch totals summed over the ranks of each world's driven
+    runs)."""
+    import shutil
+    t12 = time.perf_counter()
+    log("phase 12: the sharded paths (repro_torch.models.sharding, launch.mesh) in worlds of "
+        f"{P12_WORLD} spawned processes sharing this card, backend gloo (NCCL refuses two ranks "
+        "on one device); collectives on CUDA tensors through c10d: all_reduce, "
+        "all_gather_into_tensor, all_to_all_single, and DTensor's reduce-scatter and "
+        "all-reduce for the gradients (its own Shard -> Replicate, a functional all-gather, "
+        "ends the process with SIGSEGV under gloo on CUDA in torch 2.11, so gathers go "
+        "through sharding.to_placements)")
+    work = Path(__file__).resolve().parent / "build" / "phase12"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    runs = p12_forward_checks(torch, dev, smi, work)
+    runs_a = [r for r in runs if r["check"] == "a"]
+    runs_b = [r for r in runs if r["check"] == "b"]
+    out_c = p12_train_check(torch, dev, smi, work)
+    shutil.rmtree(work, ignore_errors=True)
+    grok_gmm = runs_a[0]["all_gmm"]
+    totals = {
+        "flash_p12_grok": runs_a[0]["all_counts"]["flash"],
+        "flash_p12_l4": sum(r["all_counts"]["flash"] for r in runs_b),
+        "flash_p12_granite": out_c["all_counts"]["flash"],
+        "flash_bwd_p12_granite": out_c["all_counts"]["flash_bwd"],
+        "gmm_p12_grok": grok_gmm.get((6144, 8192), 0),
+        "gmm_p12_grok_down": grok_gmm.get((8192, 6144), 0),
+    }
+    log(f"phase 12: the sharded paths' kernel instances at their local shard shapes "
+        f"(launches: the {P12_WORLD} ranks' counts in their worlds' driven runs, summed: "
+        f"{totals})")
+    entries = p12_kernel_rows(torch, dev)
+    log(f"phase 12: done in {time.perf_counter() - t12:.1f} s")
+    return entries, totals
 
 
 def main() -> int:
@@ -5355,6 +6047,14 @@ def main() -> int:
     example_twins_run()
     log(f"phase 11: done in {time.perf_counter() - t11:.1f} s")
 
+    # phase 12: the sharded paths (grok-1's Megatron MoE, llama4-scout's
+    # all-to-all MoE, granite-3-2b's sharded train step) in worlds of 8
+    # processes sharing this card over gloo
+    torch.cuda.empty_cache()
+    p12_entries, p12_totals = sharded_run(torch, dev, smi)
+    entries.update(p12_entries)
+    total.update(p12_totals)
+
     kernels = []
     for key in ("decode", "chunk", "chunk_768", "flash", "flash_rg", "dense_rg", "dense_granite",
                 "scan", "flash_l4", "decode_l4", "dense_l4", *GMM_KEYS, "flash_gateway",
@@ -5367,7 +6067,7 @@ def main() -> int:
                 "flash_bwd_rg", "scan_bwd", "flash_l4_train", "flash_bwd_l4", "gmm_train",
                 *GMM_BWD_ROWS, "decode_int8", "decode_int8_qwen", "chunk_int8",
                 "chunk_int8_768", "chunk_int8_qwen", "chunk_int8_qwen_768", "dense_int8_rg",
-                "dense_int8_granite"):
+                "dense_int8_granite", *P12_ROWS):
         e = dict(entries[key])
         e["launches"] = total[key]
         kernels.append({k: e[k] for k in (

@@ -6,6 +6,7 @@ raise instead of falling back.
 """
 from __future__ import annotations
 
+import sys
 from typing import Optional, Union
 
 import torch
@@ -29,3 +30,11 @@ def torch_dtype(name: Optional[str]) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dt
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a ``DTensor``. Where nothing imported
+    ``torch.distributed.tensor`` no DTensor can exist, and its import (a
+    second or more) is not paid on the one-card path."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)

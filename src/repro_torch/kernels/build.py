@@ -146,10 +146,24 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise ``TypeError`` where a ``DTensor`` reaches a kernel wrapper:
+    under a mesh the model calls the kernels inside ``local_map`` bodies,
+    on local tensors, and a DTensor here is a call site that missed one
+    (its raw pointer would be a shard's, its shape the global one)."""
+    from repro_torch.device import is_dtensor
+    for t in tensors:
+        if is_dtensor(t):
+            raise TypeError(f"{name} takes local tensors, got a DTensor "
+                            f"{tuple(t.shape)} {t.placements}: call it inside "
+                            "a local_map body")
+
+
 def check_operands(device, align: int = 16, **tensors) -> None:
     """Every operand on ``device`` and contiguous; floating and int8
     operands, which the attention kernels read with 16-byte vector loads,
-    ``align``-byte aligned."""
+    ``align``-byte aligned. A DTensor raises (``refuse_dtensor``)."""
+    refuse_dtensor("kernel", *tensors.values())
     for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")

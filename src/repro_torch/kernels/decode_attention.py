@@ -75,6 +75,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, 1, H, hd) float32 or bfloat16; k, v: (B, S, KV, hd) in q's
     dtype or int8 (scales optional, 1.0 where None); kv_len: (B,) int32 in
     [1, S]. Returns (B, 1, H, hd) in q.dtype."""
+    build.refuse_dtensor("decode_attention", q, k, v, kv_len)
     if not q.is_cuda:
         return decode_attention_plain(q, k, v, kv_len,
                                       softmax_scale=softmax_scale,

@@ -202,6 +202,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softmax_scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd). Returns (B, Sq, H, hd)
     in q.dtype. Differentiable (``FlashAttentionFn``) where autograd asks."""
+    build.refuse_dtensor("flash_attention", q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, window, chunk,
@@ -227,6 +228,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the backward kernel (a dQ pass that also stores D = rowsum(dout * out),
     then a dK/dV pass; no atomics, so a backward repeats bit for bit); on
     the CPU ``ref.flash_attention_bwd``."""
+    build.refuse_dtensor("flash_attention_bwd", q, k, v, out, lse, dout)
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                          causal=causal, window=window,

@@ -140,6 +140,7 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor,
     group_sizes: (E,) int32, summing to at most T. Returns (T, N) in
     x.dtype. Differentiable in x and w (``MoeGmmFn``) where autograd
     asks."""
+    build.refuse_dtensor("moe_gmm", x, w, group_sizes)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return MoeGmmFn.apply(x, w, group_sizes)
     if not x.is_cuda:
@@ -175,6 +176,7 @@ def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     launcher: the dX kernel, the dW kernel or both (no atomics, so a
     backward repeats bit for bit; the group sizes stay on the card); on
     the CPU ``ref.moe_gmm_bwd``."""
+    build.refuse_dtensor("moe_gmm_bwd", x, w, group_sizes, dout)
     if not x.is_cuda:
         return moe_gmm_bwd_plain(x, w, group_sizes, dout, need_dx=need_dx,
                                  need_dw=need_dw)

@@ -103,6 +103,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
     in q's dtype or int8; block_tables: (B, P) int32 physical page ids
     (0 = reserved scratch page); kv_len: (B,) int32.
     """
+    build.refuse_dtensor("paged_decode_attention", q, k_pool, v_pool,
+                         block_tables, kv_len)
     if not q.is_cuda:
         return paged_decode_plain(q, k_pool, v_pool, block_tables, kv_len,
                                   softmax_scale=softmax_scale)
@@ -120,6 +122,8 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, kv_len,
     """Chunked-prefill attention against a paged pool: q (B, C, H, hd) at
     positions ``q_offset + [0, C)``, the chunk's own K/V already scattered
     into the pool, so ``kv_len = q_offset + C``."""
+    build.refuse_dtensor("paged_prefill_attention", q, k_pool, v_pool,
+                         block_tables, kv_len, q_offset)
     if not q.is_cuda:
         return paged_prefill_plain(q, k_pool, v_pool, block_tables, kv_len,
                                    q_offset, softmax_scale=softmax_scale)

@@ -182,6 +182,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.stack(dvs).to(v.dtype))
 
 
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window: int = 0, chunk: int = 0,
+                   softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Unblocked masked attention, one product pair and no loop (the
+    reference's ``full_attention``): the scaled scores in float32, masked
+    to -1e30, a softmax, then ``p @ v``. Its only caller in the reference,
+    the ``xla_full`` cost probe of the dry run, has no twin in the port
+    (the dry run reads compiled XLA programs)."""
+    B, Sq, H, hd = q.shape
+    _, Skv, KV, _ = k.shape
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    acc = _acc(q)
+    s = torch.einsum("bqkgd,bskd->bkgqs",
+                     q.reshape(B, Sq, KV, H // KV, hd).to(acc) * scale, k.to(acc))
+    mask = attention_mask(Sq, Skv, causal=causal, window=window, chunk=chunk,
+                          device=q.device)
+    p = torch.softmax(torch.where(mask, s, torch.full_like(s, NEG_INF)), dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(acc))
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, *,
                      softmax_scale: Optional[float] = None,

@@ -80,6 +80,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     Returns h: (B, S, D) float32. ``plan`` overrides the kernel instance
     (``scan_plan`` with explicit choices; the card only). Differentiable
     (``RGLRUScanFn``) where autograd asks."""
+    build.refuse_dtensor("rglru_scan", a, b, h0)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (a, b, h0)):
         return RGLRUScanFn.apply(a, b, h0, plan)
@@ -126,6 +127,7 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
     equal bit for bit to ``ref.rglru_scan_bwd``. On the card one launch of
     the reverse scan (the forward's channel-parallel layout and copy plan,
     time running backwards); on the CPU the plain version."""
+    build.refuse_dtensor("rglru_scan_bwd", a, h, dh, h0)
     if not a.is_cuda:
         return rglru_scan_bwd_plain(a, h, dh, h0)
     B, S, D = a.shape

@@ -23,6 +23,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.storage import ObjectStore
 from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M
 from repro_torch.train import checkpoint as C
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
@@ -34,7 +35,7 @@ def setup(cfg, *, steps: int, batch: int, seq: int, lr: float, device=None):
     dev = resolve_device(device)
     ocfg = AdamWConfig(lr=lr, warmup_steps=max(2, steps // 10),
                        total_steps=steps)
-    step_fn = make_train_step(cfg, ocfg, device=dev)
+    step_fn = make_train_step(cfg, ocfg, make_host_mesh(), device=dev)
     params = M.init_model_params(cfg, 0, dev)
     state = init_opt_state(ocfg, params)
     pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=seq,

@@ -45,7 +45,11 @@ A MoE layer (``cfg.n_experts``; every layer, as ``moe_every`` is 0 or 1)
 replaces the MLP with ``moe_ffn``: token-choice top-k routing in float32
 and three grouped matmuls through K4 (``moe_gmm``), the reference's
 single-device branch. Nothing on that path reads a tensor back to the
-host. ``attn_block`` and ``rglru_block`` return ``(x, cache, aux)``, as the
+host. Under a mesh of more than one rank (``models.sharding``) an
+attention block runs in ``train`` mode as one ``local_map`` body on local
+shards (``sharded_attn_block``: Megatron column / row slices of the
+heads and the feed-forward, ``layout`` choosing them), and ``moe_ffn``
+takes the reference's Megatron or all-to-all branch there. ``attn_block`` and ``rglru_block`` return ``(x, cache, aux)``, as the
 reference's blocks: ``aux`` is the MoE layer's load-balancing loss (None
 for a dense feed-forward), which ``model.loss_fn`` adds in ``train``.
 
@@ -63,13 +67,17 @@ writes land in the reserved scratch page.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import BlockKind, ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import sharding
 from repro_torch.models.layers import (apply_rope, mlp, mlp_specs, rms_norm,
                                        saturate_cast)
 from repro_torch.models.param import Spec
@@ -87,29 +95,29 @@ def attn_specs(cfg: ModelConfig, cross: bool = False) -> Dict[str, Spec]:
     d, hd = cfg.d_model, cfg.hd
     H, KV = cfg.n_heads, cfg.n_kv_heads
     s: Dict[str, Spec] = {
-        "ln1": Spec((d,), init="zeros"),
-        "wq": Spec((d, H * hd)),
-        "wk": Spec((d, KV * hd)),
-        "wv": Spec((d, KV * hd)),
-        "wo": Spec((H * hd, d)),
-        "ln2": Spec((d,), init="zeros"),
+        "ln1": Spec((d,), (None,), init="zeros"),
+        "wq": Spec((d, H * hd), ("embed", "heads")),
+        "wk": Spec((d, KV * hd), ("embed", "kv")),
+        "wv": Spec((d, KV * hd), ("embed", "kv")),
+        "wo": Spec((H * hd, d), ("heads", "embed")),
+        "ln2": Spec((d,), (None,), init="zeros"),
     }
     if cfg.qkv_bias:
-        s["bq"] = Spec((H * hd,), init="zeros")
-        s["bk"] = Spec((KV * hd,), init="zeros")
-        s["bv"] = Spec((KV * hd,), init="zeros")
+        s["bq"] = Spec((H * hd,), ("heads",), init="zeros")
+        s["bk"] = Spec((KV * hd,), ("kv",), init="zeros")
+        s["bv"] = Spec((KV * hd,), ("kv",), init="zeros")
     if cross:
-        s["c_ln"] = Spec((d,), init="zeros")
-        s["c_wq"] = Spec((d, H * hd))
-        s["c_wk"] = Spec((d, KV * hd))
-        s["c_wv"] = Spec((d, KV * hd))
-        s["c_wo"] = Spec((H * hd, d))
+        s["c_ln"] = Spec((d,), (None,), init="zeros")
+        s["c_wq"] = Spec((d, H * hd), ("embed", "heads"))
+        s["c_wk"] = Spec((d, KV * hd), ("embed", "kv"))
+        s["c_wv"] = Spec((d, KV * hd), ("embed", "kv"))
+        s["c_wo"] = Spec((H * hd, d), ("heads", "embed"))
     if cfg.is_moe_layer(0):   # the reference decides at layer 0 for all
         E, f = cfg.n_experts, cfg.d_ff
-        s["router"] = Spec((d, E), scale=0.02)
-        s["we_g"] = Spec((E, d, f))
-        s["we_u"] = Spec((E, d, f))
-        s["we_d"] = Spec((E, f, d))
+        s["router"] = Spec((d, E), ("embed", "experts"), scale=0.02)
+        s["we_g"] = Spec((E, d, f), ("experts", "embed", "ff"))
+        s["we_u"] = Spec((E, d, f), ("experts", "embed", "ff"))
+        s["we_d"] = Spec((E, f, d), ("experts", "ff", "embed"))
     else:
         s.update(mlp_specs(d, cfg.d_ff))
     return s
@@ -138,11 +146,12 @@ def attn_cache_specs(cfg: ModelConfig, kind: BlockKind, B: int,
     """Self-attention K/V, and with ``cross`` the decoder's cross K/V
     ``c_k``, ``c_v`` (B, n_frames, KV, hd), written once at prefill."""
     L = attn_cache_len(cfg, kind, seq_len)
-    kv = Spec((B, L, cfg.n_kv_heads, cfg.hd), init="zeros")
+    kv = Spec((B, L, cfg.n_kv_heads, cfg.hd), ("batch", "kv_seq", "kv", None),
+              init="zeros")
     s = {"k": kv, "v": kv}
     if cross:
         s["c_k"] = s["c_v"] = Spec((B, cfg.n_frames, cfg.n_kv_heads, cfg.hd),
-                                   init="zeros")
+                                   ("batch", None, "kv", None), init="zeros")
     return s
 
 
@@ -156,16 +165,20 @@ def _qkv(cfg: ModelConfig, params, h: torch.Tensor):
             v.reshape(B, S, KV, hd))
 
 
-def _ffn(cfg: ModelConfig, params, x: torch.Tensor, impl: Optional[str]
+def _ffn(cfg: ModelConfig, params, x: torch.Tensor, impl: Optional[str],
+         lay: Optional["Layout"] = None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(x + FFN(x), aux): a MoE layer's load-balancing aux (float32, 0-d),
-    None for a dense MLP (the reference returns 0.0 there)."""
+    None for a dense MLP (the reference returns 0.0 there). Under a mesh
+    (``lay``) the MLP's ``wg``/``wu`` are column slices and ``wd`` a row
+    slice over ``lay.ff_tp``, its output summed over those axes."""
     h = rms_norm(x, params["ln2"])
     if "router" in params:    # MoE layer (decided at spec time)
-        out, aux = moe_ffn(cfg, params, h, impl=impl)
-    else:
-        out, aux = mlp(params, h), None
-    return x + out, aux
+        out, aux = moe_ffn(cfg, params, h, impl=impl, lay=lay)
+        return x + out, aux
+    mesh, tp = (lay.mesh, lay.ff_tp) if lay is not None else (None, ())
+    out = sharding.reduce_from(mlp(params, sharding.copy_to(h, mesh, tp)), mesh, tp)
+    return x + out, None
 
 
 def _keep_masked(new: torch.Tensor, old: torch.Tensor,
@@ -211,7 +224,8 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
                cache_len: Optional[int] = None,
                impl: Optional[str] = None,
                block_tables: Optional[torch.Tensor] = None,
-               mask: Optional[torch.Tensor] = None
+               mask: Optional[torch.Tensor] = None,
+               lay: Optional["Layout"] = None
                ) -> Tuple[torch.Tensor, Optional[Cache], Optional[torch.Tensor]]:
     """Returns (x, cache, aux), ``aux`` the MoE feed-forward's
     load-balancing loss (None for a dense one; ``loss_fn`` adds it in
@@ -232,13 +246,19 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
     ``block_tables`` present: a global-attention cache is a paged pool
     (num_pages, page, KV, hd) rather than per-slot (B, L, KV, hd).
     ``rope_cs``: (cos, sin) of this call's positions from
-    ``layers.rope_tables``; ``forward`` computes them once for all layers."""
+    ``layers.rope_tables``; ``forward`` computes them once for all layers.
+    ``lay`` (``train`` under a mesh, from ``sharded_attn_block``'s body):
+    ``cfg`` holds this rank's head counts and ``params`` its slices; the
+    normed input enters the heads through ``copy_to`` and ``wo``'s output
+    is summed over ``lay.attn_tp``, the feed-forward likewise over its
+    axes (``_ffn``)."""
     if kind not in ATTN_KINDS:
         raise ValueError(f"attn_block takes attention kinds, got {kind}")
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     window, chunk = _attn_window(cfg, kind)
-    h = rms_norm(x, params["ln1"])
+    mesh, tp = (lay.mesh, lay.attn_tp) if lay is not None else (None, ())
+    h = sharding.copy_to(rms_norm(x, params["ln1"]), mesh, tp)
     cos, sin = rope_cs
     q, k, v = _qkv(cfg, params, h)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
@@ -300,10 +320,11 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
     else:
         raise ValueError(f"unknown mode {mode!r}")
 
-    x = x + attn.reshape(B, S, H * hd) @ params["wo"]
+    x = x + sharding.reduce_from(attn.reshape(B, S, H * hd) @ params["wo"],
+                                 mesh, tp)
     if "c_wq" in params:
         x = _cross_attn(cfg, params, x, mode, cross_x, cache, new_cache, impl)
-    x, aux = _ffn(cfg, params, x, impl)
+    x, aux = _ffn(cfg, params, x, impl, lay)
     return x, new_cache, aux
 
 
@@ -343,8 +364,8 @@ def _cross_attn(cfg: ModelConfig, params, x: torch.Tensor, mode: str,
 
 # ======================================================================
 # MoE FFN (token-choice top-k, expert-sorted grouped matmul): the
-# reference's single-device branch; the Megatron and all-to-all sharded
-# paths are not ported
+# reference's single-device branch, and under a mesh (``Layout.moe``) its
+# Megatron and all-to-all branches
 # ======================================================================
 def route(cfg: ModelConfig, params, xf: torch.Tensor):
     """xf: (T, d) -> (probs (T, E), top_p (T, k), top_i (T, k)). Router and
@@ -361,15 +382,20 @@ def route(cfg: ModelConfig, params, xf: torch.Tensor):
 
 
 def _moe_local(cfg: ModelConfig, params, xf: torch.Tensor,
-               impl: Optional[str]):
-    """xf: (T, d) -> (out (T, d), frac_tokens (E,), mean_prob (E,))."""
+               impl: Optional[str], mesh=None, tp: Tuple[str, ...] = ()):
+    """xf: (T, d) -> (out (T, d), frac_tokens (E,), mean_prob (E,)).
+    ``tp``: the mesh axes that slice ``d_ff`` (the Megatron body): the
+    experts read xf through ``copy_to``, the router reads it directly, and
+    the expert rows are summed over ``tp`` BEFORE the routing weights
+    scale them, so every rank holds the whole product and the router's
+    gradient (and that of its input) is whole and the same on each."""
     T, d = xf.shape
     E, k = cfg.n_experts, cfg.top_k
     probs, top_p, top_i = route(cfg, params, xf)
     flat_e = top_i.reshape(-1)                              # (T*k,)
     order = torch.argsort(flat_e, stable=True)              # as jnp.argsort
     tok_sorted = order // k                                 # token of each row
-    xs = xf[tok_sorted]                                     # (T*k, d)
+    xs = sharding.copy_to(xf, mesh, tp)[tok_sorted]         # (T*k, d)
     # group sizes stay on the device: bincount would read its input's
     # maximum back to the host
     group_sizes = torch.zeros(E, dtype=torch.int32, device=xf.device)
@@ -378,7 +404,8 @@ def _moe_local(cfg: ModelConfig, params, xf: torch.Tensor,
     g = ops.moe_gmm(xs, params["we_g"], group_sizes, impl=impl)
     u = ops.moe_gmm(xs, params["we_u"], group_sizes, impl=impl)
     hh = F.silu(g.float()).to(xs.dtype) * u
-    out_sorted = ops.moe_gmm(hh, params["we_d"], group_sizes, impl=impl)
+    out_sorted = sharding.reduce_from(
+        ops.moe_gmm(hh, params["we_d"], group_sizes, impl=impl), mesh, tp)
 
     w_sorted = top_p.reshape(-1)[order].to(out_sorted.dtype)
     weighted = out_sorted * w_sorted[:, None]
@@ -396,13 +423,250 @@ def _moe_local(cfg: ModelConfig, params, xf: torch.Tensor,
 
 
 def moe_ffn(cfg: ModelConfig, params, h: torch.Tensor, *,
-            impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+            impl: Optional[str] = None, lay: Optional["Layout"] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h: (B, S, d) normed activations -> (out (B, S, d), aux), with the
-    load-balancing ``aux = E * sum(frac_tokens * mean_prob)`` (float32)."""
+    load-balancing ``aux = E * sum(frac_tokens * mean_prob)`` (float32).
+    With no ``lay`` (one rank) the reference's single-device branch. Under
+    a mesh it runs inside ``sharded_attn_block``'s body on the local batch
+    shard, in the branch ``lay.moe`` names (chosen by ``layout`` with the
+    reference's conditions, in its order): ``"local"`` the same branch with
+    aux from the global fractions; ``"megatron"`` routing local to the data
+    shard, ``we_g``/``we_u`` column slices and ``we_d`` row slices over
+    ``model`` (where ``d_ff`` divides) and a float32 sum of the expert rows
+    (taken before the routing weights, where the reference sums the
+    weighted tokens: the same forward, ``k`` times the bytes summed, and a
+    router gradient each rank holds whole), the aux ``pmean``'d over the
+    data axes; ``"a2a"`` ``_moe_ffn_a2a``."""
     B, S, d = h.shape
-    out, frac, meanp = _moe_local(cfg, params, h.reshape(B * S, d), impl)
-    aux = cfg.n_experts * torch.sum(frac * meanp)
+    E = cfg.n_experts
+    if lay is not None and lay.moe == "a2a":
+        return _moe_ffn_a2a(cfg, params, h, lay, impl)
+    xf = h.reshape(B * S, d)
+    if lay is None or lay.moe == "local":
+        out, frac, meanp = _moe_local(cfg, params, xf, impl)
+        if lay is not None:   # the batch's shards hold equal token counts
+            frac = sharding.pmean(frac, lay.mesh, lay.batch)
+            meanp = sharding.pmean(meanp, lay.mesh, lay.batch)
+        aux = E * torch.sum(frac * meanp)
+        return out.reshape(B, S, d).to(h.dtype), aux
+    out, frac, meanp = _moe_local(cfg, params, xf, impl, lay.mesh, lay.moe_tp)
+    aux = sharding.pmean(E * torch.sum(frac * meanp), lay.mesh, lay.data)
     return out.reshape(B, S, d).to(h.dtype), aux
+
+
+# ======================================================================
+# The all-to-all MoE branch (GShard-style, sequence-parallel): model rank
+# j takes its own slice of the sequence (S/m tokens), routes them with a
+# capacity-padded all-to-all to the ranks owning their experts (one expert
+# per rank), runs the expert's FFN at full width there, sends the results
+# back and all-gathers the sequence once. Over-capacity copies are dropped
+# (GShard semantics); the module-level factor is the reference's name, so
+# a caller can set it as the reference's test does.
+# ======================================================================
+MOE_A2A_CAPACITY_FACTOR = 1.25
+
+
+def _moe_ffn_a2a(cfg: ModelConfig, params, h: torch.Tensor, lay: "Layout",
+                 impl: Optional[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_moe_ffn_a2a`` body on this rank's local tensors:
+    h (B_loc, S, d) replicated over ``model``; ``we_*`` (1, ...) this
+    rank's expert. The expert FFN is the reference's plain product (it is
+    outside any Pallas kernel there). A copy past its destination's
+    capacity C is dropped; as the reference's scatter writes the dropped
+    copies' zeros into slot C - 1 after the kept copy there, a
+    destination that drops any copy has that slot zeroed."""
+    B, S, d = h.shape
+    E, k, m = cfg.n_experts, cfg.top_k, lay.m
+    wdt = h.dtype
+    j = sharding.axis_index(lay.mesh, "model")
+    s_my = S // m
+    hc = sharding.copy_to(h, lay.mesh, ("model",))
+    T = B * s_my
+    xf = hc[:, j * s_my:(j + 1) * s_my].reshape(T, d)
+    probs, top_p, top_i = route(cfg, params, xf)
+    dest = top_i.reshape(-1)                                  # (T*k,)
+    C = int(np.ceil(T * k / m * MOE_A2A_CAPACITY_FACTOR))
+    one_hot = F.one_hot(dest, m)
+    pos = (torch.cumsum(one_hot, dim=0) - 1).gather(1, dest[:, None])[:, 0]
+    keep = pos < C
+    tok_of = torch.arange(T * k, device=h.device) // k
+    # kept copies at (dest, pos); dropped ones into a spare slot C
+    slot = torch.where(keep, pos, torch.full_like(pos, C))
+    send = xf.new_zeros((m, C + 1, d))
+    send = send.index_put((dest, slot), xf[tok_of])
+    dropped = torch.zeros(m, dtype=torch.int32, device=h.device).index_add(
+        0, dest, (~keep).to(torch.int32)) > 0
+    send = send[:, :C] * torch.cat(
+        [torch.ones((m, C - 1), dtype=wdt, device=h.device),
+         (~dropped).to(wdt)[:, None]], dim=1)[..., None]
+    recv = sharding.all_to_all(send, lay.mesh, "model")      # (m, C, d)
+
+    xr = recv.reshape(m * C, d)
+    g = xr @ params["we_g"][0]
+    u = xr @ params["we_u"][0]
+    out_r = ((F.silu(g.float()).to(wdt) * u) @ params["we_d"][0]).reshape(m, C, d)
+
+    back = sharding.all_to_all(out_r, lay.mesh, "model")      # (m, C, d)
+    w_flat = top_p.reshape(-1) * keep
+    gathered = back[dest, torch.where(keep, pos, torch.full_like(pos, C - 1))]
+    out = torch.zeros((T, d), dtype=torch.float32, device=h.device).index_add(
+        0, tok_of, gathered.float() * w_flat[:, None])
+    out = out.reshape(B, s_my, d).to(wdt)
+    out_full = sharding.all_gather(out, lay.mesh, "model", dim=1).float()
+
+    gs = torch.zeros(E, dtype=torch.float32, device=h.device).index_add(
+        0, dest, torch.ones_like(dest, dtype=torch.float32))
+    aux = E * torch.sum((gs / max(T * k, 1)) * probs.mean(dim=0))
+    aux = sharding.pmean(aux, lay.mesh, lay.data + ("model",))
+    return out_full.to(wdt), aux
+
+
+# ======================================================================
+# An attention block under a mesh of more than one rank (train mode)
+# ======================================================================
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """How one attention block computes under a mesh (``layout``): the
+    mesh axes that shard the batch, the model axis's size ``m``, which
+    fused dims are sliced over ``model`` (heads, KV heads, ``d_ff``), the
+    MoE branch, and each leaf's compute and gradient placements."""
+
+    mesh: object
+    batch: Tuple[str, ...]
+    data: Tuple[str, ...]         # the data axes the MoE branch pmeans over
+    m: int
+    attn_tp: Tuple[str, ...]      # ("model",) where the heads are sliced
+    kv_tp: bool
+    ff_tp: Tuple[str, ...]
+    moe: Optional[str]            # None | "local" | "megatron" | "a2a"
+    moe_tp: Tuple[str, ...]
+    tp_dims: Dict[str, Optional[int]]
+    partial_on_model: Tuple[str, ...]
+
+
+def layout(cfg: ModelConfig, params, plan, B: int, S: int) -> Layout:
+    """The block's ``Layout`` for a global batch of B sequences of S
+    tokens under ``plan`` (``sharding.make_plan``). The heads are sliced
+    over ``model`` only where ``model`` divides the head count (``spec_for``
+    tests the fused H*hd dim, which may split a head: such leaves compute
+    replicated); KV heads where it also divides KV, else every rank takes
+    the KV heads its query heads read. The MoE branch follows the
+    reference's conditions in order: local where the data axes do not
+    divide B, then ``model`` where it divides d_ff, then the all-to-all
+    branch where the rules ask for it, S > 1, ``model`` divides S and E
+    equals its size; otherwise Megatron."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    sizes = sharding.mesh_axis_sizes(plan.mesh)
+    m = sizes[plan.model] if plan.model else 1
+    heads = plan.model is not None and H % m == 0
+    kv_tp = heads and KV % m == 0
+    ff = plan.model is not None and cfg.d_ff % m == 0
+    moe = moe_tp = None
+    data = tuple(a for a in ("pod", "data") if a in sizes)
+    if "router" in params:
+        if "model" in plan.batch:
+            raise NotImplementedError(
+                "a MoE layer with the batch on the model axis (no_tp rules) "
+                "is not ported (ROADMAP Queue 1 H)")
+        n_data = int(np.prod([sizes[a] for a in data])) if data else 1
+        if n_data <= 1 or B % n_data:
+            moe, data = "local", ()
+        else:
+            mm = sizes.get("model", 1)
+            moe_model = mm > 1 and cfg.d_ff % mm == 0
+            moe = "megatron"
+            if plan.rules.get("_moe_a2a") and moe_model and S > 1 and \
+                    S % mm == 0 and cfg.n_experts == mm:
+                moe = "a2a"
+            moe_tp = ("model",) if moe_model else ()
+    tp = {"wq": 1, "bq": 0, "wo": 0} if heads else {}
+    if kv_tp:
+        tp.update(wk=1, wv=1, bk=0, bv=0)
+    if ff and moe is None:
+        tp.update(wg=1, wu=1, wd=0)
+    if moe == "megatron" and moe_tp:
+        tp.update(we_g=2, we_u=2, we_d=1)
+    if moe == "a2a":
+        tp.update(we_g=0, we_u=0, we_d=0)
+    partial = ("router",) if moe == "a2a" else ()
+    if heads and not kv_tp:
+        partial += ("wk", "wv", "bk", "bv")
+    return Layout(mesh=plan.mesh, batch=plan.batch, data=data, m=m,
+                  attn_tp=("model",) if heads else (), kv_tp=kv_tp,
+                  ff_tp=("model",) if ff else (), moe=moe,
+                  moe_tp=moe_tp or (), tp_dims=tp, partial_on_model=partial)
+
+
+def _local_heads(cfg: ModelConfig, lay: Layout, p):
+    """(cfg, p) as this rank computes its heads: ``cfg`` with the local
+    head counts (``head_dim`` pinned) and, where ``model`` slices the
+    query heads but not the KV heads, ``wk``/``wv``/``bk``/``bv`` narrowed
+    to the columns of the KV heads this rank's query heads read: each once
+    when every one is read by the same number of consecutive local query
+    heads, else one a query head (the kernel then runs at G = 1)."""
+    if not lay.attn_tp:
+        return cfg, p
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    Hl = H // lay.m
+    if lay.kv_tp:
+        return dataclasses.replace(cfg, n_heads=Hl, n_kv_heads=KV // lay.m,
+                                   head_dim=hd), p
+    r = sharding.axis_index(lay.mesh, "model")
+    of = [h // (H // KV) for h in range(r * Hl, (r + 1) * Hl)]
+    read = sorted(set(of))
+    if Hl % len(read) or of != [read[i // (Hl // len(read))] for i in range(Hl)]:
+        read = of
+    cols = torch.tensor([c for h in read for c in range(h * hd, (h + 1) * hd)],
+                        device=p["wk"].device)
+    p = dict(p, **{n: p[n].index_select(-1, cols)
+                   for n in ("wk", "wv", "bk", "bv") if n in p})
+    return dataclasses.replace(cfg, n_heads=Hl, n_kv_heads=len(read),
+                               head_dim=hd), p
+
+
+def _attn_body(cfg: ModelConfig, kind: BlockKind, lay: Layout, names, rope_cs,
+               impl, x: torch.Tensor, *leaves):
+    """``attn_block`` on this rank's local tensors: x (B_loc, S, d), the
+    leaves in their compute placements (``Layout.tp_dims``). Returns (x,
+    aux) with aux a 0-d float32 (zero for a dense feed-forward)."""
+    cfg, p = _local_heads(cfg, lay, dict(zip(names, leaves)))
+    x, _, aux = attn_block(cfg, kind, p, x, mode="train", rope_cs=rope_cs,
+                           impl=impl, lay=lay)
+    return x, (aux if aux is not None else
+               torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def sharded_attn_block(cfg: ModelConfig, kind: BlockKind, plan, params,
+                       x, rope_cs: Tuple[torch.Tensor, torch.Tensor],
+                       impl: Optional[str] = None):
+    """``attn_block`` in ``train`` mode under a mesh of more than one rank:
+    x a DTensor (B, S, d) sharded over ``plan.batch``, ``params`` the
+    layer's DTensor leaves in their stored placements, ``rope_cs`` plain
+    tensors (the forward's, one pair for all layers). One ``local_map``
+    body (``_attn_body``) computes the block on local tensors; the leaves
+    are redistributed to the placements it needs (``layout``). Returns (x,
+    None, aux), aux a replicated 0-d DTensor or None for a dense FFN."""
+    from torch.distributed.tensor.experimental import local_map
+    if kind not in ATTN_KINDS:
+        raise NotImplementedError(f"{kind} under a mesh (ROADMAP Queue 1 H)")
+    B, S, _ = x.shape
+    lay = layout(cfg, params, plan, B, S)
+    names = sorted(params)
+    act = plan.activation()
+    body = local_map(
+        functools.partial(_attn_body, cfg, kind, lay, names, rope_cs, impl),
+        out_placements=(act, plan.replicated()),
+        in_placements=(act,) + tuple(plan.compute(lay.tp_dims.get(n))
+                                     for n in names),
+        in_grad_placements=(act,) + tuple(
+            plan.grad(lay.tp_dims.get(n), n in lay.partial_on_model)
+            for n in names),
+        device_mesh=plan.mesh)
+    x, aux = body(x, *(sharding.to_placements(params[n],
+                                              plan.compute(lay.tp_dims.get(n)))
+                       for n in names))
+    return x, None, (aux if lay.moe is not None else None)
 
 
 # ======================================================================
@@ -412,18 +676,18 @@ def rglru_specs(cfg: ModelConfig) -> Dict[str, Spec]:
     d = cfg.d_model
     D = d  # recurrence width
     s = {
-        "ln1": Spec((d,), init="zeros"),
-        "w_x": Spec((d, D)),
-        "w_g": Spec((d, D)),
-        "conv_w": Spec((4, D), scale=0.5),
-        "conv_b": Spec((D,), init="zeros"),
-        "w_a": Spec((D, D), scale=0.02),
-        "b_a": Spec((D,), init="zeros"),
-        "w_i": Spec((D, D), scale=0.02),
-        "b_i": Spec((D,), init="zeros"),
-        "lam": Spec((D,), init="ones", scale=1.0),
-        "w_out": Spec((D, d)),
-        "ln2": Spec((d,), init="zeros"),
+        "ln1": Spec((d,), (None,), init="zeros"),
+        "w_x": Spec((d, D), ("embed", "state")),
+        "w_g": Spec((d, D), ("embed", "state")),
+        "conv_w": Spec((4, D), (None, "state"), scale=0.5),
+        "conv_b": Spec((D,), ("state",), init="zeros"),
+        "w_a": Spec((D, D), ("state", None), scale=0.02),
+        "b_a": Spec((D,), (None,), init="zeros"),
+        "w_i": Spec((D, D), ("state", None), scale=0.02),
+        "b_i": Spec((D,), (None,), init="zeros"),
+        "lam": Spec((D,), ("state",), init="ones", scale=1.0),
+        "w_out": Spec((D, d), ("state", "embed")),
+        "ln2": Spec((d,), (None,), init="zeros"),
     }
     s.update(mlp_specs(d, cfg.d_ff))
     return s
@@ -432,8 +696,8 @@ def rglru_specs(cfg: ModelConfig) -> Dict[str, Spec]:
 def rglru_cache_specs(cfg: ModelConfig, B: int) -> Dict[str, Spec]:
     D = cfg.d_model
     return {
-        "h": Spec((B, D), init="zeros", dtype="float32"),
-        "conv": Spec((B, 3, D), init="zeros"),
+        "h": Spec((B, D), ("batch", "state"), init="zeros", dtype="float32"),
+        "conv": Spec((B, 3, D), ("batch", None, "state"), init="zeros"),
     }
 
 
@@ -529,15 +793,15 @@ def mlstm_specs(cfg: ModelConfig) -> Dict[str, Spec]:
     d = cfg.d_model
     di, nh, _ = _mlstm_dims(cfg)
     return {
-        "ln": Spec((d,), init="zeros"),
-        "w_up": Spec((d, 2 * di)),
-        "wq": Spec((di, di)),
-        "wk": Spec((di, di)),
-        "wv": Spec((di, di)),
-        "w_if": Spec((di, 2 * nh), scale=0.02),
-        "b_i": Spec((nh,), init="zeros"),
-        "b_f": Spec((nh,), init="ones"),
-        "w_down": Spec((di, d)),
+        "ln": Spec((d,), (None,), init="zeros"),
+        "w_up": Spec((d, 2 * di), ("embed", "ff")),
+        "wq": Spec((di, di), ("ff", None)),
+        "wk": Spec((di, di), ("ff", None)),
+        "wv": Spec((di, di), ("ff", None)),
+        "w_if": Spec((di, 2 * nh), (None, None), scale=0.02),
+        "b_i": Spec((nh,), (None,), init="zeros"),
+        "b_f": Spec((nh,), (None,), init="ones"),
+        "w_down": Spec((di, d), ("ff", "embed")),
     }
 
 
@@ -546,9 +810,11 @@ def mlstm_cache_specs(cfg: ModelConfig, B: int) -> Dict[str, Spec]:
     hd) and stabiliser ``m`` (B, nh), all float32."""
     _, nh, hd = _mlstm_dims(cfg)
     return {
-        "C": Spec((B, nh, hd, hd), init="zeros", dtype="float32"),
-        "n": Spec((B, nh, hd), init="zeros", dtype="float32"),
-        "m": Spec((B, nh), init="zeros", dtype="float32"),
+        "C": Spec((B, nh, hd, hd), ("batch", None, "state", None),
+                  init="zeros", dtype="float32"),
+        "n": Spec((B, nh, hd), ("batch", None, "state"), init="zeros",
+                  dtype="float32"),
+        "m": Spec((B, nh), ("batch", None), init="zeros", dtype="float32"),
     }
 
 
@@ -689,12 +955,12 @@ def slstm_specs(cfg: ModelConfig) -> Dict[str, Spec]:
     d = cfg.d_model
     nh, hd, ffi = _slstm_dims(cfg)
     s = {
-        "ln1": Spec((d,), init="zeros"),
-        "w_gates": Spec((d, 4 * d)),
-        "b_gates": Spec((4 * d,), init="zeros"),
-        "r_gates": Spec((nh, hd, 4 * hd), scale=0.02),
-        "w_out": Spec((d, d)),
-        "ln2": Spec((d,), init="zeros"),
+        "ln1": Spec((d,), (None,), init="zeros"),
+        "w_gates": Spec((d, 4 * d), ("embed", "ff")),
+        "b_gates": Spec((4 * d,), (None,), init="zeros"),
+        "r_gates": Spec((nh, hd, 4 * hd), (None, "state", None), scale=0.02),
+        "w_out": Spec((d, d), ("state", "embed")),
+        "ln2": Spec((d,), (None,), init="zeros"),
     }
     s.update(mlp_specs(d, ffi))
     return s
@@ -705,7 +971,8 @@ SLSTM_STATE = ("c", "n", "h", "m")
 
 def slstm_cache_specs(cfg: ModelConfig, B: int) -> Dict[str, Spec]:
     nh, hd, _ = _slstm_dims(cfg)
-    return {name: Spec((B, nh, hd), init="zeros", dtype="float32")
+    return {name: Spec((B, nh, hd), ("batch", None, "state"), init="zeros",
+                       dtype="float32")
             for name in SLSTM_STATE}
 
 

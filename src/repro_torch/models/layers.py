@@ -91,7 +91,9 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
 
 
 def mlp_specs(d: int, f: int) -> Dict[str, Spec]:
-    return {"wg": Spec((d, f)), "wu": Spec((d, f)), "wd": Spec((f, d))}
+    return {"wg": Spec((d, f), ("embed", "ff")),
+            "wu": Spec((d, f), ("embed", "ff")),
+            "wd": Spec((f, d), ("ff", "embed"))}
 
 
 def mlp(params, x: torch.Tensor) -> torch.Tensor:
@@ -102,9 +104,9 @@ def mlp(params, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed_specs(vocab: int, d: int, tie: bool) -> Dict[str, Spec]:
-    specs = {"tok": Spec((vocab, d), scale=0.02)}
+    specs = {"tok": Spec((vocab, d), ("vocab", "embed"), scale=0.02)}
     if not tie:
-        specs["head"] = Spec((d, vocab))
+        specs["head"] = Spec((d, vocab), ("embed", "vocab"))
     return specs
 
 

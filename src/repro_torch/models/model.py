@@ -46,6 +46,15 @@ refuses them. ``kv_dtype`` narrows the attention K/V leaves of a cache
 and ``paged_cache_specs`` do; it is a model-API configuration, and the
 engine takes none, as the reference's.
 
+Under ``sharding.axis_rules`` with a mesh of more than one rank,
+``train`` mode runs sharded (``_sharded_forward``): the embedding into a
+vocab-sharded table, each attention layer and the final norm with the
+unembedding run as ``local_map`` bodies on local shards, the logits stay
+sharded over the vocab, and ``loss_fn`` reduces the log-sum-exp across
+the vocab shards in float32 (``sharded_cross_entropy``). The other modes,
+and the families with no sharded path (recurrent, xLSTM, encoder-decoder,
+a VLM's patch prefix), raise ``NotImplementedError`` there.
+
 Public API (same names and arguments as the reference, plus ``device``):
   param_specs(cfg), init_model_params(cfg, seed, device), narrow_weights
   cache_specs(cfg, batch, seq_len, kv_dtype),
@@ -72,10 +81,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import BlockKind, Family, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.models import blocks as B
+from repro_torch.models import sharding
 from repro_torch.models.layers import (WEIGHT_STEP, cross_entropy, dequantize,
                                        embed, embed_specs, rms_norm,
                                        rope_tables, unembed)
 from repro_torch.models.param import Spec, init_params, iter_leaves, map_tree
+from repro_torch.models.sharding import constrain
 
 AUX_LOSS_WEIGHT = 0.01
 REMAT_POLICIES = (None, "dots")
@@ -84,8 +95,9 @@ REMAT_POLICIES = (None, "dots")
 # Spec assembly
 # ----------------------------------------------------------------------
 def _stack(specs, n: int):
-    return map_tree(lambda _, s: Spec((n,) + s.shape, init=s.init,
-                                      scale=s.scale, dtype=s.dtype), specs)
+    return map_tree(lambda _, s: Spec((n,) + s.shape, ("layers",) + s.axes,
+                                      init=s.init, scale=s.scale,
+                                      dtype=s.dtype), specs)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -141,11 +153,11 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     specs = _tree(cfg, lambda kind: _block_specs(cfg, kind))
     specs["embed"] = embed_specs(cfg.padded_vocab, cfg.d_model,
                                  cfg.tie_embeddings)
-    specs["final_ln"] = Spec((cfg.d_model,), init="zeros")
+    specs["final_ln"] = Spec((cfg.d_model,), (None,), init="zeros")
     if cfg.is_encdec:
         specs["encoder"] = {
             "blocks": _stack(B.attn_specs(cfg), cfg.n_encoder_layers),
-            "final_ln": Spec((cfg.d_model,), init="zeros"),
+            "final_ln": Spec((cfg.d_model,), (None,), init="zeros"),
         }
     return specs
 
@@ -212,7 +224,8 @@ def paged_cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
     pooled pages (each stacked layer owns its pool on the leading axis,
     addressed by the same block table); ``kv_dtype`` narrows the pools and
     the per-slot rings alike."""
-    pool = Spec((num_pages, page_size, cfg.n_kv_heads, cfg.hd), init="zeros")
+    pool = Spec((num_pages, page_size, cfg.n_kv_heads, cfg.hd),
+                (None, None, "kv", None), init="zeros")
 
     def bcs(kind):
         specs = _block_cache_specs(cfg, kind, batch, seq_len)
@@ -344,13 +357,15 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _train_layers(cfg: ModelConfig, params, x: torch.Tensor, rope_cs,
-                  cross_x, impl, remat: bool, remat_policy: Optional[str]):
-    """The layer stack in ``train`` mode: (x, summed aux or None). Each
-    stacked leaf is unbound once; with ``remat`` each period runs under a
+def _train_layers(cfg: ModelConfig, params, x: torch.Tensor, block,
+                  remat: bool, remat_policy: Optional[str]):
+    """The layer stack in ``train`` mode: (x, summed aux or None), each
+    layer ``block(kind, layer params, x) -> (x, _, aux)``. Each stacked
+    leaf is unbound once; with ``remat`` each period runs under a
     non-reentrant checkpoint (its activations recomputed in the backward;
     under ``remat_policy="dots"`` the matrix products' outputs kept), the
-    remainder layers outside it."""
+    remainder layers outside it. Each period's input and output are
+    constrained to (batch, seq, embed), as the reference's scan body."""
     n_periods, rem = _layout(cfg)
     aux = None
     ckpt = dict(use_reentrant=False)
@@ -358,16 +373,13 @@ def _train_layers(cfg: ModelConfig, params, x: torch.Tensor, rope_cs,
         ckpt["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_dots)
 
-    def block(kind, p, x):
-        return _apply_block(cfg, kind, p, x, mode="train", cross_x=cross_x,
-                            impl=impl, rope_cs=rope_cs)
-
     def period(x, pp):
+        x = constrain(x, "batch", "seq", "embed")
         a_sum = None
         for i, kind in enumerate(cfg.pattern):
             x, _, a = block(kind, pp[f"p{i}"], x)
             a_sum = _add(a_sum, a)
-        return x, a_sum
+        return constrain(x, "batch", "seq", "embed"), a_sum
 
     if n_periods:
         layers = {key: {name: leaf.unbind(0) for name, leaf in sub.items()}
@@ -439,6 +451,10 @@ def forward_with_aux(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         raise TypeError(
             "train mode takes floating weights: integer (narrowed) weights "
             "are served only, as jax.grad cannot differentiate them either")
+    ctx = sharding.active_mesh()
+    if ctx is not None:
+        return _sharded_forward(cfg, params, batch, ctx, mode=mode, impl=impl,
+                                remat=remat, remat_policy=remat_policy)
     wdt = torch_dtype(cfg.dtype)
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens, cfg.d_model, wdt)
@@ -469,8 +485,10 @@ def forward_with_aux(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     new: Dict[str, list] = {}
     aux = None
     if mode == "train":
-        x, aux = _train_layers(cfg, params, x, rope_cs, cross_x, impl, remat,
-                               remat_policy)
+        def block(kind, p, x):
+            return _apply_block(cfg, kind, p, x, mode="train", cross_x=cross_x,
+                                impl=impl, rope_cs=rope_cs)
+        x, aux = _train_layers(cfg, params, x, block, remat, remat_policy)
     else:
         for key, kind, p, c in _layers(cfg, params,
                                        None if mode == "prefill" else cache):
@@ -498,6 +516,164 @@ def forward_with_aux(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
             name: torch.stack([c[name] for c in caches]) for name in caches[0]}
         out.setdefault(top, {})[sub] = leaves
     return logits, out, None
+
+
+# ----------------------------------------------------------------------
+# Under a mesh of more than one rank (``sharding.axis_rules``): the train
+# mode of the attention families, each piece one local_map body
+# ----------------------------------------------------------------------
+def _check_sharded(cfg: ModelConfig, batch, mode: str) -> None:
+    """Raise for what the sharded path does not run: serving modes (the
+    reference serves unsharded too) and the families outside it, which are
+    never run unsharded in silence."""
+    if mode != "train":
+        raise NotImplementedError(
+            f"mode {mode!r} under a mesh of more than one rank: serving runs "
+            "on one rank, as the reference's (ROADMAP Queue 1 H)")
+    kinds = sorted({k.value for k in cfg.pattern if k not in B.ATTN_KINDS})
+    what = (f"block kinds {kinds}" if kinds else
+            "an encoder-decoder" if cfg.is_encdec else
+            "a VLM patch prefix" if "patches" in batch else None)
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} under a mesh of more than one rank is not "
+            "ported (ROADMAP Queue 1 H, what remains)")
+
+
+def _as_dtensors(params, mesh):
+    """Plain leaves (a tree every rank holds whole) as replicated
+    DTensors; DTensor leaves as they are."""
+    from torch.distributed.tensor import DTensor, Replicate
+    rep = [Replicate()] * len(mesh.mesh_dim_names)
+    return map_tree(lambda _, t: t if isinstance(t, DTensor) else
+                    DTensor.from_local(t, mesh, rep, run_check=False), params)
+
+
+def shard_input(t, plan: "sharding.Plan"):
+    """A batch tensor every rank holds whole (or a DTensor) in the plan's
+    batch placements, each rank keeping its rows (no communication)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(t, DTensor):
+        return sharding.to_placements(t, plan.activation())
+    return distribute_tensor(t, plan.mesh, plan.activation(), src_data_rank=None)
+
+
+def _vocab_tp(cfg: ModelConfig, plan) -> Tuple[str, ...]:
+    sizes = sharding.mesh_axis_sizes(plan.mesh)
+    if plan.model and cfg.padded_vocab % sizes[plan.model] == 0:
+        return (plan.model,)
+    return ()
+
+
+def _embed_body(cfg: ModelConfig, mesh, vtp, tokens, tok):
+    """The embedding on local tensors: with the vocab sliced over ``vtp``,
+    the rows of this rank's shard (zero for a token outside it) summed
+    over it, times sqrt(d); else ``layers.embed``."""
+    if not vtp:
+        return embed({"tok": tok}, tokens, cfg.d_model)
+    V = tok.shape[0]
+    local = tokens.long() - sharding.axis_index(mesh, vtp[0]) * V
+    inside = (local >= 0) & (local < V)
+    rows = torch.where(inside[..., None], tok[local.clamp(0, V - 1)],
+                       torch.zeros((), dtype=tok.dtype, device=tok.device))
+    out = sharding.reduce_from(rows, mesh, vtp)
+    return out * float(torch.tensor(cfg.d_model ** 0.5, dtype=out.dtype))
+
+
+def _unembed_body(cfg: ModelConfig, mesh, vtp, x, final_ln, w):
+    """The final norm and this rank's vocab shard of the float32 logits."""
+    x = sharding.copy_to(rms_norm(x, final_ln), mesh, vtp)
+    return unembed({"tok" if cfg.tie_embeddings else "head": w}, x,
+                   cfg.tie_embeddings)
+
+
+def _cross_entropy_body(mesh, vtp, batch_axes, logits, labels):
+    """The mean cross-entropy of local float32 logits (B_loc, S, V_loc):
+    the log-sum-exp reduced across the vocab shards in float32 (the max
+    over them, then the sum of exp), the gold logit from the shard that
+    holds it (``layers.cross_entropy`` where the vocab is whole), the mean
+    over the batch's shards."""
+    if not vtp:
+        return sharding.pmean(cross_entropy(logits, labels), mesh, batch_axes)
+    lf = logits.float()
+    V = lf.shape[-1]
+    gmax = sharding.all_reduce_max(lf.max(dim=-1).values, mesh, vtp)
+    sumexp = sharding.reduce_from(torch.exp(lf - gmax[..., None]).sum(-1),
+                                  mesh, vtp)
+    lse = torch.log(sumexp) + gmax
+    local = labels.long() - sharding.axis_index(mesh, vtp[0]) * V
+    inside = (local >= 0) & (local < V)
+    gold = torch.gather(lf, -1, local.clamp(0, V - 1)[..., None])[..., 0]
+    gold = sharding.reduce_from(
+        torch.where(inside, gold, torch.zeros((), device=lf.device)), mesh, vtp)
+    return sharding.pmean((lse - gold).mean(), mesh, batch_axes)
+
+
+def _sharded_forward(cfg: ModelConfig, params, batch, ctx, *, mode: str,
+                     impl, remat: bool, remat_policy: Optional[str]):
+    """``forward_with_aux`` in ``train`` mode under a mesh: (logits, None,
+    aux), logits a DTensor (B, S, V) sharded over the batch's axes and,
+    where ``model`` divides the vocab, over ``model``; aux a replicated
+    0-d DTensor or None. The embedding, each layer
+    (``blocks.sharded_attn_block``) and the final norm with the
+    unembedding run as ``local_map`` bodies; the reference's four
+    ``constrain`` sites stand where its forward has them."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    _check_sharded(cfg, batch, mode)
+    mesh, rules = ctx
+    plan = sharding.make_plan(mesh, rules, batch["tokens"].shape[0])
+    params = _as_dtensors(params, mesh)
+    act, vtp = plan.activation(), _vocab_tp(cfg, plan)
+    vocab_dim = 0 if cfg.tie_embeddings else 1
+    table = params["embed"]["tok" if cfg.tie_embeddings else "head"]
+    embed_fn = local_map(
+        functools.partial(_embed_body, cfg, mesh, vtp), out_placements=act,
+        in_placements=(act, plan.compute(0 if vtp else None)),
+        in_grad_placements=(act, plan.grad(0 if vtp else None)),
+        device_mesh=mesh)
+    x = embed_fn(shard_input(batch["tokens"], plan), sharding.to_placements(
+        params["embed"]["tok"], plan.compute(0 if vtp else None)))
+    x = constrain(x, "batch", "seq", "embed")
+    S = batch["tokens"].shape[1]
+    rope_cs = rope_tables(torch.arange(S, device=x.device)[None, :], cfg.hd,
+                          cfg.rope_theta)
+    x, aux = _train_layers(
+        cfg, params, x,
+        lambda kind, p, x: B.sharded_attn_block(cfg, kind, plan, p, x, rope_cs,
+                                                impl),
+        remat, remat_policy)
+    logits_pl = [Shard(2) if a in vtp else pl
+                 for a, pl in zip(mesh.mesh_dim_names, act)]
+    unembed_fn = local_map(
+        functools.partial(_unembed_body, cfg, mesh, vtp),
+        out_placements=logits_pl,
+        in_placements=(act, plan.compute(None),
+                       plan.compute(vocab_dim if vtp else None)),
+        in_grad_placements=(act, plan.grad(None),
+                            plan.grad(vocab_dim if vtp else None)),
+        device_mesh=mesh)
+    logits = unembed_fn(x, sharding.to_placements(params["final_ln"],
+                                                  plan.compute(None)),
+                        sharding.to_placements(table, plan.compute(
+                            vocab_dim if vtp else None)))
+    logits = constrain(logits, "batch", "seq", "vocab")
+    return logits, None, aux
+
+
+def sharded_cross_entropy(logits, labels, plan) -> torch.Tensor:
+    """``cross_entropy`` of DTensor logits from ``_sharded_forward``: a
+    plain 0-d float32 tensor, the same on every rank."""
+    from torch.distributed.tensor.experimental import local_map
+    vtp = tuple(a for a, pl in zip(plan.mesh.mesh_dim_names, logits.placements)
+                if pl.is_shard(2))
+    fn = local_map(
+        functools.partial(_cross_entropy_body, plan.mesh, vtp, plan.batch),
+        out_placements=plan.replicated(),
+        in_placements=(list(logits.placements), plan.activation()),
+        in_grad_placements=(list(logits.placements), plan.activation()),
+        device_mesh=plan.mesh)
+    return fn(logits, shard_input(labels, plan)).to_local()
 
 
 def prefill(cfg: ModelConfig, params, batch, *, cache_len=None, impl=None):
@@ -540,5 +716,11 @@ def loss_fn(cfg: ModelConfig, params, batch, *, impl=None, remat=False,
     logits, _, aux = forward_with_aux(cfg, params, batch, mode="train",
                                       impl=impl, remat=remat,
                                       remat_policy=remat_policy)
-    loss = cross_entropy(logits, batch["labels"])
-    return loss if aux is None else loss + AUX_LOSS_WEIGHT * aux
+    ctx = sharding.active_mesh()
+    if ctx is None:
+        loss = cross_entropy(logits, batch["labels"])
+        return loss if aux is None else loss + AUX_LOSS_WEIGHT * aux
+    # under a mesh: the aux loss is a replicated value, added once
+    plan = sharding.make_plan(*ctx, batch["tokens"].shape[0])
+    loss = sharded_cross_entropy(logits, batch["labels"], plan)
+    return loss if aux is None else loss + AUX_LOSS_WEIGHT * aux.to_local()

@@ -23,12 +23,19 @@ from repro_torch.device import torch_dtype
 
 @dataclasses.dataclass(frozen=True)
 class Spec:
-    """Shape + init recipe (logical axes are not needed on one card)."""
+    """Shape + logical axes (one name or None per dim, the reference's:
+    ``models.sharding`` maps them to mesh axes) + init recipe."""
 
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
     init: str = "normal"          # normal | zeros | ones
     scale: Optional[float] = None  # default: 1/sqrt(fan_in)
     dtype: Optional[str] = None    # override model dtype
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"one logical axis per dim: shape {self.shape}, "
+                             f"axes {self.axes}")
 
 
 def iter_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
@@ -56,20 +63,26 @@ def leaf_seed(seed: int, path: str) -> int:
     return (int(seed) * 0x9E3779B1 + zlib.crc32(path.encode())) % (1 << 63)
 
 
+def init_leaf(path: str, spec: Spec, seed: int, dtype: str,
+              device: torch.device) -> torch.Tensor:
+    """The leaf at ``path`` of ``init_params``'s tree, drawn alone from its
+    own generator (``init_sharded`` builds a tree one leaf at a time)."""
+    dt = torch_dtype(spec.dtype or dtype)
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dt, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dt, device=device)
+    fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+    scale = spec.scale if spec.scale is not None else \
+        1.0 / float(np.sqrt(max(fan_in, 1)))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(leaf_seed(seed, path))
+    arr = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                      device=device)
+    return arr.mul_(scale).to(dt)
+
+
 def init_params(specs, seed: int, dtype: str, device: torch.device):
     """Initialize a parameter tree on ``device`` from a spec tree."""
-    def init(path: str, spec: Spec) -> torch.Tensor:
-        dt = torch_dtype(spec.dtype or dtype)
-        if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=dt, device=device)
-        if spec.init == "ones":
-            return torch.ones(spec.shape, dtype=dt, device=device)
-        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
-        scale = spec.scale if spec.scale is not None else \
-            1.0 / float(np.sqrt(max(fan_in, 1)))
-        gen = torch.Generator(device=device)
-        gen.manual_seed(leaf_seed(seed, path))
-        arr = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
-                          device=device)
-        return arr.mul_(scale).to(dt)
-    return map_tree(init, specs)
+    return map_tree(lambda path, spec: init_leaf(path, spec, seed, dtype,
+                                                 device), specs)

@@ -37,12 +37,12 @@ def yolo_specs(in_ch: int = 3) -> Dict[str, Spec]:
     specs: Dict[str, Spec] = {}
     c_in = in_ch
     for i, c_out in enumerate(CHANNELS):
-        specs[f"conv{i}"] = Spec((3, 3, c_in, c_out), scale=0.05)
-        specs[f"scale{i}"] = Spec((c_out,), init="ones")
-        specs[f"bias{i}"] = Spec((c_out,), init="zeros")
+        specs[f"conv{i}"] = Spec((3, 3, c_in, c_out), (None,) * 4, scale=0.05)
+        specs[f"scale{i}"] = Spec((c_out,), (None,), init="ones")
+        specs[f"bias{i}"] = Spec((c_out,), (None,), init="zeros")
         c_in = c_out
-    specs["head"] = Spec((1, 1, c_in, HEAD_OUT), scale=0.05)
-    specs["head_b"] = Spec((HEAD_OUT,), init="zeros")
+    specs["head"] = Spec((1, 1, c_in, HEAD_OUT), (None,) * 4, scale=0.05)
+    specs["head_b"] = Spec((HEAD_OUT,), (None,), init="zeros")
     return specs
 
 

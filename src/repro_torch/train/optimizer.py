@@ -17,6 +17,13 @@ once. ``adamw_update(..., inplace=True)`` writes the new parameters, ``m``
 and ``v`` into the tensors it is given (the train step's counterpart of
 the reference's ``donate_argnums``); ``inplace=False`` returns new tensors
 and leaves its inputs as they were.
+
+Under a mesh the leaves are DTensors (``train_loop.init_sharded``): the
+update is elementwise, so each rank updates its local shards in place (the
+slicing and ``reshape(-1)`` run on the local tensors, where on a DTensor
+they would gather it) and the result is exact; ``global_norm`` counts each
+element once, from the rank at coordinate 0 of every mesh dim that
+replicates it, and sums over the mesh.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.device import torch_dtype
+from repro_torch.device import is_dtensor, torch_dtype
 from repro_torch.models.param import iter_leaves, map_tree
 
 UPDATE_SLICE = 1 << 24      # elements a slice of the update (64 MB float32)
@@ -67,19 +74,47 @@ def cosine_lr(cfg: AdamWConfig, step) -> float:
 
 
 def init_opt_state(cfg: AdamWConfig, params) -> AdamWState:
+    """Zero ``m`` and ``v`` in ``state_dtype``, laid out as the parameters
+    (DTensors in the same placements under a mesh)."""
     dt = torch_dtype(cfg.state_dtype)
-    zeros = lambda _, p: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
+    zeros = lambda _, p: torch.zeros_like(p, dtype=dt,  # noqa: E731
+                                          memory_format=torch.contiguous_format)
     return AdamWState(step=0, m=map_tree(zeros, params),
                       v=map_tree(zeros, params))
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; a plain tensor itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _counts_here(t) -> bool:
+    """Whether this rank's shard of DTensor ``t`` is the one counted: the
+    rank at coordinate 0 of every mesh dim that replicates ``t``."""
+    mesh = t.device_mesh
+    return all(not pl.is_replicate() or mesh.get_local_rank(i) == 0
+               for i, pl in enumerate(t.placements))
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves (in key order) of each leaf's float32
-    sum of squares; a 0-d float32 tensor on the leaves' device."""
-    total = None
+    sum of squares; a 0-d float32 tensor on the leaves' device. DTensor
+    leaves: each element once, summed over the mesh."""
+    total, mesh = None, None
     for _, x in iter_leaves(tree):
-        s = torch.sum(torch.square(x.float()))
+        if is_dtensor(x):
+            mesh = x.device_mesh
+            if not _counts_here(x):
+                continue
+        s = torch.sum(torch.square(_local(x).float()))
         total = s if total is None else total + s
+    if mesh is not None:
+        import torch.distributed as dist
+        x = next(t for _, t in iter_leaves(tree))
+        total = _local(x).new_zeros((), dtype=torch.float32) \
+            if total is None else total
+        for i in range(mesh.ndim):
+            dist.all_reduce(total, group=mesh.get_group(i))
     return torch.sqrt(total)
 
 
@@ -118,9 +153,9 @@ def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params, *,
         m, v = m_leaves[path], v_leaves[path]
         outs = (p, m, v) if inplace else \
             tuple(torch.empty_like(t) for t in (p, m, v))
-        flat = [t.reshape(-1) for t in (g_leaves[path], m, v, p)]
-        dst = [t.view(-1) for t in outs]
-        for lo in range(0, max(p.numel(), 1), UPDATE_SLICE):
+        flat = [_local(t).reshape(-1) for t in (g_leaves[path], m, v, p)]
+        dst = [_local(t).view(-1) for t in outs]
+        for lo in range(0, max(flat[3].numel(), 1), UPDATE_SLICE):
             piece = [t[lo:lo + UPDATE_SLICE] for t in flat]
             for d, val in zip(dst, upd(*piece)):
                 d[lo:lo + UPDATE_SLICE].copy_(val)

@@ -4,10 +4,20 @@
 parameter leaf (``torch.autograd.grad`` where the reference takes
 ``jax.value_and_grad``), ``microbatch > 1`` accumulating float32 gradients
 over batch slices and dividing loss and gradients by their count, then
-``adamw_update``. ``make_train_step`` builds the step a launcher calls:
-no mesh (one card; sharded training waits for the port's multi-GPU
-work), and the update written in place into the parameters and optimizer
-state it is given, the counterpart of the reference's ``donate_argnums``.
+``adamw_update``. ``make_train_step(cfg, opt_cfg, mesh)`` builds the
+step a launcher calls, the update written in place into the parameters
+and optimizer state it is given (the counterpart of the reference's
+``donate_argnums``). It returns the step alone, where the reference's
+returns (jit_fn, param_shardings, opt_shardings, rules): the step is not
+compiled, and ``shardings_for`` / ``opt_shardings`` give the placements.
+
+Under a mesh of more than one rank (``launch.mesh.make_mesh``) the step
+runs inside ``axis_rules(mesh, rules_for("train"))`` on the
+DTensor trees that ``init_sharded`` (or ``sharding.distribute_params``)
+made: ``loss_fn`` runs the sharded forward (``models.sharding``), each
+gradient comes back in its parameter's placements, and AdamW updates the
+local shards. Every rank passes the whole global batch; each keeps its
+rows. A one-rank mesh (``make_host_mesh``) runs the one-card step.
 
 On the card the step runs through the kernels: K2 (flash attention), K4
 (the MoE layers' grouped matmul) and K5 (the RG-LRU scan) forward and
@@ -20,15 +30,18 @@ backward kernel).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, is_dtensor, resolve_device
 from repro_torch.models import model as M
-from repro_torch.models.param import iter_leaves, map_tree
-from repro_torch.train.optimizer import AdamWConfig, AdamWState, adamw_update
+from repro_torch.models import sharding as S
+from repro_torch.models.param import init_leaf, iter_leaves, map_tree
+from repro_torch.train.optimizer import (AdamWConfig, AdamWState, adamw_update,
+                                         init_opt_state)
 
 
 def batch_to(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -49,9 +62,17 @@ def loss_and_grads(cfg: ModelConfig, params, batch, *, impl=None,
                      remat_policy=remat_policy)
     grads = torch.autograd.grad(loss, [leaves[p] for p in paths],
                                 allow_unused=True)
-    by_path = {path: torch.zeros_like(leaves[path]) if g is None else g
-               for path, g in zip(paths, grads)}
+    by_path = {path: torch.zeros_like(leaves[path]) if g is None else
+               _placed_like(g, leaves[path]) for path, g in zip(paths, grads)}
     return loss.detach(), map_tree(lambda path, _: by_path[path], params)
+
+
+def _placed_like(g, p):
+    """A DTensor gradient in its parameter's placements (a partial sum
+    left by a body is reduced here); a plain one as it is."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, params,
@@ -75,8 +96,8 @@ def train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, params,
             raise ValueError(f"batch {n} is not a multiple of microbatch "
                              f"{microbatch}")
         loss = torch.zeros((), dtype=torch.float32, device=dev)
-        grads = map_tree(lambda _, p: torch.zeros(p.shape, dtype=torch.float32,
-                                                  device=dev), params)
+        grads = map_tree(lambda _, p: torch.zeros_like(p, dtype=torch.float32),
+                         params)
         for i in range(microbatch):
             part = {k: v.reshape(microbatch, n // microbatch,
                                  *v.shape[1:])[i] for k, v in batch.items()}
@@ -98,17 +119,62 @@ def _leaf(tree, path: str):
     return tree
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
+def shardings_for(cfg: ModelConfig, mesh, kind: str = "train",
+                  fsdp: bool = True):
+    """(param placements tree, rules) from the logical rules (``fsdp``
+    counts for ``kind="serve"`` only: training rules always shard the
+    weights over the data axes, as the reference's ``rules_for``)."""
+    rules = S.rules_for(kind, fsdp=fsdp)
+    return S.param_shardings(M.param_specs(cfg), rules, mesh), rules
+
+
+def opt_shardings(p_shard, mesh) -> AdamWState:
+    """The optimizer state's placements: ``m`` and ``v`` as the parameters
+    (``step`` is a host int)."""
+    return AdamWState(step=None, m=p_shard, v=p_shard)
+
+
+def batch_shardings(batch_specs, mesh, rules) -> Dict[str, Any]:
+    """Placements of each batch tensor of ``batch_specs`` (name -> anything
+    with a ``shape``): dim 0 over the batch's axes."""
+    return {k: S.batch_sharding(v.shape, mesh, rules)
+            for k, v in batch_specs.items()}
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None, *,
                     impl: Optional[str] = None, remat: bool = True,
                     device: DeviceLike = None):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
     on ``device`` (default: the card), batches moved there (numpy arrays
     are taken), the update written in place into ``params`` and the
-    state's ``m`` and ``v``."""
+    state's ``m`` and ``v``. With a ``mesh`` of more than one rank the step
+    runs under its train rules, which shard the weights over the data axes
+    always (FSDP; see the module docstring)."""
     dev = resolve_device(device)
+    rules = S.rules_for("train")
 
     def step(params, opt_state, batch):
-        return train_step(cfg, opt_cfg, params, opt_state, batch_to(batch, dev),
-                          impl=impl, remat=remat, inplace=True)
+        ctx = S.axis_rules(mesh, rules) if mesh is not None and \
+            S.mesh_size(mesh) > 1 else contextlib.nullcontext()
+        with ctx:
+            return train_step(cfg, opt_cfg, params, opt_state,
+                              batch_to(batch, dev), impl=impl, remat=remat,
+                              inplace=True)
     return step
 
+
+def init_sharded(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, seed: int = 0,
+                 device: DeviceLike = None):
+    """(params, opt_state, param placements, opt placements, rules) with
+    every leaf drawn alone from its own generator (``param.init_leaf``, the
+    same weights ``init_model_params(cfg, seed)`` draws) and only the local
+    shard kept, so the same seed gives the same weights on every mesh."""
+    dev = resolve_device(device)
+    p_shard, rules = shardings_for(cfg, mesh, "train")
+    placed = dict(iter_leaves(p_shard))
+
+    params = map_tree(lambda path, spec: S.shard_tensor(
+        init_leaf(path, spec, seed, cfg.dtype, dev), mesh, placed[path]),
+        M.param_specs(cfg))
+    return (params, init_opt_state(opt_cfg, params), p_shard,
+            opt_shardings(p_shard, mesh), rules)

@@ -97,6 +97,23 @@ def test_flash_plain_matches_jax(B, Sq, H, KV, hd, causal, window, chunk, dtype)
     np.testing.assert_allclose(_f32(got), _f32(want_pallas), atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("mask", [dict(causal=True), dict(causal=True, window=48),
+                                  dict(causal=True, chunk=64), dict(causal=False)])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_full_attention_matches_jax(mask, dtype):
+    """ref.full_attention (unblocked, one product pair) against the JAX
+    package's, queries the last Sq of Skv positions, G = 2."""
+    from repro.kernels import ref as jref
+    rng = np.random.default_rng(7)
+    q, k, v = _np(rng, (2, 100, 4, 64)), _np(rng, (2, 160, 2, 64)), \
+        _np(rng, (2, 160, 2, 64))
+    got = ref.full_attention(_torch(q, dtype), _torch(k, dtype), _torch(v, dtype),
+                             **mask)
+    want = jref.full_attention(_jnp(q, dtype), _jnp(k, dtype), _jnp(v, dtype), **mask)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (2, 100, 4, 64)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[dtype])
+
+
 def test_flash_queries_are_last_positions():
     """Sq < Skv: queries sit at the last Sq positions of the kv stream."""
     from repro.kernels import ref as jref

@@ -1,0 +1,194 @@
+"""The rank side of ``test_torch_distributed.py``: run in the processes of
+a ``launch.mesh.run_world`` world (gloo on the CPU). Imports torch and the
+port only, never jax: the JAX side of each comparison runs in the test's
+own process.
+
+``run(rank, job)`` builds the job's mesh and runs its tasks in order,
+returning {task name: result} on rank 0 (None elsewhere; every rank takes
+part in each gather). Weights come as ``.npz`` files written through
+``repro_torch.bridge`` (``/``-joined leaf paths).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import bridge
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import blocks as B
+from repro_torch.models import model as M
+from repro_torch.models import sharding as S
+from repro_torch.models.param import iter_leaves
+from repro_torch.train import optimizer as O
+from repro_torch.train.train_loop import (init_sharded, make_train_step,
+                                          train_step)
+
+
+def cfg_of(arch: str, over: dict):
+    return dataclasses.replace(get_config(arch).reduced(), **over)
+
+
+def load_tree(path: str):
+    """An ``.npz`` of ``/``-joined leaf paths -> the nested tree of CPU
+    tensors."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = tree
+            *head, last = key.split("/")
+            for k in head:
+                node = node.setdefault(k, {})
+            node[last] = z[key]
+    return bridge.from_jax(tree, "cpu")
+
+
+def _np(t) -> np.ndarray:
+    return bridge.to_numpy({"t": t})["t"]
+
+
+def _gathered(params):
+    """The whole tree as numpy copies (``to_numpy`` may share a float32
+    tensor's memory, which the in-place update then changes)."""
+    from repro_torch.models.param import map_tree
+    return map_tree(lambda _, a: np.array(a, copy=True),
+                    bridge.to_numpy(S.full_tree(params)))
+
+
+def replica_spread(params, mesh) -> float:
+    """The largest difference between two ranks' copies of the same shard
+    of a leaf, over every leaf and every mesh dim the leaf is replicated
+    on (zero when the ranks agree bit for bit)."""
+    import torch.distributed as dist
+    worst = 0.0
+    for _, t in iter_leaves(params):
+        local = t.to_local().float().contiguous()
+        for i, pl in enumerate(t.placements):
+            if pl.is_replicate():
+                group = mesh.get_group(i)
+                parts = [torch.empty_like(local)
+                         for _ in range(dist.get_world_size(group))]
+                dist.all_gather(parts, local, group=group)
+                worst = max(worst, max(float((q - parts[0]).abs().max())
+                                       for q in parts))
+    return worst
+
+
+def _forward(task, cfg, mesh):
+    params = load_tree(task["weights"])
+    B.MOE_A2A_CAPACITY_FACTOR = task.get("capacity", 1.25)
+    tokens = torch.from_numpy(np.asarray(task["tokens"]))
+    with S.axis_rules(mesh, S.rules_for("train", **task.get("rules", {}))):
+        if task["kind"] == "loss":
+            batch = {"tokens": tokens,
+                     "labels": torch.from_numpy(np.asarray(task["labels"]))}
+            return float(M.loss_fn(cfg, params, batch, remat=False))
+        logits, _, aux = M.forward_with_aux(cfg, params, {"tokens": tokens},
+                                            mode="train")
+        return {"logits": _np(S.gather_full(logits)),
+                "aux": None if aux is None else float(aux.to_local())}
+
+
+@contextlib.contextmanager
+def count_saved_dots():
+    """While open, ``model._save_dots`` counts the products the ``dots``
+    policy saves; yields the counter (a list of one int)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    policy, saved = M._save_dots, [0]
+
+    def counted(ctx, op, *args, **kwargs):
+        out = policy(ctx, op, *args, **kwargs)
+        saved[0] += out == CheckpointPolicy.MUST_SAVE
+        return out
+    M._save_dots = counted
+    try:
+        yield saved
+    finally:
+        M._save_dots = policy
+
+
+def _train(task, cfg, mesh):
+    with count_saved_dots() as saved:
+        out = _train_steps(task, cfg, mesh)
+    out["dots_saved"] = saved[0]
+    return out
+
+
+def _train_steps(task, cfg, mesh):
+    ocfg = O.AdamWConfig(**task["opt"])
+    params, state, _, _, _ = init_sharded(cfg, ocfg, mesh, seed=task["seed"],
+                                          device="cpu")
+    out = {"init": _gathered(params)}
+    if task.get("remat_policy"):    # the dots policy, under the same rules
+        def step(p, s, b):
+            with S.axis_rules(mesh, S.rules_for("train")):
+                return train_step(cfg, ocfg, p, s, b, remat=True, inplace=True,
+                                  remat_policy=task["remat_policy"])
+    else:
+        step = make_train_step(cfg, ocfg, mesh, remat=task.get("remat", True),
+                               device="cpu")
+    losses, norms = [], []
+    for b in task["batches"]:
+        params, state, metrics = step(params, state, b)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    out.update(losses=losses, grad_norms=norms,
+               replica_spread=replica_spread(params, mesh),
+               final=_gathered(params),
+               local_is_shard=params["embed"]["tok"].to_local().numel()
+               < params["embed"]["tok"].numel())
+    return out
+
+
+def _refusals(task, cfg, mesh):
+    """The NotImplementedError of a family outside the sharded path, and
+    the TypeError of a DTensor handed to a kernel wrapper."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.kernels import ops
+    rg = cfg_of(task["family_arch"], {})
+    params = M.init_model_params(rg, 0, "cpu")
+    tokens = torch.zeros((4, 8), dtype=torch.long)
+    out = {}
+    with S.axis_rules(mesh, S.rules_for("train")):
+        try:
+            M.forward_with_aux(rg, params, {"tokens": tokens}, mode="train")
+            out["family"] = None
+        except NotImplementedError as e:
+            out["family"] = str(e)
+    q = distribute_tensor(torch.randn(1, 8, 2, 64), mesh,
+                          [Replicate()] * mesh.ndim)
+    x = distribute_tensor(torch.randn(8, 64), mesh, [Replicate()] * mesh.ndim)
+    w = torch.randn(2, 64, 64)
+    errors = {}
+    for name, call in (
+            ("flash_attention", lambda: ops.flash_attention(q, q, q)),
+            ("moe_gmm", lambda: ops.moe_gmm(
+                x, w, torch.tensor([4, 4], dtype=torch.int32)))):
+        try:
+            call()
+            errors[name] = None
+        except TypeError as e:
+            errors[name] = str(e)
+    out["kernels"] = errors
+    try:
+        make_mesh((2, 4), ("data", "model"), device="cpu", backend="gloo")
+        out["mesh"] = None
+    except ValueError as e:
+        out["mesh"] = str(e)
+    return out
+
+
+TASKS = {"forward": _forward, "loss": _forward, "train": _train,
+         "refusals": _refusals}
+
+
+def run(rank: int, job: dict):
+    mesh = make_mesh(job["mesh"], job["axes"], device="cpu", backend="gloo")
+    results = {}
+    for task in job["tasks"]:
+        cfg = cfg_of(task["arch"], task.get("over", {}))
+        results[task["name"]] = TASKS[task["kind"]](task, cfg, mesh)
+    return results if rank == 0 else None
