@@ -366,6 +366,48 @@ Phases (each raises on failure, so the script exits non-zero):
    sharded seconds as costs of 8 processes time-slicing one card, not
    scaling figures.
 
+13. Sharded serving, printed under ``phase 13`` after phase 12: the
+   port's ``prefill`` and ``decode_step`` under
+   ``sharding.axis_rules(mesh, rules_for("serve", fsdp=serve_fsdp(cfg)))``
+   in one world of 8 processes sharing this card over gloo on a (2, 4)
+   data x model mesh, weights from seed 0 in bf16, each case after its
+   one-process run on the card (prefill, then greedy decode steps): (a)
+   mistral-large-123b cut to 2 of 88 layers (FSDP), B=4 S=256 into a
+   cache of 512 slots split over its sequence (128 a rank), 2 decode
+   steps; (b) grok-1 cut to 1 of 64 layers (FSDP, the Megatron MoE in the
+   prefill and in each decode step), 2 steps; (c) recurrentgemma-2b at
+   all 26 layers, S=2100 past its 2048-token window (each rank holds 512
+   slots of every ring), 32 steps; (d) granite-3-2b cut to 4 of 40
+   layers with a cache of 1030 slots, which does not divide by 4, so it
+   is split by KV heads, 8 steps. The one-process run's greedy tokens
+   feed both runs and its expert choices the MoE ranks (``RouteLog``);
+   counts are zeroed just before each driven run and read after it. Each
+   line: an attention K leaf's placements, the logits' largest error over
+   every step against 1% of max|logit|, cache leaves off the placements
+   of ``sharding.cache_placements``, launches summed over the ranks
+   against the reckoning (``p13_reckoned``: K2 once an attention layer in
+   the prefill, K3 once an attention layer a decode step, K5 once an
+   RG-LRU layer in the prefill, K4 three times a MoE layer a forward),
+   prefill s and decode ms/step beside one process, the weights' draw
+   seconds, rank and card peak. The steps are cut to keep the whole run
+   inside its time limit (PERF.md §4). After the true run each case runs
+   its first decode step again from the cache its prefill left: as it
+   was, and once with each fault planted in the merge of the ranks' K3
+   outputs (``P13_FAULTS``: model rank 0's range given no weight; every
+   range with a key weighed equally, the lse ignored). Each rerun reads
+   the logits and every merged decode attention against the plain
+   attention over the whole cache gathered over ``model`` (``MergeLog``,
+   ``P13_MERGE_TOL``); the true rerun must hold both, and in every case
+   whose cache is split over its sequence each fault must fail one of
+   them, so checks that cannot see a wrong merge fail the run ((d)
+   merges nothing: its readings are printed). Then K3's ``lse`` and kv_len-0 instances at (a)'s and (c)'s local
+   shapes (output and lse against the plain version, rows of kv_len 0
+   giving 0 and -inf, the output bit for bit that of the call without
+   lse), and the K2, K3 (with lse, timed in turns beside the call
+   without), K4 and K5 instances at the ranks' shapes against their plain
+   versions, timed beside SDPA or ``_grouped_mm``; their launches are the
+   ranks' counts in the world's driven runs, summed.
+
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -5241,23 +5283,37 @@ class GmmLog:
         self.ops.moe_gmm = self.orig
 
 
+# a leaf whose draws by every rank at once (float32 draw and its narrow
+# copy) would hold more than this is drawn one rank at a time (at 16 GB
+# the phase 13 world's card peak rose from 69.3 to 76.55 GB of 80)
+P12_CONCURRENT_DRAW_BYTES = 4e9
+
+
 def p12_serial_params(torch, cfg, mesh, rules, dev):
     """The sharded tree of ``init_model_params(cfg, 0)`` (each leaf from its
-    own generator, the same weights), drawn one rank at a time: eight ranks
-    drawing grok-1's 3.2 GB expert leaves (and their float32 draws) at once
-    would not fit the card they share."""
+    own generator, the same weights). Each rank draws a leaf whole and
+    keeps its shard; a leaf too big for every rank to draw at once
+    (``P12_CONCURRENT_DRAW_BYTES``: grok-1's 3.2 GB expert leaves, the
+    vocab tables) is drawn one rank at a time, so the ranks' draws fit the
+    card they share."""
+    import math
     import torch.distributed as dist
     from repro_torch.models import model as M
     from repro_torch.models import sharding as S
     from repro_torch.models.param import init_leaf, iter_leaves, map_tree
     placed = dict(iter_leaves(S.param_shardings(M.param_specs(cfg), rules, mesh)))
+    world = dist.get_world_size()
+
+    def draw(path, spec):
+        return S.shard_tensor(init_leaf(path, spec, 0, cfg.dtype, dev), mesh, placed[path])
 
     def leaf(path, spec):
+        if math.prod(spec.shape) * 6 * world <= P12_CONCURRENT_DRAW_BYTES:
+            return draw(path, spec)
         out = None
-        for r in range(dist.get_world_size()):
+        for r in range(world):
             if r == dist.get_rank():
-                out = S.shard_tensor(init_leaf(path, spec, 0, cfg.dtype, dev), mesh,
-                                     placed[path])
+                out = draw(path, spec)
                 torch.cuda.empty_cache()
             dist.barrier()
         return out
@@ -5501,11 +5557,12 @@ def p12_reference_forward(torch, cfg, dev, tokens, work: Path, tag: str):
     return dict(secs=secs, aux=float(aux), peak=peak, counts=launches())
 
 
-def p12_world(job, work: Path):
-    """Run a world of ``P12_WORLD`` ranks on the card; its rank-0 result
-    with each run's launches summed over the ranks, and the card's peak of
-    used memory (``mem_get_info`` sampled every 50 ms from this process:
-    every process's allocations and CUDA contexts)."""
+def p12_world(job, work: Path, rank_fn=None):
+    """Run a world of ``P12_WORLD`` ranks of ``rank_fn`` (default
+    ``p12_rank``) on the card; its rank-0 result with each run's launches
+    summed over the ranks, and the card's peak of used memory
+    (``mem_get_info`` sampled every 50 ms from this process: every
+    process's allocations and CUDA contexts)."""
     import threading
     import torch
     from repro_torch.launch.mesh import run_world
@@ -5520,7 +5577,8 @@ def p12_world(job, work: Path):
     sampler.start()
     t0 = time.perf_counter()
     try:
-        ranks = run_world(p12_rank, P12_WORLD, job, run_dir=work / f"world_{job['check']}",
+        ranks = run_world(rank_fn or p12_rank, P12_WORLD, job,
+                          run_dir=work / f"world_{job['check']}",
                           backend="gloo", timeout_s=P12_TIMEOUT)
     finally:
         done.set()
@@ -5807,6 +5865,564 @@ def sharded_run(torch, dev, smi):
     return entries, totals
 
 
+# ----------------------------------------------------------------------
+# phase 13: sharded serving, 8 processes sharing this card over gloo
+# ----------------------------------------------------------------------
+P13_MESH = (2, 4)                  # data x model
+P13_TOL = 0.01                     # logits: 1% of max|logit| of one process
+P13_LSE_TOL = 1e-4                 # K3's lse against its plain version
+# the merged decode attention of every sequence-split layer against the
+# plain attention over the whole cache gathered over model, relative to
+# its largest |value| (bf16 outputs, as K3's kernel tolerance)
+P13_MERGE_TOL = 2e-2
+# planted after the true run, each for the first P13_FAULT_STEPS decode
+# steps from the cache the prefill left: in every case whose cache is
+# split over its sequence (its ranks merge their K3 outputs) the logits
+# or the merge reading must fail each, or the checks are blind to a
+# wrong merge
+P13_FAULT_STEPS = 1
+P13_FAULTS = {
+    "range_dropped": "model rank 0's range of the cache given no weight in the merge "
+                     "(one rank's partial attention lost)",
+    "lse_ignored": "every range that holds a key weighed equally in the merge (the "
+                   "ranks' log-sum-exps ignored)",
+}
+P13_ROWS = ("flash_p13_mistral", "dense_p13_mistral", "flash_p13_grok", "dense_p13_grok",
+            "gmm_p13_grok", "gmm_p13_grok_down", "gmm_p13_grok_decode", "flash_p13_rg",
+            "dense_p13_rg", "scan_p13_rg", "flash_p13_granite", "dense_p13_granite")
+
+
+def p13_cases():
+    """(a) mistral-large-123b cut to 2 of 88 layers, (b) grok-1-314b cut to 1
+    of 64, (c) recurrentgemma-2b at full depth, (d) granite-3-2b cut to 4 of
+    40 with a cache of 1030 slots (split by heads: 1030 does not divide by
+    4); every width as published, bf16. ``fsdp`` is the registered
+    config's ``serve_fsdp``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.sharding import serve_fsdp
+
+    def case(arch, B, S, cache_len, steps, **cut):
+        cfg = get_config(arch)
+        return dict(cfg=dataclasses.replace(cfg, **cut), fsdp=serve_fsdp(cfg), B=B, S=S,
+                    cache_len=cache_len, steps=steps, layers=cfg.n_layers)
+    return {"a": case("mistral-large-123b", 4, 256, 512, 2, n_layers=2),
+            "b": case("grok-1-314b", 4, 256, 512, 2, n_layers=1),
+            "c": case("recurrentgemma-2b", 4, 2100, 2132, 32),
+            "d": case("granite-3-2b", 4, 1000, 1030, 8, n_layers=4)}
+
+
+def p13_reckoned(c) -> dict:
+    """Each kernel's launches in one case's driven run, summed over the
+    ranks: every rank launches K2 once an attention layer in the prefill,
+    K5 once an RG-LRU layer in it, K3 once an attention layer a decode
+    step, K4 three times a MoE layer a forward."""
+    from repro_torch.configs.base import BlockKind
+    cfg, n = c["cfg"], P12_WORLD
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    attn = sum(k != BlockKind.RGLRU for k in kinds)
+    moe = attn if cfg.n_experts else 0
+    return {"flash": n * attn, "dense": n * attn * c["steps"],
+            "scan": n * (len(kinds) - attn), "gmm": n * 3 * moe * (1 + c["steps"]),
+            "decode": 0, "chunk": 0}
+
+
+def p13_reference(torch, c, dev, work: Path, tag: str) -> dict:
+    """The one-process serving run on the card from ``init_model_params(cfg,
+    0)``: ``prefill`` of B random prompts, then ``steps`` greedy
+    ``decode_step``s; the prompts, the greedy tokens, every step's float32
+    logits and every MoE call's expert choices saved for the ranks."""
+    from repro_torch.models import model as M
+    cfg, B, S = c["cfg"], c["B"], c["S"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_model_params(cfg, 0, dev)
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(0, cfg.vocab, (B, S))).to(dev)
+    outs, toks = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), RouteLog() as rl:
+        logits, cache = M.prefill(cfg, params, {"tokens": tokens}, cache_len=c["cache_len"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs.append(logits[:, 0].float().cpu())
+        pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+        for _ in range(c["steps"]):
+            tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
+            toks.append(tok.cpu())
+            logits, cache = M.decode_step(cfg, params, cache, tok, pos)
+            outs.append(logits[:, 0].float().cpu())
+            pos = pos + 1
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    np.save(work / f"{tag}_tokens.npy", tokens.cpu().numpy())
+    np.save(work / f"{tag}_steps.npy", torch.stack(toks).numpy())
+    np.save(work / f"{tag}_logits.npy", torch.stack(outs).numpy())
+    np.savez(work / f"{tag}_routes.npz", *rl.calls)
+    peak = torch.cuda.max_memory_allocated()
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return dict(prefill_s=t1 - t0, decode_ms=(t2 - t1) / c["steps"] * 1e3, peak=peak,
+                scale=float(torch.stack(outs).abs().max()))
+
+
+@contextlib.contextmanager
+def p13_planted(fault):
+    """While open, ``blocks._merge_weights`` (the merge of the ranks' K3
+    outputs over a cache split along its sequence) runs with ``fault`` (a
+    key of ``P13_FAULTS``) planted; None plants nothing."""
+    import torch
+    from repro_torch.models import blocks as B
+    merge = B._merge_weights
+    if fault == "range_dropped":
+        def planted(o, lse):
+            return merge(o, torch.cat([torch.full_like(lse[:1], -torch.inf), lse[1:]]))
+        B._merge_weights = planted
+    elif fault == "lse_ignored":
+        B._merge_weights = lambda o, lse: merge(
+            o, torch.where(torch.isneginf(lse), lse, torch.zeros_like(lse)))
+    try:
+        yield
+    finally:
+        B._merge_weights = merge
+
+
+class MergeLog:
+    """While open, holds every sharded decode attention over a cache split
+    over its sequence or whole (``blocks._decode_serve_attn``, which
+    writes the new token's K/V in place and merges the ranks' K3 outputs)
+    against the plain attention over the whole cache, gathered over
+    ``model`` after the write: ``err``, the largest difference relative to
+    the largest |value| of that attention, and ``calls``."""
+
+    def __init__(self):
+        self.err, self.calls = 0.0, 0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import ref
+        from repro_torch.models import blocks as B
+        from repro_torch.models import sharding as S
+        self.B, self.orig = B, B._decode_serve_attn
+
+        def held(cfg, kind, lay, kv_whole, h, q, k, v, cos, sin, pos, k_cache, v_cache,
+                 impl):
+            out = self.orig(cfg, kind, lay, kv_whole, h, q, k, v, cos, sin, pos, k_cache,
+                            v_cache, impl)
+            mesh = lay.mesh
+            qa = S.all_gather(q, mesh, "model", dim=2) if lay.attn_tp else q
+            kc, vc = ((S.all_gather(t, mesh, "model", dim=1) if lay.cache.seq else t)
+                      for t in (k_cache, v_cache))
+            _, kv_len = B._ring_slot(B._attn_window(cfg, kind)[1], pos, kc.shape[1])
+            whole = ref.decode_attention(qa.float(), kc.float(), vc.float(),
+                                         kv_len.to(torch.int32))
+            if lay.attn_tp:
+                j, Hl = S.axis_index(mesh, "model"), q.shape[2]
+                whole = whole[:, :, j * Hl:(j + 1) * Hl]
+            self.err = max(self.err, float((out.float() - whole).abs().max()
+                                           / whole.abs().max().clamp(min=1e-30)))
+            self.calls += 1
+            return out
+        B._decode_serve_attn = held
+        return self
+
+    def __exit__(self, *exc):
+        self.B._decode_serve_attn = self.orig
+
+
+def p13_case_rank(torch, c, tag, work: str, mesh, dev):
+    """One case on one rank: weights drawn as the one-process run's and
+    placed by the serve rules, counts zeroed just before the driven run
+    (``prefill`` then the one-process run's greedy tokens through
+    ``decode_step``, teacher-forced; MoE calls take its expert choices),
+    read after the prefill and after the last step; then this rank's
+    logits of every step held against that run's, and every cache leaf's
+    placements against ``sharding.cache_placements``; then the first
+    ``P13_FAULT_STEPS`` decode steps again from the cache the prefill
+    left, as they were and with each planted fault (``P13_FAULTS``),
+    their logits and their merges (``MergeLog``) read."""
+    import torch.distributed as dist
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as S
+    from repro_torch.models.param import iter_leaves
+    cfg, B, Sq = c["cfg"], c["B"], c["S"]
+    rules = S.rules_for("serve", fsdp=c["fsdp"])
+    torch.cuda.reset_peak_memory_stats()
+    t_init = time.perf_counter()
+    params = p12_serial_params(torch, cfg, mesh, rules, dev)
+    t_init = time.perf_counter() - t_init
+    tokens = torch.from_numpy(np.load(f"{work}/{tag}_tokens.npy")).to(dev)
+    steps = torch.from_numpy(np.load(f"{work}/{tag}_steps.npy")).to(dev)
+    ref_logits = np.load(f"{work}/{tag}_logits.npy", mmap_mode="r")
+    with np.load(f"{work}/{tag}_routes.npz") as z:
+        ref_routes = [z[f"arr_{i}"] for i in range(len(z.files))]
+    plan = S.make_plan(mesh, rules, B)
+    rows = p12_local_rows(mesh, plan, B)
+    ids = np.arange(rows.start, rows.stop)
+
+    def forced(call):        # the Megatron body routes this rank's rows
+        want = ref_routes[call]
+        if want.shape[0] == B * Sq:
+            return want[(ids[:, None] * Sq + np.arange(Sq)[None]).reshape(-1)]
+        return want[ids]
+    dist.barrier()
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    local = []
+    with torch.no_grad(), S.axis_rules(mesh, rules), \
+            RouteLog(forced if cfg.n_experts else None) as rl, GmmLog() as gl:
+        logits, cache = M.prefill(cfg, params, {"tokens": tokens}, cache_len=c["cache_len"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        first, gmm_first = launches(), dict(gl.by_shape)
+        n_pre = len(rl.calls)
+        snap = [t.to_local().clone() for _, t in iter_leaves(cache)]
+        local.append(logits.to_local()[:, 0].float())
+        pos = torch.full((B,), Sq, dtype=torch.int32, device=dev)
+        for i in range(c["steps"]):
+            logits, cache = M.decode_step(cfg, params, cache, steps[i], pos)
+            local.append(logits.to_local()[:, 0].float())
+            pos = pos + 1
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    total = launches()
+    vtp = [a for a, pl in zip(mesh.mesh_dim_names, logits.placements) if pl.is_shard(2)]
+    V = local[0].shape[-1]
+    c0 = mesh.get_local_rank(vtp[0]) * V if vtp else 0
+    want = torch.from_numpy(np.array(ref_logits[:, rows, c0:c0 + V])).to(dev)
+    got = torch.stack(local)
+    n_f = min(c["steps"], P13_FAULT_STEPS)
+    rerun = []
+    for fault in (None,) + tuple(P13_FAULTS):   # the first decode steps again
+        for (_, t), held in zip(iter_leaves(cache), snap):
+            t.to_local().copy_(held)
+        pos = torch.full((B,), Sq, dtype=torch.int32, device=dev)
+        planted = []
+        with torch.no_grad(), S.axis_rules(mesh, rules), p13_planted(fault), \
+                RouteLog((lambda call: forced(call + n_pre)) if cfg.n_experts else None), \
+                MergeLog() as ml:
+            for i in range(n_f):
+                logits, cache = M.decode_step(cfg, params, cache, steps[i], pos)
+                planted.append(logits.to_local()[:, 0].float())
+                pos = pos + 1
+        rerun += [float((torch.stack(planted) - want[1:1 + n_f]).abs().max()), ml.err,
+                  float(ml.calls)]
+    model_dim = mesh.mesh_dim_names.index("model")
+    placed = S.cache_placements(cfg, B, c["cache_len"], rules, mesh)
+    misplaced = sum(tuple(t.placements) != tuple(placed[p]) for p, t in iter_leaves(cache))
+    k_leaf = next(t for p, t in iter_leaves(cache) if p.endswith("/k"))
+    stats = torch.tensor([float((got - want).abs().max()), float(want.abs().max()),
+                          float((~torch.isfinite(got)).sum()), float(misplaced),
+                          rl.differ if mesh.get_local_rank("model") == 0 else 0.0,
+                          rl.all if mesh.get_local_rank("model") == 0 else 0.0,
+                          *rerun], device=dev)
+    gathered = [torch.zeros_like(stats) for _ in range(dist.get_world_size())]
+    dist.all_gather(gathered, stats)
+    g = torch.stack(gathered).cpu().numpy()
+    res = dict(case=tag, err=float(g[:, 0].max()), scale=float(g[:, 1].max()),
+               nonfinite=int(g[:, 2].sum()), misplaced=int(g[:, 3].sum()),
+               differ=int(g[:, 4].sum()), decisions=int(g[:, 5].sum()),
+               fault_steps=n_f, merge_calls=int(g[:, 8].sum()),
+               reruns={f: (float(g[:, 6 + 3 * i].max()), float(g[:, 7 + 3 * i].max()))
+                       for i, f in enumerate(("true",) + tuple(P13_FAULTS))},
+               seq_split=k_leaf.placements[model_dim].is_shard(k_leaf.dim() - 3),
+               prefill_s=t1 - t0, decode_ms=(t2 - t1) / c["steps"] * 1e3, init_s=t_init,
+               k_placements=[str(p) for p in k_leaf.placements],
+               k_local=tuple(k_leaf.to_local().shape), k_global=tuple(k_leaf.shape),
+               peak=torch.cuda.max_memory_allocated())
+    decode = {k: total[k] - first[k] for k in total}
+    gmm_decode = {k: v - gmm_first.get(k, 0) for k, v in gl.by_shape.items()}
+    del params, cache, logits, local, got, want, snap
+    torch.cuda.empty_cache()
+    return res, [dict(counts=first, gmm=gmm_first), dict(counts=decode, gmm=gmm_decode)]
+
+
+def p13_rank(rank: int, job: dict):
+    """One rank of phase 13's world: every case in turn on one (2, 4)
+    mesh, each freeing its weights before the next. Rank 0 returns the
+    results; every rank its launch counts (two runs a case: the prefill
+    and the decode steps)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(job.get("device", "cuda"), 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = make_mesh(P13_MESH, ("data", "model"), device=dev, backend="gloo")
+    cases, out, counts = p13_cases(), [], []
+    for tag in job["cases"]:
+        res, per = p13_case_rank(torch, cases[tag], tag, job["work"], mesh, dev)
+        out += [res, dict(case=tag)]
+        counts += per
+    return (out, counts) if rank == 0 else (None, counts)
+
+
+def p13_check_lse(torch, dev, label, L, nh, nkv, hd, kv_len) -> None:
+    """K3 with ``return_lse`` at a local shard shape: output and lse against
+    the plain version (rows of kv_len 0 included: output 0, lse -inf), the
+    output bit for bit that of the call without lse."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(L + nh)
+    q, k, v, kl = decode_inputs(torch, rng, dev, "bfloat16", nh, nkv, hd, S=L, kv_len=kv_len)
+    out, lse = da.decode_attention(q, k, v, kl, return_lse=True)
+    plain_out, plain_lse = ref.decode_attention(q.float(), k.float(), v.float(), kl,
+                                                return_lse=True)
+    check(f"K3 lse {label} out, kv_len {kv_len}", "bfloat16", out, plain_out, [])
+    empty = kl == 0
+    finite = ~empty[:, None].expand_as(lse)
+    check(f"K3 lse {label} lse (rows with keys)", "bfloat16", lse[finite], plain_lse[finite],
+          [], tol=P13_LSE_TOL)
+    if empty.any() and not (bool((out[empty] == 0).all()) and
+                            bool(torch.isneginf(lse[empty]).all())):
+        raise AssertionError(f"K3 lse {label}: a row of kv_len 0 gave output "
+                             f"{out[empty].abs().max().item()} and lse {lse[empty]}")
+    if not torch.equal(out, da.decode_attention(q, k, v, kl)):
+        raise AssertionError(f"K3 lse {label}: the output differs from the call without lse")
+    log(f"  K3 lse {label}: kv_len 0 rows give 0 and -inf, the output equals the call "
+        "without lse bit for bit")
+
+
+def p13_kernel_rows(torch, dev):
+    """Phase 13's kernel instances at the ranks' local shapes, each against
+    its plain version on the same inputs and timed beside its library
+    call; K3's with its lse (and beside the call without it)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rs
+    rng = np.random.default_rng(131)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t = lambda shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+    entries, isz, dtype = {}, 2, "bfloat16"
+    flash_cases = {
+        # key: (label, B_loc, S, local q heads, local kv heads, hd, window)
+        "flash_p13_mistral": ("mistral-large-123b prefill on (2, 4)", 2, 256, 24, 2, 128, 0),
+        "flash_p13_grok": ("grok-1 prefill on (2, 4)", 2, 256, 12, 2, 128, 0),
+        "flash_p13_rg": ("recurrentgemma-2b prefill on (2, 4), heads whole", 2, 2100, 10, 1,
+                         256, RG_WINDOW),
+        "flash_p13_granite": ("granite-3-2b prefill on (2, 4)", 2, 1000, 8, 2, 64, 0),
+    }
+    for key, (label, B, S, Hh, KVh, hd, win) in flash_cases.items():
+        q, k, v = t((B, S, Hh, hd)), t((B, S, KVh, hd)), t((B, S, KVh, hd))
+        errs = []
+        check(f"K2 {label} B={B} S={S}", dtype, fa.flash_attention(q, k, v, window=win),
+              ref.flash_attention(q.float(), k.float(), v.float(), window=win).to(q.dtype),
+              errs)
+        pairs = sum(min(i + 1, win or S) for i in range(S)) * Hh * B
+        b, by = bound_ms(isz * (2 * q.numel() + k.numel() + v.numel()), 4 * hd * pairs, dtype)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = window_mask(torch, S, win, dev) if win else None
+        entries[key] = dict(
+            name=f"flash_attention ({label}, local shard)", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:27",
+            shape=f"B={B} S={S} H={Hh} KV={KVh} hd={hd} "
+                  f"{f'window {win}' if win else 'causal'} bf16",
+            **kernel_times(torch, lambda: fa.flash_attention(q, k, v, window=win),
+                           "flash_attention_mma_kernel", iters=10),
+            plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v, window=win), 2,
+                              warmup=1),
+            bound_ms=b, bound_by=by, max_abs_err=max(errs),
+            library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                                     is_causal=mask is None,
+                                                     enable_gqa=True), 10))
+        del q, k, v, qt, kt, vt
+    # K3: the lse and empty-row instances checked, then each rank's
+    # heaviest instance timed with and without lse
+    p13_check_lse(torch, dev, "mistral (a) local", 128, 96, 8, 128, [0, 1, 64, 128])
+    p13_check_lse(torch, dev, "recurrentgemma (c) local", 512, RG_H, RG_KV, RG_HD,
+                  [0, 5, 300, 512])
+    dense_cases = {
+        # key: (label, B_loc, local slots, q heads, kv heads, hd, kv_len, lse)
+        "dense_p13_mistral": ("mistral-large-123b decode, sequence split", 2, 128, 96, 8, 128,
+                              [128, 128], True),
+        "dense_p13_grok": ("grok-1 decode, sequence split", 2, 128, 48, 8, 128, [128, 128],
+                           True),
+        "dense_p13_rg": ("recurrentgemma-2b ring decode, sequence split", 2, 512, RG_H, RG_KV,
+                         RG_HD, [512, 512], True),
+        "dense_p13_granite": ("granite-3-2b decode, split by heads", 2, 1030, 8, 2, 64,
+                              [1008, 1008], False),
+    }
+    for key, (label, B, L, nh, nkv, hd, kv_len, with_lse) in dense_cases.items():
+        q, k, v, kl = decode_inputs(torch, rng, dev, dtype, nh, nkv, hd, S=L, kv_len=kv_len)
+        errs = []
+        got = da.decode_attention(q, k, v, kl, return_lse=with_lse)
+        want = ref.decode_attention(q.float(), k.float(), v.float(), kl,
+                                    return_lse=with_lse)
+        if with_lse:
+            check(f"K3 {label} lse", "bfloat16", got[1], want[1], [], tol=P13_LSE_TOL)
+            got, want = got[0], want[0]
+        check(f"K3 {label} B={B} L={L}", dtype, got, want, errs)
+        n_kv = sum(kv_len)
+        b, by = bound_ms(isz * (2 * q.numel() + 2 * n_kv * nkv * hd) + 4 * kl.numel()
+                         + (4 * B * nh if with_lse else 0), 4 * hd * nh * n_kv, dtype)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lmask = (torch.arange(L, device=dev)[None] < kl[:, None])[:, None, None]
+        call = lambda: da.decode_attention(q, k, v, kl, return_lse=with_lse)  # noqa: E731
+        entries[key] = dict(
+            name=f"decode_attention ({label}{', with lse' if with_lse else ''})",
+            route="cuda", source="src/repro_torch/csrc/decode_common.cuh",
+            replaces="src/repro/kernels/decode_attention.py:31",
+            shape=f"B={B} L={L} H={nh} KV={nkv} hd={hd} kv_len {kv_len} "
+                  f"{n_split(torch, q, nkv, L)} bf16",
+            **kernel_times(torch, call, SPLIT_DECODE),
+            plain_ms=event_ms(torch, lambda: ref.decode_attention(q, k, v, kl,
+                                                                  return_lse=with_lse), 10),
+            bound_ms=b, bound_by=by, max_abs_err=max(errs),
+            library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=lmask,
+                                                     enable_gqa=True), 20),
+            library="SDPA, length mask (no lse)")
+        if with_lse:        # with and without lse in turns: A B B A
+            plain_call = lambda: da.decode_attention(q, k, v, kl)  # noqa: E731
+            ms = [kernel_ms(torch, f, SPLIT_DECODE) for f in (call, plain_call, plain_call,
+                                                              call)]
+            ratio = (ms[0] + ms[3]) / (ms[1] + ms[2])
+            log(f"  K3 {label}: with lse {ms[0]:.4f}, {ms[3]:.4f} ms, without {ms[1]:.4f}, "
+                f"{ms[2]:.4f} ms (with / without {ratio:.3f}x)")
+    # K4 at grok-1's shard widths (d_ff / 4), 2 rows a rank top-2: the
+    # prefill's 512 tokens and a decode step's 2
+    for key, label, T_tok, K, N in (
+            ("gmm_p13_grok", "grok-1 prefill gate/up, d_ff / 4 columns", 512, 6144, 8192),
+            ("gmm_p13_grok_down", "grok-1 prefill down, d_ff / 4 rows", 512, 8192, 6144),
+            ("gmm_p13_grok_decode", "grok-1 decode gate/up, d_ff / 4 columns", 2, 6144,
+             8192)):
+        sizes = routed_sizes(rng, T_tok, 8, 2, 6144)
+        T = T_tok * 2
+        x, w, gs = gmm_inputs(torch, dev, dtype, sizes, T, K, N, seed=130 + K + T)
+        errs = []
+        want = ref.moe_gmm(x, w, gs)
+        check(f"K4 {label} T={T} K={K} N={N}", dtype, gm.moe_gmm(x, w, gs), want, errs,
+              tol=gmm_tol(dtype, want))
+        used = int((np.asarray(sizes) > 0).sum())
+        b, by = bound_ms(isz * (T * K + used * K * N + T * N) + 4 * len(sizes),
+                         2 * T * K * N, dtype)
+        lib, why = gmm_library(torch, x, w, gs)
+        if why:
+            log(f"  K4 {label}: library_ms none: {why}")
+        entries[key] = dict(
+            name=f"moe_gmm ({label}, local shard)", route="cuda",
+            source="src/repro_torch/csrc/moe_gmm.cu",
+            replaces="src/repro/kernels/moe_gmm.py:26",
+            shape=f"T={T} K={K} N={N} E={len(sizes)} ({used} used) bf16",
+            **kernel_times(torch, lambda: gm.moe_gmm(x, w, gs), "moe_gmm_mma_kernel",
+                           iters=20),
+            plain_ms=event_ms(torch, lambda: ref.moe_gmm(x, w, gs), 2, warmup=1),
+            bound_ms=b, bound_by=by, max_abs_err=max(errs),
+            library_ms=event_ms(torch, lib, 10) if lib else None)
+        del x, w, gs, want
+    # K5: recurrentgemma's prefill scan on a rank's 2 rows, bit for bit
+    S = 2100
+    a = torch.from_numpy(rng.uniform(0.3, 0.99, size=(2, S, RG_D)).astype(np.float32)).to(dev)
+    bb = torch.from_numpy(rng.standard_normal((2, S, RG_D)).astype(np.float32)).to(dev)
+    errs = []
+    check(f"K5 recurrentgemma (c) local rows B=2 S={S}", "float32", rs.rglru_scan(a, bb),
+          ref.rglru_scan(a, bb), errs, tol=0.0)
+    b, by = bound_ms(4 * 3 * a.numel(), 2 * a.numel(), "float32")
+    entries["scan_p13_rg"] = dict(
+        name="rglru_scan (recurrentgemma-2b prefill on (2, 4), local rows)", route="cuda",
+        source="src/repro_torch/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:26",
+        shape=f"B=2 S={S} D={RG_D} float32",
+        **kernel_times(torch, lambda: rs.rglru_scan(a, bb), "rglru_scan_kernel"),
+        plain_ms=event_ms(torch, lambda: ref.rglru_scan(a, bb), 2, warmup=1),
+        bound_ms=b, bound_by=by, max_abs_err=max(errs), library_ms=None)
+    for e in entries.values():
+        log_row(e)
+    return entries
+
+
+def sharded_serving_run(torch, dev, smi):
+    """Phase 13: ``prefill`` and ``decode_step`` under a (2, 4) mesh in one
+    world of 8 processes sharing this card over gloo, each case against its
+    one-process run on the card; then the kernel instances at the ranks'
+    shapes. Returns (entries, launch totals summed over the ranks)."""
+    import shutil
+    t13 = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "phase13"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cases, refs = p13_cases(), {}
+    for tag, c in cases.items():
+        refs[tag] = p13_reference(torch, c, dev, work, tag)
+    log(f"phase 13: sharded serving (models.model prefill / decode_step under "
+        f"sharding.axis_rules(mesh, rules_for('serve', fsdp=serve_fsdp(cfg)))) on a "
+        f"{P13_MESH} data x model mesh of {P12_WORLD} processes sharing {smi}, backend gloo; "
+        f"one-process references in {time.perf_counter() - t13:.1f} s")
+    runs, wall = p12_world(dict(check="serve", cases=list(cases), work=str(work)), work,
+                           rank_fn=p13_rank)
+    totals, fails, blind = {}, [], []
+    for res, dec in zip(runs[::2], runs[1::2]):
+        tag = res["case"]
+        c, ref_run = cases[tag], refs[tag]
+        cfg = c["cfg"]
+        counts = {k: res["all_counts"][k] + dec["all_counts"][k] for k in res["all_counts"]}
+        tol = P13_TOL * res["scale"]
+        want = p13_reckoned(c)
+        held = res["err"] <= tol and not res["nonfinite"] and not res["misplaced"] and \
+            res["reruns"]["true"][1] <= P13_MERGE_TOL
+        reckoned = all(counts[k] == want[k] for k in want)
+        if not held or not reckoned:
+            fails.append(tag)
+        # a planted fault both checks pass where the ranks merge: blind
+        blind += [f"({tag}) {f}" for f in P13_FAULTS if res["seq_split"] and
+                  res["reruns"][f][0] <= tol and res["reruns"][f][1] <= P13_MERGE_TOL]
+        routing = (f"; expert choices shared with the one-process run, the ranks' own differ "
+                   f"in {res['differ']} of {res['decisions']} (token x layer) decisions; K4 by "
+                   f"(K, N) prefill {res['all_gmm']}, decode {dec['all_gmm']}"
+                   if cfg.n_experts else "")
+        log(f"phase 13 ({tag}): {cfg.name} {cfg.n_layers} of {c['layers']} layers, every width "
+            f"as published, fsdp {c['fsdp']}, bf16: prefill B={c['B']} S={c['S']} into "
+            f"cache_len {c['cache_len']} then {c['steps']} decode steps teacher-forced on the "
+            f"one-process run's greedy tokens; an attention K leaf {res['k_global']} placed "
+            f"{res['k_placements']}, {res['k_local']} a rank; logits max|err| over every step "
+            f"{res['err']:.4f} (tol {tol:.4f} = 1% of max|logit| {res['scale']:.3f}), "
+            f"non-finite {res['nonfinite']}, cache leaves off their placements "
+            f"{res['misplaced']}{routing}; launches, all ranks {counts} (reckoned {want}); "
+            f"prefill {res['prefill_s']:.3f} s, decode {res['decode_ms']:.2f} ms/step sharded "
+            f"(8 processes time-slicing one card over gloo: costs, not scaling figures) vs "
+            f"{ref_run['prefill_s']:.3f} s, {ref_run['decode_ms']:.2f} ms/step one process "
+            f"(first calls), weights drawn in {res['init_s']:.1f} s; rank-0 peak "
+            f"{res['peak'] / 1e9:.2f} GB, the card's peak in use over "
+            f"the world {res['card_peak'] / 1e9:.2f} GB, one-process peak "
+            f"{ref_run['peak'] / 1e9:.2f} GB")
+        split = res["seq_split"]
+        log(f"phase 13 ({tag}) the first {res['fault_steps']} decode step(s) again from the "
+            f"prefill's cache, as they were and with each planted fault "
+            f"({'split over its sequence: each fault must fail the logits or the merge' if split else 'split by heads: no merge runs, printed only'}; "
+            f"{res['merge_calls']} merged calls over the ranks a run): logits max|err| (tol "
+            f"{tol:.4f}), merge max|err| / max|attention| (tol {P13_MERGE_TOL}): "
+            + ", ".join(f"{f} {e:.4f}, {m:.4f}" for f, (e, m) in res["reruns"].items()))
+        pre, dcounts, dgmm = res["all_counts"], dec["all_counts"], dec["all_gmm"]
+        if tag == "a":
+            totals.update(flash_p13_mistral=pre["flash"], dense_p13_mistral=dcounts["dense"])
+        elif tag == "b":
+            totals.update(flash_p13_grok=pre["flash"], dense_p13_grok=dcounts["dense"],
+                          gmm_p13_grok=res["all_gmm"].get((6144, 8192), 0),
+                          gmm_p13_grok_down=res["all_gmm"].get((8192, 6144), 0),
+                          gmm_p13_grok_decode=sum(dgmm.values()))
+        elif tag == "c":
+            totals.update(flash_p13_rg=pre["flash"], dense_p13_rg=dcounts["dense"],
+                          scan_p13_rg=pre["scan"])
+        else:
+            totals.update(flash_p13_granite=pre["flash"], dense_p13_granite=dcounts["dense"])
+    log(f"phase 13: world {wall:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    if fails:
+        raise AssertionError(f"phase 13: cases {fails} not held (logits, placements or "
+                             "launches; see their lines)")
+    if blind:
+        raise AssertionError(f"phase 13: the logits check passes the planted faults {blind}")
+    log(f"phase 13: the kernel instances at the ranks' shapes (launches: the {P12_WORLD} "
+        f"ranks' counts in the driven runs, summed: {totals})")
+    entries = p13_kernel_rows(torch, dev)
+    log(f"phase 13: done in {time.perf_counter() - t13:.1f} s")
+    return entries, totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5826,6 +6442,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+
+    def mark(what: str) -> None:
+        """The run's clock at a phase boundary: the 1200 s budget by phase."""
+        log(f"time: {what} done at {time.perf_counter() - t_start:.1f} s")
     smi = nvidia_smi_line()
     log(f"phase 1: card {smi}; torch {torch.__version__} CUDA {torch.version.cuda}")
     secs = build.build()
@@ -5837,6 +6457,7 @@ def main() -> int:
     check_tensor_cores(build)
     check_no_spill(build)
 
+    mark("phase 1")
     entries = phase_kernels(torch, dev)
     entries.update(phase_kernels_moe(torch, dev))
     entries.update(phase_kernels_catalogue(torch, dev))
@@ -5844,6 +6465,7 @@ def main() -> int:
     entries.update(phase_kernels_llava(torch, dev))
     torch.cuda.empty_cache()
     readings, firsts = [], {}
+    mark("phase 2")
 
     # phase 3: granite-3-2b (paged whole-prompt, paged chunked, dense)
     cfg = get_config("granite-3-2b")
@@ -5881,6 +6503,7 @@ def main() -> int:
     logits_parity(torch, cfg, params, dev, S=300, paged=True)
     del params
     torch.cuda.empty_cache()
+    mark("phases 3 and 4, granite")
 
     log(f"phase 3: {cfg.name} through Gateway.invoke -> EngineBackend (max_batch 4, "
         "batch wait 50 ms, max_warm 1) -> make_serve_runtime, tracer on")
@@ -5892,6 +6515,7 @@ def main() -> int:
             entries[key], name=entries[key]["name"] + ", via Gateway.invoke")
         total[f"{key}_gateway"] = counts[key]
     torch.cuda.empty_cache()
+    mark("phase 3, the gateway")
 
     log(f"phase 5: {cfg.name} behind the control plane (ControlPlane -> EngineBackend, "
         "max_batch 4) and on SimBackend (one node, this card, the model run for real in "
@@ -5905,6 +6529,7 @@ def main() -> int:
             entries[key], name=entries[key]["name"] + ", via SimBackend")
         total[f"{key}_sim"] = sim_counts[key]
     torch.cuda.empty_cache()
+    mark("phase 5")
 
     log(f"phase 6: {cfg.name} through the multi-process cluster (Gateway.invoke -> "
         "ClusterBackend -> Master over RPC -> 2 worker processes on this card, max_batch 4, "
@@ -5915,6 +6540,7 @@ def main() -> int:
             entries[key], name=entries[key]["name"] + ", via ClusterBackend")
         total[f"{key}_cluster"] = cl_counts[key]
     torch.cuda.empty_cache()
+    mark("phase 6")
 
     # phase 3: recurrentgemma-2b, paged (its ring caches and state are
     # per-slot; nothing is pooled), whole-prompt prefill
@@ -5949,6 +6575,7 @@ def main() -> int:
                         dict(page_size=PAGE, prefill_chunk=256, impl="ref"),
                         dict(page_size=PAGE, prefill_chunk=256, graphs=False),
                         dict(page_size=0), dict(page_size=0, impl="ref")])
+    mark("phases 3 and 4, recurrentgemma and the float32 greedy checks")
 
     # phase 3: llama4-scout, 8 of its 48 layers (2 periods of ATTN +
     # 3 CHUNKED; the published depth does not fit one card), every width
@@ -5988,6 +6615,7 @@ def main() -> int:
                   runs=[dict(page_size=PAGE), dict(page_size=PAGE, impl="ref")])
     torch.cuda.empty_cache()
 
+    mark("phases 3 and 4, llama4-scout")
     # phase 7: the rest of the dense catalogue at full width, then the
     # roofline fraction of every served step and --sim
     counts, more, more_firsts = catalogue_run(torch, dev)
@@ -5999,6 +6627,7 @@ def main() -> int:
         f"989 TFLOP/s; card {smi})")
     roofline_fractions(readings)
     sim_run(firsts)
+    mark("phase 7")
 
     # phase 8: the paper's workflow (tiny-YOLOv2, whisper-tiny, granite)
     t8 = time.perf_counter()
@@ -6017,6 +6646,7 @@ def main() -> int:
         entries[f"{row}_workflow"] = dict(entries[row], name=entries[row]["name"] + ", via Workflow")
         total[f"{row}_workflow"] = wf_counts[key]
     log(f"phase 8: done in {time.perf_counter() - t8:.1f} s")
+    mark("phase 8")
 
     # phase 9: xLSTM served through the engine, llava's patch prefix
     t9 = time.perf_counter()
@@ -6025,6 +6655,7 @@ def main() -> int:
     entries["flash_llava_engine"] = dict(
         entries["flash_llava"], name=entries["flash_llava"]["name"] + ", via ServingEngine")
     log(f"phase 9: done in {time.perf_counter() - t9:.1f} s")
+    mark("phase 9")
 
     # phase 10: training on the card (backward kernels, granite-3-2b and
     # recurrentgemma-2b at full width and depth, checkpoint, guards; K4's
@@ -6032,6 +6663,7 @@ def main() -> int:
     train_entries, train_totals = training_run(torch, dev)
     entries.update(train_entries)
     total.update(train_totals)
+    mark("phase 10")
 
     # phase 11: int8 weights and int8 K/V caches (K1's int8 instances, K3
     # without scales; granite and recurrentgemma at the model's API,
@@ -6046,6 +6678,7 @@ def main() -> int:
     priced_backend_run(torch, dev, smi)
     example_twins_run()
     log(f"phase 11: done in {time.perf_counter() - t11:.1f} s")
+    mark("phase 11")
 
     # phase 12: the sharded paths (grok-1's Megatron MoE, llama4-scout's
     # all-to-all MoE, granite-3-2b's sharded train step) in worlds of 8
@@ -6054,6 +6687,16 @@ def main() -> int:
     p12_entries, p12_totals = sharded_run(torch, dev, smi)
     entries.update(p12_entries)
     total.update(p12_totals)
+    mark("phase 12")
+
+    # phase 13: sharded serving (mistral-large-123b, grok-1, recurrentgemma-2b
+    # and granite-3-2b's prefill and decode_step) in one world of 8
+    # processes sharing this card over gloo
+    torch.cuda.empty_cache()
+    p13_entries, p13_totals = sharded_serving_run(torch, dev, smi)
+    entries.update(p13_entries)
+    total.update(p13_totals)
+    mark("phase 13")
 
     kernels = []
     for key in ("decode", "chunk", "chunk_768", "flash", "flash_rg", "dense_rg", "dense_granite",
@@ -6067,7 +6710,7 @@ def main() -> int:
                 "flash_bwd_rg", "scan_bwd", "flash_l4_train", "flash_bwd_l4", "gmm_train",
                 *GMM_BWD_ROWS, "decode_int8", "decode_int8_qwen", "chunk_int8",
                 "chunk_int8_768", "chunk_int8_qwen", "chunk_int8_qwen_768", "dense_int8_rg",
-                "dense_int8_granite", *P12_ROWS):
+                "dense_int8_granite", *P12_ROWS, *P13_ROWS):
         e = dict(entries[key])
         e["launches"] = total[key]
         kernels.append({k: e[k] for k in (

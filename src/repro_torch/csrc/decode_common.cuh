@@ -28,6 +28,10 @@
 //   kernel) combines them: out = sum e^{m_s - M} acc_s / max(sum e^{m_s - M}
 //   l_s, 1e-30). With n_split == 1 the body writes out directly. Partials
 //   are in log2 units (scores times scale * log2 e), both bodies alike.
+//   Where Params::lse is given (K3's return_lse), whichever kernel writes a
+//   row's output also writes its log-sum-exp, M ln 2 + ln L in natural log
+//   (-inf for a row with no key), so ranks that each hold a range of a
+//   cache can merge their outputs; K1 passes none.
 // * Stage K and V through shared memory asynchronously: tiles of keys in a
 //   cp.async ring, 16-byte copies of neighbouring addresses, rows past the
 //   range zero-filled by the src-size operand; a paged key's physical page
@@ -103,7 +107,14 @@ struct Params {
   Cache cache;
   int H, KV, n_split;
   float scale_log2;              // softmax scale * log2 e
+  float* lse;                    // (B, H) natural-log log-sum-exp, or null
 };
+
+// The natural-log log-sum-exp of a row from its log2-unit max M and its sum
+// L of 2^(s - M): M ln 2 + ln L, or -inf for a row that read no key.
+__device__ __forceinline__ float row_lse(float M, float L) {
+  return L > 0.f ? M * 0.6931471805599453f + logf(L) : __int_as_float((int)0xff800000);
+}
 
 // This block's (sequence, kv head, row group) and its key range [lo, hi).
 struct Block {
@@ -134,6 +145,7 @@ __device__ __forceinline__ void store(const P& p, int b, int h, int d, float A, 
   const long long bh = (long long)b * p.H + h;
   if (p.n_split == 1) {
     p.out[bh * HD + d] = rt::from_f32<typename P::TQ>(A / fmaxf(L, 1e-30f));
+    if (p.lse && d == 0) p.lse[bh] = row_lse(M, L);
     return;
   }
   const long long BH = (long long)(gridDim.z / p.KV) * p.H;
@@ -146,7 +158,8 @@ __device__ __forceinline__ void store(const P& p, int b, int h, int d, float A, 
   }
 }
 
-// An empty key range: zeros out (one split), or m = NEG_INF, l = 0.
+// An empty key range: zeros out and an lse of -inf (one split), or m =
+// NEG_INF, l = 0. A row with kv_len 0 has every range empty and reads no key.
 template <int HD, class P>
 __device__ __forceinline__ void store_empty(const P& p, const Block& k) {
   if (p.n_split == 1) {
@@ -508,8 +521,8 @@ split_decode_fma_kernel(const Params<TQ, TKV, Cache> p) {
 // ---------------------------------------------------------------------------
 template <typename TQ, int HD>
 __global__ void __launch_bounds__(HD)
-split_decode_merge_kernel(const float* __restrict__ ws, TQ* __restrict__ out, int BH,
-                          int n_split) {
+split_decode_merge_kernel(const float* __restrict__ ws, TQ* __restrict__ out,
+                          float* __restrict__ lse, int BH, int n_split) {
   const int bh = blockIdx.x, d = threadIdx.x;
   const float* wm = ws + (long long)n_split * BH * HD;
   const float* wl = wm + (long long)n_split * BH;
@@ -525,6 +538,7 @@ split_decode_merge_kernel(const float* __restrict__ ws, TQ* __restrict__ out, in
     }
   }
   out[(long long)bh * HD + d] = rt::from_f32<TQ>(A / fmaxf(L, 1e-30f));
+  if (lse && d == 0) lse[bh] = row_lse(M, L);
 }
 
 // Launch the split body (bf16 q and cache on the tensor cores, anything
@@ -550,7 +564,8 @@ int launch(const Params<TQ, TKV, Cache>& p, int B, cudaStream_t stream) {
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || p.n_split == 1) return (int)err;
-  split_decode_merge_kernel<TQ, HD><<<B * p.H, HD, 0, stream>>>(p.ws, p.out, B * p.H, p.n_split);
+  split_decode_merge_kernel<TQ, HD><<<B * p.H, HD, 0, stream>>>(p.ws, p.out, p.lse, B * p.H,
+                                                                p.n_split);
   return (int)cudaGetLastError();
 }
 

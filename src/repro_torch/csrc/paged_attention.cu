@@ -91,7 +91,8 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* bt
   if (C == 1) {
     const dec::Params<T, TKV, rt::PagedCache> p{
         qp, kp, vp, kl, qo, nullptr, nullptr, op, static_cast<float*>(ws),
-        rt::PagedCache{btp, P, page, KV}, H, KV, n_split, scale * 1.4426950408889634f};
+        rt::PagedCache{btp, P, page, KV}, H, KV, n_split, scale * 1.4426950408889634f,
+        nullptr};
     return dec::launch<HD>(p, B, stream);
   }
   if (!qo) return -1;

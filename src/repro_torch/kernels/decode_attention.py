@@ -20,6 +20,14 @@ grad, the wrapper raises ``NotImplementedError`` (``build.refuse_grad``).
 kernel reads ``kv_len`` on the device, so neither wrapper of the split body
 (this one and K1's decode) reads ``kv_len`` on the host: the call can be
 captured in a CUDA graph.
+
+A row's ``kv_len`` may be 0: it reads no key and its output is 0. With
+``return_lse=True`` the wrapper also returns each row's log-sum-exp of
+its scaled scores, (B, H) float32 in natural log (-inf for a row with no
+key), written by the same kernels as the output, which is bit for bit
+that of the call without it. Under a mesh a rank holds one range of a
+cache's slots (``models/blocks.py``, the sequence-split cache): each rank
+runs K3 on its range and the ranks merge their outputs by these weights.
 """
 from __future__ import annotations
 
@@ -61,7 +69,7 @@ def workspace(q: torch.Tensor, n_split: int) -> Optional[torch.Tensor]:
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.load("decode_attention").decode_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + \
         [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -71,15 +79,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, *,
                      softmax_scale: Optional[float] = None,
                      k_scale: Optional[torch.Tensor] = None,
-                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     v_scale: Optional[torch.Tensor] = None,
+                     return_lse: bool = False):
     """q: (B, 1, H, hd) float32 or bfloat16; k, v: (B, S, KV, hd) in q's
     dtype or int8 (scales optional, 1.0 where None); kv_len: (B,) int32 in
-    [1, S]. Returns (B, 1, H, hd) in q.dtype."""
+    [0, S] (a row of 0 reads no key: output 0). Returns (B, 1, H, hd) in
+    q.dtype, and with ``return_lse`` (out, lse), lse (B, H) float32 in
+    natural log (-inf for a row of kv_len 0)."""
     build.refuse_dtensor("decode_attention", q, k, v, kv_len)
     if not q.is_cuda:
         return decode_attention_plain(q, k, v, kv_len,
                                       softmax_scale=softmax_scale,
-                                      k_scale=k_scale, v_scale=v_scale)
+                                      k_scale=k_scale, v_scale=v_scale,
+                                      return_lse=return_lse)
     build.refuse_grad("decode_attention (K3)", q, k, v)
     if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or \
             k.shape != v.shape or k.shape[0] != q.shape[0]:
@@ -105,6 +117,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"kv_len must be int32 of shape {(B,)}, got "
                          f"{kv_len.dtype} {tuple(kv_len.shape)}")
     out = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     operands = dict(q=q, k=k, v=v, kv_len=kv_len, out=out)
     operands.update({n: t for n, t in (("k_scale", k_scale),
                                         ("v_scale", v_scale)) if t is not None})
@@ -118,11 +132,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      k_scale.data_ptr() if k_scale is not None else None,
                      v_scale.data_ptr() if v_scale is not None else None,
                      out.data_ptr(), ws.data_ptr() if ws is not None else None,
+                     lse.data_ptr() if lse is not None else None,
                      B, S, H, KV, hd, n_split, scale,
                      build.dtype_code(q), int(kv_int8), stream)
     build.check_launch("decode_attention", rc)
     build.count_launch(decode_attention)
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0

@@ -35,15 +35,19 @@ def flash_attention(q, k, v, *, causal=True, window=0, chunk=0,
 
 
 def decode_attention(q, k, v, kv_len, *, softmax_scale=None, k_scale=None,
-                     v_scale=None, impl: Optional[str] = None):
+                     v_scale=None, return_lse=False,
+                     impl: Optional[str] = None):
     """Single-step attention over a dense per-slot cache (ring caches of
-    local/chunked attention, and the dense serving layout)."""
+    local/chunked attention, and the dense serving layout); with
+    ``return_lse`` also each row's log-sum-exp (B, H) float32."""
     if _use_ref(impl):
         return ref.decode_attention(q, k, v, kv_len,
                                     softmax_scale=softmax_scale,
-                                    k_scale=k_scale, v_scale=v_scale)
+                                    k_scale=k_scale, v_scale=v_scale,
+                                    return_lse=return_lse)
     return da.decode_attention(q, k, v, kv_len, softmax_scale=softmax_scale,
-                               k_scale=k_scale, v_scale=v_scale)
+                               k_scale=k_scale, v_scale=v_scale,
+                               return_lse=return_lse)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,

@@ -207,14 +207,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, *,
                      softmax_scale: Optional[float] = None,
                      k_scale: Optional[torch.Tensor] = None,
-                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     v_scale: Optional[torch.Tensor] = None,
+                     return_lse: bool = False):
     """Single-step GQA attention over a KV cache.
 
     q: (B, 1, H, hd); k, v: (B, S_cache, KV, hd); kv_len: (B,) number of
     valid cache slots (slot order does not matter to softmax, so a ring
     cache passes a full-validity length once wrapped). k_scale, v_scale:
     (B, KV) float32 dequantization scales for int8 caches. p is normalised
-    before ``p @ v``.
+    before ``p @ v``. A row of kv_len 0 weighs no slot: its output is 0 (as
+    the Pallas kernel's, which skips every block of it). ``return_lse``:
+    also the log-sum-exp of each row's scaled scores, (B, H) float32,
+    natural log, -inf for a row of kv_len 0.
     """
     B, _, H, hd = q.shape
     _, S, KV, _ = k.shape
@@ -227,13 +231,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vf = vf * v_scale[:, None, :, None].float()
     qr = q.reshape(B, KV, G, hd).float() * scale
     s = torch.einsum("bkgd,bskd->bkgs", qr, kf)
-    valid = torch.arange(S, device=q.device)[None] < kv_len[:, None].long()
-    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    valid = (torch.arange(S, device=q.device)[None] <
+             kv_len[:, None].long())[:, None, None]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    out = torch.einsum("bkgs,bskd->bkgd", p, vf)
-    return out.reshape(B, 1, H, hd).to(q.dtype)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bskd->bkgd", p / torch.clamp(l, min=1e-30), vf)
+    out = out.reshape(B, 1, H, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, -torch.inf))
+    return out, lse.reshape(B, H)
 
 
 SPLIT_KEYS = 64     # a split of the split-KV decode holds a multiple of this

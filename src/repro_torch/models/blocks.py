@@ -46,10 +46,14 @@ replaces the MLP with ``moe_ffn``: token-choice top-k routing in float32
 and three grouped matmuls through K4 (``moe_gmm``), the reference's
 single-device branch. Nothing on that path reads a tensor back to the
 host. Under a mesh of more than one rank (``models.sharding``) an
-attention block runs in ``train`` mode as one ``local_map`` body on local
-shards (``sharded_attn_block``: Megatron column / row slices of the
-heads and the feed-forward, ``layout`` choosing them), and ``moe_ffn``
-takes the reference's Megatron or all-to-all branch there. ``attn_block`` and ``rglru_block`` return ``(x, cache, aux)``, as the
+attention block runs as one ``local_map`` body on local shards, through
+``attn_block`` itself (``_attn_body``: Megatron column / row slices of
+the heads and the feed-forward, ``layout`` choosing them): in ``train``
+(``sharded_attn_block``) and in ``prefill`` and ``decode``
+(``sharded_serve_block``, the cache split over its sequence, its KV heads
+or neither; an RG-LRU block there too), and ``moe_ffn`` takes the
+reference's Megatron or all-to-all branch there. ``attn_block`` and
+``rglru_block`` return ``(x, cache, aux)``, as the
 reference's blocks: ``aux`` is the MoE layer's load-balancing loss (None
 for a dense feed-forward), which ``model.loss_fn`` adds in ``train``.
 
@@ -78,8 +82,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import BlockKind, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import sharding
-from repro_torch.models.layers import (apply_rope, mlp, mlp_specs, rms_norm,
-                                       saturate_cast)
+from repro_torch.models.layers import (apply_rope, mlp, mlp_hidden, mlp_specs,
+                                       rms_norm, rope_tables, saturate_cast)
 from repro_torch.models.param import Spec
 
 Cache = Dict[str, torch.Tensor]
@@ -155,14 +159,22 @@ def attn_cache_specs(cfg: ModelConfig, kind: BlockKind, B: int,
     return s
 
 
+def _kv(cfg: ModelConfig, params, h: torch.Tensor):
+    """k, v (B, S, KV, hd) of h (B, S, d), with as many KV heads as
+    ``wk`` has columns of ``hd``."""
+    B, S = h.shape[:2]
+    k, v = h @ params["wk"], h @ params["wv"]
+    if cfg.qkv_bias:
+        k, v = k + params["bk"], v + params["bv"]
+    return k.reshape(B, S, -1, cfg.hd), v.reshape(B, S, -1, cfg.hd)
+
+
 def _qkv(cfg: ModelConfig, params, h: torch.Tensor):
     B, S = h.shape[:2]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, k, v = h @ params["wq"], h @ params["wk"], h @ params["wv"]
+    q = h @ params["wq"]
     if cfg.qkv_bias:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
-            v.reshape(B, S, KV, hd))
+        q = q + params["bq"]
+    return (q.reshape(B, S, cfg.n_heads, cfg.hd),) + _kv(cfg, params, h)
 
 
 def _ffn(cfg: ModelConfig, params, x: torch.Tensor, impl: Optional[str],
@@ -171,13 +183,15 @@ def _ffn(cfg: ModelConfig, params, x: torch.Tensor, impl: Optional[str],
     """(x + FFN(x), aux): a MoE layer's load-balancing aux (float32, 0-d),
     None for a dense MLP (the reference returns 0.0 there). Under a mesh
     (``lay``) the MLP's ``wg``/``wu`` are column slices and ``wd`` a row
-    slice over ``lay.ff_tp``, its output summed over those axes."""
+    slice over ``lay.ff_tp``, its output summed over those axes from
+    float32 partials (``sharding.row_parallel``)."""
     h = rms_norm(x, params["ln2"])
     if "router" in params:    # MoE layer (decided at spec time)
         out, aux = moe_ffn(cfg, params, h, impl=impl, lay=lay)
         return x + out, aux
     mesh, tp = (lay.mesh, lay.ff_tp) if lay is not None else (None, ())
-    out = sharding.reduce_from(mlp(params, sharding.copy_to(h, mesh, tp)), mesh, tp)
+    h = sharding.copy_to(h, mesh, tp)
+    out = sharding.row_parallel(mlp_hidden(params, h), params["wd"], mesh, tp)
     return x + out, None
 
 
@@ -187,6 +201,15 @@ def _keep_masked(new: torch.Tensor, old: torch.Tensor,
     if mask is None:
         return new
     return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
+def _ring_slot(chunk: int, pos: torch.Tensor, L: int):
+    """(slot, kv_len) of a decode token at positions ``pos`` (B,) in a
+    dense cache of L slots: slot ``pos % L``; the valid slots are the
+    prefix [0, kv_len), ``slot + 1`` for a chunk ring and ``min(pos + 1,
+    L)`` for a window ring or a global cache."""
+    slot = pos % L
+    return slot, (slot + 1 if chunk else torch.clamp(pos + 1, max=L))
 
 
 def _prefill_cache(cfg: ModelConfig, kind: BlockKind, k: torch.Tensor,
@@ -225,7 +248,8 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
                impl: Optional[str] = None,
                block_tables: Optional[torch.Tensor] = None,
                mask: Optional[torch.Tensor] = None,
-               lay: Optional["Layout"] = None
+               lay: Optional["Layout"] = None,
+               kv_whole: Optional[Dict[str, torch.Tensor]] = None
                ) -> Tuple[torch.Tensor, Optional[Cache], Optional[torch.Tensor]]:
     """Returns (x, cache, aux), ``aux`` the MoE feed-forward's
     load-balancing loss (None for a dense one; ``loss_fn`` adds it in
@@ -247,11 +271,17 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
     (num_pages, page, KV, hd) rather than per-slot (B, L, KV, hd).
     ``rope_cs``: (cos, sin) of this call's positions from
     ``layers.rope_tables``; ``forward`` computes them once for all layers.
-    ``lay`` (``train`` under a mesh, from ``sharded_attn_block``'s body):
-    ``cfg`` holds this rank's head counts and ``params`` its slices; the
-    normed input enters the heads through ``copy_to`` and ``wo``'s output
-    is summed over ``lay.attn_tp``, the feed-forward likewise over its
-    axes (``_ffn``)."""
+    ``lay`` (under a mesh, from ``_attn_body``): ``cfg`` holds this rank's
+    head counts and ``params`` its slices; the normed input enters the
+    heads through ``copy_to`` and ``wo``'s output is summed over
+    ``lay.attn_tp`` from float32 partials, the feed-forward likewise over
+    its axes (``_ffn``). In ``prefill`` and ``decode`` the cache is this
+    rank's part in ``lay.cache``'s layout: split by KV heads it is served
+    as on one rank; split over the sequence or whole,
+    ``_prefill_serve_cache`` builds it and ``_decode_serve_attn`` writes
+    and reads it. ``kv_whole``: the layer's whole ``wk``/``wv`` (and
+    biases) where ``model`` slices the query heads but not the KV heads
+    (``_local_heads``), from which each rank computes every KV head."""
     if kind not in ATTN_KINDS:
         raise ValueError(f"attn_block takes attention kinds, got {kind}")
     B, S, _ = x.shape
@@ -266,8 +296,13 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
     if mode in ("train", "prefill"):
         attn = ops.flash_attention(q, k, v, causal=causal, window=window,
                                    chunk=chunk, impl=impl)
-        new_cache = None if mode == "train" else \
-            _prefill_cache(cfg, kind, k, v, cache_len or S)
+        if mode == "train":
+            new_cache = None
+        elif lay is None or lay.cache.heads:
+            new_cache = _prefill_cache(cfg, kind, k, v, cache_len or S)
+        else:
+            new_cache = _prefill_serve_cache(cfg, kind, lay, kv_whole, h, k, v,
+                                             rope_cs, cache_len or S)
     elif mode == "chunk":
         if cache is None or pos is None:
             raise ValueError("chunk mode needs cache and pos")
@@ -303,25 +338,23 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
             attn = ops.paged_decode_attention(q, k_cache, v_cache, block_tables,
                                               (pos + 1).to(torch.int32),
                                               impl=impl)
+        elif lay is not None and not lay.cache.heads:
+            attn = _decode_serve_attn(cfg, kind, lay, kv_whole, h, q, k, v,
+                                      cos, sin, posl, k_cache, v_cache, impl)
         else:
-            L = k_cache.shape[1]
-            slot = posl % L
+            slot, kv_len = _ring_slot(chunk, posl, k_cache.shape[1])
             bidx = torch.arange(B, device=x.device)
             for c, new in ((k_cache, k), (v_cache, v)):
                 c[bidx, slot] = _keep_masked(saturate_cast(new[:, 0], c.dtype),
                                              c[bidx, slot], mask)
-            if chunk:
-                kv_len = slot + 1
-            else:
-                kv_len = torch.clamp(posl + 1, max=L)
             attn = ops.decode_attention(q, k_cache, v_cache,
                                         kv_len.to(torch.int32), impl=impl)
         new_cache = cache
     else:
         raise ValueError(f"unknown mode {mode!r}")
 
-    x = x + sharding.reduce_from(attn.reshape(B, S, H * hd) @ params["wo"],
-                                 mesh, tp)
+    x = x + sharding.row_parallel(attn.reshape(B, S, H * hd), params["wo"],
+                                  mesh, tp)
     if "c_wq" in params:
         x = _cross_attn(cfg, params, x, mode, cross_x, cache, new_cache, impl)
     x, aux = _ffn(cfg, params, x, impl, lay)
@@ -523,14 +556,37 @@ def _moe_ffn_a2a(cfg: ModelConfig, params, h: torch.Tensor, lay: "Layout",
 
 
 # ======================================================================
-# An attention block under a mesh of more than one rank (train mode)
+# An attention block under a mesh of more than one rank
 # ======================================================================
+@dataclasses.dataclass(frozen=True)
+class CacheLayout:
+    """Where an attention block's dense K/V cache (B, L, KV, hd) lives on
+    ``model``, as ``spec_for`` over ("batch", "kv_seq", "kv", None) places
+    it (the reference's ``attn_cache_specs``): ``seq``, rank r holds slots
+    [r L/m, (r + 1) L/m) of every KV head (``L % m == 0``, the usual case);
+    ``heads``, rank r its KV heads of every slot (``L % m != 0``, ``KV % m
+    == 0``); neither, every rank the whole cache."""
+
+    seq: bool
+    heads: bool
+
+
+def cache_layout(cfg: ModelConfig, plan, B: int, L: int) -> CacheLayout:
+    spec = sharding.spec_for((B, L, cfg.n_kv_heads, cfg.hd),
+                             ("batch", "kv_seq", "kv", None), plan.rules,
+                             plan.mesh)
+    seq, heads = (i < len(spec) and "model" in sharding.spec_axes(spec[i])
+                  for i in (1, 2))
+    return CacheLayout(seq=seq, heads=heads)
+
+
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """How one attention block computes under a mesh (``layout``): the
     mesh axes that shard the batch, the model axis's size ``m``, which
     fused dims are sliced over ``model`` (heads, KV heads, ``d_ff``), the
-    MoE branch, and each leaf's compute and gradient placements."""
+    MoE branch, each leaf's compute and gradient placements, and in
+    serving where its cache lives (``cache``; None in ``train``)."""
 
     mesh: object
     batch: Tuple[str, ...]
@@ -543,6 +599,7 @@ class Layout:
     moe_tp: Tuple[str, ...]
     tp_dims: Dict[str, Optional[int]]
     partial_on_model: Tuple[str, ...]
+    cache: Optional[CacheLayout] = None
 
 
 def layout(cfg: ModelConfig, params, plan, B: int, S: int) -> Layout:
@@ -599,19 +656,20 @@ def layout(cfg: ModelConfig, params, plan, B: int, S: int) -> Layout:
 
 
 def _local_heads(cfg: ModelConfig, lay: Layout, p):
-    """(cfg, p) as this rank computes its heads: ``cfg`` with the local
-    head counts (``head_dim`` pinned) and, where ``model`` slices the
-    query heads but not the KV heads, ``wk``/``wv``/``bk``/``bv`` narrowed
-    to the columns of the KV heads this rank's query heads read: each once
-    when every one is read by the same number of consecutive local query
-    heads, else one a query head (the kernel then runs at G = 1)."""
+    """(cfg, p, kv_whole) as this rank computes its heads: ``cfg`` with
+    the local head counts (``head_dim`` pinned) and, where ``model`` slices
+    the query heads but not the KV heads, ``wk``/``wv``/``bk``/``bv``
+    narrowed to the columns of the KV heads this rank's query heads read:
+    each once when every one is read by the same number of consecutive
+    local query heads, else one a query head (the kernel then runs at G =
+    1); ``kv_whole`` those leaves whole there, else None."""
     if not lay.attn_tp:
-        return cfg, p
+        return cfg, p, None
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     Hl = H // lay.m
     if lay.kv_tp:
         return dataclasses.replace(cfg, n_heads=Hl, n_kv_heads=KV // lay.m,
-                                   head_dim=hd), p
+                                   head_dim=hd), p, None
     r = sharding.axis_index(lay.mesh, "model")
     of = [h // (H // KV) for h in range(r * Hl, (r + 1) * Hl)]
     read = sorted(set(of))
@@ -619,20 +677,32 @@ def _local_heads(cfg: ModelConfig, lay: Layout, p):
         read = of
     cols = torch.tensor([c for h in read for c in range(h * hd, (h + 1) * hd)],
                         device=p["wk"].device)
-    p = dict(p, **{n: p[n].index_select(-1, cols)
-                   for n in ("wk", "wv", "bk", "bv") if n in p})
+    whole = {n: p[n] for n in ("wk", "wv", "bk", "bv") if n in p}
+    p = dict(p, **{n: t.index_select(-1, cols) for n, t in whole.items()})
     return dataclasses.replace(cfg, n_heads=Hl, n_kv_heads=len(read),
-                               head_dim=hd), p
+                               head_dim=hd), p, whole
 
 
-def _attn_body(cfg: ModelConfig, kind: BlockKind, lay: Layout, names, rope_cs,
-               impl, x: torch.Tensor, *leaves):
-    """``attn_block`` on this rank's local tensors: x (B_loc, S, d), the
-    leaves in their compute placements (``Layout.tp_dims``). Returns (x,
-    aux) with aux a 0-d float32 (zero for a dense feed-forward)."""
-    cfg, p = _local_heads(cfg, lay, dict(zip(names, leaves)))
-    x, _, aux = attn_block(cfg, kind, p, x, mode="train", rope_cs=rope_cs,
-                           impl=impl, lay=lay)
+def _attn_body(cfg: ModelConfig, kind: BlockKind, lay: Layout, names,
+               mode: str, rope_cs, cache_len, impl, x: torch.Tensor, *args):
+    """``attn_block`` on this rank's local tensors: x (B_loc, S, d); in
+    ``decode`` the local positions (B_loc,) and this rank's cache leaves k,
+    v first; then the layer's leaves in their compute placements
+    (``Layout.tp_dims``). Returns (x, aux) in ``train``, aux a 0-d float32
+    (zero for a dense feed-forward); (x, k, v) in ``prefill`` and
+    ``decode``, the cache leaves this rank holds (decode: the ones it was
+    given, written in place)."""
+    cache = pos = None
+    if mode == "decode":
+        pos, k, v, *args = args
+        cache = {"k": k, "v": v}
+        rope_cs = rope_tables(pos[:, None], cfg.hd, cfg.rope_theta)
+    cfg, p, whole = _local_heads(cfg, lay, dict(zip(names, args)))
+    x, cache, aux = attn_block(cfg, kind, p, x, mode=mode, rope_cs=rope_cs,
+                               cache=cache, pos=pos, cache_len=cache_len,
+                               impl=impl, lay=lay, kv_whole=whole)
+    if mode != "train":
+        return x, cache["k"], cache["v"]
     return x, (aux if aux is not None else
                torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -655,7 +725,8 @@ def sharded_attn_block(cfg: ModelConfig, kind: BlockKind, plan, params,
     names = sorted(params)
     act = plan.activation()
     body = local_map(
-        functools.partial(_attn_body, cfg, kind, lay, names, rope_cs, impl),
+        functools.partial(_attn_body, cfg, kind, lay, names, "train", rope_cs,
+                          None, impl),
         out_placements=(act, plan.replicated()),
         in_placements=(act,) + tuple(plan.compute(lay.tp_dims.get(n))
                                      for n in names),
@@ -667,6 +738,184 @@ def sharded_attn_block(cfg: ModelConfig, kind: BlockKind, plan, params,
                                               plan.compute(lay.tp_dims.get(n)))
                        for n in names))
     return x, None, (aux if lay.moe is not None else None)
+
+
+# ======================================================================
+# Serving under a mesh of more than one rank: prefill and decode of the
+# attention kinds and RG-LRU, each layer one local_map body that takes and
+# returns its cache leaves in the reference's placements
+# ======================================================================
+def _whole_kv(cfg: ModelConfig, lay: Layout, kv_whole, h, k, v, cos, sin):
+    """Every KV head's k, v (B, S, KV, hd) on this rank: as computed where
+    ``model`` does not slice the heads; from ``kv_whole``, the whole
+    ``wk``/``wv`` (``_local_heads``), where it slices the query heads but
+    not the KV heads. Where it slices the KV heads too, each rank holds its
+    own and the caller moves them with a collective."""
+    if kv_whole is None:
+        assert not lay.kv_tp, "KV heads sliced over model: move them"
+        return k, v
+    k, v = _kv(cfg, kv_whole, h)
+    return apply_rope(k, cos, sin), v
+
+
+def _prefill_serve_cache(cfg: ModelConfig, kind: BlockKind, lay: Layout,
+                         kv_whole, h, k, v, rope_cs, cache_len):
+    """This rank's part of the block's prefill cache, split over the
+    sequence or whole (``lay.cache``): the ring (or padded cache) of
+    ``_prefill_cache`` over the KV heads this rank computed, then, split
+    over the sequence, its slot range: with the KV heads sliced over
+    ``model``, an all-to-all sends each rank the range it keeps of every
+    rank's heads; else its range of every head."""
+    seq = lay.cache.seq
+    if not (seq and lay.kv_tp):
+        k, v = _whole_kv(cfg, lay, kv_whole, h, k, v, *rope_cs)
+    c = _prefill_cache(cfg, kind, k, v, cache_len)
+    if not seq:
+        return c
+    m = lay.m
+    out = {}
+    for name, t in c.items():
+        B, L, KVr, hd = t.shape
+        Lr = L // m
+        if lay.kv_tp:       # (m, B, L/m, KV/m, hd): range j to rank j
+            blocks = t.reshape(B, m, Lr, KVr, hd).transpose(0, 1).contiguous()
+            got = sharding.all_to_all(blocks, lay.mesh, "model")
+            out[name] = got.permute(1, 2, 0, 3, 4).reshape(B, Lr, m * KVr, hd)
+        else:
+            r = sharding.axis_index(lay.mesh, "model")
+            out[name] = t[:, r * Lr:(r + 1) * Lr].contiguous()
+    return out
+
+
+def _merge_weights(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The attention over a whole cache from the attention over each of its
+    ranges: o (m, B, H, hd) and lse (m, B, H) float32, weighted by
+    exp(lse - max lse). A range with no valid slot has lse -inf and weighs
+    0; a row with none anywhere stays 0, as K3's. Returns (B, H, hd)."""
+    top = lse.amax(dim=0)
+    w = torch.where(torch.isneginf(lse), torch.zeros_like(lse), torch.exp(lse - top))
+    return (w[..., None] * o).sum(dim=0) / \
+        torch.clamp(w.sum(dim=0), min=1e-30)[..., None]
+
+
+def _merge_ranges(o: torch.Tensor, lse: torch.Tensor, mesh) -> torch.Tensor:
+    """Each model rank's K3 output o (B, 1, H, hd) and lse (B, H) over its
+    range of the cache, gathered in float32 and merged
+    (``_merge_weights``): the attention over the whole cache, in o's
+    dtype."""
+    B, _, H, hd = o.shape
+    packed = torch.cat([o.float().reshape(B, H, hd), lse[..., None]], dim=-1)
+    every = sharding.all_gather(packed[None], mesh, "model", dim=0)
+    out = _merge_weights(every[..., :-1], every[..., -1])
+    return out.reshape(B, 1, H, hd).to(o.dtype)
+
+
+def _decode_serve_attn(cfg: ModelConfig, kind: BlockKind, lay: Layout,
+                       kv_whole, h, q, k, v, cos, sin, pos, k_cache, v_cache,
+                       impl):
+    """One decode token of every local row against this rank's part of a
+    cache split over the sequence or whole (``lay.cache``), written in
+    place: returns the attention of this rank's query heads (B, 1, H_loc,
+    hd). The new K/V of every KV head are written at slot ``pos % L`` by
+    the rank whose range holds it, the query of every head runs K3 on this
+    rank's range with its local ``kv_len`` (the valid slots are always the
+    prefix [0, kv_len), ``_ring_slot``), and the ranks' outputs of a split
+    cache are merged (``_merge_ranges``)."""
+    _, chunk = _attn_window(cfg, kind)
+    B = q.shape[0]
+    Lr = k_cache.shape[1]
+    seq, mesh = lay.cache.seq, lay.mesh
+    slot, kv_len = _ring_slot(chunk, pos, Lr * (lay.m if seq else 1))
+    bidx = torch.arange(B, device=q.device)
+    if lay.kv_tp:           # the new token's K/V of every KV head (tiny)
+        k, v = (sharding.all_gather(t, mesh, "model", dim=2) for t in (k, v))
+    else:
+        k, v = _whole_kv(cfg, lay, kv_whole, h, k, v, cos, sin)
+    r = sharding.axis_index(mesh, "model") if seq else 0
+    own = (slot // Lr == r)[:, None, None]
+    here = torch.clamp(slot - r * Lr, 0, Lr - 1)
+    for c, new in ((k_cache, k), (v_cache, v)):
+        c[bidx, here] = torch.where(own, saturate_cast(new[:, 0], c.dtype),
+                                    c[bidx, here])
+    Hl = q.shape[2]
+    if lay.attn_tp:         # the query of every head (tiny)
+        q = sharding.all_gather(q, mesh, "model", dim=2)
+    local_len = torch.clamp(kv_len - r * Lr, 0, Lr).to(torch.int32)
+    if seq:
+        o, lse = ops.decode_attention(q, k_cache, v_cache, local_len,
+                                      return_lse=True, impl=impl)
+        o = _merge_ranges(o, lse, mesh)
+    else:
+        o = ops.decode_attention(q, k_cache, v_cache, local_len, impl=impl)
+    if lay.attn_tp:         # this rank's heads, for the row-parallel wo
+        j = sharding.axis_index(mesh, "model")
+        o = o[:, :, j * Hl:(j + 1) * Hl]
+    return o
+
+
+def _rglru_serve_body(cfg: ModelConfig, lay: Layout, names, mode: str, impl,
+                      x: torch.Tensor, *args):
+    """``rglru_block``'s prefill or decode on this rank's batch rows (the
+    recurrence and its weights whole, the MLP sliced over ``lay.ff_tp``):
+    in decode this rank's state leaves h, conv come first, written in
+    place. Returns (x, h, conv)."""
+    cache = None
+    if mode == "decode":
+        h_state, conv, *args = args
+        cache = {"h": h_state, "conv": conv}
+    x, cache, _ = rglru_block(cfg, dict(zip(names, args)), x, mode=mode,
+                              cache=cache, impl=impl, lay=lay)
+    return x, cache["h"], cache["conv"]
+
+
+SERVE_CACHE_LEAVES = {BlockKind.RGLRU: ("h", "conv")}
+
+
+def sharded_serve_block(cfg: ModelConfig, kind: BlockKind, plan, params, x,
+                        cache_pl: Dict[str, list], *, mode: str,
+                        cache: Optional[dict] = None, pos=None, rope_cs=None,
+                        cache_len: Optional[int] = None,
+                        impl: Optional[str] = None):
+    """One attention or RG-LRU layer in ``prefill`` or ``decode`` under a
+    mesh of more than one rank: x a DTensor (B, S, d) sharded over
+    ``plan.batch``; ``params`` the layer's DTensor leaves in their stored
+    placements; ``cache_pl`` {leaf: placements} of the layer's cache, as
+    ``sharding.cache_placements`` gives them; ``cache`` (decode) the
+    layer's cache DTensors in those placements; ``pos`` (decode) a DTensor
+    (B,) in the batch's placements; ``rope_cs`` (prefill) the plain (cos,
+    sin) of positions [0, S). One ``local_map`` body computes the layer on
+    local tensors (``_attn_body``, ``_rglru_serve_body``). Returns
+    (x, {leaf: DTensor}), the cache leaves in ``cache_pl`` (decode: the
+    local tensors it was given, written in place)."""
+    from torch.distributed.tensor.experimental import local_map
+    B, S, _ = x.shape
+    lay = layout(cfg, params, plan, B, S)
+    names = sorted(params)
+    leaves = SERVE_CACHE_LEAVES.get(kind, ("k", "v"))
+    if kind == BlockKind.RGLRU:
+        body = functools.partial(_rglru_serve_body, cfg, lay, names, mode, impl)
+    elif kind in ATTN_KINDS:
+        Lg = cache["k"].shape[1] if mode == "decode" else \
+            attn_cache_len(cfg, kind, cache_len or S)
+        lay = dataclasses.replace(lay, cache=cache_layout(cfg, plan, B, Lg))
+        body = functools.partial(_attn_body, cfg, kind, lay, names, mode,
+                                 rope_cs, cache_len, impl)
+    else:
+        raise NotImplementedError(f"{kind} under a mesh (ROADMAP Queue 1 H)")
+    act = plan.activation()
+    state_in, state_pl = (), ()
+    if mode == "decode":    # an attention layer's positions, then the cache
+        state_in = tuple(cache[n] for n in leaves)
+        state_pl = tuple(cache_pl[n] for n in leaves)
+        if kind != BlockKind.RGLRU:
+            state_in, state_pl = (pos,) + state_in, (act,) + state_pl
+    weights_pl = tuple(plan.compute(lay.tp_dims.get(n)) for n in names)
+    fn = local_map(body, out_placements=(act,) + tuple(cache_pl[n] for n in leaves),
+                   in_placements=(act,) + state_pl + weights_pl,
+                   device_mesh=plan.mesh)
+    out = fn(x, *state_in, *(sharding.to_placements(params[n], pl)
+                             for n, pl in zip(names, weights_pl)))
+    return out[0], dict(zip(leaves, out[1:]))
 
 
 # ======================================================================
@@ -725,14 +974,18 @@ def _conv4(xp: torch.Tensor, conv_w: torch.Tensor, S: int) -> torch.Tensor:
 
 def rglru_block(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
                 cache: Optional[Cache] = None, impl: Optional[str] = None,
-                mask: Optional[torch.Tensor] = None
+                mask: Optional[torch.Tensor] = None,
+                lay: Optional["Layout"] = None
                 ) -> Tuple[torch.Tensor, Optional[Cache], Optional[torch.Tensor]]:
     """Returns (x, cache, aux) (aux as ``attn_block``'s). ``train`` runs
     the sequence with no cache (None);
     ``prefill`` returns a new cache ``{"h": (B, D) float32, "conv": (B, 3,
     D)}``; ``chunk`` continues the conv and the
     recurrence from ``cache`` and ``decode`` advances them one step, both
-    writing ``cache`` in place (``decode`` only on rows where ``mask``)."""
+    writing ``cache`` in place (``decode`` only on rows where ``mask``).
+    ``lay`` (serving under a mesh, from ``sharded_serve_block``'s body): the
+    MLP's slices over ``lay.ff_tp`` (``_ffn``); the recurrence runs whole on
+    the rank's batch rows."""
     B, S, d = x.shape
     h = rms_norm(x, params["ln1"])
     xb = h @ params["w_x"]
@@ -773,7 +1026,7 @@ def rglru_block(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
 
     gated = hseq.to(x.dtype) * F.gelu(gb.float(), approximate="tanh").to(x.dtype)
     x = x + gated @ params["w_out"]
-    x, aux = _ffn(cfg, params, x, impl)
+    x, aux = _ffn(cfg, params, x, impl, lay)
     return x, new_cache, aux
 
 

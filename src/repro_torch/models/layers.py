@@ -96,11 +96,15 @@ def mlp_specs(d: int, f: int) -> Dict[str, Spec]:
             "wd": Spec((f, d), ("ff", "embed"))}
 
 
-def mlp(params, x: torch.Tensor) -> torch.Tensor:
+def mlp_hidden(params, x: torch.Tensor) -> torch.Tensor:
+    """The gated hidden activations silu(x wg) * (x wu), before ``wd``."""
     g = x @ params["wg"]
     u = x @ params["wu"]
-    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return h @ params["wd"]
+    return torch.nn.functional.silu(g.float()).to(x.dtype) * u
+
+
+def mlp(params, x: torch.Tensor) -> torch.Tensor:
+    return mlp_hidden(params, x) @ params["wd"]
 
 
 def embed_specs(vocab: int, d: int, tie: bool) -> Dict[str, Spec]:

@@ -51,9 +51,17 @@ Under ``sharding.axis_rules`` with a mesh of more than one rank,
 vocab-sharded table, each attention layer and the final norm with the
 unembedding run as ``local_map`` bodies on local shards, the logits stay
 sharded over the vocab, and ``loss_fn`` reduces the log-sum-exp across
-the vocab shards in float32 (``sharded_cross_entropy``). The other modes,
-and the families with no sharded path (recurrent, xLSTM, encoder-decoder,
-a VLM's patch prefix), raise ``NotImplementedError`` there.
+the vocab shards in float32 (``sharded_cross_entropy``). ``prefill`` and
+``decode`` run sharded too (``_sharded_serve``, with no autograd), for the
+attention kinds and RG-LRU: the dense decode cache is a tree of DTensors
+in the reference's placements (``sharding.cache_placements``: attention
+K/V split over their sequence where ``model`` divides it, else over their
+KV heads, else whole; RG-LRU state over the batch), built a layer at a
+time by prefill and written in place by decode; the logits come back as a
+DTensor (B, 1, V) sharded over the batch's axes and the vocab's. Under a
+mesh, ``chunk`` mode, paged pools and the engine's row masks, xLSTM
+blocks, an encoder-decoder, a VLM's patch prefix, RG-LRU training and
+int8 weights or caches raise ``NotImplementedError`` (``_check_sharded``).
 
 Public API (same names and arguments as the reference, plus ``device``):
   param_specs(cfg), init_model_params(cfg, seed, device), narrow_weights
@@ -454,7 +462,9 @@ def forward_with_aux(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     ctx = sharding.active_mesh()
     if ctx is not None:
         return _sharded_forward(cfg, params, batch, ctx, mode=mode, impl=impl,
-                                remat=remat, remat_policy=remat_policy)
+                                remat=remat, remat_policy=remat_policy,
+                                cache=cache, pos=pos, cache_len=cache_len,
+                                block_tables=block_tables, mask=mask)
     wdt = torch_dtype(cfg.dtype)
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens, cfg.d_model, wdt)
@@ -522,18 +532,34 @@ def forward_with_aux(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
 # Under a mesh of more than one rank (``sharding.axis_rules``): the train
 # mode of the attention families, each piece one local_map body
 # ----------------------------------------------------------------------
-def _check_sharded(cfg: ModelConfig, batch, mode: str) -> None:
-    """Raise for what the sharded path does not run: serving modes (the
-    reference serves unsharded too) and the families outside it, which are
-    never run unsharded in silence."""
-    if mode != "train":
+SERVE_KINDS = B.ATTN_KINDS + (BlockKind.RGLRU,)
+
+
+def _check_sharded(cfg: ModelConfig, batch, mode: str, params=None, cache=None,
+                   block_tables=None, mask=None) -> None:
+    """Raise for what the sharded path does not run, never running it
+    unsharded in silence: ``chunk`` mode and the engine's paged pools and
+    row masks (the reference serves those on one device too); xLSTM
+    blocks, an encoder-decoder, a VLM patch prefix; RG-LRU in ``train``
+    mode; integer (int8) weights or caches."""
+    if mode == "chunk" or block_tables is not None or mask is not None:
+        what = ("chunk mode" if mode == "chunk" else
+                "a paged pool (block_tables)" if block_tables is not None else
+                "a decode row mask")
         raise NotImplementedError(
-            f"mode {mode!r} under a mesh of more than one rank: serving runs "
-            "on one rank, as the reference's (ROADMAP Queue 1 H)")
-    kinds = sorted({k.value for k in cfg.pattern if k not in B.ATTN_KINDS})
-    what = (f"block kinds {kinds}" if kinds else
+            f"{what} under a mesh of more than one rank: the engine's chunked "
+            "prefill and paged pools serve on one rank, as the reference's "
+            "(ROADMAP Queue 1 H)")
+    ported = B.ATTN_KINDS if mode == "train" else SERVE_KINDS
+    kinds = sorted({k.value for k in cfg.pattern if k not in ported})
+    what = (f"block kinds {kinds} in {mode} mode" if kinds else
             "an encoder-decoder" if cfg.is_encdec else
-            "a VLM patch prefix" if "patches" in batch else None)
+            "a VLM patch prefix" if "patches" in batch else
+            "int8 weights" if params is not None and any(
+                not t.is_floating_point() for _, t in iter_leaves(params)) else
+            "an int8 cache" if cache is not None and any(
+                not t.is_floating_point() for _, t in iter_leaves(cache))
+            else None)
     if what:
         raise NotImplementedError(
             f"{cfg.name}: {what} under a mesh of more than one rank is not "
@@ -580,9 +606,11 @@ def _embed_body(cfg: ModelConfig, mesh, vtp, tokens, tok):
     return out * float(torch.tensor(cfg.d_model ** 0.5, dtype=out.dtype))
 
 
-def _unembed_body(cfg: ModelConfig, mesh, vtp, x, final_ln, w):
-    """The final norm and this rank's vocab shard of the float32 logits."""
-    x = sharding.copy_to(rms_norm(x, final_ln), mesh, vtp)
+def _unembed_body(cfg: ModelConfig, mesh, vtp, last: bool, x, final_ln, w):
+    """The final norm and this rank's vocab shard of the float32 logits
+    (with ``last``, of the last position only)."""
+    x = rms_norm(x, final_ln)
+    x = sharding.copy_to(x[:, -1:] if last else x, mesh, vtp)
     return unembed({"tok" if cfg.tie_embeddings else "head": w}, x,
                    cfg.tie_embeddings)
 
@@ -609,44 +637,35 @@ def _cross_entropy_body(mesh, vtp, batch_axes, logits, labels):
     return sharding.pmean((lse - gold).mean(), mesh, batch_axes)
 
 
-def _sharded_forward(cfg: ModelConfig, params, batch, ctx, *, mode: str,
-                     impl, remat: bool, remat_policy: Optional[str]):
-    """``forward_with_aux`` in ``train`` mode under a mesh: (logits, None,
-    aux), logits a DTensor (B, S, V) sharded over the batch's axes and,
-    where ``model`` divides the vocab, over ``model``; aux a replicated
-    0-d DTensor or None. The embedding, each layer
-    (``blocks.sharded_attn_block``) and the final norm with the
-    unembedding run as ``local_map`` bodies; the reference's four
-    ``constrain`` sites stand where its forward has them."""
-    from torch.distributed.tensor import Shard
+def _sharded_embed(cfg: ModelConfig, params, tokens, plan, vtp):
+    """The embedding as a ``local_map`` body: x (B, S, d) in the plan's
+    batch placements, constrained as the reference's first site."""
     from torch.distributed.tensor.experimental import local_map
-    _check_sharded(cfg, batch, mode)
-    mesh, rules = ctx
-    plan = sharding.make_plan(mesh, rules, batch["tokens"].shape[0])
-    params = _as_dtensors(params, mesh)
-    act, vtp = plan.activation(), _vocab_tp(cfg, plan)
-    vocab_dim = 0 if cfg.tie_embeddings else 1
-    table = params["embed"]["tok" if cfg.tie_embeddings else "head"]
+    act = plan.activation()
     embed_fn = local_map(
-        functools.partial(_embed_body, cfg, mesh, vtp), out_placements=act,
+        functools.partial(_embed_body, cfg, plan.mesh, vtp), out_placements=act,
         in_placements=(act, plan.compute(0 if vtp else None)),
         in_grad_placements=(act, plan.grad(0 if vtp else None)),
-        device_mesh=mesh)
-    x = embed_fn(shard_input(batch["tokens"], plan), sharding.to_placements(
+        device_mesh=plan.mesh)
+    x = embed_fn(shard_input(tokens, plan), sharding.to_placements(
         params["embed"]["tok"], plan.compute(0 if vtp else None)))
-    x = constrain(x, "batch", "seq", "embed")
-    S = batch["tokens"].shape[1]
-    rope_cs = rope_tables(torch.arange(S, device=x.device)[None, :], cfg.hd,
-                          cfg.rope_theta)
-    x, aux = _train_layers(
-        cfg, params, x,
-        lambda kind, p, x: B.sharded_attn_block(cfg, kind, plan, p, x, rope_cs,
-                                                impl),
-        remat, remat_policy)
+    return constrain(x, "batch", "seq", "embed")
+
+
+def _sharded_unembed(cfg: ModelConfig, params, x, plan, vtp, last: bool = False):
+    """The final norm and the unembedding as a ``local_map`` body (with
+    ``last``, of the last position only, as the reference's serving modes):
+    logits (B, S or 1, V) sharded over the batch's axes and the vocab's,
+    constrained as the reference's last site."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, act = plan.mesh, plan.activation()
+    vocab_dim = 0 if cfg.tie_embeddings else 1
+    table = params["embed"]["tok" if cfg.tie_embeddings else "head"]
     logits_pl = [Shard(2) if a in vtp else pl
                  for a, pl in zip(mesh.mesh_dim_names, act)]
     unembed_fn = local_map(
-        functools.partial(_unembed_body, cfg, mesh, vtp),
+        functools.partial(_unembed_body, cfg, mesh, vtp, last),
         out_placements=logits_pl,
         in_placements=(act, plan.compute(None),
                        plan.compute(vocab_dim if vtp else None)),
@@ -657,8 +676,138 @@ def _sharded_forward(cfg: ModelConfig, params, batch, ctx, *, mode: str,
                                                   plan.compute(None)),
                         sharding.to_placements(table, plan.compute(
                             vocab_dim if vtp else None)))
-    logits = constrain(logits, "batch", "seq", "vocab")
-    return logits, None, aux
+    return constrain(logits, "batch", "seq", "vocab")
+
+
+def _sharded_forward(cfg: ModelConfig, params, batch, ctx, *, mode: str,
+                     impl, remat: bool = False,
+                     remat_policy: Optional[str] = None, cache=None, pos=None,
+                     cache_len: Optional[int] = None, block_tables=None,
+                     mask=None):
+    """``forward_with_aux`` under a mesh. ``train``: (logits, None, aux),
+    logits a DTensor (B, S, V) sharded over the batch's axes and, where
+    ``model`` divides the vocab, over ``model``; aux a replicated 0-d
+    DTensor or None. ``prefill`` and ``decode``: ``_sharded_serve``. The
+    embedding, each layer (``blocks.sharded_attn_block``) and the final
+    norm with the unembedding run as ``local_map`` bodies; the reference's
+    four ``constrain`` sites stand where its forward has them."""
+    _check_sharded(cfg, batch, mode, params, cache, block_tables, mask)
+    if mode != "train":
+        with torch.no_grad():
+            return _sharded_serve(cfg, params, batch, ctx, mode=mode,
+                                  cache=cache, pos=pos, cache_len=cache_len,
+                                  impl=impl)
+    mesh, rules = ctx
+    plan = sharding.make_plan(mesh, rules, batch["tokens"].shape[0])
+    params = _as_dtensors(params, mesh)
+    vtp = _vocab_tp(cfg, plan)
+    x = _sharded_embed(cfg, params, batch["tokens"], plan, vtp)
+    S = batch["tokens"].shape[1]
+    rope_cs = rope_tables(torch.arange(S, device=x.device)[None, :], cfg.hd,
+                          cfg.rope_theta)
+    x, aux = _train_layers(
+        cfg, params, x,
+        lambda kind, p, x: B.sharded_attn_block(cfg, kind, plan, p, x, rope_cs,
+                                                impl),
+        remat, remat_policy)
+    return _sharded_unembed(cfg, params, x, plan, vtp), None, aux
+
+
+def _layer_placements(pl, stacked: bool) -> list:
+    """One layer's placements of a leaf stacked on a leading layer axis
+    (never sharded: the rules map "layers" to none)."""
+    from torch.distributed.tensor import Shard
+    return [Shard(p.dim - 1) if stacked and p.is_shard() else p for p in pl]
+
+
+def _sharded_serve(cfg: ModelConfig, params, batch, ctx, *, mode: str, cache,
+                   pos, cache_len: Optional[int], impl):
+    """``prefill`` and ``decode`` under a mesh, run with no autograd:
+    (logits, cache, None). The logits are a DTensor (B, 1, V) sharded
+    over the batch's axes and, where ``model`` divides the vocab, over
+    ``model`` (prefill unembeds the last position only). The cache is a
+    tree of DTensors in the reference's placements
+    (``sharding.cache_placements``: attention K/V split over their
+    sequence, their KV heads or neither; RG-LRU state over the batch):
+    prefill builds it a layer at a time (``blocks.sharded_serve_block``)
+    and decode writes into the one it is given in place (a plain tree
+    every rank holds whole is placed first, ``sharding.distribute_cache``)
+    and returns it."""
+    from torch.distributed.tensor import DTensor
+    mesh, rules = ctx
+    tokens = batch["tokens"]
+    Bsz, S = tokens.shape
+    plan = sharding.make_plan(mesh, rules, Bsz)
+    params = _as_dtensors(params, mesh)
+    vtp = _vocab_tp(cfg, plan)
+    x = _sharded_embed(cfg, params, tokens, plan, vtp)
+    if mode == "prefill":
+        rope_cs = rope_tables(torch.arange(S, device=x.device)[None, :],
+                              cfg.hd, cfg.rope_theta)
+        cache_pl = sharding.cache_placements(cfg, Bsz, cache_len or S, rules,
+                                             mesh)
+        pos_dt = None
+    else:
+        rope_cs = None
+        cache = sharding.distribute_cache(cache, cfg, rules, mesh)
+        cache_pl = {path: list(t.placements) for path, t in iter_leaves(cache)}
+        pos_dt = shard_input(pos, plan)
+    n_periods, rem = _layout(cfg)
+    new: Dict[str, list] = {}
+
+    def layer(x, key: str, kind, p, pi: Optional[int]):
+        top, sub = key.split("/")
+        names = B.SERVE_CACHE_LEAVES.get(kind, ("k", "v"))
+        pl = {n: _layer_placements(cache_pl[f"{key}/{n}"], pi is not None)
+              for n in names}
+        c = views = None
+        if mode == "decode":
+            leaves = cache[top][sub]
+            views = {n: leaves[n].to_local() if pi is None
+                     else leaves[n].to_local()[pi] for n in names}
+            c = {n: DTensor.from_local(views[n], mesh, pl[n], run_check=False)
+                 for n in names}
+        x, nc = B.sharded_serve_block(cfg, kind, plan, p, x, pl, mode=mode,
+                                      cache=c, pos=pos_dt, rope_cs=rope_cs,
+                                      cache_len=cache_len, impl=impl)
+        if views is None:
+            new.setdefault(key, []).append({n: t.to_local()
+                                            for n, t in nc.items()})
+            return x
+        for n, t in nc.items():     # written in place; copied where it was not
+            local = t.to_local()
+            if local.data_ptr() != views[n].data_ptr():
+                views[n].copy_(local)
+        return x
+
+    if n_periods:
+        layers = {key: {name: leaf.unbind(0) for name, leaf in sub.items()}
+                  for key, sub in params["blocks"].items()}
+        for pi in range(n_periods):
+            x = constrain(x, "batch", "seq", "embed")
+            for i, kind in enumerate(cfg.pattern):
+                key = f"p{i}"
+                x = layer(x, "blocks/" + key, kind,
+                          {name: ts[pi] for name, ts in layers[key].items()}, pi)
+            x = constrain(x, "batch", "seq", "embed")
+    for j in range(rem):
+        x = layer(x, f"rem/r{j}", _rem_kind(cfg, j), params["rem"][f"r{j}"], None)
+    logits = _sharded_unembed(cfg, params, x, plan, vtp,
+                              last=mode == "prefill")
+    if mode == "decode":
+        return logits, cache, None
+    out: Dict[str, Any] = {}
+    for key, per_layer in new.items():
+        top, sub = key.split("/")
+        leaves = {}
+        for n in per_layer[0]:
+            local = per_layer[0][n] if top == "rem" else \
+                torch.stack([c[n] for c in per_layer])
+            leaves[n] = DTensor.from_local(local.contiguous(), mesh,
+                                           cache_pl[f"{key}/{n}"],
+                                           run_check=False)
+        out.setdefault(top, {})[sub] = leaves
+    return logits, out, None
 
 
 def sharded_cross_entropy(logits, labels, plan) -> torch.Tensor:

@@ -111,6 +111,20 @@ def rules_for(kind: str, fsdp: bool = True, no_tp: bool = False,
     return rules
 
 
+# FSDP for serving where model-axis sharding alone leaves more than ~6 GB a
+# chip (the reference's ``launch/dryrun.py:55`` ``FSDP_SERVE_BYTES``)
+FSDP_SERVE_BYTES = 6 << 30
+
+
+def serve_fsdp(cfg) -> bool:
+    """Whether serving shards the weights' ``embed`` dims over the data axes
+    (``rules_for("serve", fsdp=...)``): where bf16 weights over 16 chips
+    exceed ``FSDP_SERVE_BYTES`` (the reference's ``launch/dryrun.py:96``
+    ``serve_fsdp``; a caller who wants a fixed choice passes ``fsdp=`` to
+    ``rules_for``)."""
+    return cfg.n_params * 2 / 16 > FSDP_SERVE_BYTES
+
+
 # ----------------------------------------------------------------------
 # Meshes
 # ----------------------------------------------------------------------
@@ -274,6 +288,69 @@ def distribute_params(params, specs, rules: Dict[str, AxisRule], mesh):
     return map_tree(lambda path, t: shard_tensor(
         t, mesh, placements(spec_for(t.shape, leaves[path].axes, rules, mesh),
                             mesh)), params)
+
+
+# ----------------------------------------------------------------------
+# Decode caches under a mesh: each leaf placed by ``spec_for`` over its
+# ``cache_specs`` axes, as the reference's ``build_decode`` places them
+# (attention K/V ("batch", "kv_seq", "kv", None): the sequence over
+# ``model`` where it divides, else the KV heads, else whole; RG-LRU state
+# over the batch's axes)
+# ----------------------------------------------------------------------
+def _cache_spec_tree(cfg, cache=None, B: int = 1, L: int = 1):
+    """{path: Spec} of ``model.cache_specs(cfg, B, L)``; with ``cache``,
+    each spec takes that leaf's shape (the axes do not depend on sizes)."""
+    from repro_torch.models.model import cache_specs
+    specs = dict(iter_leaves(cache_specs(cfg, B, L)))
+    if cache is None:
+        return specs
+    return {path: dataclasses.replace(specs[path], shape=tuple(t.shape))
+            for path, t in iter_leaves(cache)}
+
+
+def cache_pspecs(cfg, B: int, L: int, rules: Dict[str, AxisRule], mesh):
+    """{path: spec tuple} of the dense decode cache of B sequences of
+    ``L`` slots (``model.cache_specs``), the reference's ``spec_for`` of
+    each leaf."""
+    return {path: spec_for(s.shape, s.axes, rules, mesh)
+            for path, s in _cache_spec_tree(cfg, B=B, L=L).items()}
+
+
+def cache_placements(cfg, B: int, L: int, rules: Dict[str, AxisRule], mesh):
+    """{path: DTensor placements} of each leaf of that cache."""
+    return {path: placements(spec, mesh)
+            for path, spec in cache_pspecs(cfg, B, L, rules, mesh).items()}
+
+
+def distribute_cache(cache, cfg, rules: Dict[str, AxisRule], mesh):
+    """A dense decode cache every rank holds whole -> the same tree of
+    DTensors in the reference's placements, each rank keeping its shards
+    (no communication); DTensor leaves as they are."""
+    from torch.distributed.tensor import DTensor
+    specs = _cache_spec_tree(cfg, cache)
+    return map_tree(lambda path, t: t if isinstance(t, DTensor) else
+                    shard_tensor(t, mesh, placements(spec_for(
+                        t.shape, specs[path].axes, rules, mesh), mesh)), cache)
+
+
+def init_sharded_cache(cfg, B: int, L: int, mesh,
+                       rules: Dict[str, AxisRule], device=None):
+    """The zero decode cache of ``model.init_cache(cfg, B, L)`` as
+    DTensors, each rank allocating only its shards."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from repro_torch.device import resolve_device, torch_dtype
+    from repro_torch.models.model import cache_specs
+    dev = resolve_device(device)
+
+    def leaf(_, s):
+        pl = placements(spec_for(s.shape, s.axes, rules, mesh), mesh)
+        local, _ = compute_local_shape_and_global_offset(s.shape, mesh, pl)
+        t = torch.zeros(local, dtype=torch_dtype(s.dtype or cfg.dtype),
+                        device=dev)
+        return DTensor.from_local(t, mesh, pl, run_check=False, shape=s.shape,
+                                  stride=torch.empty(s.shape, device="meta").stride())
+    return map_tree(leaf, cache_specs(cfg, B, L))
 
 
 class _Gather(torch.autograd.Function):
@@ -476,6 +553,48 @@ def reduce_from(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     """Sum over the mesh ``axes`` in float32 (x's dtype out); the gradient
     passes unchanged (the reference's ``psum`` of a row-parallel output)."""
     return _ReduceFrom.apply(x, _groups(mesh, axes)) if axes else x
+
+
+class _RowParallel(torch.autograd.Function):
+    """``x @ w`` summed over ``groups`` from float32 partials, rounded
+    once to x's dtype; the gradient is that of the local product (the sum
+    passes it unchanged, as ``_ReduceFrom``'s)."""
+
+    @staticmethod
+    def forward(ctx, x, w, groups):
+        ctx.save_for_backward(x, w)
+        if x.dtype not in (torch.bfloat16, torch.float16):
+            part = x @ w
+        elif x.is_cuda:     # one product with float32 output (aten::mm.dtype)
+            part = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+            part = part.reshape(x.shape[:-1] + (w.shape[-1],))
+        else:
+            part = x.float() @ w.float()
+        for g in groups:
+            part = _all_reduce(part, g)
+        return part.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        dx = grad @ w.t() if ctx.needs_input_grad[0] else None
+        dw = (x.reshape(-1, x.shape[-1]).t() @ grad.reshape(-1, grad.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return dx, dw, None
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, mesh,
+                 axes: Sequence[str]) -> torch.Tensor:
+    """``x @ w`` where ``w``'s rows (x's last dim) are sliced over the mesh
+    ``axes``: each rank's partial product in float32 (bf16 operands widened
+    exactly; float32 and float64 as they are), summed over the axes in
+    float32 and rounded once to x's dtype, as one product over the whole
+    contraction rounds once. The
+    gradient is the local product's, ``dx = dy w^T`` and ``dw = x^T dy``
+    (the reference's ``psum`` passes it unchanged)."""
+    if not axes:
+        return x @ w
+    return _RowParallel.apply(x, w, _groups(mesh, axes))
 
 
 def copy_to(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:

@@ -236,6 +236,82 @@ def test_decode_plain_matches_jax(G, hd, dtype):
                                    err_msg=impl)
 
 
+# K3's log-sum-exp and empty rows: a rank that holds one range of a cache
+# split over its sequence runs K3 on it with a local kv_len (0 where the
+# range holds no valid slot yet) and merges its (output, lse) with the
+# other ranks' (models/blocks.py, _merge_ranges)
+LSE_KV_LEN = (0, 1, 17, 40)
+
+
+def _np_lse(q, k, kv_len):
+    """The log-sum-exp of each row's scaled scores over its first kv_len
+    slots, in float64 numpy (-inf where kv_len is 0): (B, H)."""
+    B, _, H, hd = q.shape
+    G = H // k.shape[2]
+    out = np.full((B, H), -np.inf)
+    for b in range(B):
+        n = int(kv_len[b])
+        if not n:
+            continue
+        for h in range(H):
+            s = k[b, :n, h // G].astype(np.float64) @ q[b, 0, h].astype(np.float64)
+            s *= hd ** -0.5
+            top = s.max()
+            out[b, h] = top + np.log(np.exp(s - top).sum())
+    return out
+
+
+@pytest.mark.parametrize("G,hd", [(1, 64), (4, 64), (10, 256)])
+def test_decode_lse_plain_matches_jax(G, hd):
+    """``ref.decode_attention(..., return_lse=True)``: the output against the
+    JAX package's decode_attention (the Pallas kernel in interpret mode on
+    every row, kv_len 0 giving 0 as its skipped blocks do; its ref oracle
+    on the rows with keys), the lse against numpy's, -inf at kv_len 0; the
+    output without lse equal bit for bit."""
+    from repro.kernels import ops as jops
+    rng = np.random.default_rng(G * 7 + hd)
+    q, k, v, kl = _decode_inputs(rng, G, hd, kv_len=LSE_KV_LEN)
+    tq, tk, tv, tkl = map(torch.from_numpy, (q, k, v, kl))
+    out, lse = ops.decode_attention(tq, tk, tv, tkl, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (len(kl), q.shape[2])
+    assert torch.equal(out, ops.decode_attention(tq, tk, tv, tkl))
+    assert torch.equal(out, da.decode_attention(tq, tk, tv, tkl))
+    args = (q, k, v, kl)
+    np.testing.assert_allclose(_f32(out), _f32(jops.decode_attention(
+        *args, impl="interpret")), atol=TOL[F32])
+    keys = kl > 0
+    np.testing.assert_allclose(_f32(out)[keys], _f32(jops.decode_attention(
+        *args, impl="ref"))[keys], atol=TOL[F32])
+    assert (out[0] == 0).all() and torch.isneginf(lse[0]).all()
+    np.testing.assert_allclose(lse.numpy()[keys], _np_lse(q, k, kl)[keys],
+                               rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("kv_len", [LSE_KV_LEN, (40, 40, 40, 40), (9, 10, 11, 31)])
+def test_decode_ranges_merge_to_the_whole_cache(kv_len):
+    """A cache of 40 slots cut into 4 ranges of 10, as 4 ranks hold one
+    split over its sequence: K3's plain version on each range with the
+    local kv_len clamp(kv_len - 10 r, 0, 10), its (output, lse) pairs
+    merged by exp(lse - max) weights in float32, gives the whole-cache
+    result within 1e-6 (a row of kv_len 0 everywhere stays 0)."""
+    from repro_torch.models import blocks as TB
+    rng = np.random.default_rng(sum(kv_len))
+    q, k, v, kl = map(torch.from_numpy, _decode_inputs(rng, 4, 64, kv_len=kv_len))
+    whole = ref.decode_attention(q, k, v, kl)
+    parts = [ref.decode_attention(q, k[:, r * 10:(r + 1) * 10], v[:, r * 10:(r + 1) * 10],
+                                  torch.clamp(kl - 10 * r, 0, 10).to(torch.int32),
+                                  return_lse=True) for r in range(4)]
+    o = torch.stack([p[0].float()[:, 0] for p in parts])     # (4, B, H, hd)
+    lse = torch.stack([p[1] for p in parts])                  # (4, B, H)
+    top = lse.amax(dim=0)
+    w = torch.where(torch.isneginf(lse), 0.0, torch.exp(lse - top))
+    merged = (w[..., None] * o).sum(0) / torch.clamp(w.sum(0), min=1e-30)[..., None]
+    np.testing.assert_allclose(merged.numpy(), whole[:, 0].numpy(), atol=1e-6)
+    # the model's merge (one rank's view of the four) is the same sum
+    got = TB._merge_weights(o, lse)
+    np.testing.assert_allclose(got.numpy(), merged.numpy(), atol=1e-7)
+
+
 def _int8_cache(kf, vf):
     """Symmetric per-(sequence, kv head) int8 quantization
     (tests/test_kernels.py::test_decode_attention_int8_cache)."""
@@ -785,6 +861,34 @@ def test_decode_kernel_matches_plain(cuda, G, KV, hd, dtype):
     assert da.decode_attention.launches == n + 1
     want = ref.decode_attention(*_up(*args[:3]), args[3]).to(got.dtype)
     _held(got, want, dtype)
+
+
+# the sharded decode's instances (models/blocks.py, _decode_serve_attn):
+# a rank's range of a sequence-split cache, every query head, kv_len 0 rows
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("G,KV,hd,L", [(12, 8, 128, 128), (10, 1, 256, 512),
+                                       (6, 8, 128, 128), (4, 2, 64, 200)])
+def test_decode_kernel_lse_matches_plain(cuda, G, KV, hd, L, dtype):
+    """K3 with return_lse: output and lse against the plain version (lse
+    within 1e-4; rows of kv_len 0 give 0 and -inf), the output bit for bit
+    that of the launch without lse, one launch a call."""
+    rng = np.random.default_rng(G * KV + L)
+    kv_len = np.array([0, 1, 63, 64, 65, L // 2, L - 1, L], np.int32)
+    q, k, v, kl = _decode_inputs(rng, G, hd, KV=KV, S=L, kv_len=kv_len)
+    args = [_torch(x, dtype, cuda) for x in (q, k, v)] + \
+        [torch.from_numpy(kl).to(cuda)]
+    n = da.decode_attention.launches
+    out, lse = da.decode_attention(*args, return_lse=True)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == n + 1
+    want, want_lse = ref.decode_attention(*_up(*args[:3]), args[3], return_lse=True)
+    _held(out, want.to(out.dtype), dtype)
+    assert (out[0] == 0).all() and torch.isneginf(lse[0]).all()
+    assert torch.isfinite(lse[1:]).all()
+    err = (lse[1:] - want_lse[1:]).abs().max().item()
+    assert err <= 1e-4, err
+    assert torch.equal(out, da.decode_attention(*args))
 
 
 @pytest.mark.gpu

@@ -1,4 +1,5 @@
-"""The rank side of ``test_torch_distributed.py``: run in the processes of
+"""The rank side of ``test_torch_distributed.py`` and
+``test_torch_sharded_serve.py``: run in the processes of
 a ``launch.mesh.run_world`` world (gloo on the CPU). Imports torch and the
 port only, never jax: the JAX side of each comparison runs in the test's
 own process.
@@ -181,8 +182,105 @@ def _refusals(task, cfg, mesh):
     return out
 
 
+def spec_of(t, mesh) -> tuple:
+    """A DTensor's placements as a spec tuple (the mesh axes that shard each
+    dim, trailing Nones stripped), to hold against the reference's
+    ``spec_for``."""
+    out = []
+    for d in range(t.dim()):
+        axes = tuple(a for a, pl in zip(mesh.mesh_dim_names, t.placements)
+                     if pl.is_shard(d))
+        out.append(None if not axes else axes[0] if len(axes) == 1 else axes)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def _serve(task, cfg, mesh):
+    """``prefill`` then ``decode_step`` of each of ``task["steps"]`` under
+    the serve rules (weights placed by ``distribute_params``; the first
+    step takes the prefill's cache gathered whole, a plain tree the step
+    places itself, ``distribute_cache``): every step's logits gathered,
+    the last cache gathered, and each cache leaf's placements as a spec
+    tuple."""
+    B.MOE_A2A_CAPACITY_FACTOR = task.get("capacity", 1.25)
+    rules = S.rules_for("serve", fsdp=task["fsdp"], moe_a2a=task.get("a2a", False))
+    params = S.distribute_params(load_tree(task["weights"]), M.param_specs(cfg),
+                                 rules, mesh)
+    tokens = torch.from_numpy(np.asarray(task["tokens"]))
+    Bsz, Sq = tokens.shape
+    with S.axis_rules(mesh, rules):
+        logits, cache = M.prefill(cfg, params, {"tokens": tokens},
+                                  cache_len=task["cache_len"])
+        outs = [_np(S.gather_full(logits))]
+        specs = {p: spec_of(t, mesh) for p, t in iter_leaves(cache)}
+        cache = S.full_tree(cache)
+        pos = torch.full((Bsz,), Sq, dtype=torch.int32)
+        for tok in task["steps"]:
+            logits, cache = M.decode_step(cfg, params, cache,
+                                          torch.from_numpy(np.asarray(tok)), pos)
+            outs.append(_np(S.gather_full(logits)))
+            pos = pos + 1
+    # the zero cache drawn sharded, and a whole one distributed, placed alike
+    zero = S.init_sharded_cache(cfg, Bsz, task["cache_len"], mesh, rules, "cpu")
+    whole = S.distribute_cache(M.init_cache(cfg, Bsz, task["cache_len"], "cpu"), cfg,
+                               rules, mesh)
+    placed = all(spec_of(z, mesh) == specs[p] and spec_of(w, mesh) == specs[p]
+                 and z.to_local().shape == w.to_local().shape
+                 and not z.to_local().any() for (p, z), (_, w) in
+                 zip(iter_leaves(zero), iter_leaves(whole)))
+    return {"logits": np.stack(outs), "specs": specs, "zero_placed": placed,
+            "decode_specs": {p: spec_of(t, mesh) for p, t in iter_leaves(cache)},
+            "cache": dict(iter_leaves(_gathered(cache)))}
+
+
+def _serve_refusals(task, cfg, mesh):
+    """Each refusal of ``model._check_sharded`` in serving, one case each:
+    {case: the NotImplementedError's message, or None where none was
+    raised}."""
+    rules = S.rules_for("serve", fsdp=False)
+    tokens = torch.zeros((4, 8), dtype=torch.long)
+    pos = torch.full((4,), 8, dtype=torch.int32)
+    gr = cfg_of("granite-3-2b", {})
+    gp = M.init_model_params(gr, 0, "cpu")
+    cache = M.init_cache(gr, 4, 16, "cpu")
+    llava = cfg_of("llava-next-34b", {})
+    cases = {
+        "chunk": lambda: M.prefill_chunk(gr, gp, cache, tokens, 0, None),
+        "paged": lambda: M.decode_step(
+            gr, gp, M.init_paged_cache(gr, 4, 16, 9, 4, "cpu"), tokens[:, :1], pos,
+            block_tables=torch.zeros((4, 4), dtype=torch.int32)),
+        "mask": lambda: M.decode_step(gr, gp, cache, tokens[:, :1], pos,
+                                      mask=torch.ones(4, dtype=torch.bool)),
+        "xlstm": lambda: M.prefill(cfg_of("xlstm-350m", {}), M.init_model_params(
+            cfg_of("xlstm-350m", {}), 0, "cpu"), {"tokens": tokens}),
+        "encdec": lambda: M.prefill(cfg_of("whisper-tiny", {}), M.init_model_params(
+            cfg_of("whisper-tiny", {}), 0, "cpu"), {
+                "tokens": tokens, "frames": torch.zeros((4, cfg_of(
+                    "whisper-tiny", {}).n_frames, cfg_of("whisper-tiny", {}).d_model))}),
+        "patches": lambda: M.prefill(llava, M.init_model_params(llava, 0, "cpu"), {
+            "tokens": tokens, "patches": torch.zeros((4, 4, llava.d_model))}),
+        "int8_weights": lambda: M.prefill(gr, M.narrow_weights(gp), {"tokens": tokens}),
+        "int8_cache": lambda: M.decode_step(
+            gr, gp, M.init_cache(gr, 4, 16, "cpu", kv_dtype="int8"), tokens[:, :1], pos),
+        "rglru_train": lambda: M.forward_with_aux(
+            cfg_of("recurrentgemma-2b", {}), M.init_model_params(
+                cfg_of("recurrentgemma-2b", {}), 0, "cpu"), {"tokens": tokens},
+            mode="train"),
+    }
+    out = {}
+    with S.axis_rules(mesh, rules):
+        for name, call in cases.items():
+            try:
+                call()
+                out[name] = None
+            except NotImplementedError as e:
+                out[name] = str(e)
+    return out
+
+
 TASKS = {"forward": _forward, "loss": _forward, "train": _train,
-         "refusals": _refusals}
+         "refusals": _refusals, "serve": _serve, "serve_refusals": _serve_refusals}
 
 
 def run(rank: int, job: dict):
