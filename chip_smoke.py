@@ -408,6 +408,32 @@ Phases (each raises on failure, so the script exits non-zero):
    versions, timed beside SDPA or ``_grouped_mm``; their launches are the
    ranks' counts in the world's driven runs, summed.
 
+14. The other families under a mesh, printed under ``phase 14`` after
+   phase 13: one world of 8 processes sharing this card over gloo on a
+   (2, 4) data x model mesh, weights from seed 0 in bf16, each case after
+   its one-process run on the card: (a) whisper-tiny at all 4 + 4 layers,
+   frames B=4 x 1500 and a prompt of 32 into 64 slots (the self cache split
+   over its sequence, the cross K/V whole on model 4), 8 decode steps,
+   then 2 train steps B=4 S=128; (b) xlstm-350m cut to 8 of 24 layers,
+   prefill B=4 S=256, 8 steps, 1 train step; (c) llava-next-34b cut to 2
+   of 60 layers (FSDP), B=2 with 2880 patches + 128 tokens into 3016
+   slots, 4 steps; (d) recurrentgemma-2b cut to 3 of 26 layers, 2 train
+   steps B=8 S=1024. Serving is teacher-forced on the one-process run's
+   greedy tokens and read as phase 13's (logits against 1% of
+   max|logit|, merges, placements, launches against ``p14_reckoned``),
+   and its prefill cache against the one-process cache
+   (``P14_CACHE_TOL``); training as phase 12 (c)'s (losses, the worst
+   leaf's update ratio, replicas, non-finite values), the elements whose
+   gradient is rounding noise read apart (``p14_noise``). Each case plants one
+   fault in its new code (``P14_FAULTS``: whisper's encoder made causal;
+   rank 0 decoding from a zeroed mLSTM state; llava's positions restarted
+   after the prefix; the RG-LRU block's replicated gradients unsummed over
+   the data axes), which its checks must fail. Then K2, K2's backward, K3
+   (with lse), K5 and K5's backward at the ranks' shapes against their
+   plain versions, timed beside SDPA where there is one; their launches
+   are the ranks' counts in the driven runs, summed (K2 and K3 by shape,
+   ``ShapeLog``).
+
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -418,6 +444,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -5283,6 +5310,37 @@ class GmmLog:
         self.ops.moe_gmm = self.orig
 
 
+class ShapeLog:
+    """While open, counts K2's launches by (query positions, key positions)
+    and K3's by the cache's slots (each wrapper's count grows by one a
+    launch; K2's backward launches from autograd, not through ``ops``, and
+    is counted by its wrapper alone)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import decode_attention as da
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import ops
+        self.ops, self.saved = ops, (ops.flash_attention, ops.decode_attention)
+        self.by = collections.Counter()
+
+        def counted(orig, kernel, key):
+            def fn(*a, **kw):
+                before = kernel.launches
+                out = orig(*a, **kw)
+                if kernel.launches > before:
+                    self.by[key(*a)] += kernel.launches - before
+                return out
+            return fn
+        ops.flash_attention = counted(self.saved[0], fa.flash_attention,
+                                      lambda q, k, v: ("flash", q.shape[1], k.shape[1]))
+        ops.decode_attention = counted(self.saved[1], da.decode_attention,
+                                       lambda q, k, v, kl: ("dense", k.shape[1]))
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention, self.ops.decode_attention = self.saved
+
+
 # a leaf whose draws by every rank at once (float32 draw and its narrow
 # copy) would hold more than this is drawn one rank at a time (at 16 GB
 # the phase 13 world's card peak rose from 69.3 to 76.55 GB of 80)
@@ -5448,28 +5506,36 @@ def p12_replica_spread(torch, params, mesh) -> float:
                 group = mesh.get_group(i)
                 parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
                 dist.all_gather(parts, local, group=group)
-                worst = max(worst, max(float((q - parts[0]).abs().max()) for q in parts))
+                spread = max(float((q - parts[0]).abs().max()) for q in parts)
+                worst = spread if not np.isfinite(spread) else max(worst, spread)
     return worst
 
 
-def p12_train_rank(torch, job, mesh, dev):
-    """(c) on one rank: ``make_train_step(cfg, opt, mesh)`` from
-    ``init_sharded`` (seed 0), the launcher's batches, counts zeroed just
-    before the true run's steps and read just after; then the same run
-    with each planted fault (``P12_FAULTS``). Per run: each leaf's final
-    shard against the one-process step's (read from disk), the update's
-    mean size summed over the mesh with each element counted once, and
-    the largest difference between replicas."""
+def sharded_train_rank(torch, cfg, job, mesh, dev, faults, planted, noise=None):
+    """On one rank: ``make_train_step(cfg, opt, mesh)`` from ``init_sharded``
+    (seed 0) on ``job["batches"]`` (an .npz of per-step arrays: tokens,
+    labels, and a whisper batch's frames), counts zeroed just before the
+    true run's steps and read just after; then the same run with each
+    planted fault (a key of ``faults``, planted while ``planted(fault)`` is
+    open). Per run: each leaf's final shard against the one-process
+    step's (read from ``job["ref_dir"]``), the update's mean size summed
+    over the mesh with each element counted once, and the largest
+    difference between replicas. ``noise(cfg, path, shape)``: a boolean
+    array over a leaf of the elements whose gradient is rounding noise, or
+    None; those are read apart (``noise`` in the result)."""
     import torch.distributed as dist
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
     from repro_torch.models.param import iter_leaves
+    from repro_torch.models import model as M
     from repro_torch.train.optimizer import AdamWConfig, _counts_here
     from repro_torch.train.train_loop import init_sharded, make_train_step
-    cfg = p12_configs()["c"]
-    ocfg = AdamWConfig(lr=P12_LR, warmup_steps=1, total_steps=P12_TRAIN_STEPS)
     batches = np.load(job["batches"])
-    runs, counts = {}, None
-    for fault in (None,) + tuple(P12_FAULTS):
+    n_steps = len(batches["tokens"])
+    ocfg = AdamWConfig(lr=P12_LR, warmup_steps=1, total_steps=max(n_steps, 2))
+    runs, counts, shapes = {}, None, {}
+    masks = {p: noise(cfg, p, tuple(sp.shape)) if noise else None
+             for p, sp in iter_leaves(M.param_specs(cfg))}
+    for fault in (None,) + tuple(faults):
         params, state, _, _, _ = init_sharded(cfg, ocfg, mesh, seed=0, device=dev)
         init = {p: t.to_local().clone() for p, t in iter_leaves(params)}
         step = make_train_step(cfg, ocfg, mesh, device=dev)
@@ -5477,38 +5543,53 @@ def p12_train_rank(torch, job, mesh, dev):
         if fault is None:
             zero_launches()
         losses, secs = [], []
-        with p12_planted(fault):
-            for i in range(P12_TRAIN_STEPS):
+        with planted(fault), ShapeLog() as sl:
+            for i in range(n_steps):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 params, state, metrics = step(params, state,
-                                              {"tokens": batches["tokens"][i],
-                                               "labels": batches["labels"][i]})
+                                              {k: batches[k][i] for k in batches.files})
                 losses.append(float(metrics["loss"]))
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - t0)
         if fault is None:
-            counts = launches()
-        leaves = {}
+            counts, shapes = launches(), dict(sl.by)
+        leaves, noisy = {}, {}
         for path, t in iter_leaves(params):
             shape, off = compute_local_shape_and_global_offset(t.shape, mesh, t.placements)
-            sl = tuple(slice(o, o + n) for o, n in zip(off, shape))
+            sl_ = tuple(slice(o, o + n) for o, n in zip(off, shape))
             ref = np.load(f"{job['ref_dir']}/{path.replace('/', '.')}.npy", mmap_mode="r")
-            want = torch.from_numpy(np.array(ref[sl])).to(dev)
+            want = torch.from_numpy(np.array(ref[sl_])).to(dev)
             got, p0 = t.to_local().float(), init[path].float()
             once = float(_counts_here(t))
-            v = torch.tensor([float((got - want).abs().sum()) * once,
-                              float((want - p0).abs().sum()) * once,
-                              float((got - want).abs().max())], device=dev)
-            sums, maxes = v[:2].clone(), v[2:].clone()
-            dist.all_reduce(sums)
-            dist.all_reduce(maxes, op=dist.ReduceOp.MAX)
-            leaves[path] = (float(sums[0]), float(sums[1]), float(maxes[0]))
-        runs[fault or "true"] = dict(losses=losses, secs=secs, leaves=leaves,
+            d, u = (got - want).abs(), (want - p0).abs()
+
+            def reading(keep):
+                v = torch.stack([(d * keep).sum() * once, (u * keep).sum() * once,
+                                 (d * keep).amax() if d.numel() else d.new_zeros(())])
+                sums, maxes = v[:2].clone(), v[2:].clone()
+                dist.all_reduce(sums)
+                dist.all_reduce(maxes, op=dist.ReduceOp.MAX)
+                return float(sums[0]), float(sums[1]), float(maxes[0])
+            mask = masks[path]
+            if mask is None:
+                leaves[path] = reading(torch.ones_like(d))
+            else:
+                zero = torch.from_numpy(np.ascontiguousarray(mask[sl_])).to(dev, d.dtype)
+                leaves[path], noisy[path] = reading(1 - zero), reading(zero)
+        runs[fault or "true"] = dict(losses=losses, secs=secs, leaves=leaves, noise=noisy,
                                      spread=p12_replica_spread(torch, params, mesh))
         del params, state, step, init
         torch.cuda.empty_cache()
-    return dict(runs=runs, counts=counts, peak=torch.cuda.max_memory_allocated())
+    return dict(runs=runs, counts=counts, shapes=shapes,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def p12_train_rank(torch, job, mesh, dev):
+    """(c) on one rank: ``sharded_train_rank`` of granite's cut with the
+    launcher's batches and ``P12_FAULTS``."""
+    return sharded_train_rank(torch, p12_configs()["c"], job, mesh, dev, P12_FAULTS,
+                              p12_planted)
 
 
 def p12_rank(rank: int, job: dict):
@@ -5588,13 +5669,15 @@ def p12_world(job, work: Path, rank_fn=None):
     n_runs = len(ranks[0][1])
     summed = []
     for i in range(n_runs):
-        c, g = collections.Counter(), collections.Counter()
+        c, g, sh = collections.Counter(), collections.Counter(), collections.Counter()
         for _, per in ranks:
             c.update(per[i]["counts"])
-            g.update(per[i]["gmm"])
-        summed.append(dict(counts=dict(c), gmm=dict(g)))
+            g.update(per[i].get("gmm", {}))
+            sh.update(per[i].get("shapes", {}))
+        summed.append(dict(counts=dict(c), gmm=dict(g), shapes=dict(sh)))
     for run, tot in zip(out if isinstance(out, list) else [out], summed):
         run["all_counts"], run["all_gmm"] = tot["counts"], tot["gmm"]
+        run["all_shapes"] = tot["shapes"]
         run["card_peak"] = peak[0]
     return out, time.perf_counter() - t0
 
@@ -5646,24 +5729,17 @@ def p12_forward_checks(torch, dev, smi, work: Path):
     return runs
 
 
-def p12_train_check(torch, dev, smi, work: Path):
-    """(c): the one-process ``make_train_step`` from ``init_model_params``
-    (seed 0), then the world from ``init_sharded``; losses and each leaf's
-    final value held (``P12_LOSS_TOL``, ``P12_UPDATE_TOL``)."""
-    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+def train_reference(torch, cfg, bs, dev, ref_dir: Path):
+    """The one-process ``make_train_step`` from ``init_model_params(cfg, 0)``
+    on the batches ``bs``, each leaf's final value saved under ``ref_dir``
+    for the ranks; (losses, s/step, peak), its memory freed."""
     from repro_torch.models import model as M
     from repro_torch.models.param import iter_leaves
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.train_loop import make_train_step
-    cfg = p12_configs()["c"]
-    pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=P12_TRAIN_S,
-                                        global_batch=P12_TRAIN_B, seed=12))
-    bs = [pipe.next_batch() for _ in range(P12_TRAIN_STEPS)]
-    np.savez(work / "c_batches.npz", tokens=np.stack([b["tokens"] for b in bs]),
-             labels=np.stack([b["labels"] for b in bs]))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ocfg = AdamWConfig(lr=P12_LR, warmup_steps=1, total_steps=P12_TRAIN_STEPS)
+    ocfg = AdamWConfig(lr=P12_LR, warmup_steps=1, total_steps=max(len(bs), 2))
     params = M.init_model_params(cfg, 0, dev)
     state = init_opt_state(ocfg, params)
     step = make_train_step(cfg, ocfg, device=dev)
@@ -5676,25 +5752,52 @@ def p12_train_check(torch, dev, smi, work: Path):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
-    ref_dir = work / "c_final"
+    bad = [path for path, t in iter_leaves(params) if not bool(torch.isfinite(t).all())]
+    if bad:
+        raise AssertionError(f"{cfg.name}: the one-process step left non-finite leaves {bad}")
     ref_dir.mkdir(exist_ok=True)
     for path, t in iter_leaves(params):
         np.save(ref_dir / f"{path.replace('/', '.')}.npy", t.float().cpu().numpy())
     del params, state, step
     torch.cuda.empty_cache()
+    return losses, secs, peak
+
+
+def train_reading(run, losses):
+    """(worst leaf, loss diff, update ratio, max |p - p_one|, failed checks)
+    of a sharded train run against the one-process ``losses``: the leaf
+    whose mean |p - p_one| over mean |p_one - p0| is largest (over its
+    elements whose gradient is not rounding noise); a non-finite loss, leaf
+    reading or replica spread fails."""
+    held = run["leaves"]
+    worst = max(held, key=lambda p: held[p][0] / max(held[p][1], 1e-30))
+    d_sum, u_sum, d_max = held[worst]
+    loss_err = max(abs(a - b) for a, b in zip(run["losses"], losses))
+    ratio = d_sum / max(u_sum, 1e-30)
+    finite = all(np.isfinite(v).all() for v in run["leaves"].values()) and \
+        np.isfinite(run["losses"]).all() and np.isfinite(run["spread"])
+    fails = [what for what, bad in (
+        ("loss", loss_err > P12_LOSS_TOL), ("update", ratio > P12_UPDATE_TOL),
+        ("replicas", run["spread"] > P12_SPREAD_TOL), ("non-finite", not finite)) if bad]
+    return worst, loss_err, ratio, d_max, fails
+
+
+def p12_train_check(torch, dev, smi, work: Path):
+    """(c): the one-process ``make_train_step`` from ``init_model_params``
+    (seed 0), then the world from ``init_sharded``; losses and each leaf's
+    final value held (``P12_LOSS_TOL``, ``P12_UPDATE_TOL``)."""
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    cfg = p12_configs()["c"]
+    pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=P12_TRAIN_S,
+                                        global_batch=P12_TRAIN_B, seed=12))
+    bs = [pipe.next_batch() for _ in range(P12_TRAIN_STEPS)]
+    np.savez(work / "c_batches.npz", tokens=np.stack([b["tokens"] for b in bs]),
+             labels=np.stack([b["labels"] for b in bs]))
+    ref_dir = work / "c_final"
+    losses, secs, peak = train_reference(torch, cfg, bs, dev, ref_dir)
     out, wall = p12_world(dict(check="c", mesh=(4, 2), batches=str(work / "c_batches.npz"),
                                ref_dir=str(ref_dir)), work)
-
-    def reading(run):
-        worst = max(run["leaves"], key=lambda p: run["leaves"][p][0] /
-                    max(run["leaves"][p][1], 1e-30))
-        d_sum, u_sum, d_max = run["leaves"][worst]
-        loss_err = max(abs(a - b) for a, b in zip(run["losses"], losses))
-        ratio = d_sum / max(u_sum, 1e-30)
-        fails = [what for what, bad in (
-            ("loss", loss_err > P12_LOSS_TOL), ("update", ratio > P12_UPDATE_TOL),
-            ("replicas", run["spread"] > P12_SPREAD_TOL)) if bad]
-        return worst, loss_err, ratio, d_max, fails
+    reading = functools.partial(train_reading, losses=losses)
 
     true = out["runs"]["true"]
     worst, loss_err, ratio, d_max, fails = reading(true)
@@ -6423,6 +6526,696 @@ def sharded_serving_run(torch, dev, smi):
     return entries, totals
 
 
+# ----------------------------------------------------------------------
+# phase 14: the other families under a mesh (xLSTM, whisper's
+# encoder-decoder, llava's patch prefix, RG-LRU training), 8 processes
+# sharing this card over gloo
+# ----------------------------------------------------------------------
+P14_MESH = (2, 4)                  # data x model
+P14_FAULT_STEPS = 1                # decode steps after the rerun prefill
+# a serving case's prefill cache, each leaf of a rank against the
+# one-process cache's same slice, relative to the leaf's largest |value|
+# (bf16 K/V and float32 recurrent state, as P13_MERGE_TOL)
+P14_CACHE_TOL = 2e-2
+
+
+def p14_noise(cfg, path: str, shape):
+    """The elements of a leaf whose gradient is rounding noise, which a
+    fresh AdamW step moves by ±lr, differently in any two runs, so the
+    update ratio cannot hold them (their reading is printed apart): the
+    input-gate quarter of the sLSTM's gate bias, whose exact gradient is
+    zero (a constant added to every input gate scales c and n alike, and
+    h = o c / n as it is; ``tests/test_torch_sharded_families.py``), and
+    an attention K bias, whose gradient is what rope leaves of a sum that
+    cancels (each query's softmax weights' derivatives sum to zero), small
+    against the terms it sums, so bf16 turns many of its elements' signs;
+    None for any other leaf."""
+    name = path.split("/")[-1]
+    if name == "bk":
+        return np.ones(shape, bool)
+    if name == "b_gates":
+        hd = cfg.d_model // cfg.n_heads
+        gate = np.arange(shape[-1]) // hd % 4          # (nh, z i f o, hd) flattened
+        return np.broadcast_to(gate == 1, shape)
+    return None
+# one planted fault a case, each in this slice's new code: its case's
+# check (logits against the one-process run, or the train reading) must
+# fail on it, or it is blind to the fault
+P14_FAULTS = {
+    "a": ("encoder_causal", "the whisper encoder's attention made causal"),
+    "b": ("mlstm_state_zeroed", "rank 0's rows decoding from a zeroed mLSTM state"),
+    "c": ("positions_restarted", "the tokens' rope positions restarted at 0 after the "
+                                 "patch prefix"),
+    "d": ("recurrence_unsummed", "the RG-LRU block's replicated weights' gradients (the "
+                                 "recurrence, its gates and conv, the norms) left unsummed "
+                                 "over the data axes"),
+}
+P14_ROWS = ("flash_p14_whisper_enc", "flash_p14_whisper_cross", "dense_p14_whisper",
+            "dense_p14_whisper_cross", "flash_bwd_p14_whisper", "flash_p14_llava",
+            "dense_p14_llava", "flash_p14_rg", "flash_bwd_p14_rg", "scan_p14_rg",
+            "scan_bwd_p14_rg")
+
+
+def p14_cases():
+    """(a) whisper-tiny at all 4 + 4 layers; (b) xlstm-350m cut to 8 of 24
+    layers (one period); (c) llava-next-34b cut to 2 of 60 layers, FSDP;
+    (d) recurrentgemma-2b cut to 3 of 26 layers (one period). Every width
+    as published, bf16. ``serve``: prefill B x S (and the frames or the
+    patch prefix) into ``cache_len`` slots, then ``steps`` decode steps;
+    ``train``: B x S, ``steps`` train steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.sharding import serve_fsdp
+
+    def case(arch, fsdp=None, serve=None, train=None, **cut):
+        cfg = get_config(arch)
+        return dict(cfg=dataclasses.replace(cfg, **cut), layers=cfg.n_layers,
+                    fsdp=serve_fsdp(cfg) if fsdp is None else fsdp, serve=serve, train=train)
+    return {"a": case("whisper-tiny", serve=dict(B=4, S=32, cache_len=64, steps=8),
+                      train=dict(B=4, S=128, steps=2)),
+            "b": case("xlstm-350m", serve=dict(B=4, S=256, cache_len=264, steps=8),
+                      train=dict(B=4, S=256, steps=1), n_layers=8),
+            "c": case("llava-next-34b", fsdp=True,
+                      serve=dict(B=2, S=LV_PROMPT, cache_len=LV_PATCHES + LV_PROMPT + 8,
+                                 steps=4), n_layers=2),
+            "d": case("recurrentgemma-2b", train=dict(B=8, S=1024, steps=2), n_layers=3)}
+
+
+def p14_extras(cfg, B: int, rng) -> dict:
+    """A whisper batch's stub frames (B, n_frames, d), a llava batch's stub
+    patches (B, n_patches, d), float32 draws."""
+    from repro_torch.configs.base import Family
+    if cfg.is_encdec:
+        return {"frames": rng.standard_normal((B, cfg.n_frames, cfg.d_model),
+                                              dtype=np.float32)}
+    if cfg.family == Family.VLM:
+        return {"patches": rng.standard_normal((B, cfg.n_patches, cfg.d_model),
+                                               dtype=np.float32)}
+    return {}
+
+
+def p14_reckoned(c) -> dict:
+    """Each attention kernel's launches in one serving case's driven run,
+    summed over the ranks: every rank launches K2 once an encoder layer and
+    once a decoder attention (self and cross) in the prefill, K3 once a
+    decoder attention a decode step (a split cache's ranges merged through
+    K3's lse, not relaunched); xLSTM none."""
+    from repro_torch.configs.base import BlockKind
+    cfg, n, sv = c["cfg"], P12_WORLD, c["serve"]
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    attn = sum(k not in (BlockKind.MLSTM, BlockKind.SLSTM, BlockKind.RGLRU) for k in kinds)
+    per = attn * (2 if cfg.is_encdec else 1)
+    return {"flash": n * (per + (cfg.n_encoder_layers if cfg.is_encdec else 0)),
+            "dense": n * per * sv["steps"], "scan": 0, "decode": 0, "chunk": 0, "gmm": 0}
+
+
+def p14_whisper_k2(shapes) -> tuple:
+    """(encoder, cross) K2 launches of whisper's runs, from their counts by
+    (query positions, key positions): the encoder's over the frames, the
+    cross attention's from the tokens to the frames."""
+    enc = sum(n for k, n in shapes.items() if k[0] == "flash" and k[1] == k[2] == WH_F)
+    cross = sum(n for k, n in shapes.items()
+                if k[0] == "flash" and k[2] == WH_F and k[1] != WH_F)
+    return enc, cross
+
+
+def p14_serve_reference(torch, c, dev, work: Path, tag: str) -> dict:
+    """The one-process serving run on the card from ``init_model_params(cfg,
+    0)``: ``prefill`` of B random prompts (with the frames or patches),
+    then greedy ``decode_step``s from position P + S; the inputs, the
+    greedy tokens and every step's float32 logits saved for the ranks."""
+    from repro_torch.models import model as M
+    from repro_torch.models.param import iter_leaves
+    cfg, sv = c["cfg"], c["serve"]
+    B, S = sv["B"], sv["S"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_model_params(cfg, 0, dev)
+    rng = np.random.default_rng(14)
+    tokens = rng.integers(0, cfg.vocab, (B, S))
+    extras = p14_extras(cfg, B, rng)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev),
+             **{k: torch.from_numpy(v).to(dev) for k, v in extras.items()}}
+    start = S + (cfg.n_patches if "patches" in extras else 0)
+    outs, toks = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = M.prefill(cfg, params, batch, cache_len=sv["cache_len"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        (work / f"{tag}_cache").mkdir()
+        for path, t in iter_leaves(cache):
+            np.save(work / f"{tag}_cache" / f"{path.replace('/', '.')}.npy",
+                    t.float().cpu().numpy())
+        t1b = time.perf_counter()
+        outs.append(logits[:, 0].float().cpu())
+        pos = torch.full((B,), start, dtype=torch.int32, device=dev)
+        for _ in range(sv["steps"]):
+            tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
+            toks.append(tok.cpu())
+            logits, cache = M.decode_step(cfg, params, cache, tok, pos)
+            outs.append(logits[:, 0].float().cpu())
+            pos = pos + 1
+    torch.cuda.synchronize()
+    t2 = time.perf_counter() - (t1b - t1)
+    np.savez(work / f"{tag}_inputs.npz", tokens=tokens, **extras)
+    np.save(work / f"{tag}_steps.npy", torch.stack(toks).numpy())
+    np.save(work / f"{tag}_logits.npy", torch.stack(outs).numpy())
+    peak = torch.cuda.max_memory_allocated()
+    del params, cache, logits, batch
+    torch.cuda.empty_cache()
+    return dict(prefill_s=t1 - t0, decode_ms=(t2 - t1) / sv["steps"] * 1e3, peak=peak,
+                scale=float(torch.stack(outs).abs().max()))
+
+
+def p14_train_batches(c, work: Path, tag: str) -> list:
+    """The train case's batches (tokens, labels, a whisper batch's frames)
+    from a seed, saved for the ranks as one .npz of per-step arrays."""
+    cfg, tr = c["cfg"], c["train"]
+    rng = np.random.default_rng(140)
+    bs = [{"tokens": rng.integers(0, cfg.vocab, (tr["B"], tr["S"])),
+           "labels": rng.integers(0, cfg.vocab, (tr["B"], tr["S"])),
+           **p14_extras(cfg, tr["B"], rng)} for _ in range(tr["steps"])]
+    np.savez(work / f"{tag}_batches.npz", **{k: np.stack([b[k] for b in bs]) for k in bs[0]})
+    return bs
+
+
+@contextlib.contextmanager
+def p14_planted(fault, n_patches: int = 0, n_tokens: int = 0):
+    """While open, the sharded path runs with ``fault`` (a name of
+    ``P14_FAULTS``) planted; None plants nothing."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+    from repro_torch.configs.base import BlockKind
+    from repro_torch.models import blocks as B
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as S
+    saved = (B.sharded_block, B.mlstm_block, M.rope_tables)
+    block, mlstm, rope = saved
+    if fault == "encoder_causal":
+        def planted_block(*a, **kw):
+            if kw.get("causal") is False:
+                kw["causal"] = True
+            return block(*a, **kw)
+        B.sharded_block = planted_block
+    elif fault == "mlstm_state_zeroed":
+        def planted_mlstm(cfg, params, x, *, mode, cache=None, **kw):
+            if mode == "decode" and dist.get_rank() == 0:
+                for t in cache.values():
+                    t.zero_()
+            return mlstm(cfg, params, x, mode=mode, cache=cache, **kw)
+        B.mlstm_block = planted_mlstm
+    elif fault == "positions_restarted":
+        def planted_rope(positions, hd, theta):
+            if positions.shape[-1] == n_patches + n_tokens:
+                positions = torch.cat([torch.arange(n_patches), torch.arange(n_tokens)]
+                                      ).to(positions.device)[None]
+            return rope(positions, hd, theta)
+        M.rope_tables = planted_rope
+    elif fault == "recurrence_unsummed":
+        grad = S.Plan.grad
+
+        def unsummed(plan, tp_dim, partial_on_model=False):
+            out = grad(plan, tp_dim, partial_on_model)
+            return out if tp_dim is not None else [
+                Replicate() if a in plan.batch else pl
+                for a, pl in zip(plan.mesh.mesh_dim_names, out)]
+
+        def planted_block(cfg, kind, *a, **kw):
+            if kind != BlockKind.RGLRU or kw.get("mode") != "train":
+                return block(cfg, kind, *a, **kw)
+            S.Plan.grad = unsummed
+            try:
+                return block(cfg, kind, *a, **kw)
+            finally:
+                S.Plan.grad = grad
+        B.sharded_block = planted_block
+    try:
+        yield
+    finally:
+        B.sharded_block, B.mlstm_block, M.rope_tables = saved
+
+
+def p14_cache_err(torch, cache, work: str, tag: str, mesh) -> float:
+    """The largest difference between a rank's shard of each prefill cache
+    leaf and the one-process cache's same slice, relative to that leaf's
+    largest |value| (read from disk)."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from repro_torch.models.param import iter_leaves
+    worst = 0.0
+    for path, t in iter_leaves(cache):
+        ref = np.load(f"{work}/{tag}_cache/{path.replace('/', '.')}.npy", mmap_mode="r")
+        shape, off = compute_local_shape_and_global_offset(t.shape, mesh, t.placements)
+        want = torch.from_numpy(np.array(ref[tuple(slice(o, o + n) for o, n in
+                                                   zip(off, shape))])).to(t.device)
+        scale = max(float(np.abs(ref).max()), 1e-30)
+        err = float((t.to_local().float() - want).abs().max()) / scale
+        worst = err if not np.isfinite(err) else max(worst, err)
+    return worst
+
+
+def p14_serve_rank(torch, c, tag, work: str, mesh, dev):
+    """One serving case on one rank: weights drawn as the one-process run's
+    and placed by the serve rules, counts zeroed just before the driven
+    run (``prefill`` with the frames or patches, then the one-process
+    run's greedy tokens through ``decode_step``, teacher-forced), read
+    after the prefill and after the last step; this rank's logits of every
+    step held against that run's, its prefill cache against that run's
+    (``p14_cache_err``) and every cache leaf's placements against
+    ``sharding.cache_placements``; then the prefill and the first
+    ``P14_FAULT_STEPS`` decode steps again, as they are (their merges read,
+    ``MergeLog``) and with the case's planted fault."""
+    import torch.distributed as dist
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as S
+    from repro_torch.models.param import iter_leaves
+    cfg, sv = c["cfg"], c["serve"]
+    B, Sq = sv["B"], sv["S"]
+    rules = S.rules_for("serve", fsdp=c["fsdp"])
+    torch.cuda.reset_peak_memory_stats()
+    t_init = time.perf_counter()
+    params = p12_serial_params(torch, cfg, mesh, rules, dev)
+    t_init = time.perf_counter() - t_init
+    with np.load(f"{work}/{tag}_inputs.npz") as z:
+        batch = {k: torch.from_numpy(z[k]).to(dev) for k in z.files}
+    n_patches = batch["patches"].shape[1] if "patches" in batch else 0
+    steps = torch.from_numpy(np.load(f"{work}/{tag}_steps.npy")).to(dev)
+    ref_logits = np.load(f"{work}/{tag}_logits.npy", mmap_mode="r")
+    rows = p12_local_rows(mesh, S.make_plan(mesh, rules, B), B)
+    start = torch.full((B,), Sq + n_patches, dtype=torch.int32, device=dev)
+    dist.barrier()
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    local = []
+    with torch.no_grad(), S.axis_rules(mesh, rules), ShapeLog() as sl:
+        logits, cache = M.prefill(cfg, params, batch, cache_len=sv["cache_len"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        first, shapes_first = launches(), dict(sl.by)
+        local.append(logits.to_local()[:, 0].float())
+        cache_err = p14_cache_err(torch, cache, work, tag, mesh)
+        pos = start
+        for i in range(sv["steps"]):
+            logits, cache = M.decode_step(cfg, params, cache, steps[i], pos)
+            local.append(logits.to_local()[:, 0].float())
+            pos = pos + 1
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    total = launches()
+    vtp = [a for a, pl in zip(mesh.mesh_dim_names, logits.placements) if pl.is_shard(2)]
+    V = local[0].shape[-1]
+    c0 = mesh.get_local_rank(vtp[0]) * V if vtp else 0
+    want = torch.from_numpy(np.array(ref_logits[:, rows, c0:c0 + V])).to(dev)
+    got = torch.stack(local)
+    placed = S.cache_placements(cfg, B, sv["cache_len"], rules, mesh)
+    misplaced = sum(tuple(t.placements) != tuple(placed[p]) for p, t in iter_leaves(cache))
+    leaf_pl = {p.split("/")[-1]: (str(list(t.placements)), tuple(t.to_local().shape))
+               for p, t in iter_leaves(cache)}
+    del cache, logits
+    fault = P14_FAULTS[tag][0]
+    rerun = []
+    for planted in (None, fault):       # the prefill and the first decode steps again
+        outs = []
+        with torch.no_grad(), S.axis_rules(mesh, rules), \
+                p14_planted(planted, n_patches, Sq), MergeLog() as ml:
+            logits, cache = M.prefill(cfg, params, batch, cache_len=sv["cache_len"])
+            outs.append(logits.to_local()[:, 0].float())
+            c_err = p14_cache_err(torch, cache, work, tag, mesh)
+            pos = start
+            for i in range(P14_FAULT_STEPS):
+                logits, cache = M.decode_step(cfg, params, cache, steps[i], pos)
+                outs.append(logits.to_local()[:, 0].float())
+                pos = pos + 1
+        rerun += [float((torch.stack(outs) - want[:1 + P14_FAULT_STEPS]).abs().max()),
+                  ml.err, float(ml.calls), c_err]
+        del cache, logits
+    stats = torch.tensor([float((got - want).abs().max()), float(want.abs().max()),
+                          float((~torch.isfinite(got)).sum()), float(misplaced), cache_err,
+                          *rerun], device=dev)
+    gathered = [torch.zeros_like(stats) for _ in range(dist.get_world_size())]
+    dist.all_gather(gathered, stats)
+    g = torch.stack(gathered).cpu().numpy()
+    # a NaN reading reads as infinite (numpy's max would carry it, a
+    # comparison would pass it)
+    g = np.where(np.isnan(g), np.inf, g)
+    res = dict(case=tag, kind="serve", err=float(g[:, 0].max()), scale=float(g[:, 1].max()),
+               nonfinite=int(g[:, 2].sum()), misplaced=int(g[:, 3].sum()),
+               cache_err=float(g[:, 4].max()),
+               reruns={"true": (float(g[:, 5].max()), float(g[:, 6].max()), int(g[:, 7].sum()),
+                                float(g[:, 8].max())),
+                       fault: (float(g[:, 9].max()), float(g[:, 10].max()),
+                               int(g[:, 11].sum()), float(g[:, 12].max()))},
+               prefill_s=t1 - t0, decode_ms=(t2 - t1) / sv["steps"] * 1e3, init_s=t_init,
+               leaves=leaf_pl, peak=torch.cuda.max_memory_allocated())
+    decode = {k: total[k] - first[k] for k in total}
+    shapes_decode = {k: v - shapes_first.get(k, 0) for k, v in sl.by.items()}
+    del params, local, got, want, batch
+    torch.cuda.empty_cache()
+    return res, [dict(counts=first, shapes=shapes_first),
+                 dict(counts=decode, shapes=shapes_decode)]
+
+
+def p14_rank(rank: int, job: dict):
+    """One rank of phase 14's world: every case in turn on one (2, 4) mesh
+    (serving, then training), each freeing its weights before the next.
+    Rank 0 returns the results; every rank its launch counts (a serving
+    case's prefill and decode steps, a train case's true run)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(job.get("device", "cuda"), 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = make_mesh(P14_MESH, ("data", "model"), device=dev, backend="gloo")
+    cases, out, counts = p14_cases(), [], []
+    work = job["work"]
+    for tag in job["cases"]:
+        c = cases[tag]
+        if c["serve"]:
+            res, per = p14_serve_rank(torch, c, tag, work, mesh, dev)
+            out += [res, dict(case=tag, kind="decode")]
+            counts += per
+        if c["train"]:
+            faults = {P14_FAULTS[tag][0]: P14_FAULTS[tag][1]} if tag == "d" else {}
+            res = sharded_train_rank(torch, c["cfg"], dict(
+                batches=f"{work}/{tag}_batches.npz", ref_dir=f"{work}/{tag}_final"),
+                mesh, dev, faults, p14_planted, p14_noise)
+            res.update(case=tag, kind="train")
+            out.append(res)
+            counts.append(dict(counts=res["counts"], shapes=res["shapes"]))
+    return (out, counts) if rank == 0 else (None, counts)
+
+
+def p14_kernel_rows(torch, dev):
+    """Phase 14's kernel instances at the ranks' local shapes, each against
+    its plain version on the same inputs and timed beside its library
+    call: K2 (whisper's encoder and cross prefill, llava's prefix prefill
+    at G = 7, recurrentgemma's local layer in training), K2's backward
+    (whisper's encoder, recurrentgemma's local layer), K3 (whisper's self
+    decode over a sequence-split cache with lse and its cross decode over
+    the whole frames, llava's decode with lse), K5 and its backward
+    (recurrentgemma's training rows)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rs
+    rng = np.random.default_rng(141)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t = lambda shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+    entries, isz, dtype = {}, 2, "bfloat16"
+    flash_cases = {
+        # key: (label, B_loc, Sq, Skv, local q heads, local kv heads, hd, kw)
+        "flash_p14_whisper_enc": ("whisper-tiny encoder on (2, 4), heads whole", 2, WH_F,
+                                  WH_F, WH_H, WH_H, WH_HD, dict(causal=False)),
+        "flash_p14_whisper_cross": ("whisper-tiny cross prefill on (2, 4)", 2, WH_PROMPT,
+                                    WH_F, WH_H, WH_H, WH_HD, dict(causal=False)),
+        "flash_p14_llava": ("llava-next-34b prefix prefill on (2, 4), G = 7", 1,
+                            LV_PATCHES + LV_PROMPT, LV_PATCHES + LV_PROMPT, LV_H // 4,
+                            LV_KV // 4, LV_HD, dict(causal=True)),
+        "flash_p14_rg": ("recurrentgemma-2b local layer, train on (2, 4)", 4, 1024, 1024,
+                         RG_H, RG_KV, RG_HD, dict(causal=True, window=RG_WINDOW)),
+    }
+    for key, (label, B, Sq, Skv, Hh, KVh, hd, kw) in flash_cases.items():
+        q, k, v = t((B, Sq, Hh, hd)), t((B, Skv, KVh, hd)), t((B, Skv, KVh, hd))
+        errs = []
+        check(f"K2 {label} B={B} Sq={Sq} Skv={Skv}", dtype, fa.flash_attention(q, k, v, **kw),
+              ref.flash_attention(q.float(), k.float(), v.float(), **kw).to(q.dtype), errs)
+        win = kw.get("window", 0)
+        pairs = (sum(min(i + 1, win or Skv) for i in range(Sq)) if kw["causal"]
+                 else Sq * Skv) * Hh * B
+        b, by = bound_ms(isz * (2 * q.numel() + k.numel() + v.numel()), 4 * hd * pairs, dtype)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_kw = dict(attn_mask=window_mask(torch, Sq, win, dev)) if win and win < Sq else \
+            dict(is_causal=kw["causal"])
+        entries[key] = dict(
+            name=f"flash_attention ({label}, local shard)", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:27",
+            shape=f"B={B} Sq={Sq} Skv={Skv} H={Hh} KV={KVh} hd={hd} "
+                  f"{'causal' if kw['causal'] else 'no mask'} bf16",
+            **kernel_times(torch, lambda: fa.flash_attention(q, k, v, **kw),
+                           "flash_attention_mma_kernel", iters=10),
+            plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v, **kw), 2, warmup=1),
+            bound_ms=b, bound_by=by, max_abs_err=max(errs),
+            library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, enable_gqa=True, **lib_kw),
+                                10))
+        del q, k, v, qt, kt, vt
+    for key, fkey in (("flash_bwd_p14_whisper", "flash_p14_whisper_enc"),
+                      ("flash_bwd_p14_rg", "flash_p14_rg")):
+        label, B, Sq, Skv, Hh, KVh, hd, kw = flash_cases[fkey]
+        errs = []
+        q, k, v, out, lse, do = flash_bwd_case(torch, rng, dev, dtype, B, Sq, Skv, Hh, KVh,
+                                               hd, kw, errs, [])
+        win = kw.get("window", 0)
+        pairs = (sum(min(i + 1, win or Skv) for i in range(Sq)) if kw["causal"]
+                 else Sq * Skv) * Hh * B
+        b, by = bound_ms(isz * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+                         10 * hd * pairs, dtype)
+        call = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)  # noqa: E731
+        names = flash_bwd_kernels(hd)
+        entries[key] = dict(
+            name=f"flash_attention_bwd ({label}, local shard)", route="cuda",
+            source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/kernels/flash_attention.py:27",
+            shape=f"B={B} S={Sq} H={Hh} KV={KVh} hd={hd} "
+                  f"{'causal' if kw['causal'] else 'no mask'} bf16",
+            ms=kernel_ms(torch, call, names["dq"] + names["dkv"], iters=10),
+            event_ms=event_ms(torch, call, 10),
+            plain_ms=event_ms(torch, lambda: ref.flash_attention_bwd(q, k, v, out, lse, do,
+                                                                     **kw), 1, warmup=1),
+            bound_ms=b, bound_by=by, max_abs_err=max(errs),
+            library_ms=event_ms(torch, sdpa_backward(torch, q, k, v, do,
+                                                     is_causal=kw["causal"]), 5),
+            library="SDPA backward (torch.autograd.grad on a retained graph"
+                    + (", is_causal)" if kw["causal"] else ", no mask)"))
+        del q, k, v, out, lse, do
+        torch.cuda.empty_cache()
+    p13_check_lse(torch, dev, "whisper (a) local", 16, WH_H, WH_H, WH_HD, [0, 1, 9, 16])
+    p13_check_lse(torch, dev, "llava (c) local", 754, LV_H, LV_KV, LV_HD, [0, 5, 377, 754])
+    dense_cases = {
+        # key: (label, B_loc, local slots, q heads, kv heads, hd, kv_len, lse)
+        "dense_p14_whisper": ("whisper-tiny self decode, sequence split", 2, 16, WH_H, WH_H,
+                              WH_HD, [16, 16], True),
+        "dense_p14_whisper_cross": ("whisper-tiny cross decode, heads whole", 2, WH_F, WH_H,
+                                    WH_H, WH_HD, [WH_F, WH_F], False),
+        "dense_p14_llava": ("llava-next-34b decode, sequence split", 1, 754, LV_H, LV_KV,
+                            LV_HD, [754], True),
+    }
+    for key, (label, B, L, nh, nkv, hd, kv_len, with_lse) in dense_cases.items():
+        q, k, v, kl = decode_inputs(torch, rng, dev, dtype, nh, nkv, hd, S=L, kv_len=kv_len)
+        errs = []
+        got = da.decode_attention(q, k, v, kl, return_lse=with_lse)
+        want = ref.decode_attention(q.float(), k.float(), v.float(), kl, return_lse=with_lse)
+        if with_lse:
+            check(f"K3 {label} lse", "bfloat16", got[1], want[1], [], tol=P13_LSE_TOL)
+            got, want = got[0], want[0]
+        check(f"K3 {label} B={B} L={L}", dtype, got, want, errs)
+        n_kv = sum(kv_len)
+        b, by = bound_ms(isz * (2 * q.numel() + 2 * n_kv * nkv * hd) + 4 * kl.numel()
+                         + (4 * B * nh if with_lse else 0), 4 * hd * nh * n_kv, dtype)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lmask = (torch.arange(L, device=dev)[None] < kl[:, None])[:, None, None]
+        call = lambda: da.decode_attention(q, k, v, kl, return_lse=with_lse)  # noqa: E731
+        entries[key] = dict(
+            name=f"decode_attention ({label}{', with lse' if with_lse else ''})",
+            route="cuda", source="src/repro_torch/csrc/decode_common.cuh",
+            replaces="src/repro/kernels/decode_attention.py:31",
+            shape=f"B={B} L={L} H={nh} KV={nkv} hd={hd} kv_len {kv_len} "
+                  f"{n_split(torch, q, nkv, L)} bf16",
+            **kernel_times(torch, call, SPLIT_DECODE),
+            plain_ms=event_ms(torch, lambda: ref.decode_attention(
+                q, k, v, kl, return_lse=with_lse), 10),
+            bound_ms=b, bound_by=by, max_abs_err=max(errs),
+            library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=lmask,
+                                                     enable_gqa=True), 20),
+            library="SDPA, length mask (no lse)")
+    # K5 and its backward on a rank's 4 rows of recurrentgemma's training
+    S_, shape = 1024, (4, 1024, RG_D)
+    a = torch.from_numpy(rng.uniform(0.3, 0.99, size=shape).astype(np.float32)).to(dev)
+    bb = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    errs = []
+    check(f"K5 recurrentgemma (d) local rows B=4 S={S_}", "float32", rs.rglru_scan(a, bb),
+          ref.rglru_scan(a, bb), errs, tol=0.0)
+    b, by = bound_ms(4 * 3 * a.numel(), 2 * a.numel(), "float32")
+    entries["scan_p14_rg"] = dict(
+        name="rglru_scan (recurrentgemma-2b train on (2, 4), local rows)", route="cuda",
+        source="src/repro_torch/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:26", shape=f"B=4 S={S_} D={RG_D} float32",
+        **kernel_times(torch, lambda: rs.rglru_scan(a, bb), "rglru_scan_kernel"),
+        plain_ms=event_ms(torch, lambda: ref.rglru_scan(a, bb), 2, warmup=1),
+        bound_ms=b, bound_by=by, max_abs_err=max(errs), library_ms=None)
+    h = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    dh = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    errs = []
+    for name, g, w in zip(("da", "db"), rs.rglru_scan_bwd(a, h, dh),
+                          ref.rglru_scan_bwd(a, h, dh)):
+        check(f"K5 bwd {name} recurrentgemma (d) local rows B=4 S={S_}", "float32", g, w,
+              errs, tol=0.0)
+    b, by = bound_ms(4 * 5 * a.numel(), 3 * a.numel(), "float32")
+    entries["scan_bwd_p14_rg"] = dict(
+        name="rglru_scan_bwd (recurrentgemma-2b train on (2, 4), local rows)", route="cuda",
+        source="src/repro_torch/csrc/rglru_scan_bwd.cu",
+        replaces="src/repro/kernels/rglru_scan.py:26", shape=f"B=4 S={S_} D={RG_D} float32",
+        **kernel_times(torch, lambda: rs.rglru_scan_bwd(a, h, dh), "rglru_scan_bwd_kernel"),
+        plain_ms=event_ms(torch, lambda: ref.rglru_scan_bwd(a, h, dh), 1, warmup=1),
+        bound_ms=b, bound_by=by, max_abs_err=max(errs), library_ms=None)
+    for e in entries.values():
+        log_row(e)
+    return entries
+
+
+def sharded_families_run(torch, dev, smi):
+    """Phase 14: xLSTM, whisper's encoder-decoder, llava's patch prefix and
+    recurrentgemma's RG-LRU training under a (2, 4) mesh in one world of 8
+    processes sharing this card over gloo, each case against its
+    one-process run on the card; then the kernel instances at the ranks'
+    shapes. Returns (entries, launch totals summed over the ranks)."""
+    import shutil
+    t14 = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "phase14"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cases, refs = p14_cases(), {}
+    for tag, c in cases.items():
+        if c["serve"]:
+            refs[tag] = p14_serve_reference(torch, c, dev, work, tag)
+        if c["train"]:
+            bs = p14_train_batches(c, work, tag)
+            refs[tag + "_train"] = train_reference(torch, c["cfg"], bs, dev,
+                                                   work / f"{tag}_final")
+    log(f"phase 14: the other families under a mesh (models.model prefill / decode_step "
+        f"under rules_for('serve'), make_train_step(cfg, opt, mesh) from init_sharded) on a "
+        f"{P14_MESH} data x model mesh of {P12_WORLD} processes sharing {smi}, backend gloo; "
+        f"one-process references in {time.perf_counter() - t14:.1f} s")
+    runs, wall = p12_world(dict(check="families", cases=list(cases), work=str(work)), work,
+                           rank_fn=p14_rank)
+    totals, fails, blind = {}, [], []
+    shapes = collections.Counter()
+    by_case = collections.defaultdict(list)
+    for r in runs:
+        by_case[r["case"]].append(r)
+    for tag, rs_ in by_case.items():
+        c = cases[tag]
+        cfg = c["cfg"]
+        fault, what = P14_FAULTS[tag]
+        head = (f"phase 14 ({tag}): {cfg.name} {cfg.n_layers} of {c['layers']} layers, every "
+                f"width as published, bf16")
+        for r in rs_:
+            shapes.update(r["all_shapes"])
+        serve = [r for r in rs_ if r["kind"] == "serve"]
+        if serve:
+            res, dec = serve[0], next(r for r in rs_ if r["kind"] == "decode")
+            sv, ref_run = c["serve"], refs[tag]
+            counts = {k: res["all_counts"][k] + dec["all_counts"][k] for k in res["all_counts"]}
+            tol = P13_TOL * res["scale"]
+            want = p14_reckoned(c)
+            true_err, true_merge, merges, true_cache = res["reruns"]["true"]
+            f_err, f_merge, _, f_cache = res["reruns"][fault]
+            held = res["err"] <= tol and not res["nonfinite"] and not res["misplaced"] and \
+                true_merge <= P13_MERGE_TOL and res["cache_err"] <= P14_CACHE_TOL and \
+                true_cache <= P14_CACHE_TOL
+            f_fails = f_err > tol or f_merge > P13_MERGE_TOL or f_cache > P14_CACHE_TOL
+            reckoned = all(counts[k] == want[k] for k in want)
+            if not held or not reckoned:
+                fails.append(f"({tag}) serving")
+            if not f_fails:
+                blind.append(f"({tag}) {fault}")
+            log(f"{head}, fsdp {c['fsdp']}: prefill B={sv['B']} S={sv['S']}"
+                f"{' + ' + str(cfg.n_patches) + ' patches' if 'c' == tag else ''}"
+                f"{' + ' + str(cfg.n_frames) + ' frames' if cfg.is_encdec else ''} into "
+                f"cache_len {sv['cache_len']}, then {sv['steps']} decode steps teacher-forced on "
+                f"the one-process run's greedy tokens; cache leaves (placements, local shape) "
+                f"{res['leaves']}; logits max|err| over every step {res['err']:.4f} (tol "
+                f"{tol:.4f} = 1% of max|logit| {res['scale']:.3f}), non-finite "
+                f"{res['nonfinite']}, cache leaves off their placements {res['misplaced']}; "
+                f"prefill cache against one process, max|err| / max|leaf| "
+                f"{res['cache_err']:.4f} (tol {P14_CACHE_TOL}); merged decode attention max|err| / max|attention| {true_merge:.4f} over "
+                f"{merges} merged calls (tol {P13_MERGE_TOL}); launches, all ranks {counts} "
+                f"(reckoned {want}); prefill {res['prefill_s']:.3f} s, decode "
+                f"{res['decode_ms']:.2f} ms/step sharded (8 processes time-slicing one card over "
+                f"gloo: costs, not scaling figures) vs {ref_run['prefill_s']:.3f} s, "
+                f"{ref_run['decode_ms']:.2f} ms/step one process (first calls), weights drawn in "
+                f"{res['init_s']:.1f} s; rank-0 peak {res['peak'] / 1e9:.2f} GB, the card's peak "
+                f"in use over the world {res['card_peak'] / 1e9:.2f} GB, one-process peak "
+                f"{ref_run['peak'] / 1e9:.2f} GB")
+            log(f"phase 14 ({tag}) the prefill and {P14_FAULT_STEPS} decode step(s) again, as "
+                f"they are: logits max|err| {true_err:.4f}, cache {true_cache:.4f}; with the "
+                f"planted fault {fault} ({what}): logits max|err| {f_err:.4f} (tol {tol:.4f}), "
+                f"merge {f_merge:.4f} (tol {P13_MERGE_TOL}), cache {f_cache:.4f} (tol "
+                f"{P14_CACHE_TOL}): {'fails' if f_fails else 'PASSES (blind)'}")
+            if tag == "a":
+                (totals["flash_p14_whisper_enc"],
+                 totals["flash_p14_whisper_cross"]) = p14_whisper_k2(res["all_shapes"])
+                totals["dense_p14_whisper"] = sum(n for k, n in dec["all_shapes"].items()
+                                                  if k[0] == "dense" and k[1] != WH_F)
+                totals["dense_p14_whisper_cross"] = dec["all_shapes"].get(("dense", WH_F), 0)
+            elif tag == "c":
+                totals.update(flash_p14_llava=res["all_counts"]["flash"],
+                              dense_p14_llava=dec["all_counts"]["dense"])
+        train = [r for r in rs_ if r["kind"] == "train"]
+        if train:
+            out = train[0]
+            losses, secs, peak = refs[tag + "_train"]
+            tr = c["train"]
+            true = out["runs"]["true"]
+            worst, loss_err, ratio, d_max, t_fails = train_reading(true, losses)
+            noise = true["noise"]
+            log(f"{head}: {tr['steps']} train step(s) B={tr['B']} S={tr['S']}"
+                f"{' + ' + str(cfg.n_frames) + ' frames' if cfg.is_encdec else ''} from "
+                f"init_sharded at lr {P12_LR}: losses {['%.5f' % x for x in true['losses']]} vs "
+                f"one process {['%.5f' % x for x in losses]} (max diff {loss_err:.2e}, tol "
+                f"{P12_LOSS_TOL:.0e}); worst leaf {worst}: mean |p - p_one| / mean |p_one - p0| "
+                f"{ratio:.4f} (tol {P12_UPDATE_TOL}), max |p - p_one| {d_max:.3e}"
+                + "".join(f"; {p}'s elements of noise gradient (not held): ratio "
+                          f"{v[0] / max(v[1], 1e-30):.4f}, max |p - p_one| {v[2]:.3e}"
+                          for p, v in noise.items())
+                + f"; replicas differ by at most {true['spread']:.3e} (tol {P12_SPREAD_TOL}); "
+                f"fails {t_fails or 'nothing'}; s/step "
+                f"{['%.3f' % x for x in true['secs']]} sharded (8 processes time-slicing one "
+                f"card over gloo: not a scaling figure) vs {['%.3f' % x for x in secs]} one "
+                f"process; launches, all ranks {out['all_counts']}; rank-0 peak "
+                f"{out['peak'] / 1e9:.2f} GB, one-process peak {peak / 1e9:.2f} GB")
+            if t_fails:
+                fails.append(f"({tag}) training {t_fails}")
+            if tag == "a":
+                enc, cross = p14_whisper_k2(out["all_shapes"])
+                totals["flash_p14_whisper_enc"] += enc
+                totals["flash_p14_whisper_cross"] += cross
+                totals["flash_bwd_p14_whisper"] = out["all_counts"]["flash_bwd"]
+                if not out["all_counts"]["flash_bwd"]:
+                    fails.append("(a) training launched no K2 backward")
+            elif tag == "d":
+                f_worst, f_loss, f_ratio, f_max, f_fails = train_reading(
+                    out["runs"][fault], losses)
+                log(f"phase 14 (d) planted fault {fault} ({what}): loss diff {f_loss:.2e}, "
+                    f"worst leaf {f_worst} update ratio {f_ratio:.4f}, max |p - p_one| "
+                    f"{f_max:.3e}, replicas differ by {out['runs'][fault]['spread']:.3e}: "
+                    f"fails {f_fails or 'nothing'}")
+                if not f_fails:
+                    blind.append(f"(d) {fault}")
+                cnt = out["all_counts"]
+                totals.update(flash_p14_rg=cnt["flash"], flash_bwd_p14_rg=cnt["flash_bwd"],
+                              scan_p14_rg=cnt["scan"], scan_bwd_p14_rg=cnt["scan_bwd"])
+                if not all(cnt[k] for k in ("flash", "flash_bwd", "scan", "scan_bwd")):
+                    fails.append(f"(d) launched {cnt}")
+    log(f"phase 14: world {wall:.1f} s; K2 / K3 launches by shape over the driven runs, all "
+        f"ranks {dict(shapes)}")
+    shutil.rmtree(work, ignore_errors=True)
+    if fails:
+        raise AssertionError(f"phase 14: {fails} not held (see their lines)")
+    if blind:
+        raise AssertionError(f"phase 14: the checks pass the planted faults {blind}")
+    log(f"phase 14: the kernel instances at the ranks' shapes (launches: the {P12_WORLD} "
+        f"ranks' counts in the driven runs, summed: {totals})")
+    entries = p14_kernel_rows(torch, dev)
+    log(f"phase 14: done in {time.perf_counter() - t14:.1f} s")
+    return entries, totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6698,6 +7491,15 @@ def main() -> int:
     total.update(p13_totals)
     mark("phase 13")
 
+    # phase 14: xLSTM, whisper's encoder-decoder, llava's patch prefix and
+    # recurrentgemma's RG-LRU training under a (2, 4) mesh, one world of 8
+    # processes sharing this card over gloo
+    torch.cuda.empty_cache()
+    p14_entries, p14_totals = sharded_families_run(torch, dev, smi)
+    entries.update(p14_entries)
+    total.update(p14_totals)
+    mark("phase 14")
+
     kernels = []
     for key in ("decode", "chunk", "chunk_768", "flash", "flash_rg", "dense_rg", "dense_granite",
                 "scan", "flash_l4", "decode_l4", "dense_l4", *GMM_KEYS, "flash_gateway",
@@ -6710,7 +7512,7 @@ def main() -> int:
                 "flash_bwd_rg", "scan_bwd", "flash_l4_train", "flash_bwd_l4", "gmm_train",
                 *GMM_BWD_ROWS, "decode_int8", "decode_int8_qwen", "chunk_int8",
                 "chunk_int8_768", "chunk_int8_qwen", "chunk_int8_qwen_768", "dense_int8_rg",
-                "dense_int8_granite", *P12_ROWS, *P13_ROWS):
+                "dense_int8_granite", *P12_ROWS, *P13_ROWS, *P14_ROWS):
         e = dict(entries[key])
         e["launches"] = total[key]
         kernels.append({k: e[k] for k in (

@@ -45,14 +45,16 @@ A MoE layer (``cfg.n_experts``; every layer, as ``moe_every`` is 0 or 1)
 replaces the MLP with ``moe_ffn``: token-choice top-k routing in float32
 and three grouped matmuls through K4 (``moe_gmm``), the reference's
 single-device branch. Nothing on that path reads a tensor back to the
-host. Under a mesh of more than one rank (``models.sharding``) an
-attention block runs as one ``local_map`` body on local shards, through
-``attn_block`` itself (``_attn_body``: Megatron column / row slices of
-the heads and the feed-forward, ``layout`` choosing them): in ``train``
-(``sharded_attn_block``) and in ``prefill`` and ``decode``
-(``sharded_serve_block``, the cache split over its sequence, its KV heads
-or neither; an RG-LRU block there too), and ``moe_ffn`` takes the
-reference's Megatron or all-to-all branch there. ``attn_block`` and
+host. Under a mesh of more than one rank (``models.sharding``) every
+block runs as one ``local_map`` body on local shards (``sharded_block``,
+in ``train``, ``prefill`` and ``decode``), through the block itself: an
+attention block with Megatron column / row slices of the heads (its cross
+sub-block's too) and the feed-forward, ``layout`` choosing them, its
+cache split over its sequence, its KV heads or neither (``_attn_body``);
+an RG-LRU block with the recurrence whole on the rank's batch rows and
+the MLP sliced (``_rglru_body``); an mLSTM or sLSTM block with every
+weight whole on the rank's batch rows (``_xlstm_body``); ``moe_ffn``
+takes the reference's Megatron or all-to-all branch there. ``attn_block`` and
 ``rglru_block`` return ``(x, cache, aux)``, as the
 reference's blocks: ``aux`` is the MoE layer's load-balancing loss (None
 for a dense feed-forward), which ``model.loss_fn`` adds in ``train``.
@@ -88,6 +90,7 @@ from repro_torch.models.param import Spec
 
 Cache = Dict[str, torch.Tensor]
 ATTN_KINDS = (BlockKind.ATTN, BlockKind.LOCAL_ATTN, BlockKind.CHUNKED_ATTN)
+SLSTM_STATE = ("c", "n", "h", "m")
 
 
 # ======================================================================
@@ -356,30 +359,38 @@ def attn_block(cfg: ModelConfig, kind: BlockKind, params, x: torch.Tensor, *,
     x = x + sharding.row_parallel(attn.reshape(B, S, H * hd), params["wo"],
                                   mesh, tp)
     if "c_wq" in params:
-        x = _cross_attn(cfg, params, x, mode, cross_x, cache, new_cache, impl)
+        x = _cross_attn(cfg, params, x, mode, cross_x, cache, new_cache, impl,
+                        lay)
     x, aux = _ffn(cfg, params, x, impl, lay)
     return x, new_cache, aux
 
 
 def _cross_attn(cfg: ModelConfig, params, x: torch.Tensor, mode: str,
                 cross_x: Optional[torch.Tensor], cache: Optional[Cache],
-                new_cache: Optional[Cache], impl: Optional[str]) -> torch.Tensor:
+                new_cache: Optional[Cache], impl: Optional[str],
+                lay: Optional["Layout"] = None) -> torch.Tensor:
     """The whisper decoder's cross sub-block (the reference's
     ``attn_block`` :252-274): queries from this block's stream, keys and
     values projected from the encoder output (no bias, no rope). Prefill
     puts ``c_k``, ``c_v`` into ``new_cache``; decode reads them from
-    ``cache``."""
+    ``cache``. Under a mesh (``lay``) ``c_wq``, ``c_wk``, ``c_wv`` are
+    column slices of this rank's heads where ``lay.attn_tp`` slices them
+    (the stream and the encoder output enter through ``copy_to``), the
+    cross cache holds this rank's KV heads of every frame, and ``c_wo`` is
+    a row slice summed over those axes (``sharding.row_parallel``)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    hc = rms_norm(x, params["c_ln"])
+    mesh, tp = (lay.mesh, lay.attn_tp) if lay is not None else (None, ())
+    hc = sharding.copy_to(rms_norm(x, params["c_ln"]), mesh, tp)
     qc = (hc @ params["c_wq"]).reshape(B, S, H, hd)
     if mode in ("train", "prefill"):
         if cross_x is None:
             raise ValueError(f"{mode} of a cross-attention block needs cross_x "
                              "(the encoder's output)")
         Fr = cross_x.shape[1]
-        ck = (cross_x @ params["c_wk"]).reshape(B, Fr, KV, hd)
-        cv = (cross_x @ params["c_wv"]).reshape(B, Fr, KV, hd)
+        cx = sharding.copy_to(cross_x, mesh, tp)
+        ck = (cx @ params["c_wk"]).reshape(B, Fr, KV, hd)
+        cv = (cx @ params["c_wv"]).reshape(B, Fr, KV, hd)
         if mode == "prefill":
             new_cache["c_k"], new_cache["c_v"] = ck, cv
         cattn = ops.flash_attention(qc, ck, cv, causal=False, impl=impl)
@@ -392,7 +403,8 @@ def _cross_attn(cfg: ModelConfig, params, x: torch.Tensor, mode: str,
         raise NotImplementedError(
             "chunked prefill: an encoder-decoder prefills whole "
             "(see chunked_prefill_supported)")
-    return x + cattn.reshape(B, S, H * hd) @ params["c_wo"]
+    return x + sharding.row_parallel(cattn.reshape(B, S, H * hd),
+                                     params["c_wo"], mesh, tp)
 
 
 # ======================================================================
@@ -461,7 +473,7 @@ def moe_ffn(cfg: ModelConfig, params, h: torch.Tensor, *,
     """h: (B, S, d) normed activations -> (out (B, S, d), aux), with the
     load-balancing ``aux = E * sum(frac_tokens * mean_prob)`` (float32).
     With no ``lay`` (one rank) the reference's single-device branch. Under
-    a mesh it runs inside ``sharded_attn_block``'s body on the local batch
+    a mesh it runs inside ``sharded_block``'s body on the local batch
     shard, in the branch ``lay.moe`` names (chosen by ``layout`` with the
     reference's conditions, in its order): ``"local"`` the same branch with
     aux from the global fractions; ``"megatron"`` routing local to the data
@@ -556,7 +568,7 @@ def _moe_ffn_a2a(cfg: ModelConfig, params, h: torch.Tensor, lay: "Layout",
 
 
 # ======================================================================
-# An attention block under a mesh of more than one rank
+# A block of any kind under a mesh of more than one rank
 # ======================================================================
 @dataclasses.dataclass(frozen=True)
 class CacheLayout:
@@ -608,7 +620,10 @@ def layout(cfg: ModelConfig, params, plan, B: int, S: int) -> Layout:
     over ``model`` only where ``model`` divides the head count (``spec_for``
     tests the fused H*hd dim, which may split a head: such leaves compute
     replicated); KV heads where it also divides KV, else every rank takes
-    the KV heads its query heads read. The MoE branch follows the
+    the KV heads its query heads read (a cross-attention block slices its
+    heads only where ``model`` divides the KV heads too, so its cross cache
+    is split by KV heads exactly where ``spec_for`` splits it). The MoE
+    branch follows the
     reference's conditions in order: local where the data axes do not
     divide B, then ``model`` where it divides d_ff, then the all-to-all
     branch where the rules ask for it, S > 1, ``model`` divides S and E
@@ -616,7 +631,8 @@ def layout(cfg: ModelConfig, params, plan, B: int, S: int) -> Layout:
     H, KV = cfg.n_heads, cfg.n_kv_heads
     sizes = sharding.mesh_axis_sizes(plan.mesh)
     m = sizes[plan.model] if plan.model else 1
-    heads = plan.model is not None and H % m == 0
+    heads = plan.model is not None and H % m == 0 and \
+        ("c_wq" not in params or KV % m == 0)
     kv_tp = heads and KV % m == 0
     ff = plan.model is not None and cfg.d_ff % m == 0
     moe = moe_tp = None
@@ -637,9 +653,9 @@ def layout(cfg: ModelConfig, params, plan, B: int, S: int) -> Layout:
                     S % mm == 0 and cfg.n_experts == mm:
                 moe = "a2a"
             moe_tp = ("model",) if moe_model else ()
-    tp = {"wq": 1, "bq": 0, "wo": 0} if heads else {}
+    tp = {"wq": 1, "bq": 0, "wo": 0, "c_wq": 1, "c_wo": 0} if heads else {}
     if kv_tp:
-        tp.update(wk=1, wv=1, bk=0, bv=0)
+        tp.update(wk=1, wv=1, bk=0, bv=0, c_wk=1, c_wv=1)
     if ff and moe is None:
         tp.update(wg=1, wu=1, wd=0)
     if moe == "megatron" and moe_tp:
@@ -683,67 +699,75 @@ def _local_heads(cfg: ModelConfig, lay: Layout, p):
                                head_dim=hd), p, whole
 
 
-def _attn_body(cfg: ModelConfig, kind: BlockKind, lay: Layout, names,
-               mode: str, rope_cs, cache_len, impl, x: torch.Tensor, *args):
-    """``attn_block`` on this rank's local tensors: x (B_loc, S, d); in
-    ``decode`` the local positions (B_loc,) and this rank's cache leaves k,
-    v first; then the layer's leaves in their compute placements
-    (``Layout.tp_dims``). Returns (x, aux) in ``train``, aux a 0-d float32
-    (zero for a dense feed-forward); (x, k, v) in ``prefill`` and
-    ``decode``, the cache leaves this rank holds (decode: the ones it was
-    given, written in place)."""
-    cache = pos = None
-    if mode == "decode":
-        pos, k, v, *args = args
-        cache = {"k": k, "v": v}
-        rope_cs = rope_tables(pos[:, None], cfg.hd, cfg.rope_theta)
-    cfg, p, whole = _local_heads(cfg, lay, dict(zip(names, args)))
-    x, cache, aux = attn_block(cfg, kind, p, x, mode=mode, rope_cs=rope_cs,
-                               cache=cache, pos=pos, cache_len=cache_len,
-                               impl=impl, lay=lay, kv_whole=whole)
+def _take_cache(mode: str, leaves, args):
+    """(cache, rest): in ``decode`` a body's first arguments are its cache
+    leaves, in ``leaves`` order; else there are none."""
+    if mode != "decode":
+        return None, args
+    return dict(zip(leaves, args)), args[len(leaves):]
+
+
+def _body_out(mode: str, x, cache, leaves, aux=None):
+    """A body's outputs: (x, aux) in ``train`` (aux a 0-d float32, zero
+    where the block has none); (x, *cache leaves) in serving (decode: the
+    local tensors it was given, written in place)."""
     if mode != "train":
-        return x, cache["k"], cache["v"]
+        return (x,) + tuple(cache[n] for n in leaves)
     return x, (aux if aux is not None else
                torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def sharded_attn_block(cfg: ModelConfig, kind: BlockKind, plan, params,
-                       x, rope_cs: Tuple[torch.Tensor, torch.Tensor],
-                       impl: Optional[str] = None):
-    """``attn_block`` in ``train`` mode under a mesh of more than one rank:
-    x a DTensor (B, S, d) sharded over ``plan.batch``, ``params`` the
-    layer's DTensor leaves in their stored placements, ``rope_cs`` plain
-    tensors (the forward's, one pair for all layers). One ``local_map``
-    body (``_attn_body``) computes the block on local tensors; the leaves
-    are redistributed to the placements it needs (``layout``). Returns (x,
-    None, aux), aux a replicated 0-d DTensor or None for a dense FFN."""
-    from torch.distributed.tensor.experimental import local_map
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(f"{kind} under a mesh (ROADMAP Queue 1 H)")
-    B, S, _ = x.shape
-    lay = layout(cfg, params, plan, B, S)
-    names = sorted(params)
-    act = plan.activation()
-    body = local_map(
-        functools.partial(_attn_body, cfg, kind, lay, names, "train", rope_cs,
-                          None, impl),
-        out_placements=(act, plan.replicated()),
-        in_placements=(act,) + tuple(plan.compute(lay.tp_dims.get(n))
-                                     for n in names),
-        in_grad_placements=(act,) + tuple(
-            plan.grad(lay.tp_dims.get(n), n in lay.partial_on_model)
-            for n in names),
-        device_mesh=plan.mesh)
-    x, aux = body(x, *(sharding.to_placements(params[n],
-                                              plan.compute(lay.tp_dims.get(n)))
-                       for n in names))
-    return x, None, (aux if lay.moe is not None else None)
+def _attn_body(cfg: ModelConfig, kind: BlockKind, lay: Layout, names, leaves,
+               mode: str, rope_cs, cache_len, impl, causal: bool,
+               cross: bool, x: torch.Tensor, *args):
+    """``attn_block`` on this rank's local tensors: x (B_loc, S, d); then
+    with ``cross`` (a whisper decoder block in ``train`` or ``prefill``)
+    the encoder's output (B_loc, F, d); in ``decode`` the local positions
+    (B_loc,) and this rank's cache leaves (``leaves``); then the layer's
+    leaves in their compute placements (``Layout.tp_dims``)."""
+    cross_x = pos = None
+    if cross:
+        cross_x, *args = args
+    if mode == "decode":
+        pos, *args = args
+        rope_cs = rope_tables(pos[:, None], cfg.hd, cfg.rope_theta)
+    cache, args = _take_cache(mode, leaves, args)
+    cfg, p, whole = _local_heads(cfg, lay, dict(zip(names, args)))
+    x, cache, aux = attn_block(cfg, kind, p, x, mode=mode, rope_cs=rope_cs,
+                               cache=cache, pos=pos, causal=causal,
+                               cross_x=cross_x, cache_len=cache_len,
+                               impl=impl, lay=lay, kv_whole=whole)
+    return _body_out(mode, x, cache, leaves, aux)
+
+
+def _rglru_body(cfg: ModelConfig, lay: Layout, names, leaves, mode: str,
+                impl, x: torch.Tensor, *args):
+    """``rglru_block`` on this rank's batch rows, the recurrence and its
+    weights whole, the MLP sliced over ``lay.ff_tp``: in ``train`` through
+    K5 and its backward (``RGLRUScanFn``), in ``prefill`` and ``decode``
+    with this rank's state leaves h, conv (decode: first, written in
+    place)."""
+    cache, args = _take_cache(mode, leaves, args)
+    x, cache, _ = rglru_block(cfg, dict(zip(names, args)), x, mode=mode,
+                              cache=cache, impl=impl, lay=lay)
+    return _body_out(mode, x, cache, leaves)
+
+
+def _xlstm_body(cfg: ModelConfig, kind: BlockKind, names, leaves, mode: str,
+                x: torch.Tensor, *args):
+    """``mlstm_block`` or ``slstm_block`` on this rank's batch rows with
+    every weight whole (the ``ff``-split leaves gathered a layer at a time)
+    and its state leaves, float32 (decode: first, written in place). The
+    sLSTM steps its tokens here, on local tensors."""
+    cache, args = _take_cache(mode, leaves, args)
+    block = mlstm_block if kind == BlockKind.MLSTM else slstm_block
+    x, cache = block(cfg, dict(zip(names, args)), x, mode=mode, cache=cache)
+    return _body_out(mode, x, cache, leaves)
 
 
 # ======================================================================
-# Serving under a mesh of more than one rank: prefill and decode of the
-# attention kinds and RG-LRU, each layer one local_map body that takes and
-# returns its cache leaves in the reference's placements
+# An attention cache under a mesh of more than one rank: split over its
+# sequence, its KV heads or neither, as the reference's placements
 # ======================================================================
 def _whole_kv(cfg: ModelConfig, lay: Layout, kv_whole, h, k, v, cos, sin):
     """Every KV head's k, v (B, S, KV, hd) on this rank: as computed where
@@ -853,68 +877,88 @@ def _decode_serve_attn(cfg: ModelConfig, kind: BlockKind, lay: Layout,
     return o
 
 
-def _rglru_serve_body(cfg: ModelConfig, lay: Layout, names, mode: str, impl,
-                      x: torch.Tensor, *args):
-    """``rglru_block``'s prefill or decode on this rank's batch rows (the
-    recurrence and its weights whole, the MLP sliced over ``lay.ff_tp``):
-    in decode this rank's state leaves h, conv come first, written in
-    place. Returns (x, h, conv)."""
-    cache = None
-    if mode == "decode":
-        h_state, conv, *args = args
-        cache = {"h": h_state, "conv": conv}
-    x, cache, _ = rglru_block(cfg, dict(zip(names, args)), x, mode=mode,
-                              cache=cache, impl=impl, lay=lay)
-    return x, cache["h"], cache["conv"]
+XLSTM_KINDS = (BlockKind.MLSTM, BlockKind.SLSTM)
+STATE_LEAVES = {BlockKind.RGLRU: ("h", "conv"), BlockKind.MLSTM: ("C", "n", "m"),
+                BlockKind.SLSTM: SLSTM_STATE}
 
 
-SERVE_CACHE_LEAVES = {BlockKind.RGLRU: ("h", "conv")}
+def cache_leaves(cfg: ModelConfig, kind: BlockKind) -> Tuple[str, ...]:
+    """The names of one layer's dense decode cache leaves: a recurrent
+    kind's state, an attention kind's K/V (and a whisper decoder block's
+    cross K/V)."""
+    if kind in STATE_LEAVES:
+        return STATE_LEAVES[kind]
+    return ("k", "v") + (("c_k", "c_v") if cfg.is_encdec else ())
 
 
-def sharded_serve_block(cfg: ModelConfig, kind: BlockKind, plan, params, x,
-                        cache_pl: Dict[str, list], *, mode: str,
-                        cache: Optional[dict] = None, pos=None, rope_cs=None,
-                        cache_len: Optional[int] = None,
-                        impl: Optional[str] = None):
-    """One attention or RG-LRU layer in ``prefill`` or ``decode`` under a
-    mesh of more than one rank: x a DTensor (B, S, d) sharded over
+def sharded_block(cfg: ModelConfig, kind: BlockKind, plan, params, x, *,
+                  mode: str, rope_cs=None, impl: Optional[str] = None,
+                  causal: bool = True, cross_x=None,
+                  cache: Optional[dict] = None,
+                  cache_pl: Optional[Dict[str, list]] = None, pos=None,
+                  cache_len: Optional[int] = None):
+    """One layer of any kind under a mesh of more than one rank, as one
+    ``local_map`` body on local tensors: x a DTensor (B, S, d) sharded over
     ``plan.batch``; ``params`` the layer's DTensor leaves in their stored
-    placements; ``cache_pl`` {leaf: placements} of the layer's cache, as
-    ``sharding.cache_placements`` gives them; ``cache`` (decode) the
-    layer's cache DTensors in those placements; ``pos`` (decode) a DTensor
-    (B,) in the batch's placements; ``rope_cs`` (prefill) the plain (cos,
-    sin) of positions [0, S). One ``local_map`` body computes the layer on
-    local tensors (``_attn_body``, ``_rglru_serve_body``). Returns
-    (x, {leaf: DTensor}), the cache leaves in ``cache_pl`` (decode: the
-    local tensors it was given, written in place)."""
+    placements, redistributed to the placements the body computes with
+    (attention and RG-LRU: ``layout``; xLSTM: every leaf whole);
+    ``rope_cs`` the plain (cos, sin) of the sequence's positions
+    (``train``, ``prefill``); ``causal=False`` the whisper encoder's
+    attention; ``cross_x`` (a whisper decoder block in ``train`` or
+    ``prefill``) the encoder's output, a DTensor in the batch's placements.
+    ``train``: returns (x, None, aux), aux a replicated 0-d DTensor for a
+    MoE layer else None; each leaf's gradient comes back in its compute
+    placements, partial over the axes that shard the batch (``Plan.grad``),
+    which the caller reduces into the stored shards. ``prefill`` and
+    ``decode``: ``cache_pl`` {leaf: placements} of the layer's cache
+    (``sharding.cache_placements``); ``cache`` (decode) the layer's cache
+    DTensors in those placements; ``pos`` (decode) a DTensor (B,) in the
+    batch's placements; returns (x, {leaf: DTensor}) in ``cache_pl``
+    (decode: the local tensors it was given, written in place)."""
     from torch.distributed.tensor.experimental import local_map
     B, S, _ = x.shape
-    lay = layout(cfg, params, plan, B, S)
     names = sorted(params)
-    leaves = SERVE_CACHE_LEAVES.get(kind, ("k", "v"))
-    if kind == BlockKind.RGLRU:
-        body = functools.partial(_rglru_serve_body, cfg, lay, names, mode, impl)
-    elif kind in ATTN_KINDS:
-        Lg = cache["k"].shape[1] if mode == "decode" else \
-            attn_cache_len(cfg, kind, cache_len or S)
-        lay = dataclasses.replace(lay, cache=cache_layout(cfg, plan, B, Lg))
-        body = functools.partial(_attn_body, cfg, kind, lay, names, mode,
-                                 rope_cs, cache_len, impl)
+    leaves = () if mode == "train" else cache_leaves(cfg, kind)
+    lay = None
+    if kind in XLSTM_KINDS:
+        tp, partial = {}, ()
+        body = functools.partial(_xlstm_body, cfg, kind, names, leaves, mode)
     else:
-        raise NotImplementedError(f"{kind} under a mesh (ROADMAP Queue 1 H)")
+        lay = layout(cfg, params, plan, B, S)
+        tp, partial = lay.tp_dims, lay.partial_on_model
+        if kind == BlockKind.RGLRU:
+            body = functools.partial(_rglru_body, cfg, lay, names, leaves, mode,
+                                     impl)
+        else:
+            if mode != "train":
+                Lg = cache["k"].shape[1] if mode == "decode" else \
+                    attn_cache_len(cfg, kind, cache_len or S)
+                lay = dataclasses.replace(lay, cache=cache_layout(cfg, plan, B, Lg))
+            body = functools.partial(_attn_body, cfg, kind, lay, names, leaves,
+                                     mode, rope_cs, cache_len, impl, causal,
+                                     cross_x is not None)
     act = plan.activation()
-    state_in, state_pl = (), ()
+    lead = () if cross_x is None else (cross_x,)
+    lead_pl = () if cross_x is None else (act,)
     if mode == "decode":    # an attention layer's positions, then the cache
-        state_in = tuple(cache[n] for n in leaves)
-        state_pl = tuple(cache_pl[n] for n in leaves)
-        if kind != BlockKind.RGLRU:
-            state_in, state_pl = (pos,) + state_in, (act,) + state_pl
-    weights_pl = tuple(plan.compute(lay.tp_dims.get(n)) for n in names)
-    fn = local_map(body, out_placements=(act,) + tuple(cache_pl[n] for n in leaves),
-                   in_placements=(act,) + state_pl + weights_pl,
-                   device_mesh=plan.mesh)
-    out = fn(x, *state_in, *(sharding.to_placements(params[n], pl)
-                             for n, pl in zip(names, weights_pl)))
+        if kind in ATTN_KINDS:
+            lead, lead_pl = lead + (pos,), lead_pl + (act,)
+        lead += tuple(cache[n] for n in leaves)
+        lead_pl += tuple(cache_pl[n] for n in leaves)
+    weights_pl = tuple(plan.compute(tp.get(n)) for n in names)
+    if mode == "train":
+        out_pl = (act, plan.replicated())
+        grad_pl = (act,) + lead_pl + tuple(plan.grad(tp.get(n), n in partial)
+                                           for n in names)
+    else:
+        out_pl, grad_pl = (act,) + tuple(cache_pl[n] for n in leaves), None
+    fn = local_map(body, out_placements=out_pl,
+                   in_placements=(act,) + lead_pl + weights_pl,
+                   in_grad_placements=grad_pl, device_mesh=plan.mesh)
+    out = fn(x, *lead, *(sharding.to_placements(params[n], pl)
+                         for n, pl in zip(names, weights_pl)))
+    if mode == "train":
+        return out[0], None, (out[1] if lay is not None and lay.moe else None)
     return out[0], dict(zip(leaves, out[1:]))
 
 
@@ -983,9 +1027,9 @@ def rglru_block(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
     D)}``; ``chunk`` continues the conv and the
     recurrence from ``cache`` and ``decode`` advances them one step, both
     writing ``cache`` in place (``decode`` only on rows where ``mask``).
-    ``lay`` (serving under a mesh, from ``sharded_serve_block``'s body): the
-    MLP's slices over ``lay.ff_tp`` (``_ffn``); the recurrence runs whole on
-    the rank's batch rows."""
+    ``lay`` (under a mesh, from ``sharded_block``'s body): the MLP's
+    slices over ``lay.ff_tp`` (``_ffn``); the recurrence runs whole on the
+    rank's batch rows."""
     B, S, d = x.shape
     h = rms_norm(x, params["ln1"])
     xb = h @ params["w_x"]
@@ -1084,7 +1128,11 @@ def _mlstm_chunk_step(state, qc, kc, vc, ic, fc):
     logw = (ic - b).transpose(1, 2)[:, :, None, :] \
         + (b - m_t).transpose(1, 2)[:, :, :, None]
     causal = torch.ones((Cn, Cn), dtype=torch.bool, device=qc.device).tril()
-    w = torch.where(causal, torch.exp(logw), 0.0)
+    # masked before the exp: past the diagonal logw grows with the distance
+    # and overflows, and exp's gradient there (inf) times where's zero is
+    # NaN (the reference's ``where(causal, exp(logw), 0)`` gives non-finite
+    # gradients at full width from ~256 tokens); the values are the same
+    w = torch.exp(torch.where(causal, logw, float("-inf")))
     sw = s * w
     inter_scale = torch.exp(b + m0[:, None] - m_t)    # (B, Cn, nh)
     h_num = torch.einsum("bnqk,bknd->bqnd", sw, vc) \
@@ -1217,9 +1265,6 @@ def slstm_specs(cfg: ModelConfig) -> Dict[str, Spec]:
     }
     s.update(mlp_specs(d, ffi))
     return s
-
-
-SLSTM_STATE = ("c", "n", "h", "m")
 
 
 def slstm_cache_specs(cfg: ModelConfig, B: int) -> Dict[str, Spec]:

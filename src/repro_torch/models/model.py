@@ -47,21 +47,23 @@ and ``paged_cache_specs`` do; it is a model-API configuration, and the
 engine takes none, as the reference's.
 
 Under ``sharding.axis_rules`` with a mesh of more than one rank,
-``train`` mode runs sharded (``_sharded_forward``): the embedding into a
-vocab-sharded table, each attention layer and the final norm with the
-unembedding run as ``local_map`` bodies on local shards, the logits stay
-sharded over the vocab, and ``loss_fn`` reduces the log-sum-exp across
-the vocab shards in float32 (``sharded_cross_entropy``). ``prefill`` and
-``decode`` run sharded too (``_sharded_serve``, with no autograd), for the
-attention kinds and RG-LRU: the dense decode cache is a tree of DTensors
-in the reference's placements (``sharding.cache_placements``: attention
-K/V split over their sequence where ``model`` divides it, else over their
-KV heads, else whole; RG-LRU state over the batch), built a layer at a
-time by prefill and written in place by decode; the logits come back as a
-DTensor (B, 1, V) sharded over the batch's axes and the vocab's. Under a
-mesh, ``chunk`` mode, paged pools and the engine's row masks, xLSTM
-blocks, an encoder-decoder, a VLM's patch prefix, RG-LRU training and
-int8 weights or caches raise ``NotImplementedError`` (``_check_sharded``).
+``train`` mode runs sharded (``_sharded_forward``), for every block kind:
+the embedding into a vocab-sharded table (a VLM's patches, placed over
+the batch's axes, before it), the whisper encoder, each layer and the
+final norm with the unembedding run as ``local_map`` bodies on local
+shards (``blocks.sharded_block``), the logits stay sharded over the
+vocab, and ``loss_fn`` reduces the log-sum-exp across the vocab shards in
+float32 (``sharded_cross_entropy``). ``prefill`` and ``decode`` run
+sharded too (``_sharded_serve``, with no autograd): the dense decode
+cache is a tree of DTensors in the reference's placements
+(``sharding.cache_placements``: attention K/V split over their sequence
+where ``model`` divides it, else over their KV heads, else whole; the
+cross K/V over their KV heads or whole; recurrent state over the batch),
+built a layer at a time by prefill and written in place by decode; the
+logits come back as a DTensor (B, 1, V) sharded over the batch's axes and
+the vocab's. Under a mesh, ``chunk`` mode, paged pools and the engine's
+row masks, and int8 weights or caches raise ``NotImplementedError``
+(``_check_sharded``).
 
 Public API (same names and arguments as the reference, plus ``device``):
   param_specs(cfg), init_model_params(cfg, seed, device), narrow_weights
@@ -454,17 +456,17 @@ def forward_with_aux(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
     if mode in ("chunk", "decode") and cache is None:
         raise ValueError(f"{mode} mode needs a cache")
+    ctx = sharding.active_mesh()
+    if ctx is not None:     # its refusals first (int8 weights among them)
+        return _sharded_forward(cfg, params, batch, ctx, mode=mode, impl=impl,
+                                remat=remat, remat_policy=remat_policy,
+                                cache=cache, pos=pos, cache_len=cache_len,
+                                block_tables=block_tables, mask=mask)
     if mode == "train" and any(not t.is_floating_point()
                                for _, t in iter_leaves(params)):
         raise TypeError(
             "train mode takes floating weights: integer (narrowed) weights "
             "are served only, as jax.grad cannot differentiate them either")
-    ctx = sharding.active_mesh()
-    if ctx is not None:
-        return _sharded_forward(cfg, params, batch, ctx, mode=mode, impl=impl,
-                                remat=remat, remat_policy=remat_policy,
-                                cache=cache, pos=pos, cache_len=cache_len,
-                                block_tables=block_tables, mask=mask)
     wdt = torch_dtype(cfg.dtype)
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens, cfg.d_model, wdt)
@@ -532,16 +534,12 @@ def forward_with_aux(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
 # Under a mesh of more than one rank (``sharding.axis_rules``): the train
 # mode of the attention families, each piece one local_map body
 # ----------------------------------------------------------------------
-SERVE_KINDS = B.ATTN_KINDS + (BlockKind.RGLRU,)
-
-
-def _check_sharded(cfg: ModelConfig, batch, mode: str, params=None, cache=None,
+def _check_sharded(cfg: ModelConfig, mode: str, params=None, cache=None,
                    block_tables=None, mask=None) -> None:
     """Raise for what the sharded path does not run, never running it
     unsharded in silence: ``chunk`` mode and the engine's paged pools and
-    row masks (the reference serves those on one device too); xLSTM
-    blocks, an encoder-decoder, a VLM patch prefix; RG-LRU in ``train``
-    mode; integer (int8) weights or caches."""
+    row masks (the reference serves those on one device too); integer
+    (int8) weights or caches."""
     if mode == "chunk" or block_tables is not None or mask is not None:
         what = ("chunk mode" if mode == "chunk" else
                 "a paged pool (block_tables)" if block_tables is not None else
@@ -550,13 +548,8 @@ def _check_sharded(cfg: ModelConfig, batch, mode: str, params=None, cache=None,
             f"{what} under a mesh of more than one rank: the engine's chunked "
             "prefill and paged pools serve on one rank, as the reference's "
             "(ROADMAP Queue 1 H)")
-    ported = B.ATTN_KINDS if mode == "train" else SERVE_KINDS
-    kinds = sorted({k.value for k in cfg.pattern if k not in ported})
-    what = (f"block kinds {kinds} in {mode} mode" if kinds else
-            "an encoder-decoder" if cfg.is_encdec else
-            "a VLM patch prefix" if "patches" in batch else
-            "int8 weights" if params is not None and any(
-                not t.is_floating_point() for _, t in iter_leaves(params)) else
+    what = ("int8 weights" if params is not None and any(
+        not t.is_floating_point() for _, t in iter_leaves(params)) else
             "an int8 cache" if cache is not None and any(
                 not t.is_floating_point() for _, t in iter_leaves(cache))
             else None)
@@ -591,25 +584,32 @@ def _vocab_tp(cfg: ModelConfig, plan) -> Tuple[str, ...]:
     return ()
 
 
-def _embed_body(cfg: ModelConfig, mesh, vtp, tokens, tok):
+def _embed_body(cfg: ModelConfig, mesh, vtp, tokens, tok, patches=None):
     """The embedding on local tensors: with the vocab sliced over ``vtp``,
     the rows of this rank's shard (zero for a token outside it) summed
-    over it, times sqrt(d); else ``layers.embed``."""
+    over it, times sqrt(d); else ``layers.embed``. A VLM's ``patches``
+    (B_loc, P, d) go before the tokens."""
     if not vtp:
-        return embed({"tok": tok}, tokens, cfg.d_model)
-    V = tok.shape[0]
-    local = tokens.long() - sharding.axis_index(mesh, vtp[0]) * V
-    inside = (local >= 0) & (local < V)
-    rows = torch.where(inside[..., None], tok[local.clamp(0, V - 1)],
-                       torch.zeros((), dtype=tok.dtype, device=tok.device))
-    out = sharding.reduce_from(rows, mesh, vtp)
-    return out * float(torch.tensor(cfg.d_model ** 0.5, dtype=out.dtype))
+        out = embed({"tok": tok}, tokens, cfg.d_model)
+    else:
+        V = tok.shape[0]
+        local = tokens.long() - sharding.axis_index(mesh, vtp[0]) * V
+        inside = (local >= 0) & (local < V)
+        rows = torch.where(inside[..., None], tok[local.clamp(0, V - 1)],
+                           torch.zeros((), dtype=tok.dtype, device=tok.device))
+        out = sharding.reduce_from(rows, mesh, vtp)
+        out = out * float(torch.tensor(cfg.d_model ** 0.5, dtype=out.dtype))
+    if patches is None:
+        return out
+    return torch.cat([patches.to(out.dtype), out], dim=1)
 
 
-def _unembed_body(cfg: ModelConfig, mesh, vtp, last: bool, x, final_ln, w):
-    """The final norm and this rank's vocab shard of the float32 logits
-    (with ``last``, of the last position only)."""
-    x = rms_norm(x, final_ln)
+def _unembed_body(cfg: ModelConfig, mesh, vtp, last: bool, skip: int, x,
+                  final_ln, w):
+    """The final norm and this rank's vocab shard of the float32 logits of
+    the positions after the first ``skip`` (a VLM's patch prefix; with
+    ``last``, of the last position only)."""
+    x = rms_norm(x, final_ln)[:, skip:]
     x = sharding.copy_to(x[:, -1:] if last else x, mesh, vtp)
     return unembed({"tok" if cfg.tie_embeddings else "head": w}, x,
                    cfg.tie_embeddings)
@@ -637,26 +637,34 @@ def _cross_entropy_body(mesh, vtp, batch_axes, logits, labels):
     return sharding.pmean((lse - gold).mean(), mesh, batch_axes)
 
 
-def _sharded_embed(cfg: ModelConfig, params, tokens, plan, vtp):
-    """The embedding as a ``local_map`` body: x (B, S, d) in the plan's
-    batch placements, constrained as the reference's first site."""
+def _sharded_embed(cfg: ModelConfig, params, batch, plan, vtp, mode: str):
+    """The embedding as a ``local_map`` body: x (B, P + S, d) in the
+    plan's batch placements, constrained as the reference's first site,
+    with a VLM's ``batch["patches"]`` (B, P, d), placed over the batch's
+    axes like the tokens, before the tokens (not in ``decode``); and P."""
     from torch.distributed.tensor.experimental import local_map
     act = plan.activation()
+    extra = ()
+    if cfg.family == Family.VLM and mode != "decode" and "patches" in batch:
+        extra = (shard_input(batch["patches"], plan),)
     embed_fn = local_map(
         functools.partial(_embed_body, cfg, plan.mesh, vtp), out_placements=act,
-        in_placements=(act, plan.compute(0 if vtp else None)),
-        in_grad_placements=(act, plan.grad(0 if vtp else None)),
+        in_placements=(act, plan.compute(0 if vtp else None)) + (act,) * len(extra),
+        in_grad_placements=(act, plan.grad(0 if vtp else None)) + (act,) * len(extra),
         device_mesh=plan.mesh)
-    x = embed_fn(shard_input(tokens, plan), sharding.to_placements(
-        params["embed"]["tok"], plan.compute(0 if vtp else None)))
-    return constrain(x, "batch", "seq", "embed")
+    x = embed_fn(shard_input(batch["tokens"], plan), sharding.to_placements(
+        params["embed"]["tok"], plan.compute(0 if vtp else None)), *extra)
+    n_patches = extra[0].shape[1] if extra else 0
+    return constrain(x, "batch", "seq", "embed"), n_patches
 
 
-def _sharded_unembed(cfg: ModelConfig, params, x, plan, vtp, last: bool = False):
+def _sharded_unembed(cfg: ModelConfig, params, x, plan, vtp, last: bool = False,
+                     skip: int = 0):
     """The final norm and the unembedding as a ``local_map`` body (with
-    ``last``, of the last position only, as the reference's serving modes):
-    logits (B, S or 1, V) sharded over the batch's axes and the vocab's,
-    constrained as the reference's last site."""
+    ``last``, of the last position only, as the reference's serving modes;
+    the first ``skip`` positions, a patch prefix, stripped on the local
+    rows): logits (B, S or 1, V) sharded over the batch's axes and the
+    vocab's, constrained as the reference's last site."""
     from torch.distributed.tensor import Shard
     from torch.distributed.tensor.experimental import local_map
     mesh, act = plan.mesh, plan.activation()
@@ -665,7 +673,7 @@ def _sharded_unembed(cfg: ModelConfig, params, x, plan, vtp, last: bool = False)
     logits_pl = [Shard(2) if a in vtp else pl
                  for a, pl in zip(mesh.mesh_dim_names, act)]
     unembed_fn = local_map(
-        functools.partial(_unembed_body, cfg, mesh, vtp, last),
+        functools.partial(_unembed_body, cfg, mesh, vtp, last, skip),
         out_placements=logits_pl,
         in_placements=(act, plan.compute(None),
                        plan.compute(vocab_dim if vtp else None)),
@@ -679,6 +687,50 @@ def _sharded_unembed(cfg: ModelConfig, params, x, plan, vtp, last: bool = False)
     return constrain(logits, "batch", "seq", "vocab")
 
 
+def _sharded_encode(cfg: ModelConfig, params, frames, plan, impl):
+    """The whisper encoder under a mesh (the reference's ``_encode``): the
+    stub frame embeddings (B, F, d) placed over the batch's axes, each
+    encoder layer one ``sharded_block`` body with bidirectional attention,
+    then the final norm as a ``local_map`` body; (B, F, d) in the batch's
+    placements."""
+    from torch.distributed.tensor.experimental import local_map
+    enc = params["encoder"]
+    act = plan.activation()
+    x = shard_input(frames, plan)
+    F_ = frames.shape[1]
+    rope_cs = rope_tables(torch.arange(F_, device=x.device)[None, :], cfg.hd,
+                          cfg.rope_theta)
+    layers = {k: v.unbind(0) for k, v in enc["blocks"].items()}
+    for i in range(cfg.n_encoder_layers):
+        x, _, _ = B.sharded_block(cfg, BlockKind.ATTN, plan,
+                                  {k: v[i] for k, v in layers.items()}, x,
+                                  mode="train", rope_cs=rope_cs, impl=impl,
+                                  causal=False)
+    norm = local_map(rms_norm, out_placements=act,
+                     in_placements=(act, plan.compute(None)),
+                     in_grad_placements=(act, plan.grad(None)),
+                     device_mesh=plan.mesh)
+    return norm(x, sharding.to_placements(enc["final_ln"], plan.compute(None)))
+
+
+def _sharded_inputs(cfg: ModelConfig, params, batch, plan, vtp, mode: str,
+                    impl):
+    """(x, n_patches, cross_x, rope_cs) of a sharded forward: the
+    embedding (with a VLM's patch prefix), the whisper encoder's output in
+    ``train`` and ``prefill`` (None otherwise), and the rope tables of
+    positions [0, P + S) (None in ``decode``, whose bodies take each row's
+    position)."""
+    x, n_patches = _sharded_embed(cfg, params, batch, plan, vtp, mode)
+    cross_x = None
+    if cfg.is_encdec and mode != "decode":
+        cross_x = _sharded_encode(cfg, params, batch["frames"].to(x.dtype),
+                                  plan, impl)
+    rope_cs = None if mode == "decode" else rope_tables(
+        torch.arange(x.shape[1], device=x.device)[None, :], cfg.hd,
+        cfg.rope_theta)
+    return x, n_patches, cross_x, rope_cs
+
+
 def _sharded_forward(cfg: ModelConfig, params, batch, ctx, *, mode: str,
                      impl, remat: bool = False,
                      remat_policy: Optional[str] = None, cache=None, pos=None,
@@ -686,12 +738,14 @@ def _sharded_forward(cfg: ModelConfig, params, batch, ctx, *, mode: str,
                      mask=None):
     """``forward_with_aux`` under a mesh. ``train``: (logits, None, aux),
     logits a DTensor (B, S, V) sharded over the batch's axes and, where
-    ``model`` divides the vocab, over ``model``; aux a replicated 0-d
-    DTensor or None. ``prefill`` and ``decode``: ``_sharded_serve``. The
-    embedding, each layer (``blocks.sharded_attn_block``) and the final
-    norm with the unembedding run as ``local_map`` bodies; the reference's
-    four ``constrain`` sites stand where its forward has them."""
-    _check_sharded(cfg, batch, mode, params, cache, block_tables, mask)
+    ``model`` divides the vocab, over ``model`` (a VLM's patch positions
+    stripped: the tokens' logits); aux a replicated 0-d DTensor or None.
+    ``prefill`` and ``decode``: ``_sharded_serve``. The embedding (with
+    the patch prefix), the whisper encoder, each layer
+    (``blocks.sharded_block``) and the final norm with the unembedding run
+    as ``local_map`` bodies; the reference's four ``constrain`` sites
+    stand where its forward has them."""
+    _check_sharded(cfg, mode, params, cache, block_tables, mask)
     if mode != "train":
         with torch.no_grad():
             return _sharded_serve(cfg, params, batch, ctx, mode=mode,
@@ -701,16 +755,15 @@ def _sharded_forward(cfg: ModelConfig, params, batch, ctx, *, mode: str,
     plan = sharding.make_plan(mesh, rules, batch["tokens"].shape[0])
     params = _as_dtensors(params, mesh)
     vtp = _vocab_tp(cfg, plan)
-    x = _sharded_embed(cfg, params, batch["tokens"], plan, vtp)
-    S = batch["tokens"].shape[1]
-    rope_cs = rope_tables(torch.arange(S, device=x.device)[None, :], cfg.hd,
-                          cfg.rope_theta)
+    x, n_patches, cross_x, rope_cs = _sharded_inputs(cfg, params, batch, plan,
+                                                     vtp, mode, impl)
     x, aux = _train_layers(
         cfg, params, x,
-        lambda kind, p, x: B.sharded_attn_block(cfg, kind, plan, p, x, rope_cs,
-                                                impl),
+        lambda kind, p, x: B.sharded_block(cfg, kind, plan, p, x, mode="train",
+                                           rope_cs=rope_cs, impl=impl,
+                                           cross_x=cross_x),
         remat, remat_policy)
-    return _sharded_unembed(cfg, params, x, plan, vtp), None, aux
+    return _sharded_unembed(cfg, params, x, plan, vtp, skip=n_patches), None, aux
 
 
 def _layer_placements(pl, stacked: bool) -> list:
@@ -728,27 +781,26 @@ def _sharded_serve(cfg: ModelConfig, params, batch, ctx, *, mode: str, cache,
     ``model`` (prefill unembeds the last position only). The cache is a
     tree of DTensors in the reference's placements
     (``sharding.cache_placements``: attention K/V split over their
-    sequence, their KV heads or neither; RG-LRU state over the batch):
-    prefill builds it a layer at a time (``blocks.sharded_serve_block``)
-    and decode writes into the one it is given in place (a plain tree
-    every rank holds whole is placed first, ``sharding.distribute_cache``)
-    and returns it."""
+    sequence, their KV heads or neither; a whisper decoder block's cross
+    K/V by their KV heads or whole; recurrent state over the batch):
+    prefill builds it a layer at a time (``blocks.sharded_block``) over
+    ``cache_len`` slots (default P + S, a VLM's patch prefix included) and
+    decode writes into the one it is given in place (a plain tree every
+    rank holds whole is placed first, ``sharding.distribute_cache``) and
+    returns it."""
     from torch.distributed.tensor import DTensor
     mesh, rules = ctx
-    tokens = batch["tokens"]
-    Bsz, S = tokens.shape
+    Bsz = batch["tokens"].shape[0]
     plan = sharding.make_plan(mesh, rules, Bsz)
     params = _as_dtensors(params, mesh)
     vtp = _vocab_tp(cfg, plan)
-    x = _sharded_embed(cfg, params, tokens, plan, vtp)
+    x, n_patches, cross_x, rope_cs = _sharded_inputs(cfg, params, batch, plan,
+                                                     vtp, mode, impl)
     if mode == "prefill":
-        rope_cs = rope_tables(torch.arange(S, device=x.device)[None, :],
-                              cfg.hd, cfg.rope_theta)
-        cache_pl = sharding.cache_placements(cfg, Bsz, cache_len or S, rules,
-                                             mesh)
+        cache_len = cache_len or x.shape[1]     # the patch prefix included
+        cache_pl = sharding.cache_placements(cfg, Bsz, cache_len, rules, mesh)
         pos_dt = None
     else:
-        rope_cs = None
         cache = sharding.distribute_cache(cache, cfg, rules, mesh)
         cache_pl = {path: list(t.placements) for path, t in iter_leaves(cache)}
         pos_dt = shard_input(pos, plan)
@@ -757,7 +809,7 @@ def _sharded_serve(cfg: ModelConfig, params, batch, ctx, *, mode: str, cache,
 
     def layer(x, key: str, kind, p, pi: Optional[int]):
         top, sub = key.split("/")
-        names = B.SERVE_CACHE_LEAVES.get(kind, ("k", "v"))
+        names = B.cache_leaves(cfg, kind)
         pl = {n: _layer_placements(cache_pl[f"{key}/{n}"], pi is not None)
               for n in names}
         c = views = None
@@ -767,9 +819,10 @@ def _sharded_serve(cfg: ModelConfig, params, batch, ctx, *, mode: str, cache,
                      else leaves[n].to_local()[pi] for n in names}
             c = {n: DTensor.from_local(views[n], mesh, pl[n], run_check=False)
                  for n in names}
-        x, nc = B.sharded_serve_block(cfg, kind, plan, p, x, pl, mode=mode,
-                                      cache=c, pos=pos_dt, rope_cs=rope_cs,
-                                      cache_len=cache_len, impl=impl)
+        x, nc = B.sharded_block(cfg, kind, plan, p, x, mode=mode,
+                                rope_cs=rope_cs, impl=impl, cross_x=cross_x,
+                                cache=c, cache_pl=pl, pos=pos_dt,
+                                cache_len=cache_len)
         if views is None:
             new.setdefault(key, []).append({n: t.to_local()
                                             for n, t in nc.items()})
@@ -793,7 +846,7 @@ def _sharded_serve(cfg: ModelConfig, params, batch, ctx, *, mode: str, cache,
     for j in range(rem):
         x = layer(x, f"rem/r{j}", _rem_kind(cfg, j), params["rem"][f"r{j}"], None)
     logits = _sharded_unembed(cfg, params, x, plan, vtp,
-                              last=mode == "prefill")
+                              last=mode == "prefill", skip=n_patches)
     if mode == "decode":
         return logits, cache, None
     out: Dict[str, Any] = {}

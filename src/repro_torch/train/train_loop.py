@@ -16,8 +16,10 @@ runs inside ``axis_rules(mesh, rules_for("train"))`` on the
 DTensor trees that ``init_sharded`` (or ``sharding.distribute_params``)
 made: ``loss_fn`` runs the sharded forward (``models.sharding``), each
 gradient comes back in its parameter's placements, and AdamW updates the
-local shards. Every rank passes the whole global batch; each keeps its
-rows. A one-rank mesh (``make_host_mesh``) runs the one-card step.
+local shards. Every rank passes the whole global batch (tokens, labels,
+and a whisper batch's ``frames`` or a llava batch's ``patches``); each
+keeps its rows. A one-rank mesh (``make_host_mesh``) runs the one-card
+step.
 
 On the card the step runs through the kernels: K2 (flash attention), K4
 (the MoE layers' grouped matmul) and K5 (the RG-LRU scan) forward and

@@ -282,7 +282,7 @@ def world_2x2(inputs, tmp_path_factory):
         _task("g_dots", "train", GRANITE, seed=0, opt=OPT, batches=g,
               remat_policy="dots"),
         _task("refusals", "refusals", GRANITE,
-              family_arch="recurrentgemma-2b"),
+              family_arch="llama4-scout-17b-a16e", family_rules=dict(no_tp=True)),
     ]
     return _world(tmp_path_factory.mktemp("w"), "2x2", (2, 2), tasks)
 
@@ -585,9 +585,10 @@ def test_remat_and_dots_give_the_same_sharded_step(inputs, world_2x2):
 
 
 def test_refusals_on_a_mesh(world_2x2):
-    """A family outside the sharded path raises NotImplementedError under
-    a mesh (never runs unsharded); a DTensor handed to a kernel wrapper
-    raises TypeError."""
+    """A configuration outside the sharded path (a MoE layer under the
+    no_tp rules, whose batch spans the model axis) raises
+    NotImplementedError under a mesh (never runs unsharded); a DTensor
+    handed to a kernel wrapper raises TypeError."""
     r = world_2x2["refusals"]
     assert r["family"] and "ROADMAP Queue 1 H" in r["family"], r
     for name, msg in r["kernels"].items():

@@ -332,16 +332,18 @@ def test_serve_fsdp_equals_reference(served):
     assert not ref["serve_fsdp"]["recurrentgemma-2b"]
 
 
-REFUSALS = ("chunk", "paged", "mask", "xlstm", "encdec", "patches", "int8_weights",
-            "int8_cache", "rglru_train")
+REFUSALS = ("chunk", "paged", "mask", "moe_notp_prefill", "moe_notp_train",
+            "int8_weights", "int8_weights_train", "int8_cache", "int8_rings")
 
 
 @pytest.mark.parametrize("case", REFUSALS)
 def test_serving_refusals_on_a_mesh(served, case):
     """What the sharded path leaves out raises NotImplementedError naming
     ROADMAP, never running unsharded in silence: chunk mode, a paged pool,
-    the engine's decode row mask, xLSTM blocks, an encoder-decoder, a
-    patch prefix, int8 weights, an int8 cache, RG-LRU training."""
+    the engine's decode row mask, a MoE layer under the no_tp rules (the
+    batch on the model axis) in prefill and in training, int8 weights in
+    prefill and in training, an int8 cache (granite's global K/V,
+    recurrentgemma's rings)."""
     msg = served["worlds"]["refusals"][case]
     assert msg and "ROADMAP Queue 1 H" in msg, (case, msg)
 

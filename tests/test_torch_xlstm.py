@@ -7,6 +7,9 @@ bridge): xlstm-350m ``.reduced()`` (3 layers: sLSTM, mLSTM, mLSTM; d 256,
 * ``_mlstm_chunk_scan`` alone within ``1e-5``: S a multiple of the chunk
   and not (the padding), one chunk and several, from a zero state and
   from a drawn one; one ``_slstm_step`` within ``1e-5``;
+* ``_mlstm_chunk_scan``'s gradient over a 256-token chunk: within 1e-4 of
+  the reference's where that is finite, and finite where the reference's
+  is not (its masked ``exp`` overflows past the diagonal);
 * ``train`` logits, a 10-token ``prefill`` then 14 ``decode_step``s
   (logits and every state leaf), and a 21-token chunked prefill in chunks
   of 8 (against the reference's chunked prefill and the port's whole
@@ -123,6 +126,37 @@ def test_mlstm_chunk_scan_matches_reference(S, chunk, drawn_state):
     _close(th, jh, "h", SCAN_ATOL)
     for name, t, j in zip("Cnm", tstate, jstate):
         _close(t, j, name, SCAN_ATOL)
+
+
+@pytest.mark.parametrize("fg_bias,overflows", [(3.0, False), (-1.0, True)],
+                         ids=["slow-forget", "fast-forget"])
+def test_mlstm_chunk_scan_gradient(fg_bias, overflows):
+    """The gradient of one 256-token chunk's output: within 1e-4 (of the
+    largest) of the reference's where that is finite; with fast forget
+    gates, past the diagonal the reference's ``exp(logw)`` overflows before
+    its mask, and its gradient is non-finite (0 x inf), where the port,
+    which masks before the exp (the same values), stays finite."""
+    rng = np.random.default_rng(7)
+    B, S, nh, hd = 1, 256, 2, 8
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+    q, k, v = 0.3 * f(B, S, nh, hd), 0.3 * f(B, S, nh, hd), f(B, S, nh, hd)
+    ig = f(B, S, nh)
+    fg = -np.logaddexp(0.0, -(f(B, S, nh) + fg_bias)).astype(np.float32)
+    state = (np.zeros((B, nh, hd, hd), np.float32), np.zeros((B, nh, hd), np.float32),
+             np.zeros((B, nh), np.float32))
+    want = jax.grad(lambda *xs: JB._mlstm_chunk_scan(
+        *xs, tuple(map(jnp.asarray, state)), S)[0].sum(), argnums=tuple(range(5)))(
+        *map(jnp.asarray, (q, k, v, ig, fg)))
+    xs = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, ig, fg)]
+    TB._mlstm_chunk_scan(*xs, tuple(map(torch.from_numpy, state)), S)[0].sum().backward()
+    for name, x, w in zip(("q", "k", "v", "ig", "fg"), xs, want):
+        g = x.grad.numpy()
+        assert np.isfinite(g).all(), name
+        if overflows:
+            continue
+        w = np.asarray(w)
+        np.testing.assert_allclose(g, w, atol=1e-4 * float(np.abs(w).max()), err_msg=name)
+    assert overflows == (not all(np.isfinite(np.asarray(w)).all() for w in want))
 
 
 def test_slstm_step_matches_reference():

@@ -1,5 +1,6 @@
-"""The rank side of ``test_torch_distributed.py`` and
-``test_torch_sharded_serve.py``: run in the processes of
+"""The rank side of ``test_torch_distributed.py``,
+``test_torch_sharded_serve.py`` and ``test_torch_sharded_families.py``:
+run in the processes of
 a ``launch.mesh.run_world`` world (gloo on the CPU). Imports torch and the
 port only, never jax: the JAX side of each comparison runs in the test's
 own process.
@@ -145,7 +146,8 @@ def _train_steps(task, cfg, mesh):
 
 
 def _refusals(task, cfg, mesh):
-    """The NotImplementedError of a family outside the sharded path, and
+    """The NotImplementedError of a configuration outside the sharded path
+    (``family_arch`` under ``rules_for("train", **family_rules)``), and
     the TypeError of a DTensor handed to a kernel wrapper."""
     from torch.distributed.tensor import Replicate, distribute_tensor
     from repro_torch.kernels import ops
@@ -153,7 +155,7 @@ def _refusals(task, cfg, mesh):
     params = M.init_model_params(rg, 0, "cpu")
     tokens = torch.zeros((4, 8), dtype=torch.long)
     out = {}
-    with S.axis_rules(mesh, S.rules_for("train")):
+    with S.axis_rules(mesh, S.rules_for("train", **task.get("family_rules", {}))):
         try:
             M.forward_with_aux(rg, params, {"tokens": tokens}, mode="train")
             out["family"] = None
@@ -202,20 +204,23 @@ def _serve(task, cfg, mesh):
     step takes the prefill's cache gathered whole, a plain tree the step
     places itself, ``distribute_cache``): every step's logits gathered,
     the last cache gathered, and each cache leaf's placements as a spec
-    tuple."""
+    tuple. A whisper task's ``frames`` and a llava task's ``patches`` join
+    the prefill's batch; the decode positions start after the patches."""
     B.MOE_A2A_CAPACITY_FACTOR = task.get("capacity", 1.25)
     rules = S.rules_for("serve", fsdp=task["fsdp"], moe_a2a=task.get("a2a", False))
     params = S.distribute_params(load_tree(task["weights"]), M.param_specs(cfg),
                                  rules, mesh)
     tokens = torch.from_numpy(np.asarray(task["tokens"]))
+    batch = {"tokens": tokens, **{k: torch.from_numpy(np.asarray(task[k]))
+                                  for k in ("frames", "patches") if k in task}}
     Bsz, Sq = tokens.shape
+    start = Sq + (batch["patches"].shape[1] if "patches" in batch else 0)
     with S.axis_rules(mesh, rules):
-        logits, cache = M.prefill(cfg, params, {"tokens": tokens},
-                                  cache_len=task["cache_len"])
+        logits, cache = M.prefill(cfg, params, batch, cache_len=task["cache_len"])
         outs = [_np(S.gather_full(logits))]
         specs = {p: spec_of(t, mesh) for p, t in iter_leaves(cache)}
         cache = S.full_tree(cache)
-        pos = torch.full((Bsz,), Sq, dtype=torch.int32)
+        pos = torch.full((Bsz,), start, dtype=torch.int32)
         for tok in task["steps"]:
             logits, cache = M.decode_step(cfg, params, cache,
                                           torch.from_numpy(np.asarray(tok)), pos)
@@ -235,42 +240,44 @@ def _serve(task, cfg, mesh):
 
 
 def _serve_refusals(task, cfg, mesh):
-    """Each refusal of ``model._check_sharded`` in serving, one case each:
+    """Each refusal of the sharded path, one case each, under its rules:
     {case: the NotImplementedError's message, or None where none was
     raised}."""
-    rules = S.rules_for("serve", fsdp=False)
+    serve = S.rules_for("serve", fsdp=False)
     tokens = torch.zeros((4, 8), dtype=torch.long)
     pos = torch.full((4,), 8, dtype=torch.int32)
     gr = cfg_of("granite-3-2b", {})
     gp = M.init_model_params(gr, 0, "cpu")
     cache = M.init_cache(gr, 4, 16, "cpu")
-    llava = cfg_of("llava-next-34b", {})
+    grok = cfg_of("grok-1-314b", {})
+    rg = cfg_of("recurrentgemma-2b", {})
+    # no_tp rules shard the batch over model too: 8 rows span the 8 ranks
+    wide = {"tokens": torch.zeros((8, 8), dtype=torch.long),
+            "labels": torch.zeros((8, 8), dtype=torch.long)}
     cases = {
-        "chunk": lambda: M.prefill_chunk(gr, gp, cache, tokens, 0, None),
-        "paged": lambda: M.decode_step(
+        "chunk": (serve, lambda: M.prefill_chunk(gr, gp, cache, tokens, 0, None)),
+        "paged": (serve, lambda: M.decode_step(
             gr, gp, M.init_paged_cache(gr, 4, 16, 9, 4, "cpu"), tokens[:, :1], pos,
-            block_tables=torch.zeros((4, 4), dtype=torch.int32)),
-        "mask": lambda: M.decode_step(gr, gp, cache, tokens[:, :1], pos,
-                                      mask=torch.ones(4, dtype=torch.bool)),
-        "xlstm": lambda: M.prefill(cfg_of("xlstm-350m", {}), M.init_model_params(
-            cfg_of("xlstm-350m", {}), 0, "cpu"), {"tokens": tokens}),
-        "encdec": lambda: M.prefill(cfg_of("whisper-tiny", {}), M.init_model_params(
-            cfg_of("whisper-tiny", {}), 0, "cpu"), {
-                "tokens": tokens, "frames": torch.zeros((4, cfg_of(
-                    "whisper-tiny", {}).n_frames, cfg_of("whisper-tiny", {}).d_model))}),
-        "patches": lambda: M.prefill(llava, M.init_model_params(llava, 0, "cpu"), {
-            "tokens": tokens, "patches": torch.zeros((4, 4, llava.d_model))}),
-        "int8_weights": lambda: M.prefill(gr, M.narrow_weights(gp), {"tokens": tokens}),
-        "int8_cache": lambda: M.decode_step(
-            gr, gp, M.init_cache(gr, 4, 16, "cpu", kv_dtype="int8"), tokens[:, :1], pos),
-        "rglru_train": lambda: M.forward_with_aux(
-            cfg_of("recurrentgemma-2b", {}), M.init_model_params(
-                cfg_of("recurrentgemma-2b", {}), 0, "cpu"), {"tokens": tokens},
-            mode="train"),
+            block_tables=torch.zeros((4, 4), dtype=torch.int32))),
+        "mask": (serve, lambda: M.decode_step(gr, gp, cache, tokens[:, :1], pos,
+                                              mask=torch.ones(4, dtype=torch.bool))),
+        "moe_notp_prefill": (S.rules_for("serve", no_tp=True), lambda: M.prefill(
+            grok, M.init_model_params(grok, 0, "cpu"), wide)),
+        "moe_notp_train": (S.rules_for("train", no_tp=True), lambda: M.loss_fn(
+            grok, M.init_model_params(grok, 0, "cpu"), wide)),
+        "int8_weights": (serve, lambda: M.prefill(gr, M.narrow_weights(gp),
+                                                  {"tokens": tokens})),
+        "int8_weights_train": (S.rules_for("train"), lambda: M.loss_fn(
+            gr, M.narrow_weights(gp), {"tokens": tokens, "labels": tokens})),
+        "int8_cache": (serve, lambda: M.decode_step(
+            gr, gp, M.init_cache(gr, 4, 16, "cpu", kv_dtype="int8"), tokens[:, :1], pos)),
+        "int8_rings": (serve, lambda: M.decode_step(
+            rg, M.init_model_params(rg, 0, "cpu"),
+            M.init_cache(rg, 4, 16, "cpu", kv_dtype="int8"), tokens[:, :1], pos)),
     }
     out = {}
-    with S.axis_rules(mesh, rules):
-        for name, call in cases.items():
+    for name, (rules, call) in cases.items():
+        with S.axis_rules(mesh, rules):
             try:
                 call()
                 out[name] = None
