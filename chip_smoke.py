@@ -5218,7 +5218,7 @@ def example_twins_run() -> None:
 P12_WORLD = 8
 P12_TIMEOUT = 420                 # seconds, each world
 P12_B, P12_S = 4, 512             # (a), (b): the whole-sequence forward
-P12_TRAIN_B, P12_TRAIN_S, P12_TRAIN_STEPS = 8, 1024, 2     # (c)
+P12_TRAIN_B, P12_TRAIN_S, P12_TRAIN_STEPS = 8, 1024, 1     # (c); 1 of 2 steps (time)
 P12_LR = 3e-4                     # the launcher's default rate
 # (c)'s tolerances sit between the true step's readings and its planted
 # faults' on the H100 (PERF.md, PR 28): losses (|loss| ~ 10 in bf16) 1.5e-3
@@ -5254,10 +5254,11 @@ def p12_configs():
 class RouteLog:
     """While open, records the MoE router's top-k of every call (the
     routed rows, in order), as ``B.route`` returns it. With ``forced``
-    (layer -> the rows' top-k of the one-process run) each call takes the
-    forced choices, its weights renormalised from its own probabilities,
-    and counts the decisions where its own choice differs (a bf16 router
-    near tie flips an expert: ``shared_routes``, across processes)."""
+    ((layer, routed rows) -> the rows' top-k of the one-process run) each
+    call takes the forced choices, its weights renormalised from its own
+    probabilities, and counts the decisions where its own choice differs
+    (a bf16 router near tie flips an expert: ``shared_routes``, across
+    processes)."""
 
     def __init__(self, forced=None):
         self.calls, self.forced, self.differ, self.all = [], forced, 0, 0
@@ -5270,7 +5271,8 @@ class RouteLog:
         def recording(cfg, params, xf):
             probs, top_p, top_i = self.route(cfg, params, xf)
             if self.forced is not None:
-                want = torch.from_numpy(self.forced(len(self.calls))).to(top_i.device)
+                want = torch.from_numpy(self.forced(len(self.calls), xf.shape[0])
+                                        ).to(top_i.device)
                 self.all += want.shape[0]
                 self.differ += int((want != top_i).any(-1).sum())
                 top_i = want
@@ -5425,7 +5427,7 @@ def p12_forward_rank(torch, job, mesh, dev):
         else:
             pos = np.arange(P12_S)
         tok_ids = (np.arange(rows.start, rows.stop)[:, None] * P12_S + pos[None, :]).reshape(-1)
-        forced = lambda layer: ref_routes[layer][tok_ids]  # noqa: E731
+        forced = lambda layer, _: ref_routes[layer][tok_ids]  # noqa: E731
         with torch.no_grad(), S.axis_rules(mesh, rules), RouteLog(forced) as rl, \
                 GmmLog() as gl:
             logits, _, aux = M.forward_with_aux(cfg, params, {"tokens": tokens},
@@ -5483,9 +5485,10 @@ def p12_planted(fault):
     elif fault == "data_unsummed":
         grad = S.Plan.grad
 
-        def unsummed(plan, tp_dim, partial_on_model=False):
+        def unsummed(plan, tp_dim, partial_on_model=False, **kw):
             return [Replicate() if a in plan.batch else pl for a, pl in
-                    zip(plan.mesh.mesh_dim_names, grad(plan, tp_dim, partial_on_model))]
+                    zip(plan.mesh.mesh_dim_names, grad(plan, tp_dim, partial_on_model,
+                                                       **kw))]
         S.Plan.grad = unsummed
     try:
         yield
@@ -5511,7 +5514,8 @@ def p12_replica_spread(torch, params, mesh) -> float:
     return worst
 
 
-def sharded_train_rank(torch, cfg, job, mesh, dev, faults, planted, noise=None):
+def sharded_train_rank(torch, cfg, job, mesh, dev, faults, planted, noise=None,
+                       rules=None):
     """On one rank: ``make_train_step(cfg, opt, mesh)`` from ``init_sharded``
     (seed 0) on ``job["batches"]`` (an .npz of per-step arrays: tokens,
     labels, and a whisper batch's frames), counts zeroed just before the
@@ -5522,28 +5526,34 @@ def sharded_train_rank(torch, cfg, job, mesh, dev, faults, planted, noise=None):
     over the mesh with each element counted once, and the largest
     difference between replicas. ``noise(cfg, path, shape)``: a boolean
     array over a leaf of the elements whose gradient is rounding noise, or
-    None; those are read apart (``noise`` in the result)."""
+    None; those are read apart (``noise`` in the result). ``rules``: the
+    step's rules (default the train rules), the same weights drawn a leaf
+    at a time (``p12_serial_params``) and placed by them."""
     import torch.distributed as dist
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
     from repro_torch.models.param import iter_leaves
     from repro_torch.models import model as M
-    from repro_torch.train.optimizer import AdamWConfig, _counts_here
+    from repro_torch.train.optimizer import AdamWConfig, _counts_here, init_opt_state
     from repro_torch.train.train_loop import init_sharded, make_train_step
     batches = np.load(job["batches"])
     n_steps = len(batches["tokens"])
     ocfg = AdamWConfig(lr=P12_LR, warmup_steps=1, total_steps=max(n_steps, 2))
-    runs, counts, shapes = {}, None, {}
+    runs, counts, shapes, gmm = {}, None, {}, {}
     masks = {p: noise(cfg, p, tuple(sp.shape)) if noise else None
              for p, sp in iter_leaves(M.param_specs(cfg))}
     for fault in (None,) + tuple(faults):
-        params, state, _, _, _ = init_sharded(cfg, ocfg, mesh, seed=0, device=dev)
+        if rules is None:
+            params, state, _, _, _ = init_sharded(cfg, ocfg, mesh, seed=0, device=dev)
+        else:
+            params = p12_serial_params(torch, cfg, mesh, rules, dev)
+            state = init_opt_state(ocfg, params)
         init = {p: t.to_local().clone() for p, t in iter_leaves(params)}
-        step = make_train_step(cfg, ocfg, mesh, device=dev)
+        step = make_train_step(cfg, ocfg, mesh, device=dev, rules=rules)
         dist.barrier()
         if fault is None:
             zero_launches()
         losses, secs = [], []
-        with planted(fault), ShapeLog() as sl:
+        with planted(fault), ShapeLog() as sl, GmmLog() as gl:
             for i in range(n_steps):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -5553,7 +5563,7 @@ def sharded_train_rank(torch, cfg, job, mesh, dev, faults, planted, noise=None):
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - t0)
         if fault is None:
-            counts, shapes = launches(), dict(sl.by)
+            counts, shapes, gmm = launches(), dict(sl.by), dict(gl.by_shape)
         leaves, noisy = {}, {}
         for path, t in iter_leaves(params):
             shape, off = compute_local_shape_and_global_offset(t.shape, mesh, t.placements)
@@ -5581,7 +5591,7 @@ def sharded_train_rank(torch, cfg, job, mesh, dev, faults, planted, noise=None):
                                      spread=p12_replica_spread(torch, params, mesh))
         del params, state, step, init
         torch.cuda.empty_cache()
-    return dict(runs=runs, counts=counts, shapes=shapes,
+    return dict(runs=runs, counts=counts, shapes=shapes, gmm=gmm,
                 peak=torch.cuda.max_memory_allocated())
 
 
@@ -5989,72 +5999,185 @@ P13_FAULTS = {
                      "(one rank's partial attention lost)",
     "lse_ignored": "every range that holds a key weighed equally in the merge (the "
                    "ranks' log-sum-exps ignored)",
+    "int8_wrapped": "the decode step's K/V written into the int8 cache through "
+                    "Tensor.to(torch.int8), which wraps, in place of saturate_cast",
+    "gather_skipped": "each rank's own rows fed to the Megatron MoE sum without the "
+                      "gather over model (the no_tp rules)",
+    "experts_unsummed": "the expert leaves' gradients left unsummed over the data axes "
+                        "(each data shard's gathered rows alone)",
 }
+MERGE_FAULTS = ("range_dropped", "lse_ignored")
+# (e) and (f): wk and wv times phase 11's KV8_WK and KV8_WV, so V spans
+# int8's range and some values saturate, and K a few units (at wk x 40 the
+# scores spread ~40 wide, softmax is one-hot, and a one-step truncation
+# flip of a key moves which key wins: (f) read 0.63 of max|logit| 5.26
+# against one process with its int8 cache within one step, PERF.md §6);
+# the int8 K/V cache after the first decode step, entry by entry against
+# the one-process run's, may differ by this many steps (bf16 K/V computed
+# in two processes truncate to neighbouring integers where they lie within
+# rounding of one; a wrapped write differs by up to 255)
+P13_INT8_STEPS = 2
 P13_ROWS = ("flash_p13_mistral", "dense_p13_mistral", "flash_p13_grok", "dense_p13_grok",
             "gmm_p13_grok", "gmm_p13_grok_down", "gmm_p13_grok_decode", "flash_p13_rg",
-            "dense_p13_rg", "scan_p13_rg", "flash_p13_granite", "dense_p13_granite")
+            "dense_p13_rg", "scan_p13_rg", "flash_p13_granite", "dense_p13_granite",
+            "dense8_p13_grok", "dense8_p13_rg", "flash_p13_grok_notp", "gmm_p13_grok_notp",
+            "gmm_p13_grok_notp_down", "flash_p13_l4_notp", "flash_bwd_p13_l4_notp", "gmm_p13_l4_notp",
+            "gmm_bwd_p13_l4_notp")
 
 
 def p13_cases():
-    """(a) mistral-large-123b cut to 2 of 88 layers, (b) grok-1-314b cut to 1
+    """(a) mistral-large-123b cut to 1 of 88 layers, (b) grok-1-314b cut to 1
     of 64, (c) recurrentgemma-2b at full depth, (d) granite-3-2b cut to 4 of
     40 with a cache of 1030 slots (split by heads: 1030 does not divide by
-    4); every width as published, bf16. ``fsdp`` is the registered
-    config's ``serve_fsdp``."""
+    4); then what the sharded path refused before: (e) grok-1 cut to 1
+    layer with int8 weights and an int8 K/V cache (the reference's
+    ``C2_int8_w+kv``), (f) recurrentgemma-2b cut to 3 of 26 layers with
+    int8 rings, (g) grok-1 cut to 1 layer under ``rules_for("serve",
+    no_tp=True)`` (the Megatron MoE branch after the gather over model),
+    (h) one llama4-scout train step (phase 12's cut: 2 layers, 4 experts)
+    under ``rules_for("train", no_tp=True)``. Every width as published,
+    bf16. ``fsdp`` is the registered config's ``serve_fsdp``; ``faults``
+    the planted faults a case reruns (the merge faults in (a), (e) and
+    (f): the bf16 and int8 instances of the merge, over a cache and a
+    ring; (b) and (c) rerun their first step as it was, for time)."""
     from repro_torch.configs import get_config
     from repro_torch.models.sharding import serve_fsdp
 
-    def case(arch, B, S, cache_len, steps, **cut):
+    def case(arch, B, S, cache_len, steps, faults=MERGE_FAULTS, w8=False, kv8=False,
+             no_tp=False, train=False, **cut):
         cfg = get_config(arch)
         return dict(cfg=dataclasses.replace(cfg, **cut), fsdp=serve_fsdp(cfg), B=B, S=S,
-                    cache_len=cache_len, steps=steps, layers=cfg.n_layers)
-    return {"a": case("mistral-large-123b", 4, 256, 512, 2, n_layers=2),
-            "b": case("grok-1-314b", 4, 256, 512, 2, n_layers=1),
-            "c": case("recurrentgemma-2b", 4, 2100, 2132, 32),
-            "d": case("granite-3-2b", 4, 1000, 1030, 8, n_layers=4)}
+                    cache_len=cache_len, steps=steps, layers=cfg.n_layers, faults=faults,
+                    w8=w8, kv8=kv8, no_tp=no_tp, train=train)
+    return {"a": case("mistral-large-123b", 4, 256, 512, 1, n_layers=1),
+            "b": case("grok-1-314b", 4, 256, 512, 1, (), n_layers=1),
+            "c": case("recurrentgemma-2b", 4, 2100, 2132, 2, ()),
+            "d": case("granite-3-2b", 4, 1000, 1030, 8, n_layers=4),
+            "e": case("grok-1-314b", 4, 256, 512, 2, MERGE_FAULTS + ("int8_wrapped",),
+                      w8=True, kv8=True, n_layers=1),
+            "f": case("recurrentgemma-2b", 4, 2100, 2132, 4, kv8=True, n_layers=3),
+            "g": case("grok-1-314b", 8, 256, 512, 2, ("gather_skipped",), no_tp=True,
+                      n_layers=1),
+            "h": case("llama4-scout-17b-a16e", 8, 256, None, 1, ("experts_unsummed",),
+                      no_tp=True, train=True, n_layers=2, n_experts=4)}
+
+
+def p13_rules(c):
+    """The case's rules: serving's (FSDP as ``serve_fsdp`` says) or
+    training's, the no_tp variant where the case asks for it."""
+    from repro_torch.models import sharding as S
+    if c["train"]:
+        return S.rules_for("train", no_tp=c["no_tp"])
+    return S.rules_for("serve", fsdp=c["fsdp"], no_tp=c["no_tp"])
 
 
 def p13_reckoned(c) -> dict:
     """Each kernel's launches in one case's driven run, summed over the
     ranks: every rank launches K2 once an attention layer in the prefill,
     K5 once an RG-LRU layer in it, K3 once an attention layer a decode
-    step, K4 three times a MoE layer a forward."""
+    step, K4 three times a MoE layer a forward (a no_tp layer's gathered
+    rows too); a train step (llama4's 2 layers: remainder layers, outside
+    any checkpoint, so nothing is recomputed) K2 and its backward once a
+    layer, K4 and its backward three times a layer."""
     from repro_torch.configs.base import BlockKind
     cfg, n = c["cfg"], P12_WORLD
     kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
     attn = sum(k != BlockKind.RGLRU for k in kinds)
     moe = attn if cfg.n_experts else 0
+    if c["train"]:
+        return {"flash": n * attn * c["steps"], "flash_bwd": n * attn * c["steps"],
+                "gmm": n * 3 * moe * c["steps"], "gmm_bwd": n * 3 * moe * c["steps"],
+                "dense": 0, "decode": 0, "chunk": 0, "scan": 0}
     return {"flash": n * attn, "dense": n * attn * c["steps"],
             "scan": n * (len(kinds) - attn), "gmm": n * 3 * moe * (1 + c["steps"]),
             "decode": 0, "chunk": 0}
 
 
+def p13_int8_weights(torch, tree) -> None:
+    """Every leaf of 2 or more dimensions narrowed to int8 as
+    ``model.narrow_weights`` narrows a tree, each replaced in its dict in
+    turn (a DTensor leaf's local shard, its placements kept), so no second
+    copy of the tree is ever held."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models import model as M
+    for key in list(tree):
+        t = tree[key]
+        if isinstance(t, dict):
+            p13_int8_weights(torch, t)
+        elif t.dim() >= 2:
+            dt = isinstance(t, DTensor)
+            q = M.narrow_weights({"w": t.to_local() if dt else t})["w"]
+            tree[key] = DTensor.from_local(q, t.device_mesh, t.placements, run_check=False,
+                                           shape=t.shape, stride=t.stride()) if dt else q
+            del t, q
+            torch.cuda.empty_cache()
+
+
+def p13_narrow_kv(torch, cache):
+    """``narrowed_cache`` of a sharded cache: the attention k, v leaves'
+    local shards narrowed to int8 through ``saturate_cast``, their
+    placements kept."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.layers import saturate_cast
+    from repro_torch.models.param import map_tree
+    return map_tree(lambda path, t: t if path.rsplit("/", 1)[-1] not in ("k", "v") else
+                    DTensor.from_local(saturate_cast(t.to_local(), torch.int8), t.device_mesh,
+                                       t.placements, run_check=False, shape=t.shape,
+                                       stride=t.stride()), cache)
+
+
+def p13_save_int8(cache, where: Path) -> None:
+    """The int8 leaves of a one-process cache, one .npy a leaf."""
+    from repro_torch.models.param import iter_leaves
+    where.mkdir()
+    for path, t in iter_leaves(cache):
+        if not t.is_floating_point():
+            np.save(where / f"{path.replace('/', '.')}.npy", t.cpu().numpy())
+
+
 def p13_reference(torch, c, dev, work: Path, tag: str) -> dict:
     """The one-process serving run on the card from ``init_model_params(cfg,
-    0)``: ``prefill`` of B random prompts, then ``steps`` greedy
-    ``decode_step``s; the prompts, the greedy tokens, every step's float32
-    logits and every MoE call's expert choices saved for the ranks."""
+    0)`` (``wk``, ``wv`` times ``KV8_WK``, ``KV8_WV`` and the prefill's K/V
+    narrowed to int8 where the case has an int8 cache; the weights
+    narrowed where it has int8 weights): ``prefill`` of B random prompts,
+    then ``steps`` greedy ``decode_step``s; the prompts, the greedy tokens,
+    every step's float32 logits, every MoE call's expert choices and an
+    int8 cache's K/V after the prefill and after the first step saved for
+    the ranks."""
     from repro_torch.models import model as M
     cfg, B, S = c["cfg"], c["B"], c["S"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = M.init_model_params(cfg, 0, dev)
+    if c["kv8"]:
+        scaled_kv(torch, params, KV8_WK, KV8_WV)
+    if c["w8"]:
+        p13_int8_weights(torch, params)
     tokens = torch.from_numpy(np.random.default_rng(13).integers(0, cfg.vocab, (B, S))).to(dev)
     outs, toks = [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.no_grad(), RouteLog() as rl:
         logits, cache = M.prefill(cfg, params, {"tokens": tokens}, cache_len=c["cache_len"])
+        if c["kv8"]:
+            cache = narrowed_cache(torch, cfg, cache, "int8")
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        if c["kv8"]:
+            p13_save_int8(cache, work / f"{tag}_cache0")
+            t1 = time.perf_counter()
         outs.append(logits[:, 0].float().cpu())
         pos = torch.full((B,), S, dtype=torch.int32, device=dev)
-        for _ in range(c["steps"]):
+        for i in range(c["steps"]):
             tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
             toks.append(tok.cpu())
             logits, cache = M.decode_step(cfg, params, cache, tok, pos)
             outs.append(logits[:, 0].float().cpu())
             pos = pos + 1
+            if c["kv8"] and i + 1 == P13_FAULT_STEPS:
+                t_save = time.perf_counter()
+                p13_save_int8(cache, work / f"{tag}_cache")
+                t1 += time.perf_counter() - t_save
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     np.save(work / f"{tag}_tokens.npy", tokens.cpu().numpy())
@@ -6062,20 +6185,25 @@ def p13_reference(torch, c, dev, work: Path, tag: str) -> dict:
     np.save(work / f"{tag}_logits.npy", torch.stack(outs).numpy())
     np.savez(work / f"{tag}_routes.npz", *rl.calls)
     peak = torch.cuda.max_memory_allocated()
+    saturation = saturated(torch, cache) if c["kv8"] else ""
     del params, cache, logits
     torch.cuda.empty_cache()
     return dict(prefill_s=t1 - t0, decode_ms=(t2 - t1) / c["steps"] * 1e3, peak=peak,
-                scale=float(torch.stack(outs).abs().max()))
+                scale=float(torch.stack(outs).abs().max()), saturation=saturation)
 
 
 @contextlib.contextmanager
 def p13_planted(fault):
-    """While open, ``blocks._merge_weights`` (the merge of the ranks' K3
-    outputs over a cache split along its sequence) runs with ``fault`` (a
-    key of ``P13_FAULTS``) planted; None plants nothing."""
+    """While open, the sharded path runs with ``fault`` (a key of
+    ``P13_FAULTS``) planted: in ``blocks._merge_weights`` (the merge of the
+    ranks' K3 outputs over a cache split along its sequence), in the
+    cache writes' ``saturate_cast``, in ``moe_ffn``'s gather or in the
+    expert leaves' gradient placements; None plants nothing."""
     import torch
+    from torch.distributed.tensor import Replicate
     from repro_torch.models import blocks as B
-    merge = B._merge_weights
+    saved = (B._merge_weights, B.saturate_cast, B.moe_ffn, B.Layout.placements)
+    merge, _, moe, placements = saved
     if fault == "range_dropped":
         def planted(o, lse):
             return merge(o, torch.cat([torch.full_like(lse[:1], -torch.inf), lse[1:]]))
@@ -6083,10 +6211,26 @@ def p13_planted(fault):
     elif fault == "lse_ignored":
         B._merge_weights = lambda o, lse: merge(
             o, torch.where(torch.isneginf(lse), lse, torch.zeros_like(lse)))
+    elif fault == "int8_wrapped":
+        B.saturate_cast = lambda x, dtype: x.to(dtype)
+    elif fault == "gather_skipped":
+        def own_rows(cfg, params, h, *, impl=None, lay=None):
+            if lay is not None and lay.gather:
+                lay = dataclasses.replace(lay, gather=False)
+            return moe(cfg, params, h, impl=impl, lay=lay)
+        B.moe_ffn = own_rows
+    elif fault == "experts_unsummed":
+        def unsummed(lay, plan, name):
+            compute, grad = placements(lay, plan, name)
+            if lay.gather and name in B.MOE_LEAVES:
+                grad = [Replicate() if a in lay.data else pl
+                        for a, pl in zip(plan.mesh.mesh_dim_names, grad)]
+            return compute, grad
+        B.Layout.placements = unsummed
     try:
         yield
     finally:
-        B._merge_weights = merge
+        B._merge_weights, B.saturate_cast, B.moe_ffn, B.Layout.placements = saved
 
 
 class MergeLog:
@@ -6132,26 +6276,73 @@ class MergeLog:
         self.B._decode_serve_attn = self.orig
 
 
+def p13_int8_slices(torch, cache, work: str, name: str, mesh):
+    """(a rank's local shard, the one-process cache's same slice) of each
+    int8 leaf of ``cache``, the slices read from ``{work}/{name}/``."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from repro_torch.models.param import iter_leaves
+    for path, t in iter_leaves(cache):
+        if t.dtype != torch.int8:
+            continue
+        ref = np.load(f"{work}/{name}/{path.replace('/', '.')}.npy", mmap_mode="r")
+        shape, off = compute_local_shape_and_global_offset(t.shape, mesh, t.placements)
+        yield t.to_local(), torch.from_numpy(np.array(ref[tuple(
+            slice(o, o + n) for o, n in zip(off, shape))])).to(t.device)
+
+
+def p13_int8_err(torch, cache, work: str, name: str, mesh) -> float:
+    """The largest difference, in int8 steps, between a rank's shard of
+    each int8 cache leaf and the one-process cache's same slice."""
+    return max((float((got.int() - want.int()).abs().max())
+                for got, want in p13_int8_slices(torch, cache, work, name, mesh)), default=0.0)
+
+
+def p13_forced(ref_routes, mesh, plan, B: int):
+    """The one-process run's expert choices for the rows a rank routes: a
+    Megatron body routes its data shard's rows, gathered over ``model``
+    where the batch spans it (the no_tp rules), else this rank's own
+    rows (the all-to-all body is not driven here). A call is told apart by
+    how many rows it routes."""
+    data = dataclasses.replace(plan, batch=tuple(a for a in plan.batch if a != "model"))
+    own, shard = (np.arange(r.start, r.stop) for r in (p12_local_rows(mesh, plan, B),
+                                                        p12_local_rows(mesh, data, B)))
+
+    def forced(call, n):
+        want = ref_routes[call]
+        per = want.shape[0] // B          # tokens a row: S in the prefill, 1 a step
+        ids = shard if n == len(shard) * per else own
+        return want[(ids[:, None] * per + np.arange(per)[None]).reshape(-1)]
+    return forced
+
+
 def p13_case_rank(torch, c, tag, work: str, mesh, dev):
-    """One case on one rank: weights drawn as the one-process run's and
-    placed by the serve rules, counts zeroed just before the driven run
-    (``prefill`` then the one-process run's greedy tokens through
-    ``decode_step``, teacher-forced; MoE calls take its expert choices),
-    read after the prefill and after the last step; then this rank's
-    logits of every step held against that run's, and every cache leaf's
-    placements against ``sharding.cache_placements``; then the first
-    ``P13_FAULT_STEPS`` decode steps again from the cache the prefill
-    left, as they were and with each planted fault (``P13_FAULTS``),
-    their logits and their merges (``MergeLog``) read."""
+    """One serving case on one rank: weights drawn as the one-process run's
+    and placed by the case's rules (then scaled and narrowed as that run's
+    were), counts zeroed just before the driven run (``prefill`` then the
+    one-process run's greedy tokens through ``decode_step``,
+    teacher-forced; an int8 case's prefill cache narrowed, held against
+    that run's and replaced by it, so the steps start from the same int8
+    cache; MoE calls take its expert choices), read after the prefill and
+    after the last step; then this rank's logits of every step held against that
+    run's, and every cache leaf's placements against
+    ``sharding.cache_placements``; then the first ``P13_FAULT_STEPS``
+    decode steps again from the cache the prefill left, as they were and
+    with each of the case's planted faults, their logits, their merges
+    (``MergeLog``) and an int8 cache's entries against the one-process
+    run's (``p13_int8_err``) read."""
     import torch.distributed as dist
     from repro_torch.models import model as M
     from repro_torch.models import sharding as S
-    from repro_torch.models.param import iter_leaves
+    from repro_torch.models.param import iter_leaves, map_tree
     cfg, B, Sq = c["cfg"], c["B"], c["S"]
-    rules = S.rules_for("serve", fsdp=c["fsdp"])
+    rules = p13_rules(c)
     torch.cuda.reset_peak_memory_stats()
     t_init = time.perf_counter()
     params = p12_serial_params(torch, cfg, mesh, rules, dev)
+    if c["kv8"]:
+        scaled_kv(torch, map_tree(lambda _, t: t.to_local(), params), KV8_WK, KV8_WV)
+    if c["w8"]:
+        p13_int8_weights(torch, params)
     t_init = time.perf_counter() - t_init
     tokens = torch.from_numpy(np.load(f"{work}/{tag}_tokens.npy")).to(dev)
     steps = torch.from_numpy(np.load(f"{work}/{tag}_steps.npy")).to(dev)
@@ -6159,14 +6350,7 @@ def p13_case_rank(torch, c, tag, work: str, mesh, dev):
     with np.load(f"{work}/{tag}_routes.npz") as z:
         ref_routes = [z[f"arr_{i}"] for i in range(len(z.files))]
     plan = S.make_plan(mesh, rules, B)
-    rows = p12_local_rows(mesh, plan, B)
-    ids = np.arange(rows.start, rows.stop)
-
-    def forced(call):        # the Megatron body routes this rank's rows
-        want = ref_routes[call]
-        if want.shape[0] == B * Sq:
-            return want[(ids[:, None] * Sq + np.arange(Sq)[None]).reshape(-1)]
-        return want[ids]
+    forced = p13_forced(ref_routes, mesh, plan, B)
     dist.barrier()
     zero_launches()
     torch.cuda.synchronize()
@@ -6175,6 +6359,17 @@ def p13_case_rank(torch, c, tag, work: str, mesh, dev):
     with torch.no_grad(), S.axis_rules(mesh, rules), \
             RouteLog(forced if cfg.n_experts else None) as rl, GmmLog() as gl:
         logits, cache = M.prefill(cfg, params, {"tokens": tokens}, cache_len=c["cache_len"])
+        prefill_int8 = 0.0
+        if c["kv8"]:
+            cache = p13_narrow_kv(torch, cache)
+            # held within P13_INT8_STEPS of the one-process prefill's, then
+            # replaced by it: the decode steps start from the same int8
+            # cache, so their logits hold the decode path (int8 writes, K3's
+            # int8 instance with lse, the merge) and not the truncation
+            # flips of bf16 K/V computed in two processes
+            prefill_int8 = p13_int8_err(torch, cache, work, f"{tag}_cache0", mesh)
+            for got, want in p13_int8_slices(torch, cache, work, f"{tag}_cache0", mesh):
+                got.copy_(want)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         first, gmm_first = launches(), dict(gl.by_shape)
@@ -6189,27 +6384,33 @@ def p13_case_rank(torch, c, tag, work: str, mesh, dev):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     total = launches()
-    vtp = [a for a, pl in zip(mesh.mesh_dim_names, logits.placements) if pl.is_shard(2)]
+    names = mesh.mesh_dim_names
+    vtp = [a for a, pl in zip(names, logits.placements) if pl.is_shard(2)]
     V = local[0].shape[-1]
     c0 = mesh.get_local_rank(vtp[0]) * V if vtp else 0
+    # the logits' rows: the batch's shard, or under the no_tp rules (the
+    # vocab's axis carrying the batch too) the data shard's rows
+    rows = p12_local_rows(mesh, dataclasses.replace(plan, batch=tuple(
+        a for a, pl in zip(names, logits.placements) if pl.is_shard(0))), B)
     want = torch.from_numpy(np.array(ref_logits[:, rows, c0:c0 + V])).to(dev)
     got = torch.stack(local)
     n_f = min(c["steps"], P13_FAULT_STEPS)
     rerun = []
-    for fault in (None,) + tuple(P13_FAULTS):   # the first decode steps again
+    for fault in (None,) + tuple(c["faults"]):   # the first decode steps again
         for (_, t), held in zip(iter_leaves(cache), snap):
             t.to_local().copy_(held)
         pos = torch.full((B,), Sq, dtype=torch.int32, device=dev)
         planted = []
         with torch.no_grad(), S.axis_rules(mesh, rules), p13_planted(fault), \
-                RouteLog((lambda call: forced(call + n_pre)) if cfg.n_experts else None), \
-                MergeLog() as ml:
+                RouteLog((lambda call, n: forced(call + n_pre, n)) if cfg.n_experts
+                         else None), MergeLog() as ml:
             for i in range(n_f):
                 logits, cache = M.decode_step(cfg, params, cache, steps[i], pos)
                 planted.append(logits.to_local()[:, 0].float())
                 pos = pos + 1
         rerun += [float((torch.stack(planted) - want[1:1 + n_f]).abs().max()), ml.err,
-                  float(ml.calls)]
+                  float(ml.calls),
+                  p13_int8_err(torch, cache, work, f"{tag}_cache", mesh) if c["kv8"] else 0.0]
     model_dim = mesh.mesh_dim_names.index("model")
     placed = S.cache_placements(cfg, B, c["cache_len"], rules, mesh)
     misplaced = sum(tuple(t.placements) != tuple(placed[p]) for p, t in iter_leaves(cache))
@@ -6218,19 +6419,22 @@ def p13_case_rank(torch, c, tag, work: str, mesh, dev):
                           float((~torch.isfinite(got)).sum()), float(misplaced),
                           rl.differ if mesh.get_local_rank("model") == 0 else 0.0,
                           rl.all if mesh.get_local_rank("model") == 0 else 0.0,
-                          *rerun], device=dev)
+                          prefill_int8, *rerun], device=dev)
     gathered = [torch.zeros_like(stats) for _ in range(dist.get_world_size())]
     dist.all_gather(gathered, stats)
     g = torch.stack(gathered).cpu().numpy()
+    g = np.where(np.isnan(g), np.inf, g)      # a NaN reading fails
     res = dict(case=tag, err=float(g[:, 0].max()), scale=float(g[:, 1].max()),
                nonfinite=int(g[:, 2].sum()), misplaced=int(g[:, 3].sum()),
                differ=int(g[:, 4].sum()), decisions=int(g[:, 5].sum()),
-               fault_steps=n_f, merge_calls=int(g[:, 8].sum()),
-               reruns={f: (float(g[:, 6 + 3 * i].max()), float(g[:, 7 + 3 * i].max()))
-                       for i, f in enumerate(("true",) + tuple(P13_FAULTS))},
+               prefill_int8=float(g[:, 6].max()), fault_steps=n_f,
+               merge_calls=int(g[:, 9].sum()),
+               reruns={f: (float(g[:, 7 + 4 * i].max()), float(g[:, 8 + 4 * i].max()),
+                           float(g[:, 10 + 4 * i].max()))
+                       for i, f in enumerate(("true",) + tuple(c["faults"]))},
                seq_split=k_leaf.placements[model_dim].is_shard(k_leaf.dim() - 3),
                prefill_s=t1 - t0, decode_ms=(t2 - t1) / c["steps"] * 1e3, init_s=t_init,
-               k_placements=[str(p) for p in k_leaf.placements],
+               k_placements=[str(p) for p in k_leaf.placements], k_dtype=str(k_leaf.dtype),
                k_local=tuple(k_leaf.to_local().shape), k_global=tuple(k_leaf.shape),
                peak=torch.cuda.max_memory_allocated())
     decode = {k: total[k] - first[k] for k in total}
@@ -6240,11 +6444,56 @@ def p13_case_rank(torch, c, tag, work: str, mesh, dev):
     return res, [dict(counts=first, gmm=gmm_first), dict(counts=decode, gmm=gmm_decode)]
 
 
-def p13_rank(rank: int, job: dict):
-    """One rank of phase 13's world: every case in turn on one (2, 4)
-    mesh, each freeing its weights before the next. Rank 0 returns the
-    results; every rank its launch counts (two runs a case: the prefill
-    and the decode steps)."""
+def p13_noise(cfg, path: str, shape):
+    """(h)'s router, read apart from the update ratio: its gradient comes
+    from the aux loss alone (top-1 routing weights are 1), which the
+    Megatron branch takes as the mean of each data shard's (the
+    reference's sharded definition, held on the CPU against its sharded
+    step), the one-process run over all tokens."""
+    return np.ones(shape, bool) if path.endswith("/router") else None
+
+
+def p13_train_rank(torch, c, tag, work: str, mesh, dev):
+    """(h) on one rank: ``sharded_train_rank`` under the case's rules from
+    the one-process run's weights (drawn serially, placed by those rules),
+    with its planted fault."""
+    res = sharded_train_rank(torch, c["cfg"], dict(batches=f"{work}/{tag}_batches.npz",
+                                                   ref_dir=f"{work}/{tag}_final"),
+                             mesh, dev, {f: P13_FAULTS[f] for f in c["faults"]},
+                             p13_planted, p13_noise, rules=p13_rules(c))
+    res.update(case=tag)
+    return res, [dict(counts=res["counts"], shapes=res["shapes"], gmm=res["gmm"])]
+
+
+def p13_world_cases(torch, job, mesh, dev, rank):
+    """Phase 13's cases in turn on this rank's (2, 4) mesh, each freeing
+    its weights and the pinned host cache before the next: (results,
+    launch counts), two runs a serving case (the prefill and the decode
+    steps), one a train case (its true run)."""
+    import resource
+    cases, out, counts = p13_cases(), [], []
+    t0 = time.perf_counter()
+    for tag in job["cases"]:
+        if cases[tag]["train"]:
+            res, per = p13_train_rank(torch, cases[tag], tag, job["work"], mesh, dev)
+            out.append(res)
+        else:
+            res, per = p13_case_rank(torch, cases[tag], tag, job["work"], mesh, dev)
+            out += [res, dict(case=tag)]
+        counts += per
+        free_host_cache(torch)
+        if rank == 0:
+            log(f"phase 13 rank 0: case ({tag}) done at {time.perf_counter() - t0:.1f} s, peak "
+                f"resident set {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.2f} "
+                "GB")
+    return out, counts
+
+
+def sharded_rank(rank: int, job: dict):
+    """One rank of the world phases 13 and 14 share: one (2, 4) mesh,
+    phase 13's cases (``job["p13"]``) then phase 14's (``job["p14"]``).
+    Rank 0 returns the results, each marked with its phase; every rank its
+    launch counts, in the same order."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch
     from repro_torch.launch.mesh import make_mesh
@@ -6253,26 +6502,56 @@ def p13_rank(rank: int, job: dict):
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     mesh = make_mesh(P13_MESH, ("data", "model"), device=dev, backend="gloo")
-    cases, out, counts = p13_cases(), [], []
-    for tag in job["cases"]:
-        res, per = p13_case_rank(torch, cases[tag], tag, job["work"], mesh, dev)
-        out += [res, dict(case=tag)]
+    out, counts = [], []
+    for phase, run in ((13, p13_world_cases), (14, p14_world_cases)):
+        res, per = run(torch, job[f"p{phase}"], mesh, dev, rank)
+        out += [dict(r, phase=phase) for r in res]
         counts += per
     return (out, counts) if rank == 0 else (None, counts)
 
 
-def p13_check_lse(torch, dev, label, L, nh, nkv, hd, kv_len) -> None:
-    """K3 with ``return_lse`` at a local shard shape: output and lse against
-    the plain version (rows of kv_len 0 included: output 0, lse -inf), the
-    output bit for bit that of the call without lse."""
+def free_host_cache(torch) -> None:
+    """Give back the card's cached blocks and the pinned host blocks that
+    gloo's staging of CUDA tensors left cached (every case's sizes differ,
+    so a later case reuses few of them)."""
+    if not torch.cuda.is_available():
+        return
+    torch.cuda.empty_cache()
+    for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):
+        fn = getattr(torch._C, name, None)
+        if fn is not None:
+            fn()
+            return
+
+
+def p13_int8_decode_inputs(torch, rng, dev, nh, nkv, hd, L, kv_len):
+    """``decode_inputs`` with an int8 cache as the model's narrowing writes
+    one (``int8_kv``: int8's whole range, some values saturated) and q
+    times 0.02 (scores over int8 keys a few units wide)."""
+    q, k, v, kl = decode_inputs(torch, rng, dev, "bfloat16", nh, nkv, hd, S=L, kv_len=kv_len)
+    return q * 0.02, int8_kv(torch, rng, k.shape, dev), int8_kv(torch, rng, v.shape, dev), kl
+
+
+def p13_check_lse(torch, dev, label, L, nh, nkv, hd, kv_len, int8=False) -> None:
+    """K3 with ``return_lse`` at a local shard shape (``int8``: its int8
+    instance over an int8 cache): output and lse against the plain version
+    (rows of kv_len 0 included: output 0, lse -inf), the output bit for bit
+    that of the call without lse."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ref
     rng = np.random.default_rng(L + nh)
-    q, k, v, kl = decode_inputs(torch, rng, dev, "bfloat16", nh, nkv, hd, S=L, kv_len=kv_len)
+    if int8:
+        q, k, v, kl = p13_int8_decode_inputs(torch, rng, dev, nh, nkv, hd, L, kv_len)
+    else:
+        q, k, v, kl = decode_inputs(torch, rng, dev, "bfloat16", nh, nkv, hd, S=L,
+                                    kv_len=kv_len)
     out, lse = da.decode_attention(q, k, v, kl, return_lse=True)
     plain_out, plain_lse = ref.decode_attention(q.float(), k.float(), v.float(), kl,
                                                 return_lse=True)
-    check(f"K3 lse {label} out, kv_len {kv_len}", "bfloat16", out, plain_out, [])
+    # an int8 cache's outputs are O(100): held relative to their scale, as
+    # phase 11 holds K3's int8 instance
+    (check_rel if int8 else check)(f"K3 lse {label} out, kv_len {kv_len}", "bfloat16", out,
+                                   plain_out, [])
     empty = kl == 0
     finite = ~empty[:, None].expand_as(lse)
     check(f"K3 lse {label} lse (rows with keys)", "bfloat16", lse[finite], plain_lse[finite],
@@ -6417,6 +6696,7 @@ def p13_kernel_rows(torch, dev):
             bound_ms=b, bound_by=by, max_abs_err=max(errs),
             library_ms=event_ms(torch, lib, 10) if lib else None)
         del x, w, gs, want
+    entries.update(p13_new_rows(torch, dev, rng))
     # K5: recurrentgemma's prefill scan on a rank's 2 rows, bit for bit
     S = 2100
     a = torch.from_numpy(rng.uniform(0.3, 0.99, size=(2, S, RG_D)).astype(np.float32)).to(dev)
@@ -6438,67 +6718,347 @@ def p13_kernel_rows(torch, dev):
     return entries
 
 
-def sharded_serving_run(torch, dev, smi):
-    """Phase 13: ``prefill`` and ``decode_step`` under a (2, 4) mesh in one
-    world of 8 processes sharing this card over gloo, each case against its
-    one-process run on the card; then the kernel instances at the ranks'
-    shapes. Returns (entries, launch totals summed over the ranks)."""
+def p13_train_batches(c, work: Path, tag: str) -> list:
+    """The train case's batches from a seed, saved for the ranks as one
+    .npz of per-step arrays."""
+    cfg = c["cfg"]
+    rng = np.random.default_rng(130)
+    bs = [{k: rng.integers(0, cfg.vocab, (c["B"], c["S"])) for k in ("tokens", "labels")}
+          for _ in range(c["steps"])]
+    np.savez(work / f"{tag}_batches.npz", **{k: np.stack([b[k] for b in bs]) for k in bs[0]})
+    return bs
+
+
+def p13_train_check(c, tag, out, ref, fails, blind) -> None:
+    """(h)'s readings (``train_reading``; the router read apart,
+    ``p13_noise``) against the one-process step, its planted fault's, and
+    its launches against the reckoning."""
+    cfg = c["cfg"]
+    losses, secs, peak = ref
+    true = out["runs"]["true"]
+    worst, loss_err, ratio, d_max, t_fails = train_reading(true, losses)
+    want = p13_reckoned(c)
+    counts = out["all_counts"]
+    reckoned = all(counts[k] == want[k] for k in want)
+    log(f"phase 13 ({tag}): {cfg.name} {cfg.n_layers} of {c['layers']} layers, "
+        f"{cfg.n_experts} experts top-{cfg.top_k}, every width as published, bf16, under "
+        f"rules_for('train', no_tp=True) (the batch on every axis; the MoE layers gather a "
+        f"data shard's rows over model, the Megatron branch): {c['steps']} step(s) B={c['B']} "
+        f"S={c['S']} at lr {P12_LR}: losses {['%.5f' % x for x in true['losses']]} vs one "
+        f"process {['%.5f' % x for x in losses]} (max diff {loss_err:.2e}, tol "
+        f"{P12_LOSS_TOL:.0e}); worst leaf {worst}: mean |p - p_one| / mean |p_one - p0| "
+        f"{ratio:.4f} (tol {P12_UPDATE_TOL}), max |p - p_one| {d_max:.3e}"
+        + "".join(f"; {p} (aux-only gradient, read apart): ratio "
+                  f"{v[0] / max(v[1], 1e-30):.4f}, max |p - p_one| {v[2]:.3e}"
+                  for p, v in true["noise"].items())
+        + f"; replicas differ by at most {true['spread']:.3e} (tol {P12_SPREAD_TOL}); fails "
+        f"{t_fails or 'nothing'}; s/step {['%.3f' % x for x in true['secs']]} sharded (8 "
+        f"processes time-slicing one card over gloo: not a scaling figure) vs "
+        f"{['%.3f' % x for x in secs]} one process; launches, all ranks {counts} (reckoned "
+        f"{want}); K4 by (K, N) {out['all_gmm']}; rank-0 peak {out['peak'] / 1e9:.2f} GB, the "
+        f"card's peak in use {out['card_peak'] / 1e9:.2f} GB, one-process peak "
+        f"{peak / 1e9:.2f} GB")
+    if t_fails or not reckoned:
+        fails.append(f"({tag}) training {t_fails or counts}")
+    for fault in c["faults"]:
+        f_worst, f_loss, f_ratio, f_max, f_fails = train_reading(out["runs"][fault], losses)
+        log(f"phase 13 ({tag}) planted fault {fault} ({P13_FAULTS[fault]}): loss diff "
+            f"{f_loss:.2e}, worst leaf {f_worst} update ratio {f_ratio:.4f}, max |p - p_one| "
+            f"{f_max:.3e}, replicas differ by {out['runs'][fault]['spread']:.3e}: fails "
+            f"{f_fails or 'nothing'}")
+        if not f_fails:
+            blind.append(f"({tag}) {fault}")
+
+
+def p13_new_rows(torch, dev, rng):
+    """The instances (e)-(h) run, at the ranks' local shapes, each against
+    its plain version on the same inputs and timed beside its library
+    call: K3's int8 instance with lse over a rank's range of an int8 cache
+    ((e) grok-1, (f) recurrentgemma's ring; its lse checked first with rows
+    of kv_len 0, as (e)'s last model rank has before its range holds a
+    key); K2 and K4 at the no_tp shapes ((g): heads whole, B_loc = 1, K4
+    over the data shard's gathered tokens in the prefill); K2, K2 bwd, K4
+    and K4 bwd at (h)'s train step."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gm
+    from repro_torch.kernels import ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t = lambda shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+    entries, isz, dtype = {}, 2, "bfloat16"
+    p13_check_lse(torch, dev, "int8, grok-1 (e) local", 128, 48, 8, 128, [0, 1, 64, 128],
+                  int8=True)
+    p13_check_lse(torch, dev, "int8, recurrentgemma (f) local", 512, RG_H, RG_KV, RG_HD,
+                  [0, 5, 300, 512], int8=True)
+    dense_cases = {
+        # key: (label, B_loc, slots, q heads, kv heads, hd, kv_len)
+        "dense8_p13_grok": ("grok-1 int8 decode, sequence split", 2, 128, 48, 8, 128,
+                            [128, 128]),
+        "dense8_p13_rg": ("recurrentgemma-2b int8 ring decode, sequence split", 2, 512,
+                          RG_H, RG_KV, RG_HD, [512, 512]),
+    }
+    for key, (label, B, L, nh, nkv, hd, kv_len) in dense_cases.items():
+        q, k, v, kl = p13_int8_decode_inputs(torch, rng, dev, nh, nkv, hd, L, kv_len)
+        errs = []
+        got = da.decode_attention(q, k, v, kl, return_lse=True)
+        want = ref.decode_attention(q.float(), k.float(), v.float(), kl, return_lse=True)
+        check(f"K3 {label} lse", "bfloat16", got[1], want[1], [], tol=P13_LSE_TOL)
+        check_rel(f"K3 {label} B={B} L={L}", dtype, got[0], want[0], errs)
+        n_kv = sum(kv_len)
+        b, by = bound_ms(isz * 2 * q.numel() + 2 * n_kv * nkv * hd + 4 * kl.numel()
+                         + 4 * B * nh, 4 * hd * nh * n_kv, dtype)
+        kw, vw = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        qt, kt, vt = q.transpose(1, 2), kw.transpose(1, 2), vw.transpose(1, 2)
+        lmask = (torch.arange(L, device=dev)[None] < kl[:, None])[:, None, None]
+        call = lambda: da.decode_attention(q, k, v, kl, return_lse=True)  # noqa: E731
+        entries[key] = dict(
+            name=f"decode_attention ({label}, int8 K/V, with lse)",
+            route="cuda", source="src/repro_torch/csrc/decode_common.cuh",
+            replaces="src/repro/kernels/decode_attention.py:31",
+            shape=f"B={B} L={L} H={nh} KV={nkv} hd={hd} kv_len {kv_len} "
+                  f"{n_split(torch, q, nkv, L)} int8 K/V",
+            **kernel_times(torch, call, SPLIT_FMA),
+            plain_ms=event_ms(torch, lambda: ref.decode_attention(q, k, v, kl,
+                                                                  return_lse=True), 10),
+            bound_ms=b, bound_by=by, max_abs_err=max(errs),
+            library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=lmask,
+                                                     enable_gqa=True), 20),
+            library="SDPA, length mask, no lse, keys widened to bf16")
+        del q, k, v, kw, vw
+    # K2: (g)'s prefill and (h)'s train step with heads whole on a rank's row
+    flash_cases = {
+        "flash_p13_grok_notp": ("grok-1 prefill under no_tp, heads whole", 48, 8),
+        "flash_p13_l4_notp": ("llama4-scout train under no_tp, heads whole", 40, 8),
+    }
+    B, S, hd = 1, 256, 128
+    for key, (label, Hh, KVh) in flash_cases.items():
+        q, k, v = t((B, S, Hh, hd)), t((B, S, KVh, hd)), t((B, S, KVh, hd))
+        errs = []
+        check(f"K2 {label} B={B} S={S}", dtype, fa.flash_attention(q, k, v),
+              ref.flash_attention(q.float(), k.float(), v.float()).to(q.dtype), errs)
+        b, by = bound_ms(isz * (2 * q.numel() + k.numel() + v.numel()),
+                         4 * hd * S * (S + 1) // 2 * Hh * B, dtype)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        entries[key] = dict(
+            name=f"flash_attention ({label}, local shard)", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:27",
+            shape=f"B={B} S={S} H={Hh} KV={KVh} hd={hd} causal bf16",
+            **kernel_times(torch, lambda: fa.flash_attention(q, k, v),
+                           "flash_attention_mma_kernel", iters=10),
+            plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v), 2, warmup=1),
+            bound_ms=b, bound_by=by, max_abs_err=max(errs),
+            library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                                     enable_gqa=True), 10))
+        del q, k, v, qt, kt, vt
+    errs, kw = [], dict(causal=True)
+    q, k, v, out, lse, do = flash_bwd_case(torch, rng, dev, dtype, B, S, S, 40, 8, hd, kw,
+                                           errs, [])
+    b, by = bound_ms(isz * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+                     10 * hd * S * (S + 1) // 2 * 40 * B, dtype)
+    call = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)  # noqa: E731
+    names = flash_bwd_kernels(hd)
+    entries["flash_bwd_p13_l4_notp"] = dict(
+        name="flash_attention_bwd (llama4-scout train under no_tp, heads whole, local shard)",
+        route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:27",
+        shape=f"B={B} S={S} H=40 KV=8 hd={hd} causal bf16",
+        ms=kernel_ms(torch, call, names["dq"] + names["dkv"], iters=10),
+        event_ms=event_ms(torch, call, 10),
+        plain_ms=event_ms(torch, lambda: ref.flash_attention_bwd(q, k, v, out, lse, do, **kw),
+                          1, warmup=1),
+        bound_ms=b, bound_by=by, max_abs_err=max(errs),
+        library_ms=event_ms(torch, sdpa_backward(torch, q, k, v, do, is_causal=True), 5),
+        library="SDPA backward (torch.autograd.grad on a retained graph, is_causal)")
+    del q, k, v, out, lse, do
+    # K4 over a data shard's gathered tokens (4 rows of 256): (g) grok-1's
+    # prefill, top-2 at d_ff / 4; (h) llama4 top-1 over 4 experts at d_ff /
+    # 4, forward and backward
+    for key, label, n_tok, E, k_, K, N in (
+            ("gmm_p13_grok_notp", "grok-1 no_tp prefill gate/up, d_ff / 4 columns", 1024, 8,
+             2, 6144, 8192),
+            ("gmm_p13_grok_notp_down", "grok-1 no_tp prefill down, d_ff / 4 rows", 1024, 8, 2,
+             8192, 6144),
+            ("gmm_p13_l4_notp", "llama4-scout no_tp train gate/up, d_ff / 4 columns", 1024, 4,
+             1, 5120, 2048)):
+        sizes = routed_sizes(rng, n_tok, E, k_, K)
+        T = n_tok * k_
+        x, w, gs = gmm_inputs(torch, dev, dtype, sizes, T, K, N, seed=132 + K + T)
+        errs = []
+        want = ref.moe_gmm(x, w, gs)
+        check(f"K4 {label} T={T} K={K} N={N}", dtype, gm.moe_gmm(x, w, gs), want, errs,
+              tol=gmm_tol(dtype, want))
+        used = int((np.asarray(sizes) > 0).sum())
+        b, by = bound_ms(isz * (T * K + used * K * N + T * N) + 4 * len(sizes),
+                         2 * T * K * N, dtype)
+        lib, why = gmm_library(torch, x, w, gs)
+        if why:
+            log(f"  K4 {label}: library_ms none: {why}")
+        entries[key] = dict(
+            name=f"moe_gmm ({label}, local shard)", route="cuda",
+            source="src/repro_torch/csrc/moe_gmm.cu",
+            replaces="src/repro/kernels/moe_gmm.py:26",
+            shape=f"T={T} K={K} N={N} E={len(sizes)} ({used} used) bf16",
+            **kernel_times(torch, lambda: gm.moe_gmm(x, w, gs), "moe_gmm_mma_kernel",
+                           iters=20),
+            plain_ms=event_ms(torch, lambda: ref.moe_gmm(x, w, gs), 2, warmup=1),
+            bound_ms=b, bound_by=by, max_abs_err=max(errs),
+            library_ms=event_ms(torch, lib, 10) if lib else None)
+        del x, w, gs, want
+    # K4 bwd at (h)'s gate/up: dX and dW from one call
+    sizes = routed_sizes(rng, 1024, 4, 1, 5120)
+    T, K, N = 1024, 5120, 2048
+    errs = {"dX": [], "dW": []}
+    x, w, gs, dout, dx, dw = gmm_bwd_case(torch, dev, dtype, "llama4-scout no_tp train gate/up",
+                                           sizes, T, K, N, 133, errs)
+    lib = gmm_bwd_library(torch, x, w, gs, dout, dx, dw)
+    used = int((np.asarray(sizes) > 0).sum())
+    b, by = bound_ms(isz * (2 * T * N + used * K * N + 2 * T * K + 4 * K * N) + 4 * 4,
+                     4 * T * K * N, dtype)
+    call = lambda: gm.moe_gmm_bwd(x, w, gs, dout)  # noqa: E731
+    entries["gmm_bwd_p13_l4_notp"] = dict(
+        name="moe_gmm_bwd dX and dW (llama4-scout no_tp train gate/up, d_ff / 4 columns, "
+             "local shard; launches: every K4 backward of (h), gate/up and down)", route="cuda",
+        source="src/repro_torch/csrc/moe_gmm_bwd.cu",
+        replaces="src/repro/kernels/moe_gmm.py:26",
+        shape=f"T={T} K={K} N={N} E=4 ({used} used) bf16",
+        **kernel_times(torch, call, tuple(gmm_bwd_kernel(g) for g in ("dX", "dW")), iters=10),
+        plain_ms=event_ms(torch, lambda: ref.moe_gmm_bwd(x, w, gs, dout), 2, warmup=1),
+        bound_ms=b, bound_by=by, max_abs_err=max(errs["dX"] + errs["dW"]),
+        library_ms=(event_ms(torch, lambda: (lib["dX"](), lib["dW"]()), 10)
+                    if lib["dX"] and lib["dW"] else None),
+        library="torch._grouped_mm, dY x W[e]^T and X^T x dY ragged over the rows")
+    del x, w, gs, dout, dx, dw, lib
+    return entries
+
+
+def sharded_world_run(torch, dev, smi):
+    """Phases 13 and 14 in one world of 8 processes sharing this card over
+    gloo on a (2, 4) mesh (one spawn for both): each phase's one-process
+    references first, then the world, then each phase's checks and its
+    kernel rows. Returns (entries, launch totals summed over the ranks)."""
     import shutil
+    t0 = time.perf_counter()
+    works = {}
+    for phase in (13, 14):
+        works[phase] = Path(__file__).resolve().parent / "build" / f"phase{phase}"
+        shutil.rmtree(works[phase], ignore_errors=True)
+        works[phase].mkdir(parents=True)
+    cases13, refs13 = p13_references(torch, dev, smi, works[13])
+    cases14, refs14 = p14_references(torch, dev, smi, works[14])
+    log(f"phases 13 and 14: one world of {P12_WORLD} processes on a {P13_MESH} data x model "
+        f"mesh, phase 13's cases then phase 14's; one-process references in "
+        f"{time.perf_counter() - t0:.1f} s")
+    runs, wall = p12_world(dict(check="sharded", p13=dict(cases=list(cases13),
+                                                            work=str(works[13])),
+                                p14=dict(cases=list(cases14), work=str(works[14]))),
+                           works[13], rank_fn=sharded_rank)
+    log(f"phases 13 and 14: world {wall:.1f} s")
+    entries, totals = sharded_serving_check(
+        torch, dev, [r for r in runs if r["phase"] == 13], cases13, refs13)
+    shutil.rmtree(works[13], ignore_errors=True)
+    more, more_totals = sharded_families_check(
+        torch, dev, [r for r in runs if r["phase"] == 14], cases14, refs14)
+    shutil.rmtree(works[14], ignore_errors=True)
+    entries.update(more)
+    totals.update(more_totals)
+    log(f"phases 13 and 14: done in {time.perf_counter() - t0:.1f} s")
+    return entries, totals
+
+
+def p13_references(torch, dev, smi, work: Path):
+    """Phase 13's cases and their one-process runs on the card (serving,
+    or (h)'s train step), saved under ``work`` for the ranks."""
     t13 = time.perf_counter()
-    work = Path(__file__).resolve().parent / "build" / "phase13"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
     cases, refs = p13_cases(), {}
     for tag, c in cases.items():
-        refs[tag] = p13_reference(torch, c, dev, work, tag)
+        if c["train"]:
+            refs[tag] = train_reference(torch, c["cfg"], p13_train_batches(c, work, tag), dev,
+                                        work / f"{tag}_final")
+        else:
+            refs[tag] = p13_reference(torch, c, dev, work, tag)
     log(f"phase 13: sharded serving (models.model prefill / decode_step under "
-        f"sharding.axis_rules(mesh, rules_for('serve', fsdp=serve_fsdp(cfg)))) on a "
-        f"{P13_MESH} data x model mesh of {P12_WORLD} processes sharing {smi}, backend gloo; "
-        f"one-process references in {time.perf_counter() - t13:.1f} s")
-    runs, wall = p12_world(dict(check="serve", cases=list(cases), work=str(work)), work,
-                           rank_fn=p13_rank)
+        f"sharding.axis_rules(mesh, rules_for('serve', fsdp=serve_fsdp(cfg)[, no_tp=True]))) "
+        f"and a no_tp train step on a {P13_MESH} data x model mesh of {P12_WORLD} processes "
+        f"sharing {smi}, backend gloo; one-process references in "
+        f"{time.perf_counter() - t13:.1f} s")
+    return cases, refs
+
+
+def sharded_serving_check(torch, dev, runs, cases, refs):
+    """Phase 13's checks of the world's runs against the one-process
+    references (logits, placements, merges, the int8 cache, the train
+    readings, launches, every planted fault caught); then the kernel
+    instances at the ranks' shapes. Returns (entries, launch totals summed
+    over the ranks)."""
+    t13 = time.perf_counter()
     totals, fails, blind = {}, [], []
-    for res, dec in zip(runs[::2], runs[1::2]):
+    it = iter(runs)
+    for res in it:
         tag = res["case"]
         c, ref_run = cases[tag], refs[tag]
         cfg = c["cfg"]
+        if c["train"]:
+            p13_train_check(c, tag, res, ref_run, fails, blind)
+            totals.update(flash_p13_l4_notp=res["all_counts"]["flash"],
+                          flash_bwd_p13_l4_notp=res["all_counts"]["flash_bwd"],
+                          gmm_p13_l4_notp=res["all_gmm"].get((5120, 2048), 0),
+                          gmm_bwd_p13_l4_notp=res["all_counts"]["gmm_bwd"])
+            continue
+        dec = next(it)
         counts = {k: res["all_counts"][k] + dec["all_counts"][k] for k in res["all_counts"]}
         tol = P13_TOL * res["scale"]
         want = p13_reckoned(c)
+        true_err, true_merge, true_int8 = res["reruns"]["true"]
         held = res["err"] <= tol and not res["nonfinite"] and not res["misplaced"] and \
-            res["reruns"]["true"][1] <= P13_MERGE_TOL
+            true_merge <= P13_MERGE_TOL and true_int8 <= P13_INT8_STEPS and \
+            res["prefill_int8"] <= P13_INT8_STEPS
         reckoned = all(counts[k] == want[k] for k in want)
         if not held or not reckoned:
             fails.append(tag)
-        # a planted fault both checks pass where the ranks merge: blind
-        blind += [f"({tag}) {f}" for f in P13_FAULTS if res["seq_split"] and
-                  res["reruns"][f][0] <= tol and res["reruns"][f][1] <= P13_MERGE_TOL]
+        for f in c["faults"]:
+            f_err, f_merge, f_int8 = res["reruns"][f]
+            caught = f_err > tol or f_merge > P13_MERGE_TOL or f_int8 > P13_INT8_STEPS
+            # a merge fault where no rank merges (a cache split by heads)
+            # has nothing to catch: printed only
+            if not caught and (res["seq_split"] or f not in MERGE_FAULTS):
+                blind.append(f"({tag}) {f}")
         routing = (f"; expert choices shared with the one-process run, the ranks' own differ "
                    f"in {res['differ']} of {res['decisions']} (token x layer) decisions; K4 by "
                    f"(K, N) prefill {res['all_gmm']}, decode {dec['all_gmm']}"
                    if cfg.n_experts else "")
+        what = ", ".join(w for w, on in (("int8 weights", c["w8"]),
+                                         (f"int8 K/V cache (wk x {KV8_WK:g}, wv x "
+                                          f"{KV8_WV:g}; {ref_run['saturation']}; the "
+                                          f"narrowed prefill cache within "
+                                          f"{res['prefill_int8']:g} step(s) of one "
+                                          f"process's, then the decode steps from its; "
+                                          f"tol {P13_INT8_STEPS})", c["kv8"]),
+                                         ("rules_for('serve', no_tp=True)", c["no_tp"])) if on)
         log(f"phase 13 ({tag}): {cfg.name} {cfg.n_layers} of {c['layers']} layers, every width "
-            f"as published, fsdp {c['fsdp']}, bf16: prefill B={c['B']} S={c['S']} into "
-            f"cache_len {c['cache_len']} then {c['steps']} decode steps teacher-forced on the "
-            f"one-process run's greedy tokens; an attention K leaf {res['k_global']} placed "
-            f"{res['k_placements']}, {res['k_local']} a rank; logits max|err| over every step "
-            f"{res['err']:.4f} (tol {tol:.4f} = 1% of max|logit| {res['scale']:.3f}), "
-            f"non-finite {res['nonfinite']}, cache leaves off their placements "
-            f"{res['misplaced']}{routing}; launches, all ranks {counts} (reckoned {want}); "
-            f"prefill {res['prefill_s']:.3f} s, decode {res['decode_ms']:.2f} ms/step sharded "
-            f"(8 processes time-slicing one card over gloo: costs, not scaling figures) vs "
-            f"{ref_run['prefill_s']:.3f} s, {ref_run['decode_ms']:.2f} ms/step one process "
-            f"(first calls), weights drawn in {res['init_s']:.1f} s; rank-0 peak "
-            f"{res['peak'] / 1e9:.2f} GB, the card's peak in use over "
-            f"the world {res['card_peak'] / 1e9:.2f} GB, one-process peak "
+            f"as published, fsdp {c['fsdp']}, bf16{', ' + what if what else ''}: prefill "
+            f"B={c['B']} S={c['S']} into cache_len {c['cache_len']} then {c['steps']} decode "
+            f"steps teacher-forced on the one-process run's greedy tokens; an attention K leaf "
+            f"{res['k_global']} {res['k_dtype']} placed {res['k_placements']}, "
+            f"{res['k_local']} a rank; logits max|err| over every step {res['err']:.4f} (tol "
+            f"{tol:.4f} = 1% of max|logit| {res['scale']:.3f}), non-finite {res['nonfinite']}, "
+            f"cache leaves off their placements {res['misplaced']}{routing}; launches, all "
+            f"ranks {counts} (reckoned {want}); prefill {res['prefill_s']:.3f} s, decode "
+            f"{res['decode_ms']:.2f} ms/step sharded (8 processes time-slicing one card over "
+            f"gloo: costs, not scaling figures) vs {ref_run['prefill_s']:.3f} s, "
+            f"{ref_run['decode_ms']:.2f} ms/step one process (first calls), weights drawn in "
+            f"{res['init_s']:.1f} s; rank-0 peak {res['peak'] / 1e9:.2f} GB, the card's peak in "
+            f"use over the world {res['card_peak'] / 1e9:.2f} GB, one-process peak "
             f"{ref_run['peak'] / 1e9:.2f} GB")
         split = res["seq_split"]
         log(f"phase 13 ({tag}) the first {res['fault_steps']} decode step(s) again from the "
             f"prefill's cache, as they were and with each planted fault "
-            f"({'split over its sequence: each fault must fail the logits or the merge' if split else 'split by heads: no merge runs, printed only'}; "
+            f"({'split over its sequence: a merge fault must fail the logits or the merge' if split else 'no range merge: a merge fault is printed only'}; "
             f"{res['merge_calls']} merged calls over the ranks a run): logits max|err| (tol "
-            f"{tol:.4f}), merge max|err| / max|attention| (tol {P13_MERGE_TOL}): "
-            + ", ".join(f"{f} {e:.4f}, {m:.4f}" for f, (e, m) in res["reruns"].items()))
+            f"{tol:.4f}), merge max|err| / max|attention| (tol {P13_MERGE_TOL}), int8 cache "
+            f"max|err| in steps (tol {P13_INT8_STEPS}): "
+            + ", ".join(f"{f} {e:.4f}, {m:.4f}, {q:g}" for f, (e, m, q) in res["reruns"].items()))
         pre, dcounts, dgmm = res["all_counts"], dec["all_counts"], dec["all_gmm"]
         if tag == "a":
             totals.update(flash_p13_mistral=pre["flash"], dense_p13_mistral=dcounts["dense"])
@@ -6510,15 +7070,21 @@ def sharded_serving_run(torch, dev, smi):
         elif tag == "c":
             totals.update(flash_p13_rg=pre["flash"], dense_p13_rg=dcounts["dense"],
                           scan_p13_rg=pre["scan"])
-        else:
+        elif tag == "d":
             totals.update(flash_p13_granite=pre["flash"], dense_p13_granite=dcounts["dense"])
-    log(f"phase 13: world {wall:.1f} s")
-    shutil.rmtree(work, ignore_errors=True)
+        elif tag == "e":
+            totals["dense8_p13_grok"] = dcounts["dense"]
+        elif tag == "f":
+            totals["dense8_p13_rg"] = dcounts["dense"]
+        elif tag == "g":
+            totals.update(flash_p13_grok_notp=pre["flash"],
+                          gmm_p13_grok_notp=res["all_gmm"].get((6144, 8192), 0),
+                          gmm_p13_grok_notp_down=res["all_gmm"].get((8192, 6144), 0))
     if fails:
-        raise AssertionError(f"phase 13: cases {fails} not held (logits, placements or "
-                             "launches; see their lines)")
+        raise AssertionError(f"phase 13: cases {fails} not held (logits, placements, int8 "
+                             "cache, train readings or launches; see their lines)")
     if blind:
-        raise AssertionError(f"phase 13: the logits check passes the planted faults {blind}")
+        raise AssertionError(f"phase 13: the checks pass the planted faults {blind}")
     log(f"phase 13: the kernel instances at the ranks' shapes (launches: the {P12_WORLD} "
         f"ranks' counts in the driven runs, summed: {totals})")
     entries = p13_kernel_rows(torch, dev)
@@ -6531,7 +7097,6 @@ def sharded_serving_run(torch, dev, smi):
 # encoder-decoder, llava's patch prefix, RG-LRU training), 8 processes
 # sharing this card over gloo
 # ----------------------------------------------------------------------
-P14_MESH = (2, 4)                  # data x model
 P14_FAULT_STEPS = 1                # decode steps after the rerun prefill
 # a serving case's prefill cache, each leaf of a rank against the
 # one-process cache's same slice, relative to the leaf's largest |value|
@@ -6590,14 +7155,14 @@ def p14_cases():
         cfg = get_config(arch)
         return dict(cfg=dataclasses.replace(cfg, **cut), layers=cfg.n_layers,
                     fsdp=serve_fsdp(cfg) if fsdp is None else fsdp, serve=serve, train=train)
-    return {"a": case("whisper-tiny", serve=dict(B=4, S=32, cache_len=64, steps=8),
-                      train=dict(B=4, S=128, steps=2)),
-            "b": case("xlstm-350m", serve=dict(B=4, S=256, cache_len=264, steps=8),
+    return {"a": case("whisper-tiny", serve=dict(B=4, S=32, cache_len=64, steps=4),
+                      train=dict(B=4, S=128, steps=1)),
+            "b": case("xlstm-350m", serve=dict(B=4, S=256, cache_len=264, steps=4),
                       train=dict(B=4, S=256, steps=1), n_layers=8),
             "c": case("llava-next-34b", fsdp=True,
                       serve=dict(B=2, S=LV_PROMPT, cache_len=LV_PATCHES + LV_PROMPT + 8,
-                                 steps=4), n_layers=2),
-            "d": case("recurrentgemma-2b", train=dict(B=8, S=1024, steps=2), n_layers=3)}
+                                 steps=2), n_layers=2),
+            "d": case("recurrentgemma-2b", train=dict(B=8, S=1024, steps=1), n_layers=3)}
 
 
 def p14_extras(cfg, B: int, rng) -> dict:
@@ -6736,8 +7301,8 @@ def p14_planted(fault, n_patches: int = 0, n_tokens: int = 0):
     elif fault == "recurrence_unsummed":
         grad = S.Plan.grad
 
-        def unsummed(plan, tp_dim, partial_on_model=False):
-            out = grad(plan, tp_dim, partial_on_model)
+        def unsummed(plan, tp_dim, partial_on_model=False, **kw):
+            out = grad(plan, tp_dim, partial_on_model, **kw)
             return out if tp_dim is not None else [
                 Replicate() if a in plan.batch else pl
                 for a, pl in zip(plan.mesh.mesh_dim_names, out)]
@@ -6877,19 +7442,11 @@ def p14_serve_rank(torch, c, tag, work: str, mesh, dev):
                  dict(counts=decode, shapes=shapes_decode)]
 
 
-def p14_rank(rank: int, job: dict):
-    """One rank of phase 14's world: every case in turn on one (2, 4) mesh
-    (serving, then training), each freeing its weights before the next.
-    Rank 0 returns the results; every rank its launch counts (a serving
-    case's prefill and decode steps, a train case's true run)."""
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    import torch
-    from repro_torch.launch.mesh import make_mesh
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device(job.get("device", "cuda"), 0)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    mesh = make_mesh(P14_MESH, ("data", "model"), device=dev, backend="gloo")
+def p14_world_cases(torch, job, mesh, dev, rank):
+    """Phase 14's cases in turn on this rank's (2, 4) mesh (serving, then
+    training), each freeing its weights before the next: (results, launch
+    counts), a serving case's prefill and decode steps, a train case's
+    true run."""
     cases, out, counts = p14_cases(), [], []
     work = job["work"]
     for tag in job["cases"]:
@@ -6906,7 +7463,7 @@ def p14_rank(rank: int, job: dict):
             res.update(case=tag, kind="train")
             out.append(res)
             counts.append(dict(counts=res["counts"], shapes=res["shapes"]))
-    return (out, counts) if rank == 0 else (None, counts)
+    return out, counts
 
 
 def p14_kernel_rows(torch, dev):
@@ -7068,17 +7625,10 @@ def p14_kernel_rows(torch, dev):
     return entries
 
 
-def sharded_families_run(torch, dev, smi):
-    """Phase 14: xLSTM, whisper's encoder-decoder, llava's patch prefix and
-    recurrentgemma's RG-LRU training under a (2, 4) mesh in one world of 8
-    processes sharing this card over gloo, each case against its
-    one-process run on the card; then the kernel instances at the ranks'
-    shapes. Returns (entries, launch totals summed over the ranks)."""
-    import shutil
+def p14_references(torch, dev, smi, work: Path):
+    """Phase 14's cases and their one-process runs on the card (serving and
+    training), saved under ``work`` for the ranks."""
     t14 = time.perf_counter()
-    work = Path(__file__).resolve().parent / "build" / "phase14"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
     cases, refs = p14_cases(), {}
     for tag, c in cases.items():
         if c["serve"]:
@@ -7089,10 +7639,19 @@ def sharded_families_run(torch, dev, smi):
                                                    work / f"{tag}_final")
     log(f"phase 14: the other families under a mesh (models.model prefill / decode_step "
         f"under rules_for('serve'), make_train_step(cfg, opt, mesh) from init_sharded) on a "
-        f"{P14_MESH} data x model mesh of {P12_WORLD} processes sharing {smi}, backend gloo; "
+        f"{P13_MESH} data x model mesh of {P12_WORLD} processes sharing {smi}, backend gloo; "
         f"one-process references in {time.perf_counter() - t14:.1f} s")
-    runs, wall = p12_world(dict(check="families", cases=list(cases), work=str(work)), work,
-                           rank_fn=p14_rank)
+    return cases, refs
+
+
+def sharded_families_check(torch, dev, runs, cases, refs):
+    """Phase 14: xLSTM, whisper's encoder-decoder, llava's patch prefix and
+    recurrentgemma's RG-LRU training under a (2, 4) mesh, each case's runs
+    against its one-process run on the card (logits, the prefill cache,
+    merges, placements, launches, train readings, each planted fault
+    caught); then the kernel instances at the ranks' shapes. Returns
+    (entries, launch totals summed over the ranks)."""
+    t14 = time.perf_counter()
     totals, fails, blind = {}, [], []
     shapes = collections.Counter()
     by_case = collections.defaultdict(list)
@@ -7202,9 +7761,8 @@ def sharded_families_run(torch, dev, smi):
                               scan_p14_rg=cnt["scan"], scan_bwd_p14_rg=cnt["scan_bwd"])
                 if not all(cnt[k] for k in ("flash", "flash_bwd", "scan", "scan_bwd")):
                     fails.append(f"(d) launched {cnt}")
-    log(f"phase 14: world {wall:.1f} s; K2 / K3 launches by shape over the driven runs, all "
-        f"ranks {dict(shapes)}")
-    shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 14: K2 / K3 launches by shape over the driven runs, all ranks "
+        f"{dict(shapes)}")
     if fails:
         raise AssertionError(f"phase 14: {fails} not held (see their lines)")
     if blind:
@@ -7482,23 +8040,17 @@ def main() -> int:
     total.update(p12_totals)
     mark("phase 12")
 
-    # phase 13: sharded serving (mistral-large-123b, grok-1, recurrentgemma-2b
-    # and granite-3-2b's prefill and decode_step) in one world of 8
-    # processes sharing this card over gloo
+    # phases 13 and 14, in one world of 8 processes sharing this card over
+    # gloo: sharded serving (mistral-large-123b, grok-1, recurrentgemma-2b
+    # and granite-3-2b's prefill and decode_step; int8 weights and caches
+    # and the no_tp rules; a no_tp MoE train step), then xLSTM, whisper's
+    # encoder-decoder, llava's patch prefix and recurrentgemma's RG-LRU
+    # training under a (2, 4) mesh
     torch.cuda.empty_cache()
-    p13_entries, p13_totals = sharded_serving_run(torch, dev, smi)
+    p13_entries, p13_totals = sharded_world_run(torch, dev, smi)
     entries.update(p13_entries)
     total.update(p13_totals)
-    mark("phase 13")
-
-    # phase 14: xLSTM, whisper's encoder-decoder, llava's patch prefix and
-    # recurrentgemma's RG-LRU training under a (2, 4) mesh, one world of 8
-    # processes sharing this card over gloo
-    torch.cuda.empty_cache()
-    p14_entries, p14_totals = sharded_families_run(torch, dev, smi)
-    entries.update(p14_entries)
-    total.update(p14_totals)
-    mark("phase 14")
+    mark("phases 13 and 14")
 
     kernels = []
     for key in ("decode", "chunk", "chunk_768", "flash", "flash_rg", "dense_rg", "dense_granite",

@@ -54,7 +54,10 @@ cache split over its sequence, its KV heads or neither (``_attn_body``);
 an RG-LRU block with the recurrence whole on the rank's batch rows and
 the MLP sliced (``_rglru_body``); an mLSTM or sLSTM block with every
 weight whole on the rank's batch rows (``_xlstm_body``); ``moe_ffn``
-takes the reference's Megatron or all-to-all branch there. ``attn_block`` and
+takes the reference's Megatron or all-to-all branch there (under the no_tp
+rules, whose batch spans ``model``, after gathering a data shard's rows
+over ``model``). Each body dequantizes its integer (int8) weight leaves
+itself, so they move between ranks as int8. ``attn_block`` and
 ``rglru_block`` return ``(x, cache, aux)``, as the
 reference's blocks: ``aux`` is the MoE layer's load-balancing loss (None
 for a dense feed-forward), which ``model.loss_fn`` adds in ``train``.
@@ -82,10 +85,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import BlockKind, ModelConfig
+from repro_torch.device import torch_dtype
 from repro_torch.kernels import ops
 from repro_torch.models import sharding
-from repro_torch.models.layers import (apply_rope, mlp, mlp_hidden, mlp_specs,
-                                       rms_norm, rope_tables, saturate_cast)
+from repro_torch.models.layers import (apply_rope, dequantize, mlp, mlp_hidden,
+                                       mlp_specs, rms_norm, rope_tables,
+                                       saturate_cast)
 from repro_torch.models.param import Spec
 
 Cache = Dict[str, torch.Tensor]
@@ -485,6 +490,14 @@ def moe_ffn(cfg: ModelConfig, params, h: torch.Tensor, *,
     data axes; ``"a2a"`` ``_moe_ffn_a2a``."""
     B, S, d = h.shape
     E = cfg.n_experts
+    if lay is not None and lay.gather:
+        # the data shard's rows, replicated over model, as the reference's
+        # P(data_axes); this rank keeps its own rows of the result (their
+        # gradient all-gathered back, so each branch sees a whole one)
+        hg = sharding.all_gather(h, lay.mesh, "model", dim=0)
+        out, aux = moe_ffn(cfg, params, hg, impl=impl,
+                           lay=dataclasses.replace(lay, gather=False))
+        return sharding.split(out, lay.mesh, "model", dim=0), aux
     if lay is not None and lay.moe == "a2a":
         return _moe_ffn_a2a(cfg, params, h, lay, impl)
     xf = h.reshape(B * S, d)
@@ -592,12 +605,17 @@ def cache_layout(cfg: ModelConfig, plan, B: int, L: int) -> CacheLayout:
     return CacheLayout(seq=seq, heads=heads)
 
 
+MOE_LEAVES = ("router", "we_g", "we_u", "we_d")
+
+
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """How one attention block computes under a mesh (``layout``): the
     mesh axes that shard the batch, the model axis's size ``m``, which
     fused dims are sliced over ``model`` (heads, KV heads, ``d_ff``), the
-    MoE branch, each leaf's compute and gradient placements, and in
+    MoE branch, whether the MoE layer first gathers its rows over
+    ``model`` (``gather``: the no_tp rules put the batch on it), each
+    leaf's compute and gradient placements (``placements``), and in
     serving where its cache lives (``cache``; None in ``train``)."""
 
     mesh: object
@@ -612,6 +630,20 @@ class Layout:
     tp_dims: Dict[str, Optional[int]]
     partial_on_model: Tuple[str, ...]
     cache: Optional[CacheLayout] = None
+    gather: bool = False
+
+    def placements(self, plan, name: str):
+        """(compute, gradient) placements of leaf ``name``: ``Plan``'s,
+        but for the expert leaves of a layer that gathers its rows
+        (``gather``), sliced over ``model`` although it carries the batch,
+        their gradients partial over the data axes (the gathered rows of a
+        data shard; over ``model`` too for the all-to-all router, whose
+        model ranks route different tokens)."""
+        tp, partial = self.tp_dims.get(name), name in self.partial_on_model
+        if not (self.gather and name in MOE_LEAVES):
+            return plan.compute(tp), plan.grad(tp, partial)
+        return (plan.compute(tp, model="model"),
+                plan.grad(tp, partial, model="model", batch=self.data))
 
 
 def layout(cfg: ModelConfig, params, plan, B: int, S: int) -> Layout:
@@ -622,15 +654,20 @@ def layout(cfg: ModelConfig, params, plan, B: int, S: int) -> Layout:
     replicated); KV heads where it also divides KV, else every rank takes
     the KV heads its query heads read (a cross-attention block slices its
     heads only where ``model`` divides the KV heads too, so its cross cache
-    is split by KV heads exactly where ``spec_for`` splits it). The MoE
-    branch follows the
-    reference's conditions in order: local where the data axes do not
-    divide B, then ``model`` where it divides d_ff, then the all-to-all
-    branch where the rules ask for it, S > 1, ``model`` divides S and E
-    equals its size; otherwise Megatron."""
+    is split by KV heads exactly where ``spec_for`` splits it). Where the
+    batch spans ``model`` (the no_tp rules) nothing of the attention or a
+    dense MLP is sliced. The MoE branch follows the reference's conditions
+    in order, whatever the rules say of the batch (its data axes are
+    ("pod", "data") alone): local where the data axes do not divide B,
+    then ``model`` where it divides d_ff, then the all-to-all branch where
+    the rules ask for it, S > 1, ``model`` divides S and E equals its
+    size; otherwise Megatron. Both take a data shard's rows replicated
+    over ``model``, so where the batch spans ``model`` the layer gathers
+    its rows over it first (``gather``) and keeps its own rows of the
+    result."""
     H, KV = cfg.n_heads, cfg.n_kv_heads
     sizes = sharding.mesh_axis_sizes(plan.mesh)
-    m = sizes[plan.model] if plan.model else 1
+    m = sizes.get("model", 1)
     heads = plan.model is not None and H % m == 0 and \
         ("c_wq" not in params or KV % m == 0)
     kv_tp = heads and KV % m == 0
@@ -638,10 +675,6 @@ def layout(cfg: ModelConfig, params, plan, B: int, S: int) -> Layout:
     moe = moe_tp = None
     data = tuple(a for a in ("pod", "data") if a in sizes)
     if "router" in params:
-        if "model" in plan.batch:
-            raise NotImplementedError(
-                "a MoE layer with the batch on the model axis (no_tp rules) "
-                "is not ported (ROADMAP Queue 1 H)")
         n_data = int(np.prod([sizes[a] for a in data])) if data else 1
         if n_data <= 1 or B % n_data:
             moe, data = "local", ()
@@ -668,7 +701,8 @@ def layout(cfg: ModelConfig, params, plan, B: int, S: int) -> Layout:
     return Layout(mesh=plan.mesh, batch=plan.batch, data=data, m=m,
                   attn_tp=("model",) if heads else (), kv_tp=kv_tp,
                   ff_tp=("model",) if ff else (), moe=moe,
-                  moe_tp=moe_tp or (), tp_dims=tp, partial_on_model=partial)
+                  moe_tp=moe_tp or (), tp_dims=tp, partial_on_model=partial,
+                  gather=moe in ("megatron", "a2a") and "model" in plan.batch)
 
 
 def _local_heads(cfg: ModelConfig, lay: Layout, p):
@@ -697,6 +731,15 @@ def _local_heads(cfg: ModelConfig, lay: Layout, p):
     p = dict(p, **{n: t.index_select(-1, cols) for n, t in whole.items()})
     return dataclasses.replace(cfg, n_heads=Hl, n_kv_heads=len(read),
                                head_dim=hd), p, whole
+
+
+def _weights(cfg: ModelConfig, names, args) -> Dict[str, torch.Tensor]:
+    """A body's weight leaves by name, an integer (int8) leaf dequantized
+    here, this rank's shard of this layer alone (``layers.dequantize``, as
+    the one-card ``_apply_block``): the int8 leaves move between ranks as
+    int8."""
+    wdt = torch_dtype(cfg.dtype)
+    return {n: dequantize(t, wdt) for n, t in zip(names, args)}
 
 
 def _take_cache(mode: str, leaves, args):
@@ -732,7 +775,7 @@ def _attn_body(cfg: ModelConfig, kind: BlockKind, lay: Layout, names, leaves,
         pos, *args = args
         rope_cs = rope_tables(pos[:, None], cfg.hd, cfg.rope_theta)
     cache, args = _take_cache(mode, leaves, args)
-    cfg, p, whole = _local_heads(cfg, lay, dict(zip(names, args)))
+    cfg, p, whole = _local_heads(cfg, lay, _weights(cfg, names, args))
     x, cache, aux = attn_block(cfg, kind, p, x, mode=mode, rope_cs=rope_cs,
                                cache=cache, pos=pos, causal=causal,
                                cross_x=cross_x, cache_len=cache_len,
@@ -748,7 +791,7 @@ def _rglru_body(cfg: ModelConfig, lay: Layout, names, leaves, mode: str,
     with this rank's state leaves h, conv (decode: first, written in
     place)."""
     cache, args = _take_cache(mode, leaves, args)
-    x, cache, _ = rglru_block(cfg, dict(zip(names, args)), x, mode=mode,
+    x, cache, _ = rglru_block(cfg, _weights(cfg, names, args), x, mode=mode,
                               cache=cache, impl=impl, lay=lay)
     return _body_out(mode, x, cache, leaves)
 
@@ -761,7 +804,7 @@ def _xlstm_body(cfg: ModelConfig, kind: BlockKind, names, leaves, mode: str,
     sLSTM steps its tokens here, on local tensors."""
     cache, args = _take_cache(mode, leaves, args)
     block = mlstm_block if kind == BlockKind.MLSTM else slstm_block
-    x, cache = block(cfg, dict(zip(names, args)), x, mode=mode, cache=cache)
+    x, cache = block(cfg, _weights(cfg, names, args), x, mode=mode, cache=cache)
     return _body_out(mode, x, cache, leaves)
 
 
@@ -921,11 +964,9 @@ def sharded_block(cfg: ModelConfig, kind: BlockKind, plan, params, x, *,
     leaves = () if mode == "train" else cache_leaves(cfg, kind)
     lay = None
     if kind in XLSTM_KINDS:
-        tp, partial = {}, ()
         body = functools.partial(_xlstm_body, cfg, kind, names, leaves, mode)
     else:
         lay = layout(cfg, params, plan, B, S)
-        tp, partial = lay.tp_dims, lay.partial_on_model
         if kind == BlockKind.RGLRU:
             body = functools.partial(_rglru_body, cfg, lay, names, leaves, mode,
                                      impl)
@@ -945,11 +986,12 @@ def sharded_block(cfg: ModelConfig, kind: BlockKind, plan, params, x, *,
             lead, lead_pl = lead + (pos,), lead_pl + (act,)
         lead += tuple(cache[n] for n in leaves)
         lead_pl += tuple(cache_pl[n] for n in leaves)
-    weights_pl = tuple(plan.compute(tp.get(n)) for n in names)
+    pls = [lay.placements(plan, n) if lay is not None else
+           (plan.compute(None), plan.grad(None)) for n in names]
+    weights_pl = tuple(c for c, _ in pls)
     if mode == "train":
         out_pl = (act, plan.replicated())
-        grad_pl = (act,) + lead_pl + tuple(plan.grad(tp.get(n), n in partial)
-                                           for n in names)
+        grad_pl = (act,) + lead_pl + tuple(g for _, g in pls)
     else:
         out_pl, grad_pl = (act,) + tuple(cache_pl[n] for n in leaves), None
     fn = local_map(body, out_placements=out_pl,

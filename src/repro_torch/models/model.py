@@ -61,9 +61,19 @@ where ``model`` divides it, else over their KV heads, else whole; the
 cross K/V over their KV heads or whole; recurrent state over the batch),
 built a layer at a time by prefill and written in place by decode; the
 logits come back as a DTensor (B, 1, V) sharded over the batch's axes and
-the vocab's. Under a mesh, ``chunk`` mode, paged pools and the engine's
-row masks, and int8 weights or caches raise ``NotImplementedError``
-(``_check_sharded``).
+the vocab's. Integer (int8) weights are served under a mesh too: the
+leaves keep their placements and move as int8, and each ``local_map``
+body dequantizes its local shards; so are int8 K/V caches (every write
+saturates, ``layers.saturate_cast``), in each of the three placements.
+Under the no_tp rules (the batch on every axis) a MoE layer gathers a
+data shard's rows over ``model`` and takes the reference's Megatron or
+all-to-all branch (``blocks.layout``), and the embedding and the
+unembedding keep the vocab sliced over ``model`` the same way
+(``_vocab_rows``; the logits then hold a data shard's rows). Under a
+mesh, ``chunk`` mode,
+paged pools and the engine's row masks raise ``NotImplementedError``
+(``_check_sharded``), and training with int8 weights raises
+``TypeError``, as on one card.
 
 Public API (same names and arguments as the reference, plus ``device``):
   param_specs(cfg), init_model_params(cfg, seed, device), narrow_weights
@@ -456,17 +466,17 @@ def forward_with_aux(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
     if mode in ("chunk", "decode") and cache is None:
         raise ValueError(f"{mode} mode needs a cache")
-    ctx = sharding.active_mesh()
-    if ctx is not None:     # its refusals first (int8 weights among them)
-        return _sharded_forward(cfg, params, batch, ctx, mode=mode, impl=impl,
-                                remat=remat, remat_policy=remat_policy,
-                                cache=cache, pos=pos, cache_len=cache_len,
-                                block_tables=block_tables, mask=mask)
     if mode == "train" and any(not t.is_floating_point()
                                for _, t in iter_leaves(params)):
         raise TypeError(
             "train mode takes floating weights: integer (narrowed) weights "
             "are served only, as jax.grad cannot differentiate them either")
+    ctx = sharding.active_mesh()
+    if ctx is not None:     # its refusals first
+        return _sharded_forward(cfg, params, batch, ctx, mode=mode, impl=impl,
+                                remat=remat, remat_policy=remat_policy,
+                                cache=cache, pos=pos, cache_len=cache_len,
+                                block_tables=block_tables, mask=mask)
     wdt = torch_dtype(cfg.dtype)
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens, cfg.d_model, wdt)
@@ -531,15 +541,16 @@ def forward_with_aux(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
 
 
 # ----------------------------------------------------------------------
-# Under a mesh of more than one rank (``sharding.axis_rules``): the train
-# mode of the attention families, each piece one local_map body
+# Under a mesh of more than one rank (``sharding.axis_rules``): training,
+# prefill and decode of every family, int8 weights and caches in serving,
+# each piece one local_map body
 # ----------------------------------------------------------------------
-def _check_sharded(cfg: ModelConfig, mode: str, params=None, cache=None,
-                   block_tables=None, mask=None) -> None:
+def _check_sharded(mode: str, block_tables=None, mask=None) -> None:
     """Raise for what the sharded path does not run, never running it
     unsharded in silence: ``chunk`` mode and the engine's paged pools and
-    row masks (the reference serves those on one device too); integer
-    (int8) weights or caches."""
+    row masks (the reference serves those on one device too). Training
+    with integer (int8) weights raises ``TypeError`` before, as on one
+    card; int8 weights and caches are served."""
     if mode == "chunk" or block_tables is not None or mask is not None:
         what = ("chunk mode" if mode == "chunk" else
                 "a paged pool (block_tables)" if block_tables is not None else
@@ -548,15 +559,6 @@ def _check_sharded(cfg: ModelConfig, mode: str, params=None, cache=None,
             f"{what} under a mesh of more than one rank: the engine's chunked "
             "prefill and paged pools serve on one rank, as the reference's "
             "(ROADMAP Queue 1 H)")
-    what = ("int8 weights" if params is not None and any(
-        not t.is_floating_point() for _, t in iter_leaves(params)) else
-            "an int8 cache" if cache is not None and any(
-                not t.is_floating_point() for _, t in iter_leaves(cache))
-            else None)
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} under a mesh of more than one rank is not "
-            "ported (ROADMAP Queue 1 H, what remains)")
 
 
 def _as_dtensors(params, mesh):
@@ -578,39 +580,77 @@ def shard_input(t, plan: "sharding.Plan"):
 
 
 def _vocab_tp(cfg: ModelConfig, plan) -> Tuple[str, ...]:
+    """The axis that slices the vocab: ``model`` where it divides the
+    padded vocab, also where it carries the batch (the no_tp rules keep
+    the vocab's tensor parallelism: the embedding and the unembedding then
+    gather a data shard's rows over ``model``, ``_vocab_rows``)."""
     sizes = sharding.mesh_axis_sizes(plan.mesh)
-    if plan.model and cfg.padded_vocab % sizes[plan.model] == 0:
-        return (plan.model,)
+    axis = plan.model or ("model" if "model" in plan.batch else None)
+    if axis and cfg.padded_vocab % sizes[axis] == 0:
+        return (axis,)
     return ()
 
 
-def _embed_body(cfg: ModelConfig, mesh, vtp, tokens, tok, patches=None):
+def _vocab_rows(plan, vtp) -> bool:
+    """Whether the vocab's axis also shards the batch (the no_tp rules):
+    its ranks then gather their rows over it around the embedding and
+    the unembedding."""
+    return bool(vtp) and vtp[0] in plan.batch
+
+
+def _vocab_placements(plan, vtp, dim: Optional[int]):
+    """(compute, gradient) placements of the embedding table or the head:
+    dim ``dim`` sliced over the vocab's axis (None: replicated); where that
+    axis carries the batch, the gradient partial over the data axes alone
+    (each vocab shard sees its data shard's gathered rows)."""
+    if not _vocab_rows(plan, vtp):
+        return plan.compute(dim), plan.grad(dim)
+    data = tuple(a for a in plan.batch if a not in vtp)
+    return (plan.compute(dim, model=vtp[0]),
+            plan.grad(dim, model=vtp[0], batch=data))
+
+
+def _embed_body(cfg: ModelConfig, mesh, vtp, rows: bool, tokens, tok,
+                patches=None):
     """The embedding on local tensors: with the vocab sliced over ``vtp``,
-    the rows of this rank's shard (zero for a token outside it) summed
-    over it, times sqrt(d); else ``layers.embed``. A VLM's ``patches``
+    the rows of this rank's shard (zero for a token outside it; an int8
+    table's rows dequantized before the sum) summed over it, times
+    sqrt(d); else ``layers.embed``. ``rows``: the batch is sharded over
+    ``vtp`` too, so the tokens of the data shard are gathered over it
+    first and this rank keeps its own rows of the sum. A VLM's ``patches``
     (B_loc, P, d) go before the tokens."""
+    wdt = torch_dtype(cfg.dtype)
     if not vtp:
-        out = embed({"tok": tok}, tokens, cfg.d_model)
+        out = embed({"tok": tok}, tokens, cfg.d_model, wdt)
     else:
+        if rows:
+            tokens = sharding.all_gather(tokens, mesh, vtp[0], dim=0)
         V = tok.shape[0]
         local = tokens.long() - sharding.axis_index(mesh, vtp[0]) * V
         inside = (local >= 0) & (local < V)
-        rows = torch.where(inside[..., None], tok[local.clamp(0, V - 1)],
-                           torch.zeros((), dtype=tok.dtype, device=tok.device))
-        out = sharding.reduce_from(rows, mesh, vtp)
+        picked = dequantize(tok[local.clamp(0, V - 1)], wdt)
+        summed = torch.where(inside[..., None], picked,
+                             torch.zeros((), dtype=picked.dtype, device=tok.device))
+        out = sharding.reduce_from(summed, mesh, vtp)
         out = out * float(torch.tensor(cfg.d_model ** 0.5, dtype=out.dtype))
+        if rows:
+            out = sharding.split(out, mesh, vtp[0], dim=0)
     if patches is None:
         return out
     return torch.cat([patches.to(out.dtype), out], dim=1)
 
 
-def _unembed_body(cfg: ModelConfig, mesh, vtp, last: bool, skip: int, x,
-                  final_ln, w):
+def _unembed_body(cfg: ModelConfig, mesh, vtp, rows: bool, last: bool,
+                  skip: int, x, final_ln, w):
     """The final norm and this rank's vocab shard of the float32 logits of
     the positions after the first ``skip`` (a VLM's patch prefix; with
-    ``last``, of the last position only)."""
+    ``last``, of the last position only); ``rows``: of the data shard's
+    rows, gathered over ``vtp`` (which also shards the batch)."""
     x = rms_norm(x, final_ln)[:, skip:]
-    x = sharding.copy_to(x[:, -1:] if last else x, mesh, vtp)
+    x = x[:, -1:] if last else x
+    if rows:
+        x = sharding.all_gather(x, mesh, vtp[0], dim=0)
+    x = sharding.copy_to(x, mesh, vtp)
     return unembed({"tok" if cfg.tie_embeddings else "head": w}, x,
                    cfg.tie_embeddings)
 
@@ -647,13 +687,15 @@ def _sharded_embed(cfg: ModelConfig, params, batch, plan, vtp, mode: str):
     extra = ()
     if cfg.family == Family.VLM and mode != "decode" and "patches" in batch:
         extra = (shard_input(batch["patches"], plan),)
+    table_pl, table_grad = _vocab_placements(plan, vtp, 0 if vtp else None)
     embed_fn = local_map(
-        functools.partial(_embed_body, cfg, plan.mesh, vtp), out_placements=act,
-        in_placements=(act, plan.compute(0 if vtp else None)) + (act,) * len(extra),
-        in_grad_placements=(act, plan.grad(0 if vtp else None)) + (act,) * len(extra),
+        functools.partial(_embed_body, cfg, plan.mesh, vtp, _vocab_rows(plan, vtp)),
+        out_placements=act,
+        in_placements=(act, table_pl) + (act,) * len(extra),
+        in_grad_placements=(act, table_grad) + (act,) * len(extra),
         device_mesh=plan.mesh)
     x = embed_fn(shard_input(batch["tokens"], plan), sharding.to_placements(
-        params["embed"]["tok"], plan.compute(0 if vtp else None)), *extra)
+        params["embed"]["tok"], table_pl), *extra)
     n_patches = extra[0].shape[1] if extra else 0
     return constrain(x, "batch", "seq", "embed"), n_patches
 
@@ -664,26 +706,29 @@ def _sharded_unembed(cfg: ModelConfig, params, x, plan, vtp, last: bool = False,
     ``last``, of the last position only, as the reference's serving modes;
     the first ``skip`` positions, a patch prefix, stripped on the local
     rows): logits (B, S or 1, V) sharded over the batch's axes and the
-    vocab's, constrained as the reference's last site."""
+    vocab's (where the vocab's axis shards the batch too, the batch over
+    the others: its ranks hold the data shard's rows), constrained as the
+    reference's last site."""
     from torch.distributed.tensor import Shard
     from torch.distributed.tensor.experimental import local_map
     mesh, act = plan.mesh, plan.activation()
     vocab_dim = 0 if cfg.tie_embeddings else 1
     table = params["embed"]["tok" if cfg.tie_embeddings else "head"]
+    table_pl, table_grad = _vocab_placements(plan, vtp, vocab_dim if vtp else None)
     logits_pl = [Shard(2) if a in vtp else pl
                  for a, pl in zip(mesh.mesh_dim_names, act)]
     unembed_fn = local_map(
-        functools.partial(_unembed_body, cfg, mesh, vtp, last, skip),
+        functools.partial(_unembed_body, cfg, mesh, vtp, _vocab_rows(plan, vtp), last,
+                          skip),
         out_placements=logits_pl,
-        in_placements=(act, plan.compute(None),
-                       plan.compute(vocab_dim if vtp else None)),
-        in_grad_placements=(act, plan.grad(None),
-                            plan.grad(vocab_dim if vtp else None)),
+        in_placements=(act, plan.compute(None), table_pl),
+        in_grad_placements=(act, plan.grad(None), table_grad),
         device_mesh=mesh)
     logits = unembed_fn(x, sharding.to_placements(params["final_ln"],
                                                   plan.compute(None)),
-                        sharding.to_placements(table, plan.compute(
-                            vocab_dim if vtp else None)))
+                        sharding.to_placements(table, table_pl))
+    if _vocab_rows(plan, vtp):      # the rules' batch spans the vocab's axis
+        return logits
     return constrain(logits, "batch", "seq", "vocab")
 
 
@@ -745,7 +790,7 @@ def _sharded_forward(cfg: ModelConfig, params, batch, ctx, *, mode: str,
     (``blocks.sharded_block``) and the final norm with the unembedding run
     as ``local_map`` bodies; the reference's four ``constrain`` sites
     stand where its forward has them."""
-    _check_sharded(cfg, mode, params, cache, block_tables, mask)
+    _check_sharded(mode, block_tables, mask)
     if mode != "train":
         with torch.no_grad():
             return _sharded_serve(cfg, params, batch, ctx, mode=mode,
@@ -865,17 +910,24 @@ def _sharded_serve(cfg: ModelConfig, params, batch, ctx, *, mode: str, cache,
 
 def sharded_cross_entropy(logits, labels, plan) -> torch.Tensor:
     """``cross_entropy`` of DTensor logits from ``_sharded_forward``: a
-    plain 0-d float32 tensor, the same on every rank."""
+    plain 0-d float32 tensor, the same on every rank. The labels take the
+    logits' rows (the batch's axes, or under the no_tp rules the data
+    axes: the vocab's axis holds the data shard's rows)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
     from torch.distributed.tensor.experimental import local_map
-    vtp = tuple(a for a, pl in zip(plan.mesh.mesh_dim_names, logits.placements)
-                if pl.is_shard(2))
+    names = plan.mesh.mesh_dim_names
+    vtp = tuple(a for a, pl in zip(names, logits.placements) if pl.is_shard(2))
+    rows = tuple(a for a, pl in zip(names, logits.placements) if pl.is_shard(0))
+    label_pl = [Shard(0) if a in rows else Replicate() for a in names]
+    labels = sharding.to_placements(labels, label_pl) if isinstance(labels, DTensor) \
+        else distribute_tensor(labels, plan.mesh, label_pl, src_data_rank=None)
     fn = local_map(
-        functools.partial(_cross_entropy_body, plan.mesh, vtp, plan.batch),
+        functools.partial(_cross_entropy_body, plan.mesh, vtp, rows),
         out_placements=plan.replicated(),
-        in_placements=(list(logits.placements), plan.activation()),
-        in_grad_placements=(list(logits.placements), plan.activation()),
+        in_placements=(list(logits.placements), label_pl),
+        in_grad_placements=(list(logits.placements), label_pl),
         device_mesh=plan.mesh)
-    return fn(logits, shard_input(labels, plan)).to_local()
+    return fn(logits, labels).to_local()
 
 
 def prefill(cfg: ModelConfig, params, batch, *, cache_len=None, impl=None):

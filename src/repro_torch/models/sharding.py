@@ -40,7 +40,10 @@ The design, the counterpart of GSPMD plus ``shard_map``:
   over ``model`` backward, before a column-parallel product; a sum forward,
   identity backward, after a row-parallel one: the reference's ``psum``),
   ``pmean`` the reference's ``pmean``, ``all_to_all`` and ``all_gather``
-  theirs. A replicated value inside a body carries its whole gradient on
+  theirs, and ``split`` (this rank's block, the gradient all-gathered)
+  gives back what ``all_gather`` gathered: under the no_tp rules a MoE
+  layer, the embedding and the unembedding gather a data shard's rows over
+  ``model`` and keep their own rows of the result. A replicated value inside a body carries its whole gradient on
   every rank, so a body's loss is the same scalar on every rank and each
   rank differentiates it once.
 
@@ -48,7 +51,10 @@ Gathers go through c10d, on every backend: ``to_placements`` (the
 stored parameters to a body's placements) and ``gather_full`` gather a
 shard with ``all_gather_into_tensor`` under an autograd Function of their
 own, whose backward is DTensor's redistribute of the gradient (a
-reduce-scatter or an all-reduce). DTensor's own Shard -> Replicate runs
+reduce-scatter or an all-reduce); a mesh dim that moves from one sharded
+tensor dim to another (an FSDP-stored expert leaf to its ``model`` slice
+under the no_tp rules) moves by one c10d all-to-all of bytes
+(``_Reshard``), so no rank holds the whole leaf. DTensor's own Shard -> Replicate runs
 the functional all-gather (``_c10d_functional.all_gather_into_tensor``),
 which ends the process with SIGSEGV on CUDA tensors under gloo in the
 card's PyTorch (2.11), where c10d's all-gather, all-reduce, reduce-scatter
@@ -334,9 +340,11 @@ def distribute_cache(cache, cfg, rules: Dict[str, AxisRule], mesh):
 
 
 def init_sharded_cache(cfg, B: int, L: int, mesh,
-                       rules: Dict[str, AxisRule], device=None):
-    """The zero decode cache of ``model.init_cache(cfg, B, L)`` as
-    DTensors, each rank allocating only its shards."""
+                       rules: Dict[str, AxisRule], device=None,
+                       kv_dtype: Optional[str] = None):
+    """The zero decode cache of ``model.init_cache(cfg, B, L, kv_dtype=)``
+    as DTensors, each rank allocating only its shards (an int8 cache's
+    attention K/V in int8)."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
     from repro_torch.device import resolve_device, torch_dtype
@@ -350,7 +358,7 @@ def init_sharded_cache(cfg, B: int, L: int, mesh,
                         device=dev)
         return DTensor.from_local(t, mesh, pl, run_check=False, shape=s.shape,
                                   stride=torch.empty(s.shape, device="meta").stride())
-    return map_tree(leaf, cache_specs(cfg, B, L))
+    return map_tree(leaf, cache_specs(cfg, B, L, kv_dtype))
 
 
 class _Gather(torch.autograd.Function):
@@ -378,13 +386,72 @@ class _Gather(torch.autograd.Function):
         return g.redistribute(mesh, pls), None
 
 
+def _move_shard(local: torch.Tensor, a: int, b: int, group) -> torch.Tensor:
+    """A local shard split along dim ``a`` over ``group`` re-split along dim
+    ``b``: block j of dim ``b`` goes to rank j, and the blocks received are
+    concatenated along ``a`` in rank order (one c10d all-to-all of the
+    blocks' bytes: no value is converted, an int8 or bf16 leaf moves at its
+    own width)."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    send = torch.stack(local.chunk(n, dim=b))
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv.view(torch.uint8), send.view(torch.uint8), group=group)
+    return torch.cat(recv.unbind(0), dim=a)
+
+
+class _Reshard(torch.autograd.Function):
+    """A DTensor whose mesh dim ``i`` shards tensor dim ``a`` (the
+    innermost split of it) re-sharded along tensor dim ``b`` by one c10d
+    all-to-all over that mesh dim; the gradient moves back the same way.
+    What the no_tp rules' FSDP-stored expert leaves (``embed`` over every
+    axis) need to reach their compute slices over ``model`` without any
+    rank holding a whole leaf."""
+
+    @staticmethod
+    def forward(ctx, x, i, b):
+        from torch.distributed.tensor import DTensor, Shard
+        mesh, pls = x.device_mesh, list(x.placements)
+        a = pls[i].dim
+        ctx.move = (mesh, i, a, b)
+        local = _move_shard(x._local_tensor, a, b, mesh.get_group(i))
+        pls[i] = Shard(b)
+        return DTensor.from_local(local, mesh, pls, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Shard
+        mesh, i, a, b = ctx.move
+        pls = list(g.placements)
+        local = _move_shard(g._local_tensor, b, a, mesh.get_group(i))
+        pls[i] = Shard(a)
+        return DTensor.from_local(local, mesh, pls, run_check=False,
+                                  shape=g.shape, stride=g.stride()), None, None
+
+
+def _reshardable(pls, i: int, b) -> bool:
+    """Whether mesh dim ``i`` can move from its Shard to ``b`` with
+    ``_Reshard``: another tensor dim, the innermost split of its own, and
+    no mesh dim already splitting ``b``'s."""
+    a = pls[i]
+    return (a.is_shard() and b.is_shard() and a.dim != b.dim
+            and not any(p.is_shard(a.dim) for p in pls[i + 1:])
+            and not any(p.is_shard(b.dim) for p in pls))
+
+
 def to_placements(x, target):
-    """DTensor ``x`` in placements ``target``: gathers through c10d
-    (``_Gather``), then DTensor's redistribute for what needs no gather (a
-    local chunk), so no functional all-gather runs."""
+    """DTensor ``x`` in placements ``target``: a mesh dim that moves from
+    one sharded tensor dim to another by an all-to-all (``_Reshard``),
+    then gathers through c10d (``_Gather``), then DTensor's redistribute
+    for what needs no gather (a local chunk), so no functional all-gather
+    runs."""
     target = tuple(target)
     if tuple(x.placements) == target:
         return x
+    for i, b in enumerate(target):
+        if _reshardable(list(x.placements), i, b):
+            x = _Reshard.apply(x, i, b.dim)
     dims = tuple(i for i, (a, b) in enumerate(zip(x.placements, target))
                  if a.is_shard() and not (b.is_shard() and b.dim == a.dim))
     if dims:
@@ -434,22 +501,32 @@ class Plan:
         from torch.distributed.tensor import Replicate
         return [Replicate() for _ in self.mesh.mesh_dim_names]
 
-    def compute(self, tp_dim: Optional[int]) -> list:
+    def compute(self, tp_dim: Optional[int], model: Optional[str] = None) -> list:
         """A weight's compute placements: dim ``tp_dim`` sliced over
-        ``model`` (None: replicated), replicated over every other axis."""
+        ``model`` (default ``self.model``; None: replicated), replicated
+        over every other axis."""
         from torch.distributed.tensor import Replicate, Shard
-        return [Shard(tp_dim) if a == self.model and tp_dim is not None
+        model = model or self.model
+        return [Shard(tp_dim) if a == model and tp_dim is not None
                 else Replicate() for a in self.mesh.mesh_dim_names]
 
-    def grad(self, tp_dim: Optional[int], partial_on_model: bool = False) -> list:
+    def grad(self, tp_dim: Optional[int], partial_on_model: bool = False,
+             model: Optional[str] = None,
+             batch: Optional[Tuple[str, ...]] = None) -> list:
         """The placements of a weight's gradient as a body leaves it: a
-        partial sum over the axes that shard the batch (and over ``model``
-        where ranks use a replicated weight on different data),
-        otherwise as ``compute``."""
+        partial sum over the axes whose ranks see different rows (default
+        ``self.batch``; and over ``model`` where ranks use a replicated
+        weight on different data), otherwise as ``compute``. ``model`` and
+        ``batch`` name the axes of a layer that gathers its rows over the
+        model axis first (a MoE layer under the no_tp rules): its expert
+        slices' gradients come from the data shard's gathered rows, partial
+        over the data axes alone."""
         from torch.distributed.tensor import Partial
-        out = self.compute(tp_dim)
+        model = model or self.model
+        batch = self.batch if batch is None else batch
+        out = self.compute(tp_dim, model)
         for i, a in enumerate(self.mesh.mesh_dim_names):
-            if a in self.batch or (a == self.model and partial_on_model):
+            if a in batch or (a == model and partial_on_model):
                 out[i] = Partial()
         return out
 
@@ -545,6 +622,25 @@ class _AllGather(torch.autograd.Function):
         return grad.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None
 
 
+class _Split(torch.autograd.Function):
+    """This rank's block of ``x`` along ``dim``; the gradient all-gathered
+    (the conjugate of ``_AllGather``: a value every rank holds whole,
+    narrowed to each rank's part, gives back a whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        import torch.distributed as dist
+        ctx.dim, ctx.group = dim, group
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        size = x.shape[dim] // n
+        return x.narrow(dim, r * size, size).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        parts = _all_gather0(grad, ctx.group)
+        return torch.cat(parts.unbind(0), dim=ctx.dim), None, None
+
+
 def _groups(mesh, axes: Sequence[str]):
     return tuple(mesh.get_group(a) for a in axes)
 
@@ -623,6 +719,13 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     """Every rank's x concatenated along ``dim`` in rank order
     (``lax.all_gather(..., tiled=True)``)."""
     return _AllGather.apply(x, dim, mesh.get_group(axis))
+
+
+def split(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` (the same on every rank of ``axis``)
+    along ``dim``, in rank order: what ``all_gather`` gathered, given back;
+    the gradient is all-gathered over ``axis``."""
+    return _Split.apply(x, dim, mesh.get_group(axis))
 
 
 def all_reduce_max(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:

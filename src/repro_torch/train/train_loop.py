@@ -12,7 +12,8 @@ returns (jit_fn, param_shardings, opt_shardings, rules): the step is not
 compiled, and ``shardings_for`` / ``opt_shardings`` give the placements.
 
 Under a mesh of more than one rank (``launch.mesh.make_mesh``) the step
-runs inside ``axis_rules(mesh, rules_for("train"))`` on the
+runs inside ``axis_rules(mesh, rules_for("train"))`` (or the ``rules``
+given, e.g. the no_tp rules, whose batch spans every axis) on the
 DTensor trees that ``init_sharded`` (or ``sharding.distribute_params``)
 made: ``loss_fn`` runs the sharded forward (``models.sharding``), each
 gradient comes back in its parameter's placements, and AdamW updates the
@@ -145,15 +146,17 @@ def batch_shardings(batch_specs, mesh, rules) -> Dict[str, Any]:
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None, *,
                     impl: Optional[str] = None, remat: bool = True,
-                    device: DeviceLike = None):
+                    device: DeviceLike = None, rules=None):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
     on ``device`` (default: the card), batches moved there (numpy arrays
     are taken), the update written in place into ``params`` and the
     state's ``m`` and ``v``. With a ``mesh`` of more than one rank the step
-    runs under its train rules, which shard the weights over the data axes
-    always (FSDP; see the module docstring)."""
+    runs under ``rules`` (default ``rules_for("train")``, which shards the
+    weights over the data axes always: FSDP; ``rules_for("train",
+    no_tp=True)`` puts the batch on every axis; see the module
+    docstring)."""
     dev = resolve_device(device)
-    rules = S.rules_for("train")
+    rules = rules or S.rules_for("train")
 
     def step(params, opt_state, batch):
         ctx = S.axis_rules(mesh, rules) if mesh is not None and \

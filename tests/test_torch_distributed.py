@@ -220,6 +220,7 @@ def inputs(tmp_path_factory):
     for name in ("kv", "granite"):
         out[name]["tokens"] = _tokens(512, (8, 16), 1)
         out[name]["labels"] = _tokens(512, (8, 16), 2)
+    out["notp_tokens"] = _tokens(512, (4, 16), 6)
     out["train_granite"] = _batches(512, 3, 8, 16, 3)
     out["train_llama4"] = _batches(512, 3, 4, 16, 4)
     out["train_grok"] = _batches(512, 3, 4, 16, 5)
@@ -281,8 +282,8 @@ def world_2x2(inputs, tmp_path_factory):
               remat=False),
         _task("g_dots", "train", GRANITE, seed=0, opt=OPT, batches=g,
               remat_policy="dots"),
-        _task("refusals", "refusals", GRANITE,
-              family_arch="llama4-scout-17b-a16e", family_rules=dict(no_tp=True)),
+        _task("refusals", "refusals", GRANITE, family_arch=LLAMA4[0],
+              family_rules=dict(no_tp=True), family_tokens=inputs["notp_tokens"]),
     ]
     return _world(tmp_path_factory.mktemp("w"), "2x2", (2, 2), tasks)
 
@@ -584,13 +585,25 @@ def test_remat_and_dots_give_the_same_sharded_step(inputs, world_2x2):
             assert np.array_equal(a, b), (other, p)
 
 
+def test_no_tp_moe_forward_matches_single_device(inputs, world_2x2):
+    """llama4-scout .reduced() (Megatron MoE, 4 experts top-1) on (2, 2)
+    under ``rules_for("train", no_tp=True)``: the batch spans the model
+    axis, so the MoE layer gathers its data shard's rows over ``model``
+    first (``blocks.layout``'s ``gather``); the logits against the JAX
+    package's one-device forward of the same weights."""
+    cfg = tget_config(LLAMA4[0]).reduced()
+    params = bridge.to_numpy(TM.init_model_params(cfg, 0, "cpu"))
+    want = _jax_logits(get_config(LLAMA4[0]).reduced(),
+                       jax.tree.map(jnp.asarray, params), inputs["notp_tokens"])
+    err = float(np.abs(world_2x2["refusals"]["family"] - want).max())
+    print("llama4 (2, 2) no_tp max err", err)
+    assert err < TWIN_TOL, err
+
+
 def test_refusals_on_a_mesh(world_2x2):
-    """A configuration outside the sharded path (a MoE layer under the
-    no_tp rules, whose batch spans the model axis) raises
-    NotImplementedError under a mesh (never runs unsharded); a DTensor
-    handed to a kernel wrapper raises TypeError."""
+    """A DTensor handed to a kernel wrapper raises TypeError; a mesh that
+    needs more ranks than the world has raises ValueError."""
     r = world_2x2["refusals"]
-    assert r["family"] and "ROADMAP Queue 1 H" in r["family"], r
     for name, msg in r["kernels"].items():
         assert msg and "local tensors" in msg, (name, msg)
     assert r["mesh"] and "needs 8 ranks" in r["mesh"], r

@@ -25,7 +25,7 @@ placed as ``build_decode`` places them); the
 gathered caches after the last step within 1e-5 of the one-device
 reference's; every cache leaf's placements (after prefill and after the
 steps) equal to the reference's ``spec_for`` over ``cache_specs``;
-each refusal of ``_check_sharded`` in serving, one case each; and
+each refusal of the sharded path, one case each; and
 ``sharding.row_parallel``'s autograd Function, its product and gradient.
 """
 import json
@@ -332,20 +332,19 @@ def test_serve_fsdp_equals_reference(served):
     assert not ref["serve_fsdp"]["recurrentgemma-2b"]
 
 
-REFUSALS = ("chunk", "paged", "mask", "moe_notp_prefill", "moe_notp_train",
-            "int8_weights", "int8_weights_train", "int8_cache", "int8_rings")
+REFUSALS = ("chunk", "paged", "mask", "int8_weights_train")
 
 
 @pytest.mark.parametrize("case", REFUSALS)
 def test_serving_refusals_on_a_mesh(served, case):
-    """What the sharded path leaves out raises NotImplementedError naming
-    ROADMAP, never running unsharded in silence: chunk mode, a paged pool,
-    the engine's decode row mask, a MoE layer under the no_tp rules (the
-    batch on the model axis) in prefill and in training, int8 weights in
-    prefill and in training, an int8 cache (granite's global K/V,
-    recurrentgemma's rings)."""
+    """What the sharded path leaves out raises, never running unsharded in
+    silence: chunk mode, a paged pool and the engine's decode row mask
+    raise NotImplementedError naming ROADMAP; training with int8 weights
+    raises the one-card path's TypeError. (int8 weights and caches in
+    serving and MoE under the no_tp rules run: test_torch_sharded_quant.py.)"""
     msg = served["worlds"]["refusals"][case]
-    assert msg and "ROADMAP Queue 1 H" in msg, (case, msg)
+    want = "floating weights" if case == "int8_weights_train" else "ROADMAP Queue 1 H"
+    assert msg and want in msg, (case, msg)
 
 
 def test_cache_placements_follow_cache_pspecs():

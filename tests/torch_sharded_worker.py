@@ -146,21 +146,19 @@ def _train_steps(task, cfg, mesh):
 
 
 def _refusals(task, cfg, mesh):
-    """The NotImplementedError of a configuration outside the sharded path
-    (``family_arch`` under ``rules_for("train", **family_rules)``), and
-    the TypeError of a DTensor handed to a kernel wrapper."""
+    """The whole-sequence forward of ``family_arch`` (from
+    ``init_model_params(cfg, 0)``) under ``rules_for("train",
+    **family_rules)`` on ``family_tokens``, its logits gathered; and the
+    TypeError of a DTensor handed to a kernel wrapper."""
     from torch.distributed.tensor import Replicate, distribute_tensor
     from repro_torch.kernels import ops
-    rg = cfg_of(task["family_arch"], {})
-    params = M.init_model_params(rg, 0, "cpu")
-    tokens = torch.zeros((4, 8), dtype=torch.long)
+    fam = cfg_of(task["family_arch"], {})
+    params = M.init_model_params(fam, 0, "cpu")
+    tokens = torch.from_numpy(np.asarray(task["family_tokens"]))
     out = {}
     with S.axis_rules(mesh, S.rules_for("train", **task.get("family_rules", {}))):
-        try:
-            M.forward_with_aux(rg, params, {"tokens": tokens}, mode="train")
-            out["family"] = None
-        except NotImplementedError as e:
-            out["family"] = str(e)
+        logits, _, _ = M.forward_with_aux(fam, params, {"tokens": tokens}, mode="train")
+        out["family"] = _np(S.gather_full(logits))
     q = distribute_tensor(torch.randn(1, 8, 2, 64), mesh,
                           [Replicate()] * mesh.ndim)
     x = distribute_tensor(torch.randn(8, 64), mesh, [Replicate()] * mesh.ndim)
@@ -198,16 +196,41 @@ def spec_of(t, mesh) -> tuple:
     return tuple(out)
 
 
+def narrow_kv(tree, dtype=torch.int8):
+    """A cache tree with its attention ``k``, ``v`` leaves narrowed to
+    ``dtype`` through ``layers.saturate_cast`` (a DTensor leaf's local
+    shard, its placements kept), as the reference's ``astype`` narrows a
+    prefill's cache for an int8 decode."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.layers import saturate_cast
+    from repro_torch.models.param import map_tree
+
+    def narrow(path, t):
+        if path.split("/")[-1] not in ("k", "v"):
+            return t
+        if isinstance(t, DTensor):
+            return DTensor.from_local(saturate_cast(t.to_local(), dtype), t.device_mesh,
+                                      t.placements, run_check=False, shape=t.shape,
+                                      stride=t.stride())
+        return saturate_cast(t, dtype)
+    return map_tree(narrow, tree)
+
+
 def _serve(task, cfg, mesh):
     """``prefill`` then ``decode_step`` of each of ``task["steps"]`` under
-    the serve rules (weights placed by ``distribute_params``; the first
-    step takes the prefill's cache gathered whole, a plain tree the step
-    places itself, ``distribute_cache``): every step's logits gathered,
-    the last cache gathered, and each cache leaf's placements as a spec
-    tuple. A whisper task's ``frames`` and a llava task's ``patches`` join
-    the prefill's batch; the decode positions start after the patches."""
+    the serve rules (weights placed by ``distribute_params``, int8 where
+    the file holds int8; the first step takes the prefill's cache gathered
+    whole, a plain tree the step places itself, ``distribute_cache``):
+    every step's logits gathered, the last cache gathered, and each cache
+    leaf's placements as a spec tuple. A whisper task's ``frames`` and a
+    llava task's ``patches`` join the prefill's batch; the decode
+    positions start after the patches. ``no_tp`` serves under the no_tp
+    rules; ``kv_dtype`` narrows the prefill's K/V (``narrow_kv``) before
+    the decode steps."""
     B.MOE_A2A_CAPACITY_FACTOR = task.get("capacity", 1.25)
-    rules = S.rules_for("serve", fsdp=task["fsdp"], moe_a2a=task.get("a2a", False))
+    rules = S.rules_for("serve", fsdp=task["fsdp"], moe_a2a=task.get("a2a", False),
+                        no_tp=task.get("no_tp", False))
+    kv_dtype = task.get("kv_dtype")
     params = S.distribute_params(load_tree(task["weights"]), M.param_specs(cfg),
                                  rules, mesh)
     tokens = torch.from_numpy(np.asarray(task["tokens"]))
@@ -220,6 +243,8 @@ def _serve(task, cfg, mesh):
         outs = [_np(S.gather_full(logits))]
         specs = {p: spec_of(t, mesh) for p, t in iter_leaves(cache)}
         cache = S.full_tree(cache)
+        if kv_dtype:
+            cache = narrow_kv(cache)
         pos = torch.full((Bsz,), start, dtype=torch.int32)
         for tok in task["steps"]:
             logits, cache = M.decode_step(cfg, params, cache,
@@ -227,13 +252,15 @@ def _serve(task, cfg, mesh):
             outs.append(_np(S.gather_full(logits)))
             pos = pos + 1
     # the zero cache drawn sharded, and a whole one distributed, placed alike
-    zero = S.init_sharded_cache(cfg, Bsz, task["cache_len"], mesh, rules, "cpu")
-    whole = S.distribute_cache(M.init_cache(cfg, Bsz, task["cache_len"], "cpu"), cfg,
-                               rules, mesh)
+    zero = S.init_sharded_cache(cfg, Bsz, task["cache_len"], mesh, rules, "cpu",
+                                kv_dtype=kv_dtype)
+    whole = S.distribute_cache(M.init_cache(cfg, Bsz, task["cache_len"], "cpu",
+                                            kv_dtype=kv_dtype), cfg, rules, mesh)
     placed = all(spec_of(z, mesh) == specs[p] and spec_of(w, mesh) == specs[p]
                  and z.to_local().shape == w.to_local().shape
-                 and not z.to_local().any() for (p, z), (_, w) in
-                 zip(iter_leaves(zero), iter_leaves(whole)))
+                 and z.dtype == w.dtype == c.dtype and not z.to_local().any()
+                 for (p, z), (_, w), (_, c) in
+                 zip(iter_leaves(zero), iter_leaves(whole), iter_leaves(cache)))
     return {"logits": np.stack(outs), "specs": specs, "zero_placed": placed,
             "decode_specs": {p: spec_of(t, mesh) for p, t in iter_leaves(cache)},
             "cache": dict(iter_leaves(_gathered(cache)))}
@@ -241,19 +268,14 @@ def _serve(task, cfg, mesh):
 
 def _serve_refusals(task, cfg, mesh):
     """Each refusal of the sharded path, one case each, under its rules:
-    {case: the NotImplementedError's message, or None where none was
-    raised}."""
+    {case: the NotImplementedError's (or, for training with int8 weights,
+    the TypeError's) message, or None where none was raised}."""
     serve = S.rules_for("serve", fsdp=False)
     tokens = torch.zeros((4, 8), dtype=torch.long)
     pos = torch.full((4,), 8, dtype=torch.int32)
     gr = cfg_of("granite-3-2b", {})
     gp = M.init_model_params(gr, 0, "cpu")
     cache = M.init_cache(gr, 4, 16, "cpu")
-    grok = cfg_of("grok-1-314b", {})
-    rg = cfg_of("recurrentgemma-2b", {})
-    # no_tp rules shard the batch over model too: 8 rows span the 8 ranks
-    wide = {"tokens": torch.zeros((8, 8), dtype=torch.long),
-            "labels": torch.zeros((8, 8), dtype=torch.long)}
     cases = {
         "chunk": (serve, lambda: M.prefill_chunk(gr, gp, cache, tokens, 0, None)),
         "paged": (serve, lambda: M.decode_step(
@@ -261,19 +283,8 @@ def _serve_refusals(task, cfg, mesh):
             block_tables=torch.zeros((4, 4), dtype=torch.int32))),
         "mask": (serve, lambda: M.decode_step(gr, gp, cache, tokens[:, :1], pos,
                                               mask=torch.ones(4, dtype=torch.bool))),
-        "moe_notp_prefill": (S.rules_for("serve", no_tp=True), lambda: M.prefill(
-            grok, M.init_model_params(grok, 0, "cpu"), wide)),
-        "moe_notp_train": (S.rules_for("train", no_tp=True), lambda: M.loss_fn(
-            grok, M.init_model_params(grok, 0, "cpu"), wide)),
-        "int8_weights": (serve, lambda: M.prefill(gr, M.narrow_weights(gp),
-                                                  {"tokens": tokens})),
         "int8_weights_train": (S.rules_for("train"), lambda: M.loss_fn(
             gr, M.narrow_weights(gp), {"tokens": tokens, "labels": tokens})),
-        "int8_cache": (serve, lambda: M.decode_step(
-            gr, gp, M.init_cache(gr, 4, 16, "cpu", kv_dtype="int8"), tokens[:, :1], pos)),
-        "int8_rings": (serve, lambda: M.decode_step(
-            rg, M.init_model_params(rg, 0, "cpu"),
-            M.init_cache(rg, 4, 16, "cpu", kv_dtype="int8"), tokens[:, :1], pos)),
     }
     out = {}
     for name, (rules, call) in cases.items():
@@ -281,13 +292,42 @@ def _serve_refusals(task, cfg, mesh):
             try:
                 call()
                 out[name] = None
-            except NotImplementedError as e:
+            except (NotImplementedError, TypeError) as e:
                 out[name] = str(e)
     return out
 
 
+def _train_rules(task, cfg, mesh):
+    """``make_train_step(..., rules=rules_for("train", **task["rules"]))``
+    (the no_tp rules: the batch on every axis) from the task's weights,
+    placed by those rules (``distribute_params``), each batch whole on
+    every rank:
+    the losses, the gathered parameters after the steps, the replicas'
+    largest difference and every leaf's compute placements of the first
+    MoE layer's body as spec tuples (``Layout.placements``)."""
+    ocfg = O.AdamWConfig(**task["opt"])
+    rules = S.rules_for("train", **task["rules"])
+    params = S.distribute_params(load_tree(task["weights"]), M.param_specs(cfg),
+                                 rules, mesh)
+    state = O.init_opt_state(ocfg, params)
+    step = make_train_step(cfg, ocfg, mesh, device="cpu", rules=rules)
+    losses = []
+    for b in task["batches"]:
+        params, state, metrics = step(params, state, b)
+        losses.append(float(metrics["loss"]))
+    Bsz, Sq = np.asarray(task["batches"][0]["tokens"]).shape
+    plan = S.make_plan(mesh, rules, Bsz)
+    lay = B.layout(cfg, params["blocks"]["p0"], plan, Bsz, Sq)
+    return {"losses": losses, "final": _gathered(params),
+            "replica_spread": replica_spread(params, mesh),
+            "gather": lay.gather, "moe": lay.moe,
+            "grad_placements": {n: [str(p) for p in lay.placements(plan, n)[1]]
+                                for n in B.MOE_LEAVES}}
+
+
 TASKS = {"forward": _forward, "loss": _forward, "train": _train,
-         "refusals": _refusals, "serve": _serve, "serve_refusals": _serve_refusals}
+         "refusals": _refusals, "serve": _serve, "serve_refusals": _serve_refusals,
+         "train_rules": _train_rules}
 
 
 def run(rank: int, job: dict):
