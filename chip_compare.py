@@ -6,6 +6,7 @@ call.
     python3 chip_compare.py ROOT --decode-split
     python3 chip_compare.py ROOT --train-bwd
     python3 chip_compare.py ROOT --train-step
+    python3 chip_compare.py ROOT --int8-decode
 
 Imports the port from ``ROOT/src`` (its kernels build from ROOT's sources
 into ``ROOT/build/kernels``) and measures, in bf16 at the served widths,
@@ -44,6 +45,18 @@ layers (B=2 S=2048, 5 steps), each step's launches checked, the last step
 profiled; it reports each run's window rate (s/step over the unprofiled
 steps), median and slowest step, and the profiled step's device ms per
 call of K2's and K4's backward.
+
+With ``--int8-decode`` it measures only the split decode body over int8
+caches with bf16 queries (the FMA instance where the checkout runs it
+there, the tensor-core instance where it does not): profiler device ms per
+call (the body and its merge) of K1's int8 decode at granite-3-2b's and
+qwen2.5-14b's widths (B=8, kv_len 1..1024, paged) and of K3's int8
+instance at recurrentgemma-2b's ring (hd 256) and granite's dense cache
+(hd 64, B=8 S=2048) and with ``return_lse`` at phase 13's grok-1 and
+recurrentgemma ranges (B=2, 128 and 512 slots); then granite-3-2b's eager
+decode step as registered (40 layers, B=8 after 1024-token prompts in
+256-token chunks, wk x 2 and wv x 40 as phase 11 (b)) on an int8 paged
+pool and on a bf16 pool: device busy per step and K1 decode's share.
 
 Times from two calls may come from two cards: run the parent and the
 change in turns in one call (parent, change, change, parent). The last
@@ -257,12 +270,83 @@ def train_step(torch, dev) -> dict:
     return out
 
 
+def split_body(root: Path) -> tuple:
+    """The names of the split decode body that ``root``'s bf16 queries over
+    an int8 cache launch, and its merge: the tensor-core instance where the
+    checkout's body takes an int8 cache, else the FMA instance."""
+    src = (root / "src" / "repro_torch" / "csrc" / "decode_common.cuh").read_text()
+    body = "split_decode_mma_kernel" if "Params<bf16, TKV, Cache>" in src \
+        else "split_decode_fma_kernel"
+    return body, "split_decode_merge_kernel"
+
+
+def int8_decode(torch, dev, names) -> dict:
+    """K1 and K3 int8 decode device ms per call at the served widths, and
+    granite's decode step busy on an int8 pool against a bf16 pool."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import model as M
+    rng = np.random.default_rng(27)
+    out = {}
+    for key, heads in (("K1 int8 decode hd 64, granite", (cs.H, cs.KV, cs.HD)),
+                       ("K1 int8 decode hd 128, qwen", (cs.QW_H, cs.QW_KV, cs.QW_HD))):
+        q, kp, vp, bt, kl = cs.int8_paged_inputs(torch, rng, dev, "bfloat16", cs.QW_KV_LEN, 1,
+                                                 heads)
+        out[key] = cs.kernel_ms(torch, lambda: pa.paged_decode_attention(q, kp, vp, bt, kl),
+                                names)
+    for key, (nh, nkv, hd) in (("K3 int8 ring hd 256", (cs.RG_H, cs.RG_KV, cs.RG_HD)),
+                               ("K3 int8 dense hd 64", (cs.H, cs.KV, cs.HD))):
+        q, k, _, kl = cs.decode_inputs(torch, rng, dev, "bfloat16", nh, nkv, hd)
+        k8, v8 = cs.int8_kv(torch, rng, k.shape, dev), cs.int8_kv(torch, rng, k.shape, dev)
+        q = q * 0.02
+        out[key] = cs.kernel_ms(torch, lambda: da.decode_attention(q, k8, v8, kl), names)
+    for key, (L, nh, nkv, hd) in (("K3 int8 lse, grok-1 range", (128, 48, 8, 128)),
+                                  ("K3 int8 lse, rg ring range", (512, cs.RG_H, cs.RG_KV,
+                                                                  cs.RG_HD))):
+        q, k, v, kl = cs.p13_int8_decode_inputs(torch, rng, dev, nh, nkv, hd, L, [L, L])
+        out[key] = cs.kernel_ms(
+            torch, lambda: da.decode_attention(q, k, v, kl, return_lse=True), names)
+    for key, ms in out.items():
+        cs.log(f"  {key}: {ms:.4f} ms")
+
+    cfg = get_config("granite-3-2b")
+    params = M.init_model_params(cfg, 0, dev)
+    cs.scaled_kv(torch, params, cs.KV8_WK, cs.KV8_WV)
+    B, S, C, T = cs.KV8_B, cs.KV8_PROMPT, cs.KV8_CHUNK, cs.KV8_STEPS
+    tokens = torch.from_numpy(np.random.default_rng(41).integers(3, cfg.vocab, size=(B, S)))
+    tokens = tokens.to(dev)
+    P = -(-(S + T) // cs.PAGE)
+    table = (1 + torch.arange(B * P, dtype=torch.int32, device=dev)).reshape(B, P)
+    pos = torch.full((B,), S + T // 2, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        for kv_dtype in ("int8", "bfloat16"):
+            cache = M.init_paged_cache(cfg, B, S + T, B * P + 1, cs.PAGE, device=dev,
+                                       kv_dtype=kv_dtype)
+            for p0 in range(0, S, C):
+                logits, cache = M.prefill_chunk(cfg, params, cache, tokens[:, p0:p0 + C], p0,
+                                                table)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            step = lambda: M.decode_step(cfg, params, cache, tok, pos,  # noqa: E731
+                                         block_tables=table)
+            step()
+            _, busy, share = cs.profile_breakdown(
+                torch, f"{cfg.name} B={B} decode step, {kv_dtype} pool",
+                lambda: [step() for _ in range(5)], 5, shares={"K1 decode": names[0]})
+            out[f"granite decode step busy, {kv_dtype} pool"] = busy
+            out[f"granite decode step K1 decode, {kv_dtype} pool"] = share["K1 decode"]
+            del cache
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     split = sys.argv[2:] == ["--decode-split"]
     bwd = sys.argv[2:] == ["--train-bwd"]
     step = sys.argv[2:] == ["--train-step"]
-    if len(sys.argv) != 2 and not (split or bwd or step):
+    int8 = sys.argv[2:] == ["--int8-decode"]
+    if len(sys.argv) != 2 and not (split or bwd or step or int8):
         print(__doc__, file=sys.stderr)
         return 2
     root = Path(sys.argv[1]).resolve()
@@ -273,6 +357,14 @@ def main() -> int:
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    if int8:
+        names = split_body(root)
+        build.build(["paged_attention", "decode_attention", "flash_attention"])
+        cs.log(f"chip_compare {root}: int8 decode through {names[0]}")
+        res = {"root": str(root), "body": names[0], **int8_decode(torch, dev, names)}
+        print(cs.nvidia_smi_line())
+        print(json.dumps(res))
+        return 0
     build.build()
     if bwd or step:
         cs.log(f"chip_compare {root}: " + ("K2 and K4 backward at the training shapes"

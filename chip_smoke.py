@@ -296,15 +296,18 @@ Phases (each raises on failure, so the script exits non-zero):
    CUDA-event ms beside the bound and the library's ms.
 
 11. int8 weights and int8 K/V caches, printed under ``phase 11`` after
-   phase 10: (a) K1's int8 instances (decode: the split body's FMA
-   instance over int8 keys; bf16 chunks: the tensor-core body staging
-   int8 tiles and widening them in shared memory; float32 chunks: the
-   tiled body) at granite's widths (B=8 kv_len 1..1024; C=256 at q_offset
+   phase 10: (a) K1's int8 instances (decode: the split body's
+   tensor-core instance over int8 keys for bf16 queries, its FMA instance
+   for float32; bf16 chunks: the tensor-core body staging int8 tiles and
+   widening them in shared memory; float32 chunks: the tiled body) at
+   granite's widths (B=8 kv_len 1..1024; C=256 at q_offset
    256 and 768) and qwen's (H 40, KV 8, hd 128), and K3 on int8 caches
    with no scales (bit for bit the launch with ones) at recurrentgemma's
    ring and granite's dense cache, against their plain versions (bf16
    and float32 queries, K/V drawn N(0, 40^2) and narrowed; phase 2's
-   tolerance x max|ref|), then each bf16 row's times, its bound at int8
+   tolerance x max|ref|; each bf16 decode row also against the FMA
+   instance's float32 output on the same inputs, within 2^-8 x max|ref|),
+   then each bf16 row's times, its bound at int8
    K/V bytes and SDPA's over the widened keys; (b) ``kv_dtype="int8"`` at
    the model's API, granite-3-2b at full width and depth with wk x 2 and
    wv x 40 (V spans int8's range, some values saturate): 8 prompts of
@@ -336,8 +339,9 @@ Phases (each raises on failure, so the script exits non-zero):
    rows of the ``kernels`` line, each read from (b)'s run of its own
    widths; (c) and (d) run the same K2 and K1 decode instances as bf16
    weights (the activations stay bf16) and log their launches beside their
-   times. Phase 1 also holds every ``paged_prefill_mma_kernel`` instance
-   (bf16 and int8 K/V) to HMMA and no spill.
+   times. Phase 1 also holds every ``paged_prefill_mma_kernel`` and
+   ``split_decode_mma_kernel`` instance (bf16 and int8 K/V) to HMMA and no
+   spill.
 
 12. The sharded paths, printed under ``phase 12`` after phase 11: worlds
    of 8 processes sharing this card over gloo (``launch.mesh.run_world``,
@@ -638,13 +642,16 @@ MMA_KERNELS = ("flash_attention_mma_kernel", "paged_prefill_mma_kernel", "moe_gm
 # every instance must hold: K2's backward (its dQ pass at each head dim,
 # its dK/dV pass at hd 64 and 128 and, at hd 256, its dV and dK halves) and
 # K4's dX and dW on wgmma; K1's chunks (hd 64, 128 and 256, bf16 and int8
-# K/V) on mma.sync
+# K/V) and the split decode body of K1 decode and K3 (the same, over
+# block-table and contiguous keys) on mma.sync
 NO_SPILL_KERNELS = {"flash_attention_bwd_dq_wgmma_kernel": (3, "HGMMA"),
                     "flash_attention_bwd_dkv_wgmma_kernel": (4, "HGMMA"),
                     "moe_gmm_bwd_dx_wgmma_kernel": (1, "HGMMA"),
                     "moe_gmm_bwd_dw_wgmma_kernel": (1, "HGMMA"),
-                    "paged_prefill_mma_kernel": (6, "HMMA")}
-# the split-KV decode of K1 (C == 1) and K3 in bf16: the body and its merge
+                    "paged_prefill_mma_kernel": (6, "HMMA"),
+                    "split_decode_mma_kernel": (12, "HMMA")}
+# the split-KV decode of K1 (C == 1) and K3 with bf16 queries (a bf16 or an
+# int8 cache): the body and its merge
 SPLIT_DECODE = ("split_decode_mma_kernel", "split_decode_merge_kernel")
 
 
@@ -4466,7 +4473,10 @@ KV8_B, KV8_PROMPT, KV8_CHUNK, KV8_STEPS, KV8_WITNESS_STEPS = 8, 1024, 256, 32, 8
 QW8_B, QW8_STEPS = 8, 8
 RG8_B, RG8_PROMPT, RG8_STEPS = 2, 2100, 16
 LV8_PROMPT, LV8_STEPS = 128, 16
-SPLIT_FMA = ("split_decode_fma_kernel", "split_decode_merge_kernel")
+# a bf16 int8 decode row's output against the FMA instance's float32 output
+# on the same inputs: the bf16 output's rounding (2^-9 relative) and P in
+# bf16 (2^-9 a term), x max|ref|
+FMA_READING_TOL = 2.0 ** -8
 
 
 def int8_kv(torch, rng, shape, dev):
@@ -4492,15 +4502,35 @@ def widened_sdpa(torch, make, *args):
                 *args[3:])
 
 
+def fma_reading(name, got, want) -> float:
+    """A bf16 int8 decode row's output (the split body's tensor-core
+    instance) against ``want``, the FMA instance's float32 output on the
+    same inputs with q widened to float32: held within ``FMA_READING_TOL``
+    x max|want|. Returns the reading, the max abs difference over
+    max|want|."""
+    scale = want.abs().max().item()
+    reading = (got.float() - want).abs().max().item() / max(scale, 1e-30)
+    ok = reading <= FMA_READING_TOL
+    log(f"  {name:60s} vs the FMA instance's float32 output: {reading:.2e} x max|ref| "
+        f"(tol 2^-8 = {FMA_READING_TOL:.2e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: {reading} x max|ref| from the FMA instance's float32 "
+                             f"output > {FMA_READING_TOL}")
+    return reading
+
+
 def phase_kernels_int8(torch, dev):
-    """Phase 11 (a): K1's int8 instances (decode: the split body's FMA
-    instance; chunks: bf16 the tensor-core body staging int8 tiles, float32
-    the tiled body) at granite's widths (H 32, KV 8, hd 64; B=8 kv_len
+    """Phase 11 (a): K1's int8 instances (decode: the split body's
+    tensor-core instance for bf16 queries, its FMA instance for float32;
+    chunks: bf16 the tensor-core body staging int8 tiles, float32 the tiled
+    body) at granite's widths (H 32, KV 8, hd 64; B=8 kv_len
     1..1024; C=256 at q_offset 256 and 768) and qwen's (H 40, KV 8, hd
     128), and K3 on int8 caches with no scales (ones) at recurrentgemma's
     ring (hd 256) and granite's dense cache, against their plain versions
     (bf16 and float32 queries; tolerance phase 2's, relative to max|ref|,
-    as outputs are int8-sized); then each row's times at bf16, its bound
+    as outputs are int8-sized; each bf16 decode row also against the FMA
+    instance's float32 output, ``fma_reading``); then each row's times at
+    bf16, its bound
     counting int8 K/V bytes, the plain version's and SDPA's over the
     widened (and gathered) keys."""
     from repro_torch.kernels import decode_attention as da
@@ -4519,10 +4549,12 @@ def phase_kernels_int8(torch, dev):
         for arch, hds in heads.items():
             sfx = "" if arch == "granite" else "_qwen"
             q, kp, vp, bt, kl = int8_paged_inputs(torch, rng, dev, dtype, QW_KV_LEN, 1, hds)
-            check_rel(f"K1 decode int8 {arch} H={hds[0]} KV={hds[1]} hd={hds[2]}", dtype,
-                      pa.paged_decode_attention(q, kp, vp, bt, kl),
-                      ref.paged_decode_attention(q.float(), kp, vp, bt, kl),
+            label = f"K1 decode int8 {arch} H={hds[0]} KV={hds[1]} hd={hds[2]}"
+            got = pa.paged_decode_attention(q, kp, vp, bt, kl)
+            check_rel(label, dtype, got, ref.paged_decode_attention(q.float(), kp, vp, bt, kl),
                       errs[f"decode_int8{sfx}"])
+            if dtype == "bfloat16":
+                fma_reading(label, got, pa.paged_decode_attention(q.float(), kp, vp, bt, kl))
             for q_off, key in ((256, f"chunk_int8{sfx}"), (768, f"chunk_int8{sfx}_768")):
                 q, kp, vp, bt, kl = int8_paged_inputs(torch, rng, dev, dtype, [q_off + 256],
                                                       256, hds)
@@ -4542,8 +4574,10 @@ def phase_kernels_int8(torch, dev):
                                                           v_scale=ones)):
                 raise AssertionError(f"phase 11 (a): K3 int8 without scales differs from the "
                                      f"launch with ones ({key}, {dtype})")
-            check_rel(f"K3 decode int8, no scales, H={nh} KV={nkv} hd={hd} (= ones)", dtype,
-                      got, ref.decode_attention(q.float(), k8, v8, kl), errs[key])
+            label = f"K3 decode int8, no scales, H={nh} KV={nkv} hd={hd} (= ones)"
+            check_rel(label, dtype, got, ref.decode_attention(q.float(), k8, v8, kl), errs[key])
+            if dtype == "bfloat16":
+                fma_reading(label, got, da.decode_attention(q.float(), k8, v8, kl))
     torch.cuda.synchronize()
 
     log("phase 11 (a): times at the int8 paths' shapes, bf16 queries (kernel: profiler "
@@ -4566,7 +4600,7 @@ def phase_kernels_int8(torch, dev):
             shape=f"B=8 kv_len={QW_KV_LEN} H={nh} KV={nkv} hd={hd} page={PAGE} "
                   f"{n_split(torch, q, nkv, bt.shape[1] * PAGE)} bf16 q, int8 K/V",
             **kernel_times(torch, lambda: pa.paged_decode_attention(q, kp, vp, bt, kl),
-                           SPLIT_FMA),
+                           SPLIT_DECODE),
             plain_ms=event_ms(torch, lambda: ref.paged_decode_attention(q, kp, vp, bt, kl),
                               10),
             bound_ms=b, bound_by=by,
@@ -4615,7 +4649,7 @@ def phase_kernels_int8(torch, dev):
             replaces="src/repro/kernels/decode_attention.py:31",
             shape=f"{what}: B=8 S=2048 H={nh} KV={nkv} hd={hd} kv_len 1..2048 ({n_kv} keys) "
                   f"{n_split(torch, q, nkv, k.shape[1])} bf16 q, int8 K/V",
-            **kernel_times(torch, lambda: da.decode_attention(q, k8, v8, kl), SPLIT_FMA),
+            **kernel_times(torch, lambda: da.decode_attention(q, k8, v8, kl), SPLIT_DECODE),
             plain_ms=event_ms(torch, lambda: ref.decode_attention(q, k8, v8, kl), 10),
             bound_ms=b, bound_by=by,
             library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=lmask,
@@ -6818,7 +6852,7 @@ def p13_new_rows(torch, dev, rng):
             replaces="src/repro/kernels/decode_attention.py:31",
             shape=f"B={B} L={L} H={nh} KV={nkv} hd={hd} kv_len {kv_len} "
                   f"{n_split(torch, q, nkv, L)} int8 K/V",
-            **kernel_times(torch, call, SPLIT_FMA),
+            **kernel_times(torch, call, SPLIT_DECODE),
             plain_ms=event_ms(torch, lambda: ref.decode_attention(q, k, v, kl,
                                                                   return_lse=True), 10),
             bound_ms=b, bound_by=by, max_abs_err=max(errs),

@@ -16,8 +16,9 @@
 // What bounds it on the H100: the bytes of K/V (a few operations per
 // byte). The body is the split-KV flash-decode of decode_common.cuh over
 // contiguous keys (rt::DenseCache): keys split across blocks by a plan
-// fixed from shapes, staged by a cp.async ring, bf16 products on mma.sync,
-// float32 and int8 on CUDA-core FMA, partials merged by a second kernel.
+// fixed from shapes, staged by a cp.async ring, bf16 queries on mma.sync
+// (over a bf16 cache, or an int8 one widened exactly in registers), float32
+// queries on CUDA-core FMA, partials merged by a second kernel.
 //
 // Under a mesh a rank holds one range of a cache's slots (the cache split
 // over its sequence): each rank runs K3 on its range with a local kv_len

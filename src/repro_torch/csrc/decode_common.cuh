@@ -36,24 +36,45 @@
 //   cp.async ring, 16-byte copies of neighbouring addresses, rows past the
 //   range zero-filled by the src-size operand; a paged key's physical page
 //   comes from block_tables[b, kp / page] as its copy is issued, so pages
-//   are never gathered into a contiguous copy. Rows are padded by 16 bytes
-//   so ldmatrix (and the float32 body's 16-byte row reads) are free of
-//   bank conflicts.
-// * bf16 (split_decode_mma_kernel): 4 warps split each 64-key tile, 16 keys
-//   a warp; S = Q K^T and O += P V on mma.sync m16n8k16 with the row group
-//   as the A operand (padded to 16 rows), K the .col B operand as stored, V
-//   through ldmatrix.trans. Each warp keeps its own online-softmax state in
-//   fragment registers; the four are merged through shared memory at the
-//   end of the range. The scale goes on the float32 scores, as in K2, and P
-//   becomes bf16 A fragments (the one numeric departure K2 documents, at
-//   most 2^-9 relative a term); the row sum stays float32. 3 ring stages
-//   at hd <= 128, 2 at hd 256.
-// * float32, and int8 caches (split_decode_fma_kernel): the same split,
-//   ring and merge with 32-key tiles, products in float32 FMA on CUDA
-//   cores (exact, no TF32): lane = key for the scores, lane = head dim for
-//   P V, each warp owning 4 of the group's 16 rows. int8 keys and values
-//   are widened on read from shared memory; the key scale is folded into
-//   q, the value scale into the finished accumulator.
+//   are never gathered into a contiguous copy. Rows are padded (by 16
+//   bytes but for the int8 K tile below) so the fragment reads (and the
+//   float32 body's 16-byte row reads) are free of bank conflicts.
+// * bf16 queries (split_decode_mma_kernel), over a bf16 or an int8 cache:
+//   4 warps split each 64-key tile, 16 keys a warp; S = Q K^T and O += P V
+//   on mma.sync m16n8k16 with the row group as the A operand (padded to 16
+//   rows). Each warp keeps its own online-softmax state in fragment
+//   registers; the four are merged through shared memory at the end of the
+//   range. The scale goes on the float32 scores, as in K2, and P becomes
+//   bf16 A fragments (the one numeric departure K2 documents, at most 2^-9
+//   relative a term); the row sum stays float32.
+//   - bf16 cache: K is the .col B operand as stored (ldmatrix), V goes
+//     through ldmatrix.trans. 3 ring stages at hd <= 128, 2 at hd 256.
+//   - int8 cache: the ring carries int8 tiles (half the bytes of a bf16
+//     stage), so it holds as many stages as two blocks an SM leave room for
+//     (6 at hd 64, 5 at hd 128, 2 at hd 256), and no block-wide barrier is
+//     added a tile: each thread reads its own B fragments' bytes from the
+//     int8 tile and widens them exactly to bf16 in registers (widen_byte:
+//     the byte under the exponent of 2^23, then one float subtraction;
+//     every int8 value is exact in bf16). For K each k-step's head dims are
+//     permuted so that a thread's four bytes of a key are neighbours (one
+//     16-byte read serves four k-steps), and Q is copied into shared memory
+//     in the same order (4-byte cp.async copies), which leaves Q K^T
+//     unchanged. For V each n-block of output dims is permuted so that a
+//     thread reads hd / 8 neighbouring bytes of each of its four keys; the
+//     warp merge puts the dims back.
+//     S = Q K^T is exact products with float32 sums (both operands exact in
+//     bf16), multiplied by scale * log2 e * k_scale; the finished
+//     accumulator by v_scale (a null scale reads 1.0). P in bf16 departs
+//     from the Pallas body, which keeps p in float32 against the float32
+//     upcast of an int8 V (src/repro/kernels/decode_attention.py:61,
+//     :173): at most 2^-9 relative a term, under the bf16 output's own
+//     rounding.
+// * float32 queries (split_decode_fma_kernel), over a float32 or an int8
+//   cache: the same split, ring and merge with 32-key tiles, products in
+//   float32 FMA on CUDA cores (exact, no TF32): lane = key for the scores,
+//   lane = head dim for P V, each warp owning 4 of the group's 16 rows.
+//   int8 keys and values are widened on read from shared memory; the key
+//   scale is folded into q, the value scale into the finished accumulator.
 #pragma once
 
 #include <type_traits>
@@ -178,32 +199,64 @@ __device__ __forceinline__ void store_empty(const P& p, const Block& k) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16 queries: tensor cores, over a bf16 or an int8 cache
 // ---------------------------------------------------------------------------
-template <int HD>
+// A block's shared memory when two blocks share an SM: half of the SM's
+// 228 KB, less the 1 KB the card reserves a block.
+constexpr size_t SMEM_TWO_BLOCKS = 228 * 1024 / 2 - 1024;
+
+template <int HD, typename TKV>
 struct MmaShape {
+  static constexpr bool NARROW = !std::is_same<TKV, bf16>::value;   // an int8 cache
   static constexpr int BK = 64;                    // keys per tile, 16 a warp
-  static constexpr int STAGES = HD <= 128 ? 3 : 2;
-  static constexpr int LD = HD + 8;                // padded bf16 row
-  static constexpr int TILE = BK * LD;             // one K or V tile
+  static constexpr int LDQ = HD + 8;               // padded bf16 row of Q
+  // ring rows, in TKV elements. bf16: padded by 16 bytes for ldmatrix.
+  // int8: K rows an odd multiple of 64 bytes and V rows padded by 16 bytes,
+  // which keeps the fragment reads of the kernel free of bank conflicts
+  static constexpr int KLD = NARROW ? (HD % 128 ? HD : HD + 64) : HD + 8;
+  static constexpr int VLD = NARROW ? HD + 16 : HD + 8;
+  static constexpr size_t Q_BYTES = sizeof(bf16) * RG * LDQ;
+  static constexpr size_t STAGE_BYTES = sizeof(TKV) * BK * (KLD + VLD);
+  static constexpr int FIT = (int)((SMEM_TWO_BLOCKS - Q_BYTES) / STAGE_BYTES);
+  static constexpr int STAGES = NARROW ? (FIT < 6 ? FIT : 6) : (HD <= 128 ? 3 : 2);
   static constexpr int LDO = HD + 4;               // padded float row of the warp merge
-  static constexpr size_t RING = sizeof(bf16) * (RG * LD + 2 * STAGES * TILE);
+  static constexpr size_t RING = Q_BYTES + STAGES * STAGE_BYTES;
   static constexpr size_t MERGE = sizeof(float) * (NW * RG * LDO + 2 * NW * RG);
   static constexpr size_t SMEM = RING > MERGE ? RING : MERGE;
   static constexpr bool Q_IN_REGS = HD <= 128;
+  static_assert(STAGES >= 2, "ring");
 };
 
-template <int HD, class Cache>
+// The int8 byte k (0..3) of w, where u = w ^ 0x80808080, as an exact float:
+// byte k of u, b + 128, placed under the exponent of 2^23 is the float
+// 2^23 + b + 128, and one subtraction leaves b.
+__device__ __forceinline__ float widen_byte(uint32_t u, int k) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + k)) - 8388736.f;
+}
+// Two floats that are exact in bf16 (integers of at most 8 bits) as one
+// register of bf16 values, lo in the lower half: their upper halves.
+__device__ __forceinline__ uint32_t pack_exact(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+template <int HD, typename TKV, class Cache>
 __global__ void __launch_bounds__(NT)
-split_decode_mma_kernel(const Params<bf16, bf16, Cache> p) {
-  using Sh = MmaShape<HD>;
-  constexpr int LD = Sh::LD, BK = Sh::BK, STAGES = Sh::STAGES;
-  constexpr int KC = HD / 8;       // 16-byte chunks per row
-  constexpr int NDB = HD / 8;      // n8 blocks of the output
+split_decode_mma_kernel(const Params<bf16, TKV, Cache> p) {
+  using Sh = MmaShape<HD, TKV>;
+  constexpr bool NARROW = Sh::NARROW;
+  constexpr int LDQ = Sh::LDQ, KLD = Sh::KLD, VLD = Sh::VLD, BK = Sh::BK, STAGES = Sh::STAGES;
+  constexpr int KC = HD / 8;                         // 16-byte chunks per Q row
+  constexpr int RC = HD * (int)sizeof(TKV) / 16;     // 16-byte chunks per cache row
+  constexpr int EC = 16 / (int)sizeof(TKV);          // elements per chunk
+  constexpr int NDB = HD / 8;                        // n8 blocks of the output
+  // int8 V: a thread reads VB bytes of each of its keys, in pieces of VP
+  // bytes 128 bytes apart; n-block nb's column c is dim v_dim(nb, c)
+  constexpr int VB = HD / 8, VP = VB < 16 ? VB : 16;
+  auto v_dim = [](int nb, int c) { return (nb / 16) * 128 + c * VP + nb % 16; };
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);    // RG x LD
-  bf16* Ks = Qs + RG * LD;                         // [STAGES][BK][LD]
-  bf16* Vs = Ks + STAGES * Sh::TILE;               // [STAGES][BK][LD]
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);      // RG x LDQ
+  TKV* Ks = reinterpret_cast<TKV*>(Qs + RG * LDQ);   // [STAGES][BK][KLD]
+  TKV* Vs = Ks + STAGES * BK * KLD;                  // [STAGES][BK][VLD]
 
   const Block blk = block_of(p);
   if (blk.lo >= blk.hi) {
@@ -212,26 +265,44 @@ split_decode_mma_kernel(const Params<bf16, bf16, Cache> p) {
   }
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  const long long sc = (long long)blk.b * p.KV + blk.kvh;
+  const float s_scale = p.scale_log2 * (p.k_scale ? p.k_scale[sc] : 1.f);
+  const float v_scale = p.v_scale ? p.v_scale[sc] : 1.f;
 
-  // Q: the row group's heads, rows past the group's last zero-filled
-  for (int c = tid; c < RG * KC; c += NT) {
-    const int r = c / KC, d = (c % KC) * 8;
-    const bool ok = r < blk.nrows;
-    const bf16* src = ok ? p.q + ((long long)blk.b * p.H + blk.head0 + r) * HD + d : p.q;
-    mma::cp_async16(Qs + r * LD + d, src, ok ? 16 : 0);
+  // Q: the row group's heads, rows past the group's last zero-filled. An
+  // int8 cache permutes each k-step's columns as the K fragments below read
+  // them (a thread's four bytes of a key are neighbours: k-step kk's columns
+  // 2t, 2t + 1, 2t + 8, 2t + 9 are dims d .. d + 3, d = 64 (kk / 4) + 16 t +
+  // 4 (kk % 4)), which leaves Q K^T unchanged: Q is copied a pair of dims
+  // at a time into that order
+  if constexpr (NARROW) {
+    for (int c = tid; c < RG * HD / 2; c += NT) {
+      const int r = c / (HD / 2), d = (c % (HD / 2)) * 2;
+      const int col = (4 * (d / 64) + d % 16 / 4) * 16 + 2 * (d % 64 / 16) + 8 * (d % 4 / 2);
+      const bool ok = r < blk.nrows;
+      const bf16* src = ok ? p.q + ((long long)blk.b * p.H + blk.head0 + r) * HD + d : p.q;
+      mma::cp_async4(Qs + r * LDQ + col, src, ok ? 4 : 0);
+    }
+  } else {
+    for (int c = tid; c < RG * KC; c += NT) {
+      const int r = c / KC, d = (c % KC) * 8;
+      const bool ok = r < blk.nrows;
+      const bf16* src = ok ? p.q + ((long long)blk.b * p.H + blk.head0 + r) * HD + d : p.q;
+      mma::cp_async16(Qs + r * LDQ + d, src, ok ? 16 : 0);
+    }
   }
   mma::cp_async_commit();
 
   const int n_tiles = (blk.hi - blk.lo + BK - 1) / BK;
   auto load_tile = [&](int i) {
-    bf16* ks = Ks + (i % STAGES) * Sh::TILE;
-    bf16* vs = Vs + (i % STAGES) * Sh::TILE;
-    for (int c = tid; c < BK * KC; c += NT) {
-      const int kr = c / KC, d = (c % KC) * 8, kp = blk.lo + i * BK + kr;
+    TKV* ks = Ks + (i % STAGES) * BK * KLD;
+    TKV* vs = Vs + (i % STAGES) * BK * VLD;
+    for (int c = tid; c < BK * RC; c += NT) {
+      const int kr = c / RC, d = (c % RC) * EC, kp = blk.lo + i * BK + kr;
       const bool ok = kp < blk.hi;
       const long long o = ok ? p.cache.row(blk.b, blk.kvh, kp) * HD + d : 0;
-      mma::cp_async16(ks + kr * LD + d, p.k + o, ok ? 16 : 0);
-      mma::cp_async16(vs + kr * LD + d, p.v + o, ok ? 16 : 0);
+      mma::cp_async16(ks + kr * KLD + d, p.k + o, ok ? 16 : 0);
+      mma::cp_async16(vs + kr * VLD + d, p.v + o, ok ? 16 : 0);
     }
   };
 #pragma unroll
@@ -242,11 +313,13 @@ split_decode_mma_kernel(const Params<bf16, bf16, Cache> p) {
 
   mma::cp_async_wait<STAGES - 1>();   // Q has landed ...
   __syncthreads();                    // ... for every thread
-  const bf16* q_frag = Qs + (lane & 15) * LD + (lane >> 4) * 8;
+  auto q_frag = [&](uint32_t* a, int kk) {
+    mma::ldmatrix_x4(a, Qs + (lane & 15) * LDQ + (lane >> 4) * 8 + kk * 16);
+  };
   uint32_t qf[Sh::Q_IN_REGS ? HD / 16 : 1][4];
   if constexpr (Sh::Q_IN_REGS) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) mma::ldmatrix_x4(qf[kk], q_frag + kk * 16);
+    for (int kk = 0; kk < HD / 16; ++kk) q_frag(qf[kk], kk);
   }
 
   // rows g (h = 0) and g + 8 (h = 1) of the group; this warp's 16 keys a tile
@@ -260,26 +333,55 @@ split_decode_mma_kernel(const Params<bf16, bf16, Cache> p) {
     __syncthreads();                    // ... for every thread, and stage (i - 1) is free
     if (i + STAGES - 1 < n_tiles) load_tile(i + STAGES - 1);
     mma::cp_async_commit();
-    const bf16* ks = Ks + (i % STAGES) * Sh::TILE + warp * 16 * LD;
-    const bf16* vs = Vs + (i % STAGES) * Sh::TILE + warp * 16 * LD;
+    const TKV* ks = Ks + (i % STAGES) * BK * KLD + warp * 16 * KLD;
+    const TKV* vs = Vs + (i % STAGES) * BK * VLD + warp * 16 * VLD;
 
     // S = Q K^T over this warp's 16 keys: s[0] keys +0..7, s[1] keys +8..15
     float s[2][4];
 #pragma unroll
     for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    if constexpr (NARROW) {
+      // keys g and 8 + g (j = 0, 1), bytes 64c + 16t .. + 15: k-steps 4c ..
+      // 4c + 3, four bytes each (columns 2t, 2t + 1, then 2t + 8, 2t + 9)
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4];
-      if constexpr (Sh::Q_IN_REGS) {
-        a[0] = qf[kk][0]; a[1] = qf[kk][1]; a[2] = qf[kk][2]; a[3] = qf[kk][3];
-      } else {
-        mma::ldmatrix_x4(a, q_frag + kk * 16);
+      for (int c = 0; c < HD / 64; ++c) {
+        uint32_t u[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int4 w = *reinterpret_cast<const int4*>(ks + (8 * j + g) * KLD + 64 * c + 16 * t);
+          u[j][0] = (uint32_t)w.x ^ 0x80808080u; u[j][1] = (uint32_t)w.y ^ 0x80808080u;
+          u[j][2] = (uint32_t)w.z ^ 0x80808080u; u[j][3] = (uint32_t)w.w ^ 0x80808080u;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          uint32_t a[4];
+          if constexpr (Sh::Q_IN_REGS) {
+            a[0] = qf[4 * c + e][0]; a[1] = qf[4 * c + e][1];
+            a[2] = qf[4 * c + e][2]; a[3] = qf[4 * c + e][3];
+          } else {
+            q_frag(a, 4 * c + e);
+          }
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            mma::mma_bf16(s[j], a, pack_exact(widen_byte(u[j][e], 0), widen_byte(u[j][e], 1)),
+                          pack_exact(widen_byte(u[j][e], 2), widen_byte(u[j][e], 3)));
+        }
       }
-      uint32_t bk[4];
-      mma::ldmatrix_x4(bk, ks + ((lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
-                               ((lane >> 3) & 1) * 8);
-      mma::mma_bf16(s[0], a, bk[0], bk[1]);
-      mma::mma_bf16(s[1], a, bk[2], bk[3]);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t a[4];
+        if constexpr (Sh::Q_IN_REGS) {
+          a[0] = qf[kk][0]; a[1] = qf[kk][1]; a[2] = qf[kk][2]; a[3] = qf[kk][3];
+        } else {
+          q_frag(a, kk);
+        }
+        uint32_t bk[4];
+        mma::ldmatrix_x4(bk, ks + ((lane & 7) + ((lane >> 4) << 3)) * KLD + kk * 16 +
+                                 ((lane >> 3) & 1) * 8);
+        mma::mma_bf16(s[0], a, bk[0], bk[1]);
+        mma::mma_bf16(s[1], a, bk[2], bk[3]);
+      }
     }
 
     // scale; keys past the range (only in the last tile) are masked
@@ -289,7 +391,7 @@ split_decode_mma_kernel(const Params<bf16, bf16, Cache> p) {
     for (int j = 0; j < 2; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * p.scale_log2;
+        float x = s[j][e] * s_scale;
         if (!whole && k0 + j * 8 + 2 * t + (e & 1) >= blk.hi) x = rt::NEG_INF;
         s[j][e] = x;
       }
@@ -324,16 +426,47 @@ split_decode_mma_kernel(const Params<bf16, bf16, Cache> p) {
     }
 
     // O += P V: P's accumulator fragments are the A fragment of the warp's
-    // 16 keys; V rows are keys, hd contiguous: ldmatrix.trans
+    // 16 keys, so thread t's B fragments are keys 2t, 2t + 1 (b0) and 2t + 8,
+    // 2t + 9 (b1)
     const uint32_t a[4] = {mma::pack_bf16(s[0][0], s[0][1]), mma::pack_bf16(s[0][2], s[0][3]),
                            mma::pack_bf16(s[1][0], s[1][1]), mma::pack_bf16(s[1][2], s[1][3])};
+    if constexpr (NARROW) {
 #pragma unroll
-    for (int jd = 0; jd < HD / 16; ++jd) {
-      uint32_t bv[4];
-      mma::ldmatrix_x4_trans(bv, vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + jd * 16 +
-                                     (lane >> 4) * 8);
-      mma::mma_bf16(o[2 * jd], a, bv[0], bv[1]);
-      mma::mma_bf16(o[2 * jd + 1], a, bv[2], bv[3]);
+      for (int h = 0; h < VB / VP; ++h) {
+        uint32_t u[4][VP / 4];        // piece h of the four keys, bytes ^ 0x80
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq) {
+          const TKV* src = vs + (2 * t + (kq & 1) + 8 * (kq >> 1)) * VLD + 128 * h + g * VP;
+          if constexpr (VP == 16) {
+            const int4 w = *reinterpret_cast<const int4*>(src);
+            u[kq][0] = (uint32_t)w.x; u[kq][1] = (uint32_t)w.y;
+            u[kq][2] = (uint32_t)w.z; u[kq][3] = (uint32_t)w.w;
+          } else {
+            const int2 w = *reinterpret_cast<const int2*>(src);
+            u[kq][0] = (uint32_t)w.x; u[kq][1] = (uint32_t)w.y;
+          }
+#pragma unroll
+          for (int x = 0; x < VP / 4; ++x) u[kq][x] ^= 0x80808080u;
+        }
+#pragma unroll
+        for (int x = 0; x < VP / 4; ++x) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            mma::mma_bf16(o[16 * h + 4 * x + e], a,
+                          pack_exact(widen_byte(u[0][x], e), widen_byte(u[1][x], e)),
+                          pack_exact(widen_byte(u[2][x], e), widen_byte(u[3][x], e)));
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int jd = 0; jd < HD / 16; ++jd) {
+        uint32_t bv[4];
+        mma::ldmatrix_x4_trans(bv, vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * VLD + jd * 16 +
+                                       (lane >> 4) * 8);
+        mma::mma_bf16(o[2 * jd], a, bv[0], bv[1]);
+        mma::mma_bf16(o[2 * jd + 1], a, bv[2], bv[3]);
+      }
     }
   }
   mma::cp_async_wait<0>();
@@ -351,10 +484,16 @@ split_decode_mma_kernel(const Params<bf16, bf16, Cache> p) {
       Ms[warp * RG + r] = m[h];
       Ls[warp * RG + r] = l[h];
     }
+    float* orow = Os + (warp * RG + r) * Sh::LDO;
 #pragma unroll
-    for (int j = 0; j < NDB; ++j)
-      *reinterpret_cast<float2*>(Os + (warp * RG + r) * Sh::LDO + j * 8 + 2 * t) =
-          make_float2(o[j][2 * h], o[j][2 * h + 1]);
+    for (int j = 0; j < NDB; ++j) {
+      if constexpr (NARROW) {       // the output dims back in order
+        orow[v_dim(j, 2 * t)] = o[j][2 * h];
+        orow[v_dim(j, 2 * t + 1)] = o[j][2 * h + 1];
+      } else {
+        *reinterpret_cast<float2*>(orow + j * 8 + 2 * t) = make_float2(o[j][2 * h], o[j][2 * h + 1]);
+      }
+    }
   }
   __syncthreads();
   for (int idx = tid; idx < blk.nrows * HD; idx += NT) {
@@ -369,12 +508,12 @@ split_decode_mma_kernel(const Params<bf16, bf16, Cache> p) {
       L += wt * Ls[w * RG + r];
       A += wt * Os[(w * RG + r) * Sh::LDO + d];
     }
-    store<HD>(p, blk.b, blk.head0 + r, d, A, M, L);
+    store<HD>(p, blk.b, blk.head0 + r, d, A * v_scale, M, L);
   }
 }
 
 // ---------------------------------------------------------------------------
-// float32 and int8 caches: CUDA-core FMA
+// float32 queries: CUDA-core FMA, over a float32 or an int8 cache
 // ---------------------------------------------------------------------------
 template <typename TKV, int HD>
 struct FmaShape {
@@ -541,20 +680,20 @@ split_decode_merge_kernel(const float* __restrict__ ws, TQ* __restrict__ out,
   if (lse && d == 0) lse[bh] = row_lse(M, L);
 }
 
-// Launch the split body (bf16 q and cache on the tensor cores, anything
-// else on CUDA cores) and, with n_split > 1, the merge. Returns 0 or a
-// cudaError_t code.
+// Launch the split body (bf16 q on the tensor cores, over a bf16 or an int8
+// cache; float32 q on CUDA cores) and, with n_split > 1, the merge. Returns
+// 0 or a cudaError_t code.
 template <int HD, typename TQ, typename TKV, class Cache>
 int launch(const Params<TQ, TKV, Cache>& p, int B, cudaStream_t stream) {
   const int G = p.H / p.KV;
   const dim3 grid((unsigned)p.n_split, (unsigned)((G + RG - 1) / RG), (unsigned)(B * p.KV));
   cudaError_t err;
-  if constexpr (std::is_same<TQ, bf16>::value && std::is_same<TKV, bf16>::value) {
-    constexpr size_t smem = MmaShape<HD>::SMEM;
-    err = cudaFuncSetAttribute(split_decode_mma_kernel<HD, Cache>,
+  if constexpr (std::is_same<TQ, bf16>::value) {
+    constexpr size_t smem = MmaShape<HD, TKV>::SMEM;
+    err = cudaFuncSetAttribute(split_decode_mma_kernel<HD, TKV, Cache>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    split_decode_mma_kernel<HD, Cache><<<grid, NT, smem, stream>>>(p);
+    split_decode_mma_kernel<HD, TKV, Cache><<<grid, NT, smem, stream>>>(p);
   } else {
     constexpr size_t smem = FmaShape<TKV, HD>::SMEM;
     err = cudaFuncSetAttribute(split_decode_fma_kernel<TQ, TKV, HD, Cache>,

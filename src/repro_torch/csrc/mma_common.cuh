@@ -1,5 +1,5 @@
 // Tensor-core building blocks of the port's bf16 kernels (sm_90a, CUDA C++):
-// 16-byte cp.async copies into shared-memory rings, ldmatrix fragment loads
+// 16-byte (and 4-byte) cp.async copies into shared-memory rings, ldmatrix fragment loads
 // and the warp-level mma.sync m16n8k16 bf16 product with float32 sums.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4 * g + t, g = lane / 4,
@@ -26,6 +26,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // 16) are read and the rest of the 16 are zero-filled.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+// 4 bytes global -> shared, through L1 (a 4-byte copy has no .cg form); only
+// the first src_bytes (0 or 4) are read and the rest zero-filled.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() {

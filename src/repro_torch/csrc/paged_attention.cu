@@ -20,8 +20,8 @@
 // * decode (C == 1): the split-KV flash-decode of decode_common.cuh over
 //   block-table keys (rt::PagedCache): keys split across blocks by a plan
 //   fixed from shapes, each key row's page looked up as its cp.async copy
-//   is issued, bf16 products on mma.sync, float32 on CUDA-core FMA,
-//   partials merged by a second kernel. A null q_offset means decode: the
+//   is issued, bf16 queries on mma.sync (over a bf16 or an int8 pool),
+//   float32 on CUDA-core FMA, partials merged by a second kernel. A null q_offset means decode: the
 //   causal limit is kv_len itself, so the wrapper builds no q_offset.
 // * chunks (C > 1): one block per 64 query rows of one (sequence, kv
 //   head), K/V tiles of 64 keys staged in shared memory through the block
@@ -37,11 +37,13 @@
 // An int8 pool (kv_dtype="int8") is read as its integer values, unit
 // scales, as the Pallas body upcasts it (:157-158), with bf16 or float32
 // queries; each schedule has an instance for it, keeping its structure:
-// decode takes the split body's CUDA-core FMA instance over int8 keys
-// (rt::Vec<int8_t> widens 16 values a 16-byte read, scale 1); bf16 chunks
-// the tensor-core body staging int8 tiles through cp.async (half the
-// bytes) and widening them to bf16 in shared memory before ldmatrix; float32
-// chunks the tiled body with an int8 load.
+// bf16 decode takes the split body's tensor-core instance over int8 keys
+// (int8 tiles through the cp.async ring, half the bytes, each thread's B
+// fragments widened exactly to bf16 in registers), float32 decode its
+// CUDA-core FMA instance (rt::Vec<int8_t> widens 16 values a 16-byte
+// read); bf16 chunks the tensor-core body staging int8 tiles through
+// cp.async and widening them to bf16 in shared memory before ldmatrix;
+// float32 chunks the tiled body with an int8 load.
 //
 // Inactive engine rows carry an all-zeros table and kv_len = 1, so they read
 // row 0 of the reserved scratch page 0: harmless.

@@ -11,10 +11,12 @@ chunk the tiled body); for a CPU tensor it runs the plain PyTorch version
 below. There is no fallback: a CUDA operand the kernel does not take, or a
 failed build or launch, raises. An int8 pool (``model.paged_cache_specs(...,
 kv_dtype="int8")``) is read as its integer values, unit scales, as the
-reference's body upcasts it, with bf16 or float32 queries: decode through
-the split body's int8 FMA instance, bf16 chunks through the tensor-core
-body staging int8 tiles and widening them in shared memory, float32 chunks
-through the tiled body with an int8 load; any other mix of dtypes raises.
+reference's body upcasts it, with bf16 or float32 queries: bf16 decode
+through the split body's tensor-core instance over int8 tiles (widened
+exactly to bf16 in registers), float32 decode through its FMA instance,
+bf16 chunks through the tensor-core body staging int8 tiles and widening
+them in shared memory, float32 chunks through the tiled body with an int8
+load; any other mix of dtypes raises.
 K1 has no backward kernel: on the card,
 under autograd with an operand that requires grad, both wrappers raise
 ``NotImplementedError`` (``build.refuse_grad``) rather than return an

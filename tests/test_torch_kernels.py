@@ -909,6 +909,38 @@ def test_decode_kernel_int8_matches_plain(cuda, G, hd, dtype):
     _held(got, want.to(got.dtype), dtype)
 
 
+# bf16 queries over an int8 cache: the split body's tensor-core instance,
+# with rows of kv_len 0 and return_lse, with and without scales; against
+# the plain version, and against the FMA instance's float32 output (q
+# widened) within 2^-8 x max|ref| (the bf16 output's rounding and P in bf16)
+@pytest.mark.gpu
+@pytest.mark.parametrize("scales", [False, True])
+@pytest.mark.parametrize("G,KV,hd", [(4, 8, 64), (5, 8, 128), (10, 1, 256), (17, 2, 64)])
+def test_decode_kernel_int8_bf16_lse_matches_plain(cuda, G, KV, hd, scales):
+    rng = np.random.default_rng(3 * G + hd + scales)
+    S = 512
+    kv_len = np.array([0, 1, 63, 64, 65, 300, S, 0], np.int32)
+    q, _, _, kl = _decode_inputs(rng, G, hd, KV=KV, S=S, kv_len=kv_len)
+    k8, v8 = (_int8_kv(rng, (len(kv_len), S, KV, hd)) for _ in range(2))
+    args = [_torch(q * 0.02, BF16, cuda)] + [torch.from_numpy(x).to(cuda)
+                                             for x in (k8, v8, kl)]
+    kw = {n: torch.from_numpy(rng.uniform(0.5, 1.5, (len(kv_len), KV)).astype(np.float32))
+          .to(cuda) for n in ("k_scale", "v_scale")} if scales else {}
+    n = da.decode_attention.launches
+    out, lse = da.decode_attention(*args, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == n + 1
+    want, want_lse = ref.decode_attention(args[0].float(), *args[1:], return_lse=True, **kw)
+    _held_rel(out, want.to(out.dtype), BF16)
+    empty = torch.from_numpy(kv_len == 0).to(cuda)
+    assert (out[empty] == 0).all() and torch.isneginf(lse[empty]).all()
+    assert (lse[~empty] - want_lse[~empty]).abs().max().item() <= 1e-4
+    assert torch.equal(out, da.decode_attention(*args, **kw))
+    fma = da.decode_attention(args[0].float(), *args[1:], **kw)
+    err = (out.float() - fma).abs().max().item()
+    assert err <= 2.0 ** -8 * fma.abs().max().item(), err
+
+
 def _held_rel(got, want, dtype):
     """Outputs of int8 values: each sequence (row b) held to its own scale,
     its max abs error within the dtype's tolerance of its largest output
@@ -931,8 +963,9 @@ def _int8_kv(rng, shape):
 
 
 # an int8 pool (kv_dtype="int8") through K1's int8 instances: decode (the
-# split body's FMA instance) and chunks (bf16: the tensor-core body staging
-# int8 tiles; float32: the tiled body), at granite's and qwen's widths and
+# split body; bf16: its tensor-core instance, float32: its FMA instance) and
+# chunks (bf16: the tensor-core body staging int8 tiles; float32: the tiled
+# body), at granite's and qwen's widths and
 # recurrentgemma's head dim
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [F32, BF16])
