@@ -437,6 +437,19 @@ Phases (each raises on failure, so the script exits non-zero):
    plain versions, timed beside SDPA where there is one; their launches
    are the ranks' counts in the driven runs, summed (K2 and K3 by shape,
    ``ShapeLog``).
+15. The dry run, printed under ``phase 15`` after phase 14
+   (``dryrun_run``): (a) ``launch/dryrun.py``'s ``run_combo`` at full
+   width and depth for granite-3-2b x decode_32k x single, llama4-scout x
+   train_4k x single and mistral-large-123b x prefill_32k x multi, traced
+   on fake CUDA tensors over a fake process group of 256 / 512 ranks in
+   this process: each must end ok, with the kernels' launch counts and
+   ``memory_allocated()`` the same before and after it; its trace
+   seconds, bytes a device, FLOPs a chip, collective bytes by type and the
+   three roofline terms printed; (b) granite-3-2b's paged decode step at
+   phase 3's engine shape traced on one rank, then run on the card through
+   K1: the real arguments' bytes must equal the traced ones; the traced
+   peak beside ``max_memory_allocated()`` over the step, the roofline step
+   time beside phase 3's captured step.
 
 The last three lines are ``{"kernels": [...]}``, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -513,18 +526,20 @@ def event_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(torch, fn, kernel_names, iters: int = 20, attempts: int = 3) -> float:
+def kernel_ms(torch, fn, kernel_names, iters: int = 20, attempts: int = 3,
+              required: int = 1) -> float:
     """Device time per call of the CUDA kernels whose names contain one of
     ``kernel_names`` (a name, or a tuple of them for a kernel that runs as
     several launches, such as the split decode body and its merge), from
     the profiler (launch gaps excluded); each call of ``fn`` launches each
-    named kernel at most once, and the first every time. The profiler now
-    and then records only some, or none, of a session's launches of a
-    kernel launched through ctypes, so each name's time is its recorded
-    device time over its recorded launches, and the shortfall is logged. A
-    session without the first name is repeated, and after ``attempts``
-    such sessions the time is taken with CUDA events around back-to-back
-    calls instead (launch gaps included)."""
+    named kernel at most once, and the first ``required`` every time. The
+    profiler now and then records only some, or none, of a session's
+    launches of a kernel launched through ctypes, so each name's time is
+    its recorded device time over its recorded launches, and the shortfall
+    is logged. A session without one of the first ``required`` names is
+    repeated (summing the others would give part of a call), and after
+    ``attempts`` such sessions the time is taken with CUDA events around
+    back-to-back calls instead (launch gaps included)."""
     from torch.profiler import ProfilerActivity, profile
     names = (kernel_names,) if isinstance(kernel_names, str) else tuple(kernel_names)
     fn()
@@ -545,22 +560,23 @@ def kernel_ms(torch, fn, kernel_names, iters: int = 20, attempts: int = 3) -> fl
             if 0 < n < iters:
                 log(f"  the profiler recorded {n} of {iters} {name} launches")
             per_name.append((n, sum(ev.device_time_total for ev in evs) / 1e3))
-        if per_name[0][0]:
+        missing = [name for name, (n, _) in zip(names[:required], per_name) if not n]
+        if not missing:
             return sum(t / n for n, t in per_name if n)
-        log(f"  the profiler recorded no {names[0]} launch "
+        log(f"  the profiler recorded no {' or '.join(missing)} launch "
             f"(session {attempt} of {attempts})")
     ms = event_ms(torch, fn, iters)
     log(f"  {names[0]}: timed with CUDA events instead, {ms:.4f} ms per call")
     return ms
 
 
-def kernel_times(torch, fn, kernel_names, iters: int = 20):
+def kernel_times(torch, fn, kernel_names, iters: int = 20, required: int = 1):
     """A kernel row's two times per call: ``ms``, the profiler's device
-    time of the kernel (``kernel_ms``; several launches summed), and
-    ``event_ms``, CUDA events around ``iters`` back-to-back calls after a
-    warm-up (launch gaps and the wrapper's host work included where they
-    exceed the kernel)."""
-    return dict(ms=kernel_ms(torch, fn, kernel_names, iters),
+    time of the kernel (``kernel_ms``; several launches summed, the first
+    ``required`` names recorded), and ``event_ms``, CUDA events around
+    ``iters`` back-to-back calls after a warm-up (launch gaps and the
+    wrapper's host work included where they exceed the kernel)."""
+    return dict(ms=kernel_ms(torch, fn, kernel_names, iters, required=required),
                 event_ms=event_ms(torch, fn, iters))
 
 
@@ -3867,7 +3883,7 @@ def phase_kernels_train(torch, dev):
         e = entries[key]
         call = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)  # noqa: E731
         names = flash_bwd_kernels(hd)
-        alone = dict(ms=kernel_ms(torch, call, names["dq"] + names["dkv"], iters=10),
+        alone = dict(ms=kernel_ms(torch, call, names["dq"] + names["dkv"], iters=10, required=2),
                      **{p + "_ms": kernel_ms(torch, call, names[p], iters=10)
                         for p in ("dq", "dkv")})
         log(f"  K2 bwd ({what}) called alone: kernel {alone['ms']:.4f} ms (dQ pass "
@@ -5930,7 +5946,7 @@ def p12_kernel_rows(torch, dev):
         source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention.py:27",
         shape=f"B={B} S={S} H={Hh} KV={KVh} hd={hd} causal bf16",
-        ms=kernel_ms(torch, call, names["dq"] + names["dkv"], iters=10),
+        ms=kernel_ms(torch, call, names["dq"] + names["dkv"], iters=10, required=2),
         event_ms=event_ms(torch, call, 10),
         plain_ms=event_ms(torch, lambda: ref.flash_attention_bwd(q, k, v, out, lse, do, **kw),
                           1, warmup=1),
@@ -6898,7 +6914,7 @@ def p13_new_rows(torch, dev, rng):
         route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention.py:27",
         shape=f"B={B} S={S} H=40 KV=8 hd={hd} causal bf16",
-        ms=kernel_ms(torch, call, names["dq"] + names["dkv"], iters=10),
+        ms=kernel_ms(torch, call, names["dq"] + names["dkv"], iters=10, required=2),
         event_ms=event_ms(torch, call, 10),
         plain_ms=event_ms(torch, lambda: ref.flash_attention_bwd(q, k, v, out, lse, do, **kw),
                           1, warmup=1),
@@ -6957,7 +6973,8 @@ def p13_new_rows(torch, dev, rng):
         source="src/repro_torch/csrc/moe_gmm_bwd.cu",
         replaces="src/repro/kernels/moe_gmm.py:26",
         shape=f"T={T} K={K} N={N} E=4 ({used} used) bf16",
-        **kernel_times(torch, call, tuple(gmm_bwd_kernel(g) for g in ("dX", "dW")), iters=10),
+        **kernel_times(torch, call, tuple(gmm_bwd_kernel(g) for g in ("dX", "dW")), iters=10,
+                       required=2),
         plain_ms=event_ms(torch, lambda: ref.moe_gmm_bwd(x, w, gs, dout), 2, warmup=1),
         bound_ms=b, bound_by=by, max_abs_err=max(errs["dX"] + errs["dW"]),
         library_ms=(event_ms(torch, lambda: (lib["dX"](), lib["dW"]()), 10)
@@ -7574,7 +7591,7 @@ def p14_kernel_rows(torch, dev):
             replaces="src/repro/kernels/flash_attention.py:27",
             shape=f"B={B} S={Sq} H={Hh} KV={KVh} hd={hd} "
                   f"{'causal' if kw['causal'] else 'no mask'} bf16",
-            ms=kernel_ms(torch, call, names["dq"] + names["dkv"], iters=10),
+            ms=kernel_ms(torch, call, names["dq"] + names["dkv"], iters=10, required=2),
             event_ms=event_ms(torch, call, 10),
             plain_ms=event_ms(torch, lambda: ref.flash_attention_bwd(q, k, v, out, lse, do,
                                                                      **kw), 1, warmup=1),
@@ -7808,6 +7825,124 @@ def sharded_families_check(torch, dev, runs, cases, refs):
     return entries, totals
 
 
+# ----------------------------------------------------------------------
+# phase 15: the dry run (launch/dryrun.py) on this card's host
+# ----------------------------------------------------------------------
+P15_COMBOS = (("granite-3-2b", "decode_32k", "single"),
+              ("llama4-scout-17b-a16e", "train_4k", "single"),
+              ("mistral-large-123b", "prefill_32k", "multi"))
+P15_B, P15_LEN, P15_PAGES = 8, 2048, 1024     # phase 3's engine: slots, max_len, pages
+
+
+def dryrun_run(torch, dev, smi, p3_decode) -> None:
+    """(a) ``run_combo`` at full width and depth for ``P15_COMBOS`` over a
+    fake process group of 256 / 512 ranks: each must end ok, and the
+    kernels' launch counts and ``memory_allocated()`` must be the same
+    before and after it (nothing launched, nothing allocated on the card).
+    (b) The prediction against this card: granite-3-2b's paged decode step
+    as phase 3's engine runs it (B=8, 2048 slots, 1024 pages of 16),
+    traced on a one-rank mesh, then run for real through K1 (counts zeroed
+    just before): the real arguments' bytes equal the traced ones, and the
+    traced peak is read against ``max_memory_allocated()`` over the step;
+    the trace's roofline step time beside phase 3's captured step."""
+    import torch.distributed as dist
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import model as M
+    from repro_torch.models.param import map_tree
+    from repro_torch.roofline.analysis import build_report
+    from repro_torch.roofline.analytic import memory_model
+    t15 = time.perf_counter()
+    log(f"phase 15 (a): launch/dryrun.py run_combo on fake tensors over a fake process group "
+        f"(this process rank 0 of 256 / 512), traced for device type {D.trace_device()}; "
+        f"card {smi}; trace seconds are host seconds")
+    try:
+        for arch, shape, mesh in P15_COMBOS:
+            counts, mem = launches(), torch.cuda.memory_allocated()
+            rec = D.run_combo(arch, shape, mesh, verbose=False)
+            after = (launches(), torch.cuda.memory_allocated())
+            if rec["status"] != "ok":
+                raise AssertionError(f"phase 15 (a) {arch} {shape} {mesh}: {rec['status']} "
+                                     f"{rec.get('error')}\n{rec.get('traceback', '')}")
+            if after != (counts, mem):
+                raise AssertionError(f"phase 15 (a) {arch} {shape} {mesh}: launches {counts} "
+                                     f"-> {after[0]}, memory_allocated {mem} -> {after[1]}")
+            r = rec["report"]
+            log(f"  {arch} x {shape} x {mesh} ({rec['chips']} chips): ok, traced in "
+                f"{rec['trace_s']:.1f} s (host); bytes a device {rec['hlo_bytes_per_device']} "
+                f"(arguments {rec['argument_bytes']} + peak {rec['peak_bytes']}); "
+                f"{r['hlo_flops']:.4e} FLOPs a chip (kernels {rec['kernels']}); collective "
+                f"bytes {r['coll_breakdown']} counts {r['coll_counts']}; t_compute "
+                f"{r['t_compute'] * 1e3:.3f} ms, t_memory {r['t_memory'] * 1e3:.3f} ms, "
+                f"t_collective {r['t_collective'] * 1e3:.3f} ms, dominant {r['dominant']}; "
+                f"launches and memory_allocated {mem} unchanged")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    cfg = get_config("granite-3-2b")
+    # every row's 128 pages among the pool's 1023 (page 0 is the scratch
+    # page); the last pages, which the step writes, differ between rows
+    bt_np = (np.arange(P15_B * (P15_LEN // PAGE)) % (P15_PAGES - 1) + 1).astype(
+        np.int32).reshape(P15_B, -1)
+    empty = lambda _, s: torch.empty(s.shape, device=dev,  # noqa: E731
+                                     dtype=getattr(torch, s.dtype or cfg.dtype))
+    with D.fake_mode():
+        params = map_tree(empty, M.param_specs(cfg))
+        cache = map_tree(empty, M.paged_cache_specs(cfg, P15_B, P15_LEN, P15_PAGES, PAGE))
+        args = (params, cache, torch.empty((P15_B, 1), dtype=torch.int32, device=dev),
+                torch.empty((P15_B,), dtype=torch.int32, device=dev),
+                torch.empty(bt_np.shape, dtype=torch.int32, device=dev))
+        got = D.trace(lambda p, c, t, pos, bt: M.decode_step(cfg, p, c, t, pos, block_tables=bt),
+                      args)
+        del params, cache, args
+    shape = InputShape("decode_2048", P15_LEN, P15_B, "decode")
+    report = build_report(cfg, shape, "host", 1, {"flops": got["flops"],
+                                                  "bytes accessed": got["bytes"]},
+                          got["collectives"], bytes_per_device=got["bytes_per_device"])
+    report.model_bytes = memory_model(cfg, shape, 1, 1)
+
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated()
+    params = M.init_model_params(cfg, seed=0, device=dev)
+    cache = M.init_paged_cache(cfg, P15_B, P15_LEN, P15_PAGES, PAGE, device=dev)
+    rng = np.random.default_rng(15)
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab, (P15_B, 1)).astype(np.int32)).to(dev)
+    pos = torch.full((P15_B,), P15_LEN - 1, dtype=torch.int32, device=dev)
+    bt = torch.from_numpy(bt_np).to(dev)
+    real_args = build.nbytes(*D.local_tensors((params, cache, tokens, pos, bt)))
+    m1 = torch.cuda.memory_allocated()
+    if real_args != got["argument_bytes"]:
+        raise AssertionError(f"phase 15 (b): real arguments {real_args} B, traced "
+                             f"{got['argument_bytes']} B")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with torch.no_grad():
+        logits, _ = M.decode_step(cfg, params, cache, tokens, pos, block_tables=bt)
+    torch.cuda.synchronize()
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated() - m1
+    if counts["decode"] != cfg.n_layers or not torch.isfinite(logits).all():
+        raise AssertionError(f"phase 15 (b): launches {counts}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    log(f"phase 15 (b): {cfg.name} {cfg.n_layers} layers paged decode step, B={P15_B}, "
+        f"{P15_LEN} slots, {P15_PAGES} pages of {PAGE}: arguments {real_args} B on the card = "
+        f"{got['argument_bytes']} B traced (memory_allocated grew {m1 - m0} B); the step's "
+        f"peak beyond them {peak} B on the card, {got['peak_bytes']} B traced (traced / card "
+        f"{got['peak_bytes'] / peak:.4f}); traced in {got['trace_s']:.2f} s (host); K1 "
+        f"launches {counts['decode']} on the card, {got['kernels']} traced; roofline step "
+        f"time {report.step_time * 1e3:.3f} ms (t_compute {report.t_compute * 1e3:.3f}, "
+        f"t_memory {report.t_memory * 1e3:.3f}, {report.dominant}; every slot of the block "
+        f"tables counted) beside phase 3's captured B=8 decode step "
+        f"{p3_decode['step_ms']:.2f} ms (host clock, ~256 context)")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    log(f"phase 15: done in {time.perf_counter() - t15:.1f} s")
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7881,6 +8016,7 @@ def main() -> int:
             firsts[cfg.name] = (cfg, first)
             readings.append(reading)
             params = engine.params
+            p3_decode = reading["captured"]
     engine = None
     torch.cuda.empty_cache()
 
@@ -8085,6 +8221,11 @@ def main() -> int:
     entries.update(p13_entries)
     total.update(p13_totals)
     mark("phases 13 and 14")
+
+    # phase 15: the dry run, on fake tensors over a fake process group
+    torch.cuda.empty_cache()
+    dryrun_run(torch, dev, smi, p3_decode)
+    mark("phase 15")
 
     kernels = []
     for key in ("decode", "chunk", "chunk_768", "flash", "flash_rg", "dense_rg", "dense_granite",

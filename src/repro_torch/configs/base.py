@@ -6,8 +6,9 @@ so it keeps its own copy of :class:`ModelConfig`, :class:`Family`,
 and the derived properties the port reads are identical, so a config built
 here describes the same model as its ``repro`` namesake. The derived
 sizes (``n_params``, ``n_active_params``) and the input shapes
-(:class:`InputShape`, ``SHAPES``) are the reference's, field for field;
-``input_specs`` (JAX shape structs for the dry-run) has no twin.
+(:class:`InputShape`, ``SHAPES``) are the reference's, field for field,
+and so are ``input_specs``' inputs (tensors, made in the caller's
+fake-tensor mode by the dry run, where the reference makes shape structs).
 """
 from __future__ import annotations
 
@@ -208,3 +209,34 @@ def list_archs():
     from repro_torch import configs
     configs.load_all()
     return sorted(_REGISTRY)
+
+
+# ----------------------------------------------------------------------
+# input_specs: the model's inputs at an input shape
+# ----------------------------------------------------------------------
+def input_specs(cfg: ModelConfig, shape: InputShape, device=None) -> Dict[str, "object"]:
+    """The reference's inputs (``repro.configs.base.input_specs``) as
+    uninitialised tensors on ``device`` (made inside the caller's fake-tensor
+    mode, they hold no storage): train -> tokens, labels (B, S) int32;
+    prefill -> tokens; decode -> tokens (B, 1) and pos (B,) int32 (the
+    cache is the caller's); frames (B, n_frames, d) for AUDIO; patches (B,
+    n_patches, d) for VLM other than at decode, in the config's dtype."""
+    import torch        # the configs themselves import no torch
+    B, S = shape.global_batch, shape.seq_len
+    i32, wdt = torch.int32, getattr(torch, cfg.dtype)
+    specs = {}
+    if shape.kind == "train":
+        specs["tokens"] = torch.empty((B, S), dtype=i32, device=device)
+        specs["labels"] = torch.empty((B, S), dtype=i32, device=device)
+    elif shape.kind == "prefill":
+        specs["tokens"] = torch.empty((B, S), dtype=i32, device=device)
+    else:
+        specs["tokens"] = torch.empty((B, 1), dtype=i32, device=device)
+        specs["pos"] = torch.empty((B,), dtype=i32, device=device)
+    if cfg.family == Family.AUDIO:
+        specs["frames"] = torch.empty((B, cfg.n_frames, cfg.d_model), dtype=wdt,
+                                      device=device)
+    if cfg.family == Family.VLM and shape.kind != "decode":
+        specs["patches"] = torch.empty((B, cfg.n_patches, cfg.d_model), dtype=wdt,
+                                       device=device)
+    return specs

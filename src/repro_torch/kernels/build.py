@@ -14,6 +14,14 @@ Across processes (cluster workers on one card) a build holds an exclusive
 ``flock`` on ``build/kernels/.lock``: the first process builds, the others
 wait for it and load what it built. The kernel releases the lock when the
 holder exits, killed or not, so a dead builder leaves no stale lock.
+
+A wrapper given FakeTensor operands (shapes and dtypes, no storage: the
+dry run's trace, ``launch/dryrun.py``) takes its shape-only path
+(``is_fake``): its checks run and its outputs are made, as fake tensors,
+and its FLOPs and HBM bytes go to the open ``recording_costs`` record;
+nothing is built or launched, and the launch counts stay as they are. A
+tensor that holds data never takes it: on the card it launches the
+kernel, on the CPU it runs the plain version.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -162,7 +171,9 @@ def refuse_dtensor(name: str, *tensors) -> None:
 def check_operands(device, align: int = 16, **tensors) -> None:
     """Every operand on ``device`` and contiguous; floating and int8
     operands, which the attention kernels read with 16-byte vector loads,
-    ``align``-byte aligned. A DTensor raises (``refuse_dtensor``)."""
+    ``align``-byte aligned (a FakeTensor has no address: the alignment of
+    the tensors a real call would get is not known). A DTensor raises
+    (``refuse_dtensor``)."""
     refuse_dtensor("kernel", *tensors.values())
     for name, t in tensors.items():
         if t.device != device:
@@ -170,7 +181,7 @@ def check_operands(device, align: int = 16, **tensors) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if (t.is_floating_point() or str(t.dtype) == "torch.int8") and \
-                t.data_ptr() % align:
+                not is_fake(t) and t.data_ptr() % align:
             raise ValueError(f"{name} must be {align}-byte aligned")
 
 
@@ -271,3 +282,66 @@ def kernel_of_body(name: str) -> Optional[str]:
         if all(f"{len(f)}{f}" in name for f in frags):
             return kernel
     return None
+
+
+# ----------------------------------------------------------------------
+# shape-only calls: FakeTensor operands (the dry run's trace)
+# ----------------------------------------------------------------------
+# the streaming multiprocessors a split plan assumes where the operands are
+# fake (a fake device has no properties to ask): the H100 SXM's 132
+H100_SXM_SMS = 132
+
+# the open record of shape-only costs: one for the process, not a thread,
+# since autograd runs a card's backward on a thread of its own
+_COSTS: Dict[str, Optional[dict]] = {"record": None}
+_COSTS_LOCK = threading.Lock()
+
+
+def is_fake(*tensors) -> bool:
+    """Whether an operand is a FakeTensor (shapes and dtypes, no storage).
+    Where nothing imported ``torch._subclasses.fake_tensor`` no FakeTensor
+    can exist, so a call on real tensors pays no import."""
+    mod = sys.modules.get("torch._subclasses.fake_tensor")
+    return mod is not None and any(isinstance(t, mod.FakeTensor)
+                                   for t in tensors)
+
+
+def n_sms(t) -> int:
+    """The SMs a split plan is made for: the card's, or ``H100_SXM_SMS``
+    for a fake operand."""
+    return H100_SXM_SMS if is_fake(t) else sm_count(t.device.index)
+
+
+def nbytes(*tensors) -> int:
+    """The bytes of the tensors given (None counts nothing)."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def record_cost(wrapper: Callable, flops: float, n_bytes: float) -> None:
+    """One shape-only call of ``wrapper``: its FLOPs and the HBM bytes it
+    moves (each input read once, each output written once: the reckoning
+    of ``PERF.md``'s bound column), added to the open
+    ``recording_costs`` record (dropped where none is open)."""
+    with _COSTS_LOCK:
+        record = _COSTS["record"]
+        if record is None:
+            return
+        row = record.setdefault(wrapper.__name__, {"calls": 0, "flops": 0.0,
+                                                   "bytes": 0.0})
+        row["calls"] += 1
+        row["flops"] += float(flops)
+        row["bytes"] += float(n_bytes)
+
+
+@contextlib.contextmanager
+def recording_costs():
+    """Yield {wrapper name: {"calls", "flops", "bytes"}} of the shape-only
+    calls made while it is open (in any thread of the process)."""
+    record: Dict[str, Dict[str, float]] = {}
+    with _COSTS_LOCK:
+        prev, _COSTS["record"] = _COSTS["record"], record
+    try:
+        yield record
+    finally:
+        with _COSTS_LOCK:
+            _COSTS["record"] = prev

@@ -28,6 +28,10 @@ key), written by the same kernels as the output, which is bit for bit
 that of the call without it. Under a mesh a rank holds one range of a
 cache's slots (``models/blocks.py``, the sequence-split cache): each rank
 runs K3 on its range and the ranks merge their outputs by these weights.
+
+FakeTensor operands take the shape-only path (``build.is_fake``): the
+checks, the outputs and the split workspace, the cost recorded
+(``cost``), no launch.
 """
 from __future__ import annotations
 
@@ -66,6 +70,15 @@ def workspace(q: torch.Tensor, n_split: int) -> Optional[torch.Tensor]:
                        device=q.device)
 
 
+def cost(q, k, v, kv_len, out, *extra):
+    """(FLOPs, HBM bytes) of one call: every operand read once and the
+    outputs written once, and the scores and weighted sum of every slot of
+    the cache (a fake ``kv_len`` holds no lengths, so a full cache is
+    counted: the most the call can read)."""
+    B, _, H, hd = q.shape
+    return 4 * B * H * k.shape[1] * hd, build.nbytes(q, k, v, kv_len, out, *extra)
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.load("decode_attention").decode_attention_launch
@@ -87,7 +100,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q.dtype, and with ``return_lse`` (out, lse), lse (B, H) float32 in
     natural log (-inf for a row of kv_len 0)."""
     build.refuse_dtensor("decode_attention", q, k, v, kv_len)
-    if not q.is_cuda:
+    fake = build.is_fake(q, k, v, kv_len)
+    if not q.is_cuda and not fake:
         return decode_attention_plain(q, k, v, kv_len,
                                       softmax_scale=softmax_scale,
                                       k_scale=k_scale, v_scale=v_scale,
@@ -123,8 +137,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     operands.update({n: t for n, t in (("k_scale", k_scale),
                                         ("v_scale", v_scale)) if t is not None})
     build.check_operands(q.device, **operands)
-    n_split = split_plan(B, KV, H // KV, S, build.sm_count(q.device.index))
+    n_split = split_plan(B, KV, H // KV, S, build.n_sms(q))
     ws = workspace(q, n_split)
+    if fake:
+        build.record_cost(decode_attention, *cost(q, k, v, kv_len, out, k_scale,
+                                                  v_scale, lse))
+        return (out, lse) if return_lse else out
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),

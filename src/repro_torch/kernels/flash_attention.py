@@ -18,6 +18,10 @@ counterpart of the gradient the reference takes through its XLA path,
 ``ops.flash_attention(impl="xla")``; the Pallas kernel has no VJP). On CPU
 tensors the Function runs the plain forward and ``ref.flash_attention_bwd``,
 the formula the kernel implements.
+
+FakeTensor operands take the shape-only path (``build.is_fake``), forward
+and backward: the checks, the outputs (the backward's head-group
+workspace too), the cost recorded (``cost``, ``bwd_cost``), no launch.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import ctypes
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
@@ -158,6 +163,37 @@ def dq_walk(qb: int, Sq: int, Skv: int, hd: int, causal: bool, window: int,
     return list(range(live[0], live[-1] + 1)) if live else []
 
 
+@functools.lru_cache(maxsize=None)
+def visible_pairs(Sq: int, Skv: int, causal: bool, window: int, chunk: int) -> int:
+    """The (query, key) pairs the mask lets through, the queries being the
+    last Sq of Skv positions (``ref.attention_mask``'s count)."""
+    p = np.arange(Skv - Sq, Skv, dtype=np.int64)
+    hi = p if causal else np.full_like(p, Skv - 1)
+    lo = np.maximum(p - window + 1, 0) if window else np.zeros_like(p)
+    if chunk:
+        lo = np.maximum(lo, p // chunk * chunk)
+        hi = np.minimum(hi, (p // chunk + 1) * chunk - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def cost(q, k, v, out, lse, causal, window, chunk):
+    """(FLOPs, HBM bytes) of one forward call: q, k and v read once, the
+    output (and lse) written once; the scores and the weighted sum of every
+    visible pair (``PERF.md``'s bound column)."""
+    B, Sq, H, hd = q.shape
+    pairs = visible_pairs(Sq, k.shape[1], causal, window, chunk) * H * B
+    return 4 * hd * pairs, build.nbytes(q, k, v, out, lse)
+
+
+def bwd_cost(q, k, v, out, lse, dout, dq, dk, dv, causal, window, chunk):
+    """(FLOPs, HBM bytes) of one backward call: each operand read once and
+    each gradient written once; the five products of every visible pair
+    (S = QK^T again, dP = dO V^T, dV += P^T dO, dQ += dS K, dK += dS^T Q)."""
+    B, Sq, H, hd = q.shape
+    pairs = visible_pairs(Sq, k.shape[1], causal, window, chunk) * H * B
+    return 10 * hd * pairs, build.nbytes(q, k, v, out, lse, dout, dq, dk, dv)
+
+
 def _check_shapes(q, k, v, window: int, chunk: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
             k.shape[0] != q.shape[0]:
@@ -186,6 +222,10 @@ def _forward(q, k, v, causal, window, chunk, softmax_scale, with_lse: bool):
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
     build.check_operands(q.device, q=q, k=k, v=v, out=out)
+    if build.is_fake(q, k, v):
+        build.record_cost(flash_attention, *cost(q, k, v, out, lse, causal, window,
+                                                 chunk))
+        return out, lse
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -207,7 +247,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, window, chunk,
                                       softmax_scale)
-    if not q.is_cuda:
+    if not q.is_cuda and not build.is_fake(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      chunk=chunk, softmax_scale=softmax_scale)
     return _forward(q, k, v, causal, window, chunk, softmax_scale, False)[0]
@@ -229,7 +269,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     then a dK/dV pass; no atomics, so a backward repeats bit for bit); on
     the CPU ``ref.flash_attention_bwd``."""
     build.refuse_dtensor("flash_attention_bwd", q, k, v, out, lse, dout)
-    if not q.is_cuda:
+    fake = build.is_fake(q, k, v, out, lse, dout)
+    if not q.is_cuda and not fake:
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                          causal=causal, window=window,
                                          chunk=chunk,
@@ -247,12 +288,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(lse.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    hs = dkv_head_groups(B, Skv, H, KV, hd, build.sm_count(q.device.index)) \
+    hs = dkv_head_groups(B, Skv, H, KV, hd, build.n_sms(q)) \
         if q.dtype == torch.bfloat16 else 1
     ws = torch.empty(2 * hs * B * Skv * KV * hd, dtype=torch.float32,
                      device=q.device) if hs > 1 else None
     build.check_operands(q.device, q=q, k=k, v=v, out=out, dout=dout, lse=lse,
                          delta=delta, dq=dq, dk=dk, dv=dv)
+    if fake:
+        build.record_cost(flash_attention_bwd, *bwd_cost(
+            q, k, v, out, lse, dout, dq, dk, dv, causal, window, chunk))
+        return dq, dk, dv
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     geo = (*wgmma_blocks(B, Sq, Skv, H, KV, hd, hs), *wgmma_smem_bytes(hd), hs)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -278,7 +323,7 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, chunk, softmax_scale):
-        if q.is_cuda:
+        if q.is_cuda or build.is_fake(q, k, v):
             out, lse = _forward(q, k, v, causal, window, chunk, softmax_scale,
                                 True)
         else:

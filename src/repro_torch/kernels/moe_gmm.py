@@ -19,6 +19,10 @@ dX = dY W[e]^T and dW[e] = X_e^T dY_e the kernels of
 the reference takes through its XLA path, ``jax.lax.ragged_dot``; the
 Pallas kernel has no VJP). On CPU tensors the Function runs the plain
 forward and ``ref.moe_gmm_bwd``.
+
+FakeTensor operands take the shape-only path (``build.is_fake``), forward
+and backward: the checks, the outputs, the cost recorded (``cost``,
+``bwd_cost``), no launch.
 """
 from __future__ import annotations
 
@@ -117,6 +121,34 @@ def dw_tiles(E: int, K: int, N: int):
             for nt in range(-(-N // W_COLS))]
 
 
+def cost(x, w, group_sizes, out):
+    """(FLOPs, HBM bytes) of one forward call: x, the used experts' W and
+    the group sizes read once, the output written once; every row's
+    product. Fake group sizes hold no values: every row is counted in a
+    group and min(E, T) experts as used (the most the call can read)."""
+    T, K = x.shape
+    E, _, N = w.shape
+    used = min(E, T)
+    return 2 * T * K * N, \
+        build.nbytes(x, out, group_sizes) + used * K * N * w.element_size()
+
+
+def bwd_cost(x, w, group_sizes, dout, need_dx: bool, need_dw: bool):
+    """(FLOPs, HBM bytes) of one backward call, as ``cost``: dX reads dY
+    and the used experts' W and writes dX; dW reads X and dY and writes
+    every expert's dW; each a product of every row."""
+    T, K = x.shape
+    E, _, N = w.shape
+    isz, flops, n_bytes = x.element_size(), 0, 0
+    if need_dx:
+        flops += 2 * T * K * N
+        n_bytes += isz * (T * N + min(E, T) * K * N + T * K) + build.nbytes(group_sizes)
+    if need_dw:
+        flops += 2 * T * K * N
+        n_bytes += isz * (T * K + T * N + E * K * N) + build.nbytes(group_sizes)
+    return flops, n_bytes
+
+
 def _check(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> None:
     """Raise on operands the kernels do not take."""
     if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1] or \
@@ -143,7 +175,8 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor,
     build.refuse_dtensor("moe_gmm", x, w, group_sizes)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return MoeGmmFn.apply(x, w, group_sizes)
-    if not x.is_cuda:
+    fake = build.is_fake(x, w, group_sizes)
+    if not x.is_cuda and not fake:
         return moe_gmm_plain(x, w, group_sizes)
     _check(x, w, group_sizes)
     T, K = x.shape
@@ -153,6 +186,9 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((T, N), dtype=x.dtype, device=x.device)
     build.check_operands(x.device, x=x, w=w, out=out, group_sizes=group_sizes)
     if T == 0 or N == 0:
+        return out
+    if fake:
+        build.record_cost(moe_gmm, *cost(x, w, group_sizes, out))
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _launcher()(x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(),
@@ -177,7 +213,8 @@ def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     backward repeats bit for bit; the group sizes stay on the card); on
     the CPU ``ref.moe_gmm_bwd``."""
     build.refuse_dtensor("moe_gmm_bwd", x, w, group_sizes, dout)
-    if not x.is_cuda:
+    fake = build.is_fake(x, w, group_sizes, dout)
+    if not x.is_cuda and not fake:
         return moe_gmm_bwd_plain(x, w, group_sizes, dout, need_dx=need_dx,
                                  need_dw=need_dw)
     _check(x, w, group_sizes)
@@ -197,6 +234,10 @@ def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     operands.update({k: t for k, t in (("dx", dx), ("dw", dw)) if t is not None})
     build.check_operands(x.device, **operands)
     if not (need_dx or need_dw):
+        return dx, dw
+    if fake:
+        build.record_cost(moe_gmm_bwd, *bwd_cost(x, w, group_sizes, dout, need_dx,
+                                                 need_dw))
         return dx, dw
     geo = (build.sm_count(x.device.index), *wgmma_smem_bytes())   # one block an SM
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -21,6 +21,10 @@ K1 has no backward kernel: on the card,
 under autograd with an operand that requires grad, both wrappers raise
 ``NotImplementedError`` (``build.refuse_grad``) rather than return an
 output that cuts the gradient.
+
+FakeTensor operands take the shape-only path (``build.is_fake``): the
+checks, the output and the split workspace, the cost recorded (``cost``),
+no launch.
 """
 from __future__ import annotations
 
@@ -48,10 +52,24 @@ def _launcher():
     return fn
 
 
-def _launch(q, k_pool, v_pool, block_tables, kv_len, q_offset,
+def cost(q, k_pool, block_tables, *small):
+    """(FLOPs, HBM bytes) of one call: q read and the output written once,
+    the K and V of every page the block tables name read once, the tables,
+    lengths and offsets (``small``); the scores and weighted sum of every
+    query against every such key (fake lengths and offsets hold no values,
+    so the whole table is counted: the most the call can read)."""
+    B, C, H, hd = q.shape
+    keys = B * block_tables.shape[1] * k_pool.shape[1]
+    kv_bytes = 2 * keys * k_pool.shape[2] * hd * k_pool.element_size()
+    return 4 * C * H * keys * hd, \
+        2 * build.nbytes(q) + kv_bytes + build.nbytes(block_tables, *small)
+
+
+def _launch(wrapper, q, k_pool, v_pool, block_tables, kv_len, q_offset,
             softmax_scale: Optional[float]) -> torch.Tensor:
-    """Launch K1; ``q_offset`` None means decode (C == 1, the causal limit
-    is kv_len)."""
+    """Launch K1 and count the launch on ``wrapper`` (fake operands: its
+    shape-only path); ``q_offset`` None means decode (C == 1, the causal
+    limit is kv_len)."""
     if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"q {tuple(q.shape)} must be (B, C, H, hd) and the "
                          f"pools (num_pages, page, KV, hd), got k "
@@ -82,9 +100,11 @@ def _launch(q, k_pool, v_pool, block_tables, kv_len, q_offset,
     if q_offset is not None:
         operands["q_offset"] = q_offset
     build.check_operands(q.device, **operands)
-    n_split = da.split_plan(B, KV, H // KV, P * page,
-                            build.sm_count(q.device.index)) if C == 1 else 1
+    n_split = da.split_plan(B, KV, H // KV, P * page, build.n_sms(q)) if C == 1 else 1
     ws = da.workspace(q, n_split)
+    if build.is_fake(q, k_pool, v_pool, block_tables, kv_len):
+        build.record_cost(wrapper, *cost(q, k_pool, block_tables, kv_len, q_offset))
+        return out
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _launcher()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -94,6 +114,7 @@ def _launch(q, k_pool, v_pool, block_tables, kv_len, q_offset,
                      B, C, H, KV, hd, P, page, n_split, scale,
                      build.dtype_code(q), int(kv_int8), stream)
     build.check_launch("paged_attention", rc)
+    build.count_launch(wrapper)
     return out
 
 
@@ -107,16 +128,14 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
     """
     build.refuse_dtensor("paged_decode_attention", q, k_pool, v_pool,
                          block_tables, kv_len)
-    if not q.is_cuda:
+    if not q.is_cuda and not build.is_fake(q, k_pool, v_pool, block_tables, kv_len):
         return paged_decode_plain(q, k_pool, v_pool, block_tables, kv_len,
                                   softmax_scale=softmax_scale)
     build.refuse_grad("paged_decode_attention (K1)", q, k_pool, v_pool)
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"decode takes q of shape (B, 1, H, hd), got {tuple(q.shape)}")
-    out = _launch(q, k_pool, v_pool, block_tables, kv_len, None,
-                  softmax_scale)
-    build.count_launch(paged_decode_attention)
-    return out
+    return _launch(paged_decode_attention, q, k_pool, v_pool, block_tables,
+                   kv_len, None, softmax_scale)
 
 
 def paged_prefill_attention(q, k_pool, v_pool, block_tables, kv_len,
@@ -126,14 +145,13 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, kv_len,
     into the pool, so ``kv_len = q_offset + C``."""
     build.refuse_dtensor("paged_prefill_attention", q, k_pool, v_pool,
                          block_tables, kv_len, q_offset)
-    if not q.is_cuda:
+    if not q.is_cuda and not build.is_fake(q, k_pool, v_pool, block_tables, kv_len,
+                                           q_offset):
         return paged_prefill_plain(q, k_pool, v_pool, block_tables, kv_len,
                                    q_offset, softmax_scale=softmax_scale)
     build.refuse_grad("paged_prefill_attention (K1)", q, k_pool, v_pool)
-    out = _launch(q, k_pool, v_pool, block_tables, kv_len, q_offset,
-                  softmax_scale)
-    build.count_launch(paged_prefill_attention)
-    return out
+    return _launch(paged_prefill_attention, q, k_pool, v_pool, block_tables,
+                   kv_len, q_offset, softmax_scale)
 
 
 paged_decode_attention.launches = 0

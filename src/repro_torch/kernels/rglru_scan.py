@@ -15,6 +15,11 @@ gradients of ``a``, ``b`` and ``h0`` the reverse scan of
 gradient the reference takes through its XLA path, the associative scan
 of ``ops.rglru_scan(impl="xla")``; the Pallas kernel has no VJP). On CPU
 tensors the Function runs the plain forward and ``ref.rglru_scan_bwd``.
+
+FakeTensor operands take the shape-only path (``build.is_fake``), forward
+and backward: the checks, the outputs, the cost recorded (``cost``,
+``bwd_cost``), no launch (a fake tensor has no address to plan copies
+by).
 """
 from __future__ import annotations
 
@@ -57,6 +62,18 @@ def scan_plan(D: int, itemsize: int, *ptrs: int,
     return ScanPlan(ch, vec)
 
 
+def cost(a, b, h0, out):
+    """(FLOPs, HBM bytes) of one forward call: a, b and h0 read once, h
+    written once; a multiply and an add an element."""
+    return 2 * a.numel(), build.nbytes(a, b, h0, out)
+
+
+def bwd_cost(a, h, dh, h0, da, db, dh0):
+    """(FLOPs, HBM bytes) of one backward call: a, h, dh and h0 read once,
+    the gradients written once; three operations an element."""
+    return 3 * a.numel(), build.nbytes(a, h, dh, h0, da, db, dh0)
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.load("rglru_scan").rglru_scan_launch
@@ -84,7 +101,8 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (a, b, h0)):
         return RGLRUScanFn.apply(a, b, h0, plan)
-    if not a.is_cuda:
+    fake = build.is_fake(a, b, h0)
+    if not a.is_cuda and not fake:
         return rglru_scan_plain(a, b, h0)
     if a.dim() != 3 or b.shape != a.shape:
         raise ValueError(f"a and b must share one (B, S, D) shape, got "
@@ -103,6 +121,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     # the plan takes the copy width from the rows' own alignment
     build.check_operands(a.device, align=1, **operands)
     code = build.dtype_code(a)
+    if fake:
+        build.record_cost(rglru_scan, *cost(a, b, h0, out))
+        return out
     if plan is None:
         plan = scan_plan(D, a.element_size(), a.data_ptr(), b.data_ptr())
     stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -128,7 +149,8 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
     the reverse scan (the forward's channel-parallel layout and copy plan,
     time running backwards); on the CPU the plain version."""
     build.refuse_dtensor("rglru_scan_bwd", a, h, dh, h0)
-    if not a.is_cuda:
+    fake = build.is_fake(a, h, dh, h0)
+    if not a.is_cuda and not fake:
         return rglru_scan_bwd_plain(a, h, dh, h0)
     B, S, D = a.shape
     for name, t in (("a", a), ("h", h), ("dh", dh)):
@@ -144,6 +166,9 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
     if h0 is not None:
         operands.update(h0=h0, dh0=dh0)
     build.check_operands(a.device, align=1, **operands)
+    if fake:
+        build.record_cost(rglru_scan_bwd, *bwd_cost(a, h, dh, h0, da, db, dh0))
+        return da, db, dh0
     if plan is None:
         plan = scan_plan(D, 4, *(t.data_ptr() for t in operands.values()))
     stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -175,7 +200,7 @@ class RGLRUScanFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         a, h, h0 = ctx.saved_tensors
-        if a.is_cuda:
+        if a.is_cuda or build.is_fake(a):
             da, db, dh0 = rglru_scan_bwd(a.float().contiguous(), h,
                                          dh.float().contiguous(), h0)
         else:

@@ -8,8 +8,14 @@ of its own, and to ``"gloo"`` on the CPU; ranks that share one card pass
 up must run that backend and hold exactly ``prod(shape)`` ranks; with none
 up, a one-rank shape needs none (``make_host_mesh``) and a larger one is
 brought up from the ``torchrun`` environment (``MASTER_ADDR``, ``RANK``,
-``WORLD_SIZE``). ``make_production_mesh`` serves only the reference's
-dry run, which has no twin, and is not ported.
+``WORLD_SIZE``).
+
+``make_production_mesh`` gives the reference's production meshes, (16, 16)
+``("data", "model")`` or (2, 16, 16) ``("pod", "data", "model")``, over a
+*fake* process group of 256 or 512 ranks (``torch.distributed``'s
+``"fake"`` backend: this process is rank 0, and a collective moves
+nothing): what the dry run (``launch/dryrun.py``) traces a step on, with
+fake tensors, on one machine and no card.
 
 ``run_world(fn, n, ...)`` runs ``fn(rank, *args)`` in ``n`` spawned
 processes joined by a ``FileStore``, each with its own process group, and
@@ -74,6 +80,30 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
         raise ValueError(f"the process group runs {dist.get_backend()!r}, "
                          f"the mesh asks for {backend!r}")
     return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(multi_pod: bool = False, device: DeviceLike = None):
+    """Single pod: 16x16 = 256 chips (data, model). Multi-pod: 2 pods x
+    256 chips with a leading "pod" axis. The ``DeviceMesh`` runs over a fake
+    process group of that many ranks, brought up here (a fake group of
+    another size is taken down first; a real group is refused). ``device``
+    (default: the card) is the device type of the mesh and of the tensors
+    traced on it; the card is never touched."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore  # registers "fake"
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise ValueError(f"a {dist.get_backend()!r} process group is up: the "
+                             "production mesh runs over a fake one")
+        if dist.get_world_size() != n:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    return init_device_mesh(resolve_device(device).type, shape, mesh_dim_names=axes)
 
 
 def mesh_chips(mesh) -> int:

@@ -997,8 +997,11 @@ def sharded_block(cfg: ModelConfig, kind: BlockKind, plan, params, x, *,
     fn = local_map(body, out_placements=out_pl,
                    in_placements=(act,) + lead_pl + weights_pl,
                    in_grad_placements=grad_pl, device_mesh=plan.mesh)
-    out = fn(x, *lead, *(sharding.to_placements(params[n], pl)
-                         for n, pl in zip(names, weights_pl)))
+    # x as the body takes it: a constrain site may have left its d sharded
+    # over an axis the batch does not take (a batch of 1, or one the model
+    # axis does not divide under the no_tp rules)
+    out = fn(sharding.to_placements(x, act), *lead,
+             *(sharding.to_placements(params[n], pl) for n, pl in zip(names, weights_pl)))
     if mode == "train":
         return out[0], None, (out[1] if lay is not None and lay.moe else None)
     return out[0], dict(zip(leaves, out[1:]))

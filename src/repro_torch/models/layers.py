@@ -17,6 +17,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels.build import is_fake
 from repro_torch.models.param import Spec
 
 WEIGHT_STEP = 0.01   # the value of one step of an integer weight
@@ -71,8 +72,11 @@ def _rope_freq(half: int, theta: float, device: torch.device) -> torch.Tensor:
 def rope_tables(pos: torch.Tensor, hd: int, theta: float):
     """(cos, sin) of shape (..., S, 1, hd // 2) in float32 for positions
     ``pos`` (..., S); one pair serves every layer of a forward."""
-    angles = pos[..., None, None].float() * _rope_freq(hd // 2, float(theta),
-                                                       pos.device)
+    # a fake tensor's table (the dry run's trace) is not kept in the cache,
+    # which real calls on the same device read
+    freq = (_rope_freq.__wrapped__ if is_fake(pos) else _rope_freq)(
+        hd // 2, float(theta), pos.device)
+    angles = pos[..., None, None].float() * freq
     return torch.cos(angles), torch.sin(angles)
 
 

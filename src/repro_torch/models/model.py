@@ -724,8 +724,8 @@ def _sharded_unembed(cfg: ModelConfig, params, x, plan, vtp, last: bool = False,
         in_placements=(act, plan.compute(None), table_pl),
         in_grad_placements=(act, plan.grad(None), table_grad),
         device_mesh=mesh)
-    logits = unembed_fn(x, sharding.to_placements(params["final_ln"],
-                                                  plan.compute(None)),
+    logits = unembed_fn(sharding.to_placements(x, act),
+                        sharding.to_placements(params["final_ln"], plan.compute(None)),
                         sharding.to_placements(table, table_pl))
     if _vocab_rows(plan, vtp):      # the rules' batch spans the vocab's axis
         return logits
@@ -818,6 +818,15 @@ def _layer_placements(pl, stacked: bool) -> list:
     return [Shard(p.dim - 1) if stacked and p.is_shard() else p for p in pl]
 
 
+def _same_elements(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` view the same elements of one storage (a
+    block that wrote its cache leaf in place): storage identity and
+    layout, not data pointers, which a FakeTensor (the dry run's) lacks."""
+    return (a.untyped_storage() is b.untyped_storage()
+            and a.storage_offset() == b.storage_offset()
+            and a.shape == b.shape and a.stride() == b.stride())
+
+
 def _sharded_serve(cfg: ModelConfig, params, batch, ctx, *, mode: str, cache,
                    pos, cache_len: Optional[int], impl):
     """``prefill`` and ``decode`` under a mesh, run with no autograd:
@@ -874,7 +883,7 @@ def _sharded_serve(cfg: ModelConfig, params, batch, ctx, *, mode: str, cache,
             return x
         for n, t in nc.items():     # written in place; copied where it was not
             local = t.to_local()
-            if local.data_ptr() != views[n].data_ptr():
+            if not _same_elements(local, views[n]):
                 views[n].copy_(local)
         return x
 

@@ -345,20 +345,54 @@ def init_sharded_cache(cfg, B: int, L: int, mesh,
     """The zero decode cache of ``model.init_cache(cfg, B, L, kv_dtype=)``
     as DTensors, each rank allocating only its shards (an int8 cache's
     attention K/V in int8)."""
-    from torch.distributed.tensor import DTensor
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
-    from repro_torch.device import resolve_device, torch_dtype
     from repro_torch.models.model import cache_specs
-    dev = resolve_device(device)
+    return sharded_leaves(cache_specs(cfg, B, L, kv_dtype), rules, mesh, cfg.dtype,
+                          device, torch.zeros)
 
-    def leaf(_, s):
-        pl = placements(spec_for(s.shape, s.axes, rules, mesh), mesh)
-        local, _ = compute_local_shape_and_global_offset(s.shape, mesh, pl)
-        t = torch.zeros(local, dtype=torch_dtype(s.dtype or cfg.dtype),
-                        device=dev)
-        return DTensor.from_local(t, mesh, pl, run_check=False, shape=s.shape,
-                                  stride=torch.empty(s.shape, device="meta").stride())
-    return map_tree(leaf, cache_specs(cfg, B, L, kv_dtype))
+
+def placed(shape: Sequence[int], dtype: torch.dtype, placements_, mesh, device,
+           fill=torch.empty):
+    """A DTensor of ``shape`` in ``placements_`` whose local shard this rank
+    makes alone with ``fill`` (``torch.zeros``, or ``torch.empty``: inside a
+    fake-tensor mode a shard with a shape and no storage)."""
+    from torch.distributed.tensor import DTensor
+    t = fill(local_shape(shape, mesh, placements_), dtype=dtype, device=device)
+    return DTensor.from_local(t, mesh, placements_, run_check=False,
+                              shape=torch.Size(shape), stride=contiguous_strides(shape))
+
+
+def sharded_leaves(specs, rules: Dict[str, AxisRule], mesh, dtype: str,
+                   device=None, fill=torch.empty):
+    """A spec tree as DTensors in the placements ``spec_for`` gives each
+    leaf, each rank making only its shards with ``fill`` (leaves in the
+    spec's dtype, else ``dtype``)."""
+    from repro_torch.device import resolve_device, torch_dtype
+    dev = resolve_device(device)
+    return map_tree(lambda _, s: placed(
+        s.shape, torch_dtype(s.dtype or dtype),
+        placements(spec_for(s.shape, s.axes, rules, mesh), mesh), mesh, dev, fill),
+        specs)
+
+
+def local_shape(shape: Sequence[int], mesh, placements_) -> Tuple[int, ...]:
+    """This rank's shard shape of a tensor of ``shape`` in ``placements_``
+    (DTensor's own reckoning), computed outside any fake-tensor mode: a
+    fake mode (the dry run's) would trace DTensor's arithmetic on it and
+    refuse its data-dependent steps."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    with unset_fake_temporarily():
+        return tuple(compute_local_shape_and_global_offset(tuple(shape), mesh,
+                                                           placements_)[0])
+
+
+def contiguous_strides(shape: Sequence[int]) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``."""
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(out))
 
 
 class _Gather(torch.autograd.Function):

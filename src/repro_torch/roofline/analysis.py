@@ -10,14 +10,16 @@ figures for one H100 SXM (dense rates, no sparsity, at the full 700 W
 power limit; the same figures ``PERF.md``'s kernel bounds use) in place
 of the reference's TPU v5e ones. The report reads them through its
 fields ``peak_flops``, ``hbm_bw`` and ``link_bw``, so a caller can put in
-another part's constants. ``build_report`` and ``roofline/hlo.py`` parse
-XLA HLO text, which the port never produces, and have no twin.
+another part's constants. ``build_report`` takes the dry run's counts
+of one traced step (``roofline/collectives.py``'s ``StepCounter``: FLOPs,
+unfused bytes and the collectives, per chip) where the reference's parses
+its compiled program's HLO text.
 MODEL_FLOPS = 6·N·D (train) / 2·N·D (inference), N = active params.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 from repro_torch.configs.base import InputShape, ModelConfig
 
@@ -128,3 +130,22 @@ def model_flops(cfg: ModelConfig, shape: InputShape) -> float:
                                    else 1)
     mult = 6.0 if shape.kind == "train" else 2.0
     return mult * cfg.n_active_params * tokens
+
+
+def build_report(cfg: ModelConfig, shape: InputShape, mesh_name: str,
+                 chips: int, cost: dict,
+                 collectives: Tuple[float, Dict[str, int], Dict[str, int]],
+                 bytes_per_device: Optional[float] = None) -> RooflineReport:
+    """The report of one step: ``cost`` {"flops", "bytes accessed"} per
+    chip and ``collectives`` (total bytes, bytes by type, counts by type)
+    per chip, as ``StepCounter.collective_bytes()`` gives them."""
+    total, per_type, counts = collectives
+    return RooflineReport(
+        arch=cfg.name, shape=shape.name, mesh=mesh_name, chips=chips,
+        hlo_flops=float(cost.get("flops", 0.0)),
+        hlo_bytes=float(cost.get("bytes accessed", 0.0)),
+        coll_bytes=float(total),
+        coll_breakdown=dict(per_type), coll_counts=dict(counts),
+        model_flops=model_flops(cfg, shape),
+        bytes_per_device=bytes_per_device,
+    )

@@ -183,3 +183,15 @@ def init_sharded(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, seed: int = 0,
         M.param_specs(cfg))
     return (params, init_opt_state(opt_cfg, params), p_shard,
             opt_shardings(p_shard, mesh), rules)
+
+
+def init_sharded_empty(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
+                       device: DeviceLike = None, rules=None):
+    """(params, opt_state) as ``init_sharded`` places them, with no weights
+    drawn: each parameter's local shard ``torch.empty`` (in a fake-tensor
+    mode, a shape and no storage: the dry run's arguments) and ``m``, ``v``
+    in ``opt_cfg.state_dtype`` in the same placements; under ``rules``
+    (default ``rules_for("train")``)."""
+    params = S.sharded_leaves(M.param_specs(cfg), rules or S.rules_for("train"), mesh,
+                              cfg.dtype, device, torch.empty)
+    return params, init_opt_state(opt_cfg, params)
