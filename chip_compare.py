@@ -7,6 +7,7 @@ call.
     python3 chip_compare.py ROOT --train-bwd
     python3 chip_compare.py ROOT --train-step
     python3 chip_compare.py ROOT --int8-decode
+    python3 chip_compare.py ROOT --fwd
 
 Imports the port from ``ROOT/src`` (its kernels build from ROOT's sources
 into ``ROOT/build/kernels``) and measures, in bf16 at the served widths,
@@ -45,6 +46,19 @@ layers (B=2 S=2048, 5 steps), each step's launches checked, the last step
 profiled; it reports each run's window rate (s/step over the unprofiled
 steps), median and slowest step, and the profiled step's device ms per
 call of K2's and K4's backward.
+
+With ``--fwd`` it measures only K2's and K4's bf16 forward through the
+wrappers (so the body each checkout's shape rule picks): K2 at llama4-scout
+training (B=2 S=2048 H=40 KV=8 hd 128, G=5, causal, with the log-sum-exp),
+recurrentgemma-2b's training shard (B=4 S=1024 H=10 KV=1 hd 256, window
+2048, with the log-sum-exp), granite-3-2b's training batch (B=4 S=2048 hd
+64, with it) and granite's served 1024-token prefill (hd 64, causal); K4 at
+llama4-scout's prefill gate/up and down (1024 rows top-1 over 16 experts,
+K=5120 N=8192 and K=8192 N=5120), its decode (8 rows), its training
+gate/up (4096 rows) and grok-1's gate/up and down (1024 tokens top-2 over 8
+experts: 2048 rows, K=6144 N=32768 and K=32768 N=6144): device ms per call
+(profiler), CUDA events per call and host ms per call, with the body that
+ran where the checkout names its bodies.
 
 With ``--int8-decode`` it measures only the split decode body over int8
 caches with bf16 queries (the FMA instance where the checkout runs it
@@ -252,6 +266,51 @@ def train_bwd(torch, dev) -> dict:
     return out
 
 
+def fwd(torch, dev) -> dict:
+    """K2's and K4's bf16 forward at the training, prefill and decode
+    shapes, through the wrappers."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    t = lambda shape: torch.randn(shape, generator=gen, device=dev).to(  # noqa: E731
+        torch.bfloat16)
+    out, bodies = {}, {}
+    for key, (B, S, nh, nkv, hd), window, lse in (
+            ("K2 hd 128 G=5 llama4 train, lse", (cs.L4_TR_B, cs.L4_TR_S, cs.L4_H, cs.L4_KV,
+                                                 cs.L4_HD), 0, True),
+            ("K2 hd 256 recurrentgemma train shard B=4 S=1024 window, lse",
+             (4, 1024, cs.RG_H, cs.RG_KV, cs.RG_HD), cs.RG_WINDOW, True),
+            ("K2 hd 64 granite train, lse", (cs.TR_B, cs.TR_S, cs.H, cs.KV, cs.HD), 0, True),
+            ("K2 hd 64 granite prefill S=1024", (1, 1024, cs.H, cs.KV, cs.HD), 0, False)):
+        q, k, v = t((B, S, nh, hd)), t((B, S, nkv, hd)), t((B, S, nkv, hd))
+        out[key] = call_ms(torch, lambda: fa._forward(q, k, v, True, window, 0, None, lse))
+        if hasattr(fa, "forward_kernel"):
+            bodies[key] = fa.forward_kernel(q, k)
+        del q, k, v
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(17)
+    l4 = {n: cs.routed_sizes(rng, n, 16, 1, 5120) for n in (8, 1024, 4096)}
+    grok = cs.routed_sizes(rng, 1024, 8, 2, 6144)
+    for i, (key, sizes, T, K, N) in enumerate((
+            ("K4 llama4 prefill gate/up T=1024", l4[1024], 1024, 5120, 8192),
+            ("K4 llama4 prefill down T=1024", l4[1024], 1024, 8192, 5120),
+            ("K4 llama4 decode gate/up T=8", l4[8], 8, 5120, 8192),
+            ("K4 llama4 train gate/up T=4096", l4[4096], 4096, 5120, 8192),
+            ("K4 grok-1 gate/up 2048 rows top-2", grok, 2048, 6144, 32768),
+            ("K4 grok-1 down 2048 rows top-2", grok, 2048, 32768, 6144))):
+        x, w, gs = cs.gmm_inputs(torch, dev, "bfloat16", sizes, T, K, N, seed=70 + i)
+        out[key] = call_ms(torch, lambda: gm.moe_gmm(x, w, gs))
+        if hasattr(gm, "forward_kernel"):
+            bodies[key] = gm.forward_kernel(x, w)
+        del x, w, gs
+        torch.cuda.empty_cache()
+    for key, (ms, ev, host) in out.items():
+        cs.log(f"  {key}: {ms:.4f} ms (events {ev:.4f}, host {host:.4f})"
+               + (f", body {bodies[key]}" if key in bodies else ""))
+    return dict(out, bodies=bodies)
+
+
 def train_step(torch, dev) -> dict:
     """Phase 10 (c) and (h)'s train loops through the launcher's pieces:
     the window's s/step, median, slowest step and the profiled step's
@@ -346,7 +405,8 @@ def main() -> int:
     bwd = sys.argv[2:] == ["--train-bwd"]
     step = sys.argv[2:] == ["--train-step"]
     int8 = sys.argv[2:] == ["--int8-decode"]
-    if len(sys.argv) != 2 and not (split or bwd or step or int8):
+    forward = sys.argv[2:] == ["--fwd"]
+    if len(sys.argv) != 2 and not (split or bwd or step or int8 or forward):
         print(__doc__, file=sys.stderr)
         return 2
     root = Path(sys.argv[1]).resolve()
@@ -362,6 +422,13 @@ def main() -> int:
         build.build(["paged_attention", "decode_attention", "flash_attention"])
         cs.log(f"chip_compare {root}: int8 decode through {names[0]}")
         res = {"root": str(root), "body": names[0], **int8_decode(torch, dev, names)}
+        print(cs.nvidia_smi_line())
+        print(json.dumps(res))
+        return 0
+    if forward:
+        build.build(["flash_attention", "moe_gmm"])
+        cs.log(f"chip_compare {root}: K2 and K4 forward")
+        res = {"root": str(root), **fwd(torch, dev)}
         print(cs.nvidia_smi_line())
         print(json.dumps(res))
         return 0

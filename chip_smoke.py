@@ -12,8 +12,11 @@ Phases (each raises on failure, so the script exits non-zero):
    tensor-core instructions (HMMA, HGMMA) from ``cuobjdump -sass``; the
    bf16 instances of K2, K1's chunks (the prefill body they share), K4 and
    the split decode body (K1 decode, K3) must have some, and every bf16
-   instance of K2's and K4's backward (their wgmma bodies) HGMMA (Hopper's
-   warpgroup products), with no spill.
+   instance of K2's and K4's wgmma bodies (forward and backward) HGMMA
+   (Hopper's warpgroup products), with no spill. K2's and K4's bf16
+   forward each have two bodies, picked by shape (``forward_body`` in
+   their wrapper modules); each K2 / K4 row of phases 2 and 10 names the
+   body that ran and the other body's time on the same inputs beside it.
 2. Kernels against their plain PyTorch versions on the card, in bf16 and
    float32, at the main paths' shapes: K2 flash attention (granite-3-2b
    prefill, H=32 KV=8 hd=64; recurrentgemma-2b prefill, H=10 KV=1 hd=256,
@@ -580,6 +583,43 @@ def kernel_times(torch, fn, kernel_names, iters: int = 20, required: int = 1):
                 event_ms=event_ms(torch, fn, iters))
 
 
+def k2_times(torch, q, k, v, iters: int = 20, **kw):
+    """``kernel_times`` of K2's forward through its wrapper, with the body
+    its shape rule picks and the other bf16 body's time beside it
+    (``fwd_body_times``)."""
+    from repro_torch.kernels import flash_attention as fa
+    rest = (v, kw.get("causal", True), kw.get("window", 0), kw.get("chunk", 0),
+            kw.get("softmax_scale"), False)
+    return dict(**kernel_times(torch, lambda: fa.flash_attention(q, k, v, **kw),
+                               fa.forward_kernel(q, k), iters),
+                **fwd_body_times(torch, fa, (q, k), rest, iters))
+
+
+def k4_times(torch, x, w, gs, iters: int = 20):
+    """``kernel_times`` of K4's forward through its wrapper, with the body
+    its shape rule picks and the other bf16 body's time beside it
+    (``fwd_body_times``)."""
+    from repro_torch.kernels import moe_gmm as gm
+    return dict(**kernel_times(torch, lambda: gm.moe_gmm(x, w, gs), gm.forward_kernel(x, w),
+                               iters),
+                **fwd_body_times(torch, gm, (x, w), (gs,), iters))
+
+
+def fwd_body_times(torch, mod, operands, rest, iters: int = 10) -> dict:
+    """The device kernel of the forward body that ``mod`` (K2's or K4's
+    wrapper module) picks for ``operands`` (``body``) and, for bf16, the
+    other body's profiler time on the same inputs (``mma_ms`` beside the
+    wgmma body, ``wgmma_ms`` beside the mma.sync body; ``rest`` completes
+    the arguments of ``mod._forward``)."""
+    name = mod.forward_kernel(*operands)
+    if name == mod.FWD_KERNELS["fma"]:
+        return dict(body=name)
+    other = "mma" if name == mod.FWD_KERNELS["wgmma"] else "wgmma"
+    return {"body": name, f"{other}_ms": kernel_ms(
+        torch, lambda: mod._forward(*operands, *rest, body=other), mod.FWD_KERNELS[other],
+        iters)}
+
+
 def _template_args(args: str):
     """Itanium-mangled template arguments, readable: f = f32, a = int8,
     13__nv_bfloat16 = bf16, S1_ = the first argument again, Li64E = 64."""
@@ -655,12 +695,15 @@ MMA_KERNELS = ("flash_attention_mma_kernel", "paged_prefill_mma_kernel", "moe_gm
                "split_decode_mma_kernel")
 # the bf16 tensor-core bodies held to no spill (their float32 sums are sized
 # to the register file), with their instance counts and the instruction
-# every instance must hold: K2's backward (its dQ pass at each head dim,
+# every instance must hold: K2's forward at hd 64, 128 and 256 and K4's
+# forward on wgmma; K2's backward (its dQ pass at each head dim,
 # its dK/dV pass at hd 64 and 128 and, at hd 256, its dV and dK halves) and
 # K4's dX and dW on wgmma; K1's chunks (hd 64, 128 and 256, bf16 and int8
 # K/V) and the split decode body of K1 decode and K3 (the same, over
 # block-table and contiguous keys) on mma.sync
-NO_SPILL_KERNELS = {"flash_attention_bwd_dq_wgmma_kernel": (3, "HGMMA"),
+NO_SPILL_KERNELS = {"flash_attention_wgmma_kernel": (3, "HGMMA"),
+                    "moe_gmm_wgmma_kernel": (1, "HGMMA"),
+                    "flash_attention_bwd_dq_wgmma_kernel": (3, "HGMMA"),
                     "flash_attention_bwd_dkv_wgmma_kernel": (4, "HGMMA"),
                     "moe_gmm_bwd_dx_wgmma_kernel": (1, "HGMMA"),
                     "moe_gmm_bwd_dw_wgmma_kernel": (1, "HGMMA"),
@@ -869,8 +912,13 @@ def log_row(e) -> None:
         else "library n/a"
     if e.get("library"):
         vs += f" ({e['library']})"
+    body = f", body {e['body']}" if e.get("body") else ""
+    if e.get("mma_ms"):
+        body += f" (mma.sync body {e['mma_ms']:.4f} ms)"
+    if e.get("wgmma_ms"):
+        body += f" (wgmma body {e['wgmma_ms']:.4f} ms)"
     log(f"  {e['name']:40s} {e['shape']}: kernel {e['ms']:.4f} ms (events "
-        f"{e['event_ms']:.4f}), bound {e['bound_ms']:.4f} ms ({e['bound_by']}), plain "
+        f"{e['event_ms']:.4f}{body}), bound {e['bound_ms']:.4f} ms ({e['bound_by']}), plain "
         f"{e['plain_ms']:.4f} ms, {vs}")
 
 
@@ -986,8 +1034,7 @@ def phase_kernels(torch, dev):
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:27",
         shape=f"B=1 S={S} H={H} KV={KV} hd={HD} causal bf16",
-        **kernel_times(torch, lambda: fa.flash_attention(q, k, v),
-                       "flash_attention_mma_kernel"),
+        **k2_times(torch, q, k, v),
         plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v), 5),
         bound_ms=b, bound_by=by,
         library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
@@ -1004,8 +1051,7 @@ def phase_kernels(torch, dev):
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:27",
         shape=f"B=1 S={S} H={RG_H} KV={RG_KV} hd={RG_HD} window {RG_WINDOW} bf16",
-        **kernel_times(torch, lambda: fa.flash_attention(q, k, v, window=RG_WINDOW),
-                       "flash_attention_mma_kernel", iters=10),
+        **k2_times(torch, q, k, v, iters=10, window=RG_WINDOW),
         plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v, window=RG_WINDOW), 2),
         bound_ms=b, bound_by=by,
         library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
@@ -1235,8 +1281,7 @@ def phase_kernels_moe(torch, dev):
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:27",
         shape=f"B=1 S={S} H={L4_H} KV={L4_KV} hd={L4_HD} causal bf16",
-        **kernel_times(torch, lambda: fa.flash_attention(q, k, v), "flash_attention_mma_kernel",
-                       iters=10),
+        **k2_times(torch, q, k, v, iters=10),
         plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v), 2),
         bound_ms=b, bound_by=by,
         library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
@@ -1297,8 +1342,7 @@ def phase_kernels_moe(torch, dev):
             source="src/repro_torch/csrc/moe_gmm.cu",
             replaces="src/repro/kernels/moe_gmm.py:26",
             shape=f"T={T} K={K} N={N} E={len(sizes)} ({used} used) bf16",
-            **kernel_times(torch, lambda: gm.moe_gmm(x, w, gs), "moe_gmm_mma_kernel",
-                           iters=3 if big else 20),
+            **k4_times(torch, x, w, gs, iters=3 if big else 20),
             plain_ms=event_ms(torch, lambda: ref.moe_gmm(x, w, gs), 2, warmup=1),
             bound_ms=b, bound_by=by,
             library_ms=event_ms(torch, lib, 10) if lib else None)
@@ -1378,8 +1422,7 @@ def phase_kernels_catalogue(torch, dev):
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:27",
             shape=f"B=1 S={S} H={nh} KV={nkv} hd={hd} causal bf16",
-            **kernel_times(torch, lambda: fa.flash_attention(q, k, v),
-                           "flash_attention_mma_kernel"),
+            **k2_times(torch, q, k, v),
             plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v), 3),
             bound_ms=b, bound_by=by,
             library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
@@ -1499,8 +1542,7 @@ def phase_kernels_whisper(torch, dev):
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:27",
             shape=f"B={B} Sq={sq} Skv={F_} H=KV={nh} hd={hd} no mask bf16",
-            **kernel_times(torch, lambda: fa.flash_attention(q, k, v, causal=False),
-                           "flash_attention_mma_kernel"),
+            **k2_times(torch, q, k, v, causal=False),
             plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v, causal=False), 3),
             bound_ms=b, bound_by=by,
             library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt), 20), library="SDPA")
@@ -1580,8 +1622,7 @@ def phase_kernels_llava(torch, dev):
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:27",
         shape=f"B=1 S={S} H={nh} KV={nkv} hd={hd} causal bf16",
-        **kernel_times(torch, lambda: fa.flash_attention(q, k, v),
-                       "flash_attention_mma_kernel", iters=10),
+        **k2_times(torch, q, k, v, iters=10),
         plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v), 2, warmup=1),
         bound_ms=b, bound_by=by,
         library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
@@ -1911,7 +1952,7 @@ def gateway_run(torch, cfg):
             raise AssertionError(
                 f"gateway: wave-2 event {i} (prompt {GRANITE_PROMPTS[i]} tokens) through the "
                 f"worker thread gave {r['outputs']}, run_batch on the main thread {want} "
-                f"(same engine; kernels K2 flash_attention_mma_kernel, K1 decode "
+                f"(same engine; kernels K2 {' or '.join(K2_FWD)}, K1 decode "
                 f"split_decode_mma_kernel)")
 
     m = gw.metrics
@@ -2657,9 +2698,9 @@ def profile_breakdown(torch, label: str, run, n: int, shares=None, per_launch=No
     """Profile ``run()`` (``n`` units of work): wall ms per unit, device
     busy ms per unit (kernels and copies on the card), the idle share, the
     host-side op count, the top device consumers and, for each ``shares``
-    entry (label: kernel name), that kernel's device ms per unit and share
-    of busy, with the launches the profiler recorded beside those its
-    wrappers counted. Returns (wall ms, device busy ms, {label: ms}) per
+    entry (label: a kernel name, or a tuple of the names of a kernel's
+    bodies), that kernel's device ms per unit and share of busy, with the
+    launches the profiler recorded beside those its wrappers counted. Returns (wall ms, device busy ms, {label: ms}) per
     unit. A ``per_launch`` dict gets, for each ``shares`` label, the device
     ms of one wrapper call: each matching kernel's recorded time over its
     recorded launches, summed over the kernels (a call's passes), or None
@@ -2692,7 +2733,8 @@ def profile_breakdown(torch, label: str, run, n: int, shares=None, per_launch=No
         log(f"    {_device_us(e) / 1e3 / n:8.3f} ms  x{e.count // n:<5d} {e.key[:90]}")
     share_ms = {}
     for what, kernel in (shares or {}).items():
-        evs = [e for e in dev if kernel in e.key]
+        names = (kernel,) if isinstance(kernel, str) else kernel
+        evs = [e for e in dev if any(n in e.key for n in names)]
         share_ms[what] = ms = sum(_device_us(e) for e in evs) / 1e3 / n
         if per_launch is not None:
             per_launch[what] = sum(_device_us(e) / e.count for e in evs) / 1e3 if evs else None
@@ -2734,8 +2776,10 @@ def device_by_class(torch, run, n: int) -> dict:
     return out
 
 
-PREFILL_SHARES = {"K2": "flash_attention_mma_kernel", "K5": "rglru_scan_kernel",
-                  "K4": "moe_gmm_mma_kernel"}
+# K2's and K4's forward: either bf16 body, by the wrappers' shape rules
+K2_FWD = ("flash_attention_wgmma_kernel", "flash_attention_mma_kernel")
+K4_FWD = ("moe_gmm_wgmma_kernel", "moe_gmm_mma_kernel")
+PREFILL_SHARES = {"K2": K2_FWD, "K5": "rglru_scan_kernel", "K4": K4_FWD}
 
 
 def profile_decode(torch, engine, cfg, context: int):
@@ -3776,9 +3820,9 @@ def sdpa_backward(torch, q, k, v, do, **sdpa_kw):
 
 # phase 10's kernel entries: key -> the label of its kernel in a profiled
 # train step (``profile_breakdown``'s shares) and the arch whose step it is
-TRAIN_SHARES = {"K2": "flash_attention_mma_kernel", "K2 bwd": "flash_attention_bwd",
+TRAIN_SHARES = {"K2": K2_FWD, "K2 bwd": "flash_attention_bwd",
                 "K5": "rglru_scan_kernel", "K5 bwd": "rglru_scan_bwd_kernel",
-                "K4": "moe_gmm_mma_kernel", "K4 bwd": "moe_gmm_bwd"}
+                "K4": K4_FWD, "K4 bwd": "moe_gmm_bwd"}
 TRAIN_ROWS = {"flash_train": ("granite-3-2b", "K2"),
               "flash_bwd_granite": ("granite-3-2b", "K2 bwd"),
               "flash_rg_train": ("recurrentgemma-2b", "K2"),
@@ -3865,7 +3909,8 @@ def phase_kernels_train(torch, dev):
                                                                  return_lse=True), 1, warmup=1),
             bound_ms=b, bound_by=by,
             library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, enable_gqa=True, **lib_kw), 10),
-            library="SDPA forward" + (", explicit window mask" if window else ", is_causal"))
+            library="SDPA forward" + (", explicit window mask" if window else ", is_causal"),
+            **fwd_body_times(torch, fa, (q, k), (v, kw["causal"], window, 0, None, True)))
         b, by = bound_ms(isz * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
                          10 * hd * pairs, dtype)
         entries[key] = dict(
@@ -4074,7 +4119,7 @@ def phase_kernels_moe_train(torch, dev):
                 plain_ms=event_ms(torch, lambda: ref.moe_gmm(x, w, gs), 1, warmup=1),
                 bound_ms=b, bound_by=by,
                 library_ms=event_ms(torch, fwd_lib, 10) if fwd_lib else None,
-                library="torch._grouped_mm")
+                library="torch._grouped_mm", **fwd_body_times(torch, gm, (x, w), (gs,)))
             del fwd_lib
         # dX reads dY and each used expert's W once and writes dX; dW reads
         # X and dY once and writes every expert's dW
@@ -5924,8 +5969,7 @@ def p12_kernel_rows(torch, dev):
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:27",
             shape=f"B={B} S={S} H={Hh} KV={KVh} hd={hd} causal bf16",
-            **kernel_times(torch, lambda: fa.flash_attention(q, k, v),
-                           "flash_attention_mma_kernel", iters=10),
+            **k2_times(torch, q, k, v, iters=10),
             plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v), 2),
             bound_ms=b, bound_by=by, max_abs_err=max(errs),
             library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
@@ -5975,8 +6019,7 @@ def p12_kernel_rows(torch, dev):
             source="src/repro_torch/csrc/moe_gmm.cu",
             replaces="src/repro/kernels/moe_gmm.py:26",
             shape=f"T={T} K={K} N={N} E={len(sizes)} ({used} used) bf16",
-            **kernel_times(torch, lambda: gm.moe_gmm(x, w, gs), "moe_gmm_mma_kernel",
-                           iters=20),
+            **k4_times(torch, x, w, gs, iters=20),
             plain_ms=event_ms(torch, lambda: ref.moe_gmm(x, w, gs), 2, warmup=1),
             bound_ms=b, bound_by=by, max_abs_err=max(errs),
             library_ms=event_ms(torch, lib, 10) if lib else None)
@@ -6654,8 +6697,7 @@ def p13_kernel_rows(torch, dev):
             replaces="src/repro/kernels/flash_attention.py:27",
             shape=f"B={B} S={S} H={Hh} KV={KVh} hd={hd} "
                   f"{f'window {win}' if win else 'causal'} bf16",
-            **kernel_times(torch, lambda: fa.flash_attention(q, k, v, window=win),
-                           "flash_attention_mma_kernel", iters=10),
+            **k2_times(torch, q, k, v, iters=10, window=win),
             plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v, window=win), 2,
                               warmup=1),
             bound_ms=b, bound_by=by, max_abs_err=max(errs),
@@ -6740,8 +6782,7 @@ def p13_kernel_rows(torch, dev):
             source="src/repro_torch/csrc/moe_gmm.cu",
             replaces="src/repro/kernels/moe_gmm.py:26",
             shape=f"T={T} K={K} N={N} E={len(sizes)} ({used} used) bf16",
-            **kernel_times(torch, lambda: gm.moe_gmm(x, w, gs), "moe_gmm_mma_kernel",
-                           iters=20),
+            **k4_times(torch, x, w, gs, iters=20),
             plain_ms=event_ms(torch, lambda: ref.moe_gmm(x, w, gs), 2, warmup=1),
             bound_ms=b, bound_by=by, max_abs_err=max(errs),
             library_ms=event_ms(torch, lib, 10) if lib else None)
@@ -6895,8 +6936,7 @@ def p13_new_rows(torch, dev, rng):
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:27",
             shape=f"B={B} S={S} H={Hh} KV={KVh} hd={hd} causal bf16",
-            **kernel_times(torch, lambda: fa.flash_attention(q, k, v),
-                           "flash_attention_mma_kernel", iters=10),
+            **k2_times(torch, q, k, v, iters=10),
             plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v), 2, warmup=1),
             bound_ms=b, bound_by=by, max_abs_err=max(errs),
             library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
@@ -6950,8 +6990,7 @@ def p13_new_rows(torch, dev, rng):
             source="src/repro_torch/csrc/moe_gmm.cu",
             replaces="src/repro/kernels/moe_gmm.py:26",
             shape=f"T={T} K={K} N={N} E={len(sizes)} ({used} used) bf16",
-            **kernel_times(torch, lambda: gm.moe_gmm(x, w, gs), "moe_gmm_mma_kernel",
-                           iters=20),
+            **k4_times(torch, x, w, gs, iters=20),
             plain_ms=event_ms(torch, lambda: ref.moe_gmm(x, w, gs), 2, warmup=1),
             bound_ms=b, bound_by=by, max_abs_err=max(errs),
             library_ms=event_ms(torch, lib, 10) if lib else None)
@@ -7565,8 +7604,7 @@ def p14_kernel_rows(torch, dev):
             replaces="src/repro/kernels/flash_attention.py:27",
             shape=f"B={B} Sq={Sq} Skv={Skv} H={Hh} KV={KVh} hd={hd} "
                   f"{'causal' if kw['causal'] else 'no mask'} bf16",
-            **kernel_times(torch, lambda: fa.flash_attention(q, k, v, **kw),
-                           "flash_attention_mma_kernel", iters=10),
+            **k2_times(torch, q, k, v, iters=10, **kw),
             plain_ms=event_ms(torch, lambda: ref.flash_attention(q, k, v, **kw), 2, warmup=1),
             bound_ms=b, bound_by=by, max_abs_err=max(errs),
             library_ms=event_ms(torch, lambda: sdpa(qt, kt, vt, enable_gqa=True, **lib_kw),
@@ -7971,6 +8009,10 @@ def main() -> int:
     secs = build.build()
     log(f"phase 1: kernels built in {max(secs.values()) if secs else 0.0:.1f} s "
         f"(parallel nvcc per source: {secs or 'already built'})")
+    if secs:
+        log(f"phase 1: nvcc of the libraries holding K2's and K4's wgmma forward beside "
+            f"their mma.sync bodies: flash_attention {secs.get('flash_attention', 0):.1f} s, "
+            f"moe_gmm {secs.get('moe_gmm', 0):.1f} s")
     for name in build.KERNELS:
         for line in ptxas_summary(build.ptxas_report(name)):
             log(f"  ptxas {line}")

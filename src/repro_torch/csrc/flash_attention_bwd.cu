@@ -61,7 +61,7 @@
 // float32 body of attention_common.cuh; P and dS pass through shared
 // memory.
 #include "attention_common.cuh"
-#include "hopper_common.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
@@ -69,36 +69,12 @@ using bf16 = __nv_bfloat16;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float PAD_LSE = 1e30f;   // padding rows: P = exp(s - 1e30) = 0
 
-__device__ __forceinline__ bool visible(int kp, int qp, int kv_len, int causal, int window,
-                                        int chunk) {
-  bool ok = kp < kv_len;
-  if (causal) ok = ok && kp <= qp;
-  if (window) ok = ok && kp > qp - window;
-  if (chunk) ok = ok && kp / chunk == qp / chunk;
-  return ok;
-}
-
-// whether keys [k_lo, k_hi] and query positions [q_lo, q_hi] can hold a
-// visible pair (the reachability test of flash_attention.py:42-53)
-__device__ __forceinline__ bool tiles_meet(int k_lo, int k_hi, int q_lo, int q_hi, int causal,
-                                           int window, int chunk) {
-  bool ok = true;
-  if (causal) ok = ok && k_lo <= q_hi;
-  if (window) ok = ok && k_hi > q_lo - window;
-  if (chunk) ok = ok && (k_hi / chunk >= q_lo / chunk) && (k_lo / chunk <= q_hi / chunk);
-  return ok;
-}
-
-// whether every pair of keys [k_lo, k_hi] (all < kv_len) and query
-// positions [q_lo, q_hi] is visible: the tile needs no mask
-__device__ __forceinline__ bool tiles_full(int k_lo, int k_hi, int q_lo, int q_hi, int kv_len,
-                                           int causal, int window, int chunk) {
-  bool ok = k_hi < kv_len;
-  if (causal) ok = ok && k_hi <= q_lo;
-  if (window) ok = ok && k_lo > q_hi - window;
-  if (chunk) ok = ok && k_lo / chunk == q_hi / chunk && k_hi / chunk == q_lo / chunk;
-  return ok;
-}
+using hop::align1024;
+using wa::tiles_full;
+using wa::tiles_meet;
+using wa::visible;
+using wa::WS_CONSUMER_WARPS;
+using wa::WS_THREADS;
 
 // the element offset of query row r (position r / G of head kvh * G + r % G)
 __device__ __forceinline__ long long row_off(int b, int Sq, int H, int G, int kvh, int r, int HD) {
@@ -120,9 +96,6 @@ __device__ __forceinline__ long long lse_off(int b, int Sq, int H, int G, int kv
 // (64 of hd, 1 head, R positions, 1 batch) of q viewed as (hd, H, Sq, B),
 // so G need not divide the tile, lse and D of a tile are contiguous and
 // positions past Sq load as zeros.
-constexpr int WS_THREADS = 384;
-constexpr int WS_CONSUMER_WARPS = 8;
-
 // KV_KEYS keys a dK/dV block (64 a consumer warpgroup, or at hd 256 the
 // same 64 with hd split in two), KV_ROWS query positions a step of it;
 // Q_ROWS query positions a dQ block (64 a consumer), Q_KEYS keys a step;
@@ -167,10 +140,6 @@ template <int HD> struct DqLayout {
   static_assert(STAGE % 1024 == 0 && BYTES <= 232448, "shared memory of a block");
 };
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (hop::smem_u32(p) & 1023)) & 1023);
-}
-
 // The dK/dV block's tile and walk. Blocks run key blocks slowest (the
 // first wave takes the first key block of every head group, kv head and
 // batch: under a causal mask the heaviest), then HS head groups, kv heads,
@@ -199,29 +168,6 @@ __device__ __forceinline__ DkvWalk dkv_walk(int B, int Sq, int Skv, int H, int K
   int pt0 = 0;
   while (pt0 <= pt1 && !live(pt0)) ++pt0;
   return {kb, kvh, b, hs, g0, ng, pt0, (pt1 - pt0 + 1) * ng};
-}
-
-// The dQ block's tile (query blocks slowest; under a causal mask the last,
-// heaviest, first) and its live key tiles, one interval [kt0, kt0 +
-// n_steps).
-struct DqWalk {
-  int qb, h, b, kt0, n_steps;
-};
-template <int QR, int BK>
-__device__ __forceinline__ DqWalk dq_walk(int B, int Sq, int Skv, int H, int causal, int window,
-                                          int chunk) {
-  const int n_qb = (Sq + QR - 1) / QR, rank = blockIdx.x / (H * B);
-  const int h = blockIdx.x % H, b = blockIdx.x / H % B, qb = causal ? n_qb - 1 - rank : rank;
-  const int qbase = Skv - Sq, q_lo = qbase + qb * QR, q_hi = qbase + min(qb * QR + QR, Sq) - 1;
-  auto live = [&](int kt) {
-    return tiles_meet(kt * BK, kt * BK + BK - 1, q_lo, q_hi, causal, window, chunk);
-  };
-  int kt1 = (Skv + BK - 1) / BK - 1;
-  if (causal) kt1 = min(kt1, q_hi / BK);
-  while (kt1 >= 0 && !live(kt1)) --kt1;
-  int kt0 = 0;
-  while (kt0 <= kt1 && !live(kt0)) ++kt0;
-  return {qb, h, b, kt0, kt1 - kt0 + 1};
 }
 
 // MODE 0 sums dK and dV, 1 dV alone, 2 dK alone: at hd 256 a consumer's
@@ -491,7 +437,7 @@ flash_attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // Everything below is computed within each branch, after setmaxnreg.
   if (wg == 0) {
     hop::regs_dec<24>();
-    const DqWalk w = dq_walk<QR, BK>(B, Sq, Skv, H, causal, window, chunk);
+    const wa::QWalk w = wa::q_walk<QR, BK>(B, Sq, Skv, H, causal, window, chunk);
     const int h = w.h, b = w.b, kvh = h / (H / KV), p0 = w.qb * QR, kt0 = w.kt0;
     const int n_steps = w.n_steps;
     if (warp == 0 && lane == 0) {
@@ -515,7 +461,7 @@ flash_attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   } else {
     hop::regs_inc<240>();
-    const DqWalk w = dq_walk<QR, BK>(B, Sq, Skv, H, causal, window, chunk);
+    const wa::QWalk w = wa::q_walk<QR, BK>(B, Sq, Skv, H, causal, window, chunk);
     const int h = w.h, b = w.b, p0 = w.qb * QR, kt0 = w.kt0, n_steps = w.n_steps;
     const int qbase = Skv - Sq, q_lo = qbase + p0;
     const int cw = wg - 1, g = lane >> 2, t = lane & 3;
@@ -938,16 +884,6 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // ----------------------------------------------------------------------
 // host: the wgmma body's tensor maps and launches
 // ----------------------------------------------------------------------
-// a (B, S, heads, HD) bf16 tensor as (HD, heads, S, B), boxes of 64 x 1 x rows x 1
-template <int HD>
-int head_map(CUtensorMap* m, const void* p, int B, int S, int heads, int rows) {
-  const uint64_t dims[4] = {(uint64_t)HD, (uint64_t)heads, (uint64_t)S, (uint64_t)B};
-  const uint64_t strides[3] = {(uint64_t)HD * 2, (uint64_t)heads * HD * 2,
-                               (uint64_t)S * heads * HD * 2};
-  const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
-  return hop::make_tmap(m, p, 4, dims, strides, box);
-}
-
 // the dQ pass (it stores D), then the dK/dV pass, on the wgmma body with
 // the wrapper's geometry (kernels/flash_attention.py), which must be this
 // build's
@@ -964,8 +900,10 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o, cons
       geo[1] != (Skv + KL::KB - 1) / KL::KB * KV * B * HS || geo[3] != KL::BYTES)
     return -1;
   CUtensorMap mq, mdo, mk, mv;
-  if (head_map<HD>(&mq, q, B, Sq, H, QL::QR) || head_map<HD>(&mdo, dout, B, Sq, H, QL::QR) ||
-      head_map<HD>(&mk, k, B, Skv, KV, QL::BK) || head_map<HD>(&mv, v, B, Skv, KV, QL::BK))
+  if (wa::head_map<HD>(&mq, q, B, Sq, H, QL::QR) ||
+      wa::head_map<HD>(&mdo, dout, B, Sq, H, QL::QR) ||
+      wa::head_map<HD>(&mk, k, B, Skv, KV, QL::BK) ||
+      wa::head_map<HD>(&mv, v, B, Skv, KV, QL::BK))
     return -2;
   cudaError_t err = allow_smem(flash_attention_bwd_dq_wgmma_kernel<HD>, QL::BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -974,8 +912,10 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o, cons
       static_cast<bf16*>(dq), B, Sq, Skv, H, KV, causal, window, chunk, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (head_map<HD>(&mq, q, B, Sq, H, KL::BQ) || head_map<HD>(&mdo, dout, B, Sq, H, KL::BQ) ||
-      head_map<HD>(&mk, k, B, Skv, KV, KL::KB) || head_map<HD>(&mv, v, B, Skv, KV, KL::KB))
+  if (wa::head_map<HD>(&mq, q, B, Sq, H, KL::BQ) ||
+      wa::head_map<HD>(&mdo, dout, B, Sq, H, KL::BQ) ||
+      wa::head_map<HD>(&mk, k, B, Skv, KV, KL::KB) ||
+      wa::head_map<HD>(&mv, v, B, Skv, KV, KL::KB))
     return -2;
   // hd 256: dV (MODE 1), then dK (MODE 2); else both at once (MODE 0)
   constexpr int M0 = HD == 256 ? 1 : 0, M1 = HD == 256 ? 2 : 0;

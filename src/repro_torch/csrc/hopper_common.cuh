@@ -1,5 +1,6 @@
 // Hopper building blocks of the port's warp-specialised bf16 kernels
-// (sm_90a, CUDA C++; csrc/flash_attention_bwd.cu, csrc/moe_gmm_bwd.cu):
+// (sm_90a, CUDA C++; csrc/flash_attention.cu, csrc/flash_attention_bwd.cu,
+// csrc/moe_gmm.cu, csrc/moe_gmm_bwd.cu):
 // TMA tile loads and stores described by CUtensorMaps, mbarriers that
 // count arrivals and the bytes a TMA copy delivers, the wgmma matrix
 // descriptor for tiles in the 128-byte swizzle that TMA writes, the
@@ -36,6 +37,12 @@ namespace hop {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the first 1024-byte aligned address at or after p in shared memory (the
+// 128-byte swizzle repeats every 1024 bytes, so swizzled tiles start there)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
 // ---------------------------------------------------------------------
@@ -80,6 +87,11 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
+// arrive at barrier `id` without waiting: with named_sync on the same id by
+// other warps, one group lets another pass
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
 
 // ---------------------------------------------------------------------
 // TMA
@@ -90,6 +102,14 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,

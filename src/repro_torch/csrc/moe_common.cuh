@@ -79,4 +79,29 @@ __device__ inline RowTile find_row_tile(const long long* s_rows, const int* s_ti
   return {lo, row0, (int)min((long long)BM, min(s_rows[lo], (long long)T_rows) - row0)};
 }
 
+// Tile u of the persistent wgmma bodies' static order (csrc/moe_gmm.cu's
+// forward, csrc/moe_gmm_bwd.cu's dX): tiles of ROWS rows of one expert x
+// one of n_ct column tiles, experts slowest, then column tiles, then the
+// expert's row tiles, so the row tiles that read one slab of w[e] run side
+// by side and the slab comes from HBM once; s_tiles scanned in tiles of
+// ROWS rows. rows <= 0: nothing to compute.
+struct ExpertTile {
+  int e, c, rows;
+  long long row0;
+};
+template <int ROWS>
+__device__ __forceinline__ ExpertTile expert_tile(const long long* s_rows, const int* s_tiles,
+                                                  int T_rows, int E, int n_ct, int u) {
+  int lo = 0, hi = E - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (s_tiles[mid] * n_ct > u) hi = mid;
+    else lo = mid + 1;
+  }
+  const int t0 = lo ? s_tiles[lo - 1] : 0, rt = s_tiles[lo] - t0, local = u - t0 * n_ct;
+  const long long row0 = (lo ? s_rows[lo - 1] : 0) + (long long)(local % rt) * ROWS;
+  const long long end = min(s_rows[lo], (long long)T_rows);
+  return {lo, local / rt, (int)max(min((long long)ROWS, end - row0), -1LL), row0};
+}
+
 }  // namespace moe

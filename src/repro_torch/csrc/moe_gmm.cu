@@ -27,7 +27,16 @@
 // weights stream once. Weights are indexed with 64-bit offsets (grok-1's w
 // per layer holds 1.6e9 elements).
 //
-// bfloat16: moe_gmm_mma_kernel, on the tensor cores. A block tile is 64
+// bfloat16 has two bodies, picked by shape by the wrapper, which passes
+// the persistent body's geometry (blocks > 0) or none (0); the rule lives
+// in kernels/moe_gmm.py forward_body and never changes body on a failed
+// build or launch. moe_gmm_wgmma_kernel (below: persistent, warp-
+// specialised, wgmma fed by TMA, 128-row tiles ordered by expert) runs
+// where T is at least WGMMA_MIN_ROWS there; moe_gmm_mma_kernel runs at
+// fewer rows (decode), where its grid of 64-row tiles keeps more of the
+// weights in flight at once than one persistent block an SM does.
+//
+// moe_gmm_mma_kernel, on the tensor cores. A block tile is 64
 // rows x 256 columns, split across its 4 warps by columns (64 x 64 each),
 // so at decode, where a tile has 8 live rows, every warp has work and
 // every warp streams its share of the weight slab; m16 row blocks with no
@@ -46,23 +55,23 @@
 // bank conflicts. mma.sync.m16n8k16 multiplies in bf16 and sums in
 // float32 (each product exact, as the Pallas body's float32 upcast). The
 // epilogue rounds to bf16 through shared memory and stores 16 bytes a
-// thread. Next: wgmma fed by TMA with warp specialisation, and a
-// persistent schedule by expert so a slab of w[e] stays in L2 for all of
-// its row tiles.
+// thread.
 //
 // float32: moe_gmm_kernel<float>, float32 FMA on CUDA cores (exact, no
 // TF32): a 64 x 64 tile, a (64, 32) x tile (transposed) and a (32, 64) w
 // tile through shared memory with the next stage's 16-byte global loads in
 // registers while the current one computes, each thread a 4 x 4 patch.
 //
-// Grid: (ceil(T / 64) + E, ceil(N / BN)). bf16: BN 256, 128 threads, 66 KB
-// of dynamic shared memory, 2 blocks an SM (242 registers); float32: BN 64,
-// 256 threads, 17 KB of static shared memory; both 3 KB more for the group
-// offsets.
+// Grids: the wgmma body, one block of 384 threads an SM, FwdLayout::BYTES
+// (214 KB) of dynamic shared memory; the others (ceil(T / 64) + E,
+// ceil(N / BN)): bf16 BN 256, 128 threads, 66 KB of dynamic shared memory,
+// 2 blocks an SM (242 registers); float32 BN 64, 256 threads, 17 KB of
+// static shared memory; both 3 KB more for the group offsets.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
 #include "mma_common.cuh"
 #include "moe_common.cuh"
 
@@ -352,6 +361,166 @@ moe_gmm_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
+// ---------------------------------------------------------------------
+// bfloat16 on wgmma: persistent, warp-specialised, fed by TMA
+// ---------------------------------------------------------------------
+// One block an SM walks output tiles in a static order (tile = blockIdx.x
+// + i * gridDim.x; moe::expert_tile): 128 rows of one expert x 256 columns,
+// experts slowest, then column tiles, then the expert's row tiles, so the
+// row tiles that read one (K, 256) slab of w[e] run side by side while it
+// is in L2. Warpgroup 0 produces (setmaxnreg down to 24: warp 0's lane 0
+// keeps TMA loads in flight into a ring of W_STAGES stages on mbarriers;
+// warps 1-3 zero the rows no group covers), warpgroups 1 and 2 consume
+// (240): wgmma.m64n256k16, each consumer 64 rows of the tile, one wgmma
+// group in flight so a stage is released while the next one runs; a
+// consumer whose 64 rows hold no row of the group only releases the
+// stages. A = x's rows (K-major: K contiguous), B = w[e] as stored, (K, N)
+// with N contiguous, read MN-major through the descriptor (4 boxes of 64
+// columns), so w is never transposed or copied. TMA cannot stop at a
+// group's edge: rows past it (the next group's, or past T, which load as
+// zeros) are computed and not stored. w's map is (N, K, E), so a stage past
+// K loads zeros from w[e] and never the next expert's rows. The rounded
+// tile goes out through a padded shared-memory tile with 16-byte stores
+// while the producer loads the next tile.
+constexpr int WS_THREADS = 384;
+constexpr int WS_CONSUMER_WARPS = 8;
+constexpr int W_STAGES = 3;
+constexpr int W_DEPTH = 64;    // reduction (of K) a stage
+constexpr int W_COLS = 256;    // output columns (of N) a tile
+constexpr int W_ROWS = 128;    // rows of one expert a tile
+
+// Stages of x (128 rows x 64 of K) and w[e] (64 of K x 256 of N: 4 boxes),
+// an epilogue tile a consumer (64 x 256, rows padded by 16 bytes), the
+// scan, the barriers. kernels/moe_gmm.py fwd_smem_bytes mirrors these.
+struct FwdLayout {
+  static constexpr int A = 0, B = W_ROWS * W_DEPTH * 2;
+  static constexpr int STAGE = B + W_DEPTH * W_COLS * 2;
+  static constexpr int EPI_LD = W_COLS + 8, EPI = W_STAGES * STAGE;
+  static constexpr int EPI_WG = 64 * EPI_LD * 2;
+  static constexpr int SCAN = EPI + 2 * EPI_WG;
+  static constexpr int BARS = SCAN + MAX_E * (8 + 4);
+  static constexpr int BYTES = BARS + 2 * W_STAGES * 8 + 1024;
+  static_assert(BYTES <= 232448 && STAGE % 1024 == 0 && B % 1024 == 0,
+                "shared memory of a block");
+};
+
+__global__ void __launch_bounds__(WS_THREADS, 1)
+moe_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                     const __grid_constant__ CUtensorMap tm_w,
+                     const int* __restrict__ group_sizes, bf16* __restrict__ out, int T_rows,
+                     int K, int N, int E) {
+  using L = FwdLayout;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hop::align1024(smem_raw);
+  long long* s_rows = reinterpret_cast<long long*>(sm + L::SCAN);
+  int* s_tiles = reinterpret_cast<int*>(s_rows + MAX_E);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* empty = full + W_STAGES;
+  const int tid = threadIdx.x, wg = hop::warpgroup_idx(), warp = hop::warp_in_group();
+  const int lane = tid % 32;
+  if (tid == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      hop::bar_init(&full[s], 1);
+      hop::bar_init(&empty[s], WS_CONSUMER_WARPS);
+    }
+    hop::fence_bar_init();
+  }
+  scan_groups<WS_THREADS, W_ROWS>(group_sizes, T_rows, E, s_rows, s_tiles);
+  const int n_ct = (N + W_COLS - 1) / W_COLS, n_k = (K + W_DEPTH - 1) / W_DEPTH;
+  const int total = s_tiles[E - 1] * n_ct;
+  const long long covered = min(s_rows[E - 1], (long long)T_rows);
+
+  if (wg == 0) {
+    hop::regs_dec<24>();
+    if (warp == 0) {
+      if (lane == 0) {
+        int it = 0;
+        for (int u = blockIdx.x; u < total; u += gridDim.x) {
+          const moe::ExpertTile tl =
+              moe::expert_tile<W_ROWS>(s_rows, s_tiles, T_rows, E, n_ct, u);
+          if (tl.rows <= 0) continue;
+          for (int kt = 0; kt < n_k; ++kt, ++it) {
+            const int s = it % W_STAGES;
+            hop::bar_wait(&empty[s], ((it / W_STAGES) & 1) ^ 1);
+            unsigned char* st = sm + s * L::STAGE;
+            hop::bar_arrive_tx(&full[s], L::STAGE);
+            hop::tma_load_2d(st + L::A, &tm_x, &full[s], kt * W_DEPTH, (int)tl.row0);
+            for (int j = 0; j < W_COLS / 64; ++j)
+              hop::tma_load_3d(st + L::B + j * W_DEPTH * 128, &tm_w, &full[s],
+                               tl.c * W_COLS + 64 * j, kt * W_DEPTH, tl.e);
+          }
+        }
+      }
+    } else {
+      // warps 1-3: rows no group covers are zero, as ragged_dot leaves them
+      const long long n16 = (T_rows - covered) * N / 8;
+      uint4* z = reinterpret_cast<uint4*>(out + covered * N);
+      for (long long i = (long long)blockIdx.x * 96 + tid - 32; i < n16;
+           i += (long long)gridDim.x * 96)
+        z[i] = make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    hop::regs_inc<240>();
+    const int cw = wg - 1, g = lane >> 2, t = lane & 3, wtid = tid - 128 * wg;
+    bf16* epi = reinterpret_cast<bf16*>(sm + L::EPI + cw * L::EPI_WG);
+    int it = 0;
+    for (int u = blockIdx.x; u < total; u += gridDim.x) {
+      const moe::ExpertTile tl = moe::expert_tile<W_ROWS>(s_rows, s_tiles, T_rows, E, n_ct, u);
+      if (tl.rows <= 0) continue;
+      const int rows = tl.rows - 64 * cw;   // this consumer's rows of the group
+      if (rows <= 0) {
+        // no row of the group: release the tile's stages unread
+        for (int kt = 0; kt < n_k; ++kt, ++it) {
+          const int s = it % W_STAGES;
+          hop::bar_wait(&full[s], (it / W_STAGES) & 1);
+          __syncwarp();
+          if (lane == 0) hop::bar_arrive(&empty[s]);
+        }
+        continue;
+      }
+      float acc[W_COLS / 2];
+      for (int kt = 0; kt < n_k; ++kt, ++it) {
+        const int s = it % W_STAGES;
+        hop::bar_wait(&full[s], (it / W_STAGES) & 1);
+        const unsigned char* st = sm + s * L::STAGE;
+        hop::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < W_DEPTH / 16; ++kk)
+          hop::mma_ss<0, 1>(acc, hop::desc(st + L::A + cw * 64 * 128 + kk * 32, 16, 1024),
+                            hop::desc(st + L::B + kk * 2048, W_DEPTH * 128, 1024),
+                            kt > 0 || kk > 0, hop::Tag<W_COLS>());
+        hop::wg_commit();
+        hop::wg_wait<1>();   // the previous stage's products are done
+        if (kt > 0 && lane == 0) hop::bar_arrive(&empty[(it - 1) % W_STAGES]);
+      }
+      hop::wg_wait<0>();
+      hop::fence_acc(acc);
+      if (lane == 0) hop::bar_arrive(&empty[(it - 1) % W_STAGES]);
+
+      // epilogue: round to bf16 through shared memory (the producer is
+      // already loading the next tile), rows of the group only
+      hop::named_sync(1 + cw, 128);   // the previous tile's reads are done
+#pragma unroll
+      for (int j = 0; j < W_COLS / 8; ++j) {
+        const int r = warp * 16 + g, c = j * 8 + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(epi + r * L::EPI_LD + c) =
+            __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(epi + (r + 8) * L::EPI_LD + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+      hop::named_sync(1 + cw, 128);
+      const int c0 = tl.c * W_COLS;
+      const long long row0 = tl.row0 + 64 * cw;
+      for (int i = wtid; i < 64 * (W_COLS / 8); i += 128) {
+        const int r = i / (W_COLS / 8), c = (i % (W_COLS / 8)) * 8;
+        if (r < rows && c0 + c < N)
+          *reinterpret_cast<uint4*>(out + (row0 + r) * N + c0 + c) =
+              *reinterpret_cast<const uint4*>(epi + r * L::EPI_LD + c);
+      }
+    }
+  }
+}
+
 int launch_f32(const void* x, const void* w, const void* gs, void* out, int T_rows, int K, int N,
                int E, cudaStream_t stream) {
   const dim3 grid((unsigned)((T_rows + BM - 1) / BM + E), (unsigned)((N + BN - 1) / BN));
@@ -362,7 +531,25 @@ int launch_f32(const void* x, const void* w, const void* gs, void* out, int T_ro
 }
 
 int launch_bf16(const void* x, const void* w, const void* gs, void* out, int T_rows, int K,
-                int N, int E, cudaStream_t stream) {
+                int N, int E, int blocks, int smem, cudaStream_t stream) {
+  if (blocks > 0) {
+    if (smem != FwdLayout::BYTES) return -1;
+    CUtensorMap mx, mw;
+    const uint64_t x_dims[2] = {(uint64_t)K, (uint64_t)T_rows}, x_str[1] = {(uint64_t)K * 2};
+    const uint32_t x_box[2] = {W_DEPTH, W_ROWS};
+    const uint64_t w_dims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)E};
+    const uint64_t w_str[2] = {(uint64_t)N * 2, (uint64_t)K * N * 2};
+    const uint32_t w_box[3] = {64, W_DEPTH, 1};
+    if (hop::make_tmap(&mx, x, 2, x_dims, x_str, x_box) ||
+        hop::make_tmap(&mw, w, 3, w_dims, w_str, w_box))
+      return -2;
+    const cudaError_t err = cudaFuncSetAttribute(
+        moe_gmm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FwdLayout::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    moe_gmm_wgmma_kernel<<<blocks, WS_THREADS, FwdLayout::BYTES, stream>>>(
+        mx, mw, static_cast<const int*>(gs), static_cast<bf16*>(out), T_rows, K, N, E);
+    return (int)cudaGetLastError();
+  }
   cudaError_t err = cudaFuncSetAttribute(moe_gmm_mma_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)MMA_SMEM);
@@ -379,14 +566,20 @@ int launch_bf16(const void* x, const void* w, const void* gs, void* out, int T_r
 
 // x: (T, K); w: (E, K, N); out: (T, N); all contiguous, 16-byte aligned,
 // dtype 0 = float32, 1 = bfloat16; group_sizes: (E,) int32 on the device.
-// K and N multiples of 8, 1 <= E <= 256, ceil(N / 64) <= 65535.
-// Returns 0, a cudaError_t code, or -1 for unsupported arguments.
+// K and N multiples of 8, 1 <= E <= 256, ceil(N / 64) <= 65535. blocks 0
+// runs the grid body (bf16: mma.sync; float32: FMA); blocks > 0 (bf16
+// only) the persistent wgmma body on that many blocks, with smem its
+// dynamic shared memory bytes as the wrapper computed them (checked
+// against this build's). Returns 0, a cudaError_t code, -1 for unsupported
+// arguments, or -2 when a tensor map cannot be encoded.
 extern "C" int moe_gmm_launch(const void* x, const void* w, const void* group_sizes, void* out,
-                              int T_rows, int K, int N, int E, int dtype, void* stream) {
-  if (E < 1 || E > MAX_E || K % 8 || N % 8) return -1;
+                              int T_rows, int K, int N, int E, int dtype, int blocks, int smem,
+                              void* stream) {
+  if (E < 1 || E > MAX_E || K % 8 || N % 8 || blocks < 0) return -1;
   if (T_rows <= 0 || N <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(x, w, group_sizes, out, T_rows, K, N, E, s);
-  if (dtype == 1) return launch_bf16(x, w, group_sizes, out, T_rows, K, N, E, s);
+  if (dtype == 0 && blocks == 0) return launch_f32(x, w, group_sizes, out, T_rows, K, N, E, s);
+  if (dtype == 1)
+    return launch_bf16(x, w, group_sizes, out, T_rows, K, N, E, blocks, smem, s);
   return -1;
 }

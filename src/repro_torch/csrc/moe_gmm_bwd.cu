@@ -307,31 +307,6 @@ struct DwLayout {
   static_assert(BYTES <= 232448 && STAGE % 1024 == 0, "shared memory of a block");
 };
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (hop::smem_u32(p) & 1023)) & 1023);
-}
-
-// dX tile u of the static order: experts slowest, then column tiles of K,
-// then the expert's row tiles, so the row tiles that read one slab of W[e]
-// run side by side and the slab comes from HBM once. rows <= 0: nothing.
-struct DxTile {
-  int e, c, rows;
-  long long row0;
-};
-__device__ __forceinline__ DxTile dx_tile(const long long* s_rows, const int* s_tiles,
-                                          int T_rows, int E, int n_ct, int u) {
-  int lo = 0, hi = E - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (s_tiles[mid] * n_ct > u) hi = mid;
-    else lo = mid + 1;
-  }
-  const int t0 = lo ? s_tiles[lo - 1] : 0, rt = s_tiles[lo] - t0, local = u - t0 * n_ct;
-  const long long row0 = (lo ? s_rows[lo - 1] : 0) + (long long)(local % rt) * DX_ROWS;
-  const long long end = min(s_rows[lo], (long long)T_rows);
-  return {lo, local / rt, (int)max(min((long long)DX_ROWS, end - row0), -1LL), row0};
-}
-
 // dX = dY W[e]^T: A = dY's rows (K-major: N contiguous), B = W[e] as
 // stored, (K, N) with N contiguous, K-major for this product.
 __global__ void __launch_bounds__(WS_THREADS, 1)
@@ -341,7 +316,7 @@ moe_gmm_bwd_dx_wgmma_kernel(const __grid_constant__ CUtensorMap tm_dy,
                             int T_rows, int K, int N, int E) {
   using L = DxLayout;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = align1024(smem_raw);
+  unsigned char* sm = hop::align1024(smem_raw);
   long long* s_rows = reinterpret_cast<long long*>(sm + L::SCAN);
   int* s_tiles = reinterpret_cast<int*>(s_rows + MAX_E);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
@@ -366,7 +341,8 @@ moe_gmm_bwd_dx_wgmma_kernel(const __grid_constant__ CUtensorMap tm_dy,
       if (lane == 0) {
         int it = 0;
         for (int u = blockIdx.x; u < total; u += gridDim.x) {
-          const DxTile tl = dx_tile(s_rows, s_tiles, T_rows, E, n_ct, u);
+          const moe::ExpertTile tl =
+              moe::expert_tile<DX_ROWS>(s_rows, s_tiles, T_rows, E, n_ct, u);
           if (tl.rows <= 0) continue;
           for (int n = 0; n < n_k; ++n, ++it) {
             const int s = it % W_STAGES;
@@ -394,7 +370,8 @@ moe_gmm_bwd_dx_wgmma_kernel(const __grid_constant__ CUtensorMap tm_dy,
     bf16* epi = reinterpret_cast<bf16*>(sm + L::EPI + cw * L::EPI_WG);
     int it = 0;
     for (int u = blockIdx.x; u < total; u += gridDim.x) {
-      const DxTile tl = dx_tile(s_rows, s_tiles, T_rows, E, n_ct, u);
+      const moe::ExpertTile tl =
+          moe::expert_tile<DX_ROWS>(s_rows, s_tiles, T_rows, E, n_ct, u);
       if (tl.rows <= 0) continue;
       float acc[W_COLS / 2];
       for (int n = 0; n < n_k; ++n, ++it) {
@@ -452,7 +429,7 @@ moe_gmm_bwd_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                             int E) {
   using L = DwLayout;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = align1024(smem_raw);
+  unsigned char* sm = hop::align1024(smem_raw);
   long long* s_rows = reinterpret_cast<long long*>(sm + L::SCAN);
   int* s_tiles = reinterpret_cast<int*>(s_rows + MAX_E);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);

@@ -1,6 +1,7 @@
 // bf16 prefill attention on the tensor cores for Hopper (sm_90a), CUDA C++:
-// the one body of K2 (flash_attention.cu, contiguous keys) and K1's chunks
-// (paged_attention.cu, C > 1, block-table keys).
+// a body of K2 (flash_attention.cu, contiguous keys; body 0 beside its
+// wgmma body) and the body of K1's chunks (paged_attention.cu, C > 1,
+// block-table keys).
 //
 // Replaces the prefill schedule of the Pallas TPU kernels _attn_kernel /
 // flash_attention (src/repro/kernels/flash_attention.py:27, :88) and
@@ -48,9 +49,11 @@
 // (the running sum l is taken over the float32 p). At hd 256 a warp's
 // 16 x 256 float32 accumulator is already 128 registers a thread, so Q's
 // fragments are re-read from shared memory per k-step instead of held in
-// registers (hd 64 and 128 hold them). wgmma, TMA and warp specialisation
-// are the step beyond. Numerics follow the Pallas bodies: NEG_INF = -1e30
-// rather than -inf, l clamped at 1e-30 and one division at the end.
+// registers (hd 64 and 128 hold them). K2's bf16 forward runs the
+// warp-specialised wgmma body of flash_attention.cu (TMA, wgmma) wherever
+// its shape rule picks it, and this body elsewhere; K1's chunks stay here.
+// Numerics follow the Pallas bodies: NEG_INF = -1e30 rather than -inf, l
+// clamped at 1e-30 and one division at the end.
 //
 // Given an lse pointer (K2 under autograd), each row's log-sum-exp of its
 // scaled scores in natural-log units, m * ln 2 + log(l) from the running

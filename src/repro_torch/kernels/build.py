@@ -256,8 +256,10 @@ BODIES: Tuple[Tuple[Tuple[str, ...], str], ...] = (
     (("paged_tiled_kernel",), "K1"),
     (("split_decode_mma_kernel", "DenseCache"), "K3"),
     (("split_decode_fma_kernel", "DenseCache"), "K3"),
+    (("flash_attention_wgmma_kernel",), "K2"),
     (("flash_attention_mma_kernel",), "K2"),
     (("flash_attention_kernel",), "K2"),
+    (("moe_gmm_wgmma_kernel",), "K4"),
     (("moe_gmm_mma_kernel",), "K4"),
     (("moe_gmm_kernel",), "K4"),
     (("rglru_scan_kernel",), "K5"),

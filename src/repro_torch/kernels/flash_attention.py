@@ -5,7 +5,9 @@ Whole-prompt prefill attention: GQA, queries are the last ``Sq`` of ``Skv``
 positions, masks causal / sliding ``window`` / same-``chunk`` / none. For a
 CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/flash_attention.cu`` on the current stream and counts the launch
-(bf16 on the tensor cores, float32 with exact FMA on the CUDA cores);
+(bf16 on the tensor cores: the warp-specialised wgmma body or the
+mma.sync body, as ``forward_body`` picks by shape; float32 with exact
+FMA on the CUDA cores);
 for a CPU tensor it runs the plain PyTorch version. There is no fallback:
 a CUDA operand the kernel does not take, or a failed build or launch,
 raises.
@@ -43,7 +45,7 @@ flash_attention_bwd_plain = ref.flash_attention_bwd
 def _launcher():
     fn = build.load("flash_attention").flash_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + \
-        [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -55,6 +57,87 @@ def _bwd_launcher():
         [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+# ----------------------------------------------------------------------
+# the forward's bodies and launch geometry (csrc/flash_attention.cu), which
+# the wrapper passes to the launcher and the launcher checks against its
+# build
+# ----------------------------------------------------------------------
+# bf16 has two bodies: "wgmma" (flash_attention_wgmma_kernel: a TMA
+# producer warpgroup, two or three wgmma consumer warpgroups) and "mma"
+# (flash_attention_mma_kernel, prefill_common.cuh's mma.sync body, which
+# K1's chunks share); float32 runs "fma" (flash_attention_kernel). The
+# wgmma body's tiles (FwdCfg<HD>): consumer warpgroups, query positions a
+# block (64 a consumer; at hd 256 both consumers take the same 64 and split
+# hd), keys a tile, its ring's stages
+FWD_TILES = {
+    64: dict(consumers=3, q_rows=192, keys=64, stages=4),
+    128: dict(consumers=2, q_rows=128, keys=64, stages=4),
+    256: dict(consumers=2, q_rows=64, keys=64, stages=3),
+}
+FWD_KERNELS = {"wgmma": "flash_attention_wgmma_kernel",
+               "mma": "flash_attention_mma_kernel", "fma": "flash_attention_kernel"}
+
+
+def forward_body(dtype, B: int, Sq: int, Skv: int, H: int, KV: int, hd: int) -> str:
+    """The body the forward runs for these shapes (``FWD_KERNELS``): float32
+    "fma"; bf16 "wgmma", which measured faster than "mma" at every shape
+    timed in one process on the card (the rule csrc/flash_attention.cu's
+    header states).
+    Shapes alone decide: never a failed build or launch."""
+    return "fma" if dtype != torch.bfloat16 else "wgmma"
+
+
+def forward_kernel(q, k) -> str:
+    """The device kernel K2's forward launches for operands q and k."""
+    B, Sq, H, hd = q.shape
+    return FWD_KERNELS[forward_body(q.dtype, B, Sq, k.shape[1], H, k.shape[2], hd)]
+
+
+def fwd_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory bytes of the wgmma forward (FwdLayout): the
+    block's Q, the ring of K and V, the barriers and 1024 bytes to align
+    the base."""
+    t = FWD_TILES[hd]
+    return t["q_rows"] * hd * 2 + t["stages"] * 2 * t["keys"] * hd * 2 + \
+        (1 + 2 * t["stages"]) * 8 + 1024
+
+
+def fwd_blocks(B: int, Sq: int, H: int, hd: int) -> int:
+    """Blocks of the wgmma forward's one-dimensional grid."""
+    return -(-Sq // FWD_TILES[hd]["q_rows"]) * H * B
+
+
+def q_block(i: int, B: int, H: int, Sq: int, rows: int, causal: bool):
+    """(query block, head, batch) of block ``i`` of a grid of blocks of
+    ``rows`` consecutive positions of one head (the forward and the
+    backward's dQ pass; wgmma_attention.cuh q_walk): query blocks slowest;
+    under a causal mask the last (heaviest) first."""
+    n_qb = -(-Sq // rows)
+    rank = i // (H * B)
+    return (n_qb - 1 - rank if causal else rank), i % H, i // H % B
+
+
+def q_walk(qb: int, Sq: int, Skv: int, rows: int, keys: int, causal: bool,
+           window: int, chunk: int):
+    """The key tiles of ``keys`` keys that query block ``qb`` of ``rows``
+    positions walks, in order (one interval)."""
+    qbase = Skv - Sq
+    q_lo, q_hi = qbase + qb * rows, qbase + min(qb * rows + rows, Sq) - 1
+    live = [kt for kt in range(-(-Skv // keys))
+            if (not causal or kt <= q_hi // keys)
+            and tiles_meet(kt * keys, kt * keys + keys - 1, q_lo, q_hi, causal, window, chunk)]
+    return list(range(live[0], live[-1] + 1)) if live else []
+
+
+def fwd_consumer_rows(hd: int):
+    """The (first row, rows) of the block each wgmma forward consumer owns:
+    64 each, or at hd 256 both the block's 64 (hd split in two)."""
+    t = FWD_TILES[hd]
+    if t["q_rows"] < 64 * t["consumers"]:
+        return [(0, t["q_rows"])] * t["consumers"]
+    return [(64 * c, 64) for c in range(t["consumers"])]
 
 
 # ----------------------------------------------------------------------
@@ -146,21 +229,14 @@ def dkv_walk(kb: int, Sq: int, Skv: int, G: int, hd: int, causal: bool,
 def dq_block(i: int, B: int, H: int, Sq: int, hd: int, causal: bool):
     """(query block, head, batch) of the dQ pass's block ``i``: query
     blocks slowest; under a causal mask the last (heaviest) first."""
-    n_qb = -(-Sq // WGMMA_TILES[hd]["q_rows"])
-    rank = i // (H * B)
-    return (n_qb - 1 - rank if causal else rank), i % H, i // H % B
+    return q_block(i, B, H, Sq, WGMMA_TILES[hd]["q_rows"], causal)
 
 
 def dq_walk(qb: int, Sq: int, Skv: int, hd: int, causal: bool, window: int,
             chunk: int):
     """The key tiles query block ``qb`` walks, in order (one interval)."""
     t = WGMMA_TILES[hd]
-    qr, bk, qbase = t["q_rows"], t["q_keys"], Skv - Sq
-    q_lo, q_hi = qbase + qb * qr, qbase + min(qb * qr + qr, Sq) - 1
-    live = [kt for kt in range(-(-Skv // bk))
-            if (not causal or kt <= q_hi // bk)
-            and tiles_meet(kt * bk, kt * bk + bk - 1, q_lo, q_hi, causal, window, chunk)]
-    return list(range(live[0], live[-1] + 1)) if live else []
+    return q_walk(qb, Sq, Skv, t["q_rows"], t["q_keys"], causal, window, chunk)
 
 
 @functools.lru_cache(maxsize=None)
@@ -213,11 +289,17 @@ def _check_shapes(q, k, v, window: int, chunk: int) -> None:
         raise ValueError("window and chunk must be >= 0")
 
 
-def _forward(q, k, v, causal, window, chunk, softmax_scale, with_lse: bool):
-    """One launch of the forward kernel; (out, lse or None)."""
+def _forward(q, k, v, causal, window, chunk, softmax_scale, with_lse: bool,
+             body: Optional[str] = None):
+    """One launch of the forward kernel; (out, lse or None). ``body``
+    names a bf16 body to run ("wgmma" or "mma"; a measurement's choice),
+    else ``forward_body`` picks it."""
     _check_shapes(q, k, v, window, chunk)
     B, Sq, H, hd = q.shape
     _, Skv, KV, _ = k.shape
+    body = body or forward_body(q.dtype, B, Sq, Skv, H, KV, hd)
+    if (body == "fma") != (q.dtype != torch.bfloat16) or body not in FWD_KERNELS:
+        raise ValueError(f"no {body!r} body for {q.dtype}")
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
@@ -227,11 +309,13 @@ def _forward(q, k, v, causal, window, chunk, softmax_scale, with_lse: bool):
                                                  chunk))
         return out, lse
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    geo = (fwd_blocks(B, Sq, H, hd), fwd_smem_bytes(hd)) if body == "wgmma" else (0, 0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      lse.data_ptr() if with_lse else None,
                      B, Sq, Skv, H, KV, hd, int(causal), int(window),
-                     int(chunk), scale, build.dtype_code(q), stream)
+                     int(chunk), scale, build.dtype_code(q), int(body == "wgmma"),
+                     *geo, stream)
     build.check_launch("flash_attention", rc)
     build.count_launch(flash_attention)
     return out, lse

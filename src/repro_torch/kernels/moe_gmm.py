@@ -6,8 +6,9 @@ the ``group_sizes[e]`` rows of expert e multiply w[e] (K, N), products
 accumulate in float32, and the output (T, N) is ``x.dtype``; rows past the
 last group are zero. For a CUDA tensor the wrapper launches the
 hand-written kernel in ``csrc/moe_gmm.cu`` on the current stream and
-counts the launch (bf16 on the tensor cores, float32 with exact FMA on
-the CUDA cores); the group sizes stay on the card (the host never reads
+counts the launch (bf16 on the tensor cores: the persistent wgmma body or
+the mma.sync body, as ``forward_body`` picks by shape; float32 with exact
+FMA on the CUDA cores); the group sizes stay on the card (the host never reads
 them). For a CPU tensor it runs the plain PyTorch version. There is no
 fallback: a CUDA operand the kernel does not take, or a failed build or
 launch, raises.
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -47,7 +49,7 @@ DW_ROWS = 64         # the float32 dW kernel's K tile: grid.y = E * ceil(K / DW_
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.load("moe_gmm").moe_gmm_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -58,6 +60,69 @@ def _bwd_launcher():
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+# ----------------------------------------------------------------------
+# the forward's bodies and launch geometry (csrc/moe_gmm.cu), which the
+# wrapper passes to the launcher and the launcher checks against its build
+# ----------------------------------------------------------------------
+# bf16 has two bodies: "wgmma" (moe_gmm_wgmma_kernel: persistent, one block
+# an SM, a TMA producer warpgroup and two wgmma consumers on tiles of
+# FWD_ROWS rows of one expert x W_COLS columns) and "mma"
+# (moe_gmm_mma_kernel: a grid of 64-row tiles on mma.sync); float32 runs
+# "fma" (moe_gmm_kernel).
+FWD_ROWS = 128        # the wgmma forward's rows of one expert a tile
+WGMMA_MIN_ROWS = 64   # rows T from which bf16 runs the wgmma body
+FWD_KERNELS = {"wgmma": "moe_gmm_wgmma_kernel", "mma": "moe_gmm_mma_kernel",
+               "fma": "moe_gmm_kernel"}
+
+
+def forward_body(dtype, T: int, K: int, N: int) -> str:
+    """The body the forward runs for these shapes (``FWD_KERNELS``): float32
+    "fma"; bf16 "wgmma" from ``WGMMA_MIN_ROWS`` rows on (prefill, training),
+    "mma" below (decode) or where K is 0 (the rule csrc/moe_gmm.cu's
+    header states). Shapes alone decide: never a failed build or launch,
+    and never the group sizes, which stay on the card."""
+    if dtype != torch.bfloat16:
+        return "fma"
+    return "wgmma" if T >= WGMMA_MIN_ROWS and K > 0 else "mma"
+
+
+def forward_kernel(x, w) -> str:
+    """The device kernel K4's forward launches for operands x and w."""
+    return FWD_KERNELS[forward_body(x.dtype, x.shape[0], x.shape[1], w.shape[2])]
+
+
+def fwd_smem_bytes() -> int:
+    """Dynamic shared memory bytes of the wgmma forward (FwdLayout): the
+    ring of x and w stages, the two consumers' epilogue tiles, the scanned
+    group offsets, the barriers and 1024 bytes to align the base."""
+    stage = (FWD_ROWS + W_COLS) * W_DEPTH * 2
+    return W_STAGES * stage + 2 * 64 * (W_COLS + 8) * 2 + MAX_EXPERTS * (8 + 4) + \
+        2 * W_STAGES * 8 + 1024
+
+
+def expert_tiles(group_sizes, T: int, cols: int, rows: int = FWD_ROWS):
+    """A persistent wgmma body's static tile order (moe_common.cuh
+    expert_tile): [(expert, column tile of ``cols``, first row, rows)],
+    experts slowest, then column tiles of W_COLS, then the expert's row
+    tiles of ``rows`` (so the tiles that read one slab of w[e] are
+    adjacent); tiles past T have rows <= 0 and compute nothing."""
+    n_ct, out, start = -(-cols // W_COLS), [], 0
+    for e, g in enumerate(group_sizes):
+        g = min(max(int(g), 0), T)
+        for c in range(n_ct):
+            for m in range(-(-g // rows)):
+                row0 = start + m * rows
+                out.append((e, c, row0, min(rows, min(start + g, T) - row0)))
+        start += g
+    return out
+
+
+def fwd_uncovered(group_sizes, T: int) -> range:
+    """The rows no group covers, which the wgmma forward's producer warps
+    zero: from the groups' end (clamped to T) to T."""
+    return range(min(sum(min(max(int(g), 0), T) for g in group_sizes), T), T)
 
 
 # ----------------------------------------------------------------------
@@ -99,19 +164,9 @@ def wgmma_smem_bytes():
 
 
 def dx_tiles(group_sizes, T: int, K: int):
-    """The wgmma dX kernel's static tile order: [(expert, column tile of K,
-    first row, rows)], experts slowest, then column tiles, then the
-    expert's row tiles of DX_ROWS (so the tiles that read one slab of W[e]
-    are adjacent); tiles past T have rows <= 0 and compute nothing."""
-    n_ct, out, start = -(-K // W_COLS), [], 0
-    for e, g in enumerate(group_sizes):
-        g = min(max(int(g), 0), T)
-        for c in range(n_ct):
-            for m in range(-(-g // DX_ROWS)):
-                row0 = start + m * DX_ROWS
-                out.append((e, c, row0, min(DX_ROWS, min(start + g, T) - row0)))
-        start += g
-    return out
+    """The wgmma dX kernel's static tile order: ``expert_tiles`` over K's
+    columns in row tiles of DX_ROWS."""
+    return expert_tiles(group_sizes, T, K, DX_ROWS)
 
 
 def dw_tiles(E: int, K: int, N: int):
@@ -178,21 +233,32 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor,
     fake = build.is_fake(x, w, group_sizes)
     if not x.is_cuda and not fake:
         return moe_gmm_plain(x, w, group_sizes)
+    return _forward(x, w, group_sizes)
+
+
+def _forward(x, w, group_sizes, body: Optional[str] = None) -> torch.Tensor:
+    """One launch of the forward kernel. ``body`` names a bf16 body to run
+    ("wgmma" or "mma"; a measurement's choice), else ``forward_body``
+    picks it."""
     _check(x, w, group_sizes)
     T, K = x.shape
     E, _, N = w.shape
+    body = body or forward_body(x.dtype, T, K, N)
+    if (body == "fma") != (x.dtype != torch.bfloat16) or body not in FWD_KERNELS:
+        raise ValueError(f"no {body!r} body for {x.dtype}")
     if -(-N // BN) > 65535:
         raise ValueError(f"N={N} must be at most {65535 * BN}")
     out = torch.empty((T, N), dtype=x.dtype, device=x.device)
     build.check_operands(x.device, x=x, w=w, out=out, group_sizes=group_sizes)
     if T == 0 or N == 0:
         return out
-    if fake:
+    if build.is_fake(x, w, group_sizes):
         build.record_cost(moe_gmm, *cost(x, w, group_sizes, out))
         return out
+    geo = (build.sm_count(x.device.index), fwd_smem_bytes()) if body == "wgmma" else (0, 0)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _launcher()(x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(),
-                     out.data_ptr(), T, K, N, E, build.dtype_code(x), stream)
+                     out.data_ptr(), T, K, N, E, build.dtype_code(x), *geo, stream)
     build.check_launch("moe_gmm", rc)
     build.count_launch(moe_gmm)
     return out

@@ -14,6 +14,8 @@ versions on the card and skip where there is none. JAX is imported inside
 the comparison helpers so those cases also run where JAX is not installed
 (``python -m pytest -m gpu tests/test_torch_kernels.py``).
 """
+import collections
+import importlib.util
 import json
 import os
 import re
@@ -1406,6 +1408,197 @@ def test_moe_gmm_bwd_refuses_strides_tma_cannot_take():
     for K, N in ((16, 8), (264, 520), (1000, 1000), (5120, 8192)):
         gm.check_strides(K, N, torch.bfloat16)
         gm.check_strides(K, N, torch.float32)
+
+
+# ----------------------------------------------------------------------
+# the wgmma bodies of K2's and K4's forward: their static schedules, shared
+# memory and the shape rule that picks a body, on the CPU; each body
+# against its plain version on the card
+# ----------------------------------------------------------------------
+# B, Sq, Skv, H, KV, causal, window, chunk: G in {1, 4, 5, 7, 12}, Sq < Skv
+FWD_WALK_CASES = [
+    (2, 300, 300, 8, 2, True, 0, 0),       # G = 4
+    (1, 200, 520, 10, 2, True, 0, 0),      # G = 5, Sq < Skv
+    (1, 300, 300, 7, 1, True, 100, 0),     # G = 7, window
+    (2, 300, 300, 2, 2, True, 0, 96),      # G = 1, chunk
+    (1, 130, 400, 12, 1, False, 0, 96),    # G = 12, chunk alone, Sq < Skv
+    (2, 130, 130, 5, 1, False, 0, 0),      # G = 5, no mask
+    (1, 1, 1, 10, 1, True, 0, 0),
+    (1, 70, 1500, 4, 1, True, 64, 0),      # window, Sq < Skv
+]
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,causal,window,chunk", FWD_WALK_CASES)
+def test_flash_fwd_wgmma_walks_each_visible_pair_once(hd, B, Sq, Skv, H, KV, causal,
+                                                      window, chunk):
+    """The wgmma forward's grid holds every (query block, head, batch) once,
+    and its consumers' walks cover every visible (query, key) pair of every
+    head and batch exactly once for each share of hd a consumer sums (at hd
+    256 both consumers take the same rows, each half of hd); every key tile
+    a consumer skips, in its block's walk or outside it, holds no visible
+    pair of its rows."""
+    t = fa.FWD_TILES[hd]
+    rows, keys = t["q_rows"], t["keys"]
+    vis = _visible(Sq, Skv, causal, window, chunk)
+    n = fa.fwd_blocks(B, Sq, H, hd)
+    blocks = [fa.q_block(i, B, H, Sq, rows, causal) for i in range(n)]
+    assert len(set(blocks)) == n == -(-Sq // rows) * H * B
+    parts = fa.fwd_consumer_rows(hd)
+    n_parts = len(parts) if parts[0] == parts[1] else 1   # shares of hd summed apart
+    qbase = Skv - Sq
+    for qb, h, b in blocks:
+        walk = fa.q_walk(qb, Sq, Skv, rows, keys, causal, window, chunk)
+        assert walk == sorted(set(walk))
+        cover = np.zeros((Sq, Skv), int)
+        for c, (r0, nr) in enumerate(parts):
+            lo, hi = qb * rows + r0, min(qb * rows + r0 + nr, Sq)
+            if lo >= hi:
+                continue
+            for kt in range(-(-Skv // keys)):
+                meets = kt in walk and fa.tiles_meet(
+                    kt * keys, kt * keys + keys - 1, qbase + lo, qbase + hi - 1,
+                    causal, window, chunk)
+                tile = vis[lo:hi, kt * keys:kt * keys + keys]
+                if meets:
+                    cover[lo:hi, kt * keys:kt * keys + keys] += tile
+                else:
+                    assert not tile.any(), (qb, h, b, c, kt)
+        lo, hi = qb * rows, min(qb * rows + rows, Sq)
+        assert (cover[lo:hi] == n_parts * vis[lo:hi]).all(), (qb, h, b)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("Sq,Skv", [(2048, 2048), (1024, 1024), (512, 3000)])
+def test_flash_fwd_wgmma_causal_order_is_heaviest_first(hd, Sq, Skv):
+    """Under a causal mask the wgmma forward launches its blocks in order of
+    falling work (live key tiles), so the heavy blocks start in the first
+    wave; without a mask every block walks every key tile."""
+    B, H, t = 2, 10, fa.FWD_TILES[hd]
+    blocks = [fa.q_block(i, B, H, Sq, t["q_rows"], True)
+              for i in range(fa.fwd_blocks(B, Sq, H, hd))]
+    work = [len(fa.q_walk(qb, Sq, Skv, t["q_rows"], t["keys"], True, 0, 0))
+            for qb, _, _ in blocks]
+    assert work == sorted(work, reverse=True) and work[0] > work[-1]
+    assert all(len(fa.q_walk(qb, Sq, Skv, t["q_rows"], t["keys"], False, 0, 0))
+               == -(-Skv // t["keys"]) for qb in range(-(-Sq // t["q_rows"])))
+
+
+# (label, group sizes, T): empty groups, one group holding every row, T off
+# the 128-row tile, 8 decode rows, grok-1's E = 8 top-2 (2048 rows)
+FWD_GMM_CASES = [
+    ("empty groups", [0, 1, 300, 0, 77, 5, 0], 400),
+    ("one group holds every row", [0, 0, 0, 300] + [0] * 12, 300),
+    ("T off the tile, a tail no group covers", [65, 63, 1, 0, 127], 300),
+    ("8 decode rows", [0, 2, 0, 1, 0, 3, 0, 0, 0, 1, 0, 0, 0, 1, 0, 0], 8),
+    ("grok-1 E=8 top-2", [256, 301, 190, 244, 262, 275, 228, 292], 2048),
+    ("every group empty", [0, 0, 0], 100),
+    ("sizes past T", [100, 100, 100], 250),
+]
+
+
+@pytest.mark.parametrize("label,sizes,T", FWD_GMM_CASES)
+@pytest.mark.parametrize("N", [8192, 1000])
+def test_moe_gmm_fwd_wgmma_writes_each_output_once(label, sizes, T, N):
+    """The wgmma forward's persistent order writes every (row, column tile)
+    of the output exactly once: a row a group covers by the consumer whose
+    64 rows of its expert's tile hold it, inside its group, and a row no
+    group covers by the producer's zeroing; a consumer with no row of its
+    group stores nothing; an expert's row tiles of one column tile are
+    adjacent, and the tiles are spread over the persistent blocks
+    (u = block + i * blocks)."""
+    n_ct = -(-N // gm.W_COLS)
+    tiles = gm.expert_tiles(sizes, T, N)
+    starts = np.concatenate([[0], np.cumsum([min(max(g, 0), T) for g in sizes])])
+    writes = np.zeros((T, n_ct), int)
+    for e, c, row0, rows in tiles:
+        assert rows <= gm.FWD_ROWS and row0 >= starts[e]
+        if rows <= 0:
+            continue
+        assert row0 + rows <= min(starts[e + 1], T)
+        for cw in range(2):                       # the two consumers, 64 rows each
+            mine = min(rows - 64 * cw, 64)
+            if mine > 0:
+                writes[row0 + 64 * cw:row0 + 64 * cw + mine, c] += 1
+    zeroed = gm.fwd_uncovered(sizes, T)
+    writes[zeroed.start:zeroed.stop] += 1
+    assert (writes == 1).all(), label
+    keys = [(e, c) for e, c, _, _ in tiles]
+    assert keys == sorted(keys)
+    blocks = 132
+    owners = collections.Counter(u % blocks for u in range(len(tiles)))
+    assert sum(owners.values()) == len(tiles)
+    assert max(owners.values(), default=0) - min(owners.values(), default=0) <= 1
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_wgmma_forward_bodies_fit_shared_memory(hd):
+    """The wgmma forward's dynamic shared memory (Q, the ring of K and V,
+    the barriers, the alignment) is at most the 227 KB a block may take and
+    holds its operand tiles; K4's wgmma forward (its ring, two epilogue
+    tiles, the scan) too."""
+    t = fa.FWD_TILES[hd]
+    smem = fa.fwd_smem_bytes(hd)
+    assert smem <= fa.SMEM_LIMIT
+    assert smem > (t["q_rows"] + t["stages"] * 2 * t["keys"]) * hd * 2
+    assert (t["q_rows"] * hd * 2) % 1024 == 0 and (2 * t["keys"] * hd * 2) % 1024 == 0
+    assert max(r0 + n for r0, n in fa.fwd_consumer_rows(hd)) == t["q_rows"]
+    assert len(fa.fwd_consumer_rows(hd)) == t["consumers"]
+    g = gm.fwd_smem_bytes()
+    assert g <= gm.SMEM_LIMIT
+    assert g > gm.W_STAGES * (gm.FWD_ROWS + gm.W_COLS) * gm.W_DEPTH * 2
+
+
+def _smoke_forward_shapes():
+    """K2's (B, Sq, Skv, H, KV, hd) and K4's (T, K, N) forward shapes that
+    chip_smoke.py runs, from its own constants."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    k2 = [(1, s, s, cs.H, cs.KV, cs.HD) for s in (1, 128, 512, 1000, 1024, 2048)]
+    k2 += [(1, 256, 1000, cs.H, cs.KV, cs.HD), (cs.TR_B, cs.TR_S, cs.TR_S, cs.H, cs.KV, cs.HD)]
+    k2 += [(b, s, s, cs.RG_H, cs.RG_KV, cs.RG_HD) for b, s in
+           ((1, 1024), (1, 3000), (cs.RG_TR_B, cs.RG_TR_S), (4, 1024))]
+    k2 += [(b, s, s, cs.L4_H, cs.L4_KV, cs.L4_HD) for b, s in
+           ((1, 1024), (1, 1500), (1, 2048), (cs.L4_TR_B, cs.L4_TR_S), (1, 8500))]
+    k2 += [(1, s, s, cs.QW_H, cs.QW_KV, cs.QW_HD) for s in (1024, 2048)]
+    k2 += [(1, 1024, 1024, cs.DS_H, cs.DS_KV, cs.DS_HD)]
+    k2 += [(cs.WH_B, cs.WH_F, cs.WH_F, cs.WH_H, cs.WH_H, cs.WH_HD),
+           (cs.WH_B, cs.WH_PROMPT, cs.WH_PROMPT, cs.WH_H, cs.WH_H, cs.WH_HD),
+           (cs.WH_B, cs.WH_PROMPT, cs.WH_F, cs.WH_H, cs.WH_H, cs.WH_HD)]
+    k2 += [(cs.LV_B, s, s, cs.LV_H, cs.LV_KV, cs.LV_HD)
+           for s in (cs.LV_PATCHES + cs.LV_PROMPT, cs.LV_PROMPT)]
+    k4 = [(t, 5120, 8192) for t in (1, 8, 16, 256, 300, 1024, 4096)]
+    k4 += [(t, 8192, 5120) for t in (8, 1024, 4096)] + [(1024, 5120, 2048), (256, 2048, 5120)]
+    k4 += [(t, 6144, 32768) for t in (16, 2048)] + [(2048, 32768, 6144), (300, 5120, 1024)]
+    return k2, k4
+
+
+def test_forward_body_rule_is_total_over_the_smoke_shapes():
+    """The rule that picks K2's and K4's forward body answers for every
+    shape chip_smoke.py runs, from the shapes alone: float32 the FMA body,
+    bf16 the wgmma or the mma.sync body, each with its device kernel; and
+    bf16 runs the wgmma body at K4's training and prefill rows and at every
+    K2 shape."""
+    k2, k4 = _smoke_forward_shapes()
+    for B, Sq, Skv, H, KV, hd in k2:
+        assert fa.forward_body(torch.float32, B, Sq, Skv, H, KV, hd) == "fma"
+        body = fa.forward_body(torch.bfloat16, B, Sq, Skv, H, KV, hd)
+        assert body in ("wgmma", "mma"), (B, Sq, Skv, H, KV, hd)
+        q = torch.empty((B, Sq, H, hd), dtype=torch.bfloat16, device="meta")
+        k = torch.empty((B, Skv, KV, hd), dtype=torch.bfloat16, device="meta")
+        assert fa.forward_kernel(q, k) == fa.FWD_KERNELS[body]
+    for T, K, N in k4:
+        assert gm.forward_body(torch.float32, T, K, N) == "fma"
+        body = gm.forward_body(torch.bfloat16, T, K, N)
+        assert body in ("wgmma", "mma"), (T, K, N)
+        x = torch.empty((T, K), dtype=torch.bfloat16, device="meta")
+        w = torch.empty((16, K, N), dtype=torch.bfloat16, device="meta")
+        assert gm.forward_kernel(x, w) == gm.FWD_KERNELS[body]
+    assert gm.forward_body(torch.bfloat16, 4096, 5120, 8192) == "wgmma"
+    assert gm.forward_body(torch.bfloat16, 8, 5120, 8192) == "mma"
+    assert {fa.forward_body(torch.bfloat16, *shape) for shape in k2} == {"wgmma"}
 
 
 @pytest.mark.gpu
